@@ -1,0 +1,21 @@
+"""qradiolink_tpu_torch: the PyTorch and CUDA port of qradiolink_tpu.
+
+Same blocks, same state layout, same results as the JAX package (which
+stays the reference), on an NVIDIA H100. Plain tensor code is PyTorch; the
+kernels the JAX package wrote in Pallas for the TPU are CUDA C++ kernels
+written for Hopper (`csrc/`), built with nvcc at first use and loaded with
+ctypes (`utils/kernels.py`). Every kernel wrapper takes its plain PyTorch
+version for tensors on the CPU, which is how the tests run it, and records
+which path each call took (`utils/profiling.kernel_paths`).
+
+This package imports torch and never jax, and nothing of qradiolink_tpu.
+
+Ported so far (the 4FSK feedforward RX chain, `chains.fsk.Fsk4DemodFF`):
+  core        blocks, IqPair, state trees and npz snapshots
+  ops/        firdes, fir (FirFilter, conv1d_valid), resample, analog
+              (QuadratureDemod), spectrum (rssi_dbm), cuda_fir (kernel)
+  sync/       feedforward (FeedforwardSymbolSync)
+  fec/        conv (ConvCode), conv_ff (TiledViterbi), scrambler
+              (Descrambler), viterbi_cuda (kernel)
+  chains/     digital_common (RxFecTailFF), fsk (Fsk4DemodFF)
+"""

@@ -1,0 +1,123 @@
+"""Polyphase rational resampler, streaming (port of
+qradiolink_tpu/ops/resample.py).
+
+Math: y[m] = sum_k h[p_m + L*k] * x[floor(m*M/L) - k],  p_m = (m*M) mod L.
+Grouping outputs by residue r = m mod L gives per-phase strided FIRs:
+  y[r::L][t] = sum_k h_r[k] * x[t*M + q_r - k],  q_r = floor(r*M/L),
+with h_r = h[p_r::L]. Streaming requires block length T % M == 0; then each
+block yields T*L/M outputs and the phase pattern repeats exactly.
+
+On IqPair input each phase is one launch of the streaming FIR kernel over
+both planes, its offset q_r passed as the kernel's `shift`, so no shifted
+copy of the input is made (an L = 1 decimating head is one launch). Tensor
+input takes the explicit [tail | x] concatenation and `_phases`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
+from qradiolink_tpu_torch.ops.fir import (conv1d_valid_flipped, flipped_taps,
+                                          next_tail)
+from qradiolink_tpu_torch.ops.cuda_fir import fir_stream
+
+
+class RationalResampler(Block):
+    """Streaming polyphase L/M resampler.
+
+    State: (..., 2, Kp-1) f32, the last Kp-1 input samples as (re, im)
+    planes (Kp = per-phase tap count). Each block length T must satisfy
+    T % M == 0. Taps must be given (the 4FSK chain designs its own with
+    firdes); complex taps are not supported yet.
+    """
+
+    def __init__(self, interpolation: int, decimation: int, taps,
+                 lead_shape: tuple = (), device=None):
+        g = math.gcd(int(interpolation), int(decimation))
+        self.L = int(interpolation) // g
+        self.M = int(decimation) // g
+        self.device = resolve_device(device)
+        taps = np.asarray(taps)
+        # pad taps to a multiple of L and split into L phases
+        kp = -(-taps.shape[0] // self.L)
+        padded = np.zeros(kp * self.L, dtype=taps.dtype)
+        padded[: taps.shape[0]] = taps
+        self.kp = kp
+        self.lead_shape = tuple(lead_shape)
+        # phase-r taps h[p_r::L] with p_r = (r*M) mod L; offsets
+        # q_r = floor(r*M/L)
+        self.phase_taps = []
+        self.offsets = []
+        for r in range(self.L):
+            p = (r * self.M) % self.L
+            self.phase_taps.append(flipped_taps(padded[p::self.L],
+                                                self.device))
+            self.offsets.append((r * self.M) // self.L)
+
+    def init_state(self):
+        return torch.zeros(self.lead_shape + (2, self.kp - 1),
+                           dtype=torch.float32, device=self.device)
+
+    def _check_len(self, T):
+        if T % self.M != 0:
+            raise ValueError(
+                f"block length {T} not a multiple of decimation {self.M}")
+
+    def _interleave(self, ys, lead):
+        if self.L == 1:
+            return ys[0]
+        y = torch.stack(ys, dim=-1)
+        return y.reshape(lead + (y.shape[-2] * self.L,))
+
+    def _call_pair(self, state, x: IqPair):
+        T = x.shape[-1]
+        self._check_len(T)
+        n_pp = T // self.M
+        tails = (state[..., 0, :], state[..., 1, :])
+        phases = [fir_stream((x.re, x.im), self.phase_taps[r], self.M, n_pp,
+                             tails=tails, shift=self.offsets[r])
+                  for r in range(self.L)]
+        lead = tuple(x.shape[:-1])
+        yr = self._interleave([p[0] for p in phases], lead)
+        yi = self._interleave([p[1] for p in phases], lead)
+        k1 = self.kp - 1
+        new_state = torch.stack([next_tail(tails[0], x.re, k1),
+                                 next_tail(tails[1], x.im, k1)], dim=-2)
+        return new_state, IqPair(yr, yi)
+
+    def _phases(self, xc, T):
+        """Polyphase output of a tail+block concatenation (real or
+        complex), one VALID strided FIR per phase."""
+        n_pp = T // self.M
+        ys = []
+        for r in range(self.L):
+            # windows end at xc index (Kp-1) + q_r + t*M
+            q = self.offsets[r]
+            seg = xc[..., q: q + (self.kp - 1) + T - (self.M - 1)]
+            ys.append(conv1d_valid_flipped(seg, self.phase_taps[r], self.M,
+                                           out_len=n_pp))
+        return self._interleave(ys, tuple(xc.shape[:-1]))
+
+    def __call__(self, state, x):
+        if isinstance(x, IqPair):
+            return self._call_pair(state, x)
+        T = x.shape[-1]
+        self._check_len(T)
+        if torch.is_complex(x):
+            tail_x = torch.complex(state[..., 0, :], state[..., 1, :])
+        else:
+            tail_x = state[..., 0, :].to(x.dtype)
+        xc = torch.cat([tail_x, x], dim=-1)
+        y = self._phases(xc, T)
+        new_tail = xc[..., xc.shape[-1] - (self.kp - 1):]
+        if torch.is_complex(new_tail):
+            new_state = torch.stack([new_tail.real, new_tail.imag], dim=-2)
+        else:
+            new_tail = new_tail.float()
+            new_state = torch.stack([new_tail, torch.zeros_like(new_tail)],
+                                    dim=-2)
+        return new_state, y

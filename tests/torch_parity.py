@@ -1,0 +1,84 @@
+"""Helpers for the parity tests of the PyTorch port against the JAX package.
+
+Inputs are made with numpy and handed to both frameworks; outputs and state
+trees come back as numpy and are compared leaf by leaf, integer leaves
+exactly and float leaves within a stated tolerance.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from qradiolink_tpu.core import IqPair as JaxPair
+from qradiolink_tpu_torch.core import IqPair as TorchPair, state_to_numpy
+
+
+def to_jax(x):
+    """numpy array -> jnp array; a (re, im) tuple -> JAX IqPair."""
+    if isinstance(x, tuple):
+        return JaxPair(jnp.asarray(x[0]), jnp.asarray(x[1]))
+    return jnp.asarray(x)
+
+
+def to_torch(x, device="cpu"):
+    """numpy array -> tensor; a (re, im) tuple -> port IqPair."""
+    if isinstance(x, tuple):
+        return TorchPair(torch.from_numpy(np.array(x[0])).to(device),
+                         torch.from_numpy(np.array(x[1])).to(device))
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def to_numpy(y):
+    """Output of either framework -> numpy (an IqPair -> complex)."""
+    if isinstance(y, (JaxPair, TorchPair)):
+        return to_numpy(y.re) + 1j * to_numpy(y.im)
+    if isinstance(y, torch.Tensor):
+        return y.detach().cpu().numpy()
+    return np.asarray(y)
+
+
+def assert_same(jax_y, torch_y, rtol=1e-5, atol=1e-5, what="output"):
+    """Same shape and dtype kind; integers and bools equal, floats close."""
+    a, b = to_numpy(jax_y), to_numpy(torch_y)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} != {b.shape}"
+    assert a.dtype == b.dtype, f"{what}: dtype {a.dtype} != {b.dtype}"
+    if np.issubdtype(a.dtype, np.integer) or a.dtype == np.bool_:
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=what)
+
+
+def assert_states_same(jax_state, torch_state, rtol=1e-5, atol=1e-5):
+    """Same tree structure; every leaf the same (see assert_same)."""
+    jnp_tree = jax.tree_util.tree_map(np.asarray, jax_state)
+    t_tree = state_to_numpy(torch_state)
+    assert (jax.tree_util.tree_structure(jnp_tree)
+            == jax.tree_util.tree_structure(t_tree))
+    for i, (a, b) in enumerate(zip(jax.tree_util.tree_leaves(jnp_tree),
+                                   jax.tree_util.tree_leaves(t_tree))):
+        assert_same(a, b, rtol, atol, what=f"state leaf {i}")
+
+
+def stream_both(jax_block, torch_block, blocks, rtol=1e-5, atol=1e-5,
+                state_rtol=None, state_atol=None, key_tol=None):
+    """Stream the numpy `blocks` through both blocks from their initial
+    states, comparing every output and every state leaf after each block.
+    key_tol maps an output key of a dict-returning block to its own
+    (rtol, atol). Returns the final (jax_state, torch_state)."""
+    js, ts = jax_block.init_state(), torch_block.init_state()
+    assert_states_same(js, ts)
+    for i, blk in enumerate(blocks):
+        js, jy = jax_block(js, to_jax(blk))
+        ts, ty = torch_block(ts, to_torch(blk))
+        if isinstance(jy, dict):
+            assert set(jy) == set(ty)
+            for k in jy:
+                r, a = (key_tol or {}).get(k, (rtol, atol))
+                assert_same(jy[k], ty[k], r, a, what=f"block {i} {k}")
+        else:
+            assert_same(jy, ty, rtol, atol, what=f"block {i}")
+        assert_states_same(js, ts,
+                           rtol if state_rtol is None else state_rtol,
+                           atol if state_atol is None else state_atol)
+    return js, ts
