@@ -11,23 +11,50 @@ when the package cannot be imported, and when any phase fails:
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once;
  3. each kernel against its plain PyTorch version on the card, at the shapes
-    the 4FSK main path gives it with 2048 channels x 200,000 samples a step:
-    the FIR at the resampler head (two chained blocks), the channel
-    low-pass and the RRC within 1e-5 (relative to the output's peak, and
-    elementwise |k - p| <= 1e-5 + 1e-5 |p|); the Viterbi bit-exact on
-    integer soft, on non-integer chain-like soft, and decoding real CCSDS
-    codewords; with each one's time, its plain version's, F.conv1d's as
-    the library yardstick for the FIR, and its bound on this card;
- 4. the main path: Fsk4DemodFF(lead_shape=(2048,)) for 3 steps of 200,000
-    samples with state carried, launch counters zeroed just before and read
-    just after (every FIR stage and the Viterbi must have launched their
-    kernels on every step); then one more step timed stage by stage;
- 5. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
-    blocks on the card and on the CPU: the bits must be equal and the BER
-    against the payload below 0.01.
+    the main paths give it, with each one's time, its plain version's, the
+    library yardstick's where one PyTorch call computes the same function,
+    and its bound on this card:
+    - the strided FIR (K1/K2) at the 4FSK path's resampler head (two
+      chained blocks), channel low-pass and RRC (2048 channels x 200,000
+      samples a step), and at the NBFM group's resampler head (2,239 taps,
+      32 channels x 100,000), within 1e-5 (relative to the output's peak,
+      and elementwise |k - p| <= 1e-5 + 1e-5 |p|); F.conv1d is the yardstick;
+    - the Viterbi (K3) bit-exact on integer soft, on non-integer chain-like
+      soft, and decoding real CCSDS codewords;
+    - the per-row depthwise FIR (K4) at the synthesizer's branch shape (64
+      rows, kp 23, 2 planes, 100,000 outputs) and the channelizer's (kp
+      24, complex input), within the FIR's bound; F.conv1d(groups=C) is
+      the yardstick;
+    - the fused channelizer (K5) over two chained blocks of B = 1, M = 64,
+      Tm = 100,000, within 1e-5 of its output's peak, its carried state
+      bit-equal; no single PyTorch call computes it. Then the channelizer
+      stage against the JAX package's default route (commutator in
+      PyTorch, K4 branch FIRs, four real matrix products), which the port
+      does not keep: output within 1e-5 of the peak, both routes timed;
+ 4. the 4FSK main path: Fsk4DemodFF(lead_shape=(2048,)) for 3 steps of
+    200,000 samples with state carried, launch counters zeroed just before
+    and read just after (every FIR stage and the Viterbi must have launched
+    their kernels on every step); then one more step timed stage by stage,
+    and one under torch.profiler (device ops, busy time, idle share);
+ 5. the mixed main path: MultichannelRx(64) on one wideband stream of
+    6.4 M samples a step (64 x 100,000), channels 0-31 through
+    Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
+    counters zeroed before and read after (K5, the FIRs of both groups and
+    the Viterbi on every step, nothing on a plain path); one more step
+    stage by stage, and one (and its NBFM group) under torch.profiler;
+ 6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
+    blocks through Fsk4DemodFF on the card and on the CPU: the bits must
+    be equal and the BER against the payload below 0.01;
+ 7. the round trip: the capture placed on channel 3 of 64 by the port's
+    PfbSynthesizer on the card (K4, counters zeroed before and read
+    after), a seeded NBFM signal on channel 40, streamed through
+    MultichannelRx(64) (FSK on [3], NBFM on [40]) in 8
+    steps of 100,000 samples a channel on the card and on the CPU: FSK bits
+    equal and BER below 0.01, NBFM audio within 1e-5 (the CPU tests'
+    bound).
 
 The second-to-last line is a JSON object with one entry per kernel and
-stage; the last line is {"ok": true, "device": {...}}.
+shape; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -46,6 +73,9 @@ FIXTURE = HERE / "tests" / "fixtures" / "iq_4fsk2k_-6db.npz"
 N_CH = 2048
 T_STEP = 200_000
 N_STEPS = 3
+MIX_M = 64          # channels of the mixed config (bench.py:110-211)
+MIX_T = 100_000     # samples a channel a step
+RT_STEPS = 8        # round trip: 8 x 100,000 = the capture's length
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -106,41 +136,64 @@ def check_fir(name, kern, plain):
     return err
 
 
-def fir_phase(chain, dev, gen):
+def peak_err(name, kern, plain, tol):
+    """max |k - p| over the planes, which must be within tol of the plain
+    output's peak; returns max_abs_err."""
+    peak = max(float(p.abs().max()) for p in plain)
+    err = max(float((k - p).abs().max()) for k, p in zip(kern, plain))
+    if not (err <= tol * peak and all(bool(torch.isfinite(k).all())
+                                      for k in kern)):
+        raise RuntimeError(f"{name}: kernel disagrees with plain "
+                           f"(max |diff| {err:.3e}, peak {peak:.3e})")
+    return err
+
+
+def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, path, shape):
+    """One kernel entry; `path` names the run whose launch counts fill in
+    `launches`, `shape` the wrapper's shape key in that run's report."""
+    print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
+          f"bound {b[0]:.4f} ms ({b[1]})", flush=True)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "path": path, "shape": shape}
+
+
+def fir_row(name, replaces, xs, tf, D, n_out, tails, shape, path,
+            timing=True):
+    """The strided FIR kernel against its plain version (and F.conv1d)."""
     from qradiolink_tpu_torch.ops.cuda_fir import fir_stream, fir_stream_plain
     import torch.nn.functional as F
 
-    rows = []
+    kern = fir_stream(xs, tf, D, n_out, tails=tails)
+    plain = fir_stream_plain(xs, tf, D, n_out, tails=tails)
+    torch.cuda.synchronize()
+    err = check_fir(name, kern, plain)
+    if not timing:
+        print(f"  {name}: max_abs_err {err:.3e}", flush=True)
+        return []
+    K = tf.shape[0]
+    n_rows = xs[0].numel() // xs[0].shape[-1]
+    xcat = [x if tails is None else torch.cat([t, x], -1)
+            for x, t in zip(xs, tails or [None] * len(xs))]
+    lib_in = torch.stack(xcat).reshape(-1, 1, xcat[0].shape[-1])
+    w = tf.reshape(1, 1, K)
+    ms = cuda_ms(lambda: fir_stream(xs, tf, D, n_out, tails=tails))
+    plain_ms = cuda_ms(lambda: fir_stream_plain(xs, tf, D, n_out,
+                                                tails=tails))
+    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=D))
+    n_in = sum(x.numel() for x in xs) + (
+        0 if tails is None else sum(t.numel() for t in tails))
+    n_bytes = 4 * (n_in + len(xs) * n_rows * n_out + K)
+    b = bound(n_bytes, 2 * K * len(xs) * n_rows * n_out)
+    return [row(f"fir_stream_f32/{name}", "qradiolink_tpu_torch/csrc/fir.cu",
+                replaces, err, ms, plain_ms, b, lib_ms, path, shape)]
 
-    def measure(name, replaces, xs, tf, D, n_out, tails, shape, timing=True):
-        kern = fir_stream(xs, tf, D, n_out, tails=tails)
-        plain = fir_stream_plain(xs, tf, D, n_out, tails=tails)
-        torch.cuda.synchronize()
-        err = check_fir(name, kern, plain)
-        if not timing:
-            print(f"  {name}: max_abs_err {err:.3e}", flush=True)
-            return
-        K = tf.shape[0]
-        xcat = [x if tails is None else torch.cat([t, x], -1)
-                for x, t in zip(xs, tails or [None] * len(xs))]
-        lib_in = torch.stack(xcat).reshape(-1, 1, xcat[0].shape[-1])
-        w = tf.reshape(1, 1, K)
-        ms = cuda_ms(lambda: fir_stream(xs, tf, D, n_out, tails=tails))
-        plain_ms = cuda_ms(lambda: fir_stream_plain(xs, tf, D, n_out,
-                                                    tails=tails))
-        lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=D))
-        n_in = sum(x.numel() for x in xs) + (
-            0 if tails is None else sum(t.numel() for t in tails))
-        n_bytes = 4 * (n_in + len(xs) * N_CH * n_out + K)
-        b_ms, b_by = bound(n_bytes, 2 * K * len(xs) * N_CH * n_out)
-        print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  F.conv1d {lib_ms:.4f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        rows.append({"name": f"fir_stream_f32/{name}", "route": "cuda",
-                     "source": "qradiolink_tpu_torch/csrc/fir.cu",
-                     "replaces": replaces, "shape": shape,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+
+def fir_phase(chain, nbfm, dev, gen):
+    rows = []
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -154,21 +207,31 @@ def fir_phase(chain, dev, gen):
     for blk in range(2):
         x = (randn(N_CH, T_STEP), randn(N_CH, T_STEP))
         tails = (state[:, 0, :], state[:, 1, :])
-        measure("head", "qradiolink_tpu/ops/pallas_fir.py:218", x,
-                rs.phase_taps[0], rs.M, T_STEP // rs.M, tails,
-                f"K{rs.kp} D{rs.M} tail", timing=blk == 1)
+        rows += fir_row("head", "qradiolink_tpu/ops/pallas_fir.py:218", x,
+                        rs.phase_taps[0], rs.M, T_STEP // rs.M, tails,
+                        f"K{rs.kp} D{rs.M} tail", "fsk", timing=blk == 1)
         state = torch.stack([x[0][:, -k1:], x[1][:, -k1:]], dim=-2)
         del x
     n_lo = T_STEP // rs.M
     cf = chain.chan_filter
     st = randn(N_CH, 2, cf.ntaps - 1)
-    measure("chan_lp", "qradiolink_tpu/ops/pallas_fir.py:218",
-            (randn(N_CH, n_lo), randn(N_CH, n_lo)), cf.taps_flipped, 1, n_lo,
-            (st[:, 0, :], st[:, 1, :]), f"K{cf.ntaps} D1 tail")
+    rows += fir_row("chan_lp", "qradiolink_tpu/ops/pallas_fir.py:218",
+                    (randn(N_CH, n_lo), randn(N_CH, n_lo)), cf.taps_flipped,
+                    1, n_lo, (st[:, 0, :], st[:, 1, :]),
+                    f"K{cf.ntaps} D1 tail", "fsk")
     sh = chain.shaping
-    measure("rrc", "qradiolink_tpu/ops/pallas_fir.py:111",
-            (randn(N_CH, n_lo + sh.ntaps - 1),), sh.taps_flipped, 1, n_lo,
-            None, f"K{sh.ntaps} D1")
+    rows += fir_row("rrc", "qradiolink_tpu/ops/pallas_fir.py:111",
+                    (randn(N_CH, n_lo + sh.ntaps - 1),), sh.taps_flipped, 1,
+                    n_lo, None, f"K{sh.ntaps} D1", "fsk")
+    # the NBFM group's resampler head of the mixed path: 32 ch x 100,000
+    nr = nbfm.resamp
+    n_nb = MIX_M // 2
+    st = randn(n_nb, 2, nr.kp - 1)
+    rows += fir_row("nbfm_head", "qradiolink_tpu/ops/pallas_fir.py:218",
+                    (randn(n_nb, MIX_T), randn(n_nb, MIX_T)),
+                    nr.phase_taps[0], nr.M, MIX_T // nr.M,
+                    (st[:, 0, :], st[:, 1, :]), f"K{nr.kp} D{nr.M} tail",
+                    "mixed")
     return rows
 
 
@@ -213,15 +276,161 @@ def viterbi_phase(dev, gen):
     plain_ms = cuda_ms(lambda: decode_windows_plain(CCSDS_K7, soft_chain, W),
                        iters=3, warmup=1)
     # per state-step: 2 mul + 4 add/sub + compare + select
-    b_ms, b_by = bound(R * S * 2 * 4 + R * (S - W), R * S * 64 * 8)
-    print(f"  viterbi: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return [{"name": "viterbi_tiled_k7", "route": "cuda",
-             "source": "qradiolink_tpu_torch/csrc/viterbi.cu",
-             "replaces": "qradiolink_tpu/fec/viterbi_pallas.py:83",
-             "shape": f"S{S}", "max_abs_err": 0.0, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None}]
+    b = bound(R * S * 2 * 4 + R * (S - W), R * S * 64 * 8)
+    return [row("viterbi_tiled_k7", "qradiolink_tpu_torch/csrc/viterbi.cu",
+                "qradiolink_tpu/fec/viterbi_pallas.py:83", 0.0, ms, plain_ms,
+                b, None, "fsk", f"S{S}")]
+
+
+def depthwise_phase(dev, gen):
+    """K4 at the synthesizer's branch shape (kp 23), the round trip's, and
+    the channelizer's (kp 24), which complex input runs and no path of
+    this script: 64 rows, two planes, 100,000 outputs. Returns the
+    synthesizer's row."""
+    from qradiolink_tpu_torch.ops.channelizer import (PfbChannelizer,
+                                                      PfbSynthesizer)
+    from qradiolink_tpu_torch.ops.cuda_depthwise import (depthwise_fir,
+                                                         depthwise_fir_plain)
+    import torch.nn.functional as F
+
+    rows = []
+    for name, blk in (("synth", PfbSynthesizer(MIX_M, device=dev)),
+                      ("branches", PfbChannelizer(MIX_M, device=dev))):
+        tf = blk._btq_flipped if name == "branches" else blk._bt_flipped
+        C, kp = tf.shape
+        n_out = MIX_T
+        xs = tuple(torch.randn((C, n_out + kp - 1), generator=gen,
+                               device=dev) for _ in range(2))
+        kern = depthwise_fir(xs, tf, n_out)
+        plain = depthwise_fir_plain(xs, tf, n_out)
+        torch.cuda.synchronize()
+        err = check_fir(f"depthwise {name}", kern, plain)
+        lib_in = torch.stack(xs)  # (2, C, Tc): the planes as a batch
+        w = tf.reshape(C, 1, kp)
+        lib = F.conv1d(lib_in, w, groups=C)
+        check_fir(f"F.conv1d groups {name}", lib.unbind(0), plain)
+        ms = cuda_ms(lambda: depthwise_fir(xs, tf, n_out))
+        plain_ms = cuda_ms(lambda: depthwise_fir_plain(xs, tf, n_out))
+        lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, groups=C))
+        n_bytes = 4 * (2 * C * (n_out + kp - 1) + 2 * C * n_out + C * kp)
+        b = bound(n_bytes, 2 * kp * 2 * C * n_out)
+        rows.append(row(f"depthwise_fir_f32/{name}",
+                        "qradiolink_tpu_torch/csrc/depthwise.cu",
+                        "qradiolink_tpu/ops/pallas_fir.py:401", err, ms,
+                        plain_ms, b, lib_ms, "round_trip", f"C{C} kp{kp}"))
+    return rows[:1]
+
+
+def pfb_phase(dev, gen):
+    """K5 over two chained blocks at B = 1, M = 64, Tm = 100,000; then the
+    channelizer stage against the JAX package's default route."""
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.ops.channelizer import PfbChannelizer
+    from qradiolink_tpu_torch.ops.cuda_pfb import channelize, channelize_plain
+
+    ch = PfbChannelizer(MIX_M, device=dev)
+    M, kp, Tm = MIX_M, ch.kp, MIX_T
+    state = ch.init_state()
+    err = 0.0
+    for blk in range(2):
+        x = IqPair(torch.randn((Tm * M,), generator=gen, device=dev) * 0.05,
+                   torch.randn((Tm * M,), generator=gen, device=dev) * 0.05)
+        new_state, y = ch(state, x)
+        plain = channelize_plain((x.re, x.im), state, ch._ct)
+        torch.cuda.synchronize()
+        err = max(err, peak_err(f"pfb block {blk}", (y.re, y.im), plain,
+                                1e-5))
+        want = torch.cat([state, torch.stack([x.re, x.im])], -1)[..., -kp * M:]
+        if not torch.equal(new_state, want):
+            raise RuntimeError("pfb: carried raw history is not the last "
+                               "kp*M input samples")
+        state = new_state
+    xs = (x.re, x.im)
+    ms = cuda_ms(lambda: channelize(xs, state, ch._ct, ch._dft))
+    plain_ms = cuda_ms(lambda: channelize_plain(xs, state, ch._ct))
+    n_bytes = 4 * (2 * Tm * M + 2 * kp * M + 2 * M * Tm
+                   + (kp + 1) * M + ch._dft.numel())
+    # the column FIR's FMAs, and the DFT at an FFT's cost, 5 M log2 M
+    # flops a row of M complex samples
+    n_ops = 2 * (kp + 1) * 2 * Tm * M + 5 * M * np.log2(M) * Tm
+    b = bound(n_bytes, n_ops)
+    print(f"  pfb: 2 chained blocks, state bit-equal", flush=True)
+
+    # the channelizer stage by the JAX package's default route: the
+    # commutator in PyTorch, K4 on the branches, the IDFT as four real
+    # products over the commutator-ordered rows (column q is branch M-1-q)
+    k = np.arange(M)
+    wq = np.exp(2j * np.pi * np.outer(k, k) / M)[:, ::-1]
+    wq_re, wq_im = (torch.tensor(a.copy(), dtype=torch.float32, device=dev)
+                    for a in (wq.real, wq.imag))
+
+    def jax_route():
+        vr, vi = ch._branches(state, x.re, x.im)
+        return ch._new_raw(state, x.re, x.im), (
+            torch.matmul(wq_re, vr) - torch.matmul(wq_im, vi),
+            torch.matmul(wq_re, vi) + torch.matmul(wq_im, vr))
+
+    _, y = ch(state, x)
+    _, yj = jax_route()
+    route_err = peak_err("JAX default route", yj, (y.re, y.im), 1e-5)
+    stage_ms = cuda_ms(lambda: ch(state, x))
+    route_ms = cuda_ms(jax_route)
+    print(f"  channelizer stage {stage_ms:.4f} ms (K5); the JAX package's "
+          f"default route {route_ms:.4f} ms (commutator + K4 + products), "
+          f"max |diff| {route_err:.3e}", flush=True)
+    return [row("pfb_channelize_f32", "qradiolink_tpu_torch/csrc/pfb.cu",
+                "qradiolink_tpu/ops/pallas_pfb.py:186", err, ms, plain_ms, b,
+                None, "mixed", f"M{M} kp{kp}")]
+
+
+def timed(stages, name, fn):
+    """fn() fenced by CUDA events; its time goes to stages[name]."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    y = fn()
+    end.record()
+    end.synchronize()
+    stages[name] = round(start.elapsed_time(end), 4)
+    return y
+
+
+def trace_step(name, fn):
+    """One call of fn under torch.profiler; prints its device ops (kernels,
+    copies, fills), the time the device was busy with them (the union of
+    their intervals) and the span from the first one's start to the last
+    one's end. The profiler's own host work stretches the span, so the
+    idle share it gives is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"  {name} traced: the profiler saw no device ops", flush=True)
+        return
+    busy, end = 0.0, spans[0][0]
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    span = end - spans[0][0]
+    print(f"  {name} traced: {len(spans)} device ops, busy {busy / 1e3:.3f} "
+          f"ms of a {span / 1e3:.3f} ms span ({1 - busy / span:.1%} idle)",
+          flush=True)
+
+
+def step_times(step_s, n_samples):
+    ms = [s * 1e3 for s in step_s]
+    med = statistics.median(ms[1:])
+    return (f"step ms {[round(m, 3) for m in ms]}  (median of steps 2-"
+            f"{len(ms)} {med:.3f} ms, {n_samples / med / 1e3:.1f} "
+            f"Msamples/s)")
 
 
 def main_path(chain, dev, gen):
@@ -256,11 +465,9 @@ def main_path(chain, dev, gen):
               out["constellation"].im):
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError("non-finite chain output")
-    ms = [s * 1e3 for s in step_s]
-    med = statistics.median(ms[1:])
-    print(f"  step ms {[round(m, 3) for m in ms]}  (median of steps 2-3 "
-          f"{med:.3f} ms, {N_CH * T_STEP / med / 1e3:.1f} Msamples/s, "
-          f"{N_CH * T_STEP / med / 1e3 / N_CH:.2f} Msamples/s per channel)",
+    med = statistics.median([s * 1e3 for s in step_s[1:]])
+    print(f"  {step_times(step_s, N_CH * T_STEP)}, "
+          f"{N_CH * T_STEP / med / 1e3 / N_CH:.2f} Msamples/s per channel",
           flush=True)
 
     # one more step, stage by stage (after the counters were read)
@@ -268,34 +475,110 @@ def main_path(chain, dev, gen):
     from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
     seq = Sequencer(state)
     stages = {}
-
-    def timed(name, fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        y = fn()
-        end.record()
-        end.synchronize()
-        stages[name] = round(start.elapsed_time(end), 4)
-        return y
-
-    x = timed("resampler (fir head)", lambda: seq(chain.resamp, iq))
-    x = timed("channel LP (fir)", lambda: seq(chain.chan_filter, x))
-    timed("rssi", lambda: rssi_dbm(x))
-    x = timed("quadrature demod", lambda: seq(chain.quad, x))
-    x = timed("RRC (fir)", lambda: seq(chain.shaping, x))
-    syms = timed("feedforward sync", lambda: seq(chain.symbol_sync, x))
+    x = timed(stages, "resampler (fir head)", lambda: seq(chain.resamp, iq))
+    x = timed(stages, "channel LP (fir)", lambda: seq(chain.chan_filter, x))
+    timed(stages, "rssi", lambda: rssi_dbm(x))
+    x = timed(stages, "quadrature demod", lambda: seq(chain.quad, x))
+    x = timed(stages, "RRC (fir)", lambda: seq(chain.shaping, x))
+    syms = timed(stages, "feedforward sync",
+                 lambda: seq(chain.symbol_sync, x))
 
     def soft_map():
         ph = float(np.pi / 2) * syms
         s = torch.stack([torch.sin(ph), torch.cos(ph)], -1)
         return torch.clamp(s.reshape(N_CH, -1) * 128.0 + 128.0, 0.0, 255.0)
 
-    soft = timed("soft mapping", soft_map)
-    timed("FEC tail (viterbi + descrambler)", lambda: seq(chain.fec_tail,
-                                                          soft))
+    soft = timed(stages, "soft mapping", soft_map)
+    timed(stages, "FEC tail (viterbi + descrambler)",
+          lambda: seq(chain.fec_tail, soft))
     print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
           flush=True)
+    trace_step("one more step", lambda: chain(state, iq))
+    return report
+
+
+def mixed_groups():
+    from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
+    from qradiolink_tpu_torch.chains.nbfm import NbfmDemod
+
+    half = MIX_M // 2
+    return [(Fsk4DemodFF, list(range(half))),
+            (NbfmDemod, list(range(half, MIX_M)))]
+
+
+def mixed_path(dev, gen):
+    """The mixed 64-channel config; returns the kernel report of its
+    steps."""
+    from qradiolink_tpu_torch.core import IqPair, Sequencer, iq_take
+    from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
+    from qradiolink_tpu_torch.parallel.sharding import MultichannelRx
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    rx = MultichannelRx(MIX_M, mixed_groups(), device=dev)
+    T = MIX_M * MIX_T
+    # bench.py:136-137: complex normal IQ at 0.05 RMS a plane
+    iq = IqPair(torch.randn((T,), generator=gen, device=dev) * 0.05,
+                torch.randn((T,), generator=gen, device=dev) * 0.05)
+    state = rx.init_state()
+    torch.cuda.synchronize()
+    every_step = ("pfb_channelize_f32", "fir_stream_f32", "viterbi_tiled_k7")
+    step_s, seen = [], {op: 0 for op in every_step}
+    kernel_paths.reset()
+    for i in range(N_STEPS):
+        t0 = time.perf_counter()
+        state, outs = rx(state, iq)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        for op in every_step:
+            n = kernel_paths.launches(op)
+            if n <= seen[op]:
+                raise RuntimeError(f"step {i}: {op} did not launch")
+            seen[op] = n
+    report = kernel_paths.report()
+    print(f"  kernel paths over {N_STEPS} steps: {json.dumps(report)}",
+          flush=True)
+    if not kernel_paths.served_only():
+        raise RuntimeError("a stage took the plain path on the card")
+    fsk, nb = outs
+    n_fsk, n_nb = len(rx.groups[0][1]), len(rx.groups[1][1])
+    want = {"bits": (fsk["bits"], (n_fsk, MIX_T // 500)),
+            "symbols": (fsk["symbols"], (n_fsk, MIX_T // 500)),
+            "audio": (nb["audio"], (n_nb, MIX_T // 125)),
+            "nbfm rssi": (nb["rssi"], (n_nb,))}
+    for key, (v, shape) in want.items():
+        if tuple(v.shape) != shape or not bool(torch.isfinite(
+                v.float()).all()):
+            raise RuntimeError(f"{key}: shape {tuple(v.shape)} or "
+                               f"non-finite")
+    print(f"  {step_times(step_s, T)}", flush=True)
+
+    # one more step, stage by stage (after the counters were read)
+    stages = {}
+    ch_state, g_states = state
+    _, chans = timed(stages, "channelizer (K5)",
+                     lambda: rx.channelizer(ch_state, iq))
+    (fchain, fidx), (nchain, nidx) = rx.groups
+    xf = iq_take(chans, fidx)
+    xn = iq_take(chans, nidx)
+    timed(stages, "FSK group (32 ch)", lambda: fchain(g_states[0], xf))
+    timed(stages, "NBFM group (32 ch)", lambda: nchain(g_states[1], xn))
+    seq = Sequencer(g_states[1])
+    x = timed(stages, "nbfm resampler (fir head K2239 D50)",
+              lambda: seq(nchain.resamp, xn))
+    x = timed(stages, "nbfm channel LP (fir K133)",
+              lambda: seq(nchain.chan_filter, x))
+    timed(stages, "nbfm rssi", lambda: rssi_dbm(x))
+    x = timed(stages, "nbfm power squelch", lambda: seq(nchain.squelch, x))
+    x = timed(stages, "nbfm quadrature demod", lambda: seq(nchain.quad, x))
+    x = timed(stages, "nbfm audio resampler (2/5, fir)",
+              lambda: seq(nchain.audio_resamp, x))
+    x = timed(stages, "nbfm audio LP (fir K55)",
+              lambda: seq(nchain.audio_filter, x))
+    timed(stages, "nbfm de-emphasis", lambda: seq(nchain.deemph, x))
+    print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
+          flush=True)
+    trace_step("one more step", lambda: rx(state, iq))
+    trace_step("its NBFM group", lambda: nchain(g_states[1], xn))
     return report
 
 
@@ -333,11 +616,84 @@ def fixture_phase(dev):
         raise RuntimeError(f"fixture BER {ber}")
 
 
+def nbfm_signal(n, seed=7):
+    """Seeded 1 Msps NBFM IQ: a 1 kHz tone at 2.5 kHz deviation plus noise
+    at 0.05 RMS a plane (the input of tests/test_torch_nbfm.py)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 1e6
+    ph = np.cumsum(2 * np.pi * 2500.0 * 0.5 * np.sin(2 * np.pi * 1e3 * t)
+                   / 1e6)
+    x = np.exp(1j * ph) + 0.05 * (rng.standard_normal(n)
+                                  + 1j * rng.standard_normal(n))
+    return x.real.astype(np.float32), x.imag.astype(np.float32)
+
+
+def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
+                     devices=None):
+    """The capture on channel fsk_ch of M by the synthesizer on `dev`, an
+    NBFM signal on nbfm_ch, then MultichannelRx(M) on each of `devices`
+    (default: dev and the CPU). Returns the synthesizer's kernel report."""
+    from qradiolink_tpu_torch.chains.digital_common import bytes_to_bits
+    from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
+    from qradiolink_tpu_torch.chains.nbfm import NbfmDemod
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.ops.channelizer import PfbSynthesizer
+    from qradiolink_tpu_torch.parallel.sharding import MultichannelRx
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    data = np.load(FIXTURE)
+    cap = (torch.from_numpy(data["iq_re"].astype(np.float32)),
+           torch.from_numpy(data["iq_im"].astype(np.float32)))
+    Tm = cap[0].shape[0] // steps
+    nb = [torch.from_numpy(p) for p in nbfm_signal(Tm * steps)]
+    syn = PfbSynthesizer(M, device=dev)
+    st = syn.init_state()
+    wide = []
+    kernel_paths.reset()
+    for i in range(steps):
+        s = [torch.zeros((M, Tm), device=dev) for _ in range(2)]
+        for p in range(2):
+            s[p][fsk_ch] = cap[p][i * Tm:(i + 1) * Tm].to(dev)
+            s[p][nbfm_ch] = nb[p][i * Tm:(i + 1) * Tm].to(dev)
+        st, y = syn(st, IqPair(*s))
+        wide.append(y)
+    report = kernel_paths.report()
+    outs = {}
+    for d in devices or (dev, torch.device("cpu")):
+        rx = MultichannelRx(M, [(Fsk4DemodFF, [fsk_ch]),
+                                (NbfmDemod, [nbfm_ch])], device=d)
+        state = rx.init_state()
+        bits, audio = [], []
+        for y in wide:
+            state, (fo, no) = rx(state, IqPair(y.re.to(d), y.im.to(d)))
+            bits.append(fo["bits"][0].cpu().numpy())
+            audio.append(no["audio"][0].cpu().numpy())
+        outs[d.type] = (np.concatenate(bits), np.concatenate(audio))
+    sent = bytes_to_bits(torch.from_numpy(data["payload"])).numpy()
+    (gb, ga), (cb, ca) = outs[dev.type], outs["cpu"]
+    ber = best_ber(gb, sent)
+    n_diff = int((gb != cb).sum())
+    a_err = float(np.abs(ga - ca).max())
+    a_ok = bool(np.all(np.abs(ga - ca) <= 1e-5 + 1e-5 * np.abs(ca)))
+    print(f"  round trip (M={M}, {steps} steps of {Tm}): {n_diff} of "
+          f"{gb.size} FSK bits differ {dev.type} vs CPU, BER {ber:.4f}; "
+          f"NBFM audio max |diff| {a_err:.3e} (peak "
+          f"{float(np.abs(ca).max()):.3f})", flush=True)
+    if n_diff:
+        raise RuntimeError("round trip: bits differ between devices")
+    if not ber < 0.01:
+        raise RuntimeError(f"round trip BER {ber}")
+    if not a_ok:
+        raise RuntimeError("round trip: NBFM audio differs between devices")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
+    from qradiolink_tpu_torch.chains.nbfm import NbfmDemod
     from qradiolink_tpu_torch.utils import kernels
 
     # the reference computes in full f32: no TF32 in cuDNN or cuBLAS
@@ -364,25 +720,41 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     chain = Fsk4DemodFF(lead_shape=(N_CH,), device=dev)
+    nbfm = NbfmDemod(lead_shape=(MIX_M // 2,), device=dev)
 
     print("kernels against their plain versions:", flush=True)
-    rows = fir_phase(chain, dev, gen) + viterbi_phase(dev, gen)
+    rows = fir_phase(chain, nbfm, dev, gen) + viterbi_phase(dev, gen)
+    rows += depthwise_phase(dev, gen) + pfb_phase(dev, gen)
     torch.cuda.empty_cache()
 
+    reports = {}
     print(f"main path: Fsk4DemodFF {N_CH} ch x {T_STEP} samples, "
           f"{N_STEPS} steps", flush=True)
-    report = main_path(chain, dev, gen)
-    for row in rows:
-        op = row["name"].split("/")[0]
-        row["launches"] = report.get(op, {}).get("shapes", {}).get(
-            f"cuda {row.pop('shape')}", 0)
-        if row["launches"] < N_STEPS:
-            raise RuntimeError(f"{row['name']} launched {row['launches']} "
-                               f"times in {N_STEPS} steps")
+    reports["fsk"] = main_path(chain, dev, gen)
+    del chain
+    torch.cuda.empty_cache()
+
+    print(f"mixed path: MultichannelRx({MIX_M}) over {MIX_M} x {MIX_T} "
+          f"samples a step, 32 x Fsk4DemodFF + 32 x NbfmDemod, {N_STEPS} "
+          f"steps", flush=True)
+    reports["mixed"] = mixed_path(dev, gen)
+    torch.cuda.empty_cache()
 
     print("frozen capture:", flush=True)
     fixture_phase(dev)
+    print("round trip through the synthesizer:", flush=True)
+    reports["round_trip"] = round_trip_phase(dev)
 
+    # each kernel's launches in the run of the path that uses its shape
+    least = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
+    for r in rows:
+        path, shape = r.pop("path"), r.pop("shape")
+        op = r["name"].split("/")[0]
+        r["launches"] = reports[path].get(op, {}).get("shapes", {}).get(
+            f"cuda {shape}", 0)
+        if r["launches"] < least[path]:
+            raise RuntimeError(f"{r['name']} launched {r['launches']} "
+                               f"times on the {path} path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

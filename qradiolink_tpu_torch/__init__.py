@@ -10,12 +10,20 @@ which path each call took (`utils/profiling.kernel_paths`).
 
 This package imports torch and never jax, and nothing of qradiolink_tpu.
 
-Ported so far (the 4FSK feedforward RX chain, `chains.fsk.Fsk4DemodFF`):
+Ported so far (slice 1, the 4FSK feedforward RX chain
+`chains.fsk.Fsk4DemodFF`; slice 2, the mixed 64-channel receiver
+`parallel.sharding.MultichannelRx` with `chains.nbfm.NbfmDemod`):
   core        blocks, IqPair, state trees and npz snapshots
-  ops/        firdes, fir (FirFilter, conv1d_valid), resample, analog
-              (QuadratureDemod), spectrum (rssi_dbm), cuda_fir (kernel)
+  ops/        firdes, fir (FirFilter, conv1d_valid), resample (with the
+              default Kaiser taps), analog (QuadratureDemod, Emphasis,
+              DcBlocker), iir, squelch (PowerSquelch, CtcssSquelch),
+              spectrum (rssi_dbm), channelizer (PfbChannelizer,
+              PfbSynthesizer), and the kernels cuda_fir, cuda_depthwise,
+              cuda_pfb
   sync/       feedforward (FeedforwardSymbolSync)
   fec/        conv (ConvCode), conv_ff (TiledViterbi), scrambler
               (Descrambler), viterbi_cuda (kernel)
-  chains/     digital_common (RxFecTailFF), fsk (Fsk4DemodFF)
+  chains/     digital_common (RxFecTailFF), fsk (Fsk4DemodFF),
+              nbfm (NbfmDemod)
+  parallel/   sharding (MultichannelRx, one card)
 """

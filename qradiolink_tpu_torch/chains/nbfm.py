@@ -1,0 +1,93 @@
+"""NBFM voice receive chain (port of NbfmDemod in
+qradiolink_tpu/chains/nbfm.py).
+
+RX mirrors reference src/gr/gr_demod_nbfm.cpp:31-79:
+  1 Msps IQ -> polyphase resample 1/50 -> 20 ksps -> channel low-pass
+  -> power squelch (threshold dB, alpha .01, ramp 320) -> quadrature demod
+  (gain fs/(4*pi*fw)) -> audio resample 2/5 -> 8 ksps -> audio LP 3.5 kHz
+  -> 50 us de-emphasis -> x2.0; optional CTCSS tone squelch insert
+  (reference :97-128).
+
+On CUDA the four FIR stages (resampler head, channel LP, the two phases of
+the audio resampler, audio LP) run the `fir_stream_f32` kernel; the
+squelch, demod and de-emphasis are plain PyTorch. The transmit chain
+(NbfmMod) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from qradiolink_tpu_torch.core import (Block, Sequencer, init_states,
+                                       resolve_device)
+from qradiolink_tpu_torch.ops import firdes
+from qradiolink_tpu_torch.ops.analog import Emphasis, QuadratureDemod
+from qradiolink_tpu_torch.ops.fir import FirFilter
+from qradiolink_tpu_torch.ops.resample import RationalResampler
+from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
+from qradiolink_tpu_torch.ops.squelch import CtcssSquelch, PowerSquelch
+
+
+class NbfmDemod(Block):
+    """NBFM demod. Input: an IqPair of f32 planes (..., T) or a complex
+    tensor at 1 Msps; T must be a multiple of 250 (1/50, then 2/5), and
+    of 50,000 with CTCSS (so that the audio is a whole number of
+    400-sample windows).
+    Outputs: `audio` (..., T/125) at 8 ksps and `rssi` (dB of the
+    channel-filtered block).
+
+    device: None means CUDA, and raises when no card is present; pass
+    device="cpu" to run the plain PyTorch path.
+    """
+    SAMP_RATE = 1_000_000
+    TARGET_RATE = 20_000
+    AUDIO_RATE = 8_000
+
+    def __init__(self, filter_width: float = 2500.0,
+                 squelch_db: float = -140.0, ctcss_hz: float = 0.0,
+                 lead_shape: tuple = (), device=None):
+        ls = tuple(lead_shape)
+        dev = resolve_device(device)
+        self.device = dev
+        self.filter_width = filter_width
+        fs = self.TARGET_RATE
+        self.resamp = RationalResampler(1, 50, lead_shape=ls, device=dev)
+        self.chan_filter = FirFilter(
+            firdes.low_pass(1.0, fs, filter_width, filter_width * 0.25,
+                            firdes.WIN_BLACKMAN_HARRIS), lead_shape=ls,
+            device=dev)
+        self.squelch = PowerSquelch(squelch_db, alpha=0.01, ramp=320,
+                                    lead_shape=ls, device=dev)
+        self.quad = QuadratureDemod(fs / (4 * np.pi * filter_width),
+                                    lead_shape=ls, device=dev)
+        self.audio_resamp = RationalResampler(2, 5, lead_shape=ls, device=dev)
+        self.audio_filter = FirFilter(
+            firdes.low_pass(1.0, self.AUDIO_RATE, 3500.0, 600.0,
+                            firdes.WIN_BLACKMAN_HARRIS), lead_shape=ls,
+            device=dev)
+        self.deemph = Emphasis(self.AUDIO_RATE, tau=50e-6, mode="de",
+                               lead_shape=ls, device=dev)
+        self.ctcss = (CtcssSquelch(self.AUDIO_RATE, ctcss_hz, window=400,
+                                   lead_shape=ls, device=dev)
+                      if ctcss_hz > 0 else None)
+        self.blocks = [self.resamp, self.chan_filter, self.squelch, self.quad,
+                       self.audio_resamp, self.audio_filter, self.deemph]
+        if self.ctcss is not None:
+            self.blocks.append(self.ctcss)
+
+    def init_state(self):
+        return init_states(self.blocks)
+
+    def __call__(self, state, iq):
+        seq = Sequencer(state)
+        x = seq(self.resamp, iq)
+        x = seq(self.chan_filter, x)
+        rssi = rssi_dbm(x)
+        x = seq(self.squelch, x)
+        x = seq(self.quad, x)
+        x = seq(self.audio_resamp, x).real
+        x = seq(self.audio_filter, x)
+        x = seq(self.deemph, x)
+        if self.ctcss is not None:
+            x = seq(self.ctcss, x)
+        return seq.states(), {"audio": 2.0 * x, "rssi": rssi}

@@ -1,11 +1,13 @@
-"""Quadrature (FM) demodulator (port of QuadratureDemod in
-qradiolink_tpu/ops/analog.py)."""
+"""Analog blocks (port of qradiolink_tpu/ops/analog.py): the quadrature
+(FM) demodulator, FM pre-/de-emphasis and the DC blocker."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
+from qradiolink_tpu_torch.ops.iir import FirstOrderIir
 
 
 class QuadratureDemod(Block):
@@ -51,3 +53,71 @@ class QuadratureDemod(Block):
         y = self._angle(d.real, d.imag, self.gain)
         last = xc[..., -1:]
         return torch.stack([last.real, last.imag], dim=-2), y
+
+
+# fm_deemph_taps and fm_preemph_taps: copied verbatim (pure numpy) from
+# qradiolink_tpu/ops/analog.py:124-155.
+def fm_deemph_taps(samp_rate: float, tau: float = 50e-6):
+    """Single-pole de-emphasis via bilinear transform: returns (b, a1).
+
+    H(s) = 1/(1 + s*tau)  ->  y[n] = a1*y[n-1] + b0*x[n] + b1*x[n-1].
+    """
+    w_c = 1.0 / tau
+    w_ca = 2.0 * samp_rate * np.tan(w_c / (2.0 * samp_rate))
+    k = -w_ca / (2.0 * samp_rate)
+    z1 = -1.0
+    p1 = (1.0 + k) / (1.0 - k)
+    b0 = -k / (1.0 - k)
+    return np.array([b0, b0 * -z1]), p1
+
+
+def fm_preemph_taps(samp_rate: float, tau: float = 50e-6, fh: float = -1.0):
+    """Pre-emphasis: high-shelf inverse of the de-emphasis pole, corner-limited.
+
+    Returns (b, a1) for y[n] = a1*y[n-1] + b0*x[n] + b1*x[n-1].
+    """
+    if fh <= 0.0 or fh >= samp_rate / 2.0:
+        fh = 0.925 * samp_rate / 2.0
+    ca = 2.0 * samp_rate * np.tan(np.pi * fh / samp_rate)  # upper corner (rad/s)
+    cz = 1.0 / tau  # zero at the emphasis corner
+    # bilinear transform of H(s) = (1 + s/cz) / (1 + s/ca)
+    k_z = 2.0 * samp_rate / cz
+    k_p = 2.0 * samp_rate / ca
+    b = np.array([1.0 + k_z, 1.0 - k_z]) / (1.0 + k_p)
+    a1 = -(1.0 - k_p) / (1.0 + k_p)
+    return b, a1
+
+
+class Emphasis(Block):
+    """FM pre-/de-emphasis as a 1-pole 1-zero IIR (parallel first-order
+    scan). State: that of FirstOrderIir, (x[-1], y[-1])."""
+
+    def __init__(self, samp_rate: float, tau: float = 50e-6, mode: str = "de",
+                 lead_shape: tuple = (), device=None):
+        if mode == "de":
+            b, a1 = fm_deemph_taps(samp_rate, tau)
+        else:
+            b, a1 = fm_preemph_taps(samp_rate, tau)
+        self.iir = FirstOrderIir(b0=b[0], b1=b[1], a1=a1,
+                                 lead_shape=lead_shape, device=device)
+
+    def init_state(self):
+        return self.iir.init_state()
+
+    def __call__(self, state, x):
+        return self.iir(state, x)
+
+
+class DcBlocker(Block):
+    """y[n] = x[n] - x[n-1] + p*y[n-1], the AM chain's IIR [1,-1]/[1,-p]."""
+
+    def __init__(self, pole: float = 0.9999, lead_shape: tuple = (),
+                 device=None):
+        self.iir = FirstOrderIir(b0=1.0, b1=-1.0, a1=pole,
+                                 lead_shape=lead_shape, device=device)
+
+    def init_state(self):
+        return self.iir.init_state()
+
+    def __call__(self, state, x):
+        return self.iir(state, x)

@@ -26,21 +26,64 @@ from qradiolink_tpu_torch.ops.fir import (conv1d_valid_flipped, flipped_taps,
 from qradiolink_tpu_torch.ops.cuda_fir import fir_stream
 
 
+# design_resampler_taps and kaiser_low_pass: copied verbatim (pure numpy)
+# from qradiolink_tpu/ops/resample.py:29-63, so the default taps are the
+# same floats in both packages.
+def design_resampler_taps(interpolation: int, decimation: int,
+                          fractional_bw: float = 0.4) -> np.ndarray:
+    """Default anti-alias/anti-image filter for L/M resampling.
+
+    Kaiser(beta=7) low-pass at the tighter of the input/output Nyquist,
+    mirroring the rational_resampler default design semantics.
+    """
+    if not 0 < fractional_bw < 0.5:
+        raise ValueError("fractional_bw must be in (0, 0.5)")
+    beta = 7.0
+    halfband = 0.5
+    rate = interpolation / decimation
+    if rate >= 1.0:
+        trans_width = halfband - fractional_bw
+        mid = halfband - trans_width / 2.0
+    else:
+        trans_width = rate * (halfband - fractional_bw)
+        mid = rate * halfband - trans_width / 2.0
+    return kaiser_low_pass(interpolation, interpolation, mid, trans_width, beta)
+
+
+def kaiser_low_pass(gain: float, samp_rate: float, cutoff: float,
+                    transition_width: float, beta: float = 7.0) -> np.ndarray:
+    """Windowed-sinc low-pass with a Kaiser window."""
+    att = beta / 0.1102 + 8.7  # invert beta = 0.1102 (att - 8.7)
+    df = transition_width / samp_rate
+    ntaps = int((att - 7.95) / (2.285 * 2 * np.pi * df)) + 1
+    ntaps |= 1
+    m = (ntaps - 1) / 2.0
+    n = np.arange(ntaps, dtype=np.float64)
+    w = np.i0(beta * np.sqrt(np.clip(1.0 - ((n - m) / m) ** 2, 0.0, 1.0))) / np.i0(beta)
+    fc = cutoff / samp_rate
+    h = 2.0 * fc * np.sinc(2.0 * fc * (n - m)) * w
+    h *= gain / np.sum(h)
+    return h.astype(np.float32)
+
+
 class RationalResampler(Block):
     """Streaming polyphase L/M resampler.
 
     State: (..., 2, Kp-1) f32, the last Kp-1 input samples as (re, im)
     planes (Kp = per-phase tap count). Each block length T must satisfy
-    T % M == 0. Taps must be given (the 4FSK chain designs its own with
-    firdes); complex taps are not supported yet.
+    T % M == 0. taps=None designs the default Kaiser low-pass
+    (design_resampler_taps); complex taps are not supported yet.
     """
 
-    def __init__(self, interpolation: int, decimation: int, taps,
-                 lead_shape: tuple = (), device=None):
+    def __init__(self, interpolation: int, decimation: int, taps=None,
+                 fractional_bw: float = 0.4, lead_shape: tuple = (),
+                 device=None):
         g = math.gcd(int(interpolation), int(decimation))
         self.L = int(interpolation) // g
         self.M = int(decimation) // g
         self.device = resolve_device(device)
+        if taps is None:
+            taps = design_resampler_taps(self.L, self.M, fractional_bw)
         taps = np.asarray(taps)
         # pad taps to a multiple of L and split into L phases
         kp = -(-taps.shape[0] // self.L)

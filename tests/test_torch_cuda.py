@@ -6,9 +6,12 @@ installed; run it on a machine with a card with
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
-(--noconftest: tests/conftest.py imports jax). Tolerances: the FIR within
-1e-5 (relative to the output's peak, and elementwise 1e-5 + 1e-5 |plain|),
-the bound the JAX package holds its FIR kernels to; the Viterbi bit-exact.
+(--noconftest: tests/conftest.py imports jax). Tolerances: the FIRs (the
+strided FIR and the per-row depthwise FIR) within 1e-5 (relative to the
+output's peak, and elementwise 1e-5 + 1e-5 |plain|), the bound the JAX
+package holds its FIR kernels to; the fused channelizer within 1e-5 of its
+output's peak, the JAX package's bound for it, with its carried state
+bit-equal; the Viterbi bit-exact.
 """
 
 import pathlib
@@ -17,14 +20,21 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# a few intra-op threads only: the suite runs in several workers at once
+torch.set_num_threads(2)
 
 from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.fec.conv import CCSDS_K7  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
     decode_windows, decode_windows_plain)
+from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
+    PfbChannelizer, PfbSynthesizer)
+from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
+    depthwise_fir, depthwise_fir_plain)
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
     fir_stream, fir_stream_plain)
+from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -71,10 +81,99 @@ def test_fir_kernel_matches_plain(cuda, gen, stage):
     got = fir_stream(xs, tf, D, n_out, tails=tails, shift=shift)
     assert kernel_paths.launches("fir_stream_f32") == 1
     ref = fir_stream_plain(xs, tf, D, n_out, tails=tails, shift=shift)
+    _assert_fir_close(got, ref)
+
+
+def _assert_fir_close(got, ref):
     for g, r in zip(got, ref):
         diff = (g - r).abs()
         assert float(diff.max() / r.abs().max()) <= 1e-5
         assert bool((diff <= 1e-5 + 1e-5 * r.abs()).all())
+
+
+@pytest.mark.parametrize("C,kp,lead,planes,n_out", [
+    (64, 24, (), 2, 5000),     # channelizer branches (kp rounded to 8)
+    (64, 23, (), 2, 5000),     # synthesizer branches (kp 23)
+    (7, 13, (3,), 1, 777),     # leading axes, one plane, ragged last tile
+    (5, 1, (), 2, 100),        # a single tap
+])
+def test_depthwise_kernel_matches_plain(cuda, gen, C, kp, lead, planes,
+                                        n_out):
+    taps = torch.randn((C, kp), generator=gen, device=cuda)
+    xs = [torch.randn(lead + (C, n_out + kp - 1 + 3), generator=gen,
+                      device=cuda) for _ in range(planes)]
+    kernel_paths.reset()
+    got = depthwise_fir(xs, taps, n_out)
+    assert kernel_paths.launches("depthwise_fir_f32") == 1
+    _assert_fir_close(got, depthwise_fir_plain(xs, taps, n_out))
+
+
+@pytest.mark.parametrize("M,B,Tm", [(64, 1, 3000), (8, 3, 1000 + 7),
+                                    (10, 2, 515), (13, 1, 300)])
+def test_pfb_kernel_matches_plain(cuda, gen, M, B, Tm):
+    """Two chained blocks through the channelizer's fused route: each
+    block's output against the plain version from the same state, the
+    second block reading the history the first one left (the seam), and
+    the carried state bit-equal to the last kp*M input samples. M = 10
+    and 13 take the scalar staging (M not a multiple of 4), and 13 the
+    one-stage dense DFT (M1 = 1)."""
+    ch = PfbChannelizer(M, lead_shape=(B,), device=cuda)
+    state = torch.randn((B, 2, ch.kp * M), generator=gen, device=cuda)
+    for _ in range(2):
+        x = IqPair(torch.randn((B, Tm * M), generator=gen, device=cuda),
+                   torch.randn((B, Tm * M), generator=gen, device=cuda))
+        kernel_paths.reset()
+        new_state, y = ch(state, x)
+        assert kernel_paths.launches("pfb_channelize_f32") == 1
+        ref = channelize_plain((x.re, x.im), state, ch._ct)
+        peak = max(float(r.abs().max()) for r in ref)
+        for g, r in zip((y.re, y.im), ref):
+            assert float((g - r).abs().max()) <= 1e-5 * peak
+        want = torch.cat([state, torch.stack([x.re, x.im], 1)], -1)
+        assert torch.equal(new_state, want[..., -ch.kp * M:])
+        state = new_state
+
+
+def test_channelizer_routes_agree_on_card_and_cpu(cuda, gen):
+    """IqPair input (K5) and complex input (K4, then an FFT) on the card
+    and IqPair input on the CPU (the plain route) give one channelizer
+    output."""
+    M, Tm = 64, 2000
+    x = IqPair(torch.randn((M * Tm,), generator=gen, device=cuda),
+               torch.randn((M * Tm,), generator=gen, device=cuda))
+    outs = {}
+    for name, op, dev in (("k5", "pfb_channelize_f32", cuda),
+                          ("k4", "depthwise_fir_f32", cuda),
+                          ("cpu", "pfb_channelize_f32", torch.device("cpu"))):
+        ch = PfbChannelizer(M, device=dev)
+        xd = (torch.complex(x.re, x.im).to(dev) if name == "k4"
+              else IqPair(x.re.to(dev), x.im.to(dev)))
+        kernel_paths.reset()
+        _, y = ch(ch.init_state(), xd)
+        assert kernel_paths.report()[op]["cuda" if dev.type == "cuda"
+                                         else "plain"] == 1
+        outs[name] = (y if name == "k4" else torch.complex(y.re, y.im)).cpu()
+    peak = float(outs["cpu"].abs().max())
+    for name in ("k5", "k4"):
+        assert float((outs[name] - outs["cpu"]).abs().max()) <= 1e-5 * peak
+
+
+def test_synthesizer_on_card_matches_cpu(cuda, gen):
+    M, Tm = 64, 1000
+    s = IqPair(torch.randn((M, Tm), generator=gen, device=cuda),
+               torch.randn((M, Tm), generator=gen, device=cuda))
+    ys = {}
+    for dev in (cuda, torch.device("cpu")):
+        syn = PfbSynthesizer(M, device=dev)
+        st = syn.init_state()
+        kernel_paths.reset()
+        for _ in range(2):
+            st, y = syn(st, IqPair(s.re.to(dev), s.im.to(dev)))
+        if dev.type == "cuda":
+            assert kernel_paths.launches("depthwise_fir_f32") == 2
+        ys[dev.type] = torch.complex(y.re, y.im).cpu()
+    peak = float(ys["cpu"].abs().max())
+    assert float((ys["cuda"] - ys["cpu"]).abs().max()) <= 1e-5 * peak
 
 
 @pytest.mark.parametrize("kind", ["integer", "chain"])

@@ -11,6 +11,8 @@ import textwrap
 import pytest
 
 torch = pytest.importorskip("torch")
+# a few intra-op threads only: the suite runs in several workers at once
+torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "qradiolink_tpu_torch"

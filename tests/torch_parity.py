@@ -3,6 +3,11 @@
 Inputs are made with numpy and handed to both frameworks; outputs and state
 trees come back as numpy and are compared leaf by leaf, integer leaves
 exactly and float leaves within a stated tolerance.
+
+Importing this module caps torch's intra-op threads at 2: the driver runs
+the tests in several xdist workers at once, and a torch process that takes
+every core starves the timing-sensitive tests beside it (a ZeroMQ receive
+with a 3 s timeout, for one).
 """
 
 import numpy as np
@@ -12,6 +17,8 @@ import torch
 
 from qradiolink_tpu.core import IqPair as JaxPair
 from qradiolink_tpu_torch.core import IqPair as TorchPair, state_to_numpy
+
+torch.set_num_threads(2)
 
 
 def to_jax(x):
@@ -38,18 +45,27 @@ def to_numpy(y):
     return np.asarray(y)
 
 
-def assert_same(jax_y, torch_y, rtol=1e-5, atol=1e-5, what="output"):
-    """Same shape and dtype kind; integers and bools equal, floats close."""
+def assert_same(jax_y, torch_y, rtol=1e-5, atol=1e-5, what="output",
+                peak=False):
+    """Same shape and dtype kind; integers and bools equal, floats close:
+    elementwise |b - a| <= atol + rtol |a|, or with peak=True
+    max |b - a| <= atol + rtol max |a| (relative to the output's peak, the
+    form the JAX package's channelizer tests use)."""
     a, b = to_numpy(jax_y), to_numpy(torch_y)
     assert a.shape == b.shape, f"{what}: shape {a.shape} != {b.shape}"
     assert a.dtype == b.dtype, f"{what}: dtype {a.dtype} != {b.dtype}"
     if np.issubdtype(a.dtype, np.integer) or a.dtype == np.bool_:
         np.testing.assert_array_equal(a, b, err_msg=what)
+    elif peak:
+        err = float(np.abs(b - a).max()) if a.size else 0.0
+        lim = atol + rtol * (float(np.abs(a).max()) if a.size else 0.0)
+        assert err <= lim, f"{what}: max |diff| {err:.3e} > {lim:.3e}"
     else:
         np.testing.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=what)
 
 
-def assert_states_same(jax_state, torch_state, rtol=1e-5, atol=1e-5):
+def assert_states_same(jax_state, torch_state, rtol=1e-5, atol=1e-5,
+                       peak=False):
     """Same tree structure; every leaf the same (see assert_same)."""
     jnp_tree = jax.tree_util.tree_map(np.asarray, jax_state)
     t_tree = state_to_numpy(torch_state)
@@ -57,28 +73,45 @@ def assert_states_same(jax_state, torch_state, rtol=1e-5, atol=1e-5):
             == jax.tree_util.tree_structure(t_tree))
     for i, (a, b) in enumerate(zip(jax.tree_util.tree_leaves(jnp_tree),
                                    jax.tree_util.tree_leaves(t_tree))):
-        assert_same(a, b, rtol, atol, what=f"state leaf {i}")
+        assert_same(a, b, rtol, atol, what=f"state leaf {i}", peak=peak)
+
+
+def assert_outputs_same(jy, ty, rtol=1e-5, atol=1e-5, key_tol=None,
+                        what="output", peak=False):
+    """Outputs of either framework: a dict (key_tol maps a key to its own
+    (rtol, atol)), a list of outputs (MultichannelRx's groups), or one
+    array or IqPair."""
+    if isinstance(jy, dict):
+        assert set(jy) == set(ty), what
+        for k in jy:
+            r, a = (key_tol or {}).get(k, (rtol, atol))
+            assert_outputs_same(jy[k], ty[k], r, a, key_tol, f"{what} {k}",
+                                peak)
+    elif isinstance(jy, list):
+        assert isinstance(ty, list) and len(jy) == len(ty), what
+        for g, (a, b) in enumerate(zip(jy, ty)):
+            assert_outputs_same(a, b, rtol, atol, key_tol, f"{what}[{g}]",
+                                peak)
+    else:
+        assert_same(jy, ty, rtol, atol, what=what, peak=peak)
 
 
 def stream_both(jax_block, torch_block, blocks, rtol=1e-5, atol=1e-5,
-                state_rtol=None, state_atol=None, key_tol=None):
+                state_rtol=None, state_atol=None, key_tol=None, peak=False):
     """Stream the numpy `blocks` through both blocks from their initial
     states, comparing every output and every state leaf after each block.
     key_tol maps an output key of a dict-returning block to its own
-    (rtol, atol). Returns the final (jax_state, torch_state)."""
+    (rtol, atol); peak=True compares floats relative to their peak (see
+    assert_same). Returns the final (jax_state, torch_state) and the
+    outputs of the last block, (jax_out, torch_out)."""
     js, ts = jax_block.init_state(), torch_block.init_state()
     assert_states_same(js, ts)
     for i, blk in enumerate(blocks):
         js, jy = jax_block(js, to_jax(blk))
         ts, ty = torch_block(ts, to_torch(blk))
-        if isinstance(jy, dict):
-            assert set(jy) == set(ty)
-            for k in jy:
-                r, a = (key_tol or {}).get(k, (rtol, atol))
-                assert_same(jy[k], ty[k], r, a, what=f"block {i} {k}")
-        else:
-            assert_same(jy, ty, rtol, atol, what=f"block {i}")
+        assert_outputs_same(jy, ty, rtol, atol, key_tol, f"block {i}", peak)
         assert_states_same(js, ts,
                            rtol if state_rtol is None else state_rtol,
-                           atol if state_atol is None else state_atol)
-    return js, ts
+                           atol if state_atol is None else state_atol,
+                           peak=peak)
+    return (js, ts), (jy, ty)
