@@ -9,7 +9,8 @@ kernels from qradiolink_tpu_torch/csrc, so nvcc must be on PATH or under
 when the package cannot be imported, and when any phase fails:
 
  1. the card's name and power limit (nvidia-smi);
- 2. build every kernel, all nvcc processes at once;
+ 2. build every kernel, all nvcc processes at once (ptxas must report no
+    spills in csrc/fir_decim.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -18,7 +19,11 @@ when the package cannot be imported, and when any phase fails:
       chained blocks), channel low-pass and RRC (2048 channels x 200,000
       samples a step), and at the NBFM group's resampler head (2,239 taps,
       32 channels x 100,000), within 1e-5 (relative to the output's peak,
-      and elementwise |k - p| <= 1e-5 + 1e-5 |p|); F.conv1d is the yardstick;
+      and elementwise |k - p| <= 1e-5 + 1e-5 |p|); F.conv1d is the
+      yardstick. The head (419 taps, D 50) routes to fir_decim_f32, every
+      other shape to fir_stream_f32; at the head fir_stream_f32 is held
+      against the plain version too and timed in turns with fir_decim_f32
+      (old, new, new, old), its row kept with "path": null;
     - the Viterbi (K3) bit-exact on integer soft, on non-integer chain-like
       soft, and decoding real CCSDS codewords;
     - the per-row depthwise FIR (K4) at the synthesizer's branch shape (64
@@ -33,14 +38,15 @@ when the package cannot be imported, and when any phase fails:
       does not keep: output within 1e-5 of the peak, both routes timed;
  4. the 4FSK main path: Fsk4DemodFF(lead_shape=(2048,)) for 3 steps of
     200,000 samples with state carried, launch counters zeroed just before
-    and read just after (every FIR stage and the Viterbi must have launched
-    their kernels on every step); then one more step timed stage by stage,
-    and one under torch.profiler (device ops, busy time, idle share);
+    and read just after (fir_decim_f32, fir_stream_f32 and the Viterbi
+    must launch on every step, nothing on a plain path); then one more
+    step timed stage by stage, and one under torch.profiler (device ops,
+    busy time, idle share);
  5. the mixed main path: MultichannelRx(64) on one wideband stream of
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
-    counters zeroed before and read after (K5, the FIRs of both groups and
-    the Viterbi on every step, nothing on a plain path); one more step
+    counters zeroed before and read after (K5, both FIR kernels and the
+    Viterbi on every step, nothing on a plain path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
  6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
     blocks through Fsk4DemodFF on the card and on the CPU: the bits must
@@ -59,6 +65,7 @@ shape; the last line is {"ok": true, "device": {...}}.
 
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -82,8 +89,8 @@ F32_FLOPS = 67e12
 FIR_TOL = 1e-5
 
 
-def cuda_ms(fn, iters=10, warmup=2):
-    """Median time of fn() in ms, by CUDA events around each call."""
+def cuda_times(fn, iters=10, warmup=2):
+    """Times of `iters` calls of fn() in ms, by CUDA events around each."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -96,7 +103,25 @@ def cuda_ms(fn, iters=10, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, iters=10, warmup=2):
+    """Median time of fn() in ms, by CUDA events around each call."""
+    return statistics.median(cuda_times(fn, iters, warmup))
+
+
+def turns_ms(fns):
+    """Two versions timed in turns a, b, b, a (10 calls a turn): each one's
+    median over its 20 calls, and the medians of the four turns."""
+    order = list(fns) + list(fns)[::-1]
+    times = {k: [] for k in fns}
+    turns = []
+    for k in order:
+        t = cuda_times(fns[k])
+        times[k] += t
+        turns.append((k, statistics.median(t)))
+    return {k: statistics.median(v) for k, v in times.items()}, turns
 
 
 def bound(n_bytes, n_ops):
@@ -161,35 +186,54 @@ def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, path, shape):
             "library_ms": lib_ms, "path": path, "shape": shape}
 
 
+FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
+              "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu"}
+
+
 def fir_row(name, replaces, xs, tf, D, n_out, tails, shape, path,
             timing=True):
-    """The strided FIR kernel against its plain version (and F.conv1d)."""
-    from qradiolink_tpu_torch.ops.cuda_fir import fir_stream, fir_stream_plain
+    """The strided FIR kernel that the shape routes to against its plain
+    version (and F.conv1d). Where that is fir_decim_f32, fir_stream_f32,
+    which served the shape before, is held against the plain version too
+    and timed in turns with it (old, new, new, old); its row has no path."""
+    from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
-    kern = fir_stream(xs, tf, D, n_out, tails=tails)
-    plain = fir_stream_plain(xs, tf, D, n_out, tails=tails)
-    torch.cuda.synchronize()
-    err = check_fir(name, kern, plain)
-    if not timing:
-        print(f"  {name}: max_abs_err {err:.3e}", flush=True)
-        return []
     K = tf.shape[0]
+    op = cuda_fir.route(K, D)
+    fns = {op: lambda: cuda_fir.fir_stream(xs, tf, D, n_out, tails=tails)}
+    if op == cuda_fir.DECIM_OP:
+        fns = {cuda_fir.OP: lambda: cuda_fir._launch_stream(
+            xs, tf, D, n_out, tails), **fns}
+    plain = cuda_fir.fir_stream_plain(xs, tf, D, n_out, tails=tails)
+    errs = {k: check_fir(f"{k}/{name}", fn(), plain) for k, fn in
+            fns.items()}
+    torch.cuda.synchronize()
+    if not timing:
+        for k, err in errs.items():
+            print(f"  {k}/{name}: max_abs_err {err:.3e}", flush=True)
+        return []
     n_rows = xs[0].numel() // xs[0].shape[-1]
     xcat = [x if tails is None else torch.cat([t, x], -1)
             for x, t in zip(xs, tails or [None] * len(xs))]
     lib_in = torch.stack(xcat).reshape(-1, 1, xcat[0].shape[-1])
     w = tf.reshape(1, 1, K)
-    ms = cuda_ms(lambda: fir_stream(xs, tf, D, n_out, tails=tails))
-    plain_ms = cuda_ms(lambda: fir_stream_plain(xs, tf, D, n_out,
-                                                tails=tails))
+    if len(fns) == 1:
+        ms = {op: cuda_ms(fns[op])}
+    else:
+        ms, turns = turns_ms(fns)
+        print(f"  {name} in turns: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+    plain_ms = cuda_ms(lambda: cuda_fir.fir_stream_plain(
+        xs, tf, D, n_out, tails=tails))
     lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=D))
     n_in = sum(x.numel() for x in xs) + (
         0 if tails is None else sum(t.numel() for t in tails))
     n_bytes = 4 * (n_in + len(xs) * n_rows * n_out + K)
     b = bound(n_bytes, 2 * K * len(xs) * n_rows * n_out)
-    return [row(f"fir_stream_f32/{name}", "qradiolink_tpu_torch/csrc/fir.cu",
-                replaces, err, ms, plain_ms, b, lib_ms, path, shape)]
+    return [row(f"{k}/{name}", FIR_SOURCE[k], replaces, errs[k], ms[k],
+                plain_ms, b, lib_ms, path if k == op else None, shape)
+            for k in sorted(fns, key=lambda k: k != op)]
 
 
 def fir_phase(chain, nbfm, dev, gen):
@@ -433,26 +477,46 @@ def step_times(step_s, n_samples):
             f"Msamples/s)")
 
 
-def main_path(chain, dev, gen):
-    from qradiolink_tpu_torch.core import IqPair
+def drive(fn, state, x, every_step):
+    """N_STEPS calls state, out = fn(state, x), each fenced and timed on
+    the host clock, with the launch counters zeroed just before: every op
+    of every_step must launch on each step, and nothing may take a plain
+    path. Returns (state, last output, step seconds, kernel report)."""
     from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
-    iq = IqPair(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1,
-                torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
-    state = chain.init_state()
-    torch.cuda.synchronize()
-    step_s = []
+    step_s, seen = [], {op: 0 for op in every_step}
     kernel_paths.reset()
-    for _ in range(N_STEPS):
+    for i in range(N_STEPS):
         t0 = time.perf_counter()
-        state, out = chain(state, iq)
+        state, out = fn(state, x)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        for op in every_step:
+            n = kernel_paths.launches(op)
+            if n <= seen[op]:
+                raise RuntimeError(f"step {i}: {op} did not launch")
+            seen[op] = n
     report = kernel_paths.report()
     print(f"  kernel paths over {N_STEPS} steps: {json.dumps(report)}",
           flush=True)
     if not kernel_paths.served_only():
         raise RuntimeError("a stage took the plain path on the card")
+    return state, out, step_s, report
+
+
+# ops each main path must launch on every step
+FSK_EVERY_STEP = ("fir_decim_f32", "fir_stream_f32", "viterbi_tiled_k7")
+MIXED_EVERY_STEP = ("pfb_channelize_f32",) + FSK_EVERY_STEP
+
+
+def main_path(chain, dev, gen):
+    from qradiolink_tpu_torch.core import IqPair
+
+    iq = IqPair(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1,
+                torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
+    state = chain.init_state()
+    torch.cuda.synchronize()
+    state, out, step_s, report = drive(chain, state, iq, FSK_EVERY_STEP)
     n_sym = T_STEP // chain.resamp.M // chain.sps
     checks = {"bits": (N_CH, n_sym), "symbols": (N_CH, n_sym),
               "rssi": (N_CH,)}
@@ -475,7 +539,8 @@ def main_path(chain, dev, gen):
     from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
     seq = Sequencer(state)
     stages = {}
-    x = timed(stages, "resampler (fir head)", lambda: seq(chain.resamp, iq))
+    x = timed(stages, "resampler (fir_decim_f32 head)",
+              lambda: seq(chain.resamp, iq))
     x = timed(stages, "channel LP (fir)", lambda: seq(chain.chan_filter, x))
     timed(stages, "rssi", lambda: rssi_dbm(x))
     x = timed(stages, "quadrature demod", lambda: seq(chain.quad, x))
@@ -512,7 +577,6 @@ def mixed_path(dev, gen):
     from qradiolink_tpu_torch.core import IqPair, Sequencer, iq_take
     from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
     from qradiolink_tpu_torch.parallel.sharding import MultichannelRx
-    from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
     rx = MultichannelRx(MIX_M, mixed_groups(), device=dev)
     T = MIX_M * MIX_T
@@ -521,25 +585,8 @@ def mixed_path(dev, gen):
                 torch.randn((T,), generator=gen, device=dev) * 0.05)
     state = rx.init_state()
     torch.cuda.synchronize()
-    every_step = ("pfb_channelize_f32", "fir_stream_f32", "viterbi_tiled_k7")
-    step_s, seen = [], {op: 0 for op in every_step}
-    kernel_paths.reset()
-    for i in range(N_STEPS):
-        t0 = time.perf_counter()
-        state, outs = rx(state, iq)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        for op in every_step:
-            n = kernel_paths.launches(op)
-            if n <= seen[op]:
-                raise RuntimeError(f"step {i}: {op} did not launch")
-            seen[op] = n
-    report = kernel_paths.report()
-    print(f"  kernel paths over {N_STEPS} steps: {json.dumps(report)}",
-          flush=True)
-    if not kernel_paths.served_only():
-        raise RuntimeError("a stage took the plain path on the card")
-    fsk, nb = outs
+    state, (fsk, nb), step_s, report = drive(rx, state, iq,
+                                             MIXED_EVERY_STEP)
     n_fsk, n_nb = len(rx.groups[0][1]), len(rx.groups[1][1])
     want = {"bits": (fsk["bits"], (n_fsk, MIX_T // 500)),
             "symbols": (fsk["symbols"], (n_fsk, MIX_T // 500)),
@@ -715,6 +762,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    # fir_decim_f32 keeps taps, ring and prefetched rows in registers
+    if re.search(r"[1-9]\d* bytes spill", logs.get("fir_decim", "")):
+        raise RuntimeError("ptxas spilled registers in csrc/fir_decim.cu")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -745,14 +795,16 @@ def main() -> int:
     print("round trip through the synthesizer:", flush=True)
     reports["round_trip"] = round_trip_phase(dev)
 
-    # each kernel's launches in the run of the path that uses its shape
+    # each kernel's launches in the run of the path that uses its shape; a
+    # row with no path is a comparison (the kernel that served the shape
+    # before), counted in the 4FSK path's run, where it no longer launches
     least = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
     for r in rows:
-        path, shape = r.pop("path"), r.pop("shape")
+        path, shape = r["path"], r.pop("shape")
         op = r["name"].split("/")[0]
-        r["launches"] = reports[path].get(op, {}).get("shapes", {}).get(
-            f"cuda {shape}", 0)
-        if r["launches"] < least[path]:
+        r["launches"] = reports[path or "fsk"].get(op, {}).get(
+            "shapes", {}).get(f"cuda {shape}", 0)
+        if path is not None and r["launches"] < least[path]:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
                                f"times on the {path} path")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,19 +1,27 @@
-"""Strided streaming FIR: wrapper, plain version and the CUDA kernel
-`fir_stream_f32` (csrc/fir.cu).
+"""Strided streaming FIR: wrapper, plain version and the two CUDA kernels
+that compute it, `fir_stream_f32` (csrc/fir.cu) and `fir_decim_f32`
+(csrc/fir_decim.cu).
 
 Port of the two Pallas TPU kernels of qradiolink_tpu/ops/pallas_fir.py,
 `banded_fir_stream` (K1) and `banded_fir` (K2), which compute the same
-function, so one kernel serves both:
+function:
 
     y[m] = sum_k h[k] * xc[m*D + shift + K-1-k],   m in [0, n_out)
 
 over each row of the virtual stream xc = [tail | x] (K1, with a carried
 tail of K-1 samples) or xc = x (K2, no tail). The TPU kernels' banded
 matrices, 128-lane slabs and `plan()` gates have no counterpart here: every
-call on a CUDA tensor launches the kernel and computes all n_out outputs.
+call on a CUDA tensor launches a kernel and computes all n_out outputs.
+
+`route(K, D)` picks the kernel from the shape: `fir_decim_f32`, the
+polyphase kernel with its taps in registers, for a decimation of 32 to 64
+with at most 16 taps a phase (the 4FSK resampler head, K 419 D 50);
+`fir_stream_f32` for every other shape (the long NBFM head, the stride-1
+low-passes and RRC, the audio resampler's D 5 phases).
 
 On a CPU tensor the wrapper takes the plain version (F.conv1d over the
-explicit concatenation); on a CUDA tensor it launches the kernel or raises.
+explicit concatenation) and records it under the routed kernel's name; on a
+CUDA tensor it launches that kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,6 +36,11 @@ from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "fir_stream_f32"
+DECIM_OP = "fir_decim_f32"
+# fir_decim_f32's shapes: two phase columns a lane, and the kernel's
+# instantiations A = ceil(K/D) = 1 .. 16 (csrc/fir_decim.cu)
+DECIM_D = (32, 64)
+DECIM_MAX_A = 16
 _GRID_Y_MAX = 65_535
 
 
@@ -61,17 +74,29 @@ def fir_stream_plain(xs, taps_flipped, stride: int, n_out: int,
     return tuple(ys)
 
 
-def _lib():
-    lib = kernels.load("fir")
+def route(K: int, stride: int) -> str:
+    """The kernel that serves a FIR of K taps and stride D: fir_decim_f32
+    for 32 <= D <= 64 and ceil(K/D) <= 16, fir_stream_f32 otherwise."""
+    lo, hi = DECIM_D
+    if lo <= stride <= hi and -(-K // stride) <= DECIM_MAX_A:
+        return DECIM_OP
+    return OP
+
+
+def _lib(name, launch, error_string):
+    """csrc/<name>.cu's library; both kernels' launchers take the same C
+    arguments."""
+    lib = kernels.load(name)
     if not getattr(lib, "_qrl_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fir_stream_f32.argtypes = [p, p, i, p, p, p, p, p,
-                                       i, i, i, i, i, i, i, p]
-        lib.fir_stream_f32.restype = ctypes.c_int
-        lib.fir_stream_smem_bytes.argtypes = [i, i]
-        lib.fir_stream_smem_bytes.restype = ctypes.c_longlong
-        lib.fir_error_string.argtypes = [i]
-        lib.fir_error_string.restype = ctypes.c_char_p
+        fn = getattr(lib, launch)
+        fn.argtypes = [p, p, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        getattr(lib, error_string).argtypes = [i]
+        getattr(lib, error_string).restype = ctypes.c_char_p
+        if name == "fir":
+            lib.fir_stream_smem_bytes.argtypes = [i, i]
+            lib.fir_stream_smem_bytes.restype = ctypes.c_longlong
         lib._qrl_bound = True
     return lib
 
@@ -122,19 +147,29 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
     """
     xs = tuple(xs)
     tails = None if tails is None else tuple(tails)
-    K, T = _check(xs, taps_flipped, stride, n_out, tails, shift)
-    shape = f"K{K} D{stride}" + (" tail" if tails is not None else "")
+    K, _ = _check(xs, taps_flipped, stride, n_out, tails, shift)
+    op = route(K, stride)
     dev = xs[0].device
     if dev.type == "cpu":
-        kernel_paths.record(OP, False, shape)
+        kernel_paths.record(op, False, _shape_key(K, stride, tails))
         return fir_stream_plain(xs, taps_flipped, stride, n_out, tails,
                                 shift)
     if dev.type != "cuda":
-        raise ValueError(f"no {OP} kernel for device {dev}")
+        raise ValueError(f"no {op} kernel for device {dev}")
+    launch = _launch_decim if op == DECIM_OP else _launch_stream
+    return launch(xs, taps_flipped, stride, n_out, tails, shift)
 
-    lead = xs[0].shape[:-1]
+
+def _shape_key(K, stride, tails):
+    return f"K{K} D{stride}" + (" tail" if tails is not None else "")
+
+
+def _cuda_args(xs, taps_flipped, tails):
+    """(C, tail pointers, tail row stride) of planes on the card; raises on
+    a layout the kernels do not take."""
+    K = taps_flipped.shape[0]
     C = 1
-    for d in lead:
+    for d in xs[0].shape[:-1]:
         C *= d
     for x in xs:
         if not x.is_contiguous():
@@ -154,27 +189,57 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
                 raise ValueError("both tails need one row stride")
             tail_ld = tv.stride(0) if C > 1 else K - 1
             tail_ptrs[i] = t.data_ptr()
-    if C > _GRID_Y_MAX:
-        raise ValueError(f"{C} rows exceed the grid's {_GRID_Y_MAX}")
-    lib = _lib()
-    if lib.fir_stream_smem_bytes(K, stride) > kernels.SMEM_MAX:
-        raise ValueError(f"K={K}, D={stride} needs more shared memory than "
-                         f"a block has")
-    ys = tuple(torch.empty(lead + (n_out,), dtype=torch.float32, device=dev)
-               for _ in xs)
+    return C, tail_ptrs, tail_ld
+
+
+def _launch(op, fn, err_string, xs, taps_flipped, stride, n_out, tails,
+            shift, C, tail_ptrs, tail_ld):
+    """Allocate the outputs and launch one of the two kernels (same C
+    arguments) on the current stream; records the launch."""
+    K = taps_flipped.shape[0]
+    dev = xs[0].device
+    ys = tuple(torch.empty(xs[0].shape[:-1] + (n_out,), dtype=torch.float32,
+                           device=dev) for _ in xs)
     if n_out == 0:
         return ys
     two = len(xs) == 2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fir_stream_f32(
-            tail_ptrs[0], tail_ptrs[1] if two else None, tail_ld,
-            xs[0].data_ptr(), xs[1].data_ptr() if two else None,
-            taps_flipped.data_ptr(), ys[0].data_ptr(),
-            ys[1].data_ptr() if two else None,
-            C, T, K, stride, shift, n_out, len(xs), stream)
+        err = fn(tail_ptrs[0], tail_ptrs[1] if two else None, tail_ld,
+                 xs[0].data_ptr(), xs[1].data_ptr() if two else None,
+                 taps_flipped.data_ptr(), ys[0].data_ptr(),
+                 ys[1].data_ptr() if two else None,
+                 C, xs[0].shape[-1], K, stride, shift, n_out, len(xs),
+                 stream)
     if err:
-        raise RuntimeError(f"{OP} launch failed: "
-                           f"{lib.fir_error_string(err).decode()}")
-    kernel_paths.record(OP, True, shape)
+        raise RuntimeError(f"{op} launch failed: "
+                           f"{err_string(err).decode()}")
+    kernel_paths.record(op, True, _shape_key(K, stride, tails))
     return ys
+
+
+def _launch_stream(xs, taps_flipped, stride, n_out, tails=None, shift=0):
+    """fir_stream_f32 on CUDA planes, at any shape."""
+    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
+    if C > _GRID_Y_MAX:
+        raise ValueError(f"{C} rows exceed the grid's {_GRID_Y_MAX}")
+    lib = _lib("fir", "fir_stream_f32", "fir_error_string")
+    if lib.fir_stream_smem_bytes(taps_flipped.shape[0], stride) \
+            > kernels.SMEM_MAX:
+        raise ValueError(f"K={taps_flipped.shape[0]}, D={stride} needs more "
+                         f"shared memory than a block has")
+    return _launch(OP, lib.fir_stream_f32, lib.fir_error_string, xs,
+                   taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
+                   tail_ld)
+
+
+def _launch_decim(xs, taps_flipped, stride, n_out, tails=None, shift=0):
+    """fir_decim_f32 on CUDA planes, at a shape route() gives it."""
+    if route(taps_flipped.shape[0], stride) != DECIM_OP:
+        raise ValueError(f"{DECIM_OP} takes no K={taps_flipped.shape[0]}, "
+                         f"D={stride}")
+    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
+    lib = _lib("fir_decim", "fir_decim_f32", "fir_decim_error_string")
+    return _launch(DECIM_OP, lib.fir_decim_f32, lib.fir_decim_error_string,
+                   xs, taps_flipped, stride, n_out, tails, shift, C,
+                   tail_ptrs, tail_ld)

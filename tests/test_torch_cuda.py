@@ -33,7 +33,7 @@ from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
     depthwise_fir, depthwise_fir_plain)
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
-    fir_stream, fir_stream_plain)
+    fir_stream, fir_stream_plain, route)
 from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
@@ -79,9 +79,64 @@ def test_fir_kernel_matches_plain(cuda, gen, stage):
     n_out = (T // D) if tail else (T - K) // D + 1
     kernel_paths.reset()
     got = fir_stream(xs, tf, D, n_out, tails=tails, shift=shift)
-    assert kernel_paths.launches("fir_stream_f32") == 1
+    assert kernel_paths.launches(route(K, D)) == 1
     ref = fir_stream_plain(xs, tf, D, n_out, tails=tails, shift=shift)
     _assert_fir_close(got, ref)
+
+
+# fir_decim_f32's shapes, as in tests/test_torch_fir.py's CPU model test:
+# name: (C, T, K, D, shift, planes, tail)
+DECIM_CASES = {
+    "head": (4, 20_000, 419, 50, 0, 2, True),
+    "k_multiple_of_d": (4, 10_000, 400, 50, 0, 2, True),
+    "k_below_d": (4, 10_000, 40, 50, 0, 2, True),
+    "shift": (4, 10_000, 419, 50, 12, 2, True),
+    "ragged_chunk": (3, 13_150, 419, 50, 0, 2, True),
+    "one_row_one_plane": (1, 5000, 419, 50, 0, 1, True),
+    "no_tail": (4, 10_000, 419, 50, 0, 1, False),
+    "d64_a16": (2, 64 * 300, 1024, 64, 0, 2, True),
+    "d32": (2, 32 * 300, 100, 32, 5, 2, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECIM_CASES))
+def test_fir_decim_kernel_matches_plain(cuda, gen, name):
+    C, T, K, D, shift, planes, tail = DECIM_CASES[name]
+    if K == 419:
+        tf = Fsk4DemodFF(device=cuda).resamp.phase_taps[0]
+    else:
+        tf = torch.randn((K,), generator=gen, device=cuda) / K ** 0.5
+    xs = [torch.randn((C, T), generator=gen, device=cuda)
+          for _ in range(planes)]
+    st = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
+    tails = (st[:, 0, :], st[:, 1, :])[:planes] if tail else None
+    n_out = (T // D) if tail else (T - shift - K) // D + 1
+    kernel_paths.reset()
+    got = fir_stream(xs, tf, D, n_out, tails=tails, shift=shift)
+    assert kernel_paths.launches("fir_decim_f32") == 1
+    assert kernel_paths.launches("fir_stream_f32") == 0
+    _assert_fir_close(got, fir_stream_plain(xs, tf, D, n_out, tails=tails,
+                                            shift=shift))
+
+
+def test_fir_decim_head_two_chained_blocks(cuda, gen):
+    """The 4FSK resampler head as the chain runs it: two blocks, the tails
+    strided views of the (C, 2, K-1) state, the second block reading the
+    tail the first one left."""
+    rs = Fsk4DemodFF(lead_shape=(64,), device=cuda).resamp
+    C, T, k1 = 64, 200_000, rs.kp - 1
+    state = torch.randn((C, 2, k1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = IqPair(torch.randn((C, T), generator=gen, device=cuda),
+                   torch.randn((C, T), generator=gen, device=cuda))
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report()["fir_decim_f32"]["shapes"] == {
+            f"cuda K{rs.kp} D{rs.M} tail": 1}
+        ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
+                               T // rs.M, tails=(state[:, 0], state[:, 1]))
+        _assert_fir_close((y.re, y.im), ref)
+        state = new_state
 
 
 def _assert_fir_close(got, ref):

@@ -6,6 +6,7 @@ the bound the JAX package holds its own FIR kernels to
 (tests/test_pallas_kernels.py)."""
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -20,10 +21,12 @@ from qradiolink_tpu.ops import firdes as jfirdes  # noqa: E402
 from qradiolink_tpu.ops import fir as jfir  # noqa: E402
 from qradiolink_tpu.ops.resample import (  # noqa: E402
     RationalResampler as JaxResampler, design_resampler_taps)
+from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
+from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.ops import firdes, fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
-    fir_stream, fir_stream_plain)
+    fir_stream, fir_stream_plain, route)
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 from tests.torch_parity import stream_both  # noqa: E402
@@ -191,3 +194,163 @@ def test_wrapper_rejects_bad_input(bad):
         kw["tails"] = (x[:, :3],)
     with pytest.raises(ValueError):
         fir_stream(xs, tf, 5, **kw)
+
+
+# ---- fir_decim_f32 (csrc/fir_decim.cu): a numpy model of its loop -------
+
+def decim_model(tails, xs, tf, D, shift, n_out):
+    """numpy model of fir_decim_f32's polyphase loop, line for line: the
+    taps padded to A*D in two phase columns a lane, chunks of MW outputs a
+    warp, rows of D loaded per lane with the tail/x seam resolved per
+    element and loads past the stream reading 0, the ring of A
+    accumulators, and the 32 x 32 tile of lane partials summed lane by
+    lane every 32 outputs. tails: one (C, K-1) array per plane, or None;
+    xs: (C, T)."""
+    K = tf.shape[0]
+    A = -(-K // D)
+    NG = (256 + A - 1) // A + 1
+    MW = (NG - 1) * A + 1
+    lane = np.arange(32)
+    has0, has1 = lane < D, lane + 32 < D
+    j = np.arange(A)[:, None] * D + lane
+    t0 = np.where(has0 & (j < K), tf[np.minimum(j, K - 1)], 0)
+    t1 = np.where(has1 & (j + 32 < K), tf[np.minimum(j + 32, K - 1)], 0)
+    t0, t1 = t0.astype(np.float32), t1.astype(np.float32)
+    ys = []
+    for p, x in enumerate(xs):
+        C, T = x.shape
+        tail = np.zeros((C, 0), np.float32) if tails is None else tails[p]
+        tail_len = tail.shape[1]
+        n_in = tail_len + T
+
+        def load(v, has):
+            ok = has & (v < n_in)
+            vt = np.clip(v, 0, max(tail_len - 1, 0))
+            vx = np.clip(v - tail_len, 0, T - 1)
+            val = np.where(v < tail_len, tail[:, vt] if tail_len else 0,
+                           x[:, vx])
+            return np.where(ok, val, 0).astype(np.float32)
+
+        y = np.full((C, n_out), np.nan, np.float32)
+        for m0 in range(0, n_out, MW):
+            m_end = min(m0 + MW, n_out)
+            acc = np.zeros((A, C, 32), np.float32)
+            red = np.zeros((C, 32, 32), np.float32)  # [output, lane]
+            for r in range(NG * A):
+                if r % A == 0 and m0 + r - (A - 1) >= m_end:
+                    break
+                v = (m0 + r) * D + shift + lane
+                x0, x1 = load(v, has0), load(v + 32, has1)
+                u = r % A
+                for a in range(A):
+                    s = (u - a) % A
+                    acc[s] = acc[s] + t0[a] * x0
+                    acc[s] = acc[s] + t1[a] * x1
+                s = (u + 1) % A
+                jo = r - (A - 1)
+                if jo >= 0 and m0 + jo < m_end:
+                    red[:, jo & 31] = acc[s]
+                    if jo & 31 == 31 or m0 + jo == m_end - 1:
+                        total = np.zeros((C, 32), np.float32)
+                        for k in range(32):
+                            total = total + red[:, :, k]
+                        n = (jo & 31) + 1
+                        base = m0 + (jo & ~31)
+                        y[:, base: base + n] = total[:, :n]
+                acc[s] = 0
+        ys.append(y)
+    return ys
+
+
+# name: (C, T, K, D, shift, planes, tail); the head's taps at K 419, seeded
+# random taps elsewhere
+DECIM_CASES = {
+    "head": (4, 20_000, 419, 50, 0, 2, True),
+    "k_multiple_of_d": (4, 10_000, 400, 50, 0, 2, True),
+    "k_below_d": (4, 10_000, 40, 50, 0, 2, True),
+    "shift": (4, 10_000, 419, 50, 12, 2, True),
+    "ragged_chunk": (3, 13_150, 419, 50, 0, 2, True),  # n_out = MW + 1
+    "one_row_one_plane": (1, 5000, 419, 50, 0, 1, True),
+    "no_tail": (4, 10_000, 419, 50, 0, 1, False),
+    "d64_a16": (2, 64 * 300, 1024, 64, 0, 2, True),
+    "d32": (2, 32 * 300, 100, 32, 5, 2, True),
+}
+
+
+def decim_case(name, rng):
+    """numpy inputs of one case: (tails or None, xs, tf, D, shift, n_out)."""
+    C, T, K, D, shift, planes, tail = DECIM_CASES[name]
+    if K == 419:
+        tf = _taps("head")[::-1].astype(np.float32)
+    else:
+        tf = (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
+    xs = [rng.standard_normal((C, T)).astype(np.float32)
+          for _ in range(planes)]
+    tails = ([rng.standard_normal((C, K - 1)).astype(np.float32)
+              for _ in range(planes)] if tail else None)
+    n_out = (T // D) if tail else (T - shift - K) // D + 1
+    return tails, xs, np.ascontiguousarray(tf), D, shift, n_out
+
+
+@pytest.mark.parametrize("name", sorted(DECIM_CASES))
+def test_decim_model_matches_plain(rng, name):
+    """The kernel's index math (the numpy model) against fir_stream_plain,
+    within the FIR's 1e-5."""
+    tails, xs, tf, D, shift, n_out = decim_case(name, rng)
+    K = tf.shape[0]
+    assert route(K, D) == "fir_decim_f32"
+    got = decim_model(tails, xs, tf, D, shift, n_out)
+    ref = fir_stream_plain(
+        [torch.from_numpy(x) for x in xs], torch.from_numpy(tf), D, n_out,
+        tails=None if tails is None else [torch.from_numpy(t)
+                                          for t in tails], shift=shift)
+    for g, r in zip(got, ref):
+        assert not np.isnan(g).any(), "an output was never written"
+        np.testing.assert_allclose(g, r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("stage,want", [
+    ("fsk head K419 D50", "fir_decim_f32"),
+    ("fsk channel LP K55 D1", "fir_stream_f32"),
+    ("fsk RRC K251 D1", "fir_stream_f32"),
+    ("nbfm head K2239 D50", "fir_stream_f32"),
+    ("nbfm audio resampler D5", "fir_stream_f32"),
+    ("K419 D100", "fir_stream_f32"),
+    ("K496 D31", "fir_stream_f32"),
+    ("K512 D32", "fir_decim_f32"),
+    ("K1024 D64", "fir_decim_f32"),
+    ("K1025 D64", "fir_stream_f32"),
+    ("K800 D65", "fir_stream_f32"),
+])
+def test_fir_route_recorded_on_cpu(stage, want):
+    """On CPU tensors each stage records `plain` under the kernel its shape
+    routes to: the 4FSK head under fir_decim_f32, every other FIR under
+    fir_stream_f32."""
+    fsk, nbfm = Fsk4DemodFF(device="cpu"), NbfmDemod(device="cpu")
+    kernel_paths.reset()
+    if stage.startswith("fsk head"):
+        x = torch.zeros(5000)
+        fsk.resamp(fsk.resamp.init_state(), IqPair(x, x))
+    elif stage.startswith("fsk channel"):
+        x = torch.zeros(200)
+        fsk.chan_filter(fsk.chan_filter.init_state(), IqPair(x, x))
+    elif stage.startswith("fsk RRC"):
+        fsk.shaping(fsk.shaping.init_state(), torch.zeros(200))
+    elif stage.startswith("nbfm head"):
+        x = torch.zeros(5000)
+        nbfm.resamp(nbfm.resamp.init_state(), IqPair(x, x))
+    elif stage.startswith("nbfm audio"):
+        x = torch.zeros(500)
+        nbfm.audio_resamp(nbfm.audio_resamp.init_state(), IqPair(x, x))
+    else:
+        K, D = (int(s[1:]) for s in stage.split())
+        x = torch.zeros(2, 4 * D)
+        tf = torch.ones(K)
+        t = torch.zeros(2, K - 1)
+        fir_stream((x, x), tf, D, 4, tails=(t, t))
+    rep = kernel_paths.report()
+    assert set(rep) == {want}, rep
+    assert rep[want]["cuda"] == 0 and rep[want]["plain"] >= 1
+    shape = re.search(r"(K\d+ )?D\d+$", stage).group(0)
+    assert all(re.search(rf"\b{shape}\b", k) for k in rep[want]["shapes"]), \
+        rep
