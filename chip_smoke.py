@@ -10,20 +10,24 @@ when the package cannot be imported, and when any phase fails:
 
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
-    spills in csrc/fir_decim.cu);
+    spills in csrc/fir_decim.cu and csrc/fir_s1.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
     and its bound on this card:
     - the strided FIR (K1/K2) at the 4FSK path's resampler head (two
       chained blocks), channel low-pass and RRC (2048 channels x 200,000
-      samples a step), and at the NBFM group's resampler head (2,239 taps,
-      32 channels x 100,000), within 1e-5 (relative to the output's peak,
-      and elementwise |k - p| <= 1e-5 + 1e-5 |p|); F.conv1d is the
-      yardstick. The head (419 taps, D 50) routes to fir_decim_f32, every
-      other shape to fir_stream_f32; at the head fir_stream_f32 is held
-      against the plain version too and timed in turns with fir_decim_f32
-      (old, new, new, old), its row kept with "path": null;
+      samples a step), and at the NBFM group's resampler head (2,239 taps),
+      channel low-pass (133 taps) and audio low-pass (55 taps, real) of
+      the mixed path (32 channels x 100,000 samples), within 1e-5
+      (relative to the output's peak, and elementwise |k - p| <= 1e-5 +
+      1e-5 |p|); F.conv1d is the yardstick. The head (419 taps, D 50)
+      routes to fir_decim_f32, the stride-1 filters to fir_s1_f32, the
+      NBFM head to fir_stream_f32. Where the route picks a new kernel,
+      fir_stream_f32, which served the shape before, is held against the
+      plain version too and timed in turns with it (old, new, new, old),
+      its row kept with "path": null; fir_s1_f32 must equal
+      fir_stream_f32 bit for bit;
     - the Viterbi (K3) bit-exact on integer soft, on non-integer chain-like
       soft, and decoding real CCSDS codewords;
     - the per-row depthwise FIR (K4) at the synthesizer's branch shape (64
@@ -38,15 +42,15 @@ when the package cannot be imported, and when any phase fails:
       does not keep: output within 1e-5 of the peak, both routes timed;
  4. the 4FSK main path: Fsk4DemodFF(lead_shape=(2048,)) for 3 steps of
     200,000 samples with state carried, launch counters zeroed just before
-    and read just after (fir_decim_f32, fir_stream_f32 and the Viterbi
-    must launch on every step, nothing on a plain path); then one more
+    and read just after (fir_decim_f32, fir_s1_f32 and the Viterbi must
+    launch on every step, nothing on a plain path); then one more
     step timed stage by stage, and one under torch.profiler (device ops,
     busy time, idle share);
  5. the mixed main path: MultichannelRx(64) on one wideband stream of
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
-    counters zeroed before and read after (K5, both FIR kernels and the
-    Viterbi on every step, nothing on a plain path); one more step
+    counters zeroed before and read after (K5, the three FIR kernels and
+    the Viterbi on every step, nothing on a plain path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
  6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
     blocks through Fsk4DemodFF on the card and on the CPU: the bits must
@@ -87,10 +91,17 @@ RT_STEPS = 8        # round trip: 8 x 100,000 = the capture's length
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 FIR_TOL = 1e-5
+# device cycles that each timed call waits behind (about 0.5 ms at the
+# H100's clock)
+SLEEP_CYCLES = 1_000_000
 
 
 def cuda_times(fn, iters=10, warmup=2):
-    """Times of `iters` calls of fn() in ms, by CUDA events around each."""
+    """Device times of `iters` calls of fn() in ms, by CUDA events around
+    each. A device-side sleep is queued ahead of the start event, so the
+    host's work in fn before its first launch (a wrapper's checks and
+    allocations, tens of microseconds) overlaps the sleep and is not
+    timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -98,6 +109,7 @@ def cuda_times(fn, iters=10, warmup=2):
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -173,9 +185,13 @@ def peak_err(name, kern, plain, tol):
     return err
 
 
-def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, path, shape):
-    """One kernel entry; `path` names the run whose launch counts fill in
-    `launches`, `shape` the wrapper's shape key in that run's report."""
+def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
+        routed=True):
+    """One kernel entry. `run` names the path whose run gives the kernel
+    this shape, `shape` the wrapper's key for it in that run's report: the
+    count there fills in `launches`. A kernel that the route does not give
+    the shape (`routed` false, "path": null) must have launched there 0
+    times."""
     print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
@@ -183,37 +199,50 @@ def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, path, shape):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": lib_ms, "path": path, "shape": shape}
+            "library_ms": lib_ms, "path": run if routed else None,
+            "run": run, "shape": shape}
 
 
 FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
-              "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu"}
+              "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu",
+              "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu"}
 
 
-def fir_row(name, replaces, xs, tf, D, n_out, tails, shape, path,
-            timing=True):
+def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True):
     """The strided FIR kernel that the shape routes to against its plain
-    version (and F.conv1d). Where that is fir_decim_f32, fir_stream_f32,
-    which served the shape before, is held against the plain version too
-    and timed in turns with it (old, new, new, old); its row has no path."""
+    version (and F.conv1d), on the shape that path `run` gives it. Where
+    the route picks a new kernel, fir_stream_f32, which served the shape
+    before, is held against the plain version too and timed in turns with
+    it (old, new, new, old); its row has no path. fir_s1_f32 keeps
+    fir_stream_f32's sum order, so their outputs must be equal bit for
+    bit."""
     from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
     K = tf.shape[0]
+    n_rows = xs[0].numel() // xs[0].shape[-1]
+    shape = cuda_fir.shape_key(xs, K, D, tails)
     op = cuda_fir.route(K, D)
     fns = {op: lambda: cuda_fir.fir_stream(xs, tf, D, n_out, tails=tails)}
-    if op == cuda_fir.DECIM_OP:
+    if op != cuda_fir.OP:
         fns = {cuda_fir.OP: lambda: cuda_fir._launch_stream(
             xs, tf, D, n_out, tails), **fns}
     plain = cuda_fir.fir_stream_plain(xs, tf, D, n_out, tails=tails)
-    errs = {k: check_fir(f"{k}/{name}", fn(), plain) for k, fn in
-            fns.items()}
+    outs = {k: fn() for k, fn in fns.items()}
+    errs = {k: check_fir(f"{k}/{name}", y, plain) for k, y in outs.items()}
+    if cuda_fir.S1_OP in outs:
+        if not all(torch.equal(a, b) for a, b in
+                   zip(outs[cuda_fir.S1_OP], outs[cuda_fir.OP])):
+            raise RuntimeError(f"{cuda_fir.S1_OP}/{name}: not bit-equal "
+                               f"to {cuda_fir.OP}")
+        print(f"  {cuda_fir.S1_OP}/{name}: bit-equal to {cuda_fir.OP}",
+              flush=True)
+    del outs
     torch.cuda.synchronize()
     if not timing:
         for k, err in errs.items():
             print(f"  {k}/{name}: max_abs_err {err:.3e}", flush=True)
         return []
-    n_rows = xs[0].numel() // xs[0].shape[-1]
     xcat = [x if tails is None else torch.cat([t, x], -1)
             for x, t in zip(xs, tails or [None] * len(xs))]
     lib_in = torch.stack(xcat).reshape(-1, 1, xcat[0].shape[-1])
@@ -232,7 +261,7 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, shape, path,
     n_bytes = 4 * (n_in + len(xs) * n_rows * n_out + K)
     b = bound(n_bytes, 2 * K * len(xs) * n_rows * n_out)
     return [row(f"{k}/{name}", FIR_SOURCE[k], replaces, errs[k], ms[k],
-                plain_ms, b, lib_ms, path if k == op else None, shape)
+                plain_ms, b, lib_ms, run, shape, routed=k == op)
             for k in sorted(fns, key=lambda k: k != op)]
 
 
@@ -253,7 +282,7 @@ def fir_phase(chain, nbfm, dev, gen):
         tails = (state[:, 0, :], state[:, 1, :])
         rows += fir_row("head", "qradiolink_tpu/ops/pallas_fir.py:218", x,
                         rs.phase_taps[0], rs.M, T_STEP // rs.M, tails,
-                        f"K{rs.kp} D{rs.M} tail", "fsk", timing=blk == 1)
+                        "fsk", timing=blk == 1)
         state = torch.stack([x[0][:, -k1:], x[1][:, -k1:]], dim=-2)
         del x
     n_lo = T_STEP // rs.M
@@ -261,21 +290,41 @@ def fir_phase(chain, nbfm, dev, gen):
     st = randn(N_CH, 2, cf.ntaps - 1)
     rows += fir_row("chan_lp", "qradiolink_tpu/ops/pallas_fir.py:218",
                     (randn(N_CH, n_lo), randn(N_CH, n_lo)), cf.taps_flipped,
-                    1, n_lo, (st[:, 0, :], st[:, 1, :]),
-                    f"K{cf.ntaps} D1 tail", "fsk")
+                    1, n_lo, (st[:, 0, :], st[:, 1, :]), "fsk")
+    # the RRC's real input: its tail read in place from the (C, 2, K-1)
+    # state, as FirFilter reads it
     sh = chain.shaping
+    st = randn(N_CH, 2, sh.ntaps - 1)
     rows += fir_row("rrc", "qradiolink_tpu/ops/pallas_fir.py:111",
-                    (randn(N_CH, n_lo + sh.ntaps - 1),), sh.taps_flipped, 1,
-                    n_lo, None, f"K{sh.ntaps} D1", "fsk")
-    # the NBFM group's resampler head of the mixed path: 32 ch x 100,000
+                    (randn(N_CH, n_lo),), sh.taps_flipped, 1, n_lo,
+                    (st[:, 0, :],), "fsk")
+    # the mixed path's groups, 32 ch x 100,000 samples each: the FSK
+    # group's channel LP and RRC at 2,000; the NBFM group's resampler head,
+    # channel LP at 2,000 and audio LP at 800
     nr = nbfm.resamp
     n_nb = MIX_M // 2
+    for name, replaces, blk, planes in (("fsk32_chan_lp", 218, cf, 2),
+                                        ("fsk32_rrc", 111, sh, 1)):
+        st = randn(n_nb, 2, blk.ntaps - 1)
+        rows += fir_row(name, f"qradiolink_tpu/ops/pallas_fir.py:{replaces}",
+                        tuple(randn(n_nb, MIX_T // rs.M)
+                              for _ in range(planes)),
+                        blk.taps_flipped, 1, MIX_T // rs.M,
+                        (st[:, 0, :], st[:, 1, :])[:planes], "mixed")
     st = randn(n_nb, 2, nr.kp - 1)
     rows += fir_row("nbfm_head", "qradiolink_tpu/ops/pallas_fir.py:218",
                     (randn(n_nb, MIX_T), randn(n_nb, MIX_T)),
                     nr.phase_taps[0], nr.M, MIX_T // nr.M,
-                    (st[:, 0, :], st[:, 1, :]), f"K{nr.kp} D{nr.M} tail",
-                    "mixed")
+                    (st[:, 0, :], st[:, 1, :]), "mixed")
+    n_ch = MIX_T // nr.M
+    for name, blk, n, planes in (
+            ("nbfm_chan_lp", nbfm.chan_filter, n_ch, 2),
+            ("nbfm_audio_lp", nbfm.audio_filter, n_ch * 2 // 5, 1)):
+        st = randn(n_nb, 2, blk.ntaps - 1)
+        rows += fir_row(name, "qradiolink_tpu/ops/pallas_fir.py:218",
+                        tuple(randn(n_nb, n) for _ in range(planes)),
+                        blk.taps_flipped, 1, n,
+                        (st[:, 0, :], st[:, 1, :])[:planes], "mixed")
     return rows
 
 
@@ -505,8 +554,8 @@ def drive(fn, state, x, every_step):
 
 
 # ops each main path must launch on every step
-FSK_EVERY_STEP = ("fir_decim_f32", "fir_stream_f32", "viterbi_tiled_k7")
-MIXED_EVERY_STEP = ("pfb_channelize_f32",) + FSK_EVERY_STEP
+FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_tiled_k7")
+MIXED_EVERY_STEP = ("pfb_channelize_f32", "fir_stream_f32") + FSK_EVERY_STEP
 
 
 def main_path(chain, dev, gen):
@@ -541,10 +590,12 @@ def main_path(chain, dev, gen):
     stages = {}
     x = timed(stages, "resampler (fir_decim_f32 head)",
               lambda: seq(chain.resamp, iq))
-    x = timed(stages, "channel LP (fir)", lambda: seq(chain.chan_filter, x))
+    x = timed(stages, "channel LP (fir_s1_f32 K55)",
+              lambda: seq(chain.chan_filter, x))
     timed(stages, "rssi", lambda: rssi_dbm(x))
     x = timed(stages, "quadrature demod", lambda: seq(chain.quad, x))
-    x = timed(stages, "RRC (fir)", lambda: seq(chain.shaping, x))
+    x = timed(stages, "RRC (fir_s1_f32 K251)",
+              lambda: seq(chain.shaping, x))
     syms = timed(stages, "feedforward sync",
                  lambda: seq(chain.symbol_sync, x))
 
@@ -610,16 +661,16 @@ def mixed_path(dev, gen):
     timed(stages, "FSK group (32 ch)", lambda: fchain(g_states[0], xf))
     timed(stages, "NBFM group (32 ch)", lambda: nchain(g_states[1], xn))
     seq = Sequencer(g_states[1])
-    x = timed(stages, "nbfm resampler (fir head K2239 D50)",
+    x = timed(stages, "nbfm resampler (fir_stream_f32 head K2239 D50)",
               lambda: seq(nchain.resamp, xn))
-    x = timed(stages, "nbfm channel LP (fir K133)",
+    x = timed(stages, "nbfm channel LP (fir_s1_f32 K133)",
               lambda: seq(nchain.chan_filter, x))
     timed(stages, "nbfm rssi", lambda: rssi_dbm(x))
     x = timed(stages, "nbfm power squelch", lambda: seq(nchain.squelch, x))
     x = timed(stages, "nbfm quadrature demod", lambda: seq(nchain.quad, x))
-    x = timed(stages, "nbfm audio resampler (2/5, fir)",
+    x = timed(stages, "nbfm audio resampler (2/5, fir_stream_f32)",
               lambda: seq(nchain.audio_resamp, x))
-    x = timed(stages, "nbfm audio LP (fir K55)",
+    x = timed(stages, "nbfm audio LP (fir_s1_f32 K55)",
               lambda: seq(nchain.audio_filter, x))
     timed(stages, "nbfm de-emphasis", lambda: seq(nchain.deemph, x))
     print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
@@ -762,9 +813,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # fir_decim_f32 keeps taps, ring and prefetched rows in registers
-    if re.search(r"[1-9]\d* bytes spill", logs.get("fir_decim", "")):
-        raise RuntimeError("ptxas spilled registers in csrc/fir_decim.cu")
+    # fir_decim_f32 and fir_s1_f32 keep their rings in registers
+    for name in ("fir_decim", "fir_s1"):
+        if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
+            raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -795,18 +847,20 @@ def main() -> int:
     print("round trip through the synthesizer:", flush=True)
     reports["round_trip"] = round_trip_phase(dev)
 
-    # each kernel's launches in the run of the path that uses its shape; a
-    # row with no path is a comparison (the kernel that served the shape
-    # before), counted in the 4FSK path's run, where it no longer launches
-    least = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
+    # each kernel's launches at its shape in the run of the path that
+    # gives it that shape: one a step for the kernel that the route picks,
+    # none for the one it replaced (a row with no path)
+    steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
     for r in rows:
-        path, shape = r["path"], r.pop("shape")
+        run, shape = r.pop("run"), r.pop("shape")
         op = r["name"].split("/")[0]
-        r["launches"] = reports[path or "fsk"].get(op, {}).get(
-            "shapes", {}).get(f"cuda {shape}", 0)
-        if path is not None and r["launches"] < least[path]:
+        r["launches"] = reports[run].get(op, {}).get("shapes", {}).get(
+            f"cuda {shape}", 0)
+        want = 0 if r["path"] is None else steps[run]
+        if r["launches"] != want:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
-                               f"times on the {path} path")
+                               f"times at {shape} on the {run} path, not "
+                               f"{want}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@ src/gr/gr_demod_4fsk.cpp, sps=5 config).
 
 resampler (1 Msps -> 20 ksps for 2KFM) -> channel low-pass -> quadrature
 demod -> RRC -> feedforward symbol sync -> soft pairs -> tiled Viterbi +
-descrambler. On CUDA the three FIR stages run the `fir_stream_f32` kernel
-and the Viterbi the `viterbi_tiled_k7` kernel; everything else is plain
-PyTorch.
+descrambler. On CUDA the resampler head runs the `fir_decim_f32` kernel,
+the channel low-pass and the RRC the `fir_s1_f32` kernel
+(`ops/cuda_fir.route`), and the Viterbi the `viterbi_tiled_k7` kernel;
+everything else is plain PyTorch.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Strided streaming FIR: wrapper, plain version and the two CUDA kernels
-that compute it, `fir_stream_f32` (csrc/fir.cu) and `fir_decim_f32`
-(csrc/fir_decim.cu).
+"""Strided streaming FIR: wrapper, plain version and the three CUDA kernels
+that compute it, `fir_stream_f32` (csrc/fir.cu), `fir_decim_f32`
+(csrc/fir_decim.cu) and `fir_s1_f32` (csrc/fir_s1.cu).
 
 Port of the two Pallas TPU kernels of qradiolink_tpu/ops/pallas_fir.py,
 `banded_fir_stream` (K1) and `banded_fir` (K2), which compute the same
@@ -16,8 +16,11 @@ call on a CUDA tensor launches a kernel and computes all n_out outputs.
 `route(K, D)` picks the kernel from the shape: `fir_decim_f32`, the
 polyphase kernel with its taps in registers, for a decimation of 32 to 64
 with at most 16 taps a phase (the 4FSK resampler head, K 419 D 50);
-`fir_stream_f32` for every other shape (the long NBFM head, the stride-1
-low-passes and RRC, the audio resampler's D 5 phases).
+`fir_s1_f32`, register-blocked over outputs, for stride 1 with at most
+2,048 taps (the channel low-passes, the RRC and the NBFM audio low-pass);
+`fir_stream_f32` for every other shape (the long NBFM head, the audio
+resampler's D 5 phases). `fir_s1_f32` sums in the order of `fir_stream_f32`,
+so the two give equal bits.
 
 On a CPU tensor the wrapper takes the plain version (F.conv1d over the
 explicit concatenation) and records it under the routed kernel's name; on a
@@ -37,10 +40,15 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "fir_stream_f32"
 DECIM_OP = "fir_decim_f32"
+S1_OP = "fir_s1_f32"
 # fir_decim_f32's shapes: two phase columns a lane, and the kernel's
 # instantiations A = ceil(K/D) = 1 .. 16 (csrc/fir_decim.cu)
 DECIM_D = (32, 64)
 DECIM_MAX_A = 16
+# fir_s1_f32's longest filter: its taps and the span of a 1,024-output tile
+# then take 22 KB of shared memory a block, which leaves room for several
+# blocks an SM (csrc/fir_s1.cu)
+S1_MAX_K = 2048
 _GRID_Y_MAX = 65_535
 
 
@@ -74,17 +82,30 @@ def fir_stream_plain(xs, taps_flipped, stride: int, n_out: int,
     return tuple(ys)
 
 
+def _decim_takes(K: int, stride: int) -> bool:
+    """Whether fir_decim_f32 computes a FIR of K taps and stride D."""
+    lo, hi = DECIM_D
+    return lo <= stride <= hi and -(-K // stride) <= DECIM_MAX_A
+
+
+def s1_takes(K: int, stride: int) -> bool:
+    """Whether fir_s1_f32 computes a FIR of K taps and stride D."""
+    return stride == 1 and K <= S1_MAX_K
+
+
 def route(K: int, stride: int) -> str:
     """The kernel that serves a FIR of K taps and stride D: fir_decim_f32
-    for 32 <= D <= 64 and ceil(K/D) <= 16, fir_stream_f32 otherwise."""
-    lo, hi = DECIM_D
-    if lo <= stride <= hi and -(-K // stride) <= DECIM_MAX_A:
+    for 32 <= D <= 64 and ceil(K/D) <= 16, fir_s1_f32 for D = 1 and
+    K <= 2048, fir_stream_f32 otherwise."""
+    if _decim_takes(K, stride):
         return DECIM_OP
+    if s1_takes(K, stride):
+        return S1_OP
     return OP
 
 
 def _lib(name, launch, error_string):
-    """csrc/<name>.cu's library; both kernels' launchers take the same C
+    """csrc/<name>.cu's library; the kernels' launchers take the same C
     arguments."""
     lib = kernels.load(name)
     if not getattr(lib, "_qrl_bound", False):
@@ -151,26 +172,36 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
     op = route(K, stride)
     dev = xs[0].device
     if dev.type == "cpu":
-        kernel_paths.record(op, False, _shape_key(K, stride, tails))
+        kernel_paths.record(op, False, shape_key(xs, K, stride, tails))
         return fir_stream_plain(xs, taps_flipped, stride, n_out, tails,
                                 shift)
     if dev.type != "cuda":
         raise ValueError(f"no {op} kernel for device {dev}")
-    launch = _launch_decim if op == DECIM_OP else _launch_stream
+    launch = {DECIM_OP: _launch_decim, S1_OP: _launch_s1}.get(
+        op, _launch_stream)
     return launch(xs, taps_flipped, stride, n_out, tails, shift)
 
 
-def _shape_key(K, stride, tails):
-    return f"K{K} D{stride}" + (" tail" if tails is not None else "")
+def _rows(x):
+    n = 1
+    for d in x.shape[:-1]:
+        n *= d
+    return n
+
+
+def shape_key(xs, K, stride, tails):
+    """A call's key in the launch report: taps, stride, whether it reads a
+    tail, and planes x rows, which tells apart the stages that share K
+    and D."""
+    return (f"K{K} D{stride}" + (" tail" if tails is not None else "")
+            + f" {len(xs)}x{_rows(xs[0])}")
 
 
 def _cuda_args(xs, taps_flipped, tails):
     """(C, tail pointers, tail row stride) of planes on the card; raises on
     a layout the kernels do not take."""
     K = taps_flipped.shape[0]
-    C = 1
-    for d in xs[0].shape[:-1]:
-        C *= d
+    C = _rows(xs[0])
     for x in xs:
         if not x.is_contiguous():
             raise ValueError("planes must be contiguous")
@@ -194,7 +225,7 @@ def _cuda_args(xs, taps_flipped, tails):
 
 def _launch(op, fn, err_string, xs, taps_flipped, stride, n_out, tails,
             shift, C, tail_ptrs, tail_ld):
-    """Allocate the outputs and launch one of the two kernels (same C
+    """Allocate the outputs and launch one of the kernels (same C
     arguments) on the current stream; records the launch."""
     K = taps_flipped.shape[0]
     dev = xs[0].device
@@ -214,7 +245,7 @@ def _launch(op, fn, err_string, xs, taps_flipped, stride, n_out, tails,
     if err:
         raise RuntimeError(f"{op} launch failed: "
                            f"{err_string(err).decode()}")
-    kernel_paths.record(op, True, _shape_key(K, stride, tails))
+    kernel_paths.record(op, True, shape_key(xs, K, stride, tails))
     return ys
 
 
@@ -234,8 +265,8 @@ def _launch_stream(xs, taps_flipped, stride, n_out, tails=None, shift=0):
 
 
 def _launch_decim(xs, taps_flipped, stride, n_out, tails=None, shift=0):
-    """fir_decim_f32 on CUDA planes, at a shape route() gives it."""
-    if route(taps_flipped.shape[0], stride) != DECIM_OP:
+    """fir_decim_f32 on CUDA planes, at a shape it takes."""
+    if not _decim_takes(taps_flipped.shape[0], stride):
         raise ValueError(f"{DECIM_OP} takes no K={taps_flipped.shape[0]}, "
                          f"D={stride}")
     C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
@@ -243,3 +274,15 @@ def _launch_decim(xs, taps_flipped, stride, n_out, tails=None, shift=0):
     return _launch(DECIM_OP, lib.fir_decim_f32, lib.fir_decim_error_string,
                    xs, taps_flipped, stride, n_out, tails, shift, C,
                    tail_ptrs, tail_ld)
+
+
+def _launch_s1(xs, taps_flipped, stride, n_out, tails=None, shift=0):
+    """fir_s1_f32 on CUDA planes, at a shape it takes."""
+    if not s1_takes(taps_flipped.shape[0], stride):
+        raise ValueError(f"{S1_OP} takes no K={taps_flipped.shape[0]}, "
+                         f"D={stride}")
+    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
+    lib = _lib("fir_s1", "fir_s1_f32", "fir_s1_error_string")
+    return _launch(S1_OP, lib.fir_s1_f32, lib.fir_s1_error_string, xs,
+                   taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
+                   tail_ld)

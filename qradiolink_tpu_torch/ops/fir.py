@@ -9,8 +9,8 @@ Convention: y[n] = sum_k h[k] * x[n-k] with x[<0] from the carried tail
 aligns with input x[m*D].
 
 Every FIR here is the direct form, on every device: on CUDA tensors the
-`fir_stream_f32` kernel (ops/cuda_fir.py), on CPU tensors its plain
-version. The JAX package's FFT implementation (`FftFirFilter`, which its
+kernel that `ops/cuda_fir.route()` picks for the shape, on CPU tensors its
+plain version. The JAX package's FFT implementation (`FftFirFilter`, which its
 `impl="auto"` picks on the CPU for long filters) is not ported yet.
 """
 
@@ -100,9 +100,24 @@ class FirFilter(Block):
                                  next_tail(tails[1], x.im, k1)], dim=-2)
         return new_state, IqPair(yr, yi)
 
+    def _call_real(self, state, x):
+        """Real f32 input at stride 1: one launch that reads the tail
+        straight from the state, as the IqPair path does; the new state
+        has a zero im plane."""
+        k1 = self.ntaps - 1
+        tail = state[..., 0, :]
+        x = x.contiguous()
+        (y,) = fir_stream((x,), self.taps_flipped, 1, x.shape[-1],
+                          tails=(tail,))
+        new_tail = next_tail(tail, x, k1)
+        return torch.stack([new_tail, torch.zeros_like(new_tail)],
+                           dim=-2), y
+
     def __call__(self, state, x):
         if isinstance(x, IqPair):
             return self._call_pair(state, x)
+        if x.dtype == torch.float32 and self.decim == 1:
+            return self._call_real(state, x)
         k1 = self.ntaps - 1
         if torch.is_complex(x):
             tail_x = torch.complex(state[..., 0, :], state[..., 1, :])

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
+from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.fec.conv import CCSDS_K7  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
@@ -32,6 +33,7 @@ from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
     PfbChannelizer, PfbSynthesizer)
 from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
     depthwise_fir, depthwise_fir_plain)
+from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
     fir_stream, fir_stream_plain, route)
 from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
@@ -132,10 +134,91 @@ def test_fir_decim_head_two_chained_blocks(cuda, gen):
         kernel_paths.reset()
         new_state, y = rs(state, x)
         assert kernel_paths.report()["fir_decim_f32"]["shapes"] == {
-            f"cuda K{rs.kp} D{rs.M} tail": 1}
+            f"cuda K{rs.kp} D{rs.M} tail 2x{C}": 1}
         ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
                                T // rs.M, tails=(state[:, 0], state[:, 1]))
         _assert_fir_close((y.re, y.im), ref)
+        state = new_state
+
+
+# fir_s1_f32's shapes, which tests/test_torch_fir.py's CPU model test
+# shares (this file imports no JAX, so the cases live here):
+# name: (C, T, K, shift, planes, tail)
+S1_CASES = {
+    "chan_lp": (4, 4000, 55, 0, 2, True),
+    "rrc": (3, 4250, 251, 0, 1, False),
+    "rrc_tail": (3, 4000, 251, 0, 1, True),
+    "nbfm_chan_lp": (2, 2000, 133, 0, 2, True),
+    "audio_lp": (2, 800, 55, 0, 1, True),
+    "k_multiple_of_r": (2, 3000, 64, 0, 2, True),
+    "k_not_multiple_of_r": (2, 3000, 100, 0, 2, True),
+    "k_below_r": (2, 3000, 5, 0, 2, True),
+    "shift": (2, 3000, 55, 7, 2, True),
+    "shift_no_tail": (2, 3000, 55, 7, 1, False),
+    "one_row_one_plane": (1, 1500, 55, 0, 1, True),
+    "ragged_tile": (2, 1025, 55, 0, 2, True),  # n_out = one tile + 1
+    "k_at_limit": (2, 1500, 2048, 0, 1, True),
+}
+
+
+def s1_taps(name, K, rng):
+    """A case's flipped taps, (K,) f32 numpy: the chains' filters at the
+    four path shapes, seeded random taps elsewhere."""
+    if name.startswith("chan_lp") or name == "shift":
+        tf = Fsk4DemodFF(device="cpu").chan_filter.taps_flipped
+    elif name.startswith("rrc"):
+        tf = Fsk4DemodFF(device="cpu").shaping.taps_flipped
+    elif name == "nbfm_chan_lp":
+        tf = NbfmDemod(device="cpu").chan_filter.taps_flipped
+    elif name == "audio_lp":
+        tf = NbfmDemod(device="cpu").audio_filter.taps_flipped
+    else:
+        return (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
+    return tf.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(S1_CASES))
+def test_fir_s1_kernel_matches_plain(cuda, gen, name):
+    """fir_s1_f32, which route() picks at every case, within 1e-5 of the
+    plain version, and bit-equal to fir_stream_f32, whose sum order it
+    keeps."""
+    C, T, K, shift, planes, tail = S1_CASES[name]
+    tf = torch.from_numpy(s1_taps(name, K, np.random.default_rng(0))).to(
+        cuda)
+    assert tf.shape == (K,)
+    xs = [torch.randn((C, T), generator=gen, device=cuda)
+          for _ in range(planes)]
+    st = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
+    tails = (st[:, 0, :], st[:, 1, :])[:planes] if tail else None
+    n_out = T - shift if tail else T - shift - K + 1
+    kernel_paths.reset()
+    got = fir_stream(xs, tf, 1, n_out, tails=tails, shift=shift)
+    assert kernel_paths.launches("fir_s1_f32") == 1
+    assert kernel_paths.launches("fir_stream_f32") == 0
+    _assert_fir_close(got, fir_stream_plain(xs, tf, 1, n_out, tails=tails,
+                                            shift=shift))
+    old = cuda_fir._launch_stream(xs, tf, 1, n_out, tails, shift)
+    for g, o in zip(got, old):
+        assert torch.equal(g, o)
+
+
+def test_fir_s1_rrc_two_chained_blocks(cuda, gen):
+    """The RRC FirFilter as the 4FSK chain runs it: real input, the tail
+    read in place from the (C, 2, 250) state, two chained blocks."""
+    rrc = Fsk4DemodFF(lead_shape=(64,), device=cuda).shaping
+    C, T, k1 = 64, 4000, rrc.ntaps - 1
+    state = torch.randn((C, 2, k1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = torch.randn((C, T), generator=gen, device=cuda)
+        kernel_paths.reset()
+        new_state, y = rrc(state, x)
+        assert kernel_paths.report()["fir_s1_f32"]["shapes"] == {
+            f"cuda K{rrc.ntaps} D1 tail 1x{C}": 1}
+        ref = fir_stream_plain((x,), rrc.taps_flipped, 1, T,
+                               tails=(state[:, 0],))
+        _assert_fir_close((y,), ref)
+        assert torch.equal(new_state[:, 0], x[:, -k1:])
+        assert not bool(new_state[:, 1].any())
         state = new_state
 
 

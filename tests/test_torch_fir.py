@@ -26,9 +26,10 @@ from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.ops import firdes, fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
-    fir_stream, fir_stream_plain, route)
+    fir_stream, fir_stream_plain, route, s1_takes)
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
+from tests.test_torch_cuda import S1_CASES, s1_taps  # noqa: E402
 from tests.torch_parity import stream_both  # noqa: E402
 
 # the three designs of the 4FSK main path (chains/fsk.py, 2KFM)
@@ -84,14 +85,17 @@ def test_conv1d_valid_matches_jax(rng, name, D, complex_x):
     np.testing.assert_array_equal(out.numpy(), got[:, :7])
 
 
-@pytest.mark.parametrize("kind", ["pair", "real", "complex"])
+@pytest.mark.parametrize("kind", ["pair", "real", "complex", "real_short"])
 def test_fir_filter_streamed(rng, kind):
+    """real_short: blocks of 30 samples, shorter than the 54-sample tail, so
+    the new tail takes part of the old one."""
     taps = _taps("chan_lp")
+    T = 30 if kind == "real_short" else 2000
     blocks = []
     for _ in range(2):
-        re = rng.standard_normal((3, 2000)).astype(np.float32)
-        im = rng.standard_normal((3, 2000)).astype(np.float32)
-        blocks.append({"pair": (re, im), "real": re,
+        re = rng.standard_normal((3, T)).astype(np.float32)
+        im = rng.standard_normal((3, T)).astype(np.float32)
+        blocks.append({"pair": (re, im), "real": re, "real_short": re,
                        "complex": (re + 1j * im).astype(np.complex64)}[kind])
     stream_both(jfir.FirFilter(taps, impl="conv", lead_shape=(3,)),
                 fir.FirFilter(taps, lead_shape=(3,), device="cpu"), blocks)
@@ -176,7 +180,7 @@ def test_wrapper_records_plain_path_on_cpu():
     fir_stream((x, x), tf, 5, 20, tails=(x[:, :4], x[:, :4]))
     rep = kernel_paths.report()["fir_stream_f32"]
     assert rep["cuda"] == 0 and rep["plain"] == 1
-    assert rep["shapes"] == {"plain K5 D5 tail": 1}
+    assert rep["shapes"] == {"plain K5 D5 tail 2x2": 1}
     assert not kernel_paths.served_only()
 
 
@@ -311,10 +315,14 @@ def test_decim_model_matches_plain(rng, name):
 
 @pytest.mark.parametrize("stage,want", [
     ("fsk head K419 D50", "fir_decim_f32"),
-    ("fsk channel LP K55 D1", "fir_stream_f32"),
-    ("fsk RRC K251 D1", "fir_stream_f32"),
+    ("fsk channel LP K55 D1", "fir_s1_f32"),
+    ("fsk RRC K251 D1", "fir_s1_f32"),
     ("nbfm head K2239 D50", "fir_stream_f32"),
+    ("nbfm channel LP K133 D1", "fir_s1_f32"),
+    ("nbfm audio LP K55 D1", "fir_s1_f32"),
     ("nbfm audio resampler D5", "fir_stream_f32"),
+    ("K2048 D1", "fir_s1_f32"),
+    ("K2049 D1", "fir_stream_f32"),
     ("K419 D100", "fir_stream_f32"),
     ("K496 D31", "fir_stream_f32"),
     ("K512 D32", "fir_decim_f32"),
@@ -324,7 +332,8 @@ def test_decim_model_matches_plain(rng, name):
 ])
 def test_fir_route_recorded_on_cpu(stage, want):
     """On CPU tensors each stage records `plain` under the kernel its shape
-    routes to: the 4FSK head under fir_decim_f32, every other FIR under
+    routes to: the 4FSK head under fir_decim_f32, the stride-1 filters of
+    up to 2,048 taps under fir_s1_f32, every other FIR under
     fir_stream_f32."""
     fsk, nbfm = Fsk4DemodFF(device="cpu"), NbfmDemod(device="cpu")
     kernel_paths.reset()
@@ -339,6 +348,11 @@ def test_fir_route_recorded_on_cpu(stage, want):
     elif stage.startswith("nbfm head"):
         x = torch.zeros(5000)
         nbfm.resamp(nbfm.resamp.init_state(), IqPair(x, x))
+    elif stage.startswith("nbfm channel"):
+        x = torch.zeros(200)
+        nbfm.chan_filter(nbfm.chan_filter.init_state(), IqPair(x, x))
+    elif stage.startswith("nbfm audio LP"):
+        nbfm.audio_filter(nbfm.audio_filter.init_state(), torch.zeros(200))
     elif stage.startswith("nbfm audio"):
         x = torch.zeros(500)
         nbfm.audio_resamp(nbfm.audio_resamp.init_state(), IqPair(x, x))
@@ -354,3 +368,150 @@ def test_fir_route_recorded_on_cpu(stage, want):
     shape = re.search(r"(K\d+ )?D\d+$", stage).group(0)
     assert all(re.search(rf"\b{shape}\b", k) for k in rep[want]["shapes"]), \
         rep
+
+
+@pytest.mark.parametrize("K,D,want", [
+    (1, 1, "fir_s1_f32"),
+    (55, 1, "fir_s1_f32"),
+    (251, 1, "fir_s1_f32"),
+    (2048, 1, "fir_s1_f32"),
+    (2049, 1, "fir_stream_f32"),
+    (55, 2, "fir_stream_f32"),
+])
+def test_fir_route_s1_by_taps_and_stride(K, D, want):
+    """fir_s1_f32 takes every stride-1 FIR of up to 2,048 taps, whatever
+    its rows and length."""
+    assert route(K, D) == want
+
+
+@pytest.mark.parametrize("chain,stage,planes", [
+    (Fsk4DemodFF, "chan_filter", 2), (NbfmDemod, "audio_filter", 1)],
+    ids=["fsk_chan_lp", "nbfm_audio_lp"])
+def test_fir_launch_key_tells_stages_apart(chain, stage, planes):
+    """Two stages with one K and D, the 4FSK channel low-pass (2 planes)
+    and the NBFM audio low-pass (real), record under different keys:
+    the key holds planes x rows."""
+    blk = getattr(chain(lead_shape=(32,), device="cpu"), stage)
+    x = torch.zeros(32, 200)
+    kernel_paths.reset()
+    blk(blk.init_state(), IqPair(x, x) if planes == 2 else x)
+    assert kernel_paths.report()["fir_s1_f32"]["shapes"] == {
+        f"plain K55 D1 tail {planes}x32": 1}
+
+
+# ---- fir_s1_f32 (csrc/fir_s1.cu): a numpy model of its loop -------------
+
+S1_R, S1_THREADS = 8, 128
+S1_TILE = S1_R * S1_THREADS
+
+
+def s1_model(state, xs, tf, shift, n_out):
+    """numpy model of fir_s1_f32's loop, line for line: tiles of 1,024
+    outputs a block (all tiles at once here); the taps and the span staged
+    as one run of K + span words, word i >= K from stream sample
+    m0 + shift - K + i, into the padded shared layout (one pad word after
+    every 8; the pad words and the taps' rounding hold NaN, so a wrong
+    index shows) with the tail/x seam resolved per element, the tails read
+    through their row stride in the (C, 2, K-1) state, and 0 past the
+    stream; the ring of 8 window values and 8 accumulators a thread, the
+    taps of a group read as two float4, the K mod 8 remainder taps, and the
+    stores skipping outputs past n_out. state: (C, 2, K-1) or None (no
+    tail); xs: one (C, T) array a plane."""
+    K = tf.shape[0]
+    R = S1_R
+    tap_words = (K + 3) & ~3
+    n_tiles = -(-n_out // S1_TILE)
+    n_words = K + S1_TILE + K - 1
+    words = np.arange(n_words)
+    s_tap = np.full(tap_words, np.nan, np.float32)
+    s_tap[words[:K]] = tf[words[:K]]
+    i = words[K:] - K  # span words
+    phys = i + i // R
+    t = np.arange(S1_THREADS)
+    g0 = t * R
+    ys = []
+    for p, x in enumerate(xs):
+        C, T = x.shape
+        tail_len = 0 if state is None else K - 1
+        n_in = tail_len + T
+        if state is not None:
+            flat = np.ascontiguousarray(state).reshape(-1)
+            tail_ld = 2 * (K - 1)
+        m0 = np.arange(n_tiles) * S1_TILE
+        v = (m0 + shift - K)[:, None] + words[K:]  # (n_tiles, span)
+        rows = np.arange(C)[:, None, None]
+        if tail_len:
+            from_tail = flat[np.clip(rows * tail_ld + p * (K - 1) + v, 0,
+                                     flat.size - 1)]
+        else:
+            from_tail = 0
+        from_x = x[rows, np.clip(v - tail_len, 0, T - 1)]
+        val = np.where(v < tail_len, from_tail,
+                       np.where(v < n_in, from_x, 0)).astype(np.float32)
+        s_x = np.full((C, n_tiles, phys[-1] + 1), np.nan, np.float32)
+        s_x[:, :, phys] = val
+
+        q = t * (R + 1)  # each thread's first window word
+        acc = np.zeros((R, C, n_tiles, S1_THREADS), np.float32)
+        w = np.zeros((R, C, n_tiles, S1_THREADS), np.float32)
+        for s_ in range(R - 1):
+            w[s_] = s_x[:, :, q + s_]
+
+        def step(u, tap, q):
+            c = u + R - 1
+            w[(u + R - 1) % R] = s_x[:, :, q + c + c // R]
+            for r in range(R):
+                acc[r] = acc[r] + np.float32(tap) * w[(u + r) % R]
+
+        n_grp = K // R
+        for b in range(n_grp):
+            tv = np.concatenate([s_tap[b * R + 4 * k: b * R + 4 * k + 4]
+                                 for k in range(R // 4)])
+            for u in range(R):
+                step(u, tv[u], q)
+            q = q + R + 1
+        rem = K - n_grp * R
+        for u in range(R - 1):
+            if u < rem:
+                step(u, s_tap[n_grp * R + u], q)
+
+        y = np.full((C, n_out), np.nan, np.float32)
+        for b, m in enumerate(m0):
+            for ti in range(S1_THREADS):
+                if m + g0[ti] >= n_out:
+                    continue
+                n_here = n_out - m - g0[ti]
+                for r in range(min(R, n_here)):
+                    y[:, m + g0[ti] + r] = acc[r, :, b, ti]
+        ys.append(y)
+    return ys
+
+
+def s1_case(name, rng):
+    """numpy inputs of one case: (state or None, xs, tf, shift, n_out)."""
+    C, T, K, shift, planes, tail = S1_CASES[name]
+    tf = s1_taps(name, K, rng)
+    assert tf.shape == (K,)
+    xs = [rng.standard_normal((C, T)).astype(np.float32)
+          for _ in range(planes)]
+    state = (rng.standard_normal((C, 2, K - 1)).astype(np.float32)
+             if tail else None)
+    n_out = T - shift if tail else T - shift - K + 1
+    return state, xs, tf, shift, n_out
+
+
+@pytest.mark.parametrize("name", sorted(S1_CASES))
+def test_s1_model_matches_plain(rng, name):
+    """The kernel's index math (the numpy model) against fir_stream_plain,
+    within the FIR's 1e-5."""
+    state, xs, tf, shift, n_out = s1_case(name, rng)
+    assert s1_takes(tf.shape[0], 1)
+    got = s1_model(state, xs, tf, shift, n_out)
+    tails = None if state is None else [
+        torch.from_numpy(state[:, p, :]) for p in range(len(xs))]
+    ref = fir_stream_plain([torch.from_numpy(x) for x in xs],
+                           torch.from_numpy(tf), 1, n_out, tails=tails,
+                           shift=shift)
+    for g, r in zip(got, ref):
+        assert not np.isnan(g).any(), "an output was never written"
+        np.testing.assert_allclose(g, r.numpy(), rtol=1e-5, atol=1e-5)
