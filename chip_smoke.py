@@ -10,7 +10,7 @@ when the package cannot be imported, and when any phase fails:
 
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
-    spills in csrc/fir_decim.cu and csrc/fir_s1.cu);
+    spills in csrc/fir_decim.cu, csrc/fir_s1.cu and csrc/viterbi_bfly.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -28,8 +28,17 @@ when the package cannot be imported, and when any phase fails:
       plain version too and timed in turns with it (old, new, new, old),
       its row kept with "path": null; fir_s1_f32 must equal
       fir_stream_f32 bit for bit;
-    - the Viterbi (K3) bit-exact on integer soft, on non-integer chain-like
-      soft, and decoding real CCSDS codewords;
+    - the Viterbi (K3): viterbi_tiled_k7 on prebuilt windows (R 8,192)
+      bit-exact on integer and non-integer chain-like soft; viterbi_bfly_k7,
+      which TiledViterbi runs through decode_stream with the windows read
+      in place, at the 4FSK shape (2048 channels x 400 pairs) and the mixed
+      path's (32 x 200) over two chained blocks of both kinds, its bits and
+      new tail equal to the plain version's and to the old route's (windows
+      built in PyTorch, then viterbi_tiled_k7); 64 noisy CCSDS codewords
+      decoded through TiledViterbi. At both shapes the two kernels and the
+      two TiledViterbi routes are timed in turns (old, new, new, old), the
+      routes also on the host clock; viterbi_tiled_k7's rows have
+      "path": null;
     - the per-row depthwise FIR (K4) at the synthesizer's branch shape (64
       rows, kp 23, 2 planes, 100,000 outputs) and the channelizer's (kp
       24, complex input), within the FIR's bound; F.conv1d(groups=C) is
@@ -42,7 +51,7 @@ when the package cannot be imported, and when any phase fails:
       does not keep: output within 1e-5 of the peak, both routes timed;
  4. the 4FSK main path: Fsk4DemodFF(lead_shape=(2048,)) for 3 steps of
     200,000 samples with state carried, launch counters zeroed just before
-    and read just after (fir_decim_f32, fir_s1_f32 and the Viterbi must
+    and read just after (fir_decim_f32, fir_s1_f32 and viterbi_bfly_k7 must
     launch on every step, nothing on a plain path); then one more
     step timed stage by stage, and one under torch.profiler (device ops,
     busy time, idle share);
@@ -50,7 +59,7 @@ when the package cannot be imported, and when any phase fails:
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
     counters zeroed before and read after (K5, the three FIR kernels and
-    the Viterbi on every step, nothing on a plain path); one more step
+    viterbi_bfly_k7 on every step, nothing on a plain path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
  6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
     blocks through Fsk4DemodFF on the card and on the CPU: the bits must
@@ -328,51 +337,141 @@ def fir_phase(chain, nbfm, dev, gen):
     return rows
 
 
-def viterbi_phase(dev, gen):
-    from qradiolink_tpu_torch.fec.conv import CCSDS_K7, conv_encode
-    from qradiolink_tpu_torch.fec.conv_ff import viterbi_decode_tiled
-    from qradiolink_tpu_torch.fec.viterbi_cuda import (decode_windows,
-                                                       decode_windows_plain)
+def host_ms(fn, iters=20, warmup=2):
+    """Median host-clock time of fn() in ms, each call fenced by a
+    synchronize: the wrapper's host work and the device's time together."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
-    W, S = 32, 192
-    R = N_CH * 4  # 400 pairs + 32 overlap, padded to 4 chunks of 128
-    soft_int = torch.randint(0, 256, (R, S, 2), generator=gen, device=dev)
-    soft_int = soft_int.float()
-    syms = torch.randn((R, S), generator=gen, device=dev) * 1.5
-    ph = float(np.pi / 2) * syms
-    soft_chain = torch.clamp(
-        torch.stack([torch.sin(ph), torch.cos(ph)], -1) * 128.0 + 128.0,
-        0.0, 255.0)
-    if bool((soft_chain == soft_chain.round()).all()):
+
+def viterbi_soft(shape, kind, dev, gen):
+    """Integer soft pairs, or non-integer ones shaped like the 4FSK chain's
+    clip(sin/cos(pi/2 * sym) * 128 + 128)."""
+    if kind == "integer":
+        return torch.randint(0, 256, shape, generator=gen,
+                             device=dev).float()
+    ph = float(np.pi / 2) * 1.5 * torch.randn(shape[:-1], generator=gen,
+                                              device=dev)
+    soft = torch.clamp(torch.stack([torch.sin(ph), torch.cos(ph)], -1)
+                       * 128.0 + 128.0, 0.0, 255.0)
+    if bool((soft == soft.round()).all()):
         raise RuntimeError("chain-like soft came out integer")
-    for label, soft in (("integer", soft_int), ("chain-like", soft_chain)):
+    return soft
+
+
+def viterbi_phase(dev, gen):
+    """K3. viterbi_tiled_k7 on prebuilt windows (R 8,192) bit-exact against
+    the plain version. viterbi_bfly_k7 through decode_stream at the 4FSK
+    shape (2048 channels x 400 pairs) and the mixed path's (32 x 200), two
+    chained blocks of integer and chain-like soft: bits and new tail equal
+    to the plain version's and to the old route's (the windows built in
+    PyTorch, then viterbi_tiled_k7). 64 noisy CCSDS codewords through
+    TiledViterbi. At both shapes, in turns: the two kernels alone (the old
+    one on prebuilt windows) and the two TiledViterbi routes."""
+    from qradiolink_tpu_torch.fec.conv import CCSDS_K7, conv_encode
+    from qradiolink_tpu_torch.fec.conv_ff import TiledViterbi
+    from qradiolink_tpu_torch.fec.viterbi_cuda import (
+        decode_stream, decode_stream_plain, decode_stream_tiled,
+        decode_windows, decode_windows_plain, overlap_windows)
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    W, L = 32, 128
+    S = L + 2 * W
+    R = N_CH * 4  # 400 pairs + 32 overlap, padded to 4 chunks of 128
+    for label in ("integer", "chain-like"):
+        soft = viterbi_soft((R, S, 2), label, dev, gen)
         k = decode_windows(CCSDS_K7, soft, W)
         p = decode_windows_plain(CCSDS_K7, soft, W)
         n_diff = int((k != p).sum())
-        print(f"  viterbi {label} soft R{R} S{S}: {n_diff} bits differ",
-              flush=True)
+        print(f"  viterbi_tiled_k7 {label} soft R{R} S{S}: {n_diff} bits "
+              f"differ", flush=True)
         if n_diff:
-            raise RuntimeError(f"viterbi kernel not bit-exact ({label})")
-    # real CCSDS codewords, noisy soft: the interior must decode exactly
+            raise RuntimeError(f"viterbi_tiled_k7 not bit-exact ({label})")
+
+    rows = []
+    for run, n_ch, T in (("fsk", N_CH, 400), ("mixed", MIX_M // 2, 200)):
+        for label in ("integer", "chain-like"):
+            state = torch.full((n_ch, W, 2), 128.0, device=dev)
+            for blk in range(2):
+                soft = viterbi_soft((n_ch, T, 2), label, dev, gen)
+                tail, bits = decode_stream(CCSDS_K7, state, soft)
+                refs = {"plain": decode_stream_plain(CCSDS_K7, state, soft,
+                                                     L, W),
+                        "old route": decode_stream_tiled(CCSDS_K7, state,
+                                                         soft, L, W)}
+                for name, (r_tail, r_bits) in refs.items():
+                    if not (torch.equal(bits, r_bits)
+                            and torch.equal(tail, r_tail)):
+                        raise RuntimeError(
+                            f"viterbi_bfly_k7 {run} {label} block {blk}: "
+                            f"bits or tail differ from the {name}")
+                state = tail
+            print(f"  viterbi_bfly_k7 {label} soft {n_ch} ch x {T} pairs, "
+                  f"2 chained blocks: bits and tail equal to the plain "
+                  f"version and the old route", flush=True)
+        C = -(-(T + W) // L)
+        R = n_ch * C
+        x = torch.cat([state, soft, torch.full((n_ch, C * L - T - W, 2),
+                                               128.0, device=dev)], 1)
+        win = overlap_windows(x, L, W).reshape(R, S, 2).contiguous()
+        ms, turns = turns_ms({
+            "viterbi_tiled_k7": lambda: decode_windows(CCSDS_K7, win, W),
+            "viterbi_bfly_k7": lambda: decode_stream(CCSDS_K7, state, soft)})
+        print(f"  kernels at R{R} S{S} in turns: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+        tv = TiledViterbi(lead_shape=(n_ch,), device=dev)
+        routes = {"old route": lambda: decode_stream_tiled(
+                      CCSDS_K7, state, soft, L, W),
+                  "TiledViterbi": lambda: tv(state, soft)}
+        call_ms, call_turns = turns_ms(routes)
+        print(f"  TiledViterbi call {n_ch} ch x {T} pairs, device time in "
+              f"turns: " + ", ".join(f"{k} {t:.4f} ms"
+                                     for k, t in call_turns), flush=True)
+        order = list(routes) + list(routes)[::-1]
+        print(f"  TiledViterbi call {n_ch} ch x {T} pairs, host clock in "
+              f"turns: " + ", ".join(f"{k} {host_ms(routes[k]):.4f} ms"
+                                     for k in order), flush=True)
+        plain_ms = cuda_ms(lambda: decode_stream_plain(
+            CCSDS_K7, state, soft, L, W), iters=3, warmup=1)
+        plain_win_ms = cuda_ms(lambda: decode_windows_plain(
+            CCSDS_K7, win, W), iters=3, warmup=1)
+        # per state-step: 2 mul + 4 add/sub + compare + select
+        b = bound(R * S * 2 * 4 + R * (S - W), R * S * 64 * 8)
+        rows.append(row(f"viterbi_bfly_k7/{run}",
+                        "qradiolink_tpu_torch/csrc/viterbi_bfly.cu",
+                        "qradiolink_tpu/fec/viterbi_pallas.py:83", 0.0,
+                        ms["viterbi_bfly_k7"], plain_ms, b, None, run,
+                        f"R{R} S{S}"))
+        rows.append(row(f"viterbi_tiled_k7/{run}",
+                        "qradiolink_tpu_torch/csrc/viterbi.cu",
+                        "qradiolink_tpu/fec/viterbi_pallas.py:83", 0.0,
+                        ms["viterbi_tiled_k7"], plain_win_ms, b, None, run,
+                        f"R{R} S{S}", routed=False))
+
+    # real CCSDS codewords, noisy soft, through TiledViterbi: the interior
+    # must decode exactly
     bits = torch.randint(0, 2, (64, 600), generator=gen, device=dev)
     coded = conv_encode(CCSDS_K7, bits.to(torch.uint8)).reshape(64, 600, 2)
-    soft = coded.float() * 255.0 + torch.randn(
-        (64, 600, 2), generator=gen, device=dev) * 40.0
-    soft = torch.nn.functional.pad(soft.clamp(0.0, 255.0), (0, 0, 0, 40),
-                                   value=128.0)
-    dec = viterbi_decode_tiled(CCSDS_K7, soft)
+    soft = (coded.float() * 255.0 + torch.randn(
+        (64, 600, 2), generator=gen, device=dev) * 40.0).clamp(0.0, 255.0)
+    tv = TiledViterbi(lead_shape=(64,), device=dev)
+    kernel_paths.reset()
+    _, dec = tv(tv.init_state(), soft)
+    if kernel_paths.launches("viterbi_bfly_k7") != 1:
+        raise RuntimeError("TiledViterbi did not launch viterbi_bfly_k7")
     if not torch.equal(dec[:, 32:568], bits[:, 32:568].to(torch.uint8)):
-        raise RuntimeError("viterbi kernel failed to decode codewords")
-    print("  viterbi decodes 64 noisy CCSDS codewords exactly", flush=True)
-
-    ms = cuda_ms(lambda: decode_windows(CCSDS_K7, soft_chain, W))
-    plain_ms = cuda_ms(lambda: decode_windows_plain(CCSDS_K7, soft_chain, W),
-                       iters=3, warmup=1)
-    # per state-step: 2 mul + 4 add/sub + compare + select
-    b = bound(R * S * 2 * 4 + R * (S - W), R * S * 64 * 8)
-    return [row("viterbi_tiled_k7", "qradiolink_tpu_torch/csrc/viterbi.cu",
-                "qradiolink_tpu/fec/viterbi_pallas.py:83", 0.0, ms, plain_ms,
-                b, None, "fsk", f"S{S}")]
+        raise RuntimeError("viterbi_bfly_k7 failed to decode codewords")
+    print("  TiledViterbi (viterbi_bfly_k7) decodes 64 noisy CCSDS "
+          "codewords exactly", flush=True)
+    return rows
 
 
 def depthwise_phase(dev, gen):
@@ -554,7 +653,7 @@ def drive(fn, state, x, every_step):
 
 
 # ops each main path must launch on every step
-FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_tiled_k7")
+FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_bfly_k7")
 MIXED_EVERY_STEP = ("pfb_channelize_f32", "fir_stream_f32") + FSK_EVERY_STEP
 
 
@@ -605,7 +704,7 @@ def main_path(chain, dev, gen):
         return torch.clamp(s.reshape(N_CH, -1) * 128.0 + 128.0, 0.0, 255.0)
 
     soft = timed(stages, "soft mapping", soft_map)
-    timed(stages, "FEC tail (viterbi + descrambler)",
+    timed(stages, "FEC tail (viterbi_bfly_k7 + descrambler)",
           lambda: seq(chain.fec_tail, soft))
     print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
           flush=True)
@@ -813,8 +912,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # fir_decim_f32 and fir_s1_f32 keep their rings in registers
-    for name in ("fir_decim", "fir_s1"):
+    # fir_decim_f32 and fir_s1_f32 keep their rings in registers,
+    # viterbi_bfly_k7 its path metrics
+    for name in ("fir_decim", "fir_s1", "viterbi_bfly"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 

@@ -6,7 +6,7 @@ resampler (1 Msps -> 20 ksps for 2KFM) -> channel low-pass -> quadrature
 demod -> RRC -> feedforward symbol sync -> soft pairs -> tiled Viterbi +
 descrambler. On CUDA the resampler head runs the `fir_decim_f32` kernel,
 the channel low-pass and the RRC the `fir_s1_f32` kernel
-(`ops/cuda_fir.route`), and the Viterbi the `viterbi_tiled_k7` kernel;
+(`ops/cuda_fir.route`), and the Viterbi the `viterbi_bfly_k7` kernel;
 everything else is plain PyTorch.
 """
 

@@ -28,7 +28,8 @@ from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.fec.conv import CCSDS_K7  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
-    decode_windows, decode_windows_plain)
+    decode_stream, decode_stream_plain, decode_stream_tiled, decode_windows,
+    decode_windows_plain)
 from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
     PfbChannelizer, PfbSynthesizer)
 from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
@@ -328,6 +329,39 @@ def test_viterbi_kernel_bit_exact(cuda, gen, kind):
     got = decode_windows(CCSDS_K7, win, 32)
     assert kernel_paths.launches("viterbi_tiled_k7") == 1
     assert torch.equal(got, decode_windows_plain(CCSDS_K7, win, 32))
+
+
+def _viterbi_soft(gen, cuda, shape, kind):
+    if kind == "integer":
+        return torch.randint(0, 256, shape, generator=gen,
+                             device=cuda).float()
+    ph = float(np.pi / 2) * 1.5 * torch.randn(shape[:-1], generator=gen,
+                                              device=cuda)
+    return torch.clamp(torch.stack([torch.sin(ph), torch.cos(ph)], -1)
+                       * 128.0 + 128.0, 0.0, 255.0)
+
+
+@pytest.mark.parametrize("lead,T", [(2048, 400), (32, 200), (3, 224),
+                                    (3, 10)])
+@pytest.mark.parametrize("kind", ["integer", "chain"])
+def test_viterbi_bfly_matches_plain(cuda, gen, kind, lead, T):
+    """viterbi_bfly_k7 over two chained blocks (the 4FSK and mixed path
+    shapes, T + W = 256 with no pad, T < W): one launch a call and none of
+    viterbi_tiled_k7; bits and the new tail equal to the plain version's
+    and to the old window route's."""
+    state = torch.full((lead, 32, 2), 128.0, device=cuda)
+    for _ in range(2):
+        soft = _viterbi_soft(gen, cuda, (lead, T, 2), kind)
+        kernel_paths.reset()
+        tail, bits = decode_stream(CCSDS_K7, state, soft)
+        assert kernel_paths.launches("viterbi_bfly_k7") == 1
+        assert kernel_paths.launches("viterbi_tiled_k7") == 0
+        p_tail, p_bits = decode_stream_plain(CCSDS_K7, state, soft, 128, 32)
+        o_tail, o_bits = decode_stream_tiled(CCSDS_K7, state, soft, 128, 32)
+        for ref_tail, ref_bits in ((p_tail, p_bits), (o_tail, o_bits)):
+            assert torch.equal(bits, ref_bits)
+            assert torch.equal(tail, ref_tail)
+        state = tail
 
 
 def test_fixture_bits_equal_on_card_and_cpu(cuda):
