@@ -10,20 +10,23 @@ when the package cannot be imported, and when any phase fails:
 
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
-    spills in csrc/fir_decim.cu, csrc/fir_s1.cu and csrc/viterbi_bfly.cu);
+    spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_s1.cu and
+    csrc/viterbi_bfly.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
     and its bound on this card:
     - the strided FIR (K1/K2) at the 4FSK path's resampler head (two
       chained blocks), channel low-pass and RRC (2048 channels x 200,000
-      samples a step), and at the NBFM group's resampler head (2,239 taps),
-      channel low-pass (133 taps) and audio low-pass (55 taps, real) of
-      the mixed path (32 channels x 100,000 samples), within 1e-5
-      (relative to the output's peak, and elementwise |k - p| <= 1e-5 +
-      1e-5 |p|); F.conv1d is the yardstick. The head (419 taps, D 50)
-      routes to fir_decim_f32, the stride-1 filters to fir_s1_f32, the
-      NBFM head to fir_stream_f32. Where the route picks a new kernel,
+      samples a step), and at the NBFM group's resampler head (2,239 taps,
+      D 50), channel low-pass (133 taps), audio resampler phases (113
+      taps, D 5, no tail, real, 400 outputs; two launches a step) and
+      audio low-pass (55 taps, real) of the mixed path (32 channels x
+      100,000 samples), within 1e-5 (relative to the output's peak, and
+      elementwise |k - p| <= 1e-5 + 1e-5 |p|); F.conv1d is the
+      yardstick. The head (419 taps, D 50) routes to fir_decim_f32, the
+      stride-1 filters to fir_s1_f32, the NBFM head to fir_long_f32, the
+      audio resampler to fir_stream_f32. Where the route picks a new kernel,
       fir_stream_f32, which served the shape before, is held against the
       plain version too and timed in turns with it (old, new, new, old),
       its row kept with "path": null; fir_s1_f32 must equal
@@ -58,7 +61,7 @@ when the package cannot be imported, and when any phase fails:
  5. the mixed main path: MultichannelRx(64) on one wideband stream of
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
-    counters zeroed before and read after (K5, the three FIR kernels and
+    counters zeroed before and read after (K5, the four FIR kernels and
     viterbi_bfly_k7 on every step, nothing on a plain path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
  6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
@@ -195,12 +198,12 @@ def peak_err(name, kern, plain, tol):
 
 
 def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
-        routed=True):
+        routed=True, per_step=1):
     """One kernel entry. `run` names the path whose run gives the kernel
     this shape, `shape` the wrapper's key for it in that run's report: the
-    count there fills in `launches`. A kernel that the route does not give
-    the shape (`routed` false, "path": null) must have launched there 0
-    times."""
+    count there fills in `launches`, which must be `per_step` a step. A
+    kernel that the route does not give the shape (`routed` false, "path":
+    null) must have launched there 0 times."""
     print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
           f"plain {plain_ms:.4f} ms  library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
@@ -209,20 +212,23 @@ def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
             "library_ms": lib_ms, "path": run if routed else None,
-            "run": run, "shape": shape}
+            "run": run, "shape": shape, "per_step": per_step}
 
 
 FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
               "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu",
+              "fir_long_f32": "qradiolink_tpu_torch/csrc/fir_long.cu",
               "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu"}
 
 
-def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True):
+def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
+            per_step=1):
     """The strided FIR kernel that the shape routes to against its plain
-    version (and F.conv1d), on the shape that path `run` gives it. Where
-    the route picks a new kernel, fir_stream_f32, which served the shape
-    before, is held against the plain version too and timed in turns with
-    it (old, new, new, old); its row has no path. fir_s1_f32 keeps
+    version (and F.conv1d), on the shape that path `run` gives it
+    `per_step` times a step. Where the route picks a new kernel,
+    fir_stream_f32, which served the shape before, is held against the
+    plain version too and timed in turns with it (old, new, new, old); its
+    row has no path. fir_s1_f32 keeps
     fir_stream_f32's sum order, so their outputs must be equal bit for
     bit."""
     from qradiolink_tpu_torch.ops import cuda_fir
@@ -270,7 +276,8 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True):
     n_bytes = 4 * (n_in + len(xs) * n_rows * n_out + K)
     b = bound(n_bytes, 2 * K * len(xs) * n_rows * n_out)
     return [row(f"{k}/{name}", FIR_SOURCE[k], replaces, errs[k], ms[k],
-                plain_ms, b, lib_ms, run, shape, routed=k == op)
+                plain_ms, b, lib_ms, run, shape, routed=k == op,
+                per_step=per_step)
             for k in sorted(fns, key=lambda k: k != op)]
 
 
@@ -309,7 +316,8 @@ def fir_phase(chain, nbfm, dev, gen):
                     (st[:, 0, :],), "fsk")
     # the mixed path's groups, 32 ch x 100,000 samples each: the FSK
     # group's channel LP and RRC at 2,000; the NBFM group's resampler head,
-    # channel LP at 2,000 and audio LP at 800
+    # channel LP at 2,000, audio resampler phases at 400 and audio LP at
+    # 800
     nr = nbfm.resamp
     n_nb = MIX_M // 2
     for name, replaces, blk, planes in (("fsk32_chan_lp", 218, cf, 2),
@@ -326,6 +334,15 @@ def fir_phase(chain, nbfm, dev, gen):
                     nr.phase_taps[0], nr.M, MIX_T // nr.M,
                     (st[:, 0, :], st[:, 1, :]), "mixed")
     n_ch = MIX_T // nr.M
+    # the audio resampler (L 2, M 5) on the demodulated real audio: each
+    # phase a no-tail FIR over the contiguous slice of [tail | x] that
+    # RationalResampler._phases cuts, two launches a step at one key
+    ar = nbfm.audio_resamp
+    rows += fir_row("nbfm_audio_resamp",
+                    "qradiolink_tpu/ops/pallas_fir.py:111",
+                    (randn(n_nb, ar.kp - 1 + n_ch - (ar.M - 1)),),
+                    ar.phase_taps[0], ar.M, n_ch // ar.M, None, "mixed",
+                    per_step=ar.L)
     for name, blk, n, planes in (
             ("nbfm_chan_lp", nbfm.chan_filter, n_ch, 2),
             ("nbfm_audio_lp", nbfm.audio_filter, n_ch * 2 // 5, 1)):
@@ -654,7 +671,8 @@ def drive(fn, state, x, every_step):
 
 # ops each main path must launch on every step
 FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_bfly_k7")
-MIXED_EVERY_STEP = ("pfb_channelize_f32", "fir_stream_f32") + FSK_EVERY_STEP
+MIXED_EVERY_STEP = ("pfb_channelize_f32", "fir_long_f32",
+                    "fir_stream_f32") + FSK_EVERY_STEP
 
 
 def main_path(chain, dev, gen):
@@ -760,7 +778,7 @@ def mixed_path(dev, gen):
     timed(stages, "FSK group (32 ch)", lambda: fchain(g_states[0], xf))
     timed(stages, "NBFM group (32 ch)", lambda: nchain(g_states[1], xn))
     seq = Sequencer(g_states[1])
-    x = timed(stages, "nbfm resampler (fir_stream_f32 head K2239 D50)",
+    x = timed(stages, "nbfm resampler (fir_long_f32 head K2239 D50)",
               lambda: seq(nchain.resamp, xn))
     x = timed(stages, "nbfm channel LP (fir_s1_f32 K133)",
               lambda: seq(nchain.chan_filter, x))
@@ -912,9 +930,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # fir_decim_f32 and fir_s1_f32 keep their rings in registers,
-    # viterbi_bfly_k7 its path metrics
-    for name in ("fir_decim", "fir_s1", "viterbi_bfly"):
+    # fir_decim_f32, fir_long_f32 and fir_s1_f32 keep their rings in
+    # registers, viterbi_bfly_k7 its path metrics
+    for name in ("fir_decim", "fir_long", "fir_s1", "viterbi_bfly"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -948,15 +966,17 @@ def main() -> int:
     reports["round_trip"] = round_trip_phase(dev)
 
     # each kernel's launches at its shape in the run of the path that
-    # gives it that shape: one a step for the kernel that the route picks,
-    # none for the one it replaced (a row with no path)
+    # gives it that shape: its count a step (one, or the audio resampler's
+    # two phases) for the kernel that the route picks, none for the one it
+    # replaced (a row with no path)
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")
+        per_step = r.pop("per_step")
         op = r["name"].split("/")[0]
         r["launches"] = reports[run].get(op, {}).get("shapes", {}).get(
             f"cuda {shape}", 0)
-        want = 0 if r["path"] is None else steps[run]
+        want = 0 if r["path"] is None else per_step * steps[run]
         if r["launches"] != want:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
                                f"times at {shape} on the {run} path, not "

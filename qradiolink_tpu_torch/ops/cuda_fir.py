@@ -1,6 +1,7 @@
-"""Strided streaming FIR: wrapper, plain version and the three CUDA kernels
+"""Strided streaming FIR: wrapper, plain version and the four CUDA kernels
 that compute it, `fir_stream_f32` (csrc/fir.cu), `fir_decim_f32`
-(csrc/fir_decim.cu) and `fir_s1_f32` (csrc/fir_s1.cu).
+(csrc/fir_decim.cu), `fir_long_f32` (csrc/fir_long.cu) and `fir_s1_f32`
+(csrc/fir_s1.cu).
 
 Port of the two Pallas TPU kernels of qradiolink_tpu/ops/pallas_fir.py,
 `banded_fir_stream` (K1) and `banded_fir` (K2), which compute the same
@@ -13,14 +14,15 @@ tail of K-1 samples) or xc = x (K2, no tail). The TPU kernels' banded
 matrices, 128-lane slabs and `plan()` gates have no counterpart here: every
 call on a CUDA tensor launches a kernel and computes all n_out outputs.
 
-`route(K, D)` picks the kernel from the shape: `fir_decim_f32`, the
-polyphase kernel with its taps in registers, for a decimation of 32 to 64
-with at most 16 taps a phase (the 4FSK resampler head, K 419 D 50);
-`fir_s1_f32`, register-blocked over outputs, for stride 1 with at most
-2,048 taps (the channel low-passes, the RRC and the NBFM audio low-pass);
-`fir_stream_f32` for every other shape (the long NBFM head, the audio
-resampler's D 5 phases). `fir_s1_f32` sums in the order of `fir_stream_f32`,
-so the two give equal bits.
+`route(K, D)` picks the kernel from the shape: for a decimation of 32 to
+64, `fir_decim_f32`, the polyphase kernel with its taps in registers, at
+up to 16 taps a phase (the 4FSK resampler head, K 419 D 50), and
+`fir_long_f32`, the same loop over up to 4 segments of phase rows, at 17
+to 64 taps a phase (the NBFM resampler head, K 2239 D 50); `fir_s1_f32`,
+register-blocked over outputs, for stride 1 with at most 2,048 taps (the
+channel low-passes, the RRC and the NBFM audio low-pass); `fir_stream_f32`
+for every other shape (the audio resampler's D 5 phases). `fir_s1_f32`
+sums in the order of `fir_stream_f32`, so the two give equal bits.
 
 On a CPU tensor the wrapper takes the plain version (F.conv1d over the
 explicit concatenation) and records it under the routed kernel's name; on a
@@ -40,11 +42,15 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "fir_stream_f32"
 DECIM_OP = "fir_decim_f32"
+LONG_OP = "fir_long_f32"
 S1_OP = "fir_s1_f32"
 # fir_decim_f32's shapes: two phase columns a lane, and the kernel's
 # instantiations A = ceil(K/D) = 1 .. 16 (csrc/fir_decim.cu)
 DECIM_D = (32, 64)
 DECIM_MAX_A = 16
+# fir_long_f32's: the same columns, and up to 4 segments of at most 16
+# phase rows, A = 17 .. 64 (csrc/fir_long.cu)
+LONG_MAX_A = 64
 # fir_s1_f32's longest filter: its taps and the span of a 1,024-output tile
 # then take 22 KB of shared memory a block, which leaves room for several
 # blocks an SM (csrc/fir_s1.cu)
@@ -88,17 +94,27 @@ def _decim_takes(K: int, stride: int) -> bool:
     return lo <= stride <= hi and -(-K // stride) <= DECIM_MAX_A
 
 
+def _long_takes(K: int, stride: int) -> bool:
+    """Whether fir_long_f32 computes a FIR of K taps and stride D."""
+    lo, hi = DECIM_D
+    return lo <= stride <= hi and \
+        DECIM_MAX_A < -(-K // stride) <= LONG_MAX_A
+
+
 def s1_takes(K: int, stride: int) -> bool:
     """Whether fir_s1_f32 computes a FIR of K taps and stride D."""
     return stride == 1 and K <= S1_MAX_K
 
 
 def route(K: int, stride: int) -> str:
-    """The kernel that serves a FIR of K taps and stride D: fir_decim_f32
-    for 32 <= D <= 64 and ceil(K/D) <= 16, fir_s1_f32 for D = 1 and
-    K <= 2048, fir_stream_f32 otherwise."""
+    """The kernel that serves a FIR of K taps and stride D: for
+    32 <= D <= 64, fir_decim_f32 at ceil(K/D) <= 16 and fir_long_f32 at
+    16 < ceil(K/D) <= 64; fir_s1_f32 for D = 1 and K <= 2048;
+    fir_stream_f32 otherwise."""
     if _decim_takes(K, stride):
         return DECIM_OP
+    if _long_takes(K, stride):
+        return LONG_OP
     if s1_takes(K, stride):
         return S1_OP
     return OP
@@ -177,9 +193,15 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
                                 shift)
     if dev.type != "cuda":
         raise ValueError(f"no {op} kernel for device {dev}")
-    launch = {DECIM_OP: _launch_decim, S1_OP: _launch_s1}.get(
-        op, _launch_stream)
-    return launch(xs, taps_flipped, stride, n_out, tails, shift)
+    if op == OP:
+        return _launch_stream(xs, taps_flipped, stride, n_out, tails, shift)
+    # fir_decim_f32, fir_long_f32 or fir_s1_f32, at a shape it takes
+    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
+    name = op.removesuffix("_f32")
+    lib = _lib(name, op, f"{name}_error_string")
+    return _launch(op, getattr(lib, op), getattr(lib, f"{name}_error_string"),
+                   xs, taps_flipped, stride, n_out, tails, shift, C,
+                   tail_ptrs, tail_ld)
 
 
 def _rows(x):
@@ -260,29 +282,5 @@ def _launch_stream(xs, taps_flipped, stride, n_out, tails=None, shift=0):
         raise ValueError(f"K={taps_flipped.shape[0]}, D={stride} needs more "
                          f"shared memory than a block has")
     return _launch(OP, lib.fir_stream_f32, lib.fir_error_string, xs,
-                   taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
-                   tail_ld)
-
-
-def _launch_decim(xs, taps_flipped, stride, n_out, tails=None, shift=0):
-    """fir_decim_f32 on CUDA planes, at a shape it takes."""
-    if not _decim_takes(taps_flipped.shape[0], stride):
-        raise ValueError(f"{DECIM_OP} takes no K={taps_flipped.shape[0]}, "
-                         f"D={stride}")
-    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
-    lib = _lib("fir_decim", "fir_decim_f32", "fir_decim_error_string")
-    return _launch(DECIM_OP, lib.fir_decim_f32, lib.fir_decim_error_string,
-                   xs, taps_flipped, stride, n_out, tails, shift, C,
-                   tail_ptrs, tail_ld)
-
-
-def _launch_s1(xs, taps_flipped, stride, n_out, tails=None, shift=0):
-    """fir_s1_f32 on CUDA planes, at a shape it takes."""
-    if not s1_takes(taps_flipped.shape[0], stride):
-        raise ValueError(f"{S1_OP} takes no K={taps_flipped.shape[0]}, "
-                         f"D={stride}")
-    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
-    lib = _lib("fir_s1", "fir_s1_f32", "fir_s1_error_string")
-    return _launch(S1_OP, lib.fir_s1_f32, lib.fir_s1_error_string, xs,
                    taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
                    tail_ld)

@@ -142,6 +142,73 @@ def test_fir_decim_head_two_chained_blocks(cuda, gen):
         state = new_state
 
 
+# fir_long_f32's shapes, which tests/test_torch_fir.py's CPU model test
+# shares: name: (C, T, K, D, shift, planes, tail). The NBFM head's taps at
+# K 2239 (A 45: 3 segments of 15 phase rows), seeded random taps elsewhere.
+LONG_CASES = {
+    "nbfm_head": (2, 20_000, 2239, 50, 0, 2, True),
+    "ragged_chunk": (1, 13_600, 2239, 50, 0, 2, True),  # n_out = MW + 1
+    "shift": (2, 10_000, 2239, 50, 12, 2, True),
+    "no_tail": (2, 20_000, 2239, 50, 0, 1, False),
+    "one_row_one_plane": (1, 10_000, 2239, 50, 0, 1, True),
+    "k_multiple_of_d": (2, 10_000, 2000, 50, 0, 2, True),  # A 40, 14 x 3
+    "a17": (2, 10_000, 801, 50, 0, 2, True),  # 2 segments of 9 rows
+    "d32": (2, 32 * 300, 645, 32, 5, 2, True),  # A 21
+    "d64_a64": (1, 64 * 300, 4096, 64, 0, 2, True),  # 4 segments of 16
+}
+
+
+def long_taps(name, K, rng):
+    """A case's flipped taps, (K,) f32 numpy: the NBFM resampler head's
+    (RationalResampler(1, 50)) at K 2239, seeded random taps elsewhere."""
+    if K == 2239:
+        return NbfmDemod(device="cpu").resamp.phase_taps[0].numpy()
+    return (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(LONG_CASES))
+def test_fir_long_kernel_matches_plain(cuda, gen, name):
+    """fir_long_f32, which route() picks at every case, within 1e-5 of the
+    plain version; fir_stream_f32 does not launch. The tails are strided
+    views of a (C, 2, K-1) state."""
+    C, T, K, D, shift, planes, tail = LONG_CASES[name]
+    tf = torch.from_numpy(long_taps(name, K, np.random.default_rng(0))).to(
+        cuda)
+    xs = [torch.randn((C, T), generator=gen, device=cuda)
+          for _ in range(planes)]
+    st = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
+    tails = (st[:, 0, :], st[:, 1, :])[:planes] if tail else None
+    n_out = (T // D) if tail else (T - shift - K) // D + 1
+    kernel_paths.reset()
+    got = fir_stream(xs, tf, D, n_out, tails=tails, shift=shift)
+    assert kernel_paths.launches("fir_long_f32") == 1
+    assert kernel_paths.launches("fir_stream_f32") == 0
+    _assert_fir_close(got, fir_stream_plain(xs, tf, D, n_out, tails=tails,
+                                            shift=shift))
+
+
+def test_fir_long_nbfm_head_two_chained_blocks(cuda, gen):
+    """The NBFM resampler head as the chain runs it: two blocks, the tails
+    strided views of the (C, 2, 2238) state, the second block reading the
+    tail the first one left."""
+    rs = NbfmDemod(lead_shape=(32,), device=cuda).resamp
+    C, T, k1 = 32, 100_000, rs.kp - 1
+    assert k1 == 2238
+    state = torch.randn((C, 2, k1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = IqPair(torch.randn((C, T), generator=gen, device=cuda),
+                   torch.randn((C, T), generator=gen, device=cuda))
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report()["fir_long_f32"]["shapes"] == {
+            f"cuda K{rs.kp} D{rs.M} tail 2x{C}": 1}
+        assert kernel_paths.launches("fir_stream_f32") == 0
+        ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
+                               T // rs.M, tails=(state[:, 0], state[:, 1]))
+        _assert_fir_close((y.re, y.im), ref)
+        state = new_state
+
+
 # fir_s1_f32's shapes, which tests/test_torch_fir.py's CPU model test
 # shares (this file imports no JAX, so the cases live here):
 # name: (C, T, K, shift, planes, tail)

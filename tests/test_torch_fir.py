@@ -28,8 +28,10 @@ from qradiolink_tpu_torch.ops import firdes, fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
     fir_stream, fir_stream_plain, route, s1_takes)
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
+from qradiolink_tpu_torch.utils import sass  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
-from tests.test_torch_cuda import S1_CASES, s1_taps  # noqa: E402
+from tests.test_torch_cuda import (  # noqa: E402
+    LONG_CASES, S1_CASES, long_taps, s1_taps)
 from tests.torch_parity import stream_both  # noqa: E402
 
 # the three designs of the 4FSK main path (chains/fsk.py, 2KFM)
@@ -317,7 +319,7 @@ def test_decim_model_matches_plain(rng, name):
     ("fsk head K419 D50", "fir_decim_f32"),
     ("fsk channel LP K55 D1", "fir_s1_f32"),
     ("fsk RRC K251 D1", "fir_s1_f32"),
-    ("nbfm head K2239 D50", "fir_stream_f32"),
+    ("nbfm head K2239 D50", "fir_long_f32"),
     ("nbfm channel LP K133 D1", "fir_s1_f32"),
     ("nbfm audio LP K55 D1", "fir_s1_f32"),
     ("nbfm audio resampler D5", "fir_stream_f32"),
@@ -327,14 +329,21 @@ def test_decim_model_matches_plain(rng, name):
     ("K496 D31", "fir_stream_f32"),
     ("K512 D32", "fir_decim_f32"),
     ("K1024 D64", "fir_decim_f32"),
-    ("K1025 D64", "fir_stream_f32"),
+    ("K1025 D64", "fir_long_f32"),
     ("K800 D65", "fir_stream_f32"),
+    ("K800 D50", "fir_decim_f32"),
+    ("K801 D50", "fir_long_f32"),
+    ("K2239 D50", "fir_long_f32"),
+    ("K3200 D50", "fir_long_f32"),
+    ("K3201 D50", "fir_stream_f32"),
+    ("K113 D5", "fir_stream_f32"),
 ])
 def test_fir_route_recorded_on_cpu(stage, want):
     """On CPU tensors each stage records `plain` under the kernel its shape
-    routes to: the 4FSK head under fir_decim_f32, the stride-1 filters of
-    up to 2,048 taps under fir_s1_f32, every other FIR under
-    fir_stream_f32."""
+    routes to: the 4FSK head (16 taps a phase at most) under fir_decim_f32,
+    the NBFM head (17 to 64 taps a phase) under fir_long_f32, the stride-1
+    filters of up to 2,048 taps under fir_s1_f32, every other FIR (the
+    audio resampler's K113 D5) under fir_stream_f32."""
     fsk, nbfm = Fsk4DemodFF(device="cpu"), NbfmDemod(device="cpu")
     kernel_paths.reset()
     if stage.startswith("fsk head"):
@@ -515,3 +524,155 @@ def test_s1_model_matches_plain(rng, name):
     for g, r in zip(got, ref):
         assert not np.isnan(g).any(), "an output was never written"
         np.testing.assert_allclose(g, r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---- fir_long_f32 (csrc/fir_long.cu): a numpy model of its loop ---------
+
+def long_shape(K, D):
+    """(S, AS, NG, MW) of fir_long_f32 at K taps and stride D: segments,
+    phase rows a segment, groups of AS rows a warp walks, outputs a
+    block."""
+    A = -(-K // D)
+    S = -(-A // 16)
+    AS = -(-A // S)
+    NG = (256 + AS - 1) // AS + 1
+    return S, AS, NG, (NG - 1) * AS + 1
+
+
+def long_model(tails, xs, tf, D, shift, n_out):
+    """numpy model of fir_long_f32's loop, line for line, with every warp
+    (segment, chunk) of a row at once: the taps padded to A*D, S segments of
+    AS phase rows, two phase columns a lane (D >= 32, so every lane holds
+    the first); chunks of MW outputs a block; warp s walks rows
+    m0 + s*AS + r, each lane loading X[row][l] and X[row][l + 32] with the
+    tail/x seam resolved per element and loads past the stream reading 0
+    (the kernel's one-pointer loads of groups inside x read the same
+    elements); the ring of AS accumulators; the 32 x 32 tile of lane
+    partials summed lane by lane every 32 outputs into the segment
+    partials; then segments added in order 0 .. S-1. A chunk past its last
+    output records nothing (the kernel's break). tails: one (C, K-1) array
+    per plane, or None; xs: (C, T)."""
+    K = tf.shape[0]
+    S, AS, NG, MW = long_shape(K, D)
+    assert 32 <= D <= 64
+    lane = np.arange(32)
+    has1 = lane + 32 < D
+    seg = np.arange(S)[:, None, None]
+    j = (seg * AS + np.arange(AS)[:, None]) * D + lane  # (S, AS, 32)
+    t0 = np.where(j < K, tf[np.minimum(j, K - 1)], 0)
+    t1 = np.where(has1 & (j + 32 < K), tf[np.minimum(j + 32, K - 1)], 0)
+    t0, t1 = t0.astype(np.float32), t1.astype(np.float32)
+    n_chunks = -(-n_out // MW)
+    m0 = np.arange(n_chunks) * MW
+    m_end = np.minimum(m0 + MW, n_out)
+    ys = []
+    for p, x in enumerate(xs):
+        C, T = x.shape
+        tail = np.zeros((C, 0), np.float32) if tails is None else tails[p]
+        tail_len = tail.shape[1]
+        n_in = tail_len + T
+
+        def load(v, has):  # v: (S, n_chunks, 32) -> (C, S, n_chunks, 32)
+            ok = has & (v < n_in)
+            vt = np.clip(v, 0, max(tail_len - 1, 0))
+            vx = np.clip(v - tail_len, 0, T - 1)
+            val = np.where(v < tail_len, tail[:, vt] if tail_len else 0,
+                           x[:, vx])
+            return np.where(ok, val, 0).astype(np.float32)
+
+        v0 = (m0[:, None] + seg * AS) * D + shift + lane  # (S, n_chunks, 32)
+        acc = np.zeros((AS, C, S, n_chunks, 32), np.float32)
+        red = np.zeros((C, S, n_chunks, 32, 32), np.float32)  # [out, lane]
+        part = np.full((C, S, n_chunks, MW), np.nan, np.float32)
+        for r in range(NG * AS):
+            if r % AS == 0 and np.all(m0 + r - (AS - 1) >= m_end):
+                break
+            c0, c1 = load(v0 + r * D, True), load(v0 + r * D + 32, has1)
+            u = r % AS
+            for a in range(AS):
+                s = (u - a) % AS
+                acc[s] = acc[s] + t0[:, None, a] * c0
+                acc[s] = acc[s] + t1[:, None, a] * c1
+            s = (u + 1) % AS
+            jo = r - (AS - 1)
+            live = (jo >= 0) & (m0 + jo < m_end)
+            if jo >= 0 and live.any():
+                red[:, :, live, jo & 31] = acc[s][:, :, live]
+                flush = live & ((jo & 31 == 31) | (m0 + jo == m_end - 1))
+                if flush.any():
+                    tile = red[:, :, flush]
+                    total = np.zeros(tile.shape[:-1], np.float32)
+                    for k in range(32):
+                        total = total + tile[..., k]
+                    n = (jo & 31) + 1
+                    base = jo & ~31
+                    part[:, :, flush, base: base + n] = total[..., :n]
+            acc[s] = 0
+        y = part[:, 0]
+        for s in range(1, S):
+            y = y + part[:, s]
+        ys.append(y.reshape(C, n_chunks * MW)[:, :n_out])
+    return ys
+
+
+@pytest.mark.parametrize("name", sorted(LONG_CASES))
+def test_long_model_matches_plain(rng, name):
+    """fir_long_f32's index math (the numpy model) against fir_stream_plain,
+    within the FIR's 1e-5, at every shape the card test runs."""
+    C, T, K, D, shift, planes, tail = LONG_CASES[name]
+    assert route(K, D) == "fir_long_f32"
+    tf = np.ascontiguousarray(long_taps(name, K, rng))
+    xs = [rng.standard_normal((C, T)).astype(np.float32)
+          for _ in range(planes)]
+    tails = ([rng.standard_normal((C, K - 1)).astype(np.float32)
+              for _ in range(planes)] if tail else None)
+    n_out = (T // D) if tail else (T - shift - K) // D + 1
+    got = long_model(tails, xs, tf, D, shift, n_out)
+    ref = fir_stream_plain(
+        [torch.from_numpy(x) for x in xs], torch.from_numpy(tf), D, n_out,
+        tails=None if tails is None else [torch.from_numpy(t)
+                                          for t in tails], shift=shift)
+    for g, r in zip(got, ref):
+        assert not np.isnan(g).any(), "an output was never written"
+        np.testing.assert_allclose(g, r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_long_model_ragged_chunk_is_mw_plus_one():
+    """The ragged_chunk case leaves one output to a second block at the NBFM
+    head's AS = 15 (MW = 271), and the head runs 3 segments."""
+    C, T, K, D, shift, planes, tail = LONG_CASES["ragged_chunk"]
+    S, AS, NG, MW = long_shape(K, D)
+    assert (S, AS, MW) == (3, 15, 271) and T // D == MW + 1
+
+
+SASS = """
+\t\tFunction : _Z8kernelILi15EEvPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/               @P0 LDG.E.CONSTANT R57, desc[UR6][R98.64] ;
+""" + "".join(f"        /*{i:04x}*/                   FFMA R2, R3, R4, R2 ;\n"
+              for i in range(16)) + """\
+        /*0100*/              @!P1 BRA 0x200 ;
+        /*0110*/                   STS [R99], R144 ;
+        /*0120*/                   BSYNC B0 ;
+""" + "".join(f"        /*{i:04x}*/                   FFMA R2, R3, R4, R2 ;\n"
+              for i in range(17)) + """\
+        /*0300*/                   EXIT ;
+\t\tFunction : _Z8kernelILi9EEvPf
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_opcode_mix_and_row_runs():
+    """utils/sass.py on a made-up listing: opcodes with their predicates
+    dropped, one list a kernel instance, runs of 16+ FFMAs split at
+    branches, reconvergence points and exits."""
+    fns = sass.functions(SASS)
+    assert list(fns) == ["_Z8kernelILi15EEvPf", "_Z8kernelILi9EEvPf"]
+    ops = fns["_Z8kernelILi15EEvPf"]
+    assert ops[:2] == ["LDC", "LDG"] and ops.count("FFMA") == 33
+    runs = sass.runs(ops)
+    assert [sum(r.values()) for r in runs] == [19, 18]
+    assert runs[0]["FFMA"] == 16 and runs[0]["BRA"] == 1
+    assert runs[1]["FFMA"] == 17 and runs[1]["EXIT"] == 1
+    assert sass.runs(fns["_Z8kernelILi9EEvPf"]) == []

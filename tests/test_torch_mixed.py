@@ -114,5 +114,6 @@ def test_mixed_rx_streamed():
     assert np.asarray(jouts[0]["bits"]).shape == (4, 8)
     assert np.asarray(jouts[1]["audio"]).shape == (4, 32)
     report = kernel_paths.report()
-    for op in ("pfb_channelize_f32", "fir_stream_f32", "viterbi_bfly_k7"):
+    for op in ("pfb_channelize_f32", "fir_long_f32", "fir_stream_f32",
+               "viterbi_bfly_k7"):
         assert report[op]["plain"] >= 2, op
