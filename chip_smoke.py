@@ -10,8 +10,8 @@ when the package cannot be imported, and when any phase fails:
 
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
-    spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_s1.cu and
-    csrc/viterbi_bfly.cu);
+    spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_s1.cu,
+    csrc/viterbi_bfly.cu and csrc/pfb_fft.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -47,11 +47,15 @@ when the package cannot be imported, and when any phase fails:
       24, complex input), within the FIR's bound; F.conv1d(groups=C) is
       the yardstick;
     - the fused channelizer (K5) over two chained blocks of B = 1, M = 64,
-      Tm = 100,000, within 1e-5 of its output's peak, its carried state
-      bit-equal; no single PyTorch call computes it. Then the channelizer
-      stage against the JAX package's default route (commutator in
-      PyTorch, K4 branch FIRs, four real matrix products), which the port
-      does not keep: output within 1e-5 of the peak, both routes timed;
+      Tm = 100,000: pfb_fft_f32, which the route gives the shape, through
+      PfbChannelizer, and pfb_channelize_f32, which served it before, on
+      the same blocks, each within 1e-5 of the plain version's peak, the
+      carried state bit-equal; the two kernels timed in turns (old, new,
+      new, old), pfb_channelize_f32's row kept with "path": null; no
+      single PyTorch call computes K5. Then the channelizer stage against
+      the JAX package's default route (commutator in PyTorch, K4 branch
+      FIRs, four real matrix products), which the port does not keep:
+      output within 1e-5 of the peak, both routes timed;
  4. the 4FSK main path: Fsk4DemodFF(lead_shape=(2048,)) for 3 steps of
     200,000 samples with state carried, launch counters zeroed just before
     and read just after (fir_decim_f32, fir_s1_f32 and viterbi_bfly_k7 must
@@ -61,8 +65,9 @@ when the package cannot be imported, and when any phase fails:
  5. the mixed main path: MultichannelRx(64) on one wideband stream of
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
-    counters zeroed before and read after (K5, the four FIR kernels and
-    viterbi_bfly_k7 on every step, nothing on a plain path); one more step
+    counters zeroed before and read after (K5 on pfb_fft_f32, the four FIR
+    kernels and viterbi_bfly_k7 on every step, pfb_channelize_f32 never,
+    nothing on a plain path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
  6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
     blocks through Fsk4DemodFF on the card and on the CPU: the bits must
@@ -531,39 +536,59 @@ def depthwise_phase(dev, gen):
 
 
 def pfb_phase(dev, gen):
-    """K5 over two chained blocks at B = 1, M = 64, Tm = 100,000; then the
+    """K5 over two chained blocks at B = 1, M = 64, Tm = 100,000: the
+    channelizer (pfb_fft_f32) and pfb_channelize_f32 on the same blocks,
+    each against the plain version, then the two timed in turns; then the
     channelizer stage against the JAX package's default route."""
     from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.ops import cuda_pfb
     from qradiolink_tpu_torch.ops.channelizer import PfbChannelizer
-    from qradiolink_tpu_torch.ops.cuda_pfb import channelize, channelize_plain
+    from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain
 
     ch = PfbChannelizer(MIX_M, device=dev)
     M, kp, Tm = MIX_M, ch.kp, MIX_T
+    new, old = cuda_pfb.route(M, kp), cuda_pfb.OP
+    if new != cuda_pfb.FFT_OP:
+        raise RuntimeError(f"M={M} kp={kp} routes to {new}")
     state = ch.init_state()
-    err = 0.0
+    errs = {new: 0.0, old: 0.0}
     for blk in range(2):
         x = IqPair(torch.randn((Tm * M,), generator=gen, device=dev) * 0.05,
                    torch.randn((Tm * M,), generator=gen, device=dev) * 0.05)
         new_state, y = ch(state, x)
+        y_old = cuda_pfb._launch((x.re, x.im), state, ch._ct, ch._dft)
         plain = channelize_plain((x.re, x.im), state, ch._ct)
         torch.cuda.synchronize()
-        err = max(err, peak_err(f"pfb block {blk}", (y.re, y.im), plain,
-                                1e-5))
+        for op, got in ((new, (y.re, y.im)), (old, y_old)):
+            errs[op] = max(errs[op], peak_err(f"{op} block {blk}", got,
+                                              plain, 1e-5))
         want = torch.cat([state, torch.stack([x.re, x.im])], -1)[..., -kp * M:]
         if not torch.equal(new_state, want):
             raise RuntimeError("pfb: carried raw history is not the last "
                                "kp*M input samples")
         state = new_state
     xs = (x.re, x.im)
-    ms = cuda_ms(lambda: channelize(xs, state, ch._ct, ch._dft))
+    print(f"  {new}: 2 chained blocks within 1e-5 of the plain version's "
+          f"peak, state bit-equal", flush=True)
+    ms, turns = turns_ms({
+        old: lambda: cuda_pfb._launch(xs, state, ch._ct, ch._dft),
+        new: lambda: cuda_pfb._launch_fft(xs, state, ch._ct)})
+    print(f"  K5 M{M} kp{kp} in turns: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
     plain_ms = cuda_ms(lambda: channelize_plain(xs, state, ch._ct))
-    n_bytes = 4 * (2 * Tm * M + 2 * kp * M + 2 * M * Tm
-                   + (kp + 1) * M + ch._dft.numel())
+    # a yardstick for the bytes: a device copy of the two input planes into
+    # two output planes, the same 102.4 MB the kernel reads and writes
+    outs = tuple(torch.empty_like(p) for p in xs)
+    copy_ms = cuda_ms(lambda: [o.copy_(p) for o, p in zip(outs, xs)])
+    print(f"  a device copy of the same bytes (2 planes in, 2 out): "
+          f"{copy_ms:.4f} ms", flush=True)
+    del outs
+    # the planes in and out, the history and the taps
+    n_bytes = 4 * (2 * Tm * M + 2 * kp * M + 2 * M * Tm + (kp + 1) * M)
     # the column FIR's FMAs, and the DFT at an FFT's cost, 5 M log2 M
     # flops a row of M complex samples
     n_ops = 2 * (kp + 1) * 2 * Tm * M + 5 * M * np.log2(M) * Tm
     b = bound(n_bytes, n_ops)
-    print(f"  pfb: 2 chained blocks, state bit-equal", flush=True)
 
     # the channelizer stage by the JAX package's default route: the
     # commutator in PyTorch, K4 on the branches, the IDFT as four real
@@ -584,12 +609,16 @@ def pfb_phase(dev, gen):
     route_err = peak_err("JAX default route", yj, (y.re, y.im), 1e-5)
     stage_ms = cuda_ms(lambda: ch(state, x))
     route_ms = cuda_ms(jax_route)
-    print(f"  channelizer stage {stage_ms:.4f} ms (K5); the JAX package's "
-          f"default route {route_ms:.4f} ms (commutator + K4 + products), "
-          f"max |diff| {route_err:.3e}", flush=True)
-    return [row("pfb_channelize_f32", "qradiolink_tpu_torch/csrc/pfb.cu",
-                "qradiolink_tpu/ops/pallas_pfb.py:186", err, ms, plain_ms, b,
-                None, "mixed", f"M{M} kp{kp}")]
+    print(f"  channelizer stage {stage_ms:.4f} ms ({new}); the JAX "
+          f"package's default route {route_ms:.4f} ms (commutator + K4 + "
+          f"products), max |diff| {route_err:.3e}", flush=True)
+    replaces = "qradiolink_tpu/ops/pallas_pfb.py:186"
+    return [row(new, "qradiolink_tpu_torch/csrc/pfb_fft.cu", replaces,
+                errs[new], ms[new], plain_ms, b, None, "mixed",
+                f"M{M} kp{kp}"),
+            row(old, "qradiolink_tpu_torch/csrc/pfb.cu", replaces, errs[old],
+                ms[old], plain_ms, b, None, "mixed", f"M{M} kp{kp}",
+                routed=False)]
 
 
 def timed(stages, name, fn):
@@ -671,7 +700,7 @@ def drive(fn, state, x, every_step):
 
 # ops each main path must launch on every step
 FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_bfly_k7")
-MIXED_EVERY_STEP = ("pfb_channelize_f32", "fir_long_f32",
+MIXED_EVERY_STEP = ("pfb_fft_f32", "fir_long_f32",
                     "fir_stream_f32") + FSK_EVERY_STEP
 
 
@@ -770,7 +799,7 @@ def mixed_path(dev, gen):
     # one more step, stage by stage (after the counters were read)
     stages = {}
     ch_state, g_states = state
-    _, chans = timed(stages, "channelizer (K5)",
+    _, chans = timed(stages, "channelizer (K5, pfb_fft_f32)",
                      lambda: rx.channelizer(ch_state, iq))
     (fchain, fidx), (nchain, nidx) = rx.groups
     xf = iq_take(chans, fidx)
@@ -931,8 +960,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # fir_decim_f32, fir_long_f32 and fir_s1_f32 keep their rings in
-    # registers, viterbi_bfly_k7 its path metrics
-    for name in ("fir_decim", "fir_long", "fir_s1", "viterbi_bfly"):
+    # registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 its taps
+    for name in ("fir_decim", "fir_long", "fir_s1", "viterbi_bfly",
+                 "pfb_fft"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 

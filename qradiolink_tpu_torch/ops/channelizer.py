@@ -13,14 +13,15 @@ so channel k (centered at +k*fs/M, k mod M) is an IDFT across the M branch
 filter outputs. Synthesizer is the exact adjoint: IDFT across channels ->
 branch filters g[p::M] -> commutate branches into the output stream.
 
-Routes: the channelizer runs IqPair input through the fused kernel
-`pfb_channelize_f32` (ops/cuda_pfb.py, K5). The JAX package's default
-route (commutator, depthwise branch FIRs, four einsums) is slower on an
-H100 (PERF.md) and is not ported as a second IqPair route. Complex input
-runs the commutator in PyTorch, the branch FIRs in the `depthwise_fir_f32`
-kernel (ops/cuda_depthwise.py, K4) and the IDFT through torch.fft.ifft.
-The synthesizer's branch FIRs run K4. On CPU tensors each kernel wrapper
-takes its plain version.
+Routes: the channelizer runs IqPair input through the fused kernel (K5)
+that ops/cuda_pfb.route(M, kp) picks: `pfb_fft_f32` at M = 8, 16, 32, 64
+(kp 8-32), `pfb_channelize_f32` at every other shape. The JAX package's
+default route (commutator, depthwise branch FIRs, four einsums) is slower
+on an H100 (PERF.md) and is not ported as a second IqPair route. Complex
+input runs the commutator in PyTorch, the branch FIRs in the
+`depthwise_fir_f32` kernel (ops/cuda_depthwise.py, K4) and the IDFT through
+torch.fft.ifft. The synthesizer's branch FIRs run K4. On CPU tensors each
+kernel wrapper takes its plain version.
 """
 
 from __future__ import annotations

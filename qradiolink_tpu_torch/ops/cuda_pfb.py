@@ -1,5 +1,6 @@
-"""Fused polyphase channelizer: wrapper, plain version, tables and the CUDA
-kernel `pfb_channelize_f32` (csrc/pfb.cu).
+"""Fused polyphase channelizer: wrapper, plain version, tables and the two
+CUDA kernels that compute it, `pfb_fft_f32` (csrc/pfb_fft.cu) and
+`pfb_channelize_f32` (csrc/pfb.cu).
 
 Port of the Pallas TPU kernel qradiolink_tpu/ops/pallas_pfb.py `channelize`
 (K5), which computes the whole PFB channelizer in one pass. With the input
@@ -12,19 +13,25 @@ column-permuted DFT matrix W):
     v[t, c] = sum_{l=0..kp} ct[l, c] * x2d[t - l, c]
     y[k, t] = sum_p exp(+2 pi i k p / M) * v[t, (M - p) mod M]
 
-The kernel computes the DFT in two factored stages (M = M1 * M2,
-`dft_factors`) from the tables of `pfb_tables`. The TPU kernel's lane
-packing (`_pack`, the g_str/fold plan) and its remainder rows have no
-counterpart here: every call on a CUDA tensor launches the kernel and
-computes all Tm rows.
+`route(M, kp)` picks the kernel: `pfb_fft_f32`, the DFT as two radix-2/4/8
+butterfly stages (M = R1 * R2, `FFT_RADICES`, twiddles from `fft_table`)
+and the rows staged asynchronously, for M in 8, 16, 32, 64 with kp in 8,
+16, 24, 32 (the mixed path's M = 64, kp = 24); `pfb_channelize_f32`, the
+DFT in two dense factored stages (M = M1 * M2, `dft_factors`, tables from
+`pfb_tables`), for every other shape (M = 10, the MMDVM channelizer). The
+TPU kernel's lane packing (`_pack`, the g_str/fold plan) and its remainder
+rows have no counterpart here: every call on a CUDA tensor launches a
+kernel and computes all Tm rows.
 
 On a CPU tensor the wrapper takes the plain version (kp+1 shifted FMAs,
-then torch.fft.ifft); on a CUDA tensor it launches the kernel or raises.
+then torch.fft.ifft) and records it under the routed kernel's name; on a
+CUDA tensor it launches that kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,6 +40,30 @@ from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "pfb_channelize_f32"
+FFT_OP = "pfb_fft_f32"
+# pfb_fft_f32's instances: M = R1 * R2 (Radix<M> in csrc/pfb_fft.cu) and
+# the taps a branch, at most its tile of 32 rows
+FFT_RADICES = {8: (2, 4), 16: (4, 4), 32: (4, 8), 64: (8, 8)}
+FFT_KP = (8, 16, 24, 32)
+
+
+def route(M: int, kp: int) -> str:
+    """The kernel that channelizes M channels with kp taps a branch:
+    pfb_fft_f32 for M in FFT_RADICES and kp in FFT_KP, pfb_channelize_f32
+    otherwise."""
+    if M in FFT_RADICES and kp in FFT_KP:
+        return FFT_OP
+    return OP
+
+
+def fft_table(M: int) -> np.ndarray:
+    """pfb_fft_f32's twiddles W^(k2 p1) = exp(2 pi i k2 p1 / M), p1 < R1,
+    k2 < R2, computed in float64 and rounded once to f32; flat (2 M,) as
+    [Re | Im], each laid out [p1][k2]."""
+    R1, R2 = FFT_RADICES[M]
+    w = np.exp(2j * np.pi * np.outer(np.arange(R1), np.arange(R2)) / M)
+    return np.concatenate([w.real.ravel(), w.imag.ravel()]).astype(
+        np.float32)
 
 
 def dft_factors(M: int):
@@ -98,7 +129,8 @@ def channelize_plain(xs, hist, ct):
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def _lib():
+def _pfb_lib():
+    """csrc/pfb.cu's library."""
     lib = kernels.load("pfb")
     if not getattr(lib, "_qrl_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -113,13 +145,27 @@ def _lib():
     return lib
 
 
-def _check(xs, hist, ct, dft):
+def _fft_lib():
+    """csrc/pfb_fft.cu's library."""
+    lib = kernels.load("pfb_fft")
+    if not getattr(lib, "_qrl_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pfb_fft_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.pfb_fft_f32.restype = ctypes.c_int
+        lib.pfb_fft_error_string.argtypes = [i]
+        lib.pfb_fft_error_string.restype = ctypes.c_char_p
+        lib._qrl_bound = True
+    return lib
+
+
+def _check(xs, hist, ct):
+    """Checks the planes, history and taps; returns (M, kp)."""
     if len(xs) != 2:
         raise ValueError(f"2 planes (re, im), got {len(xs)}")
     x0 = xs[0]
     kp1, M = ct.shape
     kp = kp1 - 1
-    for t in (*xs, hist, ct, dft):
+    for t in (*xs, hist, ct):
         if t.dtype != torch.float32 or t.device != x0.device:
             raise ValueError("every tensor must be f32 on the planes' device")
     if xs[1].shape != x0.shape or x0.shape[-1] % M:
@@ -127,12 +173,83 @@ def _check(xs, hist, ct, dft):
     if tuple(hist.shape) != tuple(x0.shape[:-1]) + (2, kp * M):
         raise ValueError(f"hist must be {tuple(x0.shape[:-1])} + "
                          f"(2, {kp * M})")
-    M1, M2 = dft_factors(M)
-    if tuple(dft.shape) != (2 * M1 * (M2 * _pad8(M2) + _pad8(M1)),):
-        raise ValueError(f"dft is not the table pfb_tables makes for M={M}")
     if kp < 1:
         raise ValueError("ct needs at least 2 rows")
-    return M, kp, M1
+    return M, kp
+
+
+def _prepare(xs, hist, tables):
+    """Checks contiguity; returns (ys, B, Tm) with the outputs allocated,
+    each (..., M, Tm)."""
+    for t in (*xs, hist, *tables):
+        if not t.is_contiguous():
+            raise ValueError("every tensor must be contiguous")
+    M = tables[0].shape[1]
+    lead = tuple(xs[0].shape[:-1])
+    B = xs[0].numel() // xs[0].shape[-1] if xs[0].numel() else 0
+    Tm = xs[0].shape[-1] // M
+    ys = tuple(torch.empty(lead + (M, Tm), dtype=torch.float32,
+                           device=xs[0].device) for _ in range(2))
+    return ys, B, Tm
+
+
+def _run(op, fn, error_string, tensors, *ints):
+    """fn(pointers of tensors..., ints..., stream) on the planes' device;
+    raises with error_string's message on a CUDA error."""
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
+    if err:
+        raise RuntimeError(f"{op} launch failed: "
+                           f"{error_string(err).decode()}")
+
+
+def _launch(xs, hist, ct, dft):
+    """pfb_channelize_f32 on CUDA tensors (any M; the factored DFT)."""
+    M, kp = _check(xs, hist, ct)
+    M1, M2 = dft_factors(M)
+    if dft.dtype != torch.float32 or dft.device != xs[0].device or \
+            tuple(dft.shape) != (2 * M1 * (M2 * _pad8(M2) + _pad8(M1)),):
+        raise ValueError(f"dft is not the table pfb_tables makes for M={M}")
+    lib = _pfb_lib()
+    if lib.pfb_smem_bytes(M, kp, M1) > kernels.SMEM_MAX:
+        raise ValueError(f"M={M}, kp={kp} needs more shared memory than a "
+                         f"block has")
+    ys, B, Tm = _prepare(xs, hist, (ct, dft))
+    if B and Tm:
+        _run(OP, lib.pfb_channelize_f32, lib.pfb_error_string,
+             (*xs, hist, ct, dft, *ys), B, Tm, M, kp, M1)
+        kernel_paths.record(OP, True, f"M{M} kp{kp}")
+    return ys
+
+
+@functools.cache
+def _twiddles(M: int, device: torch.device) -> torch.Tensor:
+    """fft_table(M) as a tensor on `device`, made once for each (M,
+    device) and never written."""
+    return torch.from_numpy(fft_table(M)).to(device)
+
+
+def _aligned(t):
+    """t, or a copy of it at a fresh allocation when its data is not
+    16-byte aligned (pfb_fft_f32 stages rows with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_fft(xs, hist, ct):
+    """pfb_fft_f32 on CUDA tensors (M in FFT_RADICES, kp in FFT_KP)."""
+    M, kp = _check(xs, hist, ct)
+    if route(M, kp) != FFT_OP:
+        raise ValueError(f"{FFT_OP} does not take M={M}, kp={kp}")
+    ys, B, Tm = _prepare(xs, hist, (ct,))
+    if B and Tm:
+        lib = _fft_lib()
+        _run(FFT_OP, lib.pfb_fft_f32, lib.pfb_fft_error_string,
+             (*map(_aligned, xs), _aligned(hist), ct,
+              _twiddles(M, ct.device), *ys), B, Tm, M, kp)
+        kernel_paths.record(FFT_OP, True, f"M{M} kp{kp}")
+    return ys
 
 
 def channelize(xs, hist, ct, dft):
@@ -141,40 +258,20 @@ def channelize(xs, hist, ct, dft):
     xs: (x_re, x_im), each (..., T) with T = Tm*M; hist: (..., 2, kp*M)
     raw input history (the last kp*M samples before the block, oldest
     first); ct, dft: the tables of pfb_tables, as f32 tensors on the
-    planes' device. Returns (y_re, y_im), each (..., M, Tm). The new
+    planes' device (pfb_fft_f32 takes its twiddles from fft_table(M)
+    instead of dft). Returns (y_re, y_im), each (..., M, Tm). The new
     history is the caller's (the last kp*M samples of [hist | x]).
     """
     xs = tuple(xs)
-    M, kp, M1 = _check(xs, hist, ct, dft)
-    shape = f"M{M} kp{kp}"
+    M, kp = ct.shape[1], ct.shape[0] - 1
+    op = route(M, kp)
     dev = xs[0].device
     if dev.type == "cpu":
-        kernel_paths.record(OP, False, shape)
+        _check(xs, hist, ct)
+        kernel_paths.record(op, False, f"M{M} kp{kp}")
         return channelize_plain(xs, hist, ct)
     if dev.type != "cuda":
-        raise ValueError(f"no {OP} kernel for device {dev}")
-    for t in (*xs, hist, ct, dft):
-        if not t.is_contiguous():
-            raise ValueError("every tensor must be contiguous")
-    lib = _lib()
-    if lib.pfb_smem_bytes(M, kp, M1) > kernels.SMEM_MAX:
-        raise ValueError(f"M={M}, kp={kp} needs more shared memory than a "
-                         f"block has")
-    lead = tuple(xs[0].shape[:-1])
-    B = xs[0].numel() // xs[0].shape[-1] if xs[0].numel() else 0
-    Tm = xs[0].shape[-1] // M
-    ys = tuple(torch.empty(lead + (M, Tm), dtype=torch.float32, device=dev)
-               for _ in range(2))
-    if B == 0 or Tm == 0:
-        return ys
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pfb_channelize_f32(
-            xs[0].data_ptr(), xs[1].data_ptr(), hist.data_ptr(),
-            ct.data_ptr(), dft.data_ptr(), ys[0].data_ptr(),
-            ys[1].data_ptr(), B, Tm, M, kp, M1, stream)
-    if err:
-        raise RuntimeError(f"{OP} launch failed: "
-                           f"{lib.pfb_error_string(err).decode()}")
-    kernel_paths.record(OP, True, shape)
-    return ys
+        raise ValueError(f"no {op} kernel for device {dev}")
+    if op == OP:
+        return _launch(xs, hist, ct, dft)
+    return _launch_fft(xs, hist, ct)

@@ -13,6 +13,8 @@ peak.
 """
 
 import functools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -29,8 +31,9 @@ from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.ops import channelizer as tch  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
     depthwise_fir, depthwise_fir_plain)
+from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_pfb import (  # noqa: E402
-    channelize, dft_factors, pfb_tables)
+    channelize, channelize_plain, dft_factors, fft_table, pfb_tables)
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 from tests.torch_parity import assert_same, stream_both  # noqa: E402
 
@@ -83,11 +86,11 @@ def test_channelizer_streamed(rng, M, route):
     if route == "pair":
         blocks = [(b.real.copy(), b.imag.copy()) for b in blocks]
     kernel_paths.reset()
-    stream_both(jch.PfbChannelizer(M, lead_shape=(2,)),
-                tch.PfbChannelizer(M, lead_shape=(2,), device="cpu"),
-                blocks, rtol=TOL, atol=0, state_rtol=0, state_atol=0,
-                peak=True)
-    op = "pfb_channelize_f32" if route == "pair" else "depthwise_fir_f32"
+    tc = tch.PfbChannelizer(M, lead_shape=(2,), device="cpu")
+    stream_both(jch.PfbChannelizer(M, lead_shape=(2,)), tc, blocks,
+                rtol=TOL, atol=0, state_rtol=0, state_atol=0, peak=True)
+    op = (cuda_pfb.route(M, tc.kp) if route == "pair"
+          else "depthwise_fir_f32")
     assert kernel_paths.report()[op]["plain"] == 2
 
 
@@ -220,9 +223,184 @@ def test_plain_channelize_matches_pallas(pallas_interp, rng):
         kernel_paths.reset()
         yr, yi = channelize(tuple(torch.from_numpy(a) for a in xs),
                             torch.from_numpy(hist), ct, dft)
-        assert kernel_paths.report()["pfb_channelize_f32"]["plain"] == 1
+        assert kernel_paths.report()[cuda_pfb.route(M, kp)]["plain"] == 1
         want = np.asarray(wr) + 1j * np.asarray(wi)
         got = (yr.numpy() + 1j * yi.numpy())[..., :n_main]
         assert_same(want, got, TOL, 0, peak=True)
         hist = np.concatenate([hist, np.stack(xs, axis=1)],
                               axis=-1)[..., -kp * M:]
+
+
+# pfb_fft_f32's tiling (csrc/pfb_fft.cu: kTT, kStages), which run_model
+# follows; test_models_follow_the_kernel_source reads them from the source
+FFT_TT, FFT_STAGES = 32, 2
+FFT_SRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
+           / "csrc" / "pfb_fft.cu")
+
+
+def _bfly(r, i):
+    """csrc/pfb_fft.cu's Bfly<R> on lists of R f32 arrays (re, im): the
+    inverse DFT X[k] = sum_n x[n] exp(+2 pi i k n / R), R in 2, 4, 8."""
+    if len(r) == 2:
+        return [r[0] + r[1], r[0] - r[1]], [i[0] + i[1], i[0] - i[1]]
+    if len(r) == 4:
+        s0r, s0i, d0r, d0i = r[0] + r[2], i[0] + i[2], r[0] - r[2], i[0] - i[2]
+        s1r, s1i, d1r, d1i = r[1] + r[3], i[1] + i[3], r[1] - r[3], i[1] - i[3]
+        return ([s0r + s1r, d0r - d1i, s0r - s1r, d0r + d1i],
+                [s0i + s1i, d0i + d1r, s0i - s1i, d0i - d1r])
+    h = np.float32(0.70710678118654752440)
+    er, ei = _bfly(r[0::2], i[0::2])
+    o_r, oi = _bfly(r[1::2], i[1::2])
+    a, b = o_r[1], oi[1]
+    o_r[1], oi[1] = (a - b) * h, (a + b) * h
+    o_r[2], oi[2] = -oi[2], o_r[2]
+    a, b = o_r[3], oi[3]
+    o_r[3], oi[3] = -(a + b) * h, (a - b) * h
+    return ([er[k] + o_r[k] for k in range(4)] + [er[k] - o_r[k]
+                                                 for k in range(4)],
+            [ei[k] + oi[k] for k in range(4)] + [ei[k] - oi[k]
+                                                 for k in range(4)])
+
+
+def fft_model(vr, vi, tw):
+    """pfb_fft_f32's two butterfly stages in f32 over rows of M columns in
+    polyphase order, (..., M) each plane: stage 1 takes slots p1 + R1 p2
+    into the radix-R2 butterfly, multiplies by tw[p1][k2] (the flat
+    [Re | Im] table, laid out [p1][k2]) and writes z[k2][p1] to slot
+    p1 + R1 k2; stage 2 takes slots p1 + R1 k2 into the radix-R1
+    butterfly and gives channel k2 + R2 k1."""
+    M = vr.shape[-1]
+    R1, R2 = cuda_pfb.FFT_RADICES[M]
+    zr, zi = vr.copy(), vi.copy()
+    for p1 in range(R1):
+        ar, ai = _bfly([zr[..., p1 + R1 * q] for q in range(R2)],
+                       [zi[..., p1 + R1 * q] for q in range(R2)])
+        for k2 in range(R2):
+            wr, wi = tw[p1 * R2 + k2], tw[M + p1 * R2 + k2]
+            zr[..., p1 + R1 * k2] = ar[k2] * wr - ai[k2] * wi
+            zi[..., p1 + R1 * k2] = ar[k2] * wi + ai[k2] * wr
+    yr, yi = np.empty_like(vr), np.empty_like(vi)
+    for k2 in range(R2):
+        br, bi = _bfly([zr[..., p1 + R1 * k2] for p1 in range(R1)],
+                       [zi[..., p1 + R1 * k2] for p1 in range(R1)])
+        for k1 in range(R1):
+            yr[..., k2 + R2 * k1], yi[..., k2 + R2 * k1] = br[k1], bi[k1]
+    return yr, yi
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64])
+def test_fft_model_is_the_inverse_dft(rng, M):
+    """The kernel's butterflies and twiddle table give the unscaled inverse
+    DFT of the columns in polyphase order."""
+    tw = fft_table(M)
+    assert tw.dtype == np.float32 and tw.shape == (2 * M,)
+    vp = _iq(rng, (7, M))
+    yr, yi = fft_model(vp.real.copy(), vp.imag.copy(), tw)
+    want = np.fft.ifft(vp.astype(np.complex128), axis=-1) * M
+    np.testing.assert_allclose(yr + 1j * yi, want, rtol=0, atol=1e-5 * M)
+
+
+def run_model(xr, xi, hist, ct, tw, runs):
+    """pfb_fft_f32's schedule in numpy: stream b's tiles of FFT_TT rows cut
+    into `runs` contiguous runs; each run walks a ring of FFT_STAGES stages
+    of [kp halo rows | FFT_TT rows], its first tile's halo staged from the
+    input (the history for t < 0), every later halo copied from the last
+    kp rows of the tile before; rows past Tm are never staged (the stages
+    start as NaN, so a row read before it is written shows). The column
+    FIR sums taps kp .. 0 as the kernel does, then fft_model. xr, xi:
+    (B, Tm*M); hist (B, 2, kp*M). Returns (y_re, y_im), (B, M, Tm), and
+    asserts that every output was written once."""
+    kp1, M = ct.shape
+    kp, TT = kp1 - 1, FFT_TT
+    B, Tm = xr.shape[0], xr.shape[1] // M
+    tiles = -(-Tm // TT)
+    runs = min(runs, tiles)
+    y = np.full((2, B, M, Tm), np.nan, np.float32)
+    order = (-np.arange(M)) % M
+    for b in range(B):
+        x = np.stack([xr[b], xi[b]]).reshape(2, Tm, M)
+        h = hist[b].reshape(2, kp, M)
+        for r in range(runs):
+            g0, g1 = r * tiles // runs, (r + 1) * tiles // runs
+            ring = np.full((FFT_STAGES, 2, kp + TT, M), np.nan, np.float32)
+            for j in range(g1 - g0):
+                t0 = (g0 + j) * TT
+                st = ring[j % FFT_STAGES]
+                if j == 0:
+                    for t in range(t0 - kp, t0):
+                        st[:, kp + t - t0] = h[:, kp + t] if t < 0 else x[:, t]
+                hi = min(t0 + TT, Tm)
+                st[:, kp:kp + hi - t0] = x[:, t0:hi]
+                if j + 1 < g1 - g0:
+                    ring[(j + 1) % FFT_STAGES][:, :kp] = st[:, TT:TT + kp]
+                v = np.zeros((2, TT, M), np.float32)
+                for l in range(kp, -1, -1):
+                    v = v + ct[l] * st[:, kp - l:kp - l + TT]
+                yr, yi = fft_model(v[0][:, order], v[1][:, order], tw)
+                assert np.isnan(y[:, b, :, t0:hi]).all()
+                y[0, b, :, t0:hi] = yr[:hi - t0].T
+                y[1, b, :, t0:hi] = yi[:hi - t0].T
+    assert not np.isnan(y).any()
+    return y[0], y[1]
+
+
+@pytest.mark.parametrize("M,B", [(8, 1), (8, 3), (64, 1), (64, 3)])
+def test_run_model_matches_plain(rng, M, B):
+    """Two chained blocks of Tm = 229 rows (7 full tiles and a ragged one of
+    5) cut into 1, 3 (2 + 3 + 3 tiles) and 8 runs (a halo from global memory
+    at every tile), within 1e-5 of the plain version's peak."""
+    ch = tch.PfbChannelizer(M, lead_shape=(B,), device="cpu")
+    ct, tw = ch._ct.numpy(), fft_table(M)
+    assert cuda_pfb.route(M, ch.kp) == cuda_pfb.FFT_OP
+    Tm = 229
+    hist = rng.standard_normal((B, 2, ch.kp * M)).astype(np.float32)
+    for _ in range(2):
+        x = _iq(rng, (B, Tm * M))
+        xr, xi = x.real.copy(), x.imag.copy()
+        want = channelize_plain((torch.from_numpy(xr), torch.from_numpy(xi)),
+                                torch.from_numpy(hist), ch._ct)
+        for runs in (1, 3, 8):
+            got = run_model(xr, xi, hist, ct, tw, runs)
+            for g, w in zip(got, want):
+                assert_same(w.numpy(), g, TOL, 0, peak=True)
+        hist = np.concatenate([hist, np.stack([xr, xi], 1)], -1)[
+            ..., -ch.kp * M:]
+
+
+def test_models_follow_the_kernel_source():
+    """run_model's tiling and fft_model's radices are the kernel's."""
+    src = FFT_SRC.read_text()
+    assert f"constexpr int kTT = {FFT_TT};" in src
+    assert f"constexpr int kStages = {FFT_STAGES};" in src
+    for M, (R1, R2) in cuda_pfb.FFT_RADICES.items():
+        assert re.search(rf"struct Radix<{M}> +\{{ static constexpr int "
+                         rf"R1 = {R1}, R2 = {R2}; \}};", src), M
+    for kp in cuda_pfb.FFT_KP:
+        assert f"case {kp}: return launch<M, {kp}>;" in src
+        assert kp <= FFT_TT
+
+
+@pytest.mark.parametrize("M,kp,op", [
+    (64, 24, "pfb_fft_f32"), (16, 32, "pfb_fft_f32"),
+    (8, 24, "pfb_fft_f32"), (16, 8, "pfb_fft_f32"), (32, 32, "pfb_fft_f32"),
+    (10, 24, "pfb_channelize_f32"), (13, 24, "pfb_channelize_f32"),
+    (12, 24, "pfb_channelize_f32"), (128, 24, "pfb_channelize_f32"),
+    (64, 40, "pfb_channelize_f32"), (64, 12, "pfb_channelize_f32")])
+def test_pfb_route(M, kp, op):
+    assert cuda_pfb.route(M, kp) == op
+
+
+@pytest.mark.parametrize("M", [8, 10, 13, 16, 32, 64])
+def test_channelizer_route_recorded_on_cpu(rng, M):
+    """A CPU IqPair call records the plain path under the routed kernel's
+    name (and only there)."""
+    ch = tch.PfbChannelizer(M, device="cpu")
+    x = _iq(rng, 40 * M)
+    kernel_paths.reset()
+    ch(ch.init_state(), IqPair(torch.from_numpy(x.real.copy()),
+                               torch.from_numpy(x.imag.copy())))
+    op = cuda_pfb.route(M, ch.kp)
+    assert kernel_paths.report() == {op: {
+        "cuda": 0, "plain": 1, "shapes": {f"plain M{M} kp24": 1}}}
+    assert op == ("pfb_fft_f32" if M in (8, 16, 32, 64)
+                  else "pfb_channelize_f32")

@@ -37,6 +37,7 @@ from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
     fir_stream, fir_stream_plain, route)
+from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
@@ -314,23 +315,24 @@ def test_depthwise_kernel_matches_plain(cuda, gen, C, kp, lead, planes,
     _assert_fir_close(got, depthwise_fir_plain(xs, taps, n_out))
 
 
-@pytest.mark.parametrize("M,B,Tm", [(64, 1, 3000), (8, 3, 1000 + 7),
-                                    (10, 2, 515), (13, 1, 300)])
-def test_pfb_kernel_matches_plain(cuda, gen, M, B, Tm):
+def _pfb_two_blocks(cuda, gen, M, B, Tm):
     """Two chained blocks through the channelizer's fused route: each
-    block's output against the plain version from the same state, the
-    second block reading the history the first one left (the seam), and
-    the carried state bit-equal to the last kp*M input samples. M = 10
-    and 13 take the scalar staging (M not a multiple of 4), and 13 the
-    one-stage dense DFT (M1 = 1)."""
+    block's output within 1e-5 of the plain version's peak from the same
+    state, the second block reading the history the first one left (the
+    seam), and the carried state bit-equal to the last kp*M input samples.
+    Each block launches the kernel route(M, kp) picks, once, and not the
+    other; returns that kernel's name."""
     ch = PfbChannelizer(M, lead_shape=(B,), device=cuda)
+    op = cuda_pfb.route(M, ch.kp)
+    other = ({cuda_pfb.OP, cuda_pfb.FFT_OP} - {op}).pop()
     state = torch.randn((B, 2, ch.kp * M), generator=gen, device=cuda)
     for _ in range(2):
         x = IqPair(torch.randn((B, Tm * M), generator=gen, device=cuda),
                    torch.randn((B, Tm * M), generator=gen, device=cuda))
         kernel_paths.reset()
         new_state, y = ch(state, x)
-        assert kernel_paths.launches("pfb_channelize_f32") == 1
+        assert kernel_paths.launches(op) == 1
+        assert kernel_paths.launches(other) == 0
         ref = channelize_plain((x.re, x.im), state, ch._ct)
         peak = max(float(r.abs().max()) for r in ref)
         for g, r in zip((y.re, y.im), ref):
@@ -338,20 +340,63 @@ def test_pfb_kernel_matches_plain(cuda, gen, M, B, Tm):
         want = torch.cat([state, torch.stack([x.re, x.im], 1)], -1)
         assert torch.equal(new_state, want[..., -ch.kp * M:])
         state = new_state
+    return op
+
+
+@pytest.mark.parametrize("M,B,Tm", [(64, 1, 3000), (8, 3, 1000 + 7),
+                                    (10, 2, 515), (13, 1, 300),
+                                    (12, 3, 401)])
+def test_pfb_kernel_matches_plain(cuda, gen, M, B, Tm):
+    """M = 64 and 8 route to pfb_fft_f32; M = 10, 13 and 12 to
+    pfb_channelize_f32: at 10 and 13 its scalar staging (M not a multiple
+    of 4), at 13 its one-stage dense DFT (M1 = 1), at 12 its float4
+    staging over three streams."""
+    op = _pfb_two_blocks(cuda, gen, M, B, Tm)
+    assert op == (cuda_pfb.FFT_OP if M in (8, 64) else cuda_pfb.OP)
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64])
+@pytest.mark.parametrize("B,Tm", [(1, 32 * 3000 + 5), (3, 32 * 1200 + 27)])
+def test_pfb_fft_kernel_matches_plain(cuda, gen, M, B, Tm):
+    """pfb_fft_f32 at every M it takes, one and three streams (stream b's
+    planes start at b Tm M), ragged last tiles, over two chained blocks.
+    The tiles outnumber the blocks the card holds several times over, so
+    runs are several tiles long and the staging ring wraps."""
+    assert _pfb_two_blocks(cuda, gen, M, B, Tm) == cuda_pfb.FFT_OP
+
+
+def test_pfb_kernels_agree_at_the_mixed_shape(cuda, gen):
+    """Both kernels at M = 64, kp = 24 on one input: each within 1e-5 of the
+    plain version's peak (pfb_channelize_f32 no longer serves this shape on
+    a path)."""
+    ch = PfbChannelizer(64, device=cuda)
+    xs = tuple(torch.randn((64 * 5000,), generator=gen, device=cuda)
+               for _ in range(2))
+    state = torch.randn((2, 24 * 64), generator=gen, device=cuda)
+    ref = channelize_plain(xs, state, ch._ct)
+    peak = max(float(r.abs().max()) for r in ref)
+    kernel_paths.reset()
+    for got in (cuda_pfb._launch(xs, state, ch._ct, ch._dft),
+                cuda_pfb._launch_fft(xs, state, ch._ct)):
+        for g, r in zip(got, ref):
+            assert float((g - r).abs().max()) <= 1e-5 * peak
+    assert kernel_paths.launches(cuda_pfb.OP) == 1
+    assert kernel_paths.launches(cuda_pfb.FFT_OP) == 1
 
 
 def test_channelizer_routes_agree_on_card_and_cpu(cuda, gen):
-    """IqPair input (K5) and complex input (K4, then an FFT) on the card
-    and IqPair input on the CPU (the plain route) give one channelizer
-    output."""
+    """IqPair input (K5, on the kernel route(M, kp) picks) and complex input
+    (K4, then an FFT) on the card and IqPair input on the CPU (the plain
+    route) give one channelizer output."""
     M, Tm = 64, 2000
     x = IqPair(torch.randn((M * Tm,), generator=gen, device=cuda),
                torch.randn((M * Tm,), generator=gen, device=cuda))
     outs = {}
-    for name, op, dev in (("k5", "pfb_channelize_f32", cuda),
-                          ("k4", "depthwise_fir_f32", cuda),
-                          ("cpu", "pfb_channelize_f32", torch.device("cpu"))):
+    for name, dev in (("k5", cuda), ("k4", cuda),
+                      ("cpu", torch.device("cpu"))):
         ch = PfbChannelizer(M, device=dev)
+        op = ("depthwise_fir_f32" if name == "k4"
+              else cuda_pfb.route(M, ch.kp))
         xd = (torch.complex(x.re, x.im).to(dev) if name == "k4"
               else IqPair(x.re.to(dev), x.im.to(dev)))
         kernel_paths.reset()

@@ -23,6 +23,7 @@ from qradiolink_tpu.parallel.sharding import (  # noqa: E402
 from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
 from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
+from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
     PfbSynthesizer)
 from qradiolink_tpu_torch.parallel.sharding import (  # noqa: E402
@@ -114,6 +115,7 @@ def test_mixed_rx_streamed():
     assert np.asarray(jouts[0]["bits"]).shape == (4, 8)
     assert np.asarray(jouts[1]["audio"]).shape == (4, 32)
     report = kernel_paths.report()
-    for op in ("pfb_channelize_f32", "fir_long_f32", "fir_stream_f32",
-               "viterbi_bfly_k7"):
+    # the channelizer's kernel is the one cuda_pfb.route(M, kp) picks
+    for op in (cuda_pfb.route(M, trx.channelizer.kp), "fir_long_f32",
+               "fir_stream_f32", "viterbi_bfly_k7"):
         assert report[op]["plain"] >= 2, op
