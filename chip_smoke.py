@@ -11,7 +11,8 @@ when the package cannot be imported, and when any phase fails:
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
     spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_s1.cu,
-    csrc/viterbi_bfly.cu and csrc/pfb_fft.cu);
+    csrc/viterbi_bfly.cu, csrc/pfb_fft.cu, csrc/depthwise_run.cu and
+    csrc/resample_poly.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -19,18 +20,22 @@ when the package cannot be imported, and when any phase fails:
     - the strided FIR (K1/K2) at the 4FSK path's resampler head (two
       chained blocks), channel low-pass and RRC (2048 channels x 200,000
       samples a step), and at the NBFM group's resampler head (2,239 taps,
-      D 50), channel low-pass (133 taps), audio resampler phases (113
-      taps, D 5, no tail, real, 400 outputs; two launches a step) and
-      audio low-pass (55 taps, real) of the mixed path (32 channels x
-      100,000 samples), within 1e-5 (relative to the output's peak, and
-      elementwise |k - p| <= 1e-5 + 1e-5 |p|); F.conv1d is the
-      yardstick. The head (419 taps, D 50) routes to fir_decim_f32, the
-      stride-1 filters to fir_s1_f32, the NBFM head to fir_long_f32, the
-      audio resampler to fir_stream_f32. Where the route picks a new kernel,
+      D 50), channel low-pass (133 taps) and audio low-pass (55 taps,
+      real) of the mixed path (32 channels x 100,000 samples), within
+      1e-5 (relative to the output's peak, and elementwise |k - p| <=
+      1e-5 + 1e-5 |p|); F.conv1d is the yardstick. The head (419 taps,
+      D 50) routes to fir_decim_f32, the stride-1 filters to fir_s1_f32,
+      the NBFM head to fir_long_f32. Where the route picks a new kernel,
       fir_stream_f32, which served the shape before, is held against the
       plain version too and timed in turns with it (old, new, new, old),
       its row kept with "path": null; fir_s1_f32 must equal
       fir_stream_f32 bit for bit;
+    - the NBFM audio resampler (L 2, M 5, 113 taps a phase, real, 32 x
+      2,000 -> 800) on resample_poly_f32 over two chained blocks, its
+      outputs and new state equal bit for bit to the two-launch route that
+      served it before (fir_stream_f32 once a phase, the phases interleaved
+      in PyTorch), the two timed in turns, beside an empty kernel's launch
+      floor and one F.conv1d with L output channels;
     - the Viterbi (K3): viterbi_tiled_k7 on prebuilt windows (R 8,192)
       bit-exact on integer and non-integer chain-like soft; viterbi_bfly_k7,
       which TiledViterbi runs through decode_stream with the windows read
@@ -43,9 +48,13 @@ when the package cannot be imported, and when any phase fails:
       routes also on the host clock; viterbi_tiled_k7's rows have
       "path": null;
     - the per-row depthwise FIR (K4) at the synthesizer's branch shape (64
-      rows, kp 23, 2 planes, 100,000 outputs) and the channelizer's (kp
-      24, complex input), within the FIR's bound; F.conv1d(groups=C) is
-      the yardstick;
+      rows, kp 23, 2 planes, 100,000 outputs, the tails read in place) and
+      the channelizer's (kp 24, complex input, VALID): depthwise_run_f32,
+      which the route gives both, within the FIR's bound and equal bit for
+      bit to depthwise_fir_f32 on the concatenation, the two timed in turns
+      alone and (the synthesizer) as PfbSynthesizer._branches, a device
+      copy of the same bytes beside them; F.conv1d(groups=C) is the
+      yardstick;
     - the fused channelizer (K5) over two chained blocks of B = 1, M = 64,
       Tm = 100,000: pfb_fft_f32, which the route gives the shape, through
       PfbChannelizer, and pfb_channelize_f32, which served it before, on
@@ -65,17 +74,19 @@ when the package cannot be imported, and when any phase fails:
  5. the mixed main path: MultichannelRx(64) on one wideband stream of
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
-    counters zeroed before and read after (K5 on pfb_fft_f32, the four FIR
-    kernels and viterbi_bfly_k7 on every step, pfb_channelize_f32 never,
-    nothing on a plain path); one more step
+    counters zeroed before and read after (K5 on pfb_fft_f32, fir_decim_f32,
+    fir_long_f32, fir_s1_f32, resample_poly_f32 and viterbi_bfly_k7 on every
+    step, pfb_channelize_f32 and fir_stream_f32 never, nothing on a plain
+    path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
  6. the frozen capture tests/fixtures/iq_4fsk2k_-6db.npz streamed in two
     blocks through Fsk4DemodFF on the card and on the CPU: the bits must
     be equal and the BER against the payload below 0.01;
  7. the round trip: the capture placed on channel 3 of 64 by the port's
-    PfbSynthesizer on the card (K4, counters zeroed before and read
-    after), a seeded NBFM signal on channel 40, streamed through
-    MultichannelRx(64) (FSK on [3], NBFM on [40]) in 8
+    PfbSynthesizer on the card (K4 on depthwise_run_f32, depthwise_fir_f32
+    never; counters zeroed before and read after), a seeded NBFM signal
+    on channel 40, streamed through MultichannelRx(64) (FSK on [3], NBFM
+    on [40]) in 8
     steps of 100,000 samples a channel on the card and on the CPU: FSK bits
     equal and BER below 0.01, NBFM audio within 1e-5 (the CPU tests'
     bound).
@@ -203,10 +214,10 @@ def peak_err(name, kern, plain, tol):
 
 
 def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
-        routed=True, per_step=1):
+        routed=True):
     """One kernel entry. `run` names the path whose run gives the kernel
     this shape, `shape` the wrapper's key for it in that run's report: the
-    count there fills in `launches`, which must be `per_step` a step. A
+    count there fills in `launches`, which must be one a step. A
     kernel that the route does not give the shape (`routed` false, "path":
     null) must have launched there 0 times."""
     print(f"  {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
@@ -217,7 +228,7 @@ def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
             "library_ms": lib_ms, "path": run if routed else None,
-            "run": run, "shape": shape, "per_step": per_step}
+            "run": run, "shape": shape}
 
 
 FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
@@ -226,16 +237,14 @@ FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
               "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu"}
 
 
-def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
-            per_step=1):
+def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True):
     """The strided FIR kernel that the shape routes to against its plain
-    version (and F.conv1d), on the shape that path `run` gives it
-    `per_step` times a step. Where the route picks a new kernel,
-    fir_stream_f32, which served the shape before, is held against the
-    plain version too and timed in turns with it (old, new, new, old); its
-    row has no path. fir_s1_f32 keeps
-    fir_stream_f32's sum order, so their outputs must be equal bit for
-    bit."""
+    version (and F.conv1d), on the shape that path `run` gives it once a
+    step. Where the route picks a new kernel, fir_stream_f32, which served
+    the shape before, is held against the plain version too and timed in
+    turns with it (old, new, new, old); its row has no path. fir_s1_f32
+    keeps fir_stream_f32's sum order, so their outputs must be equal bit
+    for bit."""
     from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
@@ -281,8 +290,7 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
     n_bytes = 4 * (n_in + len(xs) * n_rows * n_out + K)
     b = bound(n_bytes, 2 * K * len(xs) * n_rows * n_out)
     return [row(f"{k}/{name}", FIR_SOURCE[k], replaces, errs[k], ms[k],
-                plain_ms, b, lib_ms, run, shape, routed=k == op,
-                per_step=per_step)
+                plain_ms, b, lib_ms, run, shape, routed=k == op)
             for k in sorted(fns, key=lambda k: k != op)]
 
 
@@ -339,15 +347,7 @@ def fir_phase(chain, nbfm, dev, gen):
                     nr.phase_taps[0], nr.M, MIX_T // nr.M,
                     (st[:, 0, :], st[:, 1, :]), "mixed")
     n_ch = MIX_T // nr.M
-    # the audio resampler (L 2, M 5) on the demodulated real audio: each
-    # phase a no-tail FIR over the contiguous slice of [tail | x] that
-    # RationalResampler._phases cuts, two launches a step at one key
-    ar = nbfm.audio_resamp
-    rows += fir_row("nbfm_audio_resamp",
-                    "qradiolink_tpu/ops/pallas_fir.py:111",
-                    (randn(n_nb, ar.kp - 1 + n_ch - (ar.M - 1)),),
-                    ar.phase_taps[0], ar.M, n_ch // ar.M, None, "mixed",
-                    per_step=ar.L)
+    rows += resample_rows(nbfm, n_nb, n_ch, dev, gen)
     for name, blk, n, planes in (
             ("nbfm_chan_lp", nbfm.chan_filter, n_ch, 2),
             ("nbfm_audio_lp", nbfm.audio_filter, n_ch * 2 // 5, 1)):
@@ -357,6 +357,88 @@ def fir_phase(chain, nbfm, dev, gen):
                         blk.taps_flipped, 1, n,
                         (st[:, 0, :], st[:, 1, :])[:planes], "mixed")
     return rows
+
+
+def resample_rows(nbfm, n_rows, T, dev, gen):
+    """The NBFM audio resampler (L 2, M 5, K 113) on the demodulated real
+    audio, n_rows x T, over two chained blocks: resample_poly_f32 within
+    1e-5 of the plain version, and its outputs and new state equal bit for
+    bit to the two-launch route that served the shape before
+    (fir_stream_f32 once a phase, the tails read in place, q_r as the
+    shift, the phases interleaved and the state built in PyTorch). The
+    kernel and the old route's two launches timed in turns, an empty
+    kernel's launch floor, and one F.conv1d with L output channels (phase
+    r's taps shifted by q_r) as the library yardstick."""
+    from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
+    import torch.nn.functional as F
+
+    ar = nbfm.audio_resamp
+    L, M, K, taps = ar.L, ar.M, ar.kp, ar.poly_taps
+    n_pp, k1 = T // M, ar.kp - 1
+    offs = cuda_resample.phase_offsets(L, M)
+
+    def old_launches(xs, tails):
+        return [cuda_fir._launch_stream(xs, ar.phase_taps[r], M, n_pp,
+                                        tails, q)
+                for r, q in enumerate(offs)]
+
+    def old_route(xs, tails):
+        phases = old_launches(xs, tails)
+        y = torch.stack([p[0] for p in phases], -1).reshape(n_rows, -1)
+        tail = torch.cat([tails[0], xs[0]], -1)[:, -k1:]
+        return torch.stack([tail, torch.zeros_like(tail)], -2), (y,)
+
+    state = torch.randn((n_rows, 2, k1), generator=gen, device=dev)
+    errs = {cuda_resample.OP: 0.0, cuda_fir.OP: 0.0}
+    for blk in range(2):
+        xs = (torch.randn((n_rows, T), generator=gen, device=dev),)
+        tails = (state[:, 0, :],)
+        new_state, ys = cuda_resample.resample_poly(xs, taps, L, M, tails)
+        p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M,
+                                                          tails)
+        o_state, o_ys = old_route(xs, tails)
+        torch.cuda.synchronize()
+        for op, got in ((cuda_resample.OP, ys), (cuda_fir.OP, o_ys)):
+            errs[op] = max(errs[op], check_fir(f"{op}/nbfm_audio_resamp "
+                                               f"block {blk}", got, p_ys))
+        if not (torch.equal(ys[0], o_ys[0]) and torch.equal(new_state,
+                                                            o_state)
+                and torch.equal(new_state, p_state)):
+            raise RuntimeError(f"resample_poly_f32 block {blk}: outputs or "
+                               f"state differ from the two-launch route")
+        state = new_state
+    print(f"  {cuda_resample.OP}/nbfm_audio_resamp: 2 chained blocks "
+          f"within 1e-5 of the plain version, outputs and state bit-equal "
+          f"to the two-launch route", flush=True)
+    ms, turns = turns_ms({
+        cuda_fir.OP: lambda: old_launches(xs, tails),
+        cuda_resample.OP: lambda: cuda_resample.resample_poly(
+            xs, taps, L, M, tails)})
+    print("  nbfm_audio_resamp in turns: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+    floor_ms = cuda_ms(lambda: cuda_resample.empty_launch(dev))
+    print(f"  launch floor (an empty kernel): {floor_ms:.4f} ms", flush=True)
+    plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
+        xs, taps, L, M, tails))
+    w = torch.zeros((L, 1, K + offs[-1]), device=dev)
+    for r, q in enumerate(offs):
+        w[r, 0, q:q + K] = taps[r]
+    lib_in = torch.cat([tails[0], xs[0]], -1).reshape(n_rows, 1, -1)
+    lib = F.conv1d(lib_in, w, stride=M).transpose(1, 2).reshape(n_rows, -1)
+    check_fir("F.conv1d with L output channels", (lib,),
+              cuda_resample.resample_poly_plain(xs, taps, L, M, tails)[1])
+    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
+    n_bytes = 4 * (3 * n_rows * k1 + n_rows * T + L * K + n_rows * n_pp * L)
+    b = bound(n_bytes, 2 * K * n_rows * n_pp * L)
+    replaces = "qradiolink_tpu/ops/pallas_fir.py:111"
+    return [row(f"{cuda_resample.OP}/nbfm_audio_resamp",
+                "qradiolink_tpu_torch/csrc/resample_poly.cu", replaces,
+                errs[cuda_resample.OP], ms[cuda_resample.OP], plain_ms, b,
+                lib_ms, "mixed", cuda_resample.shape_key(xs, L, K, M)),
+            row(f"{cuda_fir.OP}/nbfm_audio_resamp", FIR_SOURCE[cuda_fir.OP],
+                replaces, errs[cuda_fir.OP], ms[cuda_fir.OP], plain_ms, b,
+                lib_ms, "mixed", cuda_fir.shape_key(xs, K, M, tails),
+                routed=False)]
 
 
 def host_ms(fn, iters=20, warmup=2):
@@ -497,42 +579,106 @@ def viterbi_phase(dev, gen):
 
 
 def depthwise_phase(dev, gen):
-    """K4 at the synthesizer's branch shape (kp 23), the round trip's, and
-    the channelizer's (kp 24), which complex input runs and no path of
-    this script: 64 rows, two planes, 100,000 outputs. Returns the
-    synthesizer's row."""
+    """K4 at the synthesizer's branch shape (kp 23, the tails read in place
+    from a (2, 64, 22) state), the round trip's, and the channelizer's
+    (kp 24, VALID), which complex input runs and no path of this script:
+    64 rows, two planes, 100,000 outputs. depthwise_run_f32, which route(kp)
+    gives both, within 1e-5 of the plain version and equal bit for bit to
+    depthwise_fir_f32 on the concatenation, which served both before; the
+    two timed in turns, beside a device copy of the same bytes. Then the
+    synthesizer's _branches call against the old one (two concatenations,
+    depthwise_fir_f32, the state), outputs and state equal, timed in turns.
+    Returns the synthesizer's rows."""
+    from qradiolink_tpu_torch.ops import cuda_depthwise as dw
     from qradiolink_tpu_torch.ops.channelizer import (PfbChannelizer,
                                                       PfbSynthesizer)
-    from qradiolink_tpu_torch.ops.cuda_depthwise import (depthwise_fir,
-                                                         depthwise_fir_plain)
     import torch.nn.functional as F
 
+    syn = PfbSynthesizer(MIX_M, device=dev)
     rows = []
-    for name, blk in (("synth", PfbSynthesizer(MIX_M, device=dev)),
-                      ("branches", PfbChannelizer(MIX_M, device=dev))):
-        tf = blk._btq_flipped if name == "branches" else blk._bt_flipped
+    n_out = MIX_T
+    for name, tf in (("synth", syn._bt_flipped),
+                     ("branches", PfbChannelizer(MIX_M,
+                                                 device=dev)._btq_flipped)):
         C, kp = tf.shape
-        n_out = MIX_T
-        xs = tuple(torch.randn((C, n_out + kp - 1), generator=gen,
-                               device=dev) for _ in range(2))
-        kern = depthwise_fir(xs, tf, n_out)
-        plain = depthwise_fir_plain(xs, tf, n_out)
+        if dw.route(kp) != dw.RUN_OP:
+            raise RuntimeError(f"kp={kp} routes to {dw.route(kp)}")
+        tails = None
+        if name == "synth":
+            st = torch.randn((2, C, kp - 1), generator=gen, device=dev)
+            tails = (st[0], st[1])
+            xs = tuple(torch.randn((C, n_out), generator=gen, device=dev)
+                       for _ in range(2))
+            xcat = tuple(torch.cat([t, x], -1) for t, x in zip(tails, xs))
+        else:
+            xs = xcat = tuple(torch.randn((C, n_out + kp - 1), generator=gen,
+                                          device=dev) for _ in range(2))
+        key = f"C{C} kp{kp}" + (" tail" if tails is not None else "")
+        kern = dw.depthwise_fir(xs, tf, n_out, tails=tails)
+        old = dw._launch_fir(xcat, tf, n_out, key)
+        plain = dw.depthwise_fir_plain(xs, tf, n_out, tails)
         torch.cuda.synchronize()
-        err = check_fir(f"depthwise {name}", kern, plain)
-        lib_in = torch.stack(xs)  # (2, C, Tc): the planes as a batch
+        err = check_fir(f"{dw.RUN_OP} {name}", kern, plain)
+        old_err = check_fir(f"{dw.OP} {name}", old, plain)
+        if not all(torch.equal(k, o) for k, o in zip(kern, old)):
+            raise RuntimeError(f"{dw.RUN_OP} {name}: not bit-equal to "
+                               f"{dw.OP}")
+        print(f"  {dw.RUN_OP}/{name}: bit-equal to {dw.OP}", flush=True)
+        lib_in = torch.stack(xcat)  # (2, C, Tc): the planes as a batch
         w = tf.reshape(C, 1, kp)
         lib = F.conv1d(lib_in, w, groups=C)
         check_fir(f"F.conv1d groups {name}", lib.unbind(0), plain)
-        ms = cuda_ms(lambda: depthwise_fir(xs, tf, n_out))
-        plain_ms = cuda_ms(lambda: depthwise_fir_plain(xs, tf, n_out))
+        ms, turns = turns_ms({
+            dw.OP: lambda: dw._launch_fir(xcat, tf, n_out, key),
+            dw.RUN_OP: lambda: dw.depthwise_fir(xs, tf, n_out, tails=tails)})
+        print(f"  K4 {name} in turns: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+        plain_ms = cuda_ms(lambda: dw.depthwise_fir_plain(xs, tf, n_out,
+                                                          tails))
         lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, groups=C))
+        # a yardstick for the bytes: a device copy of two (C, n_out) planes
+        outs = tuple(torch.empty_like(k) for k in kern)
+        src = tuple(x[..., :n_out] if tails is not None else
+                    x[..., kp - 1:].contiguous() for x in xs)
+        copy_ms = cuda_ms(lambda: [o.copy_(p) for o, p in zip(outs, src)])
+        print(f"  a device copy of the same bytes (2 planes of {C} x "
+              f"{n_out} in, 2 out): {copy_ms:.4f} ms", flush=True)
+        del outs, src
         n_bytes = 4 * (2 * C * (n_out + kp - 1) + 2 * C * n_out + C * kp)
         b = bound(n_bytes, 2 * kp * 2 * C * n_out)
-        rows.append(row(f"depthwise_fir_f32/{name}",
-                        "qradiolink_tpu_torch/csrc/depthwise.cu",
-                        "qradiolink_tpu/ops/pallas_fir.py:401", err, ms,
-                        plain_ms, b, lib_ms, "round_trip", f"C{C} kp{kp}"))
-    return rows[:1]
+        replaces = "qradiolink_tpu/ops/pallas_fir.py:401"
+        if name == "synth":
+            rows += [row(f"{dw.RUN_OP}/{name}",
+                         "qradiolink_tpu_torch/csrc/depthwise_run.cu",
+                         replaces, err, ms[dw.RUN_OP], plain_ms, b, lib_ms,
+                         "round_trip", key),
+                     row(f"{dw.OP}/{name}",
+                         "qradiolink_tpu_torch/csrc/depthwise.cu", replaces,
+                         old_err, ms[dw.OP], plain_ms, b, lib_ms,
+                         "round_trip", key, routed=False)]
+
+    # the synthesizer's _branches call, in turns with the route it had
+    k1 = syn.kp - 1
+
+    def old_branches(state, wre, wim):
+        wc = [torch.cat([state[p], x], -1) for p, x in enumerate((wre, wim))]
+        vr, vi = dw._launch_fir(wc, syn._bt_flipped, wre.shape[-1], "")
+        return torch.stack([c[..., -k1:] for c in wc], -3), vr, vi
+
+    st = torch.randn((2, MIX_M, k1), generator=gen, device=dev)
+    w = [torch.randn((MIX_M, n_out), generator=gen, device=dev)
+         for _ in range(2)]
+    got, want = syn._branches(st, *w), old_branches(st, *w)
+    if not all(torch.equal(g, o) for g, o in zip(got, want)):
+        raise RuntimeError("PfbSynthesizer._branches differs from the "
+                           "concatenation route")
+    _, turns = turns_ms({"concatenation + depthwise_fir_f32":
+                         lambda: old_branches(st, *w),
+                         "_branches": lambda: syn._branches(st, *w)})
+    print("  PfbSynthesizer._branches (outputs and state bit-equal) in "
+          "turns: " + ", ".join(f"{k} {t:.4f} ms" for k, t in turns),
+          flush=True)
+    return rows
 
 
 def pfb_phase(dev, gen):
@@ -701,7 +847,7 @@ def drive(fn, state, x, every_step):
 # ops each main path must launch on every step
 FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_bfly_k7")
 MIXED_EVERY_STEP = ("pfb_fft_f32", "fir_long_f32",
-                    "fir_stream_f32") + FSK_EVERY_STEP
+                    "resample_poly_f32") + FSK_EVERY_STEP
 
 
 def main_path(chain, dev, gen):
@@ -784,6 +930,9 @@ def mixed_path(dev, gen):
     torch.cuda.synchronize()
     state, (fsk, nb), step_s, report = drive(rx, state, iq,
                                              MIXED_EVERY_STEP)
+    for op in ("fir_stream_f32", "pfb_channelize_f32"):
+        if report.get(op, {}).get("cuda", 0):
+            raise RuntimeError(f"the mixed path launched {op}")
     n_fsk, n_nb = len(rx.groups[0][1]), len(rx.groups[1][1])
     want = {"bits": (fsk["bits"], (n_fsk, MIX_T // 500)),
             "symbols": (fsk["symbols"], (n_fsk, MIX_T // 500)),
@@ -814,7 +963,7 @@ def mixed_path(dev, gen):
     timed(stages, "nbfm rssi", lambda: rssi_dbm(x))
     x = timed(stages, "nbfm power squelch", lambda: seq(nchain.squelch, x))
     x = timed(stages, "nbfm quadrature demod", lambda: seq(nchain.quad, x))
-    x = timed(stages, "nbfm audio resampler (2/5, fir_stream_f32)",
+    x = timed(stages, "nbfm audio resampler (2/5, resample_poly_f32)",
               lambda: seq(nchain.audio_resamp, x))
     x = timed(stages, "nbfm audio LP (fir_s1_f32 K55)",
               lambda: seq(nchain.audio_filter, x))
@@ -902,6 +1051,8 @@ def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
         st, y = syn(st, IqPair(*s))
         wide.append(y)
     report = kernel_paths.report()
+    if report.get("depthwise_fir_f32", {}).get("cuda", 0):
+        raise RuntimeError("the synthesizer launched depthwise_fir_f32")
     outs = {}
     for d in devices or (dev, torch.device("cpu")):
         rx = MultichannelRx(M, [(Fsk4DemodFF, [fsk_ch]),
@@ -960,9 +1111,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # fir_decim_f32, fir_long_f32 and fir_s1_f32 keep their rings in
-    # registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 its taps
+    # registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 and
+    # depthwise_run_f32 their taps, resample_poly_f32 its loads in flight
     for name in ("fir_decim", "fir_long", "fir_s1", "viterbi_bfly",
-                 "pfb_fft"):
+                 "pfb_fft", "depthwise_run", "resample_poly"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -996,17 +1148,15 @@ def main() -> int:
     reports["round_trip"] = round_trip_phase(dev)
 
     # each kernel's launches at its shape in the run of the path that
-    # gives it that shape: its count a step (one, or the audio resampler's
-    # two phases) for the kernel that the route picks, none for the one it
-    # replaced (a row with no path)
+    # gives it that shape: one a step for the kernel that the route picks,
+    # none for the one it replaced (a row with no path)
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")
-        per_step = r.pop("per_step")
         op = r["name"].split("/")[0]
         r["launches"] = reports[run].get(op, {}).get("shapes", {}).get(
             f"cuda {shape}", 0)
-        want = 0 if r["path"] is None else per_step * steps[run]
+        want = 0 if r["path"] is None else steps[run]
         if r["launches"] != want:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
                                f"times at {shape} on the {run} path, not "

@@ -8,10 +8,11 @@ RX mirrors reference src/gr/gr_demod_nbfm.cpp:31-79:
   -> 50 us de-emphasis -> x2.0; optional CTCSS tone squelch insert
   (reference :97-128).
 
-On CUDA the resampler head runs the `fir_long_f32` kernel, the two phases
-of the audio resampler `fir_stream_f32`, the channel and audio low-passes
-`fir_s1_f32` (`ops/cuda_fir.route`); the squelch, demod and de-emphasis
-are plain PyTorch. The transmit chain (NbfmMod) is not ported yet.
+On CUDA the resampler head runs the `fir_long_f32` kernel, the channel and
+audio low-passes `fir_s1_f32` (`ops/cuda_fir.route`), the audio resampler
+`resample_poly_f32`, both phases and the new state in one launch
+(`ops/cuda_resample.py`); the squelch, demod and de-emphasis are plain
+PyTorch. The transmit chain (NbfmMod) is not ported yet.
 """
 
 from __future__ import annotations

@@ -18,10 +18,12 @@ that ops/cuda_pfb.route(M, kp) picks: `pfb_fft_f32` at M = 8, 16, 32, 64
 (kp 8-32), `pfb_channelize_f32` at every other shape. The JAX package's
 default route (commutator, depthwise branch FIRs, four einsums) is slower
 on an H100 (PERF.md) and is not ported as a second IqPair route. Complex
-input runs the commutator in PyTorch, the branch FIRs in the
-`depthwise_fir_f32` kernel (ops/cuda_depthwise.py, K4) and the IDFT through
-torch.fft.ifft. The synthesizer's branch FIRs run K4. On CPU tensors each
-kernel wrapper takes its plain version.
+input runs the commutator in PyTorch, the branch FIRs in the K4 kernel
+that ops/cuda_depthwise.route(kp) picks (`depthwise_run_f32` at the
+default kp 24, its VALID form) and the IDFT through torch.fft.ifft. The
+synthesizer's branch FIRs run K4 in its tail form (`depthwise_run_f32` at
+the default kp 23), reading the carried tails in place from the state. On
+CPU tensors each kernel wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -176,13 +178,15 @@ class PfbSynthesizer(Block):
 
     def _branches(self, state, wre, wim):
         """The IDFT outputs (..., M branches, Tm), as f32 planes, through
-        the K4 branch FIRs after the carried tails: (new_state, vr, vi)."""
+        the K4 branch FIRs after the carried tails, which K4's tail form
+        reads in place from the state: (new_state, vr, vi)."""
         k1 = self.kp - 1
-        wcr = torch.cat([state[..., 0, :, :], wre], dim=-1)
-        wci = torch.cat([state[..., 1, :, :], wim], dim=-1)
-        vr, vi = depthwise_fir((wcr, wci), self._bt_flipped, wre.shape[-1])
-        new_state = torch.stack([wcr[..., wcr.shape[-1] - k1:],
-                                 wci[..., wci.shape[-1] - k1:]], dim=-3)
+        tails = (state[..., 0, :, :], state[..., 1, :, :])
+        wre, wim = wre.contiguous(), wim.contiguous()
+        vr, vi = depthwise_fir((wre, wim), self._bt_flipped, wre.shape[-1],
+                               tails=tails)
+        new_state = torch.stack([next_tail(tails[0], wre, k1),
+                                 next_tail(tails[1], wim, k1)], dim=-3)
         return new_state, vr, vi
 
     def __call__(self, state, s):

@@ -21,8 +21,10 @@ up to 16 taps a phase (the 4FSK resampler head, K 419 D 50), and
 to 64 taps a phase (the NBFM resampler head, K 2239 D 50); `fir_s1_f32`,
 register-blocked over outputs, for stride 1 with at most 2,048 taps (the
 channel low-passes, the RRC and the NBFM audio low-pass); `fir_stream_f32`
-for every other shape (the audio resampler's D 5 phases). `fir_s1_f32`
-sums in the order of `fir_stream_f32`, so the two give equal bits.
+for every other shape (such as the SSB chain's 1/125 head). `fir_s1_f32`
+sums in the order of `fir_stream_f32`, so the two give equal bits. The
+rational resampler at L > 1 (the NBFM audio resampler) is not a call of
+this wrapper: `ops/cuda_resample.py` runs all its phases in one launch.
 
 On a CPU tensor the wrapper takes the plain version (F.conv1d over the
 explicit concatenation) and records it under the routed kernel's name; on a
@@ -59,7 +61,7 @@ _GRID_Y_MAX = 65_535
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """cuDNN convolutions in full f32: TF32 (cuDNN's default) keeps about
     three decimal digits, the reference computes its FIRs in f32."""
     prev = torch.backends.cudnn.allow_tf32
@@ -82,7 +84,7 @@ def fir_stream_plain(xs, taps_flipped, stride: int, n_out: int,
         lead = xc.shape[:-1]
         seg = xc.reshape(-1, 1, xc.shape[-1])[
             ..., shift: shift + (n_out - 1) * stride + K]
-        with _no_tf32():
+        with no_tf32():
             y = F.conv1d(seg, w, stride=stride)
         ys.append(y.reshape(lead + (n_out,)))
     return tuple(ys)

@@ -1,0 +1,196 @@
+"""Polyphase rational resampler at L > 1: wrapper, plain version and the
+CUDA kernel `resample_poly_f32` (csrc/resample_poly.cu).
+
+Port of the Pallas TPU kernel qradiolink_tpu/ops/pallas_fir.py
+`banded_fir` (K2), which the JAX package's RationalResampler runs once per
+phase (qradiolink_tpu/ops/resample.py `_phases`). With q_r = floor(r*M/L)
+and tf_r the flipped taps of phase r, over each row of the virtual stream
+xc = [tail (K-1) | x (T)], T % M == 0:
+
+    y[t*L + r] = sum_{j<K} tf_r[j] * xc[t*M + q_r + j]
+    new state  = the last K-1 samples of xc, (..., 2, K-1)
+
+The kernel computes every phase, already interleaved, and the new state in
+one launch, reading the tail in place from the state. One plane is real
+input (the new state's second plane is zeros); two are the re and im
+planes of an IqPair.
+
+On a CPU tensor the wrapper takes the plain version (today's computation:
+a strided F.conv1d per phase over the concatenation, then the interleave);
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from qradiolink_tpu_torch.ops.cuda_fir import no_tf32
+from qradiolink_tpu_torch.utils import kernels
+from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+OP = "resample_poly_f32"
+_GRID_Y_MAX = 65_535
+
+
+def phase_offsets(L: int, M: int) -> list:
+    """q_r = floor(r*M/L): where phase r's windows start, r < L."""
+    return [r * M // L for r in range(L)]
+
+
+def resample_poly_plain(xs, phase_taps, L: int, M: int, tails):
+    """Plain PyTorch version: per phase, F.conv1d with the flipped taps and
+    stride M over [tail | x] from q_r, then the phases interleaved.
+    Returns (new_state (..., 2, K-1), tuple of (..., T/M*L) planes)."""
+    K = phase_taps.shape[1]
+    n_pp = xs[0].shape[-1] // M
+    ys, tails_new = [], []
+    for x, t in zip(xs, tails):
+        xc = torch.cat([t, x], dim=-1)
+        lead = xc.shape[:-1]
+        flat = xc.reshape(-1, 1, xc.shape[-1])
+        phases = []
+        for r, q in enumerate(phase_offsets(L, M)):
+            seg = flat[..., q: q + (n_pp - 1) * M + K]
+            with no_tf32():
+                phases.append(F.conv1d(seg, phase_taps[r].reshape(1, 1, K),
+                                       stride=M))
+        y = torch.stack(phases, dim=-1)
+        ys.append(y.reshape(lead + (n_pp * L,)))
+        tails_new.append(xc[..., xc.shape[-1] - (K - 1):])
+    if len(xs) == 1:
+        tails_new.append(torch.zeros_like(tails_new[0]))
+    return torch.stack(tails_new, dim=-2), tuple(ys)
+
+
+def _check(xs, phase_taps, L, M, tails):
+    if len(xs) not in (1, 2):
+        raise ValueError(f"1 or 2 planes, got {len(xs)}")
+    x0 = xs[0]
+    for x in xs:
+        if x.dtype != torch.float32 or x.shape != x0.shape \
+                or x.device != x0.device or x.ndim < 1:
+            raise ValueError("planes must be f32 tensors of one shape and "
+                             "device")
+    if phase_taps.ndim != 2 or phase_taps.shape[0] != L \
+            or phase_taps.dtype != torch.float32 \
+            or phase_taps.device != x0.device:
+        raise ValueError(f"phase taps must be an ({L}, K) f32 tensor on the "
+                         f"planes' device")
+    K = phase_taps.shape[1]
+    if L < 1 or M < 1 or K < 1 or x0.shape[-1] % M:
+        raise ValueError(f"L {L}, M {M}, K {K}, block length "
+                         f"{x0.shape[-1]}")
+    if len(tails) != len(xs):
+        raise ValueError("one tail per plane")
+    for t in tails:
+        if t.dtype != torch.float32 or t.device != x0.device \
+                or tuple(t.shape) != tuple(x0.shape[:-1]) + (K - 1,):
+            raise ValueError(f"tails must be f32 {tuple(x0.shape[:-1])} + "
+                             f"({K - 1},) on the planes' device")
+    return K
+
+
+def shape_key(xs, L, K, M):
+    """A call's key in the launch report: phases, taps a phase,
+    decimation, and planes x rows."""
+    rows = math.prod(xs[0].shape[:-1])
+    return f"L{L} K{K} D{M} tail {len(xs)}x{rows}"
+
+
+def _lib():
+    lib = kernels.load("resample_poly")
+    if not getattr(lib, "_qrl_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.resample_poly_f32.argtypes = [p, p, i, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, p]
+        lib.resample_poly_f32.restype = ctypes.c_int
+        lib.resample_poly_smem_bytes.argtypes = [i, i, i]
+        lib.resample_poly_smem_bytes.restype = ctypes.c_longlong
+        lib.resample_poly_empty.argtypes = [p]
+        lib.resample_poly_empty.restype = ctypes.c_int
+        lib.resample_poly_error_string.argtypes = [i]
+        lib.resample_poly_error_string.restype = ctypes.c_char_p
+        lib._qrl_bound = True
+    return lib
+
+
+def resample_poly(xs, phase_taps, L: int, M: int, tails):
+    """Polyphase L/M resampling of each plane in `xs`, all phases at once.
+
+    xs: tuple of 1 or 2 f32 planes (..., T) of one shape, T % M == 0;
+    phase_taps: (L, K) f32, row r phase r's taps reversed; tails: one
+    (..., K-1) tail per plane, the carried input (strided views into the
+    (..., 2, K-1) state do: it is read in place). Returns (new_state
+    (..., 2, K-1), tuple of (..., T/M*L) planes, phase r of output time t
+    at t*L + r)."""
+    xs, tails = tuple(xs), tuple(tails)
+    K = _check(xs, phase_taps, L, M, tails)
+    key = shape_key(xs, L, K, M)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        kernel_paths.record(OP, False, key)
+        return resample_poly_plain(xs, phase_taps, L, M, tails)
+    if dev.type != "cuda":
+        raise ValueError(f"no {OP} kernel for device {dev}")
+    for x in xs:
+        if not x.is_contiguous():
+            raise ValueError("planes must be contiguous")
+    if not phase_taps.is_contiguous():
+        raise ValueError("phase taps must be contiguous")
+    lead, T = tuple(xs[0].shape[:-1]), xs[0].shape[-1]
+    C = math.prod(lead)
+    if C > _GRID_Y_MAX:
+        raise ValueError(f"{C} rows exceed the grid's {_GRID_Y_MAX}")
+    tail_ld, tail_ptrs = K - 1, []
+    for i, t in enumerate(tails):
+        # a tail is a strided view into the (..., 2, K-1) state: rows at
+        # one stride, samples adjacent (view() raises otherwise)
+        tv = t.view(C, K - 1)
+        if K > 2 and tv.stride(1) != 1:
+            raise ValueError("tail samples must be adjacent in memory")
+        if C > 1:
+            if i and tv.stride(0) != tail_ld:
+                raise ValueError("both tails need one row stride")
+            tail_ld = tv.stride(0)
+        tail_ptrs.append(t.data_ptr())
+    lib = _lib()
+    if lib.resample_poly_smem_bytes(L, M, K) > kernels.SMEM_MAX:
+        raise ValueError(f"L={L}, M={M}, K={K} needs more shared memory "
+                         f"than a block has")
+    n_out = T // M * L
+    ys = tuple(torch.empty(lead + (n_out,), dtype=torch.float32, device=dev)
+               for _ in xs)
+    new_state = torch.empty(lead + (2, K - 1), dtype=torch.float32,
+                            device=dev)
+    if C == 0:
+        return new_state, ys
+    two = len(xs) == 2
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.resample_poly_f32(
+            tail_ptrs[0], tail_ptrs[1] if two else None, tail_ld,
+            xs[0].data_ptr(), xs[1].data_ptr() if two else None,
+            phase_taps.data_ptr(), ys[0].data_ptr(),
+            ys[1].data_ptr() if two else None, new_state.data_ptr(),
+            C, T, K, L, M, len(xs), stream)
+    if err:
+        raise RuntimeError(f"{OP} launch failed: "
+                           f"{lib.resample_poly_error_string(err).decode()}")
+    kernel_paths.record(OP, True, key)
+    return new_state, ys
+
+
+def empty_launch(device) -> None:
+    """One launch of an empty kernel on `device`'s current stream: the
+    launch floor that chip_smoke.py prints beside resample_poly_f32."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.resample_poly_empty(
+            torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel launch failed: "
+                           f"{lib.resample_poly_error_string(err).decode()}")

@@ -7,10 +7,13 @@ Grouping outputs by residue r = m mod L gives per-phase strided FIRs:
 with h_r = h[p_r::L]. Streaming requires block length T % M == 0; then each
 block yields T*L/M outputs and the phase pattern repeats exactly.
 
-On IqPair input each phase is one launch of the streaming FIR kernel over
-both planes, its offset q_r passed as the kernel's `shift`, so no shifted
-copy of the input is made (an L = 1 decimating head is one launch). Tensor
-input takes the explicit [tail | x] concatenation and `_phases`.
+At L > 1 every call (real, complex or IqPair input) is one launch of
+`resample_poly_f32` (ops/cuda_resample.py), which computes all L phases,
+interleaves them and writes the new state, reading the tail in place from
+the state (the NBFM audio resampler, 2/5). At L = 1 the decimating head is
+one launch of the strided FIR kernel that `ops/cuda_fir.route()` picks: on
+IqPair input with the tails read in place, on tensor input over the
+explicit [tail | x] concatenation.
 """
 
 from __future__ import annotations
@@ -21,9 +24,11 @@ import numpy as np
 import torch
 
 from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
+from qradiolink_tpu_torch.ops.cuda_fir import fir_stream
+from qradiolink_tpu_torch.ops.cuda_resample import (phase_offsets,
+                                                    resample_poly)
 from qradiolink_tpu_torch.ops.fir import (conv1d_valid_flipped, flipped_taps,
                                           next_tail)
-from qradiolink_tpu_torch.ops.cuda_fir import fir_stream
 
 
 # design_resampler_taps and kaiser_low_pass: copied verbatim (pure numpy)
@@ -91,71 +96,64 @@ class RationalResampler(Block):
         padded[: taps.shape[0]] = taps
         self.kp = kp
         self.lead_shape = tuple(lead_shape)
-        # phase-r taps h[p_r::L] with p_r = (r*M) mod L; offsets
-        # q_r = floor(r*M/L)
-        self.phase_taps = []
-        self.offsets = []
-        for r in range(self.L):
-            p = (r * self.M) % self.L
-            self.phase_taps.append(flipped_taps(padded[p::self.L],
-                                                self.device))
-            self.offsets.append((r * self.M) // self.L)
+        # phase-r taps h[p_r::L] with p_r = (r*M) mod L, flipped, as the
+        # rows of one (L, kp) tensor; offsets q_r = floor(r*M/L)
+        self.poly_taps = torch.stack([
+            flipped_taps(padded[(r * self.M) % self.L::self.L], self.device)
+            for r in range(self.L)])
+        self.phase_taps = list(self.poly_taps.unbind(0))
+        self.offsets = phase_offsets(self.L, self.M)
 
     def init_state(self):
         return torch.zeros(self.lead_shape + (2, self.kp - 1),
                            dtype=torch.float32, device=self.device)
 
-    def _check_len(self, T):
-        if T % self.M != 0:
-            raise ValueError(
-                f"block length {T} not a multiple of decimation {self.M}")
-
-    def _interleave(self, ys, lead):
-        if self.L == 1:
-            return ys[0]
-        y = torch.stack(ys, dim=-1)
-        return y.reshape(lead + (y.shape[-2] * self.L,))
-
     def _call_pair(self, state, x: IqPair):
+        """L = 1 on IqPair input: one launch over both planes, the tails
+        read in place from the state."""
         T = x.shape[-1]
-        self._check_len(T)
-        n_pp = T // self.M
-        tails = (state[..., 0, :], state[..., 1, :])
-        phases = [fir_stream((x.re, x.im), self.phase_taps[r], self.M, n_pp,
-                             tails=tails, shift=self.offsets[r])
-                  for r in range(self.L)]
-        lead = tuple(x.shape[:-1])
-        yr = self._interleave([p[0] for p in phases], lead)
-        yi = self._interleave([p[1] for p in phases], lead)
         k1 = self.kp - 1
+        tails = (state[..., 0, :], state[..., 1, :])
+        yr, yi = fir_stream((x.re, x.im), self.phase_taps[0], self.M,
+                            T // self.M, tails=tails)
         new_state = torch.stack([next_tail(tails[0], x.re, k1),
                                  next_tail(tails[1], x.im, k1)], dim=-2)
         return new_state, IqPair(yr, yi)
 
-    def _phases(self, xc, T):
-        """Polyphase output of a tail+block concatenation (real or
-        complex), one VALID strided FIR per phase."""
-        n_pp = T // self.M
-        ys = []
-        for r in range(self.L):
-            # windows end at xc index (Kp-1) + q_r + t*M
-            q = self.offsets[r]
-            seg = xc[..., q: q + (self.kp - 1) + T - (self.M - 1)]
-            ys.append(conv1d_valid_flipped(seg, self.phase_taps[r], self.M,
-                                           out_len=n_pp))
-        return self._interleave(ys, tuple(xc.shape[:-1]))
+    def _call_poly(self, state, x):
+        """L > 1: every phase and the new state in one resample_poly_f32
+        launch, on the planes of an IqPair, a complex tensor or a real
+        one (its new state's im plane zero)."""
+        tails = (state[..., 0, :], state[..., 1, :])
+        if isinstance(x, IqPair):
+            planes = (x.re, x.im)
+        elif torch.is_complex(x):
+            planes = (x.real.contiguous(), x.imag.contiguous())
+        else:
+            planes = (x.contiguous(),)
+            tails = tails[:1]
+        new_state, ys = resample_poly(planes, self.poly_taps, self.L,
+                                      self.M, tails)
+        if isinstance(x, IqPair):
+            return new_state, IqPair(*ys)
+        return new_state, torch.complex(*ys) if len(ys) == 2 else ys[0]
 
     def __call__(self, state, x):
+        T = x.shape[-1]
+        if T % self.M != 0:
+            raise ValueError(
+                f"block length {T} not a multiple of decimation {self.M}")
+        if self.L > 1:
+            return self._call_poly(state, x)
         if isinstance(x, IqPair):
             return self._call_pair(state, x)
-        T = x.shape[-1]
-        self._check_len(T)
         if torch.is_complex(x):
             tail_x = torch.complex(state[..., 0, :], state[..., 1, :])
         else:
             tail_x = state[..., 0, :].to(x.dtype)
         xc = torch.cat([tail_x, x], dim=-1)
-        y = self._phases(xc, T)
+        y = conv1d_valid_flipped(xc, self.phase_taps[0], self.M,
+                                 out_len=T // self.M)
         new_tail = xc[..., xc.shape[-1] - (self.kp - 1):]
         if torch.is_complex(new_tail):
             new_state = torch.stack([new_tail.real, new_tail.imag], dim=-2)

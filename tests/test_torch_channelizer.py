@@ -31,7 +31,7 @@ from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.ops import channelizer as tch  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
     depthwise_fir, depthwise_fir_plain)
-from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
+from qradiolink_tpu_torch.ops import cuda_depthwise, cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_pfb import (  # noqa: E402
     channelize, channelize_plain, dft_factors, fft_table, pfb_tables)
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
@@ -90,7 +90,7 @@ def test_channelizer_streamed(rng, M, route):
     stream_both(jch.PfbChannelizer(M, lead_shape=(2,)), tc, blocks,
                 rtol=TOL, atol=0, state_rtol=0, state_atol=0, peak=True)
     op = (cuda_pfb.route(M, tc.kp) if route == "pair"
-          else "depthwise_fir_f32")
+          else cuda_depthwise.route(tc.kp))
     assert kernel_paths.report()[op]["plain"] == 2
 
 
@@ -183,7 +183,7 @@ def test_plain_depthwise_matches_pallas(pallas_interp, rng, kp):
     tf = torch.from_numpy(np.ascontiguousarray(taps[:, ::-1]))
     kernel_paths.reset()
     got = depthwise_fir(tuple(torch.from_numpy(x) for x in xs), tf, n_main)
-    assert kernel_paths.report()["depthwise_fir_f32"]["plain"] == 1
+    assert kernel_paths.report()[cuda_depthwise.route(kp)]["plain"] == 1
     for w, g in zip(want, got):
         assert_same(w, g, TOL, 0, peak=True)
     # and a direct per-row convolution
@@ -404,3 +404,182 @@ def test_channelizer_route_recorded_on_cpu(rng, M):
         "cuda": 0, "plain": 1, "shapes": {f"plain M{M} kp24": 1}}}
     assert op == ("pfb_fft_f32" if M in (8, 16, 32, 64)
                   else "pfb_channelize_f32")
+
+
+RUN_SRC = FFT_SRC.with_name("depthwise_run.cu")
+# depthwise_run_f32's block: threads, outputs a thread at once, groups of
+# them a tile, ring stages
+RUN_THREADS, RUN_R, RUN_SUB, RUN_STAGES = 128, 4, 4, 2
+RUN_TT = RUN_THREADS * RUN_R * RUN_SUB
+
+
+def _stage_body(st, body, m0, n, mis, hb):
+    """stage_body: body samples [m0, m0 + n) to stage words hb + mis + i;
+    16-byte chunks (words hb + 4c .. hb + 4c + 3, samples 4c - mis ..) that
+    lie in [0, n) whole are copied whole, the others sample by sample."""
+    for c in range((mis + n + 3) // 4):
+        i = 4 * c - mis
+        if i >= 0 and i + 4 <= n:
+            st[hb + 4 * c:hb + 4 * c + 4] = body[m0 + i:m0 + i + 4]
+        else:
+            for k in range(4):
+                if 0 <= i + k < n:
+                    st[hb + 4 * c + k] = body[m0 + i + k]
+
+
+def dw_run_model(xs, tf, out_len, tails, runs, offsets):
+    """depthwise_run_f32's schedule in numpy. Row r of plane p is
+    xc = [halo | body]: the tail and x (tail form) or x[:kp-1] and
+    x[kp-1:] (VALID form); offsets[p][r] is its body's float offset in
+    memory, whose value mod 4 (mis) places the body in the stage. The
+    row's outputs are cut into `runs` runs that start at multiples of 4;
+    each walks a ring of RUN_STAGES stages of [halo room | RUN_TT samples]
+    (NaN until written), its first tile's halo from the tail or the body
+    before the run, every later halo copied from the last kp-1 samples of
+    the tile before. Thread t reads its window of kp+3 samples as aligned
+    float4s from word hb + mis - (kp-1) - OFF + i0 and sums tap s - o into
+    output o. xs, tails: (rows, n) and (rows, kp-1) f32 planes; tf (C, kp)
+    flipped. Returns (planes, rows, out_len), asserting that every output
+    is written once."""
+    C, kp = tf.shape
+    rows = xs[0].shape[0]
+    hb = (kp - 1 + 3) & ~3
+    sw = hb + RUN_TT + 8
+    y = np.full((len(xs), rows, out_len), np.nan, np.float32)
+    n4 = -(-out_len // 4)
+    for p, x in enumerate(xs):
+        for r in range(rows):
+            halo = x[r, :kp - 1] if tails is None else tails[p][r]
+            body = x[r, kp - 1:] if tails is None else x[r]
+            taps = tf[r % C].astype(np.float64)
+            mis = offsets[p][r] % 4
+            off = (mis + 1 - kp) % 4
+            nv = (off + kp + RUN_R - 1 + 3) // 4
+            for run in range(runs):
+                s = run * n4 // runs * 4
+                e = min((run + 1) * n4 // runs * 4, out_len)
+                if s >= e:
+                    continue
+                ring = np.full((RUN_STAGES, sw), np.nan, np.float32)
+                for h in range(kp - 1):
+                    g = s - (kp - 1) + h
+                    ring[0, hb + mis - (kp - 1) + h] = \
+                        body[g] if g >= 0 else halo[kp - 1 + g]
+                _stage_body(ring[0], body, s, min(RUN_TT, e - s), mis, hb)
+                n_tiles = -(-(e - s) // RUN_TT)
+                for k in range(n_tiles):
+                    m0 = s + k * RUN_TT
+                    n = min(RUN_TT, e - m0)
+                    cur = ring[k % RUN_STAGES]
+                    if k + 1 < n_tiles:
+                        nxt = ring[(k + 1) % RUN_STAGES]
+                        _stage_body(nxt, body, m0 + RUN_TT,
+                                    min(RUN_TT, e - m0 - RUN_TT), mis, hb)
+                        a = hb + mis - (kp - 1)
+                        nxt[a:a + kp - 1] = cur[a + RUN_TT:a + RUN_TT
+                                                + kp - 1]
+                    for u in range(RUN_SUB):
+                        i0 = u * RUN_THREADS * RUN_R + \
+                            RUN_R * np.arange(RUN_THREADS)
+                        i0 = i0[i0 < n]
+                        if not i0.size:
+                            break
+                        a = hb + mis - (kp - 1) - off + i0
+                        assert (a % 4 == 0).all() and a.min() >= 0
+                        assert a.max() + 4 * nv <= sw
+                        win = cur[a[:, None] + np.arange(4 * nv)].astype(
+                            np.float64)
+                        for o in range(RUN_R):
+                            acc = win[:, off + o:off + o + kp] @ taps
+                            pos = i0 + o
+                            ok = pos < n
+                            assert np.isnan(y[p, r, m0 + pos[ok]]).all()
+                            y[p, r, m0 + pos[ok]] = acc[ok]
+    assert not np.isnan(y).any()
+    return y
+
+
+@pytest.mark.parametrize("runs", [1, 3, 5])
+@pytest.mark.parametrize("form", ["tail", "valid"])
+def test_dw_run_model_matches_plain(rng, form, runs):
+    """The synthesizer's taps (kp 23) in the tail form over two chained
+    blocks, the channelizer's (kp 24) in the VALID form, 3 rows x 2 planes
+    of 2 tiles and a ragged one (4,133 outputs), cut into 1, 3 and 5 runs
+    (boundaries inside tiles); the rows' bodies at every offset mod 4.
+    Within 1e-5 of depthwise_fir_plain's peak."""
+    M, n_out = 3, 2 * RUN_TT + 37
+    if form == "tail":
+        tf = tch.PfbSynthesizer(64, device="cpu")._bt_flipped[:M].numpy()
+    else:
+        tf = tch.PfbChannelizer(64, device="cpu")._btq_flipped[:M].numpy()
+    kp = tf.shape[1]
+    assert cuda_depthwise.route(kp) == cuda_depthwise.RUN_OP
+    st = rng.standard_normal((2, M, kp - 1)).astype(np.float32)
+    for _ in range(2 if form == "tail" else 1):
+        n_in = n_out if form == "tail" else n_out + kp - 1 + 1
+        xs = [rng.standard_normal((M, n_in)).astype(np.float32)
+              for _ in range(2)]
+        tails = None if form == "valid" else [st[0], st[1]]
+        # contiguous planes: row r's body at r * n_in (+ kp - 1, VALID)
+        offsets = [[p * M * n_in + r * n_in + (kp - 1 if form == "valid"
+                                               else 0) for r in range(M)]
+                   for p in range(2)]
+        assert {o % 4 for o in offsets[0]} | {o % 4 for o in offsets[1]} \
+            == {0, 1, 2, 3} or form == "tail"
+        got = dw_run_model(xs, tf, n_out, tails, runs, offsets)
+        want = depthwise_fir_plain(
+            tuple(torch.from_numpy(x) for x in xs), torch.from_numpy(tf),
+            n_out, None if tails is None else tuple(
+                torch.from_numpy(t) for t in tails))
+        for g, w in zip(got, want):
+            assert_same(w.numpy(), g, TOL, 0, peak=True)
+        if tails is not None:
+            st = np.stack([np.concatenate([t, x], -1)[:, -(kp - 1):]
+                           for t, x in zip(tails, xs)])
+
+
+def test_dw_run_model_follows_the_kernel_source():
+    """dw_run_model's block, ring and kp set are the kernel's."""
+    src = RUN_SRC.read_text()
+    assert f"constexpr int kThreads = {RUN_THREADS};" in src
+    assert f"constexpr int kR = {RUN_R};" in src
+    assert f"constexpr int kSub = {RUN_SUB};" in src
+    assert f"constexpr int kStages = {RUN_STAGES};" in src
+    assert "return (KP - 1 + 3) & ~3;" in src
+    assert "const int off = (mis + 1 - KP) & 3;" in src
+    for kp in cuda_depthwise.RUN_KP:
+        assert f"case {kp}: return launch<{kp}>;" in src
+    assert len(re.findall(r"case \d+: return launch<", src)) == \
+        len(cuda_depthwise.RUN_KP)
+
+
+@pytest.mark.parametrize("kp,op", [
+    (23, "depthwise_run_f32"), (24, "depthwise_run_f32"),
+    (1, "depthwise_fir_f32"), (8, "depthwise_fir_f32"),
+    (13, "depthwise_fir_f32"), (16, "depthwise_fir_f32"),
+    (22, "depthwise_fir_f32"), (25, "depthwise_fir_f32"),
+    (32, "depthwise_fir_f32")])
+def test_depthwise_route(kp, op):
+    assert cuda_depthwise.route(kp) == op
+
+
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 10])
+def test_depthwise_route_recorded_on_cpu(rng, M):
+    """With default taps the synthesizer (kp 23, the tail form) and the
+    channelizer on complex input (kp 24, the VALID form) record the plain
+    path under depthwise_run_f32, with taps of another kp under
+    depthwise_fir_f32."""
+    s = torch.from_numpy(_iq(rng, (M, 40)))
+    syn = tch.PfbSynthesizer(M, device="cpu")
+    ch = tch.PfbChannelizer(M, device="cpu")
+    kernel_paths.reset()
+    syn(syn.init_state(), s)
+    ch(ch.init_state(), torch.from_numpy(_iq(rng, 40 * M)))
+    assert kernel_paths.report() == {"depthwise_run_f32": {
+        "cuda": 0, "plain": 2, "shapes": {f"plain C{M} kp23 tail": 1,
+                                          f"plain C{M} kp24": 1}}}
+    other = tch.PfbSynthesizer(M, taps=np.ones(M * 16), device="cpu")
+    kernel_paths.reset()
+    other(other.init_state(), s)
+    assert kernel_paths.report() == {"depthwise_fir_f32": {
+        "cuda": 0, "plain": 1, "shapes": {f"plain C{M} kp16 tail": 1}}}

@@ -32,6 +32,7 @@ from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
     decode_windows_plain)
 from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
     PfbChannelizer, PfbSynthesizer)
+from qradiolink_tpu_torch.ops import cuda_depthwise  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_depthwise import (  # noqa: E402
     depthwise_fir, depthwise_fir_plain)
 from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
@@ -39,6 +40,9 @@ from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
     fir_stream, fir_stream_plain, route)
 from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
+from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
+    phase_offsets, resample_poly, resample_poly_plain)
+from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -311,8 +315,142 @@ def test_depthwise_kernel_matches_plain(cuda, gen, C, kp, lead, planes,
                       device=cuda) for _ in range(planes)]
     kernel_paths.reset()
     got = depthwise_fir(xs, taps, n_out)
-    assert kernel_paths.launches("depthwise_fir_f32") == 1
+    assert kernel_paths.launches(cuda_depthwise.route(kp)) == 1
     _assert_fir_close(got, depthwise_fir_plain(xs, taps, n_out))
+
+
+def _depthwise_old(xs, taps, n_out, tails):
+    """depthwise_fir_f32 on the explicit [tail | x] concatenation."""
+    if tails is not None:
+        xs = [torch.cat([t, x], -1) for t, x in zip(tails, xs)]
+    return cuda_depthwise._launch_fir(xs, taps, n_out, "")
+
+
+# depthwise_run_f32's shapes: name: (C, kp, lead, planes, n_out, form,
+# extra input samples)
+RUN_CASES = {
+    "synth": (64, 23, (), 2, 100_000, "tail", 0),
+    "channelizer": (64, 24, (), 2, 100_000, "valid", 0),
+    "synth_ragged": (64, 23, (), 2, 5000 + 3, "tail", 0),
+    "valid_misaligned": (64, 24, (), 2, 5000, "valid", 3),
+    "lead_one_plane": (7, 23, (3,), 1, 777, "tail", 0),
+    "short_rows": (5, 24, (2,), 2, 9, "valid", 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RUN_CASES))
+def test_depthwise_run_matches_plain(cuda, gen, name):
+    """depthwise_run_f32, which route(kp) picks, within 1e-5 of the plain
+    version and equal bit for bit to depthwise_fir_f32 on the
+    concatenation: the tail form with strided tails of a (..., 2, C, kp-1)
+    state, the VALID form on rows whose body is not 16-byte aligned, rows
+    shorter than a tile, leading axes."""
+    C, kp, lead, planes, n_out, form, extra = RUN_CASES[name]
+    assert cuda_depthwise.route(kp) == cuda_depthwise.RUN_OP
+    taps = torch.randn((C, kp), generator=gen, device=cuda) / kp ** 0.5
+    tails = None
+    if form == "tail":
+        st = torch.randn(lead + (2, C, kp - 1), generator=gen, device=cuda)
+        tails = (st[..., 0, :, :], st[..., 1, :, :])[:planes]
+        n_in = n_out + extra
+    else:
+        n_in = n_out + kp - 1 + extra
+    xs = [torch.randn(lead + (C, n_in), generator=gen, device=cuda)
+          for _ in range(planes)]
+    kernel_paths.reset()
+    got = depthwise_fir(xs, taps, n_out, tails=tails)
+    assert kernel_paths.launches(cuda_depthwise.RUN_OP) == 1
+    assert kernel_paths.launches(cuda_depthwise.OP) == 0
+    _assert_fir_close(got, depthwise_fir_plain(xs, taps, n_out, tails))
+    for g, o in zip(got, _depthwise_old(xs, taps, n_out, tails)):
+        assert torch.equal(g, o)
+
+
+def test_synthesizer_branches_equal_the_old_route(cuda, gen):
+    """PfbSynthesizer._branches at M 64 (kp 23) over two chained blocks:
+    outputs and state equal bit for bit to the concatenation route on
+    depthwise_fir_f32, which served it before."""
+    syn = PfbSynthesizer(64, device=cuda)
+    state = torch.randn((2, 64, 22), generator=gen, device=cuda)
+    for _ in range(2):
+        w = [torch.randn((64, 20_000), generator=gen, device=cuda)
+             for _ in range(2)]
+        kernel_paths.reset()
+        new_state, vr, vi = syn._branches(state, *w)
+        assert kernel_paths.report()[cuda_depthwise.RUN_OP]["shapes"] == {
+            "cuda C64 kp23 tail": 1}
+        tails = (state[0], state[1])
+        for g, o in zip((vr, vi), _depthwise_old(w, syn._bt_flipped, 20_000,
+                                                tails)):
+            assert torch.equal(g, o)
+        assert torch.equal(new_state, torch.stack([p[:, -22:] for p in w]))
+        state = new_state
+
+
+def _resample_old(xs, taps, L, M, tails):
+    """The two-launch route the audio resampler had: fir_stream_f32 once a
+    phase, the tails read in place and q_r as the shift, the phases
+    interleaved in PyTorch."""
+    n_pp = xs[0].shape[-1] // M
+    phases = [cuda_fir._launch_stream(xs, taps[r], M, n_pp, tails, q)
+              for r, q in enumerate(phase_offsets(L, M))]
+    return tuple(torch.stack([p[i] for p in phases], -1).reshape(
+        xs[0].shape[:-1] + (n_pp * L,)) for i in range(len(xs)))
+
+
+# resample_poly_f32's shapes: name: (L, M, C, T, planes)
+POLY_CASES = {
+    "nbfm_audio": (2, 5, 32, 2000, 1),
+    "nbfm_audio_pair": (2, 5, 32, 2000, 2),
+    "m17_3_125": (3, 125, 2, 125 * 45, 2),
+    "tx_25_4": (25, 4, 3, 4 * 50, 1),
+    "tx_20_1": (20, 1, 2, 70, 2),
+    "short_block": (2, 5, 3, 50, 1),  # T < K-1: the new tail takes part
+}
+
+
+@pytest.mark.parametrize("name", sorted(POLY_CASES))
+def test_resample_poly_matches_plain(cuda, gen, name):
+    """resample_poly_f32 with the default taps over two chained blocks:
+    one launch a block, outputs within 1e-5 of the plain version and equal
+    bit for bit to the two-launch route, the new state (zeros in the im
+    plane of real input) equal to the plain version's."""
+    L, M, C, T, planes = POLY_CASES[name]
+    rs = RationalResampler(L, M, lead_shape=(C,), device=cuda)
+    state = torch.randn((C, 2, rs.kp - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = [torch.randn((C, T), generator=gen, device=cuda)
+              for _ in range(planes)]
+        tails = (state[:, 0], state[:, 1])[:planes]
+        kernel_paths.reset()
+        new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
+        assert kernel_paths.report()["resample_poly_f32"]["shapes"] == {
+            f"cuda L{L} K{rs.kp} D{M} tail {planes}x{C}": 1}
+        want_state, want = resample_poly_plain(xs, rs.poly_taps, L, M, tails)
+        _assert_fir_close(got, want)
+        assert torch.equal(new_state, want_state)
+        for g, o in zip(got, _resample_old(xs, rs.poly_taps, L, M, tails)):
+            assert torch.equal(g, o)
+        state = new_state
+
+
+def test_nbfm_audio_resampler_is_one_launch(cuda, gen):
+    """The NBFM chain's audio resampler (2/5) on real input at the mixed
+    path's shape: one resample_poly_f32 launch and no fir_stream_f32."""
+    rs = NbfmDemod(lead_shape=(32,), device=cuda).audio_resamp
+    state = rs.init_state()
+    for _ in range(2):
+        x = torch.randn((32, 2000), generator=gen, device=cuda)
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report() == {"resample_poly_f32": {
+            "cuda": 1, "plain": 0, "shapes": {
+                "cuda L2 K113 D5 tail 1x32": 1}}}
+        want_state, (want,) = resample_poly_plain(
+            (x,), rs.poly_taps, 2, 5, (state[:, 0],))
+        _assert_fir_close((y,), (want,))
+        assert torch.equal(new_state, want_state)
+        state = new_state
 
 
 def _pfb_two_blocks(cuda, gen, M, B, Tm):
@@ -395,7 +533,7 @@ def test_channelizer_routes_agree_on_card_and_cpu(cuda, gen):
     for name, dev in (("k5", cuda), ("k4", cuda),
                       ("cpu", torch.device("cpu"))):
         ch = PfbChannelizer(M, device=dev)
-        op = ("depthwise_fir_f32" if name == "k4"
+        op = (cuda_depthwise.route(ch.kp) if name == "k4"
               else cuda_pfb.route(M, ch.kp))
         xd = (torch.complex(x.re, x.im).to(dev) if name == "k4"
               else IqPair(x.re.to(dev), x.im.to(dev)))
@@ -421,7 +559,7 @@ def test_synthesizer_on_card_matches_cpu(cuda, gen):
         for _ in range(2):
             st, y = syn(st, IqPair(s.re.to(dev), s.im.to(dev)))
         if dev.type == "cuda":
-            assert kernel_paths.launches("depthwise_fir_f32") == 2
+            assert kernel_paths.launches(cuda_depthwise.route(syn.kp)) == 2
         ys[dev.type] = torch.complex(y.re, y.im).cpu()
     peak = float(ys["cpu"].abs().max())
     assert float((ys["cuda"] - ys["cpu"]).abs().max()) <= 1e-5 * peak

@@ -322,7 +322,7 @@ def test_decim_model_matches_plain(rng, name):
     ("nbfm head K2239 D50", "fir_long_f32"),
     ("nbfm channel LP K133 D1", "fir_s1_f32"),
     ("nbfm audio LP K55 D1", "fir_s1_f32"),
-    ("nbfm audio resampler D5", "fir_stream_f32"),
+    ("nbfm audio resampler D5", "resample_poly_f32"),
     ("K2048 D1", "fir_s1_f32"),
     ("K2049 D1", "fir_stream_f32"),
     ("K419 D100", "fir_stream_f32"),
@@ -342,8 +342,9 @@ def test_fir_route_recorded_on_cpu(stage, want):
     """On CPU tensors each stage records `plain` under the kernel its shape
     routes to: the 4FSK head (16 taps a phase at most) under fir_decim_f32,
     the NBFM head (17 to 64 taps a phase) under fir_long_f32, the stride-1
-    filters of up to 2,048 taps under fir_s1_f32, every other FIR (the
-    audio resampler's K113 D5) under fir_stream_f32."""
+    filters of up to 2,048 taps under fir_s1_f32, the audio resampler (L 2,
+    every phase in one call) under resample_poly_f32, every other FIR under
+    fir_stream_f32."""
     fsk, nbfm = Fsk4DemodFF(device="cpu"), NbfmDemod(device="cpu")
     kernel_paths.reset()
     if stage.startswith("fsk head"):

@@ -117,5 +117,5 @@ def test_mixed_rx_streamed():
     report = kernel_paths.report()
     # the channelizer's kernel is the one cuda_pfb.route(M, kp) picks
     for op in (cuda_pfb.route(M, trx.channelizer.kp), "fir_long_f32",
-               "fir_stream_f32", "viterbi_bfly_k7"):
+               "resample_poly_f32", "viterbi_bfly_k7"):
         assert report[op]["plain"] >= 2, op
