@@ -11,8 +11,8 @@ when the package cannot be imported, and when any phase fails:
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
     spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_s1.cu,
-    csrc/viterbi_bfly.cu, csrc/pfb_fft.cu, csrc/depthwise_run.cu and
-    csrc/resample_poly.cu);
+    csrc/viterbi_bfly.cu, csrc/pfb_fft.cu, csrc/depthwise_run.cu,
+    csrc/resample_poly.cu and csrc/agc2.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -89,7 +89,31 @@ when the package cannot be imported, and when any phase fails:
     on [40]) in 8
     steps of 100,000 samples a channel on the card and on the CPU: FSK bits
     equal and BER below 0.01, NBFM audio within 1e-5 (the CPU tests'
-    bound).
+    bound);
+ 8. the analog kernels at their new shapes, 2048 rows, against their plain
+    versions: fir_stream_f32 at the SSB head (K5597 D125) and the WBFM head
+    (K225 D5) and audio resampler (K1121 D25, real, no tail); fir_s1_f32
+    with the SSB channel filter's 167 complex taps (two launches, one a tap
+    plane, then the combine; one complex F.conv1d as the library call) and
+    its audio band-pass (K97, real); agc2_gain_f32 bit-equal to its plain
+    loop at the SSB (1,600) and AM (4,000) shapes over two chained blocks;
+    resample_poly_f32 at the TX interpolators (L125 M1 K45, 2 planes;
+    L25 M4 and L20 M1 of NbfmMod);
+ 9. the slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
+    samples for 3 steps (counters zeroed before, read after: the head on
+    fir_stream_f32, the channel band-pass 2 launches of fir_s1_f32, the
+    audio band-pass 1, agc2_gain_f32 1, a step), Msamples/s and
+    vs_baseline, one step stage by stage and one under torch.profiler;
+    then WbfmDemod at the same width and the TX side (SsbMod and NbfmMod
+    on 1,600 audio samples a channel a step), 3 steps each, their counts
+    read the same way;
+10. SsbDemod, AmDemod and WbfmDemod at 4 channels x 2 blocks on the card
+    against the port's CPU path: audio and state within 1e-5 of the peak,
+    rssi within 1e-4 dB;
+11. loopbacks on the card, torch only, 8 channels: TX -> ChannelModel at
+    30 dB -> RX; the JAX tests' tone-SNR thresholds (NBFM > 15 dB, AM >
+    12, USB and LSB > 10, the opposite sideband < 5, WBFM of a wide FM
+    tone > 15) on every channel.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -780,24 +804,42 @@ def timed(stages, name, fn):
 
 
 def trace_step(name, fn):
-    """One call of fn under torch.profiler; prints its device ops (kernels,
-    copies, fills), the time the device was busy with them (the union of
-    their intervals) and the span from the first one's start to the last
-    one's end. The profiler's own host work stretches the span, so the
-    idle share it gives is an upper bound."""
+    """Two calls of fn under torch.profiler, the first a warm-up that is
+    not recorded; prints the second's device ops (kernels, copies, fills),
+    the five that took the most device time by name, the time the device
+    was busy with them (the union of their intervals) and the span from
+    the first one's start to the last one's end. The profiler's own host
+    work stretches the span, so the idle share it gives is an upper bound.
+    (Without the warm-up, the SSB step's traced ops lacked its longest
+    kernel, which scripts/trace_fir_stream.py shows the profiler records
+    when it is traced on its own.)"""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the profiler's own step annotation spans the step on the device
+    # timeline; it is not an op
+    ops = [(e.time_range.start, e.time_range.end, e.name)
+           for e in traced if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("ProfilerStep")]
+    spans = sorted(o[:2] for o in ops)
     if not spans:
         print(f"  {name} traced: the profiler saw no device ops", flush=True)
         return
+    by_name = {}
+    for lo, hi, n in ops:
+        by_name[n] = by_name.get(n, 0.0) + (hi - lo) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {name} traced, device ms by op: " + "; ".join(
+        f"{n[:60]} {ms:.3f}" for n, ms in top), flush=True)
     busy, end = 0.0, spans[0][0]
     for lo, hi in spans:
         if hi > end:
@@ -1083,6 +1125,427 @@ def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
     return report
 
 
+# -- the analog voice chains (SSB, AM, WBFM, the TX side) --------------------
+
+SSB_EVERY_STEP = ("fir_stream_f32", "fir_s1_f32", "agc2_gain_f32")
+WBFM_EVERY_STEP = ("fir_stream_f32", "fir_s1_f32")
+TX_EVERY_STEP = ("fir_s1_f32", "resample_poly_f32")
+AUDIO_PER_STEP = T_STEP // 125   # 8 ksps audio samples a step (1,600)
+# BASELINE's 4FSK target: 10x real time a channel (PERF.md section 2)
+VS_BASELINE_LIMIT = 10.0
+
+
+def require_shapes(report, want, steps, run):
+    """Each (op, key): n of `want` must have launched n x steps times on
+    the `run` path."""
+    for (op, key), n in want.items():
+        got = report.get(op, {}).get("shapes", {}).get(f"cuda {key}", 0)
+        if got != n * steps:
+            raise RuntimeError(f"{run}: {op} at {key} launched {got} times "
+                               f"in {steps} steps, not {n * steps}")
+        print(f"  {run}: {op} at {key}: {got} launches in {steps} steps",
+              flush=True)
+
+
+def ssb_path(dev, gen):
+    """The slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
+    samples a step (the 4FSK path's shape), seeded IQ at 0.1 RMS a plane,
+    3 steps with state carried and the counters zeroed just before; the
+    head on fir_stream_f32, the channel band-pass two fir_s1_f32 launches,
+    the audio band-pass one, agc2_gain_f32 one, a step. Then one more step
+    stage by stage, and one under torch.profiler. Returns the report."""
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod
+    from qradiolink_tpu_torch.core import IqPair, Sequencer
+    from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
+
+    chain = SsbDemod(usb=True, lead_shape=(N_CH,), device=dev)
+    iq = IqPair(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1,
+                torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
+    state = chain.init_state()
+    torch.cuda.synchronize()
+    state, out, step_s, report = drive(chain, state, iq, SSB_EVERY_STEP)
+    for key, shape in (("audio", (N_CH, AUDIO_PER_STEP)), ("rssi", (N_CH,))):
+        v = out[key]
+        if tuple(v.shape) != shape or v.dtype != torch.float32 \
+                or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"ssb {key}: {tuple(v.shape)} {v.dtype} or "
+                               f"non-finite")
+    if not float(out["audio"].abs().max()) > 0:
+        raise RuntimeError("ssb audio is all zero")
+    require_shapes(report, {
+        ("fir_stream_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}"): 2,
+        ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1,
+        ("agc2_gain_f32", f"{N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb")
+    med = statistics.median([s * 1e3 for s in step_s[1:]])
+    vs = N_CH * T_STEP / med / 1e3 / N_CH
+    print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline {vs:.2f} "
+          f"Msamples/s per channel (limit {VS_BASELINE_LIMIT})", flush=True)
+
+    seq = Sequencer(state)
+    stages = {}
+    x = timed(stages, "resampler 1/125 (fir_stream_f32 K5597 D125)",
+              lambda: seq(chain.resamp, iq))
+    x = timed(stages, "x0.9", lambda: 0.9 * x)
+    x = timed(stages, "channel band-pass (fir_s1_f32 K167 complex, 2 "
+              "launches)", lambda: seq(chain.chan_filter, x))
+    timed(stages, "rssi", lambda: rssi_dbm(x))
+    x = timed(stages, "power squelch", lambda: seq(chain.squelch, x))
+    x = timed(stages, "agc (agc2_gain_f32)", lambda: seq(chain.agc, x))
+    x = timed(stages, "cessb clipper", lambda: chain.clipper.apply(x))
+    x = timed(stages, "cessb stretcher", lambda: seq(chain.stretcher, x))
+    x = timed(stages, "real x1.333", lambda: x.real * 1.333)
+    timed(stages, "audio band-pass (fir_s1_f32 K97)",
+          lambda: seq(chain.audio_filter, x))
+    print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
+          flush=True)
+    trace_step("one more step", lambda: chain(state, iq))
+    return report
+
+
+def wbfm_path(dev, gen):
+    """WbfmDemod at 2048 x 200,000 a step, 3 steps, counters zeroed just
+    before: the head (K225 D5) and the audio resampler (K1121 D25) on
+    fir_stream_f32, the channel and audio low-passes on fir_s1_f32, once
+    each a step. Returns the report."""
+    from qradiolink_tpu_torch.chains.wbfm import WbfmDemod
+    from qradiolink_tpu_torch.core import IqPair
+
+    chain = WbfmDemod(lead_shape=(N_CH,), device=dev)
+    iq = IqPair(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1,
+                torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
+    state, out, step_s, report = drive(chain, chain.init_state(), iq,
+                                       WBFM_EVERY_STEP)
+    if tuple(out["audio"].shape) != (N_CH, AUDIO_PER_STEP) \
+            or not bool(torch.isfinite(out["audio"]).all()):
+        raise RuntimeError("wbfm audio: wrong shape or non-finite")
+    require_shapes(report, {
+        ("fir_stream_f32", f"K{chain.resamp.kp} D5 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}"): 1,
+        ("fir_stream_f32", f"K{chain.audio_resamp.kp} D25 1x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1},
+        N_STEPS, "wbfm")
+    print(f"  {step_times(step_s, N_CH * T_STEP)}", flush=True)
+    return report
+
+
+def tx_modulators(dev):
+    from qradiolink_tpu_torch.chains.nbfm import NbfmMod
+    from qradiolink_tpu_torch.chains.ssb import SsbMod
+
+    return (SsbMod(usb=True, lead_shape=(N_CH,), device=dev),
+            NbfmMod(lead_shape=(N_CH,), pair=True, device=dev))
+
+
+def tx_path(dev, gen):
+    """The TX side at 2048 channels: SsbMod and NbfmMod (IqPair out) on
+    1,600 audio samples a step (200,000 IQ samples out), 3 steps, counters
+    zeroed just before: the 125/1, 25/4 and 20/1 interpolators on
+    resample_poly_f32, once each a step. Returns the report."""
+    ssbm, nbm = tx_modulators(dev)
+    t = torch.arange(AUDIO_PER_STEP, device=dev) / 8000.0
+    audio = (0.5 * torch.sin(2 * np.pi * 1000.0 * t)
+             + 0.05 * torch.randn((N_CH, AUDIO_PER_STEP), generator=gen,
+                                  device=dev)).float()
+
+    def step(states, a):
+        s1, o1 = ssbm(states[0], a)
+        s2, o2 = nbm(states[1], a)
+        return (s1, s2), (o1["iq"], o2["iq"])
+
+    _, (iq_ssb, iq_nb), step_s, report = drive(
+        step, (ssbm.init_state(), nbm.init_state()), audio, TX_EVERY_STEP)
+    for name, v in (("ssb", iq_ssb), ("nbfm re", iq_nb.re),
+                    ("nbfm im", iq_nb.im)):
+        if tuple(v.shape) != (N_CH, T_STEP) \
+                or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"tx {name}: wrong shape or non-finite")
+    require_shapes(report, {
+        ("resample_poly_f32", f"L125 K{ssbm.up.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_poly_f32", f"L25 K{nbm.up1.kp} D4 tail 1x{N_CH}"): 1,
+        ("resample_poly_f32", f"L20 K{nbm.up2.kp} D1 tail 2x{N_CH}"): 1},
+        N_STEPS, "tx")
+    print(f"  {step_times(step_s, 2 * N_CH * T_STEP)} (IQ samples out of "
+          f"both modulators)", flush=True)
+    return report
+
+
+def complex_fir_row(name, replaces, filt, C, n, run, dev, gen):
+    """A FIR with complex taps over the (re, im) planes of C rows x n
+    samples, tails read in place: fir_planes (two launches of the routed
+    kernel, one a tap plane, then the combine) against its plain version
+    (the plain FIR twice, the same combine), and one complex F.conv1d as
+    the library call."""
+    from qradiolink_tpu_torch.ops import cuda_fir
+    from qradiolink_tpu_torch.ops.fir import fir_planes
+    import torch.nn.functional as F
+
+    K = filt.ntaps
+    op = cuda_fir.route(K, 1)
+    tr, ti = filt.tap_planes
+    xs = tuple(torch.randn((C, n), generator=gen, device=dev)
+               for _ in range(2))
+    st = torch.randn((C, 2, K - 1), generator=gen, device=dev)
+    tails = (st[:, 0, :], st[:, 1, :])
+
+    def plain():
+        (rr, ir), (ri, ii) = (cuda_fir.fir_stream_plain(xs, t, 1, n, tails)
+                              for t in (tr, ti))
+        return rr - ii, ri + ir
+
+    got = fir_planes(xs, (tr, ti), 1, n, tails)
+    err = check_fir(f"{op}/{name}", got, plain())
+    xc = torch.complex(*(torch.cat([t, x], -1) for t, x in zip(tails, xs)))
+    w = torch.complex(tr, ti).reshape(1, 1, K)
+    lib = F.conv1d(xc.reshape(C, 1, -1), w).reshape(C, n)
+    check_fir(f"complex F.conv1d/{name}", (lib.real, lib.imag), plain())
+    ms = cuda_ms(lambda: fir_planes(xs, (tr, ti), 1, n, tails))
+    plain_ms = cuda_ms(plain)
+    lib_ms = cuda_ms(lambda: F.conv1d(xc.reshape(C, 1, -1), w))
+    # two planes and their tails in, two out, two tap planes; four real
+    # FIRs of 2K operations an output
+    b = bound(4 * (2 * C * (n + K - 1) + 2 * C * n + 2 * K),
+              4 * 2 * K * C * n)
+    r = row(f"{op}/{name}", FIR_SOURCE[op], replaces, err, ms, plain_ms, b,
+            lib_ms, run, cuda_fir.shape_key(xs, K, 1, tails))
+    r["per_step"] = 2
+    return [r]
+
+
+def agc_rows(dev, gen):
+    """agc2_gain_f32 at the SSB path's shape (2048 x 1,600) and the AM
+    chain's at the same width (2048 x 4,000), two chained blocks of bursty
+    magnitudes each: gains and the carried gain equal bit for bit to the
+    plain loop's. Times at the SSB shape; no PyTorch call computes the
+    recurrence."""
+    from qradiolink_tpu_torch.ops import cuda_agc
+
+    params = {"ssb": (1e-1, 1e-1, 0.25), "am": (1e-1, 1e-2, 1.0)}
+    for name, T in (("am", T_STEP // 50), ("ssb", AUDIO_PER_STEP)):
+        amp = torch.where((torch.arange(T, device=dev) // 150) % 2 == 0,
+                          2.0, 0.02)
+        g = torch.ones(N_CH, device=dev)
+        for _ in range(2):
+            args = ((torch.randn((N_CH, T), generator=gen, device=dev)
+                     * amp).abs(), g, *params[name], 65536.0)
+            got = cuda_agc.agc2_gain(*args)
+            want = cuda_agc.agc2_gain_plain(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"agc2_gain_f32 {name} {N_CH}x{T}: not "
+                                   f"bit-equal to the plain loop")
+            g = got[1]
+        print(f"  agc2_gain_f32/{name} {N_CH}x{T}: 2 chained blocks equal "
+              f"bit for bit to the plain loop", flush=True)
+    # the SSB shape's arguments, from the loop's last pass
+    ms = cuda_ms(lambda: cuda_agc.agc2_gain(*args))
+    plain_ms = cuda_ms(lambda: cuda_agc.agc2_gain_plain(*args), iters=3,
+                       warmup=1)
+    # m in, gains out, g0 in, g_last out; 7 operations a sample; the
+    # recurrence's own floor is latency, T dependent steps a row
+    b = bound(4 * (2 * N_CH * T + 2 * N_CH), 7 * N_CH * T)
+    return [row(f"{cuda_agc.OP}/ssb", "qradiolink_tpu_torch/csrc/agc2.cu",
+                "qradiolink_tpu/ops/agc.py:51", 0.0, ms, plain_ms, b, None,
+                "ssb", cuda_agc.shape_key(args[0]))]
+
+
+def poly_row(name, rs, planes, C, T, run, dev, gen):
+    """resample_poly_f32 at a TX interpolator's shape (C rows x T input
+    samples, `planes` planes, the tails read in place) against its plain
+    version, outputs within 1e-5 and the new state equal, with one
+    F.conv1d with L output channels as the library call."""
+    from qradiolink_tpu_torch.ops import cuda_resample
+    import torch.nn.functional as F
+
+    L, M, K, taps = rs.L, rs.M, rs.kp, rs.poly_taps
+    xs = tuple(torch.randn((C, T), generator=gen, device=dev)
+               for _ in range(planes))
+    st = torch.randn((C, 2, K - 1), generator=gen, device=dev)
+    tails = (st[:, 0, :], st[:, 1, :])[:planes]
+    new_state, ys = cuda_resample.resample_poly(xs, taps, L, M, tails)
+    p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M, tails)
+    err = check_fir(f"{cuda_resample.OP}/{name}", ys, p_ys)
+    if not torch.equal(new_state, p_state):
+        raise RuntimeError(f"{cuda_resample.OP}/{name}: state differs")
+    offs = cuda_resample.phase_offsets(L, M)
+    w = torch.zeros((L, 1, K + offs[-1]), device=dev)
+    for r, q in enumerate(offs):
+        w[r, 0, q:q + K] = taps[r]
+    lib_in = torch.stack([torch.cat([t, x], -1) for t, x in zip(tails, xs)]
+                         ).reshape(planes * C, 1, -1)
+    lib = F.conv1d(lib_in, w, stride=M).transpose(1, 2).reshape(
+        planes, C, -1)
+    check_fir(f"F.conv1d with L output channels/{name}", lib.unbind(0),
+              p_ys)
+    ms = cuda_ms(lambda: cuda_resample.resample_poly(xs, taps, L, M, tails))
+    plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
+        xs, taps, L, M, tails), iters=3, warmup=1)
+    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
+    n_out = T // M * L
+    b = bound(4 * (planes * C * (K - 1 + T) + L * K + planes * C * n_out
+                   + 2 * C * (K - 1)), 2 * K * planes * C * n_out)
+    return [row(f"{cuda_resample.OP}/{name}",
+                "qradiolink_tpu_torch/csrc/resample_poly.cu",
+                "qradiolink_tpu/ops/pallas_fir.py:111", err, ms, plain_ms, b,
+                lib_ms, run, cuda_resample.shape_key(xs, L, K, M))]
+
+
+def analog_rows(dev, gen):
+    """The new shapes' kernels against their plain versions: the SSB and
+    WBFM paths' FIRs, the TX interpolators, agc2_gain_f32."""
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod
+    from qradiolink_tpu_torch.chains.wbfm import WbfmDemod
+
+    ssb = SsbDemod(usb=True, lead_shape=(N_CH,), device=dev)
+    wb = WbfmDemod(lead_shape=(N_CH,), device=dev)
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    k1 = "qradiolink_tpu/ops/pallas_fir.py:218"
+    for name, rs, T, run in (("ssb_head", ssb.resamp, T_STEP, "ssb"),
+                             ("wbfm_head", wb.resamp, T_STEP, "wbfm")):
+        st = randn(N_CH, 2, rs.kp - 1)
+        rows += fir_row(name, k1, (randn(N_CH, T), randn(N_CH, T)),
+                        rs.phase_taps[0], rs.M, T // rs.M,
+                        (st[:, 0, :], st[:, 1, :]), run)
+    # the WBFM audio resampler on real input: the [tail | x] concatenation
+    # (RationalResampler's tensor path), no tail read in place
+    ar = wb.audio_resamp
+    n_in = T_STEP // wb.resamp.M
+    rows += fir_row("wbfm_audio_resamp", "qradiolink_tpu/ops/pallas_fir.py:111",
+                    (randn(N_CH, n_in + ar.kp - 1),), ar.phase_taps[0], ar.M,
+                    n_in // ar.M, None, "wbfm")
+    rows += complex_fir_row("ssb_chan_bp", k1, ssb.chan_filter, N_CH,
+                            AUDIO_PER_STEP, "ssb", dev, gen)
+    af = ssb.audio_filter
+    st = randn(N_CH, 2, af.ntaps - 1)
+    rows += fir_row("ssb_audio_bp", "qradiolink_tpu/ops/pallas_fir.py:111",
+                    (randn(N_CH, AUDIO_PER_STEP),), af.taps_flipped, 1,
+                    AUDIO_PER_STEP, (st[:, 0, :],), "ssb")
+    rows += agc_rows(dev, gen)
+    ssbm, nbm = tx_modulators(dev)
+    rows += poly_row("ssb_tx_up", ssbm.up, 2, N_CH, AUDIO_PER_STEP, "tx",
+                     dev, gen)
+    rows += poly_row("nbfm_tx_up1", nbm.up1, 1, N_CH, AUDIO_PER_STEP, "tx",
+                     dev, gen)
+    rows += poly_row("nbfm_tx_up2", nbm.up2, 2, N_CH,
+                     AUDIO_PER_STEP * 25 // 4, "tx", dev, gen)
+    return rows
+
+
+def card_vs_cpu_phase(dev, gen, n_ch=4, T=25_000):
+    """SsbDemod, AmDemod and WbfmDemod at n_ch channels x 2 blocks of T
+    IqPair samples (0.1 RMS a plane), on the card and on the port's own CPU
+    path: audio and every state leaf within 1e-5 of the CPU's peak (the
+    FIRs' bound), rssi within 1e-4 dB."""
+    from qradiolink_tpu_torch.chains.am import AmDemod
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod
+    from qradiolink_tpu_torch.chains.wbfm import WbfmDemod
+    from qradiolink_tpu_torch.core import IqPair, _flatten
+
+    def close(name, got, want):
+        return peak_err(name, (got.cpu(),), (want,), 1e-5)
+
+    cpu = torch.device("cpu")
+    for cls in (SsbDemod, AmDemod, WbfmDemod):
+        chains = {d.type: cls(lead_shape=(n_ch,), device=d)
+                  for d in (dev, cpu)}
+        states = {k: c.init_state() for k, c in chains.items()}
+        errs = {"audio": 0.0, "rssi": 0.0, "state": 0.0}
+        for blk in range(2):
+            re, im = (torch.randn((n_ch, T), generator=gen, device=dev) * 0.1
+                      for _ in range(2))
+            outs = {}
+            for d in (dev, cpu):
+                states[d.type], outs[d.type] = chains[d.type](
+                    states[d.type], IqPair(re.to(d), im.to(d)))
+            g, c = outs[dev.type], outs["cpu"]
+            what = f"{cls.__name__} block {blk}"
+            errs["audio"] = max(errs["audio"], close(
+                f"{what} audio", g["audio"], c["audio"]))
+            r_err = float((g["rssi"].cpu() - c["rssi"]).abs().max())
+            if not r_err <= 1e-4:
+                raise RuntimeError(f"{what} rssi differs by {r_err} dB")
+            errs["rssi"] = max(errs["rssi"], r_err)
+            for i, (a, b) in enumerate(zip(_flatten(states[dev.type], []),
+                                           _flatten(states["cpu"], []))):
+                errs["state"] = max(errs["state"], close(
+                    f"{what} state leaf {i}", a, b))
+        print(f"  {cls.__name__} {n_ch} ch x 2 blocks of {T}: card vs CPU "
+              f"audio max |diff| {errs['audio']:.3e}, rssi "
+              f"{errs['rssi']:.3e} dB, state {errs['state']:.3e}",
+              flush=True)
+
+
+def tone_snr(audio, freq, rate=8000):
+    """Power at the tone's bin against the rest, DC excluded (a copy of
+    tests/test_chains_analog.tone_snr)."""
+    a = audio - np.mean(audio)
+    spec = np.abs(np.fft.rfft(a * np.hanning(len(a)))) ** 2
+    freqs = np.fft.rfftfreq(len(a), 1 / rate)
+    tone_band = (freqs > freq - 50) & (freqs < freq + 50)
+    noise_band = (freqs > 100) & ~tone_band
+    return 10 * np.log10(spec[tone_band].sum()
+                         / (spec[noise_band].sum() + 1e-12))
+
+
+def loopback_phase(dev, n_ch=8, n_audio=4000):
+    """TX -> ChannelModel at 30 dB -> RX on the card, torch only, at n_ch
+    channels of a 0.5-amplitude tone (0.5 s): the JAX tests' tone-SNR
+    thresholds (tests/test_chains_analog.py) on every channel."""
+    from qradiolink_tpu_torch.chains.am import AmDemod, AmMod
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.chains.nbfm import NbfmDemod, NbfmMod
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod, SsbMod
+    from qradiolink_tpu_torch.chains.wbfm import WbfmDemod
+    from qradiolink_tpu_torch.ops.analog import FrequencyMod
+    from qradiolink_tpu_torch.ops.resample import RationalResampler
+
+    ls = (n_ch,)
+
+    def tone(freq):
+        t = torch.arange(n_audio, device=dev, dtype=torch.float64) / 8000
+        return (0.5 * torch.sin(2 * np.pi * freq * t)).float().expand(
+            n_ch, n_audio).contiguous()
+
+    def wide_fm(freq):
+        up = RationalResampler(125, 1, lead_shape=ls, device=dev)
+        _, a = up(up.init_state(), tone(freq))
+        fm = FrequencyMod(2 * np.pi * 75_000.0 / 1e6, lead_shape=ls,
+                          device=dev)
+        return fm(fm.init_state(), a)[1]
+
+    cases = [  # name, TX (or None: IQ made directly), RX, tone, skip, test
+        ("NBFM", NbfmMod, NbfmDemod, 800.0, 1000, "> 15"),
+        ("AM", AmMod, AmDemod, 700.0, 1500, "> 12"),
+        ("USB", lambda **k: SsbMod(usb=True, **k),
+         lambda **k: SsbDemod(usb=True, **k), 1000.0, 1500, "> 10"),
+        ("LSB", lambda **k: SsbMod(usb=False, **k),
+         lambda **k: SsbDemod(usb=False, **k), 1000.0, 1500, "> 10"),
+        ("USB into LSB", lambda **k: SsbMod(usb=True, **k),
+         lambda **k: SsbDemod(usb=False, **k), 1000.0, 1500, "< 5"),
+        ("WBFM", None, WbfmDemod, 800.0, 1500, "> 15")]
+    for name, tx, rx, freq, skip, test in cases:
+        if tx is None:
+            iq = wide_fm(freq)
+        else:
+            mod = tx(lead_shape=ls, device=dev)
+            iq = mod(mod.init_state(), tone(freq))[1]["iq"]
+            iq = ChannelModel(1_000_000, snr_db=30.0)(iq)
+        demod = rx(lead_shape=ls, device=dev)
+        audio = demod(demod.init_state(), iq)[1]["audio"].cpu().numpy()
+        snrs = [tone_snr(a[skip:], freq) for a in audio]
+        lim = float(test[2:])
+        ok = all(s > lim for s in snrs) if test[0] == ">" else all(
+            s < lim for s in snrs)
+        print(f"  loopback {name}: audio SNR {min(snrs):.2f} - "
+              f"{max(snrs):.2f} dB over {n_ch} channels (must be {test})",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"loopback {name}: SNR {snrs} not {test} dB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1112,9 +1575,10 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     # fir_decim_f32, fir_long_f32 and fir_s1_f32 keep their rings in
     # registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 and
-    # depthwise_run_f32 their taps, resample_poly_f32 its loads in flight
+    # depthwise_run_f32 their taps, resample_poly_f32 and agc2_gain_f32
+    # their loads in flight
     for name in ("fir_decim", "fir_long", "fir_s1", "viterbi_bfly",
-                 "pfb_fft", "depthwise_run", "resample_poly"):
+                 "pfb_fft", "depthwise_run", "resample_poly", "agc2"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -1146,17 +1610,40 @@ def main() -> int:
     fixture_phase(dev)
     print("round trip through the synthesizer:", flush=True)
     reports["round_trip"] = round_trip_phase(dev)
+    torch.cuda.empty_cache()
+
+    print("analog kernels against their plain versions:", flush=True)
+    rows += analog_rows(dev, gen)
+    torch.cuda.empty_cache()
+    print(f"SSB path: SsbDemod(usb=True) {N_CH} ch x {T_STEP} samples, "
+          f"{N_STEPS} steps", flush=True)
+    reports["ssb"] = ssb_path(dev, gen)
+    torch.cuda.empty_cache()
+    print(f"WBFM path: WbfmDemod {N_CH} ch x {T_STEP} samples, {N_STEPS} "
+          f"steps", flush=True)
+    reports["wbfm"] = wbfm_path(dev, gen)
+    torch.cuda.empty_cache()
+    print(f"TX path: SsbMod + NbfmMod {N_CH} ch x {AUDIO_PER_STEP} audio "
+          f"samples, {N_STEPS} steps", flush=True)
+    reports["tx"] = tx_path(dev, gen)
+    torch.cuda.empty_cache()
+    print("analog chains, card against CPU:", flush=True)
+    card_vs_cpu_phase(dev, gen)
+    print("analog loopbacks on the card:", flush=True)
+    loopback_phase(dev)
 
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks,
     # none for the one it replaced (a row with no path)
-    steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS}
+    steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS,
+             "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")
+        per_step = r.pop("per_step", 1)
         op = r["name"].split("/")[0]
         r["launches"] = reports[run].get(op, {}).get("shapes", {}).get(
             f"cuda {shape}", 0)
-        want = 0 if r["path"] is None else steps[run]
+        want = 0 if r["path"] is None else per_step * steps[run]
         if r["launches"] != want:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
                                f"times at {shape} on the {run} path, not "

@@ -12,18 +12,23 @@ This package imports torch and never jax, and nothing of qradiolink_tpu.
 
 Ported so far (slice 1, the 4FSK feedforward RX chain
 `chains.fsk.Fsk4DemodFF`; slice 2, the mixed 64-channel receiver
-`parallel.sharding.MultichannelRx` with `chains.nbfm.NbfmDemod`):
+`parallel.sharding.MultichannelRx` with `chains.nbfm.NbfmDemod`; slice 3,
+the analog voice chains):
   core        blocks, IqPair, state trees and npz snapshots
-  ops/        firdes, fir (FirFilter, conv1d_valid), resample (with the
-              default Kaiser taps), analog (QuadratureDemod, Emphasis,
-              DcBlocker), iir, squelch (PowerSquelch, CtcssSquelch),
-              spectrum (rssi_dbm), channelizer (PfbChannelizer,
-              PfbSynthesizer), and the kernels cuda_fir, cuda_depthwise,
+  ops/        firdes, fir (FirFilter, conv1d_valid; real or complex taps),
+              resample (with the default Kaiser taps), analog
+              (QuadratureDemod, FrequencyMod, PhaseMod, Emphasis,
+              DcBlocker, ComplexToMag, ComplexToReal, Scale), agc (Agc2),
+              cessb (CessbClipper, CessbStretcher), rotator, iir, squelch
+              (PowerSquelch, CtcssSquelch), spectrum (rssi_dbm),
+              channelizer (PfbChannelizer, PfbSynthesizer), and the
+              kernels cuda_fir, cuda_resample, cuda_agc, cuda_depthwise,
               cuda_pfb
   sync/       feedforward (FeedforwardSymbolSync)
   fec/        conv (ConvCode), conv_ff (TiledViterbi), scrambler
               (Descrambler), viterbi_cuda (kernel)
-  chains/     digital_common (RxFecTailFF), fsk (Fsk4DemodFF),
-              nbfm (NbfmDemod)
+  chains/     digital_common (RxFecTailFF), fsk (Fsk4DemodFF), nbfm
+              (NbfmDemod, NbfmMod), ssb (SsbDemod, SsbMod), am (AmDemod,
+              AmMod), wbfm (WbfmDemod), channel (ChannelModel)
   parallel/   sharding (MultichannelRx, one card)
 """

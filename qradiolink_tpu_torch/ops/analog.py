@@ -1,12 +1,16 @@
 """Analog blocks (port of qradiolink_tpu/ops/analog.py): the quadrature
-(FM) demodulator, FM pre-/de-emphasis and the DC blocker."""
+(FM) demodulator, the frequency and phase modulators, FM pre-/de-emphasis,
+the DC blocker, and magnitude, real-part and scale extraction. All plain
+PyTorch: elementwise ops, a cumulative sum, and the first-order IIR scan
+of ops/iir.py."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
+from qradiolink_tpu_torch.core import (Block, IqPair, Stateless,
+                                       resolve_device)
 from qradiolink_tpu_torch.ops.iir import FirstOrderIir
 
 
@@ -53,6 +57,74 @@ class QuadratureDemod(Block):
         y = self._angle(d.real, d.imag, self.gain)
         last = xc[..., -1:]
         return torch.stack([last.real, last.imag], dim=-2), y
+
+
+def wrap_phase(ph):
+    """ph mod 2 pi in [0, 2 pi), in f32, as jnp.mod computes it."""
+    return torch.remainder(ph, 2.0 * np.pi)
+
+
+class FrequencyMod(Block):
+    """y[n] = exp(j * phase[n]), phase = carried phase + sensitivity *
+    cumsum(x). State: the carried phase mod 2 pi, lead_shape f32.
+    pair_out=True emits IqPair(cos, sin) instead of complex64."""
+
+    def __init__(self, sensitivity: float, lead_shape: tuple = (),
+                 pair_out: bool = False, device=None):
+        self.sensitivity = float(sensitivity)
+        self.lead_shape = tuple(lead_shape)
+        self.pair_out = bool(pair_out)
+        self.device = resolve_device(device)
+
+    def init_state(self):
+        return torch.zeros(self.lead_shape, dtype=torch.float32,
+                           device=self.device)
+
+    def __call__(self, state, x):
+        ph = state[..., None] + torch.cumsum(
+            x.float() * self.sensitivity, dim=-1)
+        new_phase = wrap_phase(ph[..., -1])
+        y = IqPair(torch.cos(ph), torch.sin(ph))
+        return new_phase, y if self.pair_out else y.to_complex()
+
+
+class PhaseMod(Stateless):
+    """y[n] = exp(j * sensitivity * x[n]) (gr::analog::phase_modulator)."""
+
+    def __init__(self, sensitivity: float):
+        self.sensitivity = float(sensitivity)
+
+    def apply(self, x):
+        ph = (x * self.sensitivity).float()
+        return torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+class ComplexToMag(Stateless):
+    """|x| (or |x|^2 with squared=True) of a complex tensor or IqPair, as
+    re*re + im*im. The reference flushes a denormal sum to zero (XLA on the
+    CPU and the TPU); PyTorch keeps it, hence the explicit threshold, as
+    in QuadratureDemod."""
+
+    def __init__(self, squared: bool = False):
+        self.squared = squared
+
+    def apply(self, x):
+        p = x.real * x.real + x.imag * x.imag
+        p = torch.where(p < torch.finfo(torch.float32).tiny, 0.0, p)
+        return p if self.squared else torch.sqrt(p)
+
+
+class ComplexToReal(Stateless):
+    def apply(self, x):
+        return x.real
+
+
+class Scale(Stateless):
+    def __init__(self, k):
+        self.k = k
+
+    def apply(self, x):
+        return x * self.k
 
 
 # fm_deemph_taps and fm_preemph_taps: copied verbatim (pure numpy) from

@@ -10,8 +10,10 @@ aligns with input x[m*D].
 
 Every FIR here is the direct form, on every device: on CUDA tensors the
 kernel that `ops/cuda_fir.route()` picks for the shape, on CPU tensors its
-plain version. The JAX package's FFT implementation (`FftFirFilter`, which its
-`impl="auto"` picks on the CPU for long filters) is not ported yet.
+plain version; complex taps are two launches, one a tap plane, as the JAX
+package's IqPair path computes them. The JAX package's FFT implementation
+(`FftFirFilter`, which its `impl="auto"` picks on the CPU for long filters)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,33 +29,73 @@ def flipped_taps(taps, device) -> torch.Tensor:
     """Real taps reversed, as the contiguous f32 tensor the kernel reads."""
     taps = np.asarray(taps)
     if np.iscomplexobj(taps):
-        raise ValueError("complex taps are not supported by the port yet")
+        raise ValueError("complex taps: use flipped_tap_planes")
     return torch.from_numpy(
         np.ascontiguousarray(taps[::-1], dtype=np.float32)).to(device)
+
+
+def flipped_tap_planes(taps, device) -> tuple:
+    """Taps reversed as f32 tensors: (real,) for real taps, (real part,
+    imaginary part) for complex ones."""
+    taps = np.asarray(taps)
+    if np.iscomplexobj(taps):
+        return (flipped_taps(taps.real, device),
+                flipped_taps(taps.imag, device))
+    return (flipped_taps(taps, device),)
+
+
+def fir_planes(planes, tap_planes, stride: int, n_out: int, tails=None):
+    """The FIR of one real plane or the (re, im) planes of a complex signal
+    with real or complex taps (`flipped_tap_planes`): one launch of the
+    routed kernel (`fir_stream`) a tap plane, each over every input plane,
+    and for complex taps on complex input the JAX package's combine
+    (qradiolink_tpu/ops/fir.py:304-311), (rr - ii, ri + ir). Returns one
+    output plane for real input and real taps, two (re, im) otherwise."""
+    ys = [fir_stream(planes, t, stride, n_out, tails=tails)
+          for t in tap_planes]
+    if len(ys) == 1:
+        return ys[0]
+    if len(planes) == 1:  # real input, complex taps
+        return ys[0][0], ys[1][0]
+    (rr, ir), (ri, ii) = ys
+    return rr - ii, ri + ir
+
+
+def _planes_of(x) -> tuple:
+    if isinstance(x, IqPair):
+        return x.re, x.im
+    if torch.is_complex(x):
+        return x.real.contiguous(), x.imag.contiguous()
+    return (x.contiguous(),)
+
+
+def _like(x, ys):
+    """Output planes as the input's kind: an IqPair for an IqPair, a
+    complex tensor for two planes, a real one for one."""
+    if isinstance(x, IqPair):
+        return IqPair(*ys)
+    return torch.complex(*ys) if len(ys) == 2 else ys[0]
 
 
 def conv1d_valid(x: torch.Tensor, taps, stride: int = 1,
                  out_len: int | None = None) -> torch.Tensor:
     """VALID FIR: y[m] = sum_k taps[k] * x[m*stride + K-1 - k].
 
-    x real f32 or complex64, taps real. out_len, if given, keeps only the
-    first out_len outputs."""
-    return conv1d_valid_flipped(x, flipped_taps(taps, x.device), stride,
-                                out_len)
+    x real f32 or complex64, taps real or complex. out_len, if given,
+    keeps only the first out_len outputs."""
+    return conv1d_valid_flipped(x, flipped_tap_planes(taps, x.device),
+                                stride, out_len)
 
 
-def conv1d_valid_flipped(x, taps_flipped, stride, out_len=None):
-    """conv1d_valid with the taps already flipped on x's device (the form
-    the blocks keep), through the kernel's K2 form: no tail."""
-    n_full = (x.shape[-1] - taps_flipped.shape[0]) // stride + 1
+def conv1d_valid_flipped(x, tap_planes, stride, out_len=None):
+    """conv1d_valid with the taps already flipped on x's device, as the
+    blocks keep them (`flipped_tap_planes`), through the kernel's K2 form:
+    no tail."""
+    n_full = (x.shape[-1] - tap_planes[0].shape[0]) // stride + 1
     n_out = n_full if out_len is None else int(out_len)
     if n_out > n_full:
         raise ValueError(f"out_len {n_out} exceeds available {n_full}")
-    if torch.is_complex(x):
-        yr, yi = fir_stream((x.real.contiguous(), x.imag.contiguous()),
-                            taps_flipped, stride, n_out)
-        return torch.complex(yr, yi)
-    return fir_stream((x.contiguous(),), taps_flipped, stride, n_out)[0]
+    return _like(x, fir_planes(_planes_of(x), tap_planes, stride, n_out))
 
 
 def next_tail(tail: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -69,14 +111,21 @@ def next_tail(tail: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
 class FirFilter(Block):
     """Streaming FIR with carried input tail; optional decimation.
 
-    State: (..., 2, K-1) f32, the (re, im) planes of the last K-1 inputs
-    (im is zero for real input), as in the JAX package."""
+    Taps real or complex. Input: an IqPair, a complex64 or a real f32
+    tensor; the output is of the input's kind, complex for real input and
+    complex taps. Every call reads the tails in place from the state (the
+    concatenation [tail | x] is never built); complex taps take two
+    launches (`fir_planes`). State: (..., 2, K-1) f32, the (re, im) planes
+    of the last K-1 inputs (im is zero for real input), as in the JAX
+    package."""
 
     def __init__(self, taps, decim: int = 1, lead_shape: tuple = (),
                  device=None):
         taps = np.asarray(taps)
         self.device = resolve_device(device)
-        self.taps_flipped = flipped_taps(taps, self.device)
+        self.tap_planes = flipped_tap_planes(taps, self.device)
+        # the real taps (the real part for complex taps)
+        self.taps_flipped = self.tap_planes[0]
         self.ntaps = int(taps.shape[0])
         self.decim = int(decim)
         self.lead_shape = tuple(lead_shape)
@@ -85,53 +134,17 @@ class FirFilter(Block):
         return torch.zeros(self.lead_shape + (2, self.ntaps - 1),
                            dtype=torch.float32, device=self.device)
 
-    def _call_pair(self, state, x: IqPair):
-        """IqPair path: both planes in one launch of the streaming kernel,
-        reading the tails straight from the state (no concatenation)."""
-        T = x.shape[-1]
-        if T % self.decim != 0:
+    def __call__(self, state, x):
+        planes = _planes_of(x)
+        T = planes[0].shape[-1]
+        if isinstance(x, IqPair) and T % self.decim != 0:
             raise ValueError(
                 f"block length {T} not a multiple of decimation {self.decim}")
         k1 = self.ntaps - 1
-        tails = (state[..., 0, :], state[..., 1, :])
-        yr, yi = fir_stream((x.re, x.im), self.taps_flipped, self.decim,
-                            T // self.decim, tails=tails)
-        new_state = torch.stack([next_tail(tails[0], x.re, k1),
-                                 next_tail(tails[1], x.im, k1)], dim=-2)
-        return new_state, IqPair(yr, yi)
-
-    def _call_real(self, state, x):
-        """Real f32 input at stride 1: one launch that reads the tail
-        straight from the state, as the IqPair path does; the new state
-        has a zero im plane."""
-        k1 = self.ntaps - 1
-        tail = state[..., 0, :]
-        x = x.contiguous()
-        (y,) = fir_stream((x,), self.taps_flipped, 1, x.shape[-1],
-                          tails=(tail,))
-        new_tail = next_tail(tail, x, k1)
-        return torch.stack([new_tail, torch.zeros_like(new_tail)],
-                           dim=-2), y
-
-    def __call__(self, state, x):
-        if isinstance(x, IqPair):
-            return self._call_pair(state, x)
-        if x.dtype == torch.float32 and self.decim == 1:
-            return self._call_real(state, x)
-        k1 = self.ntaps - 1
-        if torch.is_complex(x):
-            tail_x = torch.complex(state[..., 0, :], state[..., 1, :])
-        else:
-            tail_x = state[..., 0, :].to(x.dtype)
-        xc = torch.cat([tail_x, x], dim=-1)
-        n_out = (xc.shape[-1] - self.ntaps) // self.decim + 1
-        y = conv1d_valid_flipped(xc, self.taps_flipped, self.decim,
-                                 out_len=n_out)
-        new_tail = xc[..., xc.shape[-1] - k1:]
-        if torch.is_complex(new_tail):
-            new_state = torch.stack([new_tail.real, new_tail.imag], dim=-2)
-        else:
-            new_tail = new_tail.float()
-            new_state = torch.stack([new_tail, torch.zeros_like(new_tail)],
-                                    dim=-2)
-        return new_state, y
+        tails = (state[..., 0, :], state[..., 1, :])[:len(planes)]
+        ys = fir_planes(planes, self.tap_planes, self.decim,
+                        (T - 1) // self.decim + 1, tails=tails)
+        new = [next_tail(t, p, k1) for t, p in zip(tails, planes)]
+        if len(new) == 1:
+            new.append(torch.zeros_like(new[0]))
+        return torch.stack(new, dim=-2), _like(x, ys)

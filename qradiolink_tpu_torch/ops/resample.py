@@ -90,6 +90,9 @@ class RationalResampler(Block):
         if taps is None:
             taps = design_resampler_taps(self.L, self.M, fractional_bw)
         taps = np.asarray(taps)
+        if np.iscomplexobj(taps):
+            raise ValueError("complex taps are not supported by the port's "
+                             "RationalResampler yet")
         # pad taps to a multiple of L and split into L phases
         kp = -(-taps.shape[0] // self.L)
         padded = np.zeros(kp * self.L, dtype=taps.dtype)
@@ -152,7 +155,7 @@ class RationalResampler(Block):
         else:
             tail_x = state[..., 0, :].to(x.dtype)
         xc = torch.cat([tail_x, x], dim=-1)
-        y = conv1d_valid_flipped(xc, self.phase_taps[0], self.M,
+        y = conv1d_valid_flipped(xc, (self.phase_taps[0],), self.M,
                                  out_len=T // self.M)
         new_tail = xc[..., xc.shape[-1] - (self.kp - 1):]
         if torch.is_complex(new_tail):

@@ -11,7 +11,9 @@ strided FIR and the per-row depthwise FIR) within 1e-5 (relative to the
 output's peak, and elementwise 1e-5 + 1e-5 |plain|), the bound the JAX
 package holds its FIR kernels to; the fused channelizer within 1e-5 of its
 output's peak, the JAX package's bound for it, with its carried state
-bit-equal; the Viterbi bit-exact.
+bit-equal; the Viterbi and the AGC's gain recurrence bit-exact; the analog
+chains on the card within 1e-5 of each output's and state leaf's peak of
+the same chain on the CPU (their FIRs' bound), rssi within 1e-4 dB.
 """
 
 import pathlib
@@ -23,13 +25,17 @@ torch = pytest.importorskip("torch")
 # a few intra-op threads only: the suite runs in several workers at once
 torch.set_num_threads(2)
 
+from qradiolink_tpu_torch.chains.am import AmDemod  # noqa: E402
 from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
 from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
-from qradiolink_tpu_torch.core import IqPair  # noqa: E402
+from qradiolink_tpu_torch.chains.ssb import SsbDemod  # noqa: E402
+from qradiolink_tpu_torch.chains.wbfm import WbfmDemod  # noqa: E402
+from qradiolink_tpu_torch.core import IqPair, _flatten  # noqa: E402
 from qradiolink_tpu_torch.fec.conv import CCSDS_K7  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
     decode_stream, decode_stream_plain, decode_stream_tiled, decode_windows,
     decode_windows_plain)
+from qradiolink_tpu_torch.ops import cuda_agc  # noqa: E402
 from qradiolink_tpu_torch.ops.channelizer import (  # noqa: E402
     PfbChannelizer, PfbSynthesizer)
 from qradiolink_tpu_torch.ops import cuda_depthwise  # noqa: E402
@@ -42,6 +48,7 @@ from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
     phase_offsets, resample_poly, resample_poly_plain)
+from qradiolink_tpu_torch.ops.fir import FirFilter  # noqa: E402
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
@@ -405,6 +412,7 @@ POLY_CASES = {
     "m17_3_125": (3, 125, 2, 125 * 45, 2),
     "tx_25_4": (25, 4, 3, 4 * 50, 1),
     "tx_20_1": (20, 1, 2, 70, 2),
+    "tx_125_1": (125, 1, 2, 40, 2),  # SsbMod's and AmMod's interpolator
     "short_block": (2, 5, 3, 50, 1),  # T < K-1: the new tail takes part
 }
 
@@ -629,3 +637,106 @@ def test_fixture_bits_equal_on_card_and_cpu(cuda):
             out_bits.append(out["bits"].cpu())
         bits[dev.type] = torch.cat(out_bits)
     assert torch.equal(bits["cuda"], bits["cpu"])
+
+
+# agc2_gain_f32's shapes: name: (C, T): the SSB chain at 2048 channels x
+# 200,000 samples (1,600 at 8 ksps), the AM chain's 20 ksps (4,000), row
+# counts and tiles that do not fill a block, one sample
+AGC_CASES = {"ssb": (2048, 1600), "am": (64, 4000), "ragged": (45, 100),
+             "one_sample": (3, 1)}
+# (attack, decay, reference) of the SSB and the AM chain's AGC
+AGC_PARAMS = [(1e-1, 1e-1, 0.25), (1e-1, 1e-2, 1.0)]
+
+
+@pytest.mark.parametrize("params", AGC_PARAMS)
+@pytest.mark.parametrize("name", sorted(AGC_CASES))
+def test_agc2_kernel_equals_plain(cuda, gen, name, params):
+    """Two chained blocks of bursty magnitudes: one launch a block, gains
+    and the carried gain equal bit for bit to the plain loop's."""
+    C, T = AGC_CASES[name]
+    amp = torch.where((torch.arange(T, device=cuda) // 150) % 2 == 0, 2.0,
+                      0.02)
+    g = torch.ones(C, device=cuda)
+    for _ in range(2):
+        m = (torch.randn((C, T), generator=gen, device=cuda) * amp).abs()
+        kernel_paths.reset()
+        gains, g_last = cuda_agc.agc2_gain(m, g, *params, 65536.0)
+        assert kernel_paths.report()["agc2_gain_f32"]["shapes"] == {
+            f"cuda {C}x{T}": 1}
+        want, want_last = cuda_agc.agc2_gain_plain(m, g, *params, 65536.0)
+        assert torch.equal(gains, want) and torch.equal(g_last, want_last)
+        g = g_last
+
+
+@pytest.mark.parametrize("kind", ["pair", "complex", "real"])
+def test_complex_tap_fir_on_card_matches_cpu(cuda, gen, kind):
+    """The SSB channel filter's 167 complex taps: two launches of
+    fir_s1_f32 a block (one a tap plane) at one key, over two chained
+    blocks, output and state within the FIR bound of the CPU path's."""
+    from qradiolink_tpu_torch.ops import firdes
+    taps = firdes.complex_band_pass(1.0, 8000, 200.0, 2700.0, 200.0,
+                                    firdes.WIN_BLACKMAN_HARRIS)
+    C, T = 16, 1600
+    fs = {d: FirFilter(taps, lead_shape=(C,), device=d)
+          for d in (cuda, torch.device("cpu"))}
+    states = {d: f.init_state() for d, f in fs.items()}
+    for _ in range(2):
+        re, im = (torch.randn((C, T), generator=gen, device=cuda)
+                  for _ in range(2))
+        x = {"pair": IqPair(re, im), "complex": torch.complex(re, im),
+             "real": re}[kind]
+        outs = {}
+        for d, f in fs.items():
+            xd = IqPair(x.re.to(d), x.im.to(d)) if kind == "pair" \
+                else x.to(d)
+            kernel_paths.reset()
+            states[d], y = f(states[d], xd)
+            outs[d.type] = y
+            planes = 1 if kind == "real" else 2
+            path = "cuda" if d.type == "cuda" else "plain"
+            assert kernel_paths.report()["fir_s1_f32"]["shapes"] == {
+                f"{path} K167 D1 tail {planes}x{C}": 2}
+        got, want = outs["cuda"], outs["cpu"]
+        if kind == "pair":
+            got, want = got.to_complex(), want.to_complex()
+        assert got.dtype == want.dtype == torch.complex64
+        _assert_fir_close((got.real.cpu(), got.imag.cpu()),
+                          (want.real, want.imag))
+        assert torch.equal(states[cuda].cpu(), states[torch.device("cpu")])
+
+
+def _assert_peak_close(got, want, rtol=1e-5, what=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    peak = float(np.abs(want).max()) if want.size else 0.0
+    assert float(np.abs(got - want).max()) <= rtol * peak, what
+
+
+@pytest.mark.parametrize("chain", ["ssb_usb", "ssb_lsb", "am", "wbfm"])
+def test_analog_chain_on_card_matches_cpu(cuda, gen, chain):
+    """3 channels, two blocks of 25,000 IqPair samples at 0.1 RMS a plane:
+    audio and every state leaf within 1e-5 of the peak of the CPU path's,
+    rssi within 1e-4 dB."""
+    make = {"ssb_usb": lambda d: SsbDemod(usb=True, lead_shape=(3,),
+                                          device=d),
+            "ssb_lsb": lambda d: SsbDemod(usb=False, lead_shape=(3,),
+                                          device=d),
+            "am": lambda d: AmDemod(lead_shape=(3,), device=d),
+            "wbfm": lambda d: WbfmDemod(lead_shape=(3,), device=d)}[chain]
+    cpu = torch.device("cpu")
+    chains = {d.type: make(d) for d in (cuda, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    for _ in range(2):
+        re, im = (torch.randn((3, 25_000), generator=gen, device=cuda) * 0.1
+                  for _ in range(2))
+        outs = {}
+        for d in (cuda, cpu):
+            states[d.type], outs[d.type] = chains[d.type](
+                states[d.type], IqPair(re.to(d), im.to(d)))
+        _assert_peak_close(outs["cuda"]["audio"].cpu(), outs["cpu"]["audio"],
+                           what="audio")
+        assert float((outs["cuda"]["rssi"].cpu()
+                      - outs["cpu"]["rssi"]).abs().max()) <= 1e-4
+        for i, (a, b) in enumerate(zip(_flatten(states["cuda"], []),
+                                       _flatten(states["cpu"], []))):
+            _assert_peak_close(a.cpu(), b, what=f"state leaf {i}")

@@ -27,10 +27,11 @@ SRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
 THREADS, WARP = 128, 32
 
 # (L, M) of the ported and planned resamplers: the NBFM audio resampler,
-# M17's 3/125 and the TX resamplers 25/4 and 20/1; block lengths leave a
-# ragged last tile: n_pp = 150 (64 + 64 + 22), 45 (32 + 13), 50 (32 + 18),
-# 70 (32 + 32 + 6)
-CASES = {(2, 5): 750, (3, 125): 125 * 45, (25, 4): 200, (20, 1): 70}
+# M17's 3/125 and the TX resamplers 25/4, 20/1 and 125/1 (SsbMod, AmMod);
+# block lengths leave a ragged last tile: n_pp = 150 (64 + 64 + 22), 45
+# (32 + 13), 50 (32 + 18), 70 (32 + 32 + 6), 40 (32 + 8)
+CASES = {(2, 5): 750, (3, 125): 125 * 45, (25, 4): 200, (20, 1): 70,
+         (125, 1): 40}
 
 
 def block_t(L):
