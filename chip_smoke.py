@@ -10,9 +10,9 @@ when the package cannot be imported, and when any phase fails:
 
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel, all nvcc processes at once (ptxas must report no
-    spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_s1.cu,
-    csrc/viterbi_bfly.cu, csrc/pfb_fft.cu, csrc/depthwise_run.cu,
-    csrc/resample_poly.cu and csrc/agc2.cu);
+    spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_cols.cu,
+    csrc/fir_s1.cu, csrc/viterbi_bfly.cu, csrc/pfb_fft.cu,
+    csrc/depthwise_run.cu, csrc/resample_poly.cu and csrc/agc2.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -90,27 +90,37 @@ when the package cannot be imported, and when any phase fails:
     steps of 100,000 samples a channel on the card and on the CPU: FSK bits
     equal and BER below 0.01, NBFM audio within 1e-5 (the CPU tests'
     bound);
- 8. the analog kernels at their new shapes, 2048 rows, against their plain
-    versions: fir_stream_f32 at the SSB head (K5597 D125) and the WBFM head
-    (K225 D5) and audio resampler (K1121 D25, real, no tail); fir_s1_f32
-    with the SSB channel filter's 167 complex taps (two launches, one a tap
-    plane, then the combine; one complex F.conv1d as the library call) and
-    its audio band-pass (K97, real); agc2_gain_f32 bit-equal to its plain
-    loop at the SSB (1,600) and AM (4,000) shapes over two chained blocks;
+ 8. the analog kernels at their shapes, 2048 rows, against their plain
+    versions (45 taps a phase at the three resampler shapes): fir_long_f32
+    at the SSB head (K5597 D125, two column groups), fir_cols_f32 at the
+    WBFM head (K225 D5) and audio resampler (K1121 D25, real, the tail read
+    in place), each timed in turns with fir_stream_f32, which served the
+    three shapes before (its rows with "path": null); fir_s1_f32 with the
+    SSB channel filter's 167 complex taps (two launches, one a tap plane,
+    then the combine; one complex F.conv1d as the library call) and its
+    audio band-pass (K97, real); agc2_gain_f32 bit-equal to its plain loop
+    at the SSB (1,600) and AM (4,000) shapes over two chained blocks;
     resample_poly_f32 at the TX interpolators (L125 M1 K45, 2 planes;
     L25 M4 and L20 M1 of NbfmMod);
  9. the slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples for 3 steps (counters zeroed before, read after: the head on
-    fir_stream_f32, the channel band-pass 2 launches of fir_s1_f32, the
-    audio band-pass 1, agc2_gain_f32 1, a step), Msamples/s and
-    vs_baseline, one step stage by stage and one under torch.profiler;
-    then WbfmDemod at the same width and the TX side (SsbMod and NbfmMod
-    on 1,600 audio samples a channel a step), 3 steps each, their counts
-    read the same way;
+    fir_long_f32, the channel band-pass 2 launches of fir_s1_f32, the
+    audio band-pass 1, agc2_gain_f32 1, a step; fir_stream_f32 never),
+    Msamples/s and vs_baseline (above 10) beside the host's pace (the
+    host-clock time of a tiny op, before and after), one step stage by
+    stage and one under torch.profiler; then WbfmDemod at the same width
+    (the head and the audio resampler on fir_cols_f32 once each a step,
+    fir_stream_f32 never) and the TX side (SsbMod and NbfmMod on 1,600
+    audio samples a channel a step), 3 steps each, their counts read the
+    same way;
 10. SsbDemod, AmDemod and WbfmDemod at 4 channels x 2 blocks on the card
     against the port's CPU path: audio and state within 1e-5 of the peak,
     rssi within 1e-4 dB;
-11. loopbacks on the card, torch only, 8 channels: TX -> ChannelModel at
+11. the frozen SSB capture tests/fixtures/iq_ssb_usb_-10db.npz streamed in
+    two blocks through SsbDemod(usb=True) on the card (the head on
+    fir_long_f32, once a block) and on the CPU: audio and state within
+    1e-5 of the peak, rssi within 1e-4 dB;
+12. loopbacks on the card, torch only, 8 channels: TX -> ChannelModel at
     30 dB -> RX; the JAX tests' tone-SNR thresholds (NBFM > 15 dB, AM >
     12, USB and LSB > 10, the opposite sideband < 5, WBFM of a wide FM
     tone > 15) on every channel.
@@ -132,6 +142,7 @@ import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
 FIXTURE = HERE / "tests" / "fixtures" / "iq_4fsk2k_-6db.npz"
+SSB_FIXTURE = HERE / "tests" / "fixtures" / "iq_ssb_usb_-10db.npz"
 
 N_CH = 2048
 T_STEP = 200_000
@@ -258,6 +269,7 @@ def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
 FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
               "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu",
               "fir_long_f32": "qradiolink_tpu_torch/csrc/fir_long.cu",
+              "fir_cols_f32": "qradiolink_tpu_torch/csrc/fir_cols.cu",
               "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu"}
 
 
@@ -478,6 +490,22 @@ def host_ms(fn, iters=20, warmup=2):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def host_pace_us(dev, n_ops=200):
+    """The host's pace, printed beside the host-bound steps: host-clock
+    microseconds an op of n_ops adds on a one-element card tensor, each
+    dispatched alone, then one synchronize; the median of 5 rounds after
+    one warm-up round. The card's share is a few microseconds in all."""
+    x = torch.zeros(1, device=dev)
+    rounds = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        for _ in range(n_ops):
+            x = x + 1.0
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) / n_ops * 1e6)
+    return statistics.median(rounds[1:])
 
 
 def viterbi_soft(shape, kind, dev, gen):
@@ -1127,17 +1155,20 @@ def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
 
 # -- the analog voice chains (SSB, AM, WBFM, the TX side) --------------------
 
-SSB_EVERY_STEP = ("fir_stream_f32", "fir_s1_f32", "agc2_gain_f32")
-WBFM_EVERY_STEP = ("fir_stream_f32", "fir_s1_f32")
+SSB_EVERY_STEP = ("fir_long_f32", "fir_s1_f32", "agc2_gain_f32")
+WBFM_EVERY_STEP = ("fir_cols_f32", "fir_s1_f32")
 TX_EVERY_STEP = ("fir_s1_f32", "resample_poly_f32")
 AUDIO_PER_STEP = T_STEP // 125   # 8 ksps audio samples a step (1,600)
 # BASELINE's 4FSK target: 10x real time a channel (PERF.md section 2)
 VS_BASELINE_LIMIT = 10.0
 
 
-def require_shapes(report, want, steps, run):
+def require_shapes(report, want, steps, run, never=()):
     """Each (op, key): n of `want` must have launched n x steps times on
-    the `run` path."""
+    the `run` path, and each op of `never` not at all."""
+    for op in never:
+        if report.get(op, {}).get("cuda", 0):
+            raise RuntimeError(f"{run}: {op} launched: {report[op]}")
     for (op, key), n in want.items():
         got = report.get(op, {}).get("shapes", {}).get(f"cuda {key}", 0)
         if got != n * steps:
@@ -1151,9 +1182,12 @@ def ssb_path(dev, gen):
     """The slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples a step (the 4FSK path's shape), seeded IQ at 0.1 RMS a plane,
     3 steps with state carried and the counters zeroed just before; the
-    head on fir_stream_f32, the channel band-pass two fir_s1_f32 launches,
-    the audio band-pass one, agc2_gain_f32 one, a step. Then one more step
-    stage by stage, and one under torch.profiler. Returns the report."""
+    head on fir_long_f32, the channel band-pass two fir_s1_f32 launches,
+    the audio band-pass one, agc2_gain_f32 one, a step, fir_stream_f32
+    none. The step must beat vs_baseline 10; it is printed beside the
+    host's pace just before and just after (host_pace_us), since the step
+    is partly host-bound. Then one more step stage by stage, and one under
+    torch.profiler. Returns the report."""
     from qradiolink_tpu_torch.chains.ssb import SsbDemod
     from qradiolink_tpu_torch.core import IqPair, Sequencer
     from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
@@ -1163,7 +1197,9 @@ def ssb_path(dev, gen):
                 torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
     state = chain.init_state()
     torch.cuda.synchronize()
+    pace = [host_pace_us(dev)]
     state, out, step_s, report = drive(chain, state, iq, SSB_EVERY_STEP)
+    pace.append(host_pace_us(dev))
     for key, shape in (("audio", (N_CH, AUDIO_PER_STEP)), ("rssi", (N_CH,))):
         v = out[key]
         if tuple(v.shape) != shape or v.dtype != torch.float32 \
@@ -1173,18 +1209,24 @@ def ssb_path(dev, gen):
     if not float(out["audio"].abs().max()) > 0:
         raise RuntimeError("ssb audio is all zero")
     require_shapes(report, {
-        ("fir_stream_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
+        ("fir_long_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
         ("fir_s1_f32", f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}"): 2,
         ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1,
-        ("agc2_gain_f32", f"{N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb")
+        ("agc2_gain_f32", f"{N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb",
+        never=("fir_stream_f32",))
     med = statistics.median([s * 1e3 for s in step_s[1:]])
     vs = N_CH * T_STEP / med / 1e3 / N_CH
     print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline {vs:.2f} "
-          f"Msamples/s per channel (limit {VS_BASELINE_LIMIT})", flush=True)
+          f"Msamples/s per channel (limit {VS_BASELINE_LIMIT}); host pace "
+          f"{pace[0]:.2f} / {pace[1]:.2f} us an op before / after "
+          f"(host_pace_us)", flush=True)
+    if not vs > VS_BASELINE_LIMIT:
+        raise RuntimeError(f"ssb: vs_baseline {vs:.2f} is not above "
+                           f"{VS_BASELINE_LIMIT}")
 
     seq = Sequencer(state)
     stages = {}
-    x = timed(stages, "resampler 1/125 (fir_stream_f32 K5597 D125)",
+    x = timed(stages, "resampler 1/125 (fir_long_f32 K5597 D125)",
               lambda: seq(chain.resamp, iq))
     x = timed(stages, "x0.9", lambda: 0.9 * x)
     x = timed(stages, "channel band-pass (fir_s1_f32 K167 complex, 2 "
@@ -1205,9 +1247,10 @@ def ssb_path(dev, gen):
 
 def wbfm_path(dev, gen):
     """WbfmDemod at 2048 x 200,000 a step, 3 steps, counters zeroed just
-    before: the head (K225 D5) and the audio resampler (K1121 D25) on
-    fir_stream_f32, the channel and audio low-passes on fir_s1_f32, once
-    each a step. Returns the report."""
+    before: the head (K225 D5) and the audio resampler (K1121 D25, real,
+    its tail read in place) on fir_cols_f32, the channel and audio
+    low-passes on fir_s1_f32, once each a step; fir_stream_f32 none.
+    Returns the report."""
     from qradiolink_tpu_torch.chains.wbfm import WbfmDemod
     from qradiolink_tpu_torch.core import IqPair
 
@@ -1220,11 +1263,11 @@ def wbfm_path(dev, gen):
             or not bool(torch.isfinite(out["audio"]).all()):
         raise RuntimeError("wbfm audio: wrong shape or non-finite")
     require_shapes(report, {
-        ("fir_stream_f32", f"K{chain.resamp.kp} D5 tail 2x{N_CH}"): 1,
+        ("fir_cols_f32", f"K{chain.resamp.kp} D5 tail 2x{N_CH}"): 1,
         ("fir_s1_f32", f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}"): 1,
-        ("fir_stream_f32", f"K{chain.audio_resamp.kp} D25 1x{N_CH}"): 1,
+        ("fir_cols_f32", f"K{chain.audio_resamp.kp} D25 tail 1x{N_CH}"): 1,
         ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1},
-        N_STEPS, "wbfm")
+        N_STEPS, "wbfm", never=("fir_stream_f32",))
     print(f"  {step_times(step_s, N_CH * T_STEP)}", flush=True)
     return report
 
@@ -1409,13 +1452,15 @@ def analog_rows(dev, gen):
         rows += fir_row(name, k1, (randn(N_CH, T), randn(N_CH, T)),
                         rs.phase_taps[0], rs.M, T // rs.M,
                         (st[:, 0, :], st[:, 1, :]), run)
-    # the WBFM audio resampler on real input: the [tail | x] concatenation
-    # (RationalResampler's tensor path), no tail read in place
+    # the WBFM audio resampler on real input, its tail read in place from
+    # the (C, 2, K-1) state as RationalResampler reads it
     ar = wb.audio_resamp
     n_in = T_STEP // wb.resamp.M
-    rows += fir_row("wbfm_audio_resamp", "qradiolink_tpu/ops/pallas_fir.py:111",
-                    (randn(N_CH, n_in + ar.kp - 1),), ar.phase_taps[0], ar.M,
-                    n_in // ar.M, None, "wbfm")
+    st = randn(N_CH, 2, ar.kp - 1)
+    rows += fir_row("wbfm_audio_resamp",
+                    "qradiolink_tpu/ops/pallas_fir.py:111",
+                    (randn(N_CH, n_in),), ar.phase_taps[0], ar.M,
+                    n_in // ar.M, (st[:, 0, :],), "wbfm")
     rows += complex_fir_row("ssb_chan_bp", k1, ssb.chan_filter, N_CH,
                             AUDIO_PER_STEP, "ssb", dev, gen)
     af = ssb.audio_filter
@@ -1476,6 +1521,56 @@ def card_vs_cpu_phase(dev, gen, n_ch=4, T=25_000):
               f"audio max |diff| {errs['audio']:.3e}, rssi "
               f"{errs['rssi']:.3e} dB, state {errs['state']:.3e}",
               flush=True)
+
+
+def ssb_capture_phase(dev):
+    """The frozen SSB capture (scripts/make_ssb_capture.py) in two blocks of
+    100,000 samples through SsbDemod(usb=True) on the card and on the
+    port's CPU path: the head on fir_long_f32 once a block (counters zeroed
+    before, read after; fir_stream_f32 never), audio and every state leaf
+    within 1e-5 of the CPU's peak, rssi within 1e-4 dB."""
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod
+    from qradiolink_tpu_torch.core import IqPair, _flatten
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    data = np.load(SSB_FIXTURE)
+    re = data["iq_re"].astype(np.float32)[None, :]
+    im = data["iq_im"].astype(np.float32)[None, :]
+    half = re.shape[1] // 2
+    cpu = torch.device("cpu")
+    chains = {d.type: SsbDemod(usb=True, lead_shape=(1,), device=d)
+              for d in (dev, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    errs = {"audio": 0.0, "rssi": 0.0, "state": 0.0}
+    kernel_paths.reset()
+    for blk, sl in enumerate((slice(0, half), slice(half, 2 * half))):
+        outs = {}
+        for d in (dev, cpu):
+            iq = IqPair(torch.from_numpy(re[:, sl].copy()).to(d),
+                        torch.from_numpy(im[:, sl].copy()).to(d))
+            states[d.type], outs[d.type] = chains[d.type](states[d.type], iq)
+        g, c = outs[dev.type], outs["cpu"]
+        what = f"ssb capture block {blk}"
+        errs["audio"] = max(errs["audio"], peak_err(
+            f"{what} audio", (g["audio"].cpu(),), (c["audio"],), 1e-5))
+        r_err = float((g["rssi"].cpu() - c["rssi"]).abs().max())
+        if not r_err <= 1e-4:
+            raise RuntimeError(f"{what} rssi differs by {r_err} dB")
+        errs["rssi"] = max(errs["rssi"], r_err)
+        for i, (a, b) in enumerate(zip(_flatten(states[dev.type], []),
+                                       _flatten(states["cpu"], []))):
+            errs["state"] = max(errs["state"], peak_err(
+                f"{what} state leaf {i}", (a.cpu(),), (b,), 1e-5))
+    rep = kernel_paths.report()
+    key = f"cuda K{chains['cpu'].resamp.kp} D125 tail 2x1"
+    n = rep.get("fir_long_f32", {}).get("shapes", {}).get(key, 0)
+    if n != 2 or rep.get("fir_stream_f32", {}).get("cuda", 0):
+        raise RuntimeError(f"ssb capture: the head did not run on "
+                           f"fir_long_f32 once a block: {json.dumps(rep)}")
+    print(f"  {SSB_FIXTURE.name}: 2 blocks of {half}, head on fir_long_f32 "
+          f"({n} launches); card vs CPU audio max |diff| "
+          f"{errs['audio']:.3e}, rssi {errs['rssi']:.3e} dB, state "
+          f"{errs['state']:.3e}", flush=True)
 
 
 def tone_snr(audio, freq, rate=8000):
@@ -1573,12 +1668,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # fir_decim_f32, fir_long_f32 and fir_s1_f32 keep their rings in
-    # registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 and
+    # fir_decim_f32, fir_long_f32, fir_cols_f32 and fir_s1_f32 keep their
+    # rings in registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 and
     # depthwise_run_f32 their taps, resample_poly_f32 and agc2_gain_f32
     # their loads in flight
-    for name in ("fir_decim", "fir_long", "fir_s1", "viterbi_bfly",
-                 "pfb_fft", "depthwise_run", "resample_poly", "agc2"):
+    for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
+                 "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
+                 "agc2"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -1629,6 +1725,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("analog chains, card against CPU:", flush=True)
     card_vs_cpu_phase(dev, gen)
+    print("frozen SSB capture, card against CPU:", flush=True)
+    ssb_capture_phase(dev)
     print("analog loopbacks on the card:", flush=True)
     loopback_phase(dev)
 

@@ -1,7 +1,7 @@
-"""Strided streaming FIR: wrapper, plain version and the four CUDA kernels
+"""Strided streaming FIR: wrapper, plain version and the five CUDA kernels
 that compute it, `fir_stream_f32` (csrc/fir.cu), `fir_decim_f32`
-(csrc/fir_decim.cu), `fir_long_f32` (csrc/fir_long.cu) and `fir_s1_f32`
-(csrc/fir_s1.cu).
+(csrc/fir_decim.cu), `fir_long_f32` (csrc/fir_long.cu), `fir_cols_f32`
+(csrc/fir_cols.cu) and `fir_s1_f32` (csrc/fir_s1.cu).
 
 Port of the two Pallas TPU kernels of qradiolink_tpu/ops/pallas_fir.py,
 `banded_fir_stream` (K1) and `banded_fir` (K2), which compute the same
@@ -14,17 +14,27 @@ tail of K-1 samples) or xc = x (K2, no tail). The TPU kernels' banded
 matrices, 128-lane slabs and `plan()` gates have no counterpart here: every
 call on a CUDA tensor launches a kernel and computes all n_out outputs.
 
-`route(K, D)` picks the kernel from the shape: for a decimation of 32 to
-64, `fir_decim_f32`, the polyphase kernel with its taps in registers, at
-up to 16 taps a phase (the 4FSK resampler head, K 419 D 50), and
-`fir_long_f32`, the same loop over up to 4 segments of phase rows, at 17
-to 64 taps a phase (the NBFM resampler head, K 2239 D 50); `fir_s1_f32`,
-register-blocked over outputs, for stride 1 with at most 2,048 taps (the
-channel low-passes, the RRC and the NBFM audio low-pass); `fir_stream_f32`
-for every other shape (such as the SSB chain's 1/125 head). `fir_s1_f32`
-sums in the order of `fir_stream_f32`, so the two give equal bits. The
-rational resampler at L > 1 (the NBFM audio resampler) is not a call of
-this wrapper: `ops/cuda_resample.py` runs all its phases in one launch.
+`route(K, D)` picks the kernel from the shape, with A = ceil(K/D) taps a
+phase:
+- `fir_decim_f32`, the polyphase kernel with its taps in registers, at D
+  32-64 and A <= 16 (the 4FSK resampler head, K 419 D 50);
+- `fir_long_f32`, the same loop over up to 4 segments of phase rows and
+  column groups of 64, at D >= 32 and A 17-64, with at most 8 warps
+  (groups x segments) a block: the NBFM/AM head (K 2239 D 50) and the SSB
+  head (K 5597 D 125);
+- `fir_cols_f32`, a stride-1 FIR over each phase column, register-blocked
+  over outputs, at D 2-31 and A 17-64: the WBFM head (K 225 D 5) and the
+  WBFM audio resampler (K 1121 D 25);
+- `fir_s1_f32`, register-blocked over outputs, for stride 1 with at most
+  2,048 taps (the channel low-passes, the RRC, the audio filters);
+- `fir_stream_f32` for every other shape (such as A > 64).
+`fir_s1_f32` sums in the order of `fir_stream_f32`, so the two give equal
+bits; the polyphase kernels sum in other orders and are held to the FIR's
+bound. Every default `RationalResampler(1, M)` has A = 45 (its Kaiser
+design gives about 44.8 M taps), so each such head takes one of the
+polyphase kernels. The rational resampler at L > 1 (the NBFM audio
+resampler) is not a call of this wrapper: `ops/cuda_resample.py` runs all
+its phases in one launch.
 
 On a CPU tensor the wrapper takes the plain version (F.conv1d over the
 explicit concatenation) and records it under the routed kernel's name; on a
@@ -45,14 +55,24 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 OP = "fir_stream_f32"
 DECIM_OP = "fir_decim_f32"
 LONG_OP = "fir_long_f32"
+COLS_OP = "fir_cols_f32"
 S1_OP = "fir_s1_f32"
 # fir_decim_f32's shapes: two phase columns a lane, and the kernel's
 # instantiations A = ceil(K/D) = 1 .. 16 (csrc/fir_decim.cu)
 DECIM_D = (32, 64)
 DECIM_MAX_A = 16
-# fir_long_f32's: the same columns, and up to 4 segments of at most 16
-# phase rows, A = 17 .. 64 (csrc/fir_long.cu)
-LONG_MAX_A = 64
+# fir_long_f32's and fir_cols_f32's taps a phase: up to 4 segments of at
+# most DECIM_MAX_A = 16 phase rows (csrc/fir_long.cu); fir_cols_f32 stages
+# 64 taps a column (csrc/fir_cols.cu)
+LONG_A = (17, 64)
+# fir_long_f32's strides: two phase columns a lane from D 32, in column
+# groups of 64, with G = ceil(D/64) groups x S = ceil(A/16) segments at
+# most 8 warps a block
+LONG_MIN_D = 32
+LONG_GROUP_COLS = 64
+LONG_MAX_WARPS = 8
+# fir_cols_f32's strides: below fir_long_f32's, stride 1 being fir_s1_f32's
+COLS_D = (2, 31)
 # fir_s1_f32's longest filter: its taps and the span of a 1,024-output tile
 # then take 22 KB of shared memory a block, which leaves room for several
 # blocks an SM (csrc/fir_s1.cu)
@@ -98,9 +118,18 @@ def _decim_takes(K: int, stride: int) -> bool:
 
 def _long_takes(K: int, stride: int) -> bool:
     """Whether fir_long_f32 computes a FIR of K taps and stride D."""
-    lo, hi = DECIM_D
-    return lo <= stride <= hi and \
-        DECIM_MAX_A < -(-K // stride) <= LONG_MAX_A
+    A = -(-K // stride)
+    if stride < LONG_MIN_D or not LONG_A[0] <= A <= LONG_A[1]:
+        return False
+    groups = -(-stride // LONG_GROUP_COLS)
+    segments = -(-A // DECIM_MAX_A)
+    return groups * segments <= LONG_MAX_WARPS
+
+
+def _cols_takes(K: int, stride: int) -> bool:
+    """Whether fir_cols_f32 computes a FIR of K taps and stride D."""
+    lo, hi = COLS_D
+    return lo <= stride <= hi and LONG_A[0] <= -(-K // stride) <= LONG_A[1]
 
 
 def s1_takes(K: int, stride: int) -> bool:
@@ -109,14 +138,17 @@ def s1_takes(K: int, stride: int) -> bool:
 
 
 def route(K: int, stride: int) -> str:
-    """The kernel that serves a FIR of K taps and stride D: for
-    32 <= D <= 64, fir_decim_f32 at ceil(K/D) <= 16 and fir_long_f32 at
-    16 < ceil(K/D) <= 64; fir_s1_f32 for D = 1 and K <= 2048;
-    fir_stream_f32 otherwise."""
+    """The kernel that serves a FIR of K taps and stride D, A = ceil(K/D):
+    fir_decim_f32 at 32 <= D <= 64 and A <= 16; at 17 <= A <= 64,
+    fir_long_f32 from D = 32 (at most 8 warps: ceil(D/64) * ceil(A/16) <=
+    8) and fir_cols_f32 at 2 <= D <= 31; fir_s1_f32 for D = 1 and K <=
+    2048; fir_stream_f32 otherwise."""
     if _decim_takes(K, stride):
         return DECIM_OP
     if _long_takes(K, stride):
         return LONG_OP
+    if _cols_takes(K, stride):
+        return COLS_OP
     if s1_takes(K, stride):
         return S1_OP
     return OP
@@ -197,7 +229,8 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
         raise ValueError(f"no {op} kernel for device {dev}")
     if op == OP:
         return _launch_stream(xs, taps_flipped, stride, n_out, tails, shift)
-    # fir_decim_f32, fir_long_f32 or fir_s1_f32, at a shape it takes
+    # fir_decim_f32, fir_long_f32, fir_cols_f32 or fir_s1_f32, at a shape
+    # it takes
     C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
     name = op.removesuffix("_f32")
     lib = _lib(name, op, f"{name}_error_string")

@@ -10,10 +10,11 @@ block yields T*L/M outputs and the phase pattern repeats exactly.
 At L > 1 every call (real, complex or IqPair input) is one launch of
 `resample_poly_f32` (ops/cuda_resample.py), which computes all L phases,
 interleaves them and writes the new state, reading the tail in place from
-the state (the NBFM audio resampler, 2/5). At L = 1 the decimating head is
-one launch of the strided FIR kernel that `ops/cuda_fir.route()` picks: on
-IqPair input with the tails read in place, on tensor input over the
-explicit [tail | x] concatenation.
+the state (the NBFM audio resampler, 2/5). At L = 1 the decimator is one
+launch of the strided FIR kernel that `ops/cuda_fir.route()` picks, over
+the planes of an IqPair, a complex tensor or a real one (the WBFM audio
+resampler, 1/25), with the tails read in place from the state: the
+concatenation [tail | x] is never built.
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
 from qradiolink_tpu_torch.ops.cuda_fir import fir_stream
 from qradiolink_tpu_torch.ops.cuda_resample import (phase_offsets,
                                                     resample_poly)
-from qradiolink_tpu_torch.ops.fir import (conv1d_valid_flipped, flipped_taps,
-                                          next_tail)
+from qradiolink_tpu_torch.ops.fir import flipped_taps, next_tail
 
 
 # design_resampler_taps and kaiser_low_pass: copied verbatim (pure numpy)
@@ -111,22 +111,25 @@ class RationalResampler(Block):
         return torch.zeros(self.lead_shape + (2, self.kp - 1),
                            dtype=torch.float32, device=self.device)
 
-    def _call_pair(self, state, x: IqPair):
-        """L = 1 on IqPair input: one launch over both planes, the tails
-        read in place from the state."""
-        T = x.shape[-1]
+    def _decimate(self, planes, tails):
+        """L = 1: one launch over the planes, the tails read in place from
+        the state; the new state's im plane is zero for one plane."""
+        T = planes[0].shape[-1]
         k1 = self.kp - 1
-        tails = (state[..., 0, :], state[..., 1, :])
-        yr, yi = fir_stream((x.re, x.im), self.phase_taps[0], self.M,
-                            T // self.M, tails=tails)
-        new_state = torch.stack([next_tail(tails[0], x.re, k1),
-                                 next_tail(tails[1], x.im, k1)], dim=-2)
-        return new_state, IqPair(yr, yi)
+        ys = fir_stream(planes, self.phase_taps[0], self.M, T // self.M,
+                        tails=tails)
+        new = [next_tail(t, p, k1) for t, p in zip(tails, planes)]
+        if len(new) == 1:
+            new.append(torch.zeros_like(new[0]))
+        return torch.stack(new, dim=-2), ys
 
-    def _call_poly(self, state, x):
-        """L > 1: every phase and the new state in one resample_poly_f32
-        launch, on the planes of an IqPair, a complex tensor or a real
-        one (its new state's im plane zero)."""
+    def __call__(self, state, x):
+        """One block of an IqPair, a complex tensor or a real one; the
+        output is of the input's kind."""
+        T = x.shape[-1]
+        if T % self.M != 0:
+            raise ValueError(
+                f"block length {T} not a multiple of decimation {self.M}")
         tails = (state[..., 0, :], state[..., 1, :])
         if isinstance(x, IqPair):
             planes = (x.re, x.im)
@@ -135,33 +138,12 @@ class RationalResampler(Block):
         else:
             planes = (x.contiguous(),)
             tails = tails[:1]
-        new_state, ys = resample_poly(planes, self.poly_taps, self.L,
-                                      self.M, tails)
+        if self.L > 1:
+            # every phase and the new state in one resample_poly_f32 launch
+            new_state, ys = resample_poly(planes, self.poly_taps, self.L,
+                                          self.M, tails)
+        else:
+            new_state, ys = self._decimate(planes, tails)
         if isinstance(x, IqPair):
             return new_state, IqPair(*ys)
         return new_state, torch.complex(*ys) if len(ys) == 2 else ys[0]
-
-    def __call__(self, state, x):
-        T = x.shape[-1]
-        if T % self.M != 0:
-            raise ValueError(
-                f"block length {T} not a multiple of decimation {self.M}")
-        if self.L > 1:
-            return self._call_poly(state, x)
-        if isinstance(x, IqPair):
-            return self._call_pair(state, x)
-        if torch.is_complex(x):
-            tail_x = torch.complex(state[..., 0, :], state[..., 1, :])
-        else:
-            tail_x = state[..., 0, :].to(x.dtype)
-        xc = torch.cat([tail_x, x], dim=-1)
-        y = conv1d_valid_flipped(xc, (self.phase_taps[0],), self.M,
-                                 out_len=T // self.M)
-        new_tail = xc[..., xc.shape[-1] - (self.kp - 1):]
-        if torch.is_complex(new_tail):
-            new_state = torch.stack([new_tail.real, new_tail.imag], dim=-2)
-        else:
-            new_tail = new_tail.float()
-            new_state = torch.stack([new_tail, torch.zeros_like(new_tail)],
-                                    dim=-2)
-        return new_state, y

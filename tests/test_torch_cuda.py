@@ -156,7 +156,9 @@ def test_fir_decim_head_two_chained_blocks(cuda, gen):
 
 # fir_long_f32's shapes, which tests/test_torch_fir.py's CPU model test
 # shares: name: (C, T, K, D, shift, planes, tail). The NBFM head's taps at
-# K 2239 (A 45: 3 segments of 15 phase rows), seeded random taps elsewhere.
+# K 2239 (A 45: 3 segments of 15 phase rows) and the SSB head's at K 5597
+# (D 125, A 45: 2 column groups x 3 segments), seeded random taps
+# elsewhere.
 LONG_CASES = {
     "nbfm_head": (2, 20_000, 2239, 50, 0, 2, True),
     "ragged_chunk": (1, 13_600, 2239, 50, 0, 2, True),  # n_out = MW + 1
@@ -167,14 +169,22 @@ LONG_CASES = {
     "a17": (2, 10_000, 801, 50, 0, 2, True),  # 2 segments of 9 rows
     "d32": (2, 32 * 300, 645, 32, 5, 2, True),  # A 21
     "d64_a64": (1, 64 * 300, 4096, 64, 0, 2, True),  # 4 segments of 16
+    "ssb_head": (2, 125 * 300, 5597, 125, 0, 2, True),  # 271 + 29 outputs
+    "ssb_head_no_tail": (3, 125 * 330, 5597, 125, 7, 1, False),
+    "d65_two_groups": (2, 65 * 300, 1250, 65, 3, 2, True),  # group 1: 1 col
+    "d128_a64": (1, 128 * 300, 8192, 128, 0, 2, True),  # 2 groups x 4 segs
+    "d256_a32": (1, 256 * 290, 8192, 256, 0, 1, True),  # 4 groups x 2 segs
 }
 
 
 def long_taps(name, K, rng):
     """A case's flipped taps, (K,) f32 numpy: the NBFM resampler head's
-    (RationalResampler(1, 50)) at K 2239, seeded random taps elsewhere."""
+    (RationalResampler(1, 50)) at K 2239, the SSB head's
+    (RationalResampler(1, 125)) at K 5597, seeded random taps elsewhere."""
     if K == 2239:
         return NbfmDemod(device="cpu").resamp.phase_taps[0].numpy()
+    if K == 5597:
+        return SsbDemod(device="cpu").resamp.phase_taps[0].numpy()
     return (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
 
 
@@ -218,6 +228,106 @@ def test_fir_long_nbfm_head_two_chained_blocks(cuda, gen):
         ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
                                T // rs.M, tails=(state[:, 0], state[:, 1]))
         _assert_fir_close((y.re, y.im), ref)
+        state = new_state
+
+
+def test_fir_long_ssb_head_two_chained_blocks(cuda, gen):
+    """The SSB resampler head (K 5597, D 125: two column groups) as the
+    chain runs it: two blocks of IqPair input, the tails strided views of
+    the (C, 2, 5596) state."""
+    rs = SsbDemod(lead_shape=(16,), device=cuda).resamp
+    C, T, k1 = 16, 200_000, rs.kp - 1
+    assert (k1, rs.M) == (5596, 125)
+    state = torch.randn((C, 2, k1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = IqPair(torch.randn((C, T), generator=gen, device=cuda),
+                   torch.randn((C, T), generator=gen, device=cuda))
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report()["fir_long_f32"]["shapes"] == {
+            f"cuda K{rs.kp} D{rs.M} tail 2x{C}": 1}
+        assert kernel_paths.launches("fir_stream_f32") == 0
+        ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
+                               T // rs.M, tails=(state[:, 0], state[:, 1]))
+        _assert_fir_close((y.re, y.im), ref)
+        assert torch.equal(new_state[:, 0], x.re[:, -k1:])
+        state = new_state
+
+
+# fir_cols_f32's shapes, which tests/test_torch_fir.py's CPU model test
+# shares: name: (C, T, K, D, shift, planes, tail). The WBFM head's taps at
+# K 225 (D 5, A 45: one slab of 5 columns) and the WBFM audio resampler's
+# at K 1121 (D 25, A 45: slabs of 13 and 12), seeded random taps
+# elsewhere. Every case but one_row_one_plane has two tiles, the last
+# ragged.
+COLS_CASES = {
+    "wbfm_head": (2, 5 * 1100, 225, 5, 0, 2, True),
+    "shift": (2, 5 * 1100, 225, 5, 3, 2, True),
+    "wbfm_audio": (2, 25 * 1100, 1121, 25, 0, 1, True),
+    "wbfm_audio_no_tail": (2, 25 * 1100 + 1120, 1121, 25, 0, 1, False),
+    "one_row_one_plane": (1, 5 * 600, 225, 5, 0, 1, True),
+    "k113_d5": (2, 5 * 1030, 113, 5, 0, 2, True),  # A 23: 2 groups + 7
+    "a_multiple_of_r": (2, 5 * 1030, 240, 5, 0, 2, True),  # A 48
+    "d2_a17": (2, 2 * 1500, 34, 2, 0, 2, True),
+    "d9_one_slab": (2, 9 * 1030, 355, 9, 0, 2, True),  # A 40
+    "d31_a64": (1, 31 * 1100, 1984, 31, 0, 2, True),  # 11, 10, 10
+}
+
+
+def cols_taps(name, K, rng):
+    """A case's flipped taps, (K,) f32 numpy: the WBFM head's
+    (RationalResampler(1, 5)) at K 225 and its audio resampler's
+    (RationalResampler(1, 25)) at K 1121, seeded random taps elsewhere."""
+    if K == 225:
+        return WbfmDemod(device="cpu").resamp.phase_taps[0].numpy()
+    if K == 1121:
+        return WbfmDemod(device="cpu").audio_resamp.phase_taps[0].numpy()
+    return (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(COLS_CASES))
+def test_fir_cols_kernel_matches_plain(cuda, gen, name):
+    """fir_cols_f32, which route() picks at every case, within 1e-5 of the
+    plain version; fir_stream_f32 does not launch. The tails are strided
+    views of a (C, 2, K-1) state."""
+    C, T, K, D, shift, planes, tail = COLS_CASES[name]
+    tf = torch.from_numpy(cols_taps(name, K, np.random.default_rng(0))).to(
+        cuda)
+    xs = [torch.randn((C, T), generator=gen, device=cuda)
+          for _ in range(planes)]
+    st = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
+    tails = (st[:, 0, :], st[:, 1, :])[:planes] if tail else None
+    n_out = (T // D) if tail else (T - shift - K) // D + 1
+    kernel_paths.reset()
+    got = fir_stream(xs, tf, D, n_out, tails=tails, shift=shift)
+    assert kernel_paths.launches("fir_cols_f32") == 1
+    assert kernel_paths.launches("fir_stream_f32") == 0
+    _assert_fir_close(got, fir_stream_plain(xs, tf, D, n_out, tails=tails,
+                                            shift=shift))
+
+
+def test_fir_cols_wbfm_audio_resampler_real_two_chained_blocks(cuda, gen):
+    """The WBFM audio resampler (K 1121, D 25) as the chain runs it: real
+    input, the tail read in place from the (C, 2, 1120) state (no
+    concatenation), two chained blocks; the new state's re plane is the
+    last 1,120 inputs and its im plane zero."""
+    rs = WbfmDemod(lead_shape=(16,), device=cuda).audio_resamp
+    C, T, k1 = 16, 40_000, rs.kp - 1
+    assert (k1, rs.M) == (1120, 25)
+    state = torch.zeros((C, 2, k1), device=cuda)
+    state[:, 0] = torch.randn((C, k1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = torch.randn((C, T), generator=gen, device=cuda)
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report()["fir_cols_f32"]["shapes"] == {
+            f"cuda K{rs.kp} D{rs.M} tail 1x{C}": 1}
+        assert kernel_paths.launches("fir_stream_f32") == 0
+        ref = fir_stream_plain((x,), rs.phase_taps[0], rs.M, T // rs.M,
+                               tails=(state[:, 0],))
+        _assert_fir_close((y,), ref)
+        assert torch.equal(new_state[:, 0], x[:, -k1:])
+        assert not bool(new_state[:, 1].any())
         state = new_state
 
 

@@ -6,6 +6,7 @@ the bound the JAX package holds its own FIR kernels to
 (tests/test_pallas_kernels.py)."""
 
 import functools
+import pathlib
 import re
 
 import numpy as np
@@ -23,6 +24,8 @@ from qradiolink_tpu.ops.resample import (  # noqa: E402
     RationalResampler as JaxResampler, design_resampler_taps)
 from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
 from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
+from qradiolink_tpu_torch.chains.ssb import SsbDemod  # noqa: E402
+from qradiolink_tpu_torch.chains.wbfm import WbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.ops import firdes, fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
@@ -31,7 +34,7 @@ from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.utils import sass  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 from tests.test_torch_cuda import (  # noqa: E402
-    LONG_CASES, S1_CASES, long_taps, s1_taps)
+    COLS_CASES, LONG_CASES, S1_CASES, cols_taps, long_taps, s1_taps)
 from tests.torch_parity import stream_both  # noqa: E402
 
 # the three designs of the 4FSK main path (chains/fsk.py, 2KFM)
@@ -336,15 +339,30 @@ def test_decim_model_matches_plain(rng, name):
     ("K2239 D50", "fir_long_f32"),
     ("K3200 D50", "fir_long_f32"),
     ("K3201 D50", "fir_stream_f32"),
-    ("K113 D5", "fir_stream_f32"),
+    ("K113 D5", "fir_cols_f32"),
+    ("ssb head K5597 D125", "fir_long_f32"),
+    ("wbfm head K225 D5", "fir_cols_f32"),
+    ("wbfm audio resampler K1121 D25", "fir_cols_f32"),
+    ("K5597 D125", "fir_long_f32"),
+    ("K225 D5", "fir_cols_f32"),
+    ("K1121 D25", "fir_cols_f32"),
+    ("K1984 D31", "fir_cols_f32"),
+    ("K1985 D31", "fir_stream_f32"),
+    ("K32 D2", "fir_stream_f32"),
+    ("K33 D2", "fir_cols_f32"),
+    ("K8192 D128", "fir_long_f32"),
+    ("K6273 D129", "fir_stream_f32"),
+    ("K8192 D256", "fir_long_f32"),
 ])
 def test_fir_route_recorded_on_cpu(stage, want):
     """On CPU tensors each stage records `plain` under the kernel its shape
-    routes to: the 4FSK head (16 taps a phase at most) under fir_decim_f32,
-    the NBFM head (17 to 64 taps a phase) under fir_long_f32, the stride-1
-    filters of up to 2,048 taps under fir_s1_f32, the audio resampler (L 2,
-    every phase in one call) under resample_poly_f32, every other FIR under
-    fir_stream_f32."""
+    routes to: the 4FSK head (16 taps a phase at most) under fir_decim_f32;
+    at 17 to 64 taps a phase the NBFM and SSB heads (D 50, 125) under
+    fir_long_f32 (up to 8 warps of column groups x segments) and the WBFM
+    head and audio resampler (D 5, 25; the resampler on real input) under
+    fir_cols_f32 (D 2-31); the stride-1 filters of up to 2,048 taps under
+    fir_s1_f32, the NBFM audio resampler (L 2, every phase in one call)
+    under resample_poly_f32, every other FIR under fir_stream_f32."""
     fsk, nbfm = Fsk4DemodFF(device="cpu"), NbfmDemod(device="cpu")
     kernel_paths.reset()
     if stage.startswith("fsk head"):
@@ -366,6 +384,17 @@ def test_fir_route_recorded_on_cpu(stage, want):
     elif stage.startswith("nbfm audio"):
         x = torch.zeros(500)
         nbfm.audio_resamp(nbfm.audio_resamp.init_state(), IqPair(x, x))
+    elif stage.startswith("ssb head"):
+        rs = SsbDemod(device="cpu").resamp
+        x = torch.zeros(1250)
+        rs(rs.init_state(), IqPair(x, x))
+    elif stage.startswith("wbfm head"):
+        rs = WbfmDemod(device="cpu").resamp
+        x = torch.zeros(500)
+        rs(rs.init_state(), IqPair(x, x))
+    elif stage.startswith("wbfm audio"):
+        rs = WbfmDemod(device="cpu").audio_resamp
+        rs(rs.init_state(), torch.zeros(500))
     else:
         K, D = (int(s[1:]) for s in stage.split())
         x = torch.zeros(2, 4 * D)
@@ -386,7 +415,7 @@ def test_fir_route_recorded_on_cpu(stage, want):
     (251, 1, "fir_s1_f32"),
     (2048, 1, "fir_s1_f32"),
     (2049, 1, "fir_stream_f32"),
-    (55, 2, "fir_stream_f32"),
+    (55, 2, "fir_cols_f32"),
 ])
 def test_fir_route_s1_by_taps_and_stride(K, D, want):
     """fir_s1_f32 takes every stride-1 FIR of up to 2,048 taps, whatever
@@ -530,37 +559,43 @@ def test_s1_model_matches_plain(rng, name):
 # ---- fir_long_f32 (csrc/fir_long.cu): a numpy model of its loop ---------
 
 def long_shape(K, D):
-    """(S, AS, NG, MW) of fir_long_f32 at K taps and stride D: segments,
-    phase rows a segment, groups of AS rows a warp walks, outputs a
-    block."""
+    """(S, AS, NG, MW, G) of fir_long_f32 at K taps and stride D: segments,
+    phase rows a segment, groups of AS rows a warp walks, outputs a block,
+    column groups of 64."""
     A = -(-K // D)
     S = -(-A // 16)
     AS = -(-A // S)
     NG = (256 + AS - 1) // AS + 1
-    return S, AS, NG, (NG - 1) * AS + 1
+    return S, AS, NG, (NG - 1) * AS + 1, -(-D // 64)
 
 
 def long_model(tails, xs, tf, D, shift, n_out):
     """numpy model of fir_long_f32's loop, line for line, with every warp
-    (segment, chunk) of a row at once: the taps padded to A*D, S segments of
-    AS phase rows, two phase columns a lane (D >= 32, so every lane holds
-    the first); chunks of MW outputs a block; warp s walks rows
-    m0 + s*AS + r, each lane loading X[row][l] and X[row][l + 32] with the
-    tail/x seam resolved per element and loads past the stream reading 0
-    (the kernel's one-pointer loads of groups inside x read the same
-    elements); the ring of AS accumulators; the 32 x 32 tile of lane
-    partials summed lane by lane every 32 outputs into the segment
-    partials; then segments added in order 0 .. S-1. A chunk past its last
-    output records nothing (the kernel's break). tails: one (C, K-1) array
-    per plane, or None; xs: (C, T)."""
+    (column group, segment, chunk) of a row at once: the taps padded to
+    A*D, S segments of AS phase rows, G column groups of 64 with two phase
+    columns a lane (lane l of group g holds columns 64g + l and
+    64g + l + 32 where they are < D; D >= 32, so group 0 holds every
+    first); chunks of MW outputs a block; warp w = g*S + s walks rows
+    m0 + s*AS + r, each lane loading X[row][64g + l] and
+    X[row][64g + l + 32] with the tail/x seam resolved per element, loads
+    past the stream and of columns >= D reading 0 (the kernel's
+    one-pointer loads of groups inside x read the same elements); the ring
+    of AS accumulators; the 32 x 32 tile of lane partials summed lane by
+    lane every 32 outputs into the warp's partials; then warps added in
+    order 0 .. G*S-1. A chunk past its last output records nothing (the
+    kernel's break). tails: one (C, K-1) array per plane, or None; xs:
+    (C, T)."""
     K = tf.shape[0]
-    S, AS, NG, MW = long_shape(K, D)
-    assert 32 <= D <= 64
+    S, AS, NG, MW, G = long_shape(K, D)
+    W = G * S
+    assert D >= 32 and W <= 8
     lane = np.arange(32)
-    has1 = lane + 32 < D
-    seg = np.arange(S)[:, None, None]
-    j = (seg * AS + np.arange(AS)[:, None]) * D + lane  # (S, AS, 32)
-    t0 = np.where(j < K, tf[np.minimum(j, K - 1)], 0)
+    warp = np.arange(W)[:, None, None]
+    grp, seg = warp // S, warp % S
+    col = grp * 64 + lane  # (W, 1, 32)
+    has0, has1 = col < D, col + 32 < D
+    j = (seg * AS + np.arange(AS)[:, None]) * D + col  # (W, AS, 32)
+    t0 = np.where(has0 & (j < K), tf[np.minimum(j, K - 1)], 0)
     t1 = np.where(has1 & (j + 32 < K), tf[np.minimum(j + 32, K - 1)], 0)
     t0, t1 = t0.astype(np.float32), t1.astype(np.float32)
     n_chunks = -(-n_out // MW)
@@ -573,7 +608,7 @@ def long_model(tails, xs, tf, D, shift, n_out):
         tail_len = tail.shape[1]
         n_in = tail_len + T
 
-        def load(v, has):  # v: (S, n_chunks, 32) -> (C, S, n_chunks, 32)
+        def load(v, has):  # v: (W, n_chunks, 32) -> (C, W, n_chunks, 32)
             ok = has & (v < n_in)
             vt = np.clip(v, 0, max(tail_len - 1, 0))
             vx = np.clip(v - tail_len, 0, T - 1)
@@ -581,14 +616,14 @@ def long_model(tails, xs, tf, D, shift, n_out):
                            x[:, vx])
             return np.where(ok, val, 0).astype(np.float32)
 
-        v0 = (m0[:, None] + seg * AS) * D + shift + lane  # (S, n_chunks, 32)
-        acc = np.zeros((AS, C, S, n_chunks, 32), np.float32)
-        red = np.zeros((C, S, n_chunks, 32, 32), np.float32)  # [out, lane]
-        part = np.full((C, S, n_chunks, MW), np.nan, np.float32)
+        v0 = (m0[:, None] + seg * AS) * D + shift + col  # (W, n_chunks, 32)
+        acc = np.zeros((AS, C, W, n_chunks, 32), np.float32)
+        red = np.zeros((C, W, n_chunks, 32, 32), np.float32)  # [out, lane]
+        part = np.full((C, W, n_chunks, MW), np.nan, np.float32)
         for r in range(NG * AS):
             if r % AS == 0 and np.all(m0 + r - (AS - 1) >= m_end):
                 break
-            c0, c1 = load(v0 + r * D, True), load(v0 + r * D + 32, has1)
+            c0, c1 = load(v0 + r * D, has0), load(v0 + r * D + 32, has1)
             u = r % AS
             for a in range(AS):
                 s = (u - a) % AS
@@ -610,8 +645,8 @@ def long_model(tails, xs, tf, D, shift, n_out):
                     part[:, :, flush, base: base + n] = total[..., :n]
             acc[s] = 0
         y = part[:, 0]
-        for s in range(1, S):
-            y = y + part[:, s]
+        for w in range(1, W):
+            y = y + part[:, w]
         ys.append(y.reshape(C, n_chunks * MW)[:, :n_out])
     return ys
 
@@ -640,11 +675,199 @@ def test_long_model_matches_plain(rng, name):
 
 def test_long_model_ragged_chunk_is_mw_plus_one():
     """The ragged_chunk case leaves one output to a second block at the NBFM
-    head's AS = 15 (MW = 271), and the head runs 3 segments."""
+    head's AS = 15 (MW = 271), and the head runs 3 segments in one column
+    group."""
     C, T, K, D, shift, planes, tail = LONG_CASES["ragged_chunk"]
-    S, AS, NG, MW = long_shape(K, D)
-    assert (S, AS, MW) == (3, 15, 271) and T // D == MW + 1
+    S, AS, NG, MW, G = long_shape(K, D)
+    assert (S, AS, MW, G) == (3, 15, 271, 1) and T // D == MW + 1
 
+
+def test_long_shape_ssb_head_is_two_groups_of_three_segments():
+    """The SSB head (K 5597, D 125) runs 2 column groups x 3 segments of 15
+    phase rows, 6 warps a block, with 125 of the 128 lane-columns busy; the
+    ssb_head case leaves a ragged second chunk."""
+    C, T, K, D, shift, planes, tail = LONG_CASES["ssb_head"]
+    S, AS, NG, MW, G = long_shape(K, D)
+    assert (S, AS, MW, G) == (3, 15, 271, 2)
+    assert MW < T // D < 2 * MW
+
+
+
+# ---- fir_cols_f32 (csrc/fir_cols.cu): a numpy model of its loop ---------
+
+COLS_R, COLS_THREADS, COLS_SLAB, COLS_TAP_ROW = 8, 128, 13, 64
+COLS_PARTS = 2
+COLS_TILE = COLS_R * COLS_THREADS
+# shared floats of a staged column: rows 0 .. kTile + kMaxA - 2, padded
+COLS_WORDS = (COLS_TILE + 62) + (COLS_TILE + 62) // COLS_R + 1
+
+
+def cols_slab(D):
+    """Columns a slab of fir_cols_f32 at stride D: ceil(D / 13) slabs of
+    nearly equal size."""
+    n_slabs = -(-D // COLS_SLAB)
+    return -(-D // n_slabs)
+
+
+def cols_smem(D):
+    """fir_cols_f32's shared memory at stride D, in bytes."""
+    return (D * COLS_TAP_ROW + cols_slab(D) * COLS_WORDS) * 4
+
+
+def cols_parts(D):
+    """Column parts of fir_cols_f32's block at stride D: kParts where the
+    block takes more than 48 KB of shared memory, else 1."""
+    return COLS_PARTS if cols_smem(D) > 48 * 1024 else 1
+
+
+def cols_model(tails, xs, tf, D, shift, n_out):
+    """numpy model of fir_cols_f32's loop, line for line, with every tile
+    (block) and thread of a row at once: the taps by column,
+    s_tap[b][a] = tf[a*D + b] (0 past K) in rows of 64; tiles of 1,024
+    outputs, thread t of each column part owning outputs m0 + 8t ..
+    m0 + 8t + 7; the columns in slabs of at most 13, each slab staging the
+    phase rows 0 .. ceil8(n_here) + A - 2 of the tile, word (r, c) from sample
+    (m0 + r)*D + shift + b0 + c of [tail | x] (the seam per element, 0 past
+    the stream) at word r + r // 8 of column c; then for each column of the
+    slab, groups of 8 taps and the last A mod 8 (the ring of 8 samples,
+    read from the padded column at q[s + s // 8] with q = 9t + 9g), each
+    tap adding c_b[a] * X[g0 + o + a][b] into the sum o of the thread of
+    part h, where part h of H (cols_parts) takes the slab's columns
+    h*nb // H .. (h+1)*nb // H - 1, in order; then part 0 adds parts 1 ..
+    H-1 in order. Threads with no output store nothing. tails: one
+    (C, K-1) array per plane, or None; xs: (C, T)."""
+    K = tf.shape[0]
+    A = -(-K // D)
+    assert 2 <= D <= 31 and 17 <= A <= 64
+    R = COLS_R
+    i = np.arange(D * COLS_TAP_ROW)
+    j = (i % COLS_TAP_ROW) * D + i // COLS_TAP_ROW
+    s_tap = np.where(j < K, tf[np.minimum(j, K - 1)], 0).astype(
+        np.float32).reshape(D, COLS_TAP_ROW)
+    nb_max = cols_slab(D)
+    H = cols_parts(D)
+    n_tiles = -(-n_out // COLS_TILE)
+    ys = []
+    for p, x in enumerate(xs):
+        C, T = x.shape
+        tail = np.zeros((C, 0), np.float32) if tails is None else tails[p]
+        tail_len = tail.shape[1]
+        n_in = tail_len + T
+        y = np.full((C, n_tiles * COLS_TILE), np.nan, np.float32)
+        for tile in range(n_tiles):
+            m0 = tile * COLS_TILE
+            n_here = min(COLS_TILE, n_out - m0)
+            n_rows = -(-n_here // R) * R + A - 1
+            accs = np.zeros((H, C, COLS_THREADS, R), np.float32)
+            for b0 in range(0, D, nb_max):
+                nb = min(nb_max, D - b0)
+                v = (m0 + np.arange(n_rows)[:, None]) * D + shift + b0 \
+                    + np.arange(nb)  # (n_rows, nb): word (r, c)
+                vt = np.clip(v, 0, max(tail_len - 1, 0))
+                vx = np.clip(v - tail_len, 0, T - 1)
+                val = np.where(v < tail_len, tail[:, vt] if tail_len else 0,
+                               x[:, vx])
+                slab = np.where(v < n_in, val, 0).astype(np.float32)
+                r = np.arange(n_rows)
+                for cb in range(nb):
+                    acc = accs[next(h for h in range(H)
+                                    if cb < (h + 1) * nb // H)]
+                    # the staged column, row r at word r + r // 8 (the rest
+                    # is never read by a thread with an output)
+                    col = np.zeros((C, COLS_WORDS), np.float32)
+                    col[:, r + r // R] = slab[:, :, cb]
+                    taps = s_tap[b0 + cb]
+
+                    def at(q, s, col=col):  # word s + s // 8 from each q
+                        return col[:, np.minimum(q + s + s // R,
+                                                 COLS_WORDS - 1)]
+
+                    def step(v, tap, q, w, acc=acc):
+                        w[(v + R - 1) % R] = at(q, v + R - 1)
+                        for oo in range(R):
+                            acc[:, :, oo] = acc[:, :, oo] + \
+                                tap * w[(v + oo) % R]
+
+                    q = np.arange(COLS_THREADS) * (R + 1)
+                    w = [at(q, s) for s in range(R - 1)] + [None]
+                    n_grp = A // R
+                    for g in range(n_grp):
+                        tv = taps[g * R: g * R + R]
+                        for vv in range(R):
+                            step(vv, tv[vv], q, w)
+                        q = q + R + 1
+                    for vv in range(R - 1):
+                        if vv < A - n_grp * R:
+                            step(vv, taps[n_grp * R + vv], q, w)
+            for h in range(1, H):
+                accs[0] = accs[0] + accs[h]
+            out = accs[0].reshape(C, COLS_TILE)
+            keep = np.arange(COLS_TILE) < n_here
+            y[:, m0: m0 + COLS_TILE][:, keep] = out[:, keep]
+        ys.append(y[:, :n_out])
+    return ys
+
+
+@pytest.mark.parametrize("name", sorted(COLS_CASES))
+def test_cols_model_matches_plain(rng, name):
+    """fir_cols_f32's index math (the numpy model) against
+    fir_stream_plain, within the FIR's 1e-5, at every shape the card test
+    runs."""
+    C, T, K, D, shift, planes, tail = COLS_CASES[name]
+    assert route(K, D) == "fir_cols_f32"
+    tf = np.ascontiguousarray(cols_taps(name, K, rng))
+    xs = [rng.standard_normal((C, T)).astype(np.float32)
+          for _ in range(planes)]
+    tails = ([rng.standard_normal((C, K - 1)).astype(np.float32)
+              for _ in range(planes)] if tail else None)
+    n_out = (T // D) if tail else (T - shift - K) // D + 1
+    got = cols_model(tails, xs, tf, D, shift, n_out)
+    ref = fir_stream_plain(
+        [torch.from_numpy(x) for x in xs], torch.from_numpy(tf), D, n_out,
+        tails=None if tails is None else [torch.from_numpy(t)
+                                          for t in tails], shift=shift)
+    for g, r in zip(got, ref):
+        assert not np.isnan(g).any(), "an output was never written"
+        np.testing.assert_allclose(g, r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_cols_slabs_and_tiles_at_the_wbfm_shapes():
+    """The WBFM head (D 5) stages its 5 columns in one slab and the audio
+    resampler (D 25) in two, of 13 and 12; the shared memory (the kernel's
+    smem_bytes) is 25 KB at D 5, under the 48 KB a launch gets without
+    opting in, and at most 70 KB (D 26), three blocks an SM; the blocks
+    above 48 KB (D 10-13 and 19-31) run in two column parts, each part
+    with a column of every slab and room in the staging buffer for the
+    sums part 1 hands to part 0; the cases with two tiles end in a ragged
+    one."""
+    assert cols_slab(5) == 5 and cols_slab(25) == 13 and cols_slab(31) == 11
+    assert cols_smem(5) <= 48 * 1024 and cols_smem(8) <= 48 * 1024
+    assert max(cols_smem(D) for D in range(2, 32)) == cols_smem(26) \
+        <= 227 * 1024 // 3
+    assert cols_parts(5) == 1 and cols_parts(25) == COLS_PARTS
+    for D in (D for D in range(2, 32) if cols_parts(D) > 1):
+        n_slabs = -(-D // cols_slab(D))
+        last = D - (n_slabs - 1) * cols_slab(D)
+        assert last >= COLS_PARTS
+        assert (COLS_PARTS - 1) * COLS_R * COLS_THREADS \
+            <= cols_slab(D) * COLS_WORDS
+    for name in ("wbfm_head", "wbfm_audio"):
+        C, T, K, D, shift, planes, tail = COLS_CASES[name]
+        assert COLS_TILE < T // D < 2 * COLS_TILE
+
+
+def test_cols_constants_match_the_source():
+    """cols_model's block constants are the kernel's (csrc/fir_cols.cu)."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
+           / "csrc" / "fir_cols.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kThreads|kR|kSlab|kMaxA|kMinA|kMaxD|kMinD|kParts) "
+        r"= (\d+);", src)}
+    assert got == {"kThreads": COLS_THREADS, "kR": COLS_R,
+                   "kParts": COLS_PARTS,
+                   "kSlab": COLS_SLAB, "kMaxA": COLS_TAP_ROW, "kMinA": 17,
+                   "kMaxD": 31, "kMinD": 2}
+    assert "kTapRow = kMaxA" in src
 
 SASS = """
 \t\tFunction : _Z8kernelILi15EEvPf
