@@ -12,7 +12,8 @@ when the package cannot be imported, and when any phase fails:
  2. build every kernel, all nvcc processes at once (ptxas must report no
     spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_cols.cu,
     csrc/fir_s1.cu, csrc/viterbi_bfly.cu, csrc/pfb_fft.cu,
-    csrc/depthwise_run.cu, csrc/resample_poly.cu and csrc/agc2.cu);
+    csrc/depthwise_run.cu, csrc/resample_poly.cu, csrc/resample_up.cu and
+    csrc/agc2.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -100,8 +101,11 @@ when the package cannot be imported, and when any phase fails:
     then the combine; one complex F.conv1d as the library call) and its
     audio band-pass (K97, real); agc2_gain_f32 bit-equal to its plain loop
     at the SSB (1,600) and AM (4,000) shapes over two chained blocks;
-    resample_poly_f32 at the TX interpolators (L125 M1 K45, 2 planes;
-    L25 M4 and L20 M1 of NbfmMod);
+    resample_up_f32 at the TX interpolators (SsbMod's L125 M1 K45, 2
+    planes; AmMod's, one plane; NbfmMod's L25 M4, real, and L20 M1),
+    its outputs and new state equal bit for bit to resample_poly_f32's,
+    which served the four shapes before, the two timed in turns (its rows
+    with "path": null), one F.conv1d with L output channels beside each;
  9. the slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples for 3 steps (counters zeroed before, read after: the head on
     fir_long_f32, the channel band-pass 2 launches of fir_s1_f32, the
@@ -111,8 +115,9 @@ when the package cannot be imported, and when any phase fails:
     stage and one under torch.profiler; then WbfmDemod at the same width
     (the head and the audio resampler on fir_cols_f32 once each a step,
     fir_stream_f32 never) and the TX side (SsbMod and NbfmMod on 1,600
-    audio samples a channel a step), 3 steps each, their counts read the
-    same way;
+    audio samples a channel a step; then AmMod alone), 3 steps each, their
+    counts read the same way (the interpolators on resample_up_f32 once
+    each a step, resample_poly_f32 never), one more step of each traced;
 10. SsbDemod, AmDemod and WbfmDemod at 4 channels x 2 blocks on the card
     against the port's CPU path: audio and state within 1e-5 of the peak,
     rssi within 1e-4 dB;
@@ -1157,7 +1162,7 @@ def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
 
 SSB_EVERY_STEP = ("fir_long_f32", "fir_s1_f32", "agc2_gain_f32")
 WBFM_EVERY_STEP = ("fir_cols_f32", "fir_s1_f32")
-TX_EVERY_STEP = ("fir_s1_f32", "resample_poly_f32")
+TX_EVERY_STEP = ("fir_s1_f32", "resample_up_f32")
 AUDIO_PER_STEP = T_STEP // 125   # 8 ksps audio samples a step (1,600)
 # BASELINE's 4FSK target: 10x real time a channel (PERF.md section 2)
 VS_BASELINE_LIMIT = 10.0
@@ -1280,23 +1285,35 @@ def tx_modulators(dev):
             NbfmMod(lead_shape=(N_CH,), pair=True, device=dev))
 
 
+def am_modulator(dev):
+    from qradiolink_tpu_torch.chains.am import AmMod
+
+    return AmMod(lead_shape=(N_CH,), device=dev)
+
+
+def tx_audio(dev, gen):
+    """A 1 kHz tone at 0.5 with seeded noise at 0.05, 2048 x 1,600."""
+    t = torch.arange(AUDIO_PER_STEP, device=dev) / 8000.0
+    return (0.5 * torch.sin(2 * np.pi * 1000.0 * t)
+            + 0.05 * torch.randn((N_CH, AUDIO_PER_STEP), generator=gen,
+                                 device=dev)).float()
+
+
 def tx_path(dev, gen):
     """The TX side at 2048 channels: SsbMod and NbfmMod (IqPair out) on
     1,600 audio samples a step (200,000 IQ samples out), 3 steps, counters
     zeroed just before: the 125/1, 25/4 and 20/1 interpolators on
-    resample_poly_f32, once each a step. Returns the report."""
+    resample_up_f32, once each a step, resample_poly_f32 never; then one
+    more step under torch.profiler. Returns the report."""
     ssbm, nbm = tx_modulators(dev)
-    t = torch.arange(AUDIO_PER_STEP, device=dev) / 8000.0
-    audio = (0.5 * torch.sin(2 * np.pi * 1000.0 * t)
-             + 0.05 * torch.randn((N_CH, AUDIO_PER_STEP), generator=gen,
-                                  device=dev)).float()
+    audio = tx_audio(dev, gen)
 
     def step(states, a):
         s1, o1 = ssbm(states[0], a)
         s2, o2 = nbm(states[1], a)
         return (s1, s2), (o1["iq"], o2["iq"])
 
-    _, (iq_ssb, iq_nb), step_s, report = drive(
+    states, (iq_ssb, iq_nb), step_s, report = drive(
         step, (ssbm.init_state(), nbm.init_state()), audio, TX_EVERY_STEP)
     for name, v in (("ssb", iq_ssb), ("nbfm re", iq_nb.re),
                     ("nbfm im", iq_nb.im)):
@@ -1304,12 +1321,36 @@ def tx_path(dev, gen):
                 or not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"tx {name}: wrong shape or non-finite")
     require_shapes(report, {
-        ("resample_poly_f32", f"L125 K{ssbm.up.kp} D1 tail 2x{N_CH}"): 1,
-        ("resample_poly_f32", f"L25 K{nbm.up1.kp} D4 tail 1x{N_CH}"): 1,
-        ("resample_poly_f32", f"L20 K{nbm.up2.kp} D1 tail 2x{N_CH}"): 1},
-        N_STEPS, "tx")
+        ("resample_up_f32", f"L125 K{ssbm.up.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_up_f32", f"L25 K{nbm.up1.kp} D4 tail 1x{N_CH}"): 1,
+        ("resample_up_f32", f"L20 K{nbm.up2.kp} D1 tail 2x{N_CH}"): 1},
+        N_STEPS, "tx", never=("resample_poly_f32",))
     print(f"  {step_times(step_s, 2 * N_CH * T_STEP)} (IQ samples out of "
           f"both modulators)", flush=True)
+    trace_step("one more step", lambda: step(states, audio))
+    return report
+
+
+def am_tx_path(dev, gen):
+    """AmMod at 2048 channels on the same audio, 3 steps, counters zeroed
+    just before: its 125/1 interpolator on one real plane, on
+    resample_up_f32 once a step, resample_poly_f32 never; complex64 IQ of
+    200,000 samples a channel out; then one more step under
+    torch.profiler. Returns the report."""
+    am = am_modulator(dev)
+    audio = tx_audio(dev, gen)
+    state, out, step_s, report = drive(am, am.init_state(), audio,
+                                       TX_EVERY_STEP)
+    iq = out["iq"]
+    if tuple(iq.shape) != (N_CH, T_STEP) or iq.dtype != torch.complex64 \
+            or not bool(torch.isfinite(torch.view_as_real(iq)).all()):
+        raise RuntimeError("am tx iq: wrong shape, dtype or non-finite")
+    require_shapes(report, {
+        ("resample_up_f32", f"L125 K{am.up.kp} D1 tail 1x{N_CH}"): 1},
+        N_STEPS, "am_tx", never=("resample_poly_f32",))
+    print(f"  {step_times(step_s, N_CH * T_STEP)} (IQ samples out)",
+          flush=True)
+    trace_step("one more step", lambda: am(state, audio))
     return report
 
 
@@ -1391,11 +1432,19 @@ def agc_rows(dev, gen):
                 "ssb", cuda_agc.shape_key(args[0]))]
 
 
+RESAMPLE_SOURCE = {
+    "resample_poly_f32": "qradiolink_tpu_torch/csrc/resample_poly.cu",
+    "resample_up_f32": "qradiolink_tpu_torch/csrc/resample_up.cu"}
+
+
 def poly_row(name, rs, planes, C, T, run, dev, gen):
-    """resample_poly_f32 at a TX interpolator's shape (C rows x T input
-    samples, `planes` planes, the tails read in place) against its plain
-    version, outputs within 1e-5 and the new state equal, with one
-    F.conv1d with L output channels as the library call."""
+    """A TX interpolator's shape (C rows x T input samples, `planes`
+    planes, the tails read in place): resample_up_f32, which the route
+    gives it, and resample_poly_f32, which served it before, each against
+    the plain version (outputs within 1e-5, the new state equal), their
+    outputs and states equal bit for bit, the two timed in turns (old, new,
+    new, old); resample_poly_f32's row has no path. One F.conv1d with L
+    output channels is the library call, beside each."""
     from qradiolink_tpu_torch.ops import cuda_resample
     import torch.nn.functional as F
 
@@ -1404,11 +1453,26 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
                for _ in range(planes))
     st = torch.randn((C, 2, K - 1), generator=gen, device=dev)
     tails = (st[:, 0, :], st[:, 1, :])[:planes]
-    new_state, ys = cuda_resample.resample_poly(xs, taps, L, M, tails)
+    op = cuda_resample.route(L, M, K)
+    if op != cuda_resample.UP_OP:
+        raise RuntimeError(f"{name}: the route gives L{L} M{M} to {op}")
+    fns = {k: (lambda k=k: cuda_resample.launch(k, xs, taps, L, M, tails))
+           for k in (cuda_resample.OP, op)}
     p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M, tails)
-    err = check_fir(f"{cuda_resample.OP}/{name}", ys, p_ys)
-    if not torch.equal(new_state, p_state):
-        raise RuntimeError(f"{cuda_resample.OP}/{name}: state differs")
+    outs = {k: fn() for k, fn in fns.items()}
+    errs = {}
+    for k, (state, ys) in outs.items():
+        errs[k] = check_fir(f"{k}/{name}", ys, p_ys)
+        if not torch.equal(state, p_state):
+            raise RuntimeError(f"{k}/{name}: state differs")
+    (s0, y0), (s1, y1) = outs[cuda_resample.OP], outs[op]
+    if not (torch.equal(s0, s1) and all(torch.equal(a, b)
+                                        for a, b in zip(y0, y1))):
+        raise RuntimeError(f"{op}/{name}: not bit-equal to "
+                           f"{cuda_resample.OP}")
+    print(f"  {op}/{name}: outputs and state bit-equal to "
+          f"{cuda_resample.OP}", flush=True)
+    del outs, y0, y1
     offs = cuda_resample.phase_offsets(L, M)
     w = torch.zeros((L, 1, K + offs[-1]), device=dev)
     for r, q in enumerate(offs):
@@ -1419,17 +1483,25 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
         planes, C, -1)
     check_fir(f"F.conv1d with L output channels/{name}", lib.unbind(0),
               p_ys)
-    ms = cuda_ms(lambda: cuda_resample.resample_poly(xs, taps, L, M, tails))
+    del lib, p_ys
+    torch.cuda.synchronize()
+    ms, turns = turns_ms(fns)
+    print(f"  {name} in turns: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
     plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
         xs, taps, L, M, tails), iters=3, warmup=1)
     lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
     n_out = T // M * L
     b = bound(4 * (planes * C * (K - 1 + T) + L * K + planes * C * n_out
                    + 2 * C * (K - 1)), 2 * K * planes * C * n_out)
-    return [row(f"{cuda_resample.OP}/{name}",
-                "qradiolink_tpu_torch/csrc/resample_poly.cu",
-                "qradiolink_tpu/ops/pallas_fir.py:111", err, ms, plain_ms, b,
-                lib_ms, run, cuda_resample.shape_key(xs, L, K, M))]
+    print(f"  {op}/{name}: {ms[cuda_resample.OP] / ms[op]:.2f}x "
+          f"{cuda_resample.OP} in turns, {lib_ms / ms[op]:.2f}x F.conv1d, "
+          f"{b[0] / ms[op]:.1%} of its bound", flush=True)
+    shape = cuda_resample.shape_key(xs, L, K, M)
+    return [row(f"{k}/{name}", RESAMPLE_SOURCE[k],
+                "qradiolink_tpu/ops/pallas_fir.py:111", errs[k], ms[k],
+                plain_ms, b, lib_ms, run, shape, routed=k == op)
+            for k in (op, cuda_resample.OP)]
 
 
 def analog_rows(dev, gen):
@@ -1472,6 +1544,8 @@ def analog_rows(dev, gen):
     ssbm, nbm = tx_modulators(dev)
     rows += poly_row("ssb_tx_up", ssbm.up, 2, N_CH, AUDIO_PER_STEP, "tx",
                      dev, gen)
+    rows += poly_row("am_tx_up", am_modulator(dev).up, 1, N_CH,
+                     AUDIO_PER_STEP, "am_tx", dev, gen)
     rows += poly_row("nbfm_tx_up1", nbm.up1, 1, N_CH, AUDIO_PER_STEP, "tx",
                      dev, gen)
     rows += poly_row("nbfm_tx_up2", nbm.up2, 2, N_CH,
@@ -1668,13 +1742,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
-    # fir_decim_f32, fir_long_f32, fir_cols_f32 and fir_s1_f32 keep their
-    # rings in registers, viterbi_bfly_k7 its path metrics, pfb_fft_f32 and
-    # depthwise_run_f32 their taps, resample_poly_f32 and agc2_gain_f32
-    # their loads in flight
+    # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
+    # resample_up_f32 keep their rings in registers, viterbi_bfly_k7 its
+    # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
+    # resample_poly_f32 and agc2_gain_f32 their loads in flight
     for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
                  "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
-                 "agc2"):
+                 "resample_up", "agc2"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -1723,6 +1797,10 @@ def main() -> int:
           f"samples, {N_STEPS} steps", flush=True)
     reports["tx"] = tx_path(dev, gen)
     torch.cuda.empty_cache()
+    print(f"AM TX path: AmMod {N_CH} ch x {AUDIO_PER_STEP} audio samples, "
+          f"{N_STEPS} steps", flush=True)
+    reports["am_tx"] = am_tx_path(dev, gen)
+    torch.cuda.empty_cache()
     print("analog chains, card against CPU:", flush=True)
     card_vs_cpu_phase(dev, gen)
     print("frozen SSB capture, card against CPU:", flush=True)
@@ -1734,7 +1812,8 @@ def main() -> int:
     # gives it that shape: one a step for the kernel that the route picks,
     # none for the one it replaced (a row with no path)
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS,
-             "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS}
+             "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS,
+             "am_tx": N_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")
         per_step = r.pop("per_step", 1)

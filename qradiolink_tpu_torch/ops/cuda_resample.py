@@ -1,5 +1,6 @@
 """Polyphase rational resampler at L > 1: wrapper, plain version and the
-CUDA kernel `resample_poly_f32` (csrc/resample_poly.cu).
+two CUDA kernels that compute it, `resample_poly_f32`
+(csrc/resample_poly.cu) and `resample_up_f32` (csrc/resample_up.cu).
 
 Port of the Pallas TPU kernel qradiolink_tpu/ops/pallas_fir.py
 `banded_fir` (K2), which the JAX package's RationalResampler runs once per
@@ -10,14 +11,20 @@ xc = [tail (K-1) | x (T)], T % M == 0:
     y[t*L + r] = sum_{j<K} tf_r[j] * xc[t*M + q_r + j]
     new state  = the last K-1 samples of xc, (..., 2, K-1)
 
-The kernel computes every phase, already interleaved, and the new state in
-one launch, reading the tail in place from the state. One plane is real
-input (the new state's second plane is zeros); two are the re and im
-planes of an IqPair.
+Either kernel computes every phase, already interleaved, and the new state
+in one launch, reading the tail in place from the state; both sum each
+output's taps in order from 0.0f, so their outputs are equal bit for bit.
+One plane is real input (the new state's second plane is zeros); two are
+the re and im planes of an IqPair. `route(L, M, K)` picks the kernel:
+`resample_up_f32`, register-blocked over output times, at L >= 3 and
+M <= 5 (the TX side's 125/1, 20/1 and 25/4);
+`resample_poly_f32`, one output a lane, elsewhere (the NBFM audio
+resampler 2/5, M17's 3/125).
 
-On a CPU tensor the wrapper takes the plain version (today's computation:
-a strided F.conv1d per phase over the concatenation, then the interleave);
-on a CUDA tensor it launches the kernel or raises.
+On a CPU tensor the wrapper takes the plain version (a strided F.conv1d
+per phase over the concatenation, then the interleave) and records it
+under the routed kernel's name; on a CUDA tensor it launches that kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -33,6 +40,12 @@ from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "resample_poly_f32"
+UP_OP = "resample_up_f32"
+# resample_up_f32's shapes: from 3 phases (the lowest L of
+# scripts/resample_route_sweep.py, where it was 2.6-5.3x faster), and the
+# decimations with a ring instance in csrc/resample_up.cu
+UP_MIN_L = 3
+UP_MAX_M = 5
 _GRID_Y_MAX = 65_535
 
 
@@ -53,13 +66,14 @@ def resample_poly_plain(xs, phase_taps, L: int, M: int, tails):
         lead = xc.shape[:-1]
         flat = xc.reshape(-1, 1, xc.shape[-1])
         phases = []
-        for r, q in enumerate(phase_offsets(L, M)):
+        # no output times (T = 0): no phase to filter, only the new state
+        for r, q in enumerate(phase_offsets(L, M) if n_pp else ()):
             seg = flat[..., q: q + (n_pp - 1) * M + K]
             with no_tf32():
                 phases.append(F.conv1d(seg, phase_taps[r].reshape(1, 1, K),
                                        stride=M))
-        y = torch.stack(phases, dim=-1)
-        ys.append(y.reshape(lead + (n_pp * L,)))
+        ys.append(torch.stack(phases, dim=-1).reshape(lead + (n_pp * L,))
+                  if phases else xc.new_zeros(lead + (0,)))
         tails_new.append(xc[..., xc.shape[-1] - (K - 1):])
     if len(xs) == 1:
         tails_new.append(torch.zeros_like(tails_new[0]))
@@ -101,25 +115,39 @@ def shape_key(xs, L, K, M):
     return f"L{L} K{K} D{M} tail {len(xs)}x{rows}"
 
 
-def _lib():
-    lib = kernels.load("resample_poly")
+def route(L: int, M: int, K: int) -> str:
+    """The kernel that serves an L/M resampler of K taps a phase (L > 1):
+    resample_up_f32 at L >= 3 and M <= 5, resample_poly_f32 otherwise (the
+    NBFM audio resampler 2/5, M17's 3/125).
+    K does not enter the rule: both kernels stage all L*K taps in one
+    block, and the wrapper raises where they do not fit."""
+    return UP_OP if L >= UP_MIN_L and M <= UP_MAX_M else OP
+
+
+def _lib(op):
+    name = op.removesuffix("_f32")
+    lib = kernels.load(name)
     if not getattr(lib, "_qrl_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.resample_poly_f32.argtypes = [p, p, i, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, p]
-        lib.resample_poly_f32.restype = ctypes.c_int
-        lib.resample_poly_smem_bytes.argtypes = [i, i, i]
-        lib.resample_poly_smem_bytes.restype = ctypes.c_longlong
-        lib.resample_poly_empty.argtypes = [p]
-        lib.resample_poly_empty.restype = ctypes.c_int
-        lib.resample_poly_error_string.argtypes = [i]
-        lib.resample_poly_error_string.restype = ctypes.c_char_p
+        fn = getattr(lib, op)
+        fn.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        smem = getattr(lib, f"{name}_smem_bytes")
+        smem.argtypes = [i, i, i] + ([i] if op == UP_OP else [])
+        smem.restype = ctypes.c_longlong
+        if op == OP:
+            lib.resample_poly_empty.argtypes = [p]
+            lib.resample_poly_empty.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
         lib._qrl_bound = True
     return lib
 
 
 def resample_poly(xs, phase_taps, L: int, M: int, tails):
-    """Polyphase L/M resampling of each plane in `xs`, all phases at once.
+    """Polyphase L/M resampling of each plane in `xs`, all phases at once,
+    on the kernel route(L, M, K) names.
 
     xs: tuple of 1 or 2 f32 planes (..., T) of one shape, T % M == 0;
     phase_taps: (L, K) f32, row r phase r's taps reversed; tails: one
@@ -129,13 +157,26 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
     at t*L + r)."""
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
-    key = shape_key(xs, L, K, M)
+    op = route(L, M, K)
     dev = xs[0].device
     if dev.type == "cpu":
-        kernel_paths.record(OP, False, key)
+        kernel_paths.record(op, False, shape_key(xs, L, K, M))
         return resample_poly_plain(xs, phase_taps, L, M, tails)
     if dev.type != "cuda":
-        raise ValueError(f"no {OP} kernel for device {dev}")
+        raise ValueError(f"no {op} kernel for device {dev}")
+    return launch(op, xs, phase_taps, L, M, tails)
+
+
+def launch(op, xs, phase_taps, L: int, M: int, tails):
+    """One launch of kernel `op` (OP or UP_OP) on CUDA planes, whatever
+    the route: resample_poly's arguments and result."""
+    xs, tails = tuple(xs), tuple(tails)
+    K = _check(xs, phase_taps, L, M, tails)
+    dev = xs[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"no {op} kernel for device {dev}")
+    if op == UP_OP and M > UP_MAX_M:
+        raise ValueError(f"{op} takes M <= {UP_MAX_M}, not {M}")
     for x in xs:
         if not x.is_contiguous():
             raise ValueError("planes must be contiguous")
@@ -143,7 +184,7 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
         raise ValueError("phase taps must be contiguous")
     lead, T = tuple(xs[0].shape[:-1]), xs[0].shape[-1]
     C = math.prod(lead)
-    if C > _GRID_Y_MAX:
+    if op == OP and C > _GRID_Y_MAX:
         raise ValueError(f"{C} rows exceed the grid's {_GRID_Y_MAX}")
     tail_ld, tail_ptrs = K - 1, []
     for i, t in enumerate(tails):
@@ -157,10 +198,12 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
                 raise ValueError("both tails need one row stride")
             tail_ld = tv.stride(0)
         tail_ptrs.append(t.data_ptr())
-    lib = _lib()
-    if lib.resample_poly_smem_bytes(L, M, K) > kernels.SMEM_MAX:
+    lib = _lib(op)
+    name = op.removesuffix("_f32")
+    smem_args = (L, M, K, T) if op == UP_OP else (L, M, K)
+    if getattr(lib, f"{name}_smem_bytes")(*smem_args) > kernels.SMEM_MAX:
         raise ValueError(f"L={L}, M={M}, K={K} needs more shared memory "
-                         f"than a block has")
+                         f"than a block of {op} has")
     n_out = T // M * L
     ys = tuple(torch.empty(lead + (n_out,), dtype=torch.float32, device=dev)
                for _ in xs)
@@ -171,23 +214,23 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
     two = len(xs) == 2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.resample_poly_f32(
+        err = getattr(lib, op)(
             tail_ptrs[0], tail_ptrs[1] if two else None, tail_ld,
             xs[0].data_ptr(), xs[1].data_ptr() if two else None,
             phase_taps.data_ptr(), ys[0].data_ptr(),
             ys[1].data_ptr() if two else None, new_state.data_ptr(),
             C, T, K, L, M, len(xs), stream)
     if err:
-        raise RuntimeError(f"{OP} launch failed: "
-                           f"{lib.resample_poly_error_string(err).decode()}")
-    kernel_paths.record(OP, True, key)
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{op} launch failed: {msg}")
+    kernel_paths.record(op, True, shape_key(xs, L, K, M))
     return new_state, ys
 
 
 def empty_launch(device) -> None:
     """One launch of an empty kernel on `device`'s current stream: the
     launch floor that chip_smoke.py prints beside resample_poly_f32."""
-    lib = _lib()
+    lib = _lib(OP)
     with torch.cuda.device(device):
         err = lib.resample_poly_empty(
             torch.cuda.current_stream(device).cuda_stream)

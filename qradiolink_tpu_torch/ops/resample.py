@@ -7,10 +7,12 @@ Grouping outputs by residue r = m mod L gives per-phase strided FIRs:
 with h_r = h[p_r::L]. Streaming requires block length T % M == 0; then each
 block yields T*L/M outputs and the phase pattern repeats exactly.
 
-At L > 1 every call (real, complex or IqPair input) is one launch of
-`resample_poly_f32` (ops/cuda_resample.py), which computes all L phases,
+At L > 1 every call (real, complex or IqPair input) is one launch of the
+kernel `ops/cuda_resample.route()` picks, which computes all L phases,
 interleaves them and writes the new state, reading the tail in place from
-the state (the NBFM audio resampler, 2/5). At L = 1 the decimator is one
+the state: `resample_up_f32` at L >= 3 and M <= 5 (the TX side's 125/1,
+20/1 and 25/4), `resample_poly_f32` elsewhere (the NBFM audio resampler,
+2/5). At L = 1 the decimator is one
 launch of the strided FIR kernel that `ops/cuda_fir.route()` picks, over
 the planes of an IqPair, a complex tensor or a real one (the WBFM audio
 resampler, 1/25), with the tails read in place from the state: the
@@ -139,7 +141,8 @@ class RationalResampler(Block):
             planes = (x.contiguous(),)
             tails = tails[:1]
         if self.L > 1:
-            # every phase and the new state in one resample_poly_f32 launch
+            # every phase and the new state in one launch of the routed
+            # kernel
             new_state, ys = resample_poly(planes, self.poly_taps, self.L,
                                           self.M, tails)
         else:

@@ -11,7 +11,8 @@ strided FIR and the per-row depthwise FIR) within 1e-5 (relative to the
 output's peak, and elementwise 1e-5 + 1e-5 |plain|), the bound the JAX
 package holds its FIR kernels to; the fused channelizer within 1e-5 of its
 output's peak, the JAX package's bound for it, with its carried state
-bit-equal; the Viterbi and the AGC's gain recurrence bit-exact; the analog
+bit-equal; the Viterbi and the AGC's gain recurrence bit-exact; the
+rational resampler's two kernels bit-equal to each other; the analog
 chains on the card within 1e-5 of each output's and state leaf's peak of
 the same chain on the CPU (their FIRs' bound), rssi within 1e-4 dB.
 """
@@ -46,6 +47,7 @@ from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
     fir_stream, fir_stream_plain, route)
 from qradiolink_tpu_torch.ops import cuda_pfb  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain  # noqa: E402
+from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
     phase_offsets, resample_poly, resample_poly_plain)
 from qradiolink_tpu_torch.ops.fir import FirFilter  # noqa: E402
@@ -529,10 +531,12 @@ POLY_CASES = {
 
 @pytest.mark.parametrize("name", sorted(POLY_CASES))
 def test_resample_poly_matches_plain(cuda, gen, name):
-    """resample_poly_f32 with the default taps over two chained blocks:
-    one launch a block, outputs within 1e-5 of the plain version and equal
-    bit for bit to the two-launch route, the new state (zeros in the im
-    plane of real input) equal to the plain version's."""
+    """The rational resampler with the default taps over two chained
+    blocks: one launch a block of the kernel cuda_resample.route picks
+    (resample_up_f32 at the TX shapes, resample_poly_f32 at the others),
+    outputs within 1e-5 of the plain version and equal bit for bit to the
+    two-launch route, the new state (zeros in the im plane of real input)
+    equal to the plain version's."""
     L, M, C, T, planes = POLY_CASES[name]
     rs = RationalResampler(L, M, lead_shape=(C,), device=cuda)
     state = torch.randn((C, 2, rs.kp - 1), generator=gen, device=cuda)
@@ -542,14 +546,75 @@ def test_resample_poly_matches_plain(cuda, gen, name):
         tails = (state[:, 0], state[:, 1])[:planes]
         kernel_paths.reset()
         new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
-        assert kernel_paths.report()["resample_poly_f32"]["shapes"] == {
-            f"cuda L{L} K{rs.kp} D{M} tail {planes}x{C}": 1}
+        op = cuda_resample.route(L, M, rs.kp)
+        assert op == (cuda_resample.UP_OP if name.startswith("tx_")
+                      else cuda_resample.OP)
+        assert kernel_paths.report() == {op: {
+            "cuda": 1, "plain": 0,
+            "shapes": {f"cuda L{L} K{rs.kp} D{M} tail {planes}x{C}": 1}}}
         want_state, want = resample_poly_plain(xs, rs.poly_taps, L, M, tails)
         _assert_fir_close(got, want)
         assert torch.equal(new_state, want_state)
         for g, o in zip(got, _resample_old(xs, rs.poly_taps, L, M, tails)):
             assert torch.equal(g, o)
         state = new_state
+
+
+# resample_up_f32 at the TX interpolators, 2048 rows (name: (L, M, T,
+# planes)), and at the edges of its tiles, jobs and rings
+UP_CASES = {
+    "ssb_tx_up": (125, 1, 1600, 2, 2048),
+    "am_tx_up": (125, 1, 1600, 1, 2048),   # AmMod: one real plane
+    "nbfm_tx_up1": (25, 4, 1600, 1, 2048),
+    "nbfm_tx_up2": (20, 1, 10_000, 2, 2048),
+    "ragged_tiles": (125, 1, 850, 2, 3),   # 432 + 418 output times
+    "m4_ragged": (25, 4, 8004, 2, 3),      # 1,008 + 993, ring of 29
+    "m2_l5": (5, 2, 2 * 611, 2, 5),        # ring of 31, L not dividing 32
+    "m3_l4": (4, 3, 3 * 9, 1, 7),          # one job of 9 of 8 + 1 times
+    "m5_l8": (8, 5, 5 * 97, 2, 4),         # ring of 36
+    "state_only": (125, 1, 0, 2, 3),       # T = 0: the state alone
+}
+
+
+@pytest.mark.parametrize("name", sorted(UP_CASES))
+def test_resample_up_matches_plain(cuda, gen, name):
+    """resample_up_f32 with the default taps over two chained blocks, the
+    tails read in place: outputs and new state equal bit for bit to
+    resample_poly_f32's on the same inputs, within 1e-5 of the plain
+    version (the state equal to it)."""
+    L, M, T, planes, C = UP_CASES[name]
+    rs = RationalResampler(L, M, lead_shape=(C,), device=cuda)
+    assert cuda_resample.route(L, M, rs.kp) == cuda_resample.UP_OP
+    state = torch.randn((C, 2, rs.kp - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = [torch.randn((C, T), generator=gen, device=cuda)
+              for _ in range(planes)]
+        tails = (state[:, 0], state[:, 1])[:planes]
+        kernel_paths.reset()
+        new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
+        assert kernel_paths.launches(cuda_resample.UP_OP) == 1
+        assert kernel_paths.launches(cuda_resample.OP) == 0
+        old_state, old = cuda_resample.launch(cuda_resample.OP, xs,
+                                              rs.poly_taps, L, M, tails)
+        want_state, want = resample_poly_plain(xs, rs.poly_taps, L, M, tails)
+        assert torch.equal(new_state, old_state)
+        assert torch.equal(new_state, want_state)
+        for g, o in zip(got, old):
+            assert torch.equal(g, o)
+        if T:
+            _assert_fir_close(got, want)
+        state = new_state
+
+
+def test_resample_up_raises_without_a_ring_instance(cuda):
+    """No fallback: a launch of resample_up_f32 at a decimation it has no
+    instance for raises; the route never sends one there."""
+    x, taps = torch.zeros((2, 60), device=cuda), torch.zeros((4, 5),
+                                                             device=cuda)
+    t = torch.zeros((2, 4), device=cuda)
+    assert cuda_resample.route(4, 6, 5) == cuda_resample.OP
+    with pytest.raises(ValueError):
+        cuda_resample.launch(cuda_resample.UP_OP, (x,), taps, 4, 6, (t,))
 
 
 def test_nbfm_audio_resampler_is_one_launch(cuda, gen):

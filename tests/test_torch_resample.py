@@ -15,16 +15,21 @@ torch = pytest.importorskip("torch")
 from qradiolink_tpu.ops.resample import (  # noqa: E402
     RationalResampler as JaxResampler)
 from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
+from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
-    OP, phase_offsets, resample_poly, resample_poly_plain)
+    OP, UP_OP, phase_offsets, resample_poly, resample_poly_plain, route)
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 from tests.torch_parity import stream_both  # noqa: E402
 
-SRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
-       / "csrc" / "resample_poly.cu")
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch" \
+    / "csrc"
+SRC = CSRC / "resample_poly.cu"
+UP_SRC = CSRC / "resample_up.cu"
 THREADS, WARP = 128, 32
+# resample_up_f32's block, tile target, span cap and outputs a job
+UP_THREADS, UP_ROUNDS, UP_MAX_SPAN = 256, 24, 8192
 
 # (L, M) of the ported and planned resamplers: the NBFM audio resampler,
 # M17's 3/125 and the TX resamplers 25/4, 20/1 and 125/1 (SsbMod, AmMod);
@@ -151,6 +156,273 @@ def test_poly_model_follows_the_kernel_source():
     assert ": (long long)T + (w - n_tap - span);" in src
 
 
+def up_r(M):
+    """Consecutive output times a job of resample_up_f32 (kR in the
+    source)."""
+    return 16 if M <= 2 else 8
+
+
+def up_ring(M):
+    """The ring's length: the samples a job's outputs read at one tap."""
+    return (up_r(M) - 1) * M + 1
+
+
+def up_tile_times(L, M, n_pp):
+    """resample_up_f32's tile width (tile_times in the source): about
+    UP_ROUNDS jobs a thread, at most UP_MAX_SPAN samples of span, whole
+    jobs, equal tiles across the row."""
+    if n_pp <= 0:
+        return 0
+    r = up_r(M)
+    tb = UP_ROUNDS * UP_THREADS // L
+    if tb * r * M > UP_MAX_SPAN:
+        tb = UP_MAX_SPAN // (r * M)
+    tb = max(tb, 1)
+    tiles = -(-n_pp // (tb * r))
+    per = -(-n_pp // tiles)
+    return -(-per // r) * r
+
+
+def up_jobs(L, n_tb):
+    """Each thread's jobs (time block, phase) in the order the kernel's loop
+    steps them: from (t // L, t % L), by kThreads without a division."""
+    dtb, dr = UP_THREADS // L, UP_THREADS % L
+    jobs = []
+    for t in range(UP_THREADS):
+        tb, r = t // L, t % L
+        while tb < n_tb:
+            jobs.append((tb, r))
+            tb, r = tb + dtb, r + dr
+            if r >= L:
+                tb, r = tb + 1, r - L
+    return jobs
+
+
+def up_ring_reads(M, K):
+    """The samples each FMA of a job reads, by running the kernel's ring:
+    the fill of N - 1 slots, K // N groups of N steps with the window
+    pointer advanced by N a group, then K mod N steps under `s < rem`; in
+    each step the new sample enters slot (s + N - 1) mod N and output u
+    reads slot (s + u M) mod N. Returns [(j, u, sample)] in issue order."""
+    N, R = up_ring(M), up_r(M)
+    ring = {s: s for s in range(N - 1)}  # slot -> sample index
+    reads, base, j = [], 0, 0
+    n_grp, rem = K // N, K % N
+    for s_list in [range(N)] * n_grp + [range(rem)]:
+        for s in s_list:
+            ring[(s + N - 1) % N] = base + s + N - 1
+            for u in range(R):
+                reads.append((j, u, ring[(s + u * M) % N]))
+            j += 1
+        base += N
+    return reads
+
+
+def up_model(xs, taps, L, M, tails):
+    """resample_up_f32's blocks in numpy. Block (tile, row, plane) stages
+    the taps of all phases, rows K|1 floats apart, and the span of
+    xc = [tail | x] that its whole jobs read (zeros past the stream's end),
+    the seam resolved per element; each thread's jobs (time block tb, phase
+    r) compute kR consecutive output times of phase r from the span at
+    tb kR M + q_r and store those before the tile's end at t*L + r; the
+    row's first tile copies xc[T .. T+K-2] into the new state (zeros in the
+    im plane of one plane). Returns (state (C, 2, K-1), outputs (planes, C,
+    n)), asserting that every value is written once."""
+    planes, (C, T), K = len(xs), xs[0].shape, taps.shape[1]
+    k1, n_pp, R, ks = K - 1, T // M, up_r(M), K | 1
+    q_max = (L - 1) * M // L
+    tt = up_tile_times(L, M, n_pp)
+    n_tiles = -(-n_pp // tt) if n_pp else 1
+    y = np.full((planes, C, n_pp * L), np.nan, np.float32)
+    state = np.full((C, 2, k1), np.nan, np.float32)
+    s_tap = np.full((L, ks), np.nan, np.float32)
+    s_tap[:, :K] = taps
+    jobs = {}
+    for p in range(planes):
+        for row in range(C):
+            xc = np.concatenate([tails[p][row], xs[p][row]])
+
+            def load(v):
+                return np.where(v < k1 + T, xc[np.minimum(v, k1 + T - 1)],
+                                np.float32(0.0))
+
+            for tile in range(n_tiles):
+                if tile == 0:
+                    assert np.isnan(state[row, p]).all()
+                    state[row, p] = load(T + np.arange(k1))
+                    if planes == 1:
+                        state[row, 1] = 0.0
+                t0 = tile * tt
+                nt = max(0, min(tt, n_pp - t0))
+                if nt == 0:
+                    continue
+                n_tb = -(-nt // R)
+                span = (n_tb * R - 1) * M + q_max + K
+                s_x = load(t0 * M + np.arange(span))
+                if n_tb not in jobs:
+                    jobs[n_tb] = np.array(up_jobs(L, n_tb))
+                tb, r = jobs[n_tb][:, 0], jobs[n_tb][:, 1]
+                # job, u, j -> span word (tb R + u) M + q_r + j
+                win = ((tb[:, None, None] * R + np.arange(R)[None, :, None])
+                       * M + (r * M // L)[:, None, None]
+                       + np.arange(K)[None, None, :])
+                assert win.max() < span
+                out = np.einsum("juk,jk->ju", s_x[win].astype(np.float64),
+                                s_tap[r, :K].astype(np.float64))
+                t = t0 + tb[:, None] * R + np.arange(R)[None, :]
+                keep = t < t0 + nt
+                pos = (t * L + r[:, None])[keep]
+                assert np.isnan(y[p, row, pos]).all()
+                assert len(np.unique(pos)) == len(pos)
+                y[p, row, pos] = out[keep]
+    assert not np.isnan(y).any() and not np.isnan(state).any()
+    return state, y
+
+
+def _up_case(rng, L, M, planes, T, C=2, blocks=2):
+    """Blocks chained through up_model with the default taps, each held
+    against resample_poly_plain: outputs within 1e-5, state equal."""
+    rs = RationalResampler(L, M, lead_shape=(C,), device="cpu")
+    taps = rs.poly_taps.numpy()
+    st = rng.standard_normal((C, 2, rs.kp - 1)).astype(np.float32)
+    for _ in range(blocks):
+        xs = [rng.standard_normal((C, T)).astype(np.float32)
+              for _ in range(planes)]
+        tails = [st[:, p] for p in range(planes)]
+        got_state, got = up_model(xs, taps, L, M, tails)
+        want_state, want = resample_poly_plain(
+            [torch.from_numpy(x) for x in xs], rs.poly_taps, L, M,
+            [torch.from_numpy(t.copy()) for t in tails])
+        for g, w in zip(got, want):
+            _close(g, w.numpy())
+        assert np.array_equal(got_state, want_state.numpy())
+        st = got_state
+    return st
+
+
+# (L, M): block length; each leaves a ragged last tile that ends inside a
+# job: L 125 M 1, n_pp 850 -> tiles of 432 + 418; L 20 M 1, n_pp 5,000 ->
+# 2,512 + 2,488; L 25 M 4, n_pp 2,001 -> 1,008 + 993 (M 4: a ring of 29
+# registers)
+UP_CASES = {(125, 1): 850, (20, 1): 5000, (25, 4): 8004}
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("L,M", sorted(UP_CASES))
+def test_up_model_matches_plain(rng, L, M, planes):
+    """The TX interpolators' shapes over two chained blocks: the model's
+    outputs within 1e-5 of resample_poly_plain's, its state equal."""
+    n_pp = UP_CASES[(L, M)] // M
+    tt = up_tile_times(L, M, n_pp)
+    assert n_pp > tt and n_pp % tt and (n_pp % tt) % up_r(M)
+    _up_case(rng, L, M, planes, UP_CASES[(L, M)])
+
+
+@pytest.mark.parametrize("L,M,T", [
+    (25, 4, 4004),    # one tile of 1,001 of 1,008 times, the M 4 ring
+    (5, 2, 2 * 611),  # L not dividing 32 nor the 256 threads; M 2: N 31
+    (8, 5, 5 * 97),   # M 5 (N 36), a tile shorter than a job round
+    (4, 3, 3 * 9),    # one ragged job (9 of 8 + 1), M 3 (N 22)
+])
+def test_up_model_edges(rng, L, M, T):
+    _up_case(rng, L, M, 2, T)
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_up_model_state_only(rng, planes):
+    """T = 0: the launch only copies the tail into the new state, which
+    equals the old one."""
+    st = _up_case(rng, 125, 1, planes, 0, blocks=1)
+    assert st.shape == (2, 2, 44)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("K", [1, 2, 13, 45, 46, 113])
+def test_up_ring_reads_every_tap_in_order(M, K):
+    """Every FMA of a job reads sample j + u M at tap j, and each output
+    adds its taps j = 0 .. K-1 in order (resample_poly_f32's order)."""
+    reads = up_ring_reads(M, K)
+    assert len(reads) == K * up_r(M)
+    for j, u, sample in reads:
+        assert sample == j + u * M
+    for u in range(up_r(M)):
+        assert [j for j, uu, _ in reads if uu == u] == list(range(K))
+
+
+@pytest.mark.parametrize("L,n_tb", [(125, 34), (20, 209), (25, 50),
+                                    (300, 3), (256, 2), (7, 1)])
+def test_up_jobs_cover_each_job_once(L, n_tb):
+    """The kernel's division-free stepping gives every (time block, phase)
+    of a tile to exactly one thread."""
+    jobs = up_jobs(L, n_tb)
+    assert sorted(jobs) == [(tb, r) for tb in range(n_tb)
+                            for r in range(L)]
+
+
+def test_up_tile_widths():
+    """The TX shapes' tiles (the kernel's header quotes them)."""
+    assert up_tile_times(125, 1, 1600) == 544
+    assert up_tile_times(20, 1, 10_000) == 3344
+    assert up_tile_times(25, 4, 400) == 400
+
+
+def test_up_model_follows_the_kernel_source():
+    """The model's constants, tiles, job stepping, ring, span and seam are
+    the kernel's."""
+    src = UP_SRC.read_text()
+    for line in [
+            f"constexpr int kThreads = {UP_THREADS};",
+            f"constexpr int kRounds = {UP_ROUNDS};",
+            f"constexpr int kMaxSpan = {UP_MAX_SPAN};",
+            "constexpr int kR1 = 16;", "constexpr int kR3 = 8;",
+            "constexpr int kR(int M) { return M <= 2 ? kR1 : kR3; }",
+            "constexpr int kRing(int M) { return (kR(M) - 1) * M + 1; }",
+            "constexpr int kTapStride(int K) { return K | 1; }",
+            # tile_times
+            "long long tb = (long long)kRounds * kThreads / L;",
+            "if (tb * r * M > kMaxSpan) tb = kMaxSpan / (r * M);",
+            "const long long tiles = (n_pp + tt_max - 1) / tt_max;",
+            "return (int)((per + r - 1) / r * r);",
+            # span of whole jobs, zeros past the stream's end, the seam
+            "nt > 0 ? (long long)(((nt + kR(M) - 1) / kR(M)) * kR(M) - 1) * M",
+            "if (v < n_in) val[k] = v < k1 ? tail[v] : x[v - k1];",
+            ": (long long)T + (w - n_tap - span);",
+            # jobs
+            "const int dtb = kThreads / L;",
+            "const int dr = kThreads - dtb * L;",
+            "for (int tb = threadIdx.x / L, r = threadIdx.x % L; tb < n_tb;) {",
+            "const float* p = s_x + i0 * M + (M == 1 ? 0 : r * M / L);",
+            "const float* h = s_tap + r * ks;",
+            # the ring
+            "for (int s = 0; s < N - 1; ++s) w[s] = p[s];",
+            "w[(j + N - 1) % N] = p[j + N - 1];",
+            "acc[u] = fmaf(tap, w[(j + u * M) % N], acc[u]);",
+            "for (int b = 0; b < n_grp; ++b, p += N, h += N) {",
+            "if (s < rem) step(s);",
+            # stores
+            "float* yo = y + (size_t)(t0 + i0) * L + r;",
+            "if (i0 + u < nt) yo[(size_t)u * L] = acc[u];"]:
+        assert line in src, line
+
+
+@pytest.mark.parametrize("L,M,want", [
+    (2, 5, OP), (2, 1, OP), (3, 125, OP), (3, 1, UP_OP), (3, 5, UP_OP),
+    (4, 1, UP_OP), (4, 5, UP_OP), (5, 4, UP_OP), (20, 1, UP_OP),
+    (25, 4, UP_OP), (125, 1, UP_OP), (125, 4, UP_OP), (3, 7, OP),
+    (4, 6, OP), (125, 7, OP)])
+def test_resample_route_at_the_sweep_edges(L, M, want):
+    """resample_up_f32 from L 3 (the sweep's lowest L) at M <= 5 (the
+    decimations with a ring instance), resample_poly_f32 elsewhere (L 2,
+    M17's 3/125), whatever K."""
+    for K in (45, 113):
+        assert route(L, M, K) == want
+    assert cuda_resample.UP_MIN_L == 3 and cuda_resample.UP_MAX_M == 5
+    src = UP_SRC.read_text()
+    assert "constexpr int kMaxM = 5;" in src
+    assert "case 4: return launch<4>(" in src
+    assert "default: return launch<5>(" in src
+
+
 @pytest.mark.parametrize("L,M", [(2, 5), (3, 125), (25, 4), (20, 1)])
 def test_phase_offsets(L, M):
     q = phase_offsets(L, M)
@@ -177,7 +449,7 @@ def test_rational_resampler_matches_jax(rng, L, M, kind):
                 blocks)
     planes = 1 if kind == "real" else 2
     rs_kp = RationalResampler(L, M, device="cpu").kp
-    assert kernel_paths.report() == {OP: {
+    assert kernel_paths.report() == {route(L, M, rs_kp): {
         "cuda": 0, "plain": 2,
         "shapes": {f"plain L{L} K{rs_kp} D{M} tail {planes}x2": 2}}}
 
@@ -186,17 +458,32 @@ def test_rational_resampler_matches_jax(rng, L, M, kind):
                                  (25, 4), (20, 1), (4, 2)])
 @pytest.mark.parametrize("kind", ["real", "pair"])
 def test_resampler_route_recorded_on_cpu(L, M, kind):
-    """Every L > 1 call records resample_poly_f32 alone, once; L = 1 (and
-    4/2, which reduces to 2/1) the strided FIR kernel cuda_fir.route
-    picks for the head."""
+    """Every L > 1 call records the kernel route(L, M, K) picks alone,
+    once (resample_up_f32 at 25/4 and 20/1, resample_poly_f32 at 2/5, 3/125
+    and 4/2, which reduces to 2/1); L = 1 the strided FIR kernel
+    cuda_fir.route picks for the head."""
     rs = RationalResampler(L, M, device="cpu")
     x = torch.zeros((2, 250 * rs.M))
     x = IqPair(x, x) if kind == "pair" else x
     kernel_paths.reset()
     rs(torch.zeros((2, 2, rs.kp - 1)), x)
-    want = OP if rs.L > 1 else cuda_fir.route(rs.kp, rs.M)
+    want = route(rs.L, rs.M, rs.kp) if rs.L > 1 \
+        else cuda_fir.route(rs.kp, rs.M)
     rep = kernel_paths.report()
     assert set(rep) == {want} and rep[want]["plain"] == 1, rep
+
+
+@pytest.mark.parametrize("L,M", [(2, 5), (125, 1)])
+def test_resample_poly_state_only_on_cpu(rng, L, M):
+    """A block of 0 samples: no output, and the new state is the old tail
+    (the plain version once failed here, its F.conv1d given fewer samples
+    than taps)."""
+    rs = RationalResampler(L, M, lead_shape=(3,), device="cpu")
+    st = torch.from_numpy(
+        rng.standard_normal((3, 2, rs.kp - 1)).astype(np.float32))
+    new_state, y = rs(st, IqPair(torch.zeros((3, 0)), torch.zeros((3, 0))))
+    assert y.re.shape == (3, 0) and y.im.shape == (3, 0)
+    assert torch.equal(new_state, st)
 
 
 def test_resample_poly_rejects_bad_input():
