@@ -12,8 +12,9 @@ when the package cannot be imported, and when any phase fails:
  2. build every kernel, all nvcc processes at once (ptxas must report no
     spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_cols.cu,
     csrc/fir_s1.cu, csrc/viterbi_bfly.cu, csrc/pfb_fft.cu,
-    csrc/depthwise_run.cu, csrc/resample_poly.cu, csrc/resample_up.cu and
-    csrc/agc2.cu);
+    csrc/depthwise_run.cu, csrc/resample_poly.cu, csrc/resample_up.cu,
+    csrc/agc2.cu, csrc/costas.cu, csrc/symbol_sync.cu and
+    csrc/viterbi_stream.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -128,7 +129,31 @@ when the package cannot be imported, and when any phase fails:
 12. loopbacks on the card, torch only, 8 channels: TX -> ChannelModel at
     30 dB -> RX; the JAX tests' tone-SNR thresholds (NBFM > 15 dB, AM >
     12, USB and LSB > 10, the opposite sideband < 5, WBFM of a wide FM
-    tone > 15) on every channel.
+    tone > 15) on every channel;
+13. the PSK modems' kernels at 2048 rows: costas_loop_f32 (orders 4 and
+    2), symbol_sync_mm_f32 and viterbi_stream_k7 bit-equal to their plain
+    loops over two chained blocks of a real QPSK signal from the port's
+    QpskMod (1 kHz off, noise, its first samples ~1e-20; 4,000 samples,
+    1,000 symbols, 1,000 soft pairs with lag 64), then timed at QPSK250K's
+    full shapes (the PLL over 100,000 samples, the symbol-rate loop over
+    25,000, the sync 100,000 -> 25,000, the Viterbi 25,000 pairs) beside
+    one call of the plain loop, the bound and the latency floor; the
+    QPSK250K head K83 D2 and QPSK20K/2K's K1045 D25 (no path here runs
+    it) on fir_cols_f32, each in turns with fir_stream_f32, the RRC K45
+    and the FLL's complex K32 on fir_s1_f32, against the plain FIR and
+    F.conv1d;
+14. the QPSK250K path (BASELINE configs[3]): QpskMod on the card, 3,125
+    bytes a channel a step at 2048 channels, clean, through
+    QpskDemod(125_000, 500_000) for 3 steps (counters zeroed before, read
+    after: fir_cols_f32 for the head, fir_s1_f32 for the RRC and 800 FLL
+    launches, agc2_gain_f32, costas_loop_f32 twice, symbol_sync_mm_f32,
+    viterbi_stream_k7, a step; fir_stream_f32 never), BER < 0.01, step ms
+    and vs_baseline (printed, not gated), one step stage by stage, one
+    traced, and 3 steps at 10 dB with a 1 kHz offset (BER printed);
+15. the BPSK2K path: BpskMod -> BpskDemod at 2048 channels for 8 steps,
+    the same counts, the better of bits / bits_alt at BER < 0.01;
+16. the frozen capture tests/fixtures/iq_qpsk250k_10db.npz in two blocks
+    through QpskDemod on the card and on the CPU: bits equal, BER < 0.01.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -141,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -278,14 +304,16 @@ FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
               "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu"}
 
 
-def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True):
+def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
+            on_path=True):
     """The strided FIR kernel that the shape routes to against its plain
     version (and F.conv1d), on the shape that path `run` gives it once a
-    step. Where the route picks a new kernel, fir_stream_f32, which served
-    the shape before, is held against the plain version too and timed in
-    turns with it (old, new, new, old); its row has no path. fir_s1_f32
-    keeps fir_stream_f32's sum order, so their outputs must be equal bit
-    for bit."""
+    step (on_path false: a shape of a chain that no path here drives, its
+    row with no path and no launch on `run`). Where the route picks a new
+    kernel, fir_stream_f32, which served the shape before, is held against
+    the plain version too and timed in turns with it (old, new, new, old);
+    its row has no path. fir_s1_f32 keeps fir_stream_f32's sum order, so
+    their outputs must be equal bit for bit."""
     from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
@@ -331,7 +359,7 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True):
     n_bytes = 4 * (n_in + len(xs) * n_rows * n_out + K)
     b = bound(n_bytes, 2 * K * len(xs) * n_rows * n_out)
     return [row(f"{k}/{name}", FIR_SOURCE[k], replaces, errs[k], ms[k],
-                plain_ms, b, lib_ms, run, shape, routed=k == op)
+                plain_ms, b, lib_ms, run, shape, routed=on_path and k == op)
             for k in sorted(fns, key=lambda k: k != op)]
 
 
@@ -892,18 +920,20 @@ def step_times(step_s, n_samples):
             f"Msamples/s)")
 
 
-def drive(fn, state, x, every_step):
-    """N_STEPS calls state, out = fn(state, x), each fenced and timed on
-    the host clock, with the launch counters zeroed just before: every op
-    of every_step must launch on each step, and nothing may take a plain
-    path. Returns (state, last output, step seconds, kernel report)."""
+def drive(fn, state, xs, every_step):
+    """state, out = fn(state, x) for each x of the list xs in turn, each
+    call fenced and timed on the host clock, with the launch counters
+    zeroed just before: every op of every_step must launch on each step,
+    and nothing may take a plain path. Returns (state, every step's output,
+    step seconds, kernel report)."""
     from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
-    step_s, seen = [], {op: 0 for op in every_step}
+    step_s, seen, outs = [], {op: 0 for op in every_step}, []
     kernel_paths.reset()
-    for i in range(N_STEPS):
+    for i, x in enumerate(xs):
         t0 = time.perf_counter()
         state, out = fn(state, x)
+        outs.append(out)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         for op in every_step:
@@ -912,11 +942,11 @@ def drive(fn, state, x, every_step):
                 raise RuntimeError(f"step {i}: {op} did not launch")
             seen[op] = n
     report = kernel_paths.report()
-    print(f"  kernel paths over {N_STEPS} steps: {json.dumps(report)}",
+    print(f"  kernel paths over {len(xs)} steps: {json.dumps(report)}",
           flush=True)
     if not kernel_paths.served_only():
         raise RuntimeError("a stage took the plain path on the card")
-    return state, out, step_s, report
+    return state, outs, step_s, report
 
 
 # ops each main path must launch on every step
@@ -932,7 +962,9 @@ def main_path(chain, dev, gen):
                 torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
     state = chain.init_state()
     torch.cuda.synchronize()
-    state, out, step_s, report = drive(chain, state, iq, FSK_EVERY_STEP)
+    state, outs, step_s, report = drive(chain, state, [iq] * N_STEPS,
+                                        FSK_EVERY_STEP)
+    out = outs[-1]
     n_sym = T_STEP // chain.resamp.M // chain.sps
     checks = {"bits": (N_CH, n_sym), "symbols": (N_CH, n_sym),
               "rssi": (N_CH,)}
@@ -1003,8 +1035,9 @@ def mixed_path(dev, gen):
                 torch.randn((T,), generator=gen, device=dev) * 0.05)
     state = rx.init_state()
     torch.cuda.synchronize()
-    state, (fsk, nb), step_s, report = drive(rx, state, iq,
-                                             MIXED_EVERY_STEP)
+    state, outs, step_s, report = drive(rx, state, [iq] * N_STEPS,
+                                        MIXED_EVERY_STEP)
+    fsk, nb = outs[-1]
     for op in ("fir_stream_f32", "pfb_channelize_f32"):
         if report.get(op, {}).get("cuda", 0):
             raise RuntimeError(f"the mixed path launched {op}")
@@ -1203,7 +1236,9 @@ def ssb_path(dev, gen):
     state = chain.init_state()
     torch.cuda.synchronize()
     pace = [host_pace_us(dev)]
-    state, out, step_s, report = drive(chain, state, iq, SSB_EVERY_STEP)
+    state, outs, step_s, report = drive(chain, state, [iq] * N_STEPS,
+                                        SSB_EVERY_STEP)
+    out = outs[-1]
     pace.append(host_pace_us(dev))
     for key, shape in (("audio", (N_CH, AUDIO_PER_STEP)), ("rssi", (N_CH,))):
         v = out[key]
@@ -1262,8 +1297,9 @@ def wbfm_path(dev, gen):
     chain = WbfmDemod(lead_shape=(N_CH,), device=dev)
     iq = IqPair(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1,
                 torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
-    state, out, step_s, report = drive(chain, chain.init_state(), iq,
-                                       WBFM_EVERY_STEP)
+    state, outs, step_s, report = drive(chain, chain.init_state(),
+                                        [iq] * N_STEPS, WBFM_EVERY_STEP)
+    out = outs[-1]
     if tuple(out["audio"].shape) != (N_CH, AUDIO_PER_STEP) \
             or not bool(torch.isfinite(out["audio"]).all()):
         raise RuntimeError("wbfm audio: wrong shape or non-finite")
@@ -1313,8 +1349,10 @@ def tx_path(dev, gen):
         s2, o2 = nbm(states[1], a)
         return (s1, s2), (o1["iq"], o2["iq"])
 
-    states, (iq_ssb, iq_nb), step_s, report = drive(
-        step, (ssbm.init_state(), nbm.init_state()), audio, TX_EVERY_STEP)
+    states, outs, step_s, report = drive(
+        step, (ssbm.init_state(), nbm.init_state()), [audio] * N_STEPS,
+        TX_EVERY_STEP)
+    iq_ssb, iq_nb = outs[-1]
     for name, v in (("ssb", iq_ssb), ("nbfm re", iq_nb.re),
                     ("nbfm im", iq_nb.im)):
         if tuple(v.shape) != (N_CH, T_STEP) \
@@ -1339,9 +1377,9 @@ def am_tx_path(dev, gen):
     torch.profiler. Returns the report."""
     am = am_modulator(dev)
     audio = tx_audio(dev, gen)
-    state, out, step_s, report = drive(am, am.init_state(), audio,
-                                       TX_EVERY_STEP)
-    iq = out["iq"]
+    state, outs, step_s, report = drive(am, am.init_state(),
+                                        [audio] * N_STEPS, TX_EVERY_STEP)
+    iq = outs[-1]["iq"]
     if tuple(iq.shape) != (N_CH, T_STEP) or iq.dtype != torch.complex64 \
             or not bool(torch.isfinite(torch.view_as_real(iq)).all()):
         raise RuntimeError("am tx iq: wrong shape, dtype or non-finite")
@@ -1439,12 +1477,13 @@ RESAMPLE_SOURCE = {
 
 def poly_row(name, rs, planes, C, T, run, dev, gen):
     """A TX interpolator's shape (C rows x T input samples, `planes`
-    planes, the tails read in place): resample_up_f32, which the route
-    gives it, and resample_poly_f32, which served it before, each against
-    the plain version (outputs within 1e-5, the new state equal), their
-    outputs and states equal bit for bit, the two timed in turns (old, new,
-    new, old); resample_poly_f32's row has no path. One F.conv1d with L
-    output channels is the library call, beside each."""
+    planes, the tails read in place): the kernel that the route gives it
+    against the plain version (outputs within 1e-5, the new state equal).
+    Where the route gives it resample_up_f32, resample_poly_f32, which
+    served it before, is held against the plain version too, their outputs
+    and states must be equal bit for bit, and the two are timed in turns
+    (old, new, new, old); resample_poly_f32's row then has no path. One
+    F.conv1d with L output channels is the library call, beside each."""
     from qradiolink_tpu_torch.ops import cuda_resample
     import torch.nn.functional as F
 
@@ -1454,10 +1493,9 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
     st = torch.randn((C, 2, K - 1), generator=gen, device=dev)
     tails = (st[:, 0, :], st[:, 1, :])[:planes]
     op = cuda_resample.route(L, M, K)
-    if op != cuda_resample.UP_OP:
-        raise RuntimeError(f"{name}: the route gives L{L} M{M} to {op}")
+    kinds = (op,) if op == cuda_resample.OP else (op, cuda_resample.OP)
     fns = {k: (lambda k=k: cuda_resample.launch(k, xs, taps, L, M, tails))
-           for k in (cuda_resample.OP, op)}
+           for k in kinds[::-1]}
     p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M, tails)
     outs = {k: fn() for k, fn in fns.items()}
     errs = {}
@@ -1465,14 +1503,15 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
         errs[k] = check_fir(f"{k}/{name}", ys, p_ys)
         if not torch.equal(state, p_state):
             raise RuntimeError(f"{k}/{name}: state differs")
-    (s0, y0), (s1, y1) = outs[cuda_resample.OP], outs[op]
-    if not (torch.equal(s0, s1) and all(torch.equal(a, b)
-                                        for a, b in zip(y0, y1))):
-        raise RuntimeError(f"{op}/{name}: not bit-equal to "
-                           f"{cuda_resample.OP}")
-    print(f"  {op}/{name}: outputs and state bit-equal to "
-          f"{cuda_resample.OP}", flush=True)
-    del outs, y0, y1
+    if len(kinds) == 2:
+        (s0, y0), (s1, y1) = outs[cuda_resample.OP], outs[op]
+        if not (torch.equal(s0, s1) and all(torch.equal(a, b)
+                                            for a, b in zip(y0, y1))):
+            raise RuntimeError(f"{op}/{name}: not bit-equal to "
+                               f"{cuda_resample.OP}")
+        print(f"  {op}/{name}: outputs and state bit-equal to "
+              f"{cuda_resample.OP}", flush=True)
+    del outs
     offs = cuda_resample.phase_offsets(L, M)
     w = torch.zeros((L, 1, K + offs[-1]), device=dev)
     for r, q in enumerate(offs):
@@ -1486,22 +1525,24 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
     del lib, p_ys
     torch.cuda.synchronize()
     ms, turns = turns_ms(fns)
-    print(f"  {name} in turns: " + ", ".join(
-        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+    if len(kinds) == 2:
+        print(f"  {name} in turns: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in turns), flush=True)
     plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
         xs, taps, L, M, tails), iters=3, warmup=1)
     lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
     n_out = T // M * L
     b = bound(4 * (planes * C * (K - 1 + T) + L * K + planes * C * n_out
                    + 2 * C * (K - 1)), 2 * K * planes * C * n_out)
-    print(f"  {op}/{name}: {ms[cuda_resample.OP] / ms[op]:.2f}x "
-          f"{cuda_resample.OP} in turns, {lib_ms / ms[op]:.2f}x F.conv1d, "
+    old = (f"{ms[cuda_resample.OP] / ms[op]:.2f}x {cuda_resample.OP} in "
+           f"turns, " if len(kinds) == 2 else "")
+    print(f"  {op}/{name}: {old}{lib_ms / ms[op]:.2f}x F.conv1d, "
           f"{b[0] / ms[op]:.1%} of its bound", flush=True)
     shape = cuda_resample.shape_key(xs, L, K, M)
     return [row(f"{k}/{name}", RESAMPLE_SOURCE[k],
                 "qradiolink_tpu/ops/pallas_fir.py:111", errs[k], ms[k],
                 plain_ms, b, lib_ms, run, shape, routed=k == op)
-            for k in (op, cuda_resample.OP)]
+            for k in kinds]
 
 
 def analog_rows(dev, gen):
@@ -1715,6 +1756,562 @@ def loopback_phase(dev, n_ch=8, n_audio=4000):
             raise RuntimeError(f"loopback {name}: SNR {snrs} not {test} dB")
 
 
+# -- the PSK modems (QPSK250K, BPSK2K) ----------------------------------------
+
+QPSK_FIXTURE = HERE / "tests" / "fixtures" / "iq_qpsk250k_10db.npz"
+QPSK_BYTES = 3_125      # a step's payload a channel: 200,000 IQ samples
+QPSK_SYMS = T_STEP // 8  # 25,000 symbols a step (500 ksps, sps 4)
+QPSK_EVERY_STEP = ("fir_cols_f32", "fir_s1_f32", "agc2_gain_f32",
+                   "costas_loop_f32", "symbol_sync_mm_f32",
+                   "viterbi_stream_k7")
+BPSK_BYTES = 25          # a step's payload a channel at 2,000 symbols/s
+BPSK_STEPS = 8           # 1.6 s of signal: 1,600 bits a channel
+# the loop kernels' timing shapes: 2048 rows, short blocks for the checks
+# against the plain loops (whose every step is a dozen device ops)
+LOOP_CHECK_T = 4_000
+VITERBI_CHECK_T = 1_000
+
+def qpsk_tx(dev, gen, n_ch, steps, n_bytes=None):
+    """QpskMod(125_000) on the card at n_ch channels, `steps` steps of
+    n_bytes (QPSK_BYTES) seeded random bytes a channel; returns (the bytes
+    of each step, the IQ of each step as complex64, 64 samples a byte)."""
+    from qradiolink_tpu_torch.chains.psk import QpskMod
+
+    n_bytes = QPSK_BYTES if n_bytes is None else n_bytes
+    mod = QpskMod(125_000, lead_shape=(n_ch,), device=dev)
+    st, data, iq = mod.init_state(), [], []
+    for _ in range(steps):
+        d = torch.randint(0, 256, (n_ch, n_bytes), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.uint8)
+        st, out = mod(st, d)
+        data.append(d)
+        iq.append(out["iq"])
+    return data, iq
+
+
+def loop_signal(dev, gen, C, T):
+    """A QPSK250K signal from QpskMod, 1 kHz off, noise at 0.05 a plane,
+    the first 200 samples at ~1e-20 (the denormal trap): (C, T) complex64."""
+    _, iq = qpsk_tx(dev, gen, C, 1, -(-T // 64) + 1)
+    t = torch.arange(T, device=dev, dtype=torch.float64)
+    x = iq[0][:, :T] * torch.exp(1j * (2 * np.pi * 1e-3 * t)).to(
+        torch.complex64)
+    x = x + 0.05 * torch.randn((C, T), generator=gen, device=dev,
+                               dtype=torch.complex64)
+    x[:, :200] *= 1e-20
+    return x.contiguous()
+
+
+def max_diff(a, b):
+    """max |a - b| of two tensors of one shape, complex ones plane by
+    plane, integers widened first."""
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def equal_leaves(name, got, want):
+    """Every output and state leaf of got equal bit for bit to want's;
+    raises on the first that is not. Returns their max |diff| (0.0)."""
+    err = 0.0
+    for j, (a, b) in enumerate(zip(got, want, strict=True)):
+        d = max_diff(a, b)
+        err = max(err, d)
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name}: output {j} not equal bit for bit "
+                               f"to the plain loop (max |diff| {d:.3e})")
+    return err
+
+
+def chained_equal(name, launch, plain, blocks, state, carry):
+    """Two chained blocks: launch(block, state) and plain(block, state),
+    each returning (outputs..., ) with carry(outputs) the next state; every
+    output must be equal bit for bit. Returns the last arguments."""
+    for i, blk in enumerate(blocks):
+        got = launch(blk, state)
+        equal_leaves(f"{name} block {i}", got, plain(blk, state))
+        state = carry(got)
+    print(f"  {name}: 2 chained blocks of {tuple(blocks[0].shape)} equal bit "
+          f"for bit to the plain loop (outputs and state)", flush=True)
+    return state
+
+
+def loop_row(name, source, replaces, fn, plain_fn, n_bytes, n_ops, run,
+             shape):
+    """A loop kernel's row at the path's full shape: the kernel's time,
+    then one more call of it and the plain loop's one call (timed) on the
+    same inputs, every output and state leaf equal bit for bit; the row's
+    max_abs_err is their measured max |diff|, its bound bytes or
+    operations."""
+    ms = cuda_ms(fn, iters=5, warmup=1)
+    got = fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain_fn()
+    end.record()
+    end.synchronize()
+    err = equal_leaves(f"{name} at {shape}", got, want)
+    print(f"  {name}: outputs and state at {shape} equal bit for bit to the "
+          f"plain loop", flush=True)
+    return row(name, source, replaces, err, ms, start.elapsed_time(end),
+               bound(n_bytes, n_ops), None, run, shape)
+
+
+def psk_rows(dev, gen):
+    """The PSK paths' kernels: the three loop kernels bit-equal to their
+    plain loops over two chained blocks at 2048 rows (a real QPSK signal,
+    its first samples ~1e-20), then timed at QPSK250K's full shapes and
+    held bit-equal there once more against the plain loop's one call; the
+    head's K83 D2 and QPSK20K/2K's K1045 D25 on fir_cols_f32 (in turns with
+    fir_stream_f32), the RRC K45 and the FLL's complex K32 band-edge
+    filter on fir_s1_f32, against their plain versions and F.conv1d."""
+    from qradiolink_tpu_torch.chains.psk import QpskDemod
+    from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
+    from qradiolink_tpu_torch.fec.conv import CCSDS_K7
+    from qradiolink_tpu_torch.sync import cuda_costas as cc
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+
+    q = QpskDemod(125_000, 500_000, lead_shape=(N_CH,), device=dev)
+    rows = []
+    x = loop_signal(dev, gen, N_CH, 2 * LOOP_CHECK_T)
+    blocks = [x[:, :LOOP_CHECK_T].contiguous(),
+              x[:, LOOP_CHECK_T:].contiguous()]
+    for order, loop in ((4, q.costas_pll), (2, q.costas)):
+        a = (order, loop.alpha, loop.beta, loop.max_freq)
+        zero = torch.zeros(N_CH, device=dev)
+        chained_equal(
+            f"{cc.OP} order {order}",
+            lambda b, s: cc.costas_loop(b, *s, *a),
+            lambda b, s: (lambda r: (torch.complex(r[0], r[1]), r[2],
+                                     r[3]))(cc.costas_loop_plain(
+                                         b.real, b.imag, *s, *a)),
+            blocks, (zero, zero.clone()), lambda g: g[1:])
+    ss = q.symbol_sync
+    mode = css.MODE_CONJ
+    n_sym = LOOP_CHECK_T // 4
+
+    def sync_args(s, n=n_sym):
+        pos, om, yp, dp, _ = s
+        return (pos, om, yp, dp, n, mode, None, ss.sps, ss.alpha, ss.beta,
+                ss.omega_limit, ss.ted_norm)
+
+    def sync_plain(b, s, n=n_sym):
+        xc = torch.cat([s[4], b], dim=-1)
+        r = css.symbol_sync_plain(xc.real.contiguous(),
+                                  xc.imag.contiguous(), *sync_args(s, n))
+        return (torch.complex(r[0], r[1]),) + r[2:]
+
+    chained_equal(
+        css.OP, lambda b, s: css.symbol_sync(s[4], b, *sync_args(s)),
+        sync_plain, blocks, ss.init_state(),
+        lambda g: (torch.clamp(g[1] - LOOP_CHECK_T, 0.0, ss.tail_len - 2.0),
+                   *g[2:], blocks[0][:, -ss.tail_len:]))
+    soft = torch.clamp(128.0 + 48.0 * torch.view_as_real(
+        loop_signal(dev, gen, N_CH, 2 * VITERBI_CHECK_T)) * 4.0, 0.0, 255.0)
+    vblocks = [soft[:, :VITERBI_CHECK_T].contiguous(),
+               soft[:, VITERBI_CHECK_T:].contiguous()]
+    lag = q.fec_tail.viterbi.lag
+    chained_equal(
+        vsc.OP, lambda b, s: vsc.viterbi_stream(CCSDS_K7, s[0], s[1], b),
+        lambda b, s: vsc.viterbi_stream_plain(CCSDS_K7, s[0], s[1], b),
+        vblocks, (torch.zeros((N_CH, 64), device=dev),
+                  torch.full((N_CH, lag, 2), 128.0, device=dev)),
+        lambda g: (g[0], vblocks[0][:, -lag:].contiguous()))
+    del x, blocks, soft, vblocks
+    torch.cuda.empty_cache()
+
+    # the full shapes of a QPSK250K step
+    T_in = T_STEP // q.resamp.M
+    x = loop_signal(dev, gen, N_CH, T_in)
+    ph = torch.zeros(N_CH, device=dev)
+    pll = (4, q.costas_pll.alpha, q.costas_pll.beta, q.costas_pll.max_freq)
+
+    def costas_plain(xc, a):
+        yr, yi, p, f = cc.costas_loop_plain(xc.real, xc.imag, ph, ph, *a)
+        return torch.complex(yr, yi), p, f
+
+    rows.append(loop_row(
+        f"{cc.OP}/qpsk_pll", "qradiolink_tpu_torch/csrc/costas.cu",
+        "qradiolink_tpu/sync/costas.py:64",
+        lambda: cc.costas_loop(x, ph, ph, *pll),
+        lambda: costas_plain(x, pll),
+        2 * 8 * N_CH * T_in + 16 * N_CH, 60 * N_CH * T_in, "qpsk",
+        cc.shape_key(x, 4)))
+    xs = x[:, :QPSK_SYMS].contiguous()
+    sym = (4, q.costas.alpha, q.costas.beta, q.costas.max_freq)
+    rows.append(loop_row(
+        f"{cc.OP}/qpsk_symbols", "qradiolink_tpu_torch/csrc/costas.cu",
+        "qradiolink_tpu/sync/costas.py:64",
+        lambda: cc.costas_loop(xs, ph, ph, *sym),
+        lambda: costas_plain(xs, sym),
+        2 * 8 * N_CH * QPSK_SYMS + 16 * N_CH, 60 * N_CH * QPSK_SYMS, "qpsk",
+        cc.shape_key(xs, 4)))
+    s0 = ss.init_state()
+    rows.append(loop_row(
+        f"{css.OP}/qpsk", "qradiolink_tpu_torch/csrc/symbol_sync.cu",
+        "qradiolink_tpu/sync/symbol_sync.py:152",
+        lambda: css.symbol_sync(s0[4], x, *sync_args(s0, QPSK_SYMS)),
+        lambda: sync_plain(x, s0, QPSK_SYMS),
+        8 * N_CH * (T_in + QPSK_SYMS), 60 * N_CH * QPSK_SYMS, "qpsk",
+        css.shape_key(N_CH, T_in, QPSK_SYMS, mode)))
+    del x, xs
+    soft = torch.clamp(128.0 + 48.0 * torch.randn(
+        (N_CH, QPSK_SYMS, 2), generator=gen, device=dev) * 2.0, 0.0, 255.0)
+    pm0 = torch.zeros((N_CH, 64), device=dev)
+    tail = torch.full((N_CH, lag, 2), 128.0, device=dev)
+    S = QPSK_SYMS + lag
+    rows.append(loop_row(
+        f"{vsc.OP}/qpsk", "qradiolink_tpu_torch/csrc/viterbi_stream.cu",
+        "qradiolink_tpu/fec/conv.py:217",
+        lambda: vsc.viterbi_stream(CCSDS_K7, pm0, tail, soft),
+        lambda: vsc.viterbi_stream_plain(CCSDS_K7, pm0, tail, soft),
+        N_CH * (8 * S + 2 * 8 * S + QPSK_SYMS + 2 * 4 * 64),
+        10 * 64 * N_CH * S, "qpsk", vsc.shape_key(soft, lag)))
+    del soft
+    torch.cuda.empty_cache()
+
+    k1 = "qradiolink_tpu/ops/pallas_fir.py:218"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rs = q.resamp
+    st = randn(N_CH, 2, rs.kp - 1)
+    rows += fir_row("qpsk250k_head", k1, (randn(N_CH, T_STEP),
+                                          randn(N_CH, T_STEP)),
+                    rs.phase_taps[0], rs.M, T_STEP // rs.M,
+                    (st[:, 0, :], st[:, 1, :]), "qpsk")
+    # the RRC (K45, complex input, 100,000 samples) and the FLL's upper
+    # band-edge filter (32 complex taps over a 500-sample sub-block; the
+    # lower one has the same shape: 4 launches a sub-block)
+    st = randn(N_CH, 2, q.shaping.ntaps - 1)
+    rows += fir_row("qpsk_rrc", "qradiolink_tpu/ops/pallas_fir.py:111",
+                    (randn(N_CH, T_in), randn(N_CH, T_in)),
+                    q.shaping.taps_flipped, 1, T_in,
+                    (st[:, 0, :], st[:, 1, :]), "qpsk")
+    n_sub = T_in // q.fll.sub_block_len(T_in)
+    fll_rows = complex_fir_row(
+        "qpsk_fll_band_edge", "qradiolink_tpu/ops/pallas_fir.py:111",
+        types.SimpleNamespace(ntaps=q.fll.ntaps, tap_planes=q.fll.upper),
+        N_CH, T_in // n_sub, "qpsk", dev, gen)
+    fll_rows[0]["per_step"] = 4 * n_sub
+    rows += fll_rows
+    rs = QpskDemod(10_000, 40_000, lead_shape=(N_CH,), device=dev).resamp
+    st = randn(N_CH, 2, rs.kp - 1)
+    rows += fir_row("qpsk20k_head", k1, (randn(N_CH, T_STEP),
+                                         randn(N_CH, T_STEP)),
+                    rs.phase_taps[0], rs.M, T_STEP // rs.M,
+                    (st[:, 0, :], st[:, 1, :]), "qpsk", on_path=False)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def best_ber_rows(bits, sent, max_offset):
+    """best_ber for every row at once, on the bits' device: the BER of the
+    steady-state segment [n/2, 7n/8) at each alignment 0 .. max_offset-1
+    that fits, the least of them a row."""
+    n = sent.shape[-1]
+    lo, hi = n // 2, (7 * n) // 8
+    ref = sent[:, lo:hi]
+    errs = [(bits[:, o + lo:o + hi] != ref).float().mean(dim=-1)
+            for o in range(max_offset) if o + hi <= bits.shape[-1]]
+    return torch.stack(errs, dim=-1).min(dim=-1).values
+
+
+def ber_report(name, bers):
+    """Prints the rows' steady-state BERs; returns the worst."""
+    worst = float(bers.max())
+    print(f"  {name}: steady-state BER worst {worst:.5f}, mean "
+          f"{float(bers.mean()):.6f} over {bers.numel()} channels",
+          flush=True)
+    return worst
+
+
+def psk_bits(out_steps, key="bits"):
+    return torch.cat([o[key] for o in out_steps], dim=-1)
+
+
+def qpsk_path(dev, gen):
+    """QPSK250K, BASELINE configs[3]: QpskMod(125_000) on the card makes
+    3,125 seeded random bytes a channel a step for 2048 channels (200,000 IQ
+    samples), ChannelModel(1e6) passes them clean (as the JAX test at rate
+    does), and QpskDemod(125_000, 500_000) runs 3 steps with state carried,
+    the counters zeroed just before: the head on fir_cols_f32, the RRC and
+    the FLL's band-edge filters on fir_s1_f32, agc2_gain_f32,
+    costas_loop_f32 twice, symbol_sync_mm_f32 and viterbi_stream_k7, each
+    its count a step; fir_stream_f32 never. BER < 0.01 on the steady-state
+    segment. Then one more step stage by stage and one under
+    torch.profiler; then 3 more steps at SNR 10 dB with a 1 kHz offset,
+    their BER printed. The modulator runs before the counters are zeroed;
+    its launches are counted in psk_tx_path's run. Returns the report."""
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.chains.digital_common import bytes_to_bits
+    from qradiolink_tpu_torch.chains.psk import QpskDemod
+    from qradiolink_tpu_torch.core import IqPair, Sequencer
+    from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
+
+    chain = QpskDemod(125_000, 500_000, lead_shape=(N_CH,), device=dev)
+    data, tx = qpsk_tx(dev, gen, N_CH, N_STEPS)
+    clean = ChannelModel(1_000_000)
+    iqs = []
+    for i in range(N_STEPS):
+        y = clean(tx[i])
+        iqs.append(IqPair(y.real.contiguous(), y.imag.contiguous()))
+        tx[i] = None
+    del tx, y
+    torch.cuda.empty_cache()
+    state, outs, step_s, report = drive(chain, chain.init_state(), iqs,
+                                        QPSK_EVERY_STEP)
+    out = outs[-1]
+    for key, shape, dt in (("bits", (N_CH, QPSK_SYMS), torch.uint8),
+                           ("constellation", (N_CH, QPSK_SYMS),
+                            torch.complex64), ("rssi", (N_CH,),
+                                               torch.float32)):
+        v = out[key]
+        fin = torch.isfinite(torch.view_as_real(v) if v.is_complex()
+                             else v.float()).all()
+        if tuple(v.shape) != shape or v.dtype != dt or not bool(fin):
+            raise RuntimeError(f"qpsk {key}: {tuple(v.shape)} {v.dtype} or "
+                               f"non-finite")
+    fll = chain.fll
+    T_in = T_STEP // chain.resamp.M
+    n_sub = T_in // fll.sub_block_len(T_in)
+    require_shapes(report, {
+        ("fir_cols_f32", f"K{chain.resamp.kp} D2 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{fll.ntaps} D1 tail 2x{N_CH}"): 4 * n_sub,
+        ("agc2_gain_f32", f"{N_CH}x{T_in}"): 1,
+        ("costas_loop_f32", f"order4 {N_CH}x{T_in}"): 1,
+        ("costas_loop_f32", f"order4 {N_CH}x{QPSK_SYMS}"): 1,
+        ("symbol_sync_mm_f32", f"conj {N_CH}x{T_in}->{QPSK_SYMS}"): 1,
+        ("viterbi_stream_k7", f"R{N_CH} T{QPSK_SYMS} lag64"): 1},
+        N_STEPS, "qpsk", never=("fir_stream_f32",))
+    sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
+    ber = ber_report("qpsk clean",
+                     best_ber_rows(psk_bits(outs), sent, 1000))
+    if not ber < 0.01:
+        raise RuntimeError(f"qpsk: BER {ber} is not below 0.01")
+    med = statistics.median([s * 1e3 for s in step_s[1:]])
+    vs = N_CH * T_STEP / med / 1e3 / N_CH
+    print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline {vs:.2f} "
+          f"Msamples/s per channel (printed, not gated)", flush=True)
+
+    iq = iqs[-1]
+    seq = Sequencer(state[:-1])
+    stages = {}
+    x = timed(stages, "resampler 1/2 (fir_cols_f32 K83 D2)",
+              lambda: seq(chain.resamp, iq))
+    timed(stages, "rssi", lambda: rssi_dbm(x))
+    x = timed(stages, f"FLL ({n_sub} sub-blocks, fir_s1_f32 K32 complex)",
+              lambda: seq(chain.fll, x))
+    x = timed(stages, "RRC (fir_s1_f32 K45)", lambda: seq(chain.shaping, x))
+    x = timed(stages, "agc (agc2_gain_f32)", lambda: seq(chain.agc, x))
+    x = timed(stages, "Costas PLL (costas_loop_f32, 100,000)",
+              lambda: seq(chain.costas_pll, x))
+    syms = timed(stages, "symbol sync (symbol_sync_mm_f32)",
+                 lambda: seq(chain.symbol_sync, x))
+    syms = timed(stages, "Costas (costas_loop_f32, 25,000)",
+                 lambda: seq(chain.costas, syms))
+    soft = timed(stages, "differential decode + soft",
+                 lambda: chain.diff_soft(state[-1], syms)[0])
+    timed(stages, "FEC tail (viterbi_stream_k7 + descrambler)",
+          lambda: seq(chain.fec_tail, soft))
+    print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
+          flush=True)
+    trace_step("one more step", lambda: chain(state, iq))
+    del iqs, iq, x, syms, soft, outs
+    torch.cuda.empty_cache()
+
+    # SNR 10 dB, 1 kHz offset, no gate
+    data, tx = qpsk_tx(dev, gen, N_CH, N_STEPS)
+    noisy = ChannelModel(1_000_000, snr_db=10.0, freq_offset_hz=1000.0)
+    st, bits = chain.init_state(), []
+    for i in range(N_STEPS):
+        y = noisy(tx[i])
+        tx[i] = None
+        st, o = chain(st, IqPair(y.real.contiguous(), y.imag.contiguous()))
+        bits.append(o["bits"])
+        del y
+    sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
+    ber_report("qpsk at 10 dB, 1 kHz offset (not gated)",
+               best_ber_rows(torch.cat(bits, dim=-1), sent, 1000))
+    torch.cuda.empty_cache()
+    return report
+
+
+def bpsk_path(dev, gen):
+    """BPSK2K at 2048 channels: BpskMod on the card, 25 seeded bytes a
+    channel a step (200,000 IQ samples), clean; BpskDemod over BPSK_STEPS
+    steps with state carried, each step's IQ made just before it (the
+    modulator's launches count too), the counters zeroed before the first:
+    the head on fir_decim_f32, the RRC and the FLL's filters on fir_s1_f32,
+    agc2_gain_f32, symbol_sync_mm_f32, costas_loop_f32 (order 2) and
+    viterbi_stream_k7 (the delay-diversity pair, 2 x 2048 rows), each its
+    count a step, and the modulator's two interpolators on resample_up_f32
+    (their rows come from psk_tx_path's run). The better of bits /
+    bits_alt at BER < 0.01. Returns the report."""
+    from qradiolink_tpu_torch.chains.digital_common import bytes_to_bits
+    from qradiolink_tpu_torch.chains.psk import BpskDemod, BpskMod
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    mod = BpskMod(lead_shape=(N_CH,), device=dev)
+    chain = BpskDemod(lead_shape=(N_CH,), device=dev)
+    mst, st = mod.init_state(), chain.init_state()
+    data, outs, step_s = [], [], []
+    kernel_paths.reset()
+    for i in range(BPSK_STEPS):
+        d = torch.randint(0, 256, (N_CH, BPSK_BYTES), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.uint8)
+        mst, tx = mod(mst, d)
+        iq = IqPair(tx["iq"].real.contiguous(), tx["iq"].imag.contiguous())
+        del tx
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, out = chain(st, iq)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        data.append(d)
+        outs.append(out)
+    report = kernel_paths.report()
+    print(f"  kernel paths over {BPSK_STEPS} steps (modulator included): "
+          f"{json.dumps(report)}", flush=True)
+    if not kernel_paths.served_only():
+        raise RuntimeError("bpsk: a stage took the plain path on the card")
+    T_in = T_STEP // chain.resamp.M
+    n_sym = T_in // chain.sps
+    n_sub = T_in // chain.fll.sub_block_len(T_in)
+    require_shapes(report, {
+        ("resample_up_f32", f"L10 K{mod.shaper.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_up_f32", f"L50 K{mod.up.kp} D1 tail 2x{N_CH}"): 1,
+        ("fir_decim_f32", f"K{chain.resamp.kp} D50 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{chain.fll.ntaps} D1 tail 2x{N_CH}"): 4 * n_sub,
+        ("agc2_gain_f32", f"{N_CH}x{T_in}"): 1,
+        ("symbol_sync_mm_f32", f"conj {N_CH}x{T_in}->{n_sym}"): 1,
+        ("costas_loop_f32", f"order2 {N_CH}x{n_sym}"): 1,
+        ("viterbi_stream_k7", f"R{2 * N_CH} T{n_sym // 2} lag64"): 1},
+        BPSK_STEPS, "bpsk", never=("fir_stream_f32",))
+    sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
+    # a channel decodes on one of the two delay-diversity pairings
+    ber = ber_report("bpsk, the better of bits and bits_alt", torch.minimum(
+        best_ber_rows(psk_bits(outs), sent, 400),
+        best_ber_rows(psk_bits(outs, "bits_alt"), sent, 400)))
+    if not ber < 0.01:
+        raise RuntimeError(f"bpsk: BER {ber} is not below 0.01")
+    print(f"  {step_times(step_s, N_CH * T_STEP)}", flush=True)
+    return report
+
+
+def psk_tx_path(dev, gen):
+    """The PSK modulators at 2048 channels, N_STEPS steps with state
+    carried and the counters zeroed just before: QpskMod(125_000) on 3,125
+    seeded random bytes a channel a step and BpskMod on 25, 200,000 IQ
+    samples a channel out of each. QpskMod's RRC interpolator (L4) and
+    BpskMod's two (L10, L50) on resample_up_f32, QpskMod's x2 (L2) on
+    resample_poly_f32, once each a step. Returns (the report, the
+    modulators)."""
+    from qradiolink_tpu_torch.chains.psk import BpskMod, QpskMod
+
+    qm = QpskMod(125_000, lead_shape=(N_CH,), device=dev)
+    bm = BpskMod(lead_shape=(N_CH,), device=dev)
+    data = [tuple(torch.randint(0, 256, (N_CH, n), generator=gen, device=dev,
+                                dtype=torch.int64).to(torch.uint8)
+                  for n in (QPSK_BYTES, BPSK_BYTES)) for _ in range(N_STEPS)]
+
+    def step(states, d):
+        s1, o1 = qm(states[0], d[0])
+        s2, o2 = bm(states[1], d[1])
+        return (s1, s2), (o1["iq"], o2["iq"])
+
+    _, outs, step_s, report = drive(
+        step, (qm.init_state(), bm.init_state()), data,
+        ("resample_up_f32", "resample_poly_f32"))
+    for name, v in zip(("qpsk", "bpsk"), outs[-1]):
+        if tuple(v.shape) != (N_CH, T_STEP) or v.dtype != torch.complex64 \
+                or not bool(torch.isfinite(torch.view_as_real(v)).all()):
+            raise RuntimeError(f"psk tx {name} iq: wrong shape, dtype or "
+                               f"non-finite")
+    del outs
+    torch.cuda.empty_cache()
+    require_shapes(report, {
+        ("resample_up_f32", f"L4 K{qm.shaper.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_poly_f32", f"L2 K{qm.up.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_up_f32", f"L10 K{bm.shaper.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_up_f32", f"L50 K{bm.up.kp} D1 tail 2x{N_CH}"): 1},
+        N_STEPS, "psk_tx")
+    print(f"  {step_times(step_s, 2 * N_CH * T_STEP)} (IQ samples out of "
+          f"both modulators)", flush=True)
+    return report, (qm, bm)
+
+
+def psk_tx_rows(mods, dev, gen):
+    """The PSK modulators' interpolators at the shapes psk_tx_path gives
+    them (complex symbols, two planes), each against its plain version."""
+    qm, bm = mods
+    n_sym = 8 * QPSK_BYTES      # rate-1/2 coded dibits a step
+    n_bit = 16 * BPSK_BYTES     # rate-1/2 coded bits a step
+    rows = poly_row("qpsk_tx_rrc", qm.shaper, 2, N_CH, n_sym, "psk_tx", dev,
+                    gen)
+    rows += poly_row("qpsk_tx_up", qm.up, 2, N_CH, n_sym * qm.sps, "psk_tx",
+                     dev, gen)
+    rows += poly_row("bpsk_tx_rrc", bm.shaper, 2, N_CH, n_bit, "psk_tx", dev,
+                     gen)
+    rows += poly_row("bpsk_tx_up", bm.up, 2, N_CH, n_bit * bm.sps, "psk_tx",
+                     dev, gen)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def qpsk_capture_phase(dev):
+    """The frozen QPSK250K capture (scripts/make_qpsk_capture.py) in two
+    blocks of 40,000 samples through QpskDemod(125_000, 500_000) on the
+    card (each loop kernel once a block) and on the port's CPU path: the
+    bits equal, the BER against the payload below 0.01."""
+    from qradiolink_tpu_torch.chains.digital_common import bytes_to_bits
+    from qradiolink_tpu_torch.chains.psk import QpskDemod
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    data = np.load(QPSK_FIXTURE)
+    re = data["iq_re"].astype(np.float32)[None, :]
+    im = data["iq_im"].astype(np.float32)[None, :]
+    half = re.shape[1] // 2
+    cpu = torch.device("cpu")
+    chains = {d.type: QpskDemod(125_000, 500_000, lead_shape=(1,), device=d)
+              for d in (dev, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    bits = {k: [] for k in chains}
+    err = 0.0
+    kernel_paths.reset()
+    for sl in (slice(0, half), slice(half, 2 * half)):
+        outs = {}
+        for d in (dev, cpu):
+            iq = IqPair(torch.from_numpy(re[:, sl].copy()).to(d),
+                        torch.from_numpy(im[:, sl].copy()).to(d))
+            states[d.type], outs[d.type] = chains[d.type](states[d.type], iq)
+            bits[d.type].append(outs[d.type]["bits"].cpu())
+        err = max(err, float((outs[dev.type]["constellation"].cpu()
+                              - outs["cpu"]["constellation"]).abs().max()))
+    rep = kernel_paths.report()
+    for op in ("costas_loop_f32", "symbol_sync_mm_f32", "viterbi_stream_k7"):
+        if rep.get(op, {}).get("cuda", 0) < 2:
+            raise RuntimeError(f"qpsk capture: {op} did not launch on the "
+                               f"card: {json.dumps(rep)}")
+    card, host = torch.cat(bits[dev.type], -1), torch.cat(bits["cpu"], -1)
+    if not torch.equal(card, host):
+        raise RuntimeError(f"qpsk capture: {int((card != host).sum())} bits "
+                           f"differ between the card and the CPU")
+    sent = bytes_to_bits(torch.from_numpy(data["payload"])).numpy()
+    ber = best_ber(card[0].numpy(), sent, 1000)
+    if not ber < 0.01:
+        raise RuntimeError(f"qpsk capture: BER {ber}")
+    print(f"  {QPSK_FIXTURE.name}: 2 blocks of {half}; {card.shape[-1]} bits "
+          f"equal on the card and the CPU, BER {ber:.4f}; constellation "
+          f"card vs CPU max |diff| {err:.3e}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1745,10 +2342,13 @@ def main() -> int:
     # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
     # resample_up_f32 keep their rings in registers, viterbi_bfly_k7 its
     # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
-    # resample_poly_f32 and agc2_gain_f32 their loads in flight
+    # resample_poly_f32 and agc2_gain_f32 their loads in flight, the PSK
+    # loops (costas_loop_f32, symbol_sync_mm_f32, viterbi_stream_k7) their
+    # state
     for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
                  "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
-                 "resample_up", "agc2"):
+                 "resample_up", "agc2", "costas", "symbol_sync",
+                 "viterbi_stream"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -1808,12 +2408,29 @@ def main() -> int:
     print("analog loopbacks on the card:", flush=True)
     loopback_phase(dev)
 
+    print("PSK kernels against their plain versions:", flush=True)
+    rows += psk_rows(dev, gen)
+    print(f"QPSK250K path: QpskDemod(125_000, 500_000) {N_CH} ch x {T_STEP} "
+          f"samples, {N_STEPS} steps", flush=True)
+    reports["qpsk"] = qpsk_path(dev, gen)
+    print(f"BPSK2K path: BpskDemod {N_CH} ch x {T_STEP} samples, "
+          f"{BPSK_STEPS} steps", flush=True)
+    reports["bpsk"] = bpsk_path(dev, gen)
+    torch.cuda.empty_cache()
+    print("frozen QPSK250K capture, card against CPU:", flush=True)
+    qpsk_capture_phase(dev)
+    print(f"PSK TX path: QpskMod(125_000) + BpskMod {N_CH} ch, {T_STEP} IQ "
+          f"samples a step each, {N_STEPS} steps", flush=True)
+    reports["psk_tx"], mods = psk_tx_path(dev, gen)
+    rows += psk_tx_rows(mods, dev, gen)
+
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks,
     # none for the one it replaced (a row with no path)
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS,
              "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS,
-             "am_tx": N_STEPS}
+             "am_tx": N_STEPS, "qpsk": N_STEPS, "bpsk": BPSK_STEPS,
+             "psk_tx": N_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")
         per_step = r.pop("per_step", 1)

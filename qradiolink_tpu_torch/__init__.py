@@ -13,7 +13,7 @@ This package imports torch and never jax, and nothing of qradiolink_tpu.
 Ported so far (slice 1, the 4FSK feedforward RX chain
 `chains.fsk.Fsk4DemodFF`; slice 2, the mixed 64-channel receiver
 `parallel.sharding.MultichannelRx` with `chains.nbfm.NbfmDemod`; slice 3,
-the analog voice chains):
+the analog voice chains; slice 4, the PSK modems):
   core        blocks, IqPair, state trees and npz snapshots
   ops/        firdes, fir (FirFilter, conv1d_valid; real or complex taps),
               resample (with the default Kaiser taps), analog
@@ -24,11 +24,17 @@ the analog voice chains):
               channelizer (PfbChannelizer, PfbSynthesizer), and the
               kernels cuda_fir, cuda_resample, cuda_agc, cuda_depthwise,
               cuda_pfb
-  sync/       feedforward (FeedforwardSymbolSync)
-  fec/        conv (ConvCode), conv_ff (TiledViterbi), scrambler
-              (Descrambler), viterbi_cuda (kernel)
-  chains/     digital_common (RxFecTailFF), fsk (Fsk4DemodFF), nbfm
-              (NbfmDemod, NbfmMod), ssb (SsbDemod, SsbMod), am (AmDemod,
-              AmMod), wbfm (WbfmDemod), channel (ChannelModel)
+  sync/       feedforward (FeedforwardSymbolSync), costas (CostasLoop),
+              symbol_sync (SymbolSync), fll (FllBandEdge), slicer, and
+              the kernels cuda_costas, cuda_symbol_sync
+  fec/        conv (ConvCode, viterbi_decode, StreamingViterbi,
+              depuncture), conv_ff (TiledViterbi), scrambler (Scrambler,
+              Descrambler), and the kernels viterbi_cuda,
+              viterbi_stream_cuda
+  chains/     digital_common (TxFecHead, RxFecTail, RxFecTailFF), fsk
+              (Fsk4DemodFF), psk (BpskDemod, BpskMod, QpskDemod,
+              QpskMod), nbfm (NbfmDemod, NbfmMod), ssb (SsbDemod,
+              SsbMod), am (AmDemod, AmMod), wbfm (WbfmDemod), channel
+              (ChannelModel)
   parallel/   sharding (MultichannelRx, one card)
 """

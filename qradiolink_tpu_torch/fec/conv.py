@@ -1,16 +1,22 @@
-"""Convolutional code tables and encoder (port of ConvCode, CCSDS_K7 and
-conv_encode in qradiolink_tpu/fec/conv.py).
+"""Convolutional coding (port of qradiolink_tpu/fec/conv.py): code tables,
+the encoder, the soft-decision Viterbi decoder, its streaming form and
+depuncturing.
 
 CCSDS K=7 r=1/2 with GNU Radio's cc_encoder bit ordering (polys {109, 79},
 bit-reversed relative to the classic {0o133, 0o171}; the LSB of a
 polynomial taps the newest bit). Soft decisions are floats in [0, 255],
-128 an erasure.
+128 an erasure. `viterbi_decode` and `StreamingViterbi` run the ACS and
+traceback of fec/viterbi_stream_cuda.py: on CUDA tensors the kernel
+`viterbi_stream_k7`, on CPU tensors its plain loop.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from qradiolink_tpu_torch.core import resolve_device
+from qradiolink_tpu_torch.fec.viterbi_stream_cuda import viterbi_stream
 
 
 def _parity(x: np.ndarray) -> np.ndarray:
@@ -60,9 +66,17 @@ def conv_encode(code: ConvCode, bits: torch.Tensor,
     """bits (..., T) {0,1} -> coded (..., T*n), streams interleaved per
     input bit."""
     K = code.K
-    T = bits.shape[-1]
     hist = torch.tensor([(init_state >> i) & 1 for i in range(K - 1)][::-1],
                         dtype=bits.dtype, device=bits.device)
+    return encode_after(code, bits, hist)
+
+
+def encode_after(code: ConvCode, bits: torch.Tensor,
+                 hist: torch.Tensor) -> torch.Tensor:
+    """conv_encode of bits (..., T) after the K-1 bits hist (oldest first;
+    (K-1,) or (..., K-1)): the XOR of shifted bit streams a polynomial."""
+    K = code.K
+    T = bits.shape[-1]
     hist = hist.expand(tuple(bits.shape[:-1]) + (K - 1,))
     bx = torch.cat([hist, bits], dim=-1)
     outs = []
@@ -74,3 +88,86 @@ def conv_encode(code: ConvCode, bits: torch.Tensor,
         outs.append(acc)
     return torch.stack(outs, dim=-1).reshape(tuple(bits.shape[:-1])
                                              + (T * code.n,))
+
+
+def viterbi_decode(code: ConvCode, soft: torch.Tensor,
+                   start_metric: torch.Tensor | None = None):
+    """Soft Viterbi decode: soft (..., T, n) in [0, 255] (255 a confident
+    1, 0 a confident 0, 128 an erasure) -> (bits (..., T) uint8, final
+    metrics (..., num_states)). The traceback starts at the best end
+    state; start_metric pins the start metrics (zeros by default)."""
+    ns = code.num_states
+    lead = tuple(soft.shape[:-2])
+    T = soft.shape[-2]
+    x = soft.float().reshape((-1, T, code.n))
+    B = x.shape[0]
+    if start_metric is None:
+        pm0 = torch.zeros((B, ns), dtype=torch.float32, device=soft.device)
+    else:
+        pm0 = start_metric.float().reshape((-1, ns)).expand(B, ns)
+    tail = x.new_empty((B, 0, code.n))
+    pm, bits = viterbi_stream(code, pm0, tail, x)
+    return bits.reshape(lead + (T,)), pm.reshape(lead + (ns,))
+
+
+class StreamingViterbi:
+    """Continuous Viterbi with carried path metrics and delayed decisions:
+    each call consumes T soft pairs and emits T bits, delayed by `lag`
+    symbols (the traceback depth). State: (metrics (..., ns) f32 at the
+    emission horizon, the `lag` pending soft pairs (..., lag, n) f32), so
+    the output does not depend on how the stream is blocked."""
+
+    def __init__(self, code: ConvCode = None, lag: int = 64,
+                 lead_shape: tuple = (), device=None):
+        self.code = code or CCSDS_K7
+        self.lag = int(lag)
+        self.lead_shape = tuple(lead_shape)
+        self.device = resolve_device(device)
+
+    def init_state(self):
+        ns = self.code.num_states
+        pm = torch.zeros(self.lead_shape + (ns,), dtype=torch.float32,
+                         device=self.device)
+        tail = torch.full(self.lead_shape + (self.lag, self.code.n), 128.0,
+                          dtype=torch.float32, device=self.device)
+        return (pm, tail)
+
+    def __call__(self, state, soft):
+        """soft: (..., T, n) -> bits (..., T) uint8 (delayed by lag)."""
+        pm0, tail = state
+        lead = tuple(soft.shape[:-2])
+        T, n = soft.shape[-2], self.code.n
+        ns = self.code.num_states
+        x = soft.float().reshape((-1, T, n))
+        tb = tail.reshape((-1, self.lag, n))
+        pm1, bits = viterbi_stream(self.code, pm0.reshape((-1, ns)), tb, x)
+        # the new pending pairs: the last lag of [tail | soft]
+        if T >= self.lag:
+            new_tail = x[:, T - self.lag:].clone()
+        else:
+            new_tail = torch.cat([tb[:, T:], x], dim=1)
+        return ((pm1.reshape(lead + (ns,)),
+                 new_tail.reshape(lead + (self.lag, n))),
+                bits.reshape(lead + (T,)))
+
+
+def depuncture(soft: torch.Tensor, pattern, n: int = 2) -> torch.Tensor:
+    """Insert neutral (128) soft values at punctured positions.
+
+    pattern: 0/1 over the coded-bit cycle (1 = transmitted). soft: (..., Tp)
+    received soft bits; returns (..., Tc // n, n) with Tc = Tp *
+    len(pattern) / sum(pattern)."""
+    pat = np.asarray(pattern, dtype=bool)
+    kept = int(pat.sum())
+    Tp = soft.shape[-1]
+    if Tp % kept != 0:
+        raise ValueError(
+            "soft length not a multiple of puncture pattern keeps")
+    lead = tuple(soft.shape[:-1])
+    cycles = Tp // kept
+    Tc = cycles * pat.size
+    out = torch.full(lead + (cycles, pat.size), 128.0, dtype=soft.dtype,
+                     device=soft.device)
+    idx = torch.from_numpy(np.nonzero(pat)[0]).to(soft.device)
+    out[..., idx] = soft.reshape(lead + (cycles, kept))
+    return out.reshape(lead + (Tc // n, n))

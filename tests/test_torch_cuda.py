@@ -14,7 +14,10 @@ output's peak, the JAX package's bound for it, with its carried state
 bit-equal; the Viterbi and the AGC's gain recurrence bit-exact; the
 rational resampler's two kernels bit-equal to each other; the analog
 chains on the card within 1e-5 of each output's and state leaf's peak of
-the same chain on the CPU (their FIRs' bound), rssi within 1e-4 dB.
+the same chain on the CPU (their FIRs' bound), rssi within 1e-4 dB; the
+PSK chains' loop kernels (the Costas loop, the M&M symbol sync, the
+streaming Viterbi) bit-equal to their plain loops over two chained blocks,
+every output and state leaf.
 """
 
 import pathlib
@@ -32,7 +35,9 @@ from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.chains.ssb import SsbDemod  # noqa: E402
 from qradiolink_tpu_torch.chains.wbfm import WbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair, _flatten  # noqa: E402
-from qradiolink_tpu_torch.fec.conv import CCSDS_K7  # noqa: E402
+from qradiolink_tpu_torch.chains.psk import QpskMod  # noqa: E402
+from qradiolink_tpu_torch.fec.conv import CCSDS_K7, conv_encode  # noqa: E402
+from qradiolink_tpu_torch.fec import viterbi_stream_cuda  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
     decode_stream, decode_stream_plain, decode_stream_tiled, decode_windows,
     decode_windows_plain)
@@ -52,6 +57,8 @@ from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
     phase_offsets, resample_poly, resample_poly_plain)
 from qradiolink_tpu_torch.ops.fir import FirFilter  # noqa: E402
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
+from qradiolink_tpu_torch.sync import cuda_costas  # noqa: E402
+from qradiolink_tpu_torch.sync import cuda_symbol_sync  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -915,3 +922,144 @@ def test_analog_chain_on_card_matches_cpu(cuda, gen, chain):
         for i, (a, b) in enumerate(zip(_flatten(states["cuda"], []),
                                        _flatten(states["cpu"], []))):
             _assert_peak_close(a.cpu(), b, what=f"state leaf {i}")
+
+
+# -- the PSK chains' loop kernels ---------------------------------------------
+
+def qpsk_signal(dev, C, T, seed=0, offset_hz=1000.0, noise=0.05):
+    """C rows of T complex64 samples of QPSK250K from the port's QpskMod
+    (1 Msps), with a carrier offset and seeded noise, the first 200
+    samples scaled to ~1e-20 (the denormal trap)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n_bytes = -(-T // 64)  # 64 samples a byte at QPSK250K
+    mod = QpskMod(125_000, lead_shape=(C,), device=dev)
+    data = torch.randint(0, 256, (C, n_bytes), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.uint8)
+    iq = mod(mod.init_state(), data)[1]["iq"][:, :T]
+    t = torch.arange(T, device=dev, dtype=torch.float64)
+    rot = torch.exp(1j * (2 * np.pi * offset_hz / 1e6 * t)).to(
+        torch.complex64)
+    iq = iq * rot + noise * torch.randn((C, T), generator=g, device=dev,
+                                        dtype=torch.complex64)
+    iq[:, :200] *= 1e-20
+    return iq.contiguous()
+
+
+# (rows, samples a block): the QPSK250K widths in miniature, a ragged row
+# block, a block shorter than one staging tile, one sample
+COSTAS_CASES = {"wide": (2048, 2000), "ragged": (45, 300),
+                "short": (33, 17), "one_sample": (3, 1)}
+
+
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("name", sorted(COSTAS_CASES))
+def test_costas_kernel_equals_plain(cuda, name, order):
+    """Two chained blocks: y and the carried phase and frequency equal bit
+    for bit to the plain loop's, one launch a block."""
+    C, T = COSTAS_CASES[name]
+    x = qpsk_signal(cuda, C, 2 * T + 200)[:, 200 - (2 * T) % 7:]
+    alpha, beta = 0.0786, 0.00309
+    ph = torch.zeros(C, device=cuda)
+    fr = torch.zeros(C, device=cuda)
+    for blk in range(2):
+        xb = x[:, blk * T:(blk + 1) * T].contiguous()
+        kernel_paths.reset()
+        y, ph2, fr2 = cuda_costas.costas_loop(xb, ph, fr, order, alpha, beta,
+                                              1.0)
+        assert kernel_paths.launches(cuda_costas.OP) == 1
+        yr, yi, ph_p, fr_p = cuda_costas.costas_loop_plain(
+            xb.real, xb.imag, ph, fr, order, alpha, beta, 1.0)
+        assert torch.equal(y.real, yr) and torch.equal(y.imag, yi)
+        assert torch.equal(ph2, ph_p) and torch.equal(fr2, fr_p)
+        ph, fr = ph2, fr2
+
+
+# name: (rows, samples a block, sps, mode)
+SYNC_CASES = {"qpsk_wide": (2048, 800, 4, "conj"),
+              "qpsk_ragged": (45, 400, 4, "conj"),
+              "bpsk_sps10": (33, 500, 10, "conj"),
+              "short": (5, 8, 4, "conj"),
+              "sign_real": (40, 400, 4, "sign"),
+              "levels_real": (40, 400, 4, "levels"),
+              "levels_complex": (7, 200, 4, "levels")}
+
+
+def _sync_args(mode, sps, x):
+    from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync
+
+    lv = (-1.5, -0.5, 0.5, 1.5) if mode == "levels" else None
+    return SymbolSync(sps, decisions=lv, lead_shape=(x.shape[0],),
+                      device=x.device)
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_CASES))
+def test_symbol_sync_kernel_equals_plain(cuda, name):
+    """Two chained blocks through SymbolSync's loop: the symbols and every
+    state leaf of the kernel equal to the plain loop's on the same
+    inputs, one launch a block."""
+    C, T, sps, mode = SYNC_CASES[name]
+    x = qpsk_signal(cuda, C, 2 * T + 200, offset_hz=0.0)[:, 200:]
+    if mode != "conj":
+        x = x.real.contiguous() * (2.0 if mode == "levels" else 1.0)
+        if name == "levels_complex":
+            x = x.to(torch.complex64)
+    ss = _sync_args(mode, sps, x)
+    m = cuda_symbol_sync.mode_of(torch.is_complex(x), ss.levels)
+    st = ss.init_state()
+    for blk in range(2):
+        xb = x[:, blk * T:(blk + 1) * T].contiguous()
+        pos, omega, yp, dp, tail = st
+        args = (tail, xb, pos, omega, yp, dp, int(round(T / sps)), m,
+                ss.levels, ss.sps, ss.alpha, ss.beta, ss.omega_limit,
+                ss.ted_norm)
+        kernel_paths.reset()
+        got = cuda_symbol_sync.symbol_sync(*args)
+        assert kernel_paths.launches(cuda_symbol_sync.OP) == 1
+        xc = torch.cat([tail, xb.to(torch.complex64)], dim=-1)
+        want = cuda_symbol_sync.symbol_sync_plain(
+            xc.real.contiguous(), xc.imag.contiguous(), *args[2:])
+        assert torch.equal(got[0].real, want[0])
+        assert torch.equal(got[0].imag, want[1])
+        for a, b in zip(got[1:], want[2:]):
+            assert torch.equal(a, b)
+        st, _ = ss(st, xb)
+
+
+# name: (rows, pairs a block, lag); lag 0 is viterbi_decode's form
+VITERBI_STREAM_CASES = {"wide": (2048, 500, 64), "ragged": (45, 100, 64),
+                        "block_below_lag": (3, 30, 64),
+                        "decode": (33, 77, 0), "one_pair": (1, 1, 64)}
+
+
+def viterbi_soft(dev, B, T, seed=0):
+    """Noisy non-integer soft pairs of a CCSDS-coded random stream, in
+    [0, 255]."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bits = torch.randint(0, 2, (B, T), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.uint8)
+    coded = conv_encode(CCSDS_K7, bits).float()
+    soft = 128.0 + 90.0 * (2.0 * coded - 1.0) + 60.0 * torch.randn(
+        coded.shape, generator=g, device=dev)
+    return torch.clamp(soft, 0.0, 255.0).reshape(B, T, 2).contiguous()
+
+
+@pytest.mark.parametrize("name", sorted(VITERBI_STREAM_CASES))
+def test_viterbi_stream_kernel_equals_plain(cuda, name):
+    """Two chained blocks: bits and the carried path metrics equal bit for
+    bit to the plain loop's, one launch a block."""
+    B, T, lag = VITERBI_STREAM_CASES[name]
+    soft = viterbi_soft(cuda, B, 2 * T)
+    pm = torch.zeros((B, 64), device=cuda)
+    tail = torch.full((B, lag, 2), 128.0, device=cuda)
+    for blk in range(2):
+        sb = soft[:, blk * T:(blk + 1) * T].contiguous()
+        kernel_paths.reset()
+        pm1, bits = viterbi_stream_cuda.viterbi_stream(CCSDS_K7, pm, tail, sb)
+        assert kernel_paths.launches(viterbi_stream_cuda.OP) == 1
+        want_pm, want_bits = viterbi_stream_cuda.viterbi_stream_plain(
+            CCSDS_K7, pm, tail, sb)
+        assert torch.equal(bits, want_bits) and torch.equal(pm1, want_pm)
+        pm = pm1
+        tail = torch.cat([tail, sb], dim=1)[:, T:].contiguous()

@@ -1,0 +1,364 @@
+"""The PSK chains' loops of the port against the JAX package's on the CPU:
+CostasLoop (orders 2 and 4), SymbolSync (complex sign decisions, real
+levels, real sign decisions) and FllBandEdge, and numpy models of the
+loop kernels `costas_loop_f32` (csrc/costas.cu) and `symbol_sync_mm_f32`
+(csrc/symbol_sync.cu) against their plain loops.
+
+Each block is fed a short QPSK-like signal, locked or nearly so, whose
+first samples are ~1e-20 (the denormal trap: XLA flushes denormals,
+PyTorch does not), and streamed in two blocks; every output and state leaf
+is compared after each block. Bounds, elementwise |port - jax| <= atol +
+rtol |jax|:
+  * CostasLoop 1e-5 / 1e-5: XLA's sin/cos on the CPU differ from
+    PyTorch's in the last bit (measured 1.6e-6 on outputs of peak 1.2);
+  * SymbolSync 1e-6 / 1e-6: XLA sums the interpolator's four products in
+    another order (1 ulp, measured 1.8e-7); the position and clock agree;
+  * FllBandEdge 2e-5 / 1e-5: |u|^2 and the sub-block means round apart,
+    and the frequency's difference accumulates into the phase (measured
+    4.1e-6 after two blocks of 5,000).
+Downstream, these bounds leave the decoded bits equal (tests/
+test_torch_psk.py). The kernels' models are held to the plain loops bit
+for bit, as the kernels are on the card (tests/test_torch_cuda.py).
+"""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from qradiolink_tpu.sync.costas import CostasLoop as JaxCostas  # noqa: E402
+from qradiolink_tpu.sync.fll import FllBandEdge as JaxFll  # noqa: E402
+from qradiolink_tpu.sync.symbol_sync import SymbolSync as JaxSync  # noqa: E402
+from qradiolink_tpu_torch.sync import (cuda_costas,  # noqa: E402
+                                       cuda_symbol_sync)
+from qradiolink_tpu_torch.sync.costas import CostasLoop  # noqa: E402
+from qradiolink_tpu_torch.sync.fll import FllBandEdge  # noqa: E402
+from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync  # noqa: E402
+from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
+from tests.torch_parity import stream_both  # noqa: E402
+
+CSRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
+        / "csrc")
+LEVELS4 = (-1.5, -0.5, 0.5, 1.5)
+
+
+def qpsk_like(rng, C, n_sym, sps, offset=0.0, noise=0.05, tiny=100):
+    """QPSK symbols held for sps samples, smoothed by a sps-tap moving
+    average, rotated by `offset` rad/sample, with noise; the first `tiny`
+    samples scaled to ~1e-20."""
+    syms = (np.sign(rng.standard_normal((C, n_sym)))
+            + 1j * np.sign(rng.standard_normal((C, n_sym)))) / np.sqrt(2)
+    x = np.repeat(syms, sps, axis=1)
+    k = np.ones(sps) / sps
+    x = np.stack([np.convolve(r, k)[:x.shape[1]] for r in x])
+    x = x * np.exp(1j * offset * np.arange(x.shape[1]))
+    x = x + noise * (rng.standard_normal(x.shape)
+                     + 1j * rng.standard_normal(x.shape))
+    x = x.astype(np.complex64)
+    x[:, :tiny] *= 1e-20
+    return x
+
+
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("offset", [0.0, 0.01])
+def test_costas_streamed(rng, order, offset):
+    x = qpsk_like(rng, 3, 250, 4, offset=offset)
+    blocks = np.split(x, 2, axis=-1)
+    stream_both(JaxCostas(np.pi / 200, order, lead_shape=(3,)),
+                CostasLoop(np.pi / 200, order, lead_shape=(3,),
+                           device="cpu"),
+                blocks, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["complex_sign", "real_levels",
+                                     "real_sign"])
+def test_symbol_sync_streamed(rng, variant):
+    """The three decision variants, sps 4, two blocks of 400 samples."""
+    x = qpsk_like(rng, 3, 200, 4)
+    lv = None
+    if variant == "real_levels":
+        lv = LEVELS4
+        x = np.repeat(rng.choice(LEVELS4, (3, 200)), 4, axis=1).astype(
+            np.float32) + 0.02 * rng.standard_normal((3, 800)).astype(
+            np.float32)
+        x[:, :50] *= 1e-20
+    elif variant == "real_sign":
+        x = np.ascontiguousarray(x.real)
+    stream_both(JaxSync(4, decisions=lv, lead_shape=(3,)),
+                SymbolSync(4, decisions=lv, lead_shape=(3,), device="cpu"),
+                np.split(x, 2, axis=-1), rtol=1e-6, atol=1e-6)
+
+
+def test_symbol_sync_bpsk_gains(rng):
+    """BpskDemod's sync: sps 10, gain_mu 0.05, gain_omega 2.5e-5, omega
+    limit 0.001, the clock started off nominal by the signal's rate."""
+    x = qpsk_like(rng, 2, 100, 10)[:, 3:3 + 900]
+    kw = dict(gain_mu=0.05, gain_omega=2.5e-5, omega_limit=0.001,
+              lead_shape=(2,))
+    stream_both(JaxSync(10, **kw), SymbolSync(10, device="cpu", **kw),
+                np.split(x, 3, axis=-1), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["complex", "pair"])
+def test_fll_streamed(rng, kind):
+    """QPSK250K's FLL (sps 4, 32 taps, loop bandwidth 2 pi/100) pulling in
+    an offset of 0.05 rad/sample over two blocks of 5,000 (10 sub-blocks
+    of 500 each)."""
+    x = qpsk_like(rng, 3, 2500, 4, offset=0.05)
+    blocks = np.split(x, 2, axis=-1)
+    if kind == "pair":
+        blocks = [(b.real.copy(), b.imag.copy()) for b in blocks]
+    (js, ts), _ = stream_both(
+        JaxFll(4, 0.35, 32, 2 * np.pi / 100, lead_shape=(3,)),
+        FllBandEdge(4, 0.35, 32, 2 * np.pi / 100, lead_shape=(3,),
+                    device="cpu"),
+        blocks, rtol=1e-5, atol=2e-5)
+    assert np.all(ts[1].numpy() > 0.002)  # pulling toward the offset
+
+
+def test_fll_odd_block_length(rng):
+    """A block length with no divisor near the sub-block (1,250: 250-sample
+    sub-blocks), as the JAX block picks it."""
+    x = qpsk_like(rng, 2, 625, 4, offset=0.02)
+    stream_both(JaxFll(4, 0.35, 32, 2 * np.pi / 100, lead_shape=(2,)),
+                FllBandEdge(4, 0.35, 32, 2 * np.pi / 100, lead_shape=(2,),
+                            device="cpu"),
+                np.split(x, 2, axis=-1), rtol=1e-5, atol=2e-5)
+
+
+def test_loops_record_the_plain_path_on_cpu(rng):
+    x = torch.from_numpy(qpsk_like(rng, 3, 10, 4))
+    kernel_paths.reset()
+    c = CostasLoop(0.01, 4, lead_shape=(3,), device="cpu")
+    c(c.init_state(), x)
+    s = SymbolSync(4, lead_shape=(3,), device="cpu")
+    s(s.init_state(), x)
+    rep = kernel_paths.report()
+    assert rep[cuda_costas.OP] == {"cuda": 0, "plain": 1,
+                                   "shapes": {"plain order4 3x40": 1}}
+    assert rep[cuda_symbol_sync.OP] == {
+        "cuda": 0, "plain": 1, "shapes": {"plain conj 3x40->10": 1}}
+
+
+def test_wrappers_check_their_inputs():
+    x = torch.zeros((3, 10), dtype=torch.complex64)
+    with pytest.raises(ValueError):
+        cuda_costas.costas_loop(x, torch.zeros(4), torch.zeros(3), 4, .1,
+                                .1, 1.0)
+    with pytest.raises(ValueError):
+        cuda_costas.costas_loop(x, torch.zeros(3), torch.zeros(3), 3, .1,
+                                .1, 1.0)
+    z = torch.zeros(3, dtype=torch.complex64)
+    with pytest.raises(ValueError):  # real sign decisions on complex input
+        cuda_symbol_sync.symbol_sync(
+            torch.zeros((3, 32), dtype=torch.complex64), x, torch.zeros(3),
+            torch.zeros(3), z, z, 2, cuda_symbol_sync.MODE_SIGN, None, 4.0,
+            .02, 1e-5, .02, 1.0)
+
+
+# -- numpy models of the kernels ----------------------------------------------
+
+ROWS, TILE = 32, 32
+F = np.float32
+
+
+def _sgn(v):
+    return np.where(v > 0, F(1), np.where(v < 0, F(-1), F(0))).astype(F)
+
+
+def costas_model(x, ph0, fr0, order, alpha, beta, max_freq):
+    """costas_loop_f32 in numpy: blocks of ROWS rows, lane i owning row
+    row0 + i; tiles of TILE samples loaded lane-wise (lane i takes sample
+    t0 + i of every row, 0 past the end), the next tile's loads before the
+    current tile's loop; each lane walks its row across the tile into the
+    output tile, which the block stores lane-wise. f32 arithmetic, each
+    operation rounded on its own; cos and sin from torch (the kernel's
+    cosf/sinf are the card's torch.cos/torch.sin). Asserts that every
+    output is written once."""
+    alpha, beta, max_freq = F(alpha), F(beta), F(max_freq)
+    pi, two_pi = F(cuda_costas.PI), F(cuda_costas.TWO_PI)
+    C, T = x.shape
+    y = np.full((C, T), np.nan, np.complex64)
+    ph_out = np.full(C, np.nan, F)
+    fr_out = np.full(C, np.nan, F)
+    for row0 in range(0, C, ROWS):
+        n_rows = min(ROWS, C - row0)
+        lanes = np.arange(ROWS)
+        mine = lanes < n_rows
+        ph = np.where(mine, ph0[np.minimum(row0 + lanes, C - 1)], F(0))
+        fr = np.where(mine, fr0[np.minimum(row0 + lanes, C - 1)], F(0))
+
+        def load(t0):
+            v = np.zeros((ROWS, ROWS), np.complex64)  # [row r, lane]
+            for r in range(n_rows):
+                t = t0 + lanes
+                ok = t < T
+                v[r, ok] = x[row0 + r, t[ok]]
+            return v
+
+        v = load(0)
+        for t0 in range(0, T, TILE):
+            s_x = v.copy()
+            v = load(t0 + TILE)
+            n = min(TILE, T - t0)
+            s_y = np.full((ROWS, TILE), np.nan, np.complex64)
+            for j in range(n):
+                xj = s_x[lanes, j]
+                xr, xi = xj.real.astype(F), xj.imag.astype(F)
+                c = torch.cos(torch.from_numpy(ph)).numpy()
+                s = -torch.sin(torch.from_numpy(ph)).numpy()
+                yr = (xr * c - xi * s).astype(F)
+                yi = (xr * s + xi * c).astype(F)
+                e = yi * _sgn(yr) if order == 2 else (
+                    _sgn(yr) * yi - _sgn(yi) * yr)
+                e = np.minimum(np.maximum(e.astype(F), F(-1)), F(1))
+                fr = np.where(mine, np.minimum(np.maximum(
+                    (fr + beta * e).astype(F), -max_freq), max_freq), fr)
+                p = ((ph + fr).astype(F) + (alpha * e).astype(F)).astype(F)
+                r = np.fmod((p + pi).astype(F), two_pi).astype(F)
+                r = np.where(r < 0, (r + two_pi).astype(F), r)
+                ph = np.where(mine, (r - pi).astype(F), ph)
+                s_y[mine, j] = (yr + 1j * yi)[mine]
+            for r in range(n_rows):
+                for lane in range(n):
+                    assert np.isnan(y[row0 + r, t0 + lane])
+                    y[row0 + r, t0 + lane] = s_y[r, lane]
+        ph_out[row0:row0 + n_rows] = ph[:n_rows]
+        fr_out[row0:row0 + n_rows] = fr[:n_rows]
+    assert not np.isnan(y).any() and not np.isnan(ph_out).any()
+    return y, ph_out, fr_out
+
+
+# (C, T): full and ragged row blocks and tiles, a block shorter than a tile,
+# one sample
+COSTAS_MODEL_CASES = [(32, 64), (45, 70), (3, 31), (33, 1)]
+
+
+@pytest.mark.parametrize("order", [2, 4])
+@pytest.mark.parametrize("C,T", COSTAS_MODEL_CASES)
+def test_costas_model_matches_plain(rng, order, C, T):
+    """The kernel's tiling and step give the plain loop's outputs and
+    state bit for bit, over two chained blocks."""
+    x = qpsk_like(rng, C, -(-2 * T // 4), 4, offset=0.02, tiny=20)
+    ph, fr = np.zeros(C, F), np.zeros(C, F)
+    args = (order, 0.0786, 0.00309, 1.0)
+    for blk in range(2):
+        xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
+        yr, yi, ph_p, fr_p = cuda_costas.costas_loop_plain(
+            torch.from_numpy(xb.real.copy()), torch.from_numpy(xb.imag.copy()),
+            torch.from_numpy(ph), torch.from_numpy(fr), *args)
+        y, ph, fr = costas_model(xb, ph, fr, *args)
+        np.testing.assert_array_equal(y.real, yr.numpy())
+        np.testing.assert_array_equal(y.imag, yi.numpy())
+        np.testing.assert_array_equal(ph, ph_p.numpy())
+        np.testing.assert_array_equal(fr, fr_p.numpy())
+
+
+def sync_model(tail, x, pos, om, yp, dp, n_out, mode, levels, sps, alpha,
+               beta, omega_lim, ted_norm):
+    """symbol_sync_mm_f32 in numpy, one row at a time: the samples fetched
+    from the tail or the block by index (no concatenation), the
+    coefficients with the f32 reciprocal of 6, the four products summed in
+    order, the decision, the TED, the clip and the loop update, each f32
+    operation rounded on its own."""
+    inv6 = F(cuda_symbol_sync.INV6)
+    inv_norm = F(cuda_symbol_sync.recip(ted_norm))
+    omin, omax = F(sps - omega_lim), F(sps + omega_lim)
+    alpha, beta = F(alpha), F(beta)
+    rows, L = tail.shape
+    T = x.shape[1]
+    max_pos = F(L + T - 3)
+    y = np.zeros((rows, n_out), np.complex64)
+    out = [np.zeros(rows, F), np.zeros(rows, F),
+           np.zeros(rows, np.complex64), np.zeros(rows, np.complex64)]
+    for r in range(rows):
+        p_, o_ = F(pos[r]), F(om[r])
+        ypr, ypi = F(yp[r].real), F(yp[r].imag)
+        dpr, dpi = F(dp[r].real), F(dp[r].imag)
+
+        def fetch(j):
+            if j < L:
+                return F(tail[r, j].real), F(tail[r, j].imag)
+            v = x[r, j - L]
+            return (F(v.real), F(v.imag)) if np.iscomplexobj(x) else (
+                F(v), F(0))
+
+        for m in range(n_out):
+            p = min(max(p_, F(2)), max_pos)
+            b = F(np.floor(p))
+            mu = F(p - b)
+            mm1, mm2, mp1 = F(mu - F(1)), F(mu - F(2)), F(mu + F(1))
+            c = [F(F(F(-mu * mm1) * mm2) * inv6),
+                 F(F(F(mp1 * mm1) * mm2) * F(0.5)),
+                 F(F(F(-mp1 * mu) * mm2) * F(0.5)),
+                 F(F(F(mp1 * mu) * mm1) * inv6)]
+            w = [fetch(int(b) - 1 + k) for k in range(4)]
+            yr, yi = F(w[0][0] * c[0]), F(w[0][1] * c[0])
+            for k in range(1, 4):
+                yr = F(yr + F(w[k][0] * c[k]))
+                yi = F(yi + F(w[k][1] * c[k]))
+            if mode == cuda_symbol_sync.MODE_LEVELS:
+                d = [F(np.hypot(F(yr - F(lv)), yi)) for lv in levels]
+                dr, di = F(levels[int(np.argmin(d))]), F(0)
+            else:
+                dr, di = F(np.sign(yr)), F(np.sign(yi))
+            if mode == cuda_symbol_sync.MODE_CONJ:
+                e = F(F(F(dpr * yr) + F(dpi * yi)) - F(F(dr * ypr)
+                                                        + F(di * ypi)))
+            else:
+                e = F(F(F(dpr * yr) - F(dpi * yi)) - F(F(dr * ypr)
+                                                        - F(di * ypi)))
+            e = min(max(F(e * inv_norm), F(-1)), F(1))
+            o_ = min(max(F(o_ + F(beta * e)), omin), omax)
+            p_ = F(F(p_ + o_) + F(alpha * e))
+            y[r, m] = yr + 1j * yi
+            ypr, ypi, dpr, dpi = yr, yi, dr, di
+        out[0][r], out[1][r] = p_, o_
+        out[2][r], out[3][r] = ypr + 1j * ypi, dpr + 1j * dpi
+    return y, *out
+
+
+@pytest.mark.parametrize("variant", ["complex_sign", "real_levels",
+                                     "real_sign"])
+def test_sync_model_matches_plain(rng, variant):
+    """The kernel's loop, sample fetches and arithmetic give the plain
+    loop's symbols and state bit for bit over two chained blocks."""
+    C, T, sps = 3, 120, 4
+    x = qpsk_like(rng, C, 2 * T // sps, sps, tiny=10)
+    lv = None
+    if variant == "real_levels":
+        lv = LEVELS4
+        x = np.repeat(rng.choice(LEVELS4, (C, 2 * T // sps)), sps,
+                      axis=1).astype(np.float32)
+    elif variant == "real_sign":
+        x = np.ascontiguousarray(x.real)
+    ss = SymbolSync(sps, decisions=lv, lead_shape=(C,), device="cpu")
+    mode = cuda_symbol_sync.mode_of(np.iscomplexobj(x), ss.levels)
+    st = ss.init_state()
+    for blk in range(2):
+        xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
+        pos, om, yp, dp, tail = st
+        args = (T // sps, mode, ss.levels, ss.sps, ss.alpha, ss.beta,
+                ss.omega_limit, ss.ted_norm)
+        got = cuda_symbol_sync.symbol_sync(
+            tail, torch.from_numpy(xb), pos, om, yp, dp, *args)
+        want = sync_model(tail.numpy(), xb, pos.numpy(), om.numpy(),
+                          yp.numpy(), dp.numpy(), *args[:2],
+                          None if lv is None else np.float32(lv), *args[3:])
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b)
+        st, _ = ss(st, torch.from_numpy(xb))
+
+
+def test_models_follow_the_sources():
+    """The models' block and tile sizes and the sources' rounding rules."""
+    src = (CSRC / "costas.cu").read_text()
+    assert int(re.search(r"kRows = (\d+);", src).group(1)) == ROWS
+    assert int(re.search(r"kTile = (\d+);", src).group(1)) == TILE
+    assert "cosf(ph)" in src and "__sinf(" not in src and "__fmul_rn" in src
+    sync = (CSRC / "symbol_sync.cu").read_text()
+    assert "kInv6 = 1.0f / 6.0f" in sync and "__fdiv_rn" not in sync
+    assert "hypotf" in sync
