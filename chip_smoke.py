@@ -13,8 +13,9 @@ when the package cannot be imported, and when any phase fails:
     spills in csrc/fir_decim.cu, csrc/fir_long.cu, csrc/fir_cols.cu,
     csrc/fir_s1.cu, csrc/viterbi_bfly.cu, csrc/pfb_fft.cu,
     csrc/depthwise_run.cu, csrc/resample_poly.cu, csrc/resample_up.cu,
-    csrc/agc2.cu, csrc/costas.cu, csrc/symbol_sync.cu and
-    csrc/viterbi_stream.cu);
+    csrc/agc2.cu, csrc/costas.cu, csrc/symbol_sync.cu,
+    csrc/viterbi_stream.cu, csrc/fll_band_edge.cu and
+    csrc/resample_x2.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -140,20 +141,38 @@ when the package cannot be imported, and when any phase fails:
     one call of the plain loop, the bound and the latency floor; the
     QPSK250K head K83 D2 and QPSK20K/2K's K1045 D25 (no path here runs
     it) on fir_cols_f32, each in turns with fir_stream_f32, the RRC K45
-    and the FLL's complex K32 on fir_s1_f32, against the plain FIR and
-    F.conv1d;
+    on fir_s1_f32, against the plain FIR and F.conv1d; the FLL's complex
+    K32 band-edge filter on fir_s1_f32 (no path launches it there since
+    fll_band_edge_f32 took the loop; its row has no path);
+    fll_band_edge_f32 against the plain FllBandEdge loop over two chained
+    blocks of 2048 x 4,000 with QpskDemod's and BpskDemod's loop
+    parameters (y, phase, freq and tail elementwise within 2e-5 + 1e-5
+    |plain|, the phase as a distance on the circle; one launch a block and
+    no other kernel), then at QPSK250K's full shape (2048 x 100,000, 200
+    sub-blocks) and BPSK2K's (2048 x 4,000) against one timed call of the
+    plain loop, the max |diff| of each leaf printed;
 14. the QPSK250K path (BASELINE configs[3]): QpskMod on the card, 3,125
     bytes a channel a step at 2048 channels, clean, through
     QpskDemod(125_000, 500_000) for 3 steps (counters zeroed before, read
-    after: fir_cols_f32 for the head, fir_s1_f32 for the RRC and 800 FLL
-    launches, agc2_gain_f32, costas_loop_f32 twice, symbol_sync_mm_f32,
-    viterbi_stream_k7, a step; fir_stream_f32 never), BER < 0.01, step ms
+    after: fir_cols_f32 for the head, fll_band_edge_f32, fir_s1_f32 for
+    the RRC alone, agc2_gain_f32, costas_loop_f32 twice,
+    symbol_sync_mm_f32, viterbi_stream_k7, a step; fir_stream_f32 never,
+    fir_s1_f32 at no other shape), BER < 0.01, step ms
     and vs_baseline (printed, not gated), one step stage by stage, one
     traced, and 3 steps at 10 dB with a 1 kHz offset (BER printed);
 15. the BPSK2K path: BpskMod -> BpskDemod at 2048 channels for 8 steps,
     the same counts, the better of bits / bits_alt at BER < 0.01;
 16. the frozen capture tests/fixtures/iq_qpsk250k_10db.npz in two blocks
-    through QpskDemod on the card and on the CPU: bits equal, BER < 0.01.
+    through QpskDemod on the card and on the CPU: bits equal, BER < 0.01;
+17. the PSK TX path: QpskMod(125_000) + BpskMod at 2048 channels, 3
+    steps, counters zeroed before and read after (QpskMod's RRC and
+    BpskMod's two interpolators on resample_up_f32, QpskMod's x2 on
+    resample_x2_f32, once each a step; resample_poly_f32 never), then the
+    four interpolator shapes against their plain versions, each routed
+    kernel bit-equal to resample_poly_f32 over two chained blocks and
+    timed in turns with it; at the x2 (L 2 M 1 K 46, 2048 x 100,000 ->
+    200,000) that is resample_x2_f32, F.conv1d with 2 output channels
+    beside them.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -1216,6 +1235,16 @@ def require_shapes(report, want, steps, run, never=()):
               flush=True)
 
 
+def only_shape(report, op, key, run):
+    """op launched at no shape but key on the `run` path."""
+    shapes = {k for k, n in report.get(op, {}).get("shapes", {}).items()
+              if k.startswith("cuda ") and n}
+    if shapes - {f"cuda {key}"}:
+        raise RuntimeError(f"{run}: {op} launched at {sorted(shapes)}, "
+                           f"not only at {key}")
+    print(f"  {run}: {op} at {key} alone", flush=True)
+
+
 def ssb_path(dev, gen):
     """The slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples a step (the 4FSK path's shape), seeded IQ at 0.1 RMS a plane,
@@ -1392,12 +1421,14 @@ def am_tx_path(dev, gen):
     return report
 
 
-def complex_fir_row(name, replaces, filt, C, n, run, dev, gen):
+def complex_fir_row(name, replaces, filt, C, n, run, dev, gen,
+                    routed=True):
     """A FIR with complex taps over the (re, im) planes of C rows x n
     samples, tails read in place: fir_planes (two launches of the routed
     kernel, one a tap plane, then the combine) against its plain version
     (the plain FIR twice, the same combine), and one complex F.conv1d as
-    the library call."""
+    the library call. routed false: no path launches the kernel at this
+    shape (a row with no path)."""
     from qradiolink_tpu_torch.ops import cuda_fir
     from qradiolink_tpu_torch.ops.fir import fir_planes
     import torch.nn.functional as F
@@ -1429,7 +1460,7 @@ def complex_fir_row(name, replaces, filt, C, n, run, dev, gen):
     b = bound(4 * (2 * C * (n + K - 1) + 2 * C * n + 2 * K),
               4 * 2 * K * C * n)
     r = row(f"{op}/{name}", FIR_SOURCE[op], replaces, err, ms, plain_ms, b,
-            lib_ms, run, cuda_fir.shape_key(xs, K, 1, tails))
+            lib_ms, run, cuda_fir.shape_key(xs, K, 1, tails), routed=routed)
     r["per_step"] = 2
     return [r]
 
@@ -1472,18 +1503,21 @@ def agc_rows(dev, gen):
 
 RESAMPLE_SOURCE = {
     "resample_poly_f32": "qradiolink_tpu_torch/csrc/resample_poly.cu",
-    "resample_up_f32": "qradiolink_tpu_torch/csrc/resample_up.cu"}
+    "resample_up_f32": "qradiolink_tpu_torch/csrc/resample_up.cu",
+    "resample_x2_f32": "qradiolink_tpu_torch/csrc/resample_x2.cu"}
 
 
 def poly_row(name, rs, planes, C, T, run, dev, gen):
     """A TX interpolator's shape (C rows x T input samples, `planes`
     planes, the tails read in place): the kernel that the route gives it
     against the plain version (outputs within 1e-5, the new state equal).
-    Where the route gives it resample_up_f32, resample_poly_f32, which
-    served it before, is held against the plain version too, their outputs
-    and states must be equal bit for bit, and the two are timed in turns
-    (old, new, new, old); resample_poly_f32's row then has no path. One
-    F.conv1d with L output channels is the library call, beside each."""
+    Where the route gives it resample_up_f32 or resample_x2_f32,
+    resample_poly_f32, which served it before, is held against the plain
+    version too, the two outputs and states must be equal bit for bit over
+    two chained blocks (the second from the routed kernel's new state), and
+    they are timed in turns (old, new, new, old); the row of the kernel the
+    route does not pick has no path. One F.conv1d with L output channels is the library call,
+    beside each."""
     from qradiolink_tpu_torch.ops import cuda_resample
     import torch.nn.functional as F
 
@@ -1504,13 +1538,22 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
         if not torch.equal(state, p_state):
             raise RuntimeError(f"{k}/{name}: state differs")
     if len(kinds) == 2:
-        (s0, y0), (s1, y1) = outs[cuda_resample.OP], outs[op]
-        if not (torch.equal(s0, s1) and all(torch.equal(a, b)
-                                            for a, b in zip(y0, y1))):
-            raise RuntimeError(f"{op}/{name}: not bit-equal to "
-                               f"{cuda_resample.OP}")
+        # a second block from the routed kernel's new state, fresh input
+        st2 = outs[op][0]
+        xs2 = tuple(torch.randn((C, T), generator=gen, device=dev)
+                    for _ in range(planes))
+        tails2 = (st2[:, 0, :], st2[:, 1, :])[:planes]
+        chained = {k: cuda_resample.launch(k, xs2, taps, L, M, tails2)
+                   for k in kinds}
+        for blk, o in enumerate((outs, chained)):
+            (s0, y0), (s1, y1) = o[cuda_resample.OP], o[op]
+            if not (torch.equal(s0, s1) and all(torch.equal(a, b)
+                                                for a, b in zip(y0, y1))):
+                raise RuntimeError(f"{op}/{name} block {blk}: not bit-equal "
+                                   f"to {cuda_resample.OP}")
         print(f"  {op}/{name}: outputs and state bit-equal to "
-              f"{cuda_resample.OP}", flush=True)
+              f"{cuda_resample.OP} over two chained blocks", flush=True)
+        del chained, xs2, tails2, st2
     del outs
     offs = cuda_resample.phase_offsets(L, M)
     w = torch.zeros((L, 1, K + offs[-1]), device=dev)
@@ -1525,7 +1568,7 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
     del lib, p_ys
     torch.cuda.synchronize()
     ms, turns = turns_ms(fns)
-    if len(kinds) == 2:
+    if len(kinds) > 1:
         print(f"  {name} in turns: " + ", ".join(
             f"{k} {t:.4f} ms" for k, t in turns), flush=True)
     plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
@@ -1534,8 +1577,8 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
     n_out = T // M * L
     b = bound(4 * (planes * C * (K - 1 + T) + L * K + planes * C * n_out
                    + 2 * C * (K - 1)), 2 * K * planes * C * n_out)
-    old = (f"{ms[cuda_resample.OP] / ms[op]:.2f}x {cuda_resample.OP} in "
-           f"turns, " if len(kinds) == 2 else "")
+    old = "".join(f"{ms[k] / ms[op]:.2f}x {k} in turns, "
+                  for k in kinds[1:])
     print(f"  {op}/{name}: {old}{lib_ms / ms[op]:.2f}x F.conv1d, "
           f"{b[0] / ms[op]:.1%} of its bound", flush=True)
     shape = cuda_resample.shape_key(xs, L, K, M)
@@ -1761,8 +1804,8 @@ def loopback_phase(dev, n_ch=8, n_audio=4000):
 QPSK_FIXTURE = HERE / "tests" / "fixtures" / "iq_qpsk250k_10db.npz"
 QPSK_BYTES = 3_125      # a step's payload a channel: 200,000 IQ samples
 QPSK_SYMS = T_STEP // 8  # 25,000 symbols a step (500 ksps, sps 4)
-QPSK_EVERY_STEP = ("fir_cols_f32", "fir_s1_f32", "agc2_gain_f32",
-                   "costas_loop_f32", "symbol_sync_mm_f32",
+QPSK_EVERY_STEP = ("fir_cols_f32", "fll_band_edge_f32", "fir_s1_f32",
+                   "agc2_gain_f32", "costas_loop_f32", "symbol_sync_mm_f32",
                    "viterbi_stream_k7")
 BPSK_BYTES = 25          # a step's payload a channel at 2,000 symbols/s
 BPSK_STEPS = 8           # 1.6 s of signal: 1,600 bits a channel
@@ -1858,6 +1901,122 @@ def loop_row(name, source, replaces, fn, plain_fn, n_bytes, n_ops, run,
                bound(n_bytes, n_ops), None, run, shape)
 
 
+# FllBandEdge's bound against its plain loop, elementwise |k - p| <= atol +
+# rtol |p| (tests/test_torch_sync_loops.py): the kernel sums each
+# sub-block's band-edge energy in its own order
+FLL_ATOL, FLL_RTOL = 2e-5, 1e-5
+
+
+def fll_diffs(name, got, want, gate):
+    """The max |diff| of each leaf of (y, phase, freq, tail), the phase
+    as a distance on the circle (mod 2 pi may wrap apart); with gate, every
+    element within FLL_ATOL + FLL_RTOL |plain| (raises otherwise). Every
+    leaf must be finite."""
+    diffs = {}
+    for leaf, a, b in zip(("y", "phase", "freq", "tail"), got, want,
+                          strict=True):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        a, b = a.double(), b.double()
+        d = (a - b).abs()
+        if leaf == "phase":
+            d = torch.minimum(d, 2 * np.pi - d)
+        diffs[leaf] = float(d.max())
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{name}: {leaf} not finite")
+        if gate and not bool((d <= FLL_ATOL + FLL_RTOL * b.abs()).all()):
+            raise RuntimeError(f"{name}: {leaf} off the plain loop by "
+                               f"{diffs[leaf]:.3e}")
+    return diffs
+
+
+def fll_rows(q_fll, dev, gen):
+    """fll_band_edge_f32: QpskDemod's FLL (q_fll) and BpskDemod's against
+    the plain loop over two chained blocks of 2048 x LOOP_CHECK_T of a QPSK
+    signal 1 kHz off (its first samples ~1e-20), one launch a block and no
+    other kernel: each block within the FLL's bound of the plain loop run
+    from the kernel's state, and of the plain loop chained from its own
+    state; then each at its path's full shape (QPSK250K 2048 x 100,000,
+    200 sub-blocks; BPSK2K 2048 x 4,000) timed, and held within the FLL's
+    bound of one timed call of the plain loop over the whole chain, the
+    max |diff| of each leaf printed. No single PyTorch call computes the
+    loop."""
+    from qradiolink_tpu_torch.chains.psk import BpskDemod
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.sync import cuda_fll as cf
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    b_fll = BpskDemod(lead_shape=(N_CH,), device=dev).fll
+    x = loop_signal(dev, gen, N_CH, 2 * LOOP_CHECK_T)
+    for name, fll in (("qpsk", q_fll), ("bpsk", b_fll)):
+        st = st_p = fll.init_state()
+        sb = fll.sub_block_len(LOOP_CHECK_T)
+        worst = {}
+        for i in range(2):
+            xb = x[:, i * LOOP_CHECK_T:(i + 1) * LOOP_CHECK_T]
+            pair = IqPair(xb.real.contiguous(), xb.imag.contiguous())
+            kernel_paths.reset()
+            st_k, y = fll(st, pair)
+            rep = kernel_paths.report()
+            if rep != {cf.OP: {"cuda": 1, "plain": 0, "shapes": {
+                    f"cuda {cf.shape_key(pair.re, sb)}": 1}}}:
+                raise RuntimeError(f"{cf.OP} {name}: {json.dumps(rep)}")
+            for tag, s0 in (("from the kernel's state", st),
+                            ("chained on its own", st_p)):
+                want = cf.fll_plain(pair.re, pair.im, *s0, fll.taps,
+                                    fll.beta, fll.max_freq, sb)
+                d = fll_diffs(f"{cf.OP} {name} block {i}, plain loop {tag}",
+                              (y, *st_k), want, gate=True)
+                worst = {k: max(v, worst.get(k, 0.0)) for k, v in d.items()}
+            st, st_p = st_k, want[1:]
+        print(f"  {cf.OP}/{name}: 2 chained blocks of {N_CH} x "
+              f"{LOOP_CHECK_T} within {FLL_ATOL} + {FLL_RTOL} |plain| of "
+              f"the plain loop (from the kernel's state and chained on its "
+              f"own), max |diff| {json.dumps(worst)}", flush=True)
+    del x
+    rows = []
+    for name, fll, T, run in (("qpsk", q_fll, T_STEP // 2, "qpsk"),
+                              ("bpsk", b_fll, T_STEP // 50, "bpsk")):
+        x = loop_signal(dev, gen, N_CH, T)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        del x
+        st = fll.init_state()
+        sb = fll.sub_block_len(T)
+
+        def fn():
+            return cf.fll_band_edge(xr, xi, *st, fll.taps, fll.beta,
+                                    fll.max_freq, sb)
+
+        ms = cuda_ms(fn, iters=5, warmup=1)
+        got = fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = cf.fll_plain(xr, xi, *st, fll.taps, fll.beta, fll.max_freq,
+                            sb)
+        end.record()
+        end.synchronize()
+        d = fll_diffs(f"{cf.OP} {name} at full shape", got, want,
+                      gate=True)
+        print(f"  {cf.OP}/{name}: {N_CH} x {T}, {T // sb} sub-blocks of "
+              f"{sb}: within {FLL_ATOL} + {FLL_RTOL} |plain| of one call of "
+              f"the plain loop, max |diff| {json.dumps(d)}", flush=True)
+        K = fll.ntaps
+        # two planes in, complex64 out; 2 filters x 4 real FIRs x K FMAs
+        # an output
+        b = bound(8 * N_CH * T * 2 + 16 * K + 16 * N_CH * K,
+                  2 * 2 * 4 * K * N_CH * T)
+        rows.append(row(f"{cf.OP}/{name}_fll",
+                        "qradiolink_tpu_torch/csrc/fll_band_edge.cu",
+                        "qradiolink_tpu/sync/fll.py:93", max(d.values()), ms,
+                        start.elapsed_time(end), b, None, run,
+                        cf.shape_key(xr, sb)))
+        print(f"  {cf.OP}/{name}: {b[0] / ms:.1%} of its bound", flush=True)
+        del xr, xi, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def psk_rows(dev, gen):
     """The PSK paths' kernels: the three loop kernels bit-equal to their
     plain loops over two chained blocks at 2048 rows (a real QPSK signal,
@@ -1865,7 +2024,8 @@ def psk_rows(dev, gen):
     held bit-equal there once more against the plain loop's one call; the
     head's K83 D2 and QPSK20K/2K's K1045 D25 on fir_cols_f32 (in turns with
     fir_stream_f32), the RRC K45 and the FLL's complex K32 band-edge
-    filter on fir_s1_f32, against their plain versions and F.conv1d."""
+    filter (off the path) on fir_s1_f32, against their plain versions and
+    F.conv1d; fll_band_edge_f32 (fll_rows)."""
     from qradiolink_tpu_torch.chains.psk import QpskDemod
     from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
     from qradiolink_tpu_torch.fec.conv import CCSDS_K7
@@ -1990,13 +2150,16 @@ def psk_rows(dev, gen):
                     (randn(N_CH, T_in), randn(N_CH, T_in)),
                     q.shaping.taps_flipped, 1, T_in,
                     (st[:, 0, :], st[:, 1, :]), "qpsk")
+    # the FLL's upper band-edge filter as it ran before fll_band_edge_f32:
+    # 32 complex taps over a 500-sample sub-block, 4 launches a sub-block
+    # with the lower one; no path launches it there now
     n_sub = T_in // q.fll.sub_block_len(T_in)
-    fll_rows = complex_fir_row(
+    rows += complex_fir_row(
         "qpsk_fll_band_edge", "qradiolink_tpu/ops/pallas_fir.py:111",
-        types.SimpleNamespace(ntaps=q.fll.ntaps, tap_planes=q.fll.upper),
-        N_CH, T_in // n_sub, "qpsk", dev, gen)
-    fll_rows[0]["per_step"] = 4 * n_sub
-    rows += fll_rows
+        types.SimpleNamespace(ntaps=q.fll.ntaps, tap_planes=(
+            q.fll.taps[0], q.fll.taps[1])),
+        N_CH, T_in // n_sub, "qpsk", dev, gen, routed=False)
+    rows += fll_rows(q.fll, dev, gen)
     rs = QpskDemod(10_000, 40_000, lead_shape=(N_CH,), device=dev).resamp
     st = randn(N_CH, 2, rs.kp - 1)
     rows += fir_row("qpsk20k_head", k1, (randn(N_CH, T_STEP),
@@ -2037,10 +2200,10 @@ def qpsk_path(dev, gen):
     3,125 seeded random bytes a channel a step for 2048 channels (200,000 IQ
     samples), ChannelModel(1e6) passes them clean (as the JAX test at rate
     does), and QpskDemod(125_000, 500_000) runs 3 steps with state carried,
-    the counters zeroed just before: the head on fir_cols_f32, the RRC and
-    the FLL's band-edge filters on fir_s1_f32, agc2_gain_f32,
-    costas_loop_f32 twice, symbol_sync_mm_f32 and viterbi_stream_k7, each
-    its count a step; fir_stream_f32 never. BER < 0.01 on the steady-state
+    the counters zeroed just before: the head on fir_cols_f32, the FLL on
+    fll_band_edge_f32, the RRC on fir_s1_f32 (its only shape there),
+    agc2_gain_f32, costas_loop_f32 twice, symbol_sync_mm_f32 and
+    viterbi_stream_k7, each once a step; fir_stream_f32 never. BER < 0.01 on the steady-state
     segment. Then one more step stage by stage and one under
     torch.profiler; then 3 more steps at SNR 10 dB with a 1 kHz offset,
     their BER printed. The modulator runs before the counters are zeroed;
@@ -2079,14 +2242,16 @@ def qpsk_path(dev, gen):
     n_sub = T_in // fll.sub_block_len(T_in)
     require_shapes(report, {
         ("fir_cols_f32", f"K{chain.resamp.kp} D2 tail 2x{N_CH}"): 1,
+        ("fll_band_edge_f32", f"{N_CH}x{T_in} sb{T_in // n_sub}"): 1,
         ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}"): 1,
-        ("fir_s1_f32", f"K{fll.ntaps} D1 tail 2x{N_CH}"): 4 * n_sub,
         ("agc2_gain_f32", f"{N_CH}x{T_in}"): 1,
         ("costas_loop_f32", f"order4 {N_CH}x{T_in}"): 1,
         ("costas_loop_f32", f"order4 {N_CH}x{QPSK_SYMS}"): 1,
         ("symbol_sync_mm_f32", f"conj {N_CH}x{T_in}->{QPSK_SYMS}"): 1,
         ("viterbi_stream_k7", f"R{N_CH} T{QPSK_SYMS} lag64"): 1},
         N_STEPS, "qpsk", never=("fir_stream_f32",))
+    only_shape(report, "fir_s1_f32",
+               f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}", "qpsk")
     sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
     ber = ber_report("qpsk clean",
                      best_ber_rows(psk_bits(outs), sent, 1000))
@@ -2103,7 +2268,7 @@ def qpsk_path(dev, gen):
     x = timed(stages, "resampler 1/2 (fir_cols_f32 K83 D2)",
               lambda: seq(chain.resamp, iq))
     timed(stages, "rssi", lambda: rssi_dbm(x))
-    x = timed(stages, f"FLL ({n_sub} sub-blocks, fir_s1_f32 K32 complex)",
+    x = timed(stages, f"FLL (fll_band_edge_f32, {n_sub} sub-blocks)",
               lambda: seq(chain.fll, x))
     x = timed(stages, "RRC (fir_s1_f32 K45)", lambda: seq(chain.shaping, x))
     x = timed(stages, "agc (agc2_gain_f32)", lambda: seq(chain.agc, x))
@@ -2145,8 +2310,9 @@ def bpsk_path(dev, gen):
     channel a step (200,000 IQ samples), clean; BpskDemod over BPSK_STEPS
     steps with state carried, each step's IQ made just before it (the
     modulator's launches count too), the counters zeroed before the first:
-    the head on fir_decim_f32, the RRC and the FLL's filters on fir_s1_f32,
-    agc2_gain_f32, symbol_sync_mm_f32, costas_loop_f32 (order 2) and
+    the head on fir_decim_f32, the FLL on fll_band_edge_f32, the RRC on
+    fir_s1_f32 (its only shape there), agc2_gain_f32, symbol_sync_mm_f32,
+    costas_loop_f32 (order 2) and
     viterbi_stream_k7 (the delay-diversity pair, 2 x 2048 rows), each its
     count a step, and the modulator's two interpolators on resample_up_f32
     (their rows come from psk_tx_path's run). The better of bits /
@@ -2187,12 +2353,14 @@ def bpsk_path(dev, gen):
         ("resample_up_f32", f"L50 K{mod.up.kp} D1 tail 2x{N_CH}"): 1,
         ("fir_decim_f32", f"K{chain.resamp.kp} D50 tail 2x{N_CH}"): 1,
         ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}"): 1,
-        ("fir_s1_f32", f"K{chain.fll.ntaps} D1 tail 2x{N_CH}"): 4 * n_sub,
+        ("fll_band_edge_f32", f"{N_CH}x{T_in} sb{T_in // n_sub}"): 1,
         ("agc2_gain_f32", f"{N_CH}x{T_in}"): 1,
         ("symbol_sync_mm_f32", f"conj {N_CH}x{T_in}->{n_sym}"): 1,
         ("costas_loop_f32", f"order2 {N_CH}x{n_sym}"): 1,
         ("viterbi_stream_k7", f"R{2 * N_CH} T{n_sym // 2} lag64"): 1},
-        BPSK_STEPS, "bpsk", never=("fir_stream_f32",))
+        BPSK_STEPS, "bpsk", never=("fir_stream_f32", "resample_poly_f32"))
+    only_shape(report, "fir_s1_f32",
+               f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}", "bpsk")
     sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
     # a channel decodes on one of the two delay-diversity pairings
     ber = ber_report("bpsk, the better of bits and bits_alt", torch.minimum(
@@ -2209,9 +2377,9 @@ def psk_tx_path(dev, gen):
     carried and the counters zeroed just before: QpskMod(125_000) on 3,125
     seeded random bytes a channel a step and BpskMod on 25, 200,000 IQ
     samples a channel out of each. QpskMod's RRC interpolator (L4) and
-    BpskMod's two (L10, L50) on resample_up_f32, QpskMod's x2 (L2) on
-    resample_poly_f32, once each a step. Returns (the report, the
-    modulators)."""
+    BpskMod's two (L10, L50) on resample_up_f32, QpskMod's x2 (L2 M1) on
+    resample_x2_f32, once each a step; resample_poly_f32 never. Returns
+    (the report, the modulators)."""
     from qradiolink_tpu_torch.chains.psk import BpskMod, QpskMod
 
     qm = QpskMod(125_000, lead_shape=(N_CH,), device=dev)
@@ -2227,7 +2395,7 @@ def psk_tx_path(dev, gen):
 
     _, outs, step_s, report = drive(
         step, (qm.init_state(), bm.init_state()), data,
-        ("resample_up_f32", "resample_poly_f32"))
+        ("resample_up_f32", "resample_x2_f32"))
     for name, v in zip(("qpsk", "bpsk"), outs[-1]):
         if tuple(v.shape) != (N_CH, T_STEP) or v.dtype != torch.complex64 \
                 or not bool(torch.isfinite(torch.view_as_real(v)).all()):
@@ -2237,10 +2405,10 @@ def psk_tx_path(dev, gen):
     torch.cuda.empty_cache()
     require_shapes(report, {
         ("resample_up_f32", f"L4 K{qm.shaper.kp} D1 tail 2x{N_CH}"): 1,
-        ("resample_poly_f32", f"L2 K{qm.up.kp} D1 tail 2x{N_CH}"): 1,
+        ("resample_x2_f32", f"L2 K{qm.up.kp} D1 tail 2x{N_CH}"): 1,
         ("resample_up_f32", f"L10 K{bm.shaper.kp} D1 tail 2x{N_CH}"): 1,
         ("resample_up_f32", f"L50 K{bm.up.kp} D1 tail 2x{N_CH}"): 1},
-        N_STEPS, "psk_tx")
+        N_STEPS, "psk_tx", never=("resample_poly_f32",))
     print(f"  {step_times(step_s, 2 * N_CH * T_STEP)} (IQ samples out of "
           f"both modulators)", flush=True)
     return report, (qm, bm)
@@ -2344,11 +2512,12 @@ def main() -> int:
     # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
     # resample_poly_f32 and agc2_gain_f32 their loads in flight, the PSK
     # loops (costas_loop_f32, symbol_sync_mm_f32, viterbi_stream_k7) their
-    # state
+    # state; fll_band_edge_f32 and resample_x2_f32 their rings and
+    # accumulators
     for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
                  "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
                  "resample_up", "agc2", "costas", "symbol_sync",
-                 "viterbi_stream"):
+                 "viterbi_stream", "fll_band_edge", "resample_x2"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 

@@ -1,6 +1,7 @@
 """Polyphase rational resampler at L > 1: wrapper, plain version and the
-two CUDA kernels that compute it, `resample_poly_f32`
-(csrc/resample_poly.cu) and `resample_up_f32` (csrc/resample_up.cu).
+three CUDA kernels that compute it, `resample_poly_f32`
+(csrc/resample_poly.cu), `resample_up_f32` (csrc/resample_up.cu) and
+`resample_x2_f32` (csrc/resample_x2.cu).
 
 Port of the Pallas TPU kernel qradiolink_tpu/ops/pallas_fir.py
 `banded_fir` (K2), which the JAX package's RationalResampler runs once per
@@ -11,13 +12,14 @@ xc = [tail (K-1) | x (T)], T % M == 0:
     y[t*L + r] = sum_{j<K} tf_r[j] * xc[t*M + q_r + j]
     new state  = the last K-1 samples of xc, (..., 2, K-1)
 
-Either kernel computes every phase, already interleaved, and the new state
-in one launch, reading the tail in place from the state; both sum each
+Each kernel computes every phase, already interleaved, and the new state
+in one launch, reading the tail in place from the state; all sum each
 output's taps in order from 0.0f, so their outputs are equal bit for bit.
 One plane is real input (the new state's second plane is zeros); two are
 the re and im planes of an IqPair. `route(L, M, K)` picks the kernel:
-`resample_up_f32`, register-blocked over output times, at L >= 3 and
-M <= 5 (the TX side's 125/1, 20/1 and 25/4);
+`resample_x2_f32`, both phases of 16 output times a thread, at L 2 M 1
+(QpskMod's x2); `resample_up_f32`, register-blocked over output times of
+one phase, at L >= 3 and M <= 5 (the TX side's 125/1, 20/1 and 25/4);
 `resample_poly_f32`, one output a lane, elsewhere (the NBFM audio
 resampler 2/5, M17's 3/125).
 
@@ -41,6 +43,7 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "resample_poly_f32"
 UP_OP = "resample_up_f32"
+X2_OP = "resample_x2_f32"
 # resample_up_f32's shapes: from 3 phases (the lowest L of
 # scripts/resample_route_sweep.py, where it was 2.6-5.3x faster), and the
 # decimations with a ring instance in csrc/resample_up.cu
@@ -117,10 +120,15 @@ def shape_key(xs, L, K, M):
 
 def route(L: int, M: int, K: int) -> str:
     """The kernel that serves an L/M resampler of K taps a phase (L > 1):
-    resample_up_f32 at L >= 3 and M <= 5, resample_poly_f32 otherwise (the
-    NBFM audio resampler 2/5, M17's 3/125).
-    K does not enter the rule: both kernels stage all L*K taps in one
+    resample_x2_f32 at L 2 M 1 (QpskMod's x2, measured faster in turns
+    than resample_poly_f32 in chip_smoke.py, and than resample_up_f32 at
+    that shape as PERF.md records), resample_up_f32 at L >= 3 and
+    M <= 5, resample_poly_f32 otherwise (the NBFM audio resampler 2/5,
+    M17's 3/125).
+    K does not enter the rule: the kernels stage all L*K taps in one
     block, and the wrapper raises where they do not fit."""
+    if L == 2 and M == 1:
+        return X2_OP
     return UP_OP if L >= UP_MIN_L and M <= UP_MAX_M else OP
 
 
@@ -168,8 +176,8 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
 
 
 def launch(op, xs, phase_taps, L: int, M: int, tails):
-    """One launch of kernel `op` (OP or UP_OP) on CUDA planes, whatever
-    the route: resample_poly's arguments and result."""
+    """One launch of kernel `op` (OP, UP_OP or X2_OP) on CUDA planes,
+    whatever the route: resample_poly's arguments and result."""
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
     dev = xs[0].device
@@ -177,6 +185,8 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
         raise ValueError(f"no {op} kernel for device {dev}")
     if op == UP_OP and M > UP_MAX_M:
         raise ValueError(f"{op} takes M <= {UP_MAX_M}, not {M}")
+    if op == X2_OP and (L, M) != (2, 1):
+        raise ValueError(f"{op} takes L 2 M 1 only, not L {L} M {M}")
     for x in xs:
         if not x.is_contiguous():
             raise ValueError("planes must be contiguous")

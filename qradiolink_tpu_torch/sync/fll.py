@@ -5,10 +5,10 @@ src/gr/gr_demod_bpsk.cpp FLL(sps, 0.35, 32, 2pi/100)).
 The JAX package's form, "estimate then apply" over sub-blocks: in each
 sub-block the current NCO derotates the samples, the two band-edge filters
 run as FIRs over them, and the band-edge energy difference drives one
-frequency update. The loop runs over the sub-blocks (200 a step at
-QPSK250K), in plain PyTorch; its band-edge FIRs, complex taps on the
-derotated planes, are launches of the routed FIR kernel (`fir_s1_f32` on
-CUDA, ops/cuda_fir.py), the tails read in place from the state.
+frequency update. On the card the whole block, every sub-block of every
+row, is one launch of `fll_band_edge_f32` (sync/cuda_fll.py,
+csrc/fll_band_edge.cu); on the CPU the loop over the sub-blocks runs in
+plain PyTorch (`cuda_fll.fll_plain`).
 """
 
 from __future__ import annotations
@@ -18,10 +18,9 @@ import torch
 
 from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
 from qradiolink_tpu_torch.ops import firdes
-from qradiolink_tpu_torch.ops.fir import fir_planes, flipped_tap_planes, \
-    next_tail
+from qradiolink_tpu_torch.ops.fir import flipped_tap_planes
 from qradiolink_tpu_torch.sync.costas import loop_gains
-from qradiolink_tpu_torch.sync.cuda_costas import mod_2pi
+from qradiolink_tpu_torch.sync.cuda_fll import fll_band_edge
 
 
 def band_edge_taps(sps: float, rolloff: float, ntaps: int):
@@ -49,8 +48,9 @@ class FllBandEdge(Block):
                  device=None):
         self.device = resolve_device(device)
         upper, lower = band_edge_taps(sps, rolloff, filter_size)
-        self.upper = flipped_tap_planes(upper, self.device)
-        self.lower = flipped_tap_planes(lower, self.device)
+        # the flipped upper re, upper im, lower re and lower im taps
+        self.taps = torch.stack(flipped_tap_planes(upper, self.device)
+                                + flipped_tap_planes(lower, self.device))
         self.ntaps = int(filter_size)
         _, self.beta = loop_gains(loop_bw)
         self.max_freq = 2.0 * np.pi / float(sps) * (1.0 + rolloff)
@@ -78,32 +78,9 @@ class FllBandEdge(Block):
         elif torch.is_complex(x):
             xr, xi = x.real, x.imag
         else:
-            xr, xi = x.float(), torch.zeros_like(x, dtype=torch.float32)
+            xr, xi = x.float(), None
         phase, freq, tail = state
-        T = xr.shape[-1]
-        sb = self.sub_block_len(T)
-        k1 = self.ntaps - 1
-        n = torch.arange(sb, dtype=torch.float32, device=xr.device)
-        tr, ti = tail.real.contiguous(), tail.imag.contiguous()
-        ys_r, ys_i = [], []
-        for k in range(T // sb):
-            ar = xr[..., k * sb:(k + 1) * sb]
-            ai = xi[..., k * sb:(k + 1) * sb]
-            ph = phase[..., None] + freq[..., None] * n
-            c, s = torch.cos(ph), -torch.sin(ph)  # exp(-1j ph)
-            yr = ar * c - ai * s
-            yi = ar * s + ai * c
-            ur, ui = fir_planes((yr, yi), self.upper, 1, sb, tails=(tr, ti))
-            lr, li = fir_planes((yr, yi), self.lower, 1, sb, tails=(tr, ti))
-            err = torch.mean((ur * ur + ui * ui) - (lr * lr + li * li),
-                             dim=-1)
-            err = torch.clamp(err, -1.0, 1.0)
-            new_freq = torch.clamp(freq + self.beta * err, -self.max_freq,
-                                   self.max_freq)
-            phase = mod_2pi(phase + freq * sb)
-            freq = new_freq
-            tr, ti = next_tail(tr, yr, k1), next_tail(ti, yi, k1)
-            ys_r.append(yr)
-            ys_i.append(yi)
-        y = torch.complex(torch.cat(ys_r, dim=-1), torch.cat(ys_i, dim=-1))
-        return (phase, freq, torch.complex(tr, ti)), y
+        y, phase, freq, tail = fll_band_edge(
+            xr, xi, phase, freq, tail, self.taps, self.beta, self.max_freq,
+            self.sub_block_len(xr.shape[-1]))
+        return (phase, freq, tail), y

@@ -30,11 +30,11 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v"]
 # per-source flags: the Viterbi kernels and the per-row loops (the AGC, the
-# Costas loop, the symbol sync) must round every f32 operation on its own
-# (see the notes in csrc/viterbi.cu and csrc/agc2.cu)
+# Costas loop, the symbol sync, the FLL) must round every f32 operation on
+# its own (see the notes in csrc/viterbi.cu and csrc/agc2.cu)
 _EXTRA = {name: ["--fmad=false"] for name in (
     "viterbi", "viterbi_bfly", "viterbi_stream", "agc2", "costas",
-    "symbol_sync")}
+    "symbol_sync", "fll_band_edge")}
 
 # shared memory one block may use on Hopper (227 KB), in bytes
 SMEM_MAX = 232_448

@@ -17,7 +17,9 @@ chains on the card within 1e-5 of each output's and state leaf's peak of
 the same chain on the CPU (their FIRs' bound), rssi within 1e-4 dB; the
 PSK chains' loop kernels (the Costas loop, the M&M symbol sync, the
 streaming Viterbi) bit-equal to their plain loops over two chained blocks,
-every output and state leaf.
+every output and state leaf; the FLL kernel within the FLL's bound of its
+plain loop (it sums each sub-block's band-edge energy in its own order),
+elementwise 2e-5 + 1e-5 |plain|, the phase as a distance on the circle.
 """
 
 import pathlib
@@ -35,7 +37,8 @@ from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.chains.ssb import SsbDemod  # noqa: E402
 from qradiolink_tpu_torch.chains.wbfm import WbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair, _flatten  # noqa: E402
-from qradiolink_tpu_torch.chains.psk import QpskMod  # noqa: E402
+from qradiolink_tpu_torch.chains.psk import (  # noqa: E402
+    BpskDemod, QpskDemod, QpskMod)
 from qradiolink_tpu_torch.fec.conv import CCSDS_K7, conv_encode  # noqa: E402
 from qradiolink_tpu_torch.fec import viterbi_stream_cuda  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
@@ -58,6 +61,8 @@ from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
 from qradiolink_tpu_torch.ops.fir import FirFilter  # noqa: E402
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.sync import cuda_costas  # noqa: E402
+from qradiolink_tpu_torch.sync import cuda_fll  # noqa: E402
+from qradiolink_tpu_torch.utils import kernels  # noqa: E402
 from qradiolink_tpu_torch.sync import cuda_symbol_sync  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 
@@ -1063,3 +1068,137 @@ def test_viterbi_stream_kernel_equals_plain(cuda, name):
         assert torch.equal(bits, want_bits) and torch.equal(pm1, want_pm)
         pm = pm1
         tail = torch.cat([tail, sb], dim=1)[:, T:].contiguous()
+
+
+# -- the redesigned QPSK-path rows: QpskMod's x2 and the FLL -------------------
+
+# resample_x2_f32 at L 2 M 1 (name: (rows, block length, planes)):
+# QpskMod's x2 at 2048 rows, a ragged tile, round and job, a block shorter
+# than the tail, one real plane, the state alone
+X2_CASES = {"qpsk_tx_up": (2048, 25_000, 2), "ragged": (3, 30_007, 2),
+            "short": (3, 20, 2), "real": (5, 4_100, 1),
+            "state_only": (3, 0, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(X2_CASES))
+def test_resample_x2_matches_resample_poly(cuda, gen, name):
+    """resample_x2_f32 with QpskMod's x2 taps (46 a phase) over two chained
+    blocks, the tails read in place: one launch a block on the route,
+    outputs and new state equal bit for bit to resample_poly_f32's on the
+    same inputs, within 1e-5 of the plain version (the state equal)."""
+    C, T, planes = X2_CASES[name]
+    rs = QpskMod(125_000, lead_shape=(C,), device=cuda).up
+    assert (rs.L, rs.M, rs.kp) == (2, 1, 46)
+    assert cuda_resample.route(2, 1, rs.kp) == cuda_resample.X2_OP
+    state = torch.randn((C, 2, rs.kp - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = [torch.randn((C, T), generator=gen, device=cuda)
+              for _ in range(planes)]
+        tails = (state[:, 0], state[:, 1])[:planes]
+        kernel_paths.reset()
+        new_state, got = resample_poly(xs, rs.poly_taps, 2, 1, tails)
+        assert kernel_paths.report() == {cuda_resample.X2_OP: {
+            "cuda": 1, "plain": 0,
+            "shapes": {f"cuda L2 K46 D1 tail {planes}x{C}": 1}}}
+        old_state, old = cuda_resample.launch(cuda_resample.OP, xs,
+                                              rs.poly_taps, 2, 1, tails)
+        want_state, want = resample_poly_plain(xs, rs.poly_taps, 2, 1, tails)
+        assert torch.equal(new_state, old_state)
+        assert torch.equal(new_state, want_state)
+        for g, o in zip(got, old):
+            assert torch.equal(g, o)
+        if T:
+            _assert_fir_close(got, want)
+        state = new_state
+
+
+def test_resample_x2_raises_off_its_shape(cuda):
+    """No fallback: a launch of resample_x2_f32 at another L or M
+    raises."""
+    x, t = torch.zeros((2, 60), device=cuda), torch.zeros((2, 4),
+                                                          device=cuda)
+    for L, M in ((2, 5), (3, 1)):
+        with pytest.raises(ValueError):
+            cuda_resample.launch(cuda_resample.X2_OP, (x,),
+                                 torch.zeros((L, 5), device=cuda), L, M,
+                                 (t,))
+
+
+def _fll_close(got, want):
+    """y, phase, freq and tail within 2e-5 + 1e-5 |plain|, the phase as a
+    distance on the circle."""
+    for leaf, a, b in zip(("y", "phase", "freq", "tail"), got, want):
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        d = (a.double() - b.double()).abs()
+        if leaf == "phase":
+            d = torch.minimum(d, 2 * np.pi - d)
+        assert bool(torch.isfinite(a).all()), leaf
+        assert bool((d <= 2e-5 + 1e-5 * b.double().abs()).all()), (
+            leaf, float(d.max()))
+
+
+# the FLL kernel (name: (chain, rows, block length, input kind)): QPSK250K's
+# FLL and BPSK2K's at 2048 x 4,000 (sub-blocks of 500), a ragged row block
+# with odd sub-blocks (1,001: 143), complex and real input
+FLL_CASES = {"qpsk": ("qpsk", 2048, 4000, "pair"),
+             "bpsk": ("bpsk", 2048, 4000, "pair"),
+             "ragged": ("qpsk", 45, 1001, "pair"),
+             "complex": ("qpsk", 33, 2000, "complex"),
+             "real": ("bpsk", 7, 1000, "real")}
+
+
+@pytest.mark.parametrize("name", sorted(FLL_CASES))
+def test_fll_kernel_matches_plain(cuda, name):
+    """Two chained blocks of a QPSK250K signal 1 kHz off (its first
+    samples ~1e-20): FllBandEdge on the card is one fll_band_edge_f32
+    launch a block and no other kernel; y and the state within the FLL's
+    bound of the plain loop run from the kernel's state, and of the plain
+    loop chained from its own state."""
+    chain, C, T, kind = FLL_CASES[name]
+    fll = (QpskDemod(125_000, 500_000, lead_shape=(C,), device=cuda) if
+           chain == "qpsk" else BpskDemod(lead_shape=(C,), device=cuda)).fll
+    x = qpsk_signal(cuda, C, 2 * T)
+    sb = fll.sub_block_len(T)
+    st = st_p = fll.init_state()
+    for blk in range(2):
+        xb = x[:, blk * T:(blk + 1) * T].contiguous()
+        xr, xi = xb.real.contiguous(), xb.imag.contiguous()
+        arg = {"pair": IqPair(xr, xi), "complex": xb, "real": xr}[kind]
+        kernel_paths.reset()
+        st_k, y = fll(st, arg)
+        assert kernel_paths.report() == {cuda_fll.OP: {
+            "cuda": 1, "plain": 0, "shapes": {f"cuda {C}x{T} sb{sb}": 1}}}
+        for s0 in (st, st_p):
+            want = cuda_fll.fll_plain(
+                xr, torch.zeros_like(xr) if kind == "real" else xi, *s0,
+                fll.taps, fll.beta, fll.max_freq, sb)
+            _fll_close((y, *st_k), want)
+        st, st_p = st_k, want[1:]
+
+
+def test_fll_raises_without_its_kernel(cuda, monkeypatch, tmp_path):
+    """No fallback on the card: a sub-block the kernel cannot stage raises,
+    and so does a kernel that fails to build; the plain loop never runs."""
+    fll = QpskDemod(125_000, 500_000, lead_shape=(2,), device=cuda).fll
+    x = torch.zeros((2, 200_000), device=cuda)
+    st = fll.init_state()
+    kernel_paths.reset()
+    with pytest.raises(ValueError):  # one sub-block of 200,000 samples
+        cuda_fll.fll_band_edge(x, x, *st, fll.taps, fll.beta, fll.max_freq,
+                               200_000)
+    monkeypatch.setattr(kernels, "_loaded", {})
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    with pytest.raises(OSError):
+        fll(st, IqPair(x[:, :1000], x[:, :1000]))
+    assert kernel_paths.report().get(cuda_fll.OP, {}).get("plain", 0) == 0
+
+
+def test_cuda_mean_is_the_sum_times_the_f32_reciprocal(cuda, gen):
+    """What fll_band_edge_f32 copies from the plain loop's torch.mean: on
+    the card the mean over the last axis is the sum times the f32 of
+    1/n (cuda_fll.inv_sb), not the sum divided by n."""
+    x = torch.randn((2048, 500), generator=gen, device=cuda)
+    assert torch.equal(x.mean(dim=-1),
+                       x.sum(dim=-1) * cuda_fll.inv_sb(500))

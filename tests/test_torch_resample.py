@@ -17,7 +17,8 @@ from qradiolink_tpu.ops.resample import (  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
-    OP, UP_OP, phase_offsets, resample_poly, resample_poly_plain, route)
+    OP, UP_OP, X2_OP, phase_offsets, resample_poly, resample_poly_plain,
+    route)
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
@@ -27,6 +28,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch" \
     / "csrc"
 SRC = CSRC / "resample_poly.cu"
 UP_SRC = CSRC / "resample_up.cu"
+X2_SRC = CSRC / "resample_x2.cu"
 THREADS, WARP = 128, 32
 # resample_up_f32's block, tile target, span cap and outputs a job
 UP_THREADS, UP_ROUNDS, UP_MAX_SPAN = 256, 24, 8192
@@ -405,15 +407,231 @@ def test_up_model_follows_the_kernel_source():
         assert line in src, line
 
 
+# resample_x2_f32's block, outputs a job, rounds a tile (at most)
+X2_THREADS, X2_R, X2_ROUNDS = 256, 16, 6
+X2_ROUND = X2_THREADS * X2_R
+X2_OUT_LD = 2 * X2_R + 1
+
+
+def x2_padded(i):
+    """Shared-memory word of logical span word i: a pad after every kR."""
+    return i + i // X2_R
+
+
+def x2_tile_times(n_pp):
+    """resample_x2_f32's tile width (tile_times in the source): at most
+    X2_ROUNDS rounds, whole jobs, equal tiles across the row."""
+    if n_pp <= 0:
+        return 0
+    tt_max = X2_ROUNDS * X2_ROUND
+    tiles = -(-n_pp // tt_max)
+    per = -(-n_pp // tiles)
+    return -(-per // X2_R) * X2_R
+
+
+def x2_ring_reads(K):
+    """The span words each FMA of job g = 0 reads, by running the kernel's
+    ring over the padded layout: the fill of kR - 1 slots from p, K // kR
+    groups of kR steps with q advanced by kR + 1 words a group, then
+    K mod kR steps under `u < rem`; in step u the word q[c + c // kR],
+    c = u + kR - 1, enters slot (u + kR - 1) mod kR, and output v reads
+    slot (u + v) mod kR. Returns [(j, v, logical word)] in issue order."""
+    R = X2_R
+    unpad = {x2_padded(i): i for i in range(4 * R + K)}
+    ring = {s: unpad[s] for s in range(R - 1)}
+    reads, q, j = [], 0, 0
+    n_grp, rem = K // R, K % R
+    for us in [range(R)] * n_grp + [range(rem)]:
+        for u in us:
+            c = u + R - 1
+            ring[(u + R - 1) % R] = unpad[q + c + c // R]
+            for v in range(R):
+                reads.append((j, v, ring[(u + v) % R]))
+            j += 1
+        q += R + 1
+    return reads
+
+
+def x2_model(xs, taps, tails):
+    """resample_x2_f32's blocks in numpy. Block (tile, row, plane) stages
+    both phases' taps, then, a round of up to 4,096 output times at a
+    time, the span its whole jobs read (the round's times + K - 1 words of
+    xc = [tail | x], zeros past the stream's end) into the padded layout
+    (NaN elsewhere, so a wrong index shows); job g of a round (thread g)
+    computes output times g kR .. g kR + kR - 1 of both phases from the
+    words x2_ring_reads names, writes them to row g mod 32 of its warp's
+    buffer (2 u + r), and the warp stores buffer entry (k, lane) to round
+    output warp * 1,024 + 32 k + lane where that lies before the tile's
+    end; the row's first tile copies xc[T .. T+K-2] into the new state
+    (zeros in the im plane of one plane). Returns (state (C, 2, K-1),
+    outputs (planes, C, 2T)), asserting that every value is written
+    once."""
+    planes, (C, T), K = len(xs), xs[0].shape, taps.shape[1]
+    k1, R = K - 1, X2_R
+    tt = x2_tile_times(T)
+    n_tiles = -(-T // tt) if T else 1
+    reads = np.array(x2_ring_reads(K))
+    assert all(w == j + v for j, v, w in reads)
+    y = np.full((planes, C, 2 * T), np.nan, np.float32)
+    state = np.full((C, 2, k1), np.nan, np.float32)
+    jobs = np.arange(X2_THREADS)
+    for p in range(planes):
+        for row in range(C):
+            xc = np.concatenate([tails[p][row], xs[p][row]])
+
+            def load(v):
+                return np.where(v < k1 + T, xc[np.minimum(v, k1 + T - 1)],
+                                np.float32(0.0))
+
+            for tile in range(n_tiles):
+                if tile == 0:
+                    assert np.isnan(state[row, p]).all()
+                    state[row, p] = load(T + np.arange(k1))
+                    if planes == 1:
+                        state[row, 1] = 0.0
+                t0 = tile * tt
+                nt = max(0, min(tt, T - t0))
+                for r0 in range(0, nt, X2_ROUND):
+                    n_here = min(X2_ROUND, nt - r0)
+                    nj = -(-n_here // R)
+                    span = nj * R + k1
+                    s_x = np.full(x2_padded(X2_ROUND + k1 - 1) + 1, np.nan,
+                                  np.float32)
+                    s_x[x2_padded(np.arange(span))] = load(
+                        t0 + r0 + np.arange(span))
+                    g = jobs[:nj]
+                    # job g, output v, tap j: the word g kR + j + v
+                    words = g[:, None, None] * R + reads[None, :, 2]
+                    vals = s_x[x2_padded(words)].reshape(nj, K, R)
+                    assert not np.isnan(vals).any()
+                    acc = np.einsum("gjv,rj->grv", vals.astype(np.float64),
+                                    taps.astype(np.float64))
+                    buf = np.full((X2_THREADS, X2_OUT_LD), np.nan,
+                                  np.float32)
+                    u = np.arange(R)
+                    for r in (0, 1):
+                        buf[g[:, None], 2 * u[None, :] + r] = acc[:, r, :]
+                    out0 = 2 * (t0 + r0)
+                    for warp in range(-(-nj // 32)):
+                        n_out = 2 * (n_here - warp * 32 * R)
+                        for k in range(32):
+                            e = k * 32 + np.arange(32)
+                            keep = e < n_out
+                            pos = out0 + warp * 32 * 2 * R + e[keep]
+                            assert np.isnan(y[p, row, pos]).all()
+                            y[p, row, pos] = buf[warp * 32 + k,
+                                                 np.arange(32)[keep]]
+    assert not np.isnan(y).any() and not np.isnan(state).any()
+    return state, y
+
+
+def _x2_case(rng, planes, T, C=2, blocks=2):
+    """Blocks chained through x2_model with QpskMod's x2 taps (the default
+    2/1 taps, 46 a phase), each held against resample_poly_plain: outputs
+    within 1e-5, state equal."""
+    rs = RationalResampler(2, 1, lead_shape=(C,), device="cpu")
+    taps = rs.poly_taps.numpy()
+    st = rng.standard_normal((C, 2, rs.kp - 1)).astype(np.float32)
+    for _ in range(blocks):
+        xs = [rng.standard_normal((C, T)).astype(np.float32)
+              for _ in range(planes)]
+        tails = [st[:, p] for p in range(planes)]
+        got_state, got = x2_model(xs, taps, tails)
+        want_state, want = resample_poly_plain(
+            [torch.from_numpy(x) for x in xs], rs.poly_taps, 2, 1,
+            [torch.from_numpy(t.copy()) for t in tails])
+        for g, w in zip(got, want):
+            _close(g, w.numpy())
+        assert np.array_equal(got_state, want_state.numpy())
+        st = got_state
+    return st
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("T", [
+    30_007,  # tiles of 15,008 + 14,999: ragged rounds, a ragged last job
+    4_096,   # one full round
+    1_000,   # one round of 63 jobs (62 + 8 times), a part-filled warp
+    20,      # shorter than the tail (45): the state is part old tail
+    1,
+])
+def test_x2_model_matches_plain(rng, planes, T):
+    """QpskMod's L2 M1 over two chained blocks and at the edges: the
+    model's outputs within 1e-5 of resample_poly_plain's, its state
+    equal."""
+    _x2_case(rng, planes, T)
+
+
+def test_x2_model_state_only(rng):
+    """T = 0: the launch only copies the tail into the new state."""
+    assert _x2_case(rng, 2, 0, blocks=1).shape == (2, 2, 45)
+
+
+@pytest.mark.parametrize("K", [1, 2, 15, 16, 17, 46, 113])
+def test_x2_ring_reads_every_tap_in_order(K):
+    """Every FMA of a job reads sample j + v at tap j, and each output adds
+    its taps j = 0 .. K-1 in order (resample_poly_f32's order)."""
+    reads = x2_ring_reads(K)
+    assert len(reads) == K * X2_R
+    for v in range(X2_R):
+        assert [j for j, vv, _ in reads if vv == v] == list(range(K))
+
+
+def test_x2_tile_widths():
+    """QpskMod's x2 at QPSK250K: 5 tiles of 20,000 output times a row."""
+    assert x2_tile_times(100_000) == 20_000
+    assert x2_tile_times(30_007) == 15_008
+    assert x2_tile_times(X2_ROUNDS * X2_ROUND) == X2_ROUNDS * X2_ROUND
+
+
+def test_x2_model_follows_the_kernel_source():
+    """The model's constants, tiles, span, ring, buffer and stores are the
+    kernel's."""
+    src = X2_SRC.read_text()
+    for line in [
+            f"constexpr int kThreads = {X2_THREADS};",
+            f"constexpr int kR = {X2_R};",
+            f"constexpr int kRounds = {X2_ROUNDS};",
+            "constexpr int kRound = kThreads * kR;",
+            "constexpr int kOutLd = 2 * kR + 1;",
+            "constexpr int padded(int i) { return i + i / kR; }",
+            "return nj * kR + K - 1;",
+            # tile_times
+            "const long long tt_max = (long long)kRounds * kRound;",
+            "const long long tiles = (n_pp + tt_max - 1) / tt_max;",
+            "return (int)((per + kR - 1) / kR * kR);",
+            # the span: zeros past the stream's end, the seam
+            "if (w < span && v < n_in)",
+            "val[k] = v < k1 ? tail[v] : x[v - k1];",
+            "if (w < span) s_x[padded(w)] = val[k];",
+            "st[j] = v < k1 ? tail[v] : x[v - k1];",
+            # the ring
+            "const float* q = s_x + g * (kR + 1);",
+            "for (int s = 0; s < kR - 1; ++s) w[s] = q[s];",
+            "w[(u + kLast) % kR] = q[c + c / kR];",
+            "a0[v] = fmaf(tap.x, w[(u + v) % kR], a0[v]);",
+            "a1[v] = fmaf(tap.y, w[(u + v) % kR], a1[v]);",
+            "for (int b = 0; b < n_grp; ++b, q += kR + 1, h += kR) {",
+            "if (u < rem) {",
+            # the buffer and the stores
+            "s_o[lane * kOutLd + 2 * u] = a0[u];",
+            "s_o[lane * kOutLd + 2 * u + 1] = a1[u];",
+            "float* yo = y + 2 * (t0 + r0) + warp * 32 * 2 * kR;",
+            "const int n_out = 2 * (n_here - warp * 32 * kR);",
+            "if (e < n_out) yo[e] = s_o[k * kOutLd + lane];"]:
+        assert line in src, line
+
+
 @pytest.mark.parametrize("L,M,want", [
-    (2, 5, OP), (2, 1, OP), (3, 125, OP), (3, 1, UP_OP), (3, 5, UP_OP),
+    (2, 5, OP), (2, 1, X2_OP), (3, 125, OP), (3, 1, UP_OP), (3, 5, UP_OP),
     (4, 1, UP_OP), (4, 5, UP_OP), (5, 4, UP_OP), (20, 1, UP_OP),
     (25, 4, UP_OP), (125, 1, UP_OP), (125, 4, UP_OP), (3, 7, OP),
     (4, 6, OP), (125, 7, OP)])
 def test_resample_route_at_the_sweep_edges(L, M, want):
-    """resample_up_f32 from L 3 (the sweep's lowest L) at M <= 5 (the
-    decimations with a ring instance), resample_poly_f32 elsewhere (L 2,
-    M17's 3/125), whatever K."""
+    """resample_x2_f32 at L 2 M 1 (QpskMod's x2), resample_up_f32 from L 3
+    (the sweep's lowest L) at M <= 5 (the decimations with a ring
+    instance), resample_poly_f32 elsewhere (L 2 M 5, M17's 3/125),
+    whatever K."""
     for K in (45, 113):
         assert route(L, M, K) == want
     assert cuda_resample.UP_MIN_L == 3 and cuda_resample.UP_MAX_M == 5
@@ -459,8 +677,9 @@ def test_rational_resampler_matches_jax(rng, L, M, kind):
 @pytest.mark.parametrize("kind", ["real", "pair"])
 def test_resampler_route_recorded_on_cpu(L, M, kind):
     """Every L > 1 call records the kernel route(L, M, K) picks alone,
-    once (resample_up_f32 at 25/4 and 20/1, resample_poly_f32 at 2/5, 3/125
-    and 4/2, which reduces to 2/1); L = 1 the strided FIR kernel
+    once (resample_up_f32 at 25/4 and 20/1, resample_poly_f32 at 2/5 and
+    3/125, resample_x2_f32 at 4/2, which reduces to 2/1); L = 1 the
+    strided FIR kernel
     cuda_fir.route picks for the head."""
     rs = RationalResampler(L, M, device="cpu")
     x = torch.zeros((2, 250 * rs.M))

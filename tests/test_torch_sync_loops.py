@@ -1,8 +1,9 @@
 """The PSK chains' loops of the port against the JAX package's on the CPU:
 CostasLoop (orders 2 and 4), SymbolSync (complex sign decisions, real
 levels, real sign decisions) and FllBandEdge, and numpy models of the
-loop kernels `costas_loop_f32` (csrc/costas.cu) and `symbol_sync_mm_f32`
-(csrc/symbol_sync.cu) against their plain loops.
+loop kernels `costas_loop_f32` (csrc/costas.cu), `symbol_sync_mm_f32`
+(csrc/symbol_sync.cu) and `fll_band_edge_f32` (csrc/fll_band_edge.cu)
+against their plain loops.
 
 Each block is fed a short QPSK-like signal, locked or nearly so, whose
 first samples are ~1e-20 (the denormal trap: XLA flushes denormals,
@@ -17,8 +18,11 @@ rtol |jax|:
     and the frequency's difference accumulates into the phase (measured
     4.1e-6 after two blocks of 5,000).
 Downstream, these bounds leave the decoded bits equal (tests/
-test_torch_psk.py). The kernels' models are held to the plain loops bit
-for bit, as the kernels are on the card (tests/test_torch_cuda.py).
+test_torch_psk.py). The Costas and sync kernels' models are held to the
+plain loops bit for bit, as the kernels are on the card (tests/
+test_torch_cuda.py); the FLL kernel's model to the FllBandEdge bound
+above, as the kernel is on the card: it sums each sub-block's band-edge
+energy in its own order, which torch.mean does not fix.
 """
 
 import pathlib
@@ -33,10 +37,11 @@ from qradiolink_tpu.sync.costas import CostasLoop as JaxCostas  # noqa: E402
 from qradiolink_tpu.sync.fll import FllBandEdge as JaxFll  # noqa: E402
 from qradiolink_tpu.sync.symbol_sync import SymbolSync as JaxSync  # noqa: E402
 from qradiolink_tpu_torch.sync import (cuda_costas,  # noqa: E402
-                                       cuda_symbol_sync)
+                                       cuda_fll, cuda_symbol_sync)
 from qradiolink_tpu_torch.sync.costas import CostasLoop  # noqa: E402
 from qradiolink_tpu_torch.sync.fll import FllBandEdge  # noqa: E402
 from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync  # noqa: E402
+from qradiolink_tpu_torch.utils import kernels  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
 from tests.torch_parity import stream_both  # noqa: E402
 
@@ -353,6 +358,182 @@ def test_sync_model_matches_plain(rng, variant):
         st, _ = ss(st, torch.from_numpy(xb))
 
 
+# fll_band_edge_f32's outputs a lane a pass and the warp's pass
+FLL_R, FLL_PASS = 4, 128
+
+
+def fll_padded(i):
+    """Shared-memory word of logical word i of [tail | y]."""
+    return i + i // FLL_R
+
+
+def fll_ring_reads(K):
+    """The buffer words each FMA of a pass reads for the lane whose first
+    output is m0 = 0, by running the kernel's ring over the padded layout
+    (fill of kR - 1 slots, K // kR groups of kR steps with q advanced by
+    kR + 1 words, then K mod kR steps under `u < rem`). Returns
+    [(j, v, logical word)] in issue order."""
+    R = FLL_R
+    unpad = {fll_padded(i): i for i in range(4 * R + K)}
+    ring = {s: unpad[s] for s in range(R - 1)}
+    reads, q, j = [], 0, 0
+    for us in [range(R)] * (K // R) + [range(K % R)]:
+        for u in us:
+            c = u + R - 1
+            ring[(u + R - 1) % R] = unpad[q + c + c // R]
+            reads += [(j, v, ring[(u + v) % R]) for v in range(R)]
+            j += 1
+        q += R + 1
+    return reads
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) of f32 arrays: the exact product plus c, rounded in
+    f64 then to f32 (equal to one rounding but where the f64 sum is a tie
+    for f32; the model is held to a bound, not to bits)."""
+    return (a.astype(np.float64) * b + c).astype(F)
+
+
+def fll_model(xr, xi, ph, fr, tail, taps, beta, max_freq, sb):
+    """fll_band_edge_f32 in numpy, every row at once (a warp a row): for
+    each sub-block, the derotation in f32 with each product and sum
+    rounded (cos and sin from torch, which the kernel's cosf/sinf equal on
+    the card), the four FIRs a filter summed with fmaf in tap order from 0
+    over the words x2-style ring reads name, |U|^2 - |L|^2, lane l's sum of
+    its outputs m = pass 128 + 4 l + u in pass then u order from 0, the
+    xor butterfly over the 32 lanes (offsets 16 .. 1, asserting that every
+    lane ends with the same bits), times the f32 of 1/sb, then the clip
+    and the update; the tail is the last K-1 words of [tail | y].
+    xr, xi: (C, T) f32; ph, fr: (C,) f32; tail: (C, K-1) complex64; taps
+    (4, K). Returns (y complex64, phase, freq, tail)."""
+    C, T = xr.shape
+    K = taps.shape[1]
+    k1 = K - 1
+    reads = np.array(fll_ring_reads(K))
+    assert all(w == j + v for j, v, w in reads)
+    beta, max_freq = F(beta), F(max_freq)
+    inv, sb_f, two_pi = F(cuda_fll.inv_sb(sb)), F(sb), F(cuda_costas.TWO_PI)
+    n = np.arange(sb, dtype=F)
+    n_pass = -(-sb // FLL_PASS)
+    lanes = np.arange(32)
+    bre, bim = tail.real.astype(F), tail.imag.astype(F)
+    ys = np.zeros((C, T), np.complex64)
+    for k in range(T // sb):
+        ar, ai = xr[:, k * sb:(k + 1) * sb], xi[:, k * sb:(k + 1) * sb]
+        p = (ph[:, None] + (fr[:, None] * n).astype(F)).astype(F)
+        c = torch.cos(torch.from_numpy(p)).numpy()
+        s = -torch.sin(torch.from_numpy(p)).numpy()
+        yr = ((ar * c).astype(F) - (ai * s).astype(F)).astype(F)
+        yi = ((ar * s).astype(F) + (ai * c).astype(F)).astype(F)
+        ys[:, k * sb:(k + 1) * sb] = yr + 1j * yi
+        # the buffer's logical words, the passes' spare words zero
+        n_buf = n_pass * FLL_PASS + K - 1
+        wr = np.zeros((C, n_buf), F)
+        wi = np.zeros((C, n_buf), F)
+        wr[:, :k1], wr[:, k1:k1 + sb] = bre, yr
+        wi[:, :k1], wi[:, k1:k1 + sb] = bim, yi
+        m = np.arange(n_pass * FLL_PASS)
+        acc = np.zeros((8, C, m.size), F)
+        for j in range(K):
+            sr, si = wr[:, m + j], wi[:, m + j]
+            t = taps[:, j]
+            for a, (tv, sv) in enumerate([(t[0], sr), (t[0], si),
+                                          (t[1], sr), (t[1], si),
+                                          (t[2], sr), (t[2], si),
+                                          (t[3], sr), (t[3], si)]):
+                acc[a] = _fma32(tv, sv, acc[a])
+        urr, uir, uri, uii, lrr, lir, lri, lii = acc
+        ur, ui = (urr - uii).astype(F), (uri + uir).astype(F)
+        lr, li = (lrr - lii).astype(F), (lri + lir).astype(F)
+        e = (((ur * ur).astype(F) + (ui * ui).astype(F)).astype(F)
+             - ((lr * lr).astype(F) + (li * li).astype(F)).astype(F)
+             ).astype(F)
+        # output m = pass 128 + 4 lane + u
+        e = e.reshape(C, n_pass, 32, FLL_R)
+        valid = (m < sb).reshape(n_pass, 32, FLL_R)
+        lane_sum = np.zeros((C, 32), F)
+        for ps in range(n_pass):
+            for u in range(FLL_R):
+                lane_sum = np.where(valid[ps, :, u],
+                                    (lane_sum + e[:, ps, :, u]).astype(F),
+                                    lane_sum)
+        for off in (16, 8, 4, 2, 1):
+            lane_sum = (lane_sum + lane_sum[:, lanes ^ off]).astype(F)
+        assert (lane_sum == lane_sum[:, :1]).all()
+        err = np.clip((lane_sum[:, 0] * inv).astype(F), F(-1), F(1))
+        fr_new = np.clip((fr + (beta * err).astype(F)).astype(F), -max_freq,
+                         max_freq).astype(F)
+        r = np.fmod((ph + (fr * sb_f).astype(F)).astype(F), two_pi)
+        ph = np.where(r < 0, (r + two_pi).astype(F), r).astype(F)
+        fr = fr_new
+        bre, bim = wr[:, sb:sb + k1].copy(), wi[:, sb:sb + k1].copy()
+    return ys, ph, fr, (bre + 1j * bim).astype(np.complex64)
+
+
+# (rows, samples a block): QPSK250K's sub-blocks of 500 (4 passes, the last
+# of 116 outputs); 1,250 (sub-blocks of 250: a lane with 2 of its 4
+# outputs); 1,001 (sub-blocks of 143, odd)
+FLL_MODEL_CASES = [(3, 2000), (2, 1250), (2, 1001)]
+
+
+@pytest.mark.parametrize("C,T", FLL_MODEL_CASES)
+def test_fll_model_matches_plain(rng, C, T):
+    """The kernel's schedule against the plain FllBandEdge loop over two
+    chained blocks of a signal 0.05 rad/sample off, its first samples
+    ~1e-20: y and every state leaf within the FLL's bound, 2e-5 + 1e-5
+    |plain|."""
+    x = qpsk_like(rng, C, 2 * T // 4 + 1, 4, offset=0.05)[:, :2 * T]
+    fll = FllBandEdge(4, 0.35, 32, 2 * np.pi / 100, lead_shape=(C,),
+                      device="cpu")
+    sb = fll.sub_block_len(T)
+    taps = fll.taps.numpy()
+    st = fll.init_state()
+    ph, fr, tail = (v.numpy() for v in st)
+    for blk in range(2):
+        xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
+        st, want = fll(st, torch.from_numpy(xb))
+        got = fll_model(xb.real.astype(F), xb.imag.astype(F), ph, fr, tail,
+                        taps, fll.beta, fll.max_freq, sb)
+        for g, w in zip(got, (want,) + tuple(st)):
+            np.testing.assert_allclose(g, w.numpy(), rtol=1e-5, atol=2e-5)
+        ys, ph, fr, tail = got
+    assert np.all(fr > 5e-4)  # pulling toward the offset
+
+
+@pytest.mark.parametrize("K", [2, 5, 31, 32, 33, 65])
+def test_fll_ring_reads_every_tap_in_order(K):
+    """Every FMA reads word j + v at tap j, and each output adds its taps
+    j = 0 .. K-1 in order (fir_s1_f32's order)."""
+    reads = fll_ring_reads(K)
+    assert len(reads) == K * FLL_R
+    for v in range(FLL_R):
+        assert [j for j, vv, _ in reads if vv == v] == list(range(K))
+
+
+def test_fll_records_its_path_on_cpu(rng):
+    x = torch.from_numpy(qpsk_like(rng, 3, 250, 4))
+    fll = FllBandEdge(4, 0.35, 32, 2 * np.pi / 100, lead_shape=(3,),
+                      device="cpu")
+    kernel_paths.reset()
+    fll(fll.init_state(), x)
+    assert kernel_paths.report() == {cuda_fll.OP: {
+        "cuda": 0, "plain": 1, "shapes": {"plain 3x1000 sb500": 1}}}
+
+
+def test_fll_wrapper_checks_its_inputs():
+    x = torch.zeros((3, 1000))
+    z = torch.zeros(3)
+    tail = torch.zeros((3, 31), dtype=torch.complex64)
+    taps = torch.zeros((4, 32))
+    for args in [(x, x, z, z, tail, taps, .1, 1., 300),   # T % sb
+                 (x, x, z, z, tail[:, :30], taps, .1, 1., 500),
+                 (x, x, torch.zeros(4), z, tail, taps, .1, 1., 500),
+                 (x, x.double(), z, z, tail, taps, .1, 1., 500),
+                 (x, x, z, z, tail.real, taps, .1, 1., 500)]:
+        with pytest.raises(ValueError):
+            cuda_fll.fll_band_edge(*args)
+
+
 def test_models_follow_the_sources():
     """The models' block and tile sizes and the sources' rounding rules."""
     src = (CSRC / "costas.cu").read_text()
@@ -362,3 +543,37 @@ def test_models_follow_the_sources():
     sync = (CSRC / "symbol_sync.cu").read_text()
     assert "kInv6 = 1.0f / 6.0f" in sync and "__fdiv_rn" not in sync
     assert "hypotf" in sync
+    fll = (CSRC / "fll_band_edge.cu").read_text()
+    for line in [
+            f"constexpr int kR = {FLL_R};",
+            "constexpr int kPass = 32 * kR;",
+            "constexpr int padded(int i) { return i + i / kR; }",
+            # the derotation
+            "const float p = __fadd_rn(ph, __fmul_rn(fr, (float)n));",
+            "const float c = cosf(p);", "const float s = -sinf(p);",
+            "const float yr = __fsub_rn(__fmul_rn(ar, c), __fmul_rn(ai, s));",
+            "const float yi = __fadd_rn(__fmul_rn(ar, s), __fmul_rn(ai, c));",
+            "s_r[padded(k1 + n)] = yr;",
+            # the passes and the ring
+            "for (int m0 = lane * kR; m0 < sb; m0 += kPass) {",
+            "const int q0 = (m0 / kR) * (kR + 1);",
+            "wr[(u + kLast) % kR] = qr[c + c / kR];",
+            "urr[v] = fmaf(t.x, sr, urr[v]);",
+            "uii[v] = fmaf(t.y, si, uii[v]);",
+            "lri[v] = fmaf(t.w, sr, lri[v]);",
+            "if (u < rem) step(u, h[u]);",
+            # the energy, the sums and the update
+            "const float ur = __fsub_rn(urr[v], uii[v]);",
+            "const float ui = __fadd_rn(uri[v], uir[v]);",
+            "e_sum = __fadd_rn(e_sum, e);",
+            "for (int off = 16; off > 0; off >>= 1)",
+            "e_sum = __fadd_rn(e_sum, __shfl_xor_sync(0xffffffffu, e_sum,",
+            "const float err = fminf(fmaxf(__fmul_rn(e_sum, inv_sb), -1.0f),",
+            "fmaxf(__fadd_rn(fr, __fmul_rn(beta, err)), -max_freq), max_freq);",
+            "float r = fmodf(__fadd_rn(ph, __fmul_rn(fr, sb_f)), two_pi);",
+            "if (r < 0.0f) r = __fadd_rn(r, two_pi);",
+            "tr[h] = s_r[padded(sb + i)];"]:
+        assert line in fll, line
+    assert "__sinf(" not in fll and "__cosf(" not in fll
+    assert "fll_band_edge" in kernels._EXTRA and \
+        kernels._EXTRA["fll_band_edge"] == ["--fmad=false"]
