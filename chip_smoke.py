@@ -101,7 +101,9 @@ when the package cannot be imported, and when any phase fails:
     three shapes before (its rows with "path": null); fir_s1_f32 with the
     SSB channel filter's 167 complex taps (two launches, one a tap plane,
     then the combine; one complex F.conv1d as the library call) and its
-    audio band-pass (K97, real); agc2_gain_f32 bit-equal to its plain loop
+    audio band-pass (K97, real); AmMod's post filter, 963 complex taps
+    over 200,000 samples, the same way; agc2_gain_f32 bit-equal to its
+    plain loop
     at the SSB (1,600) and AM (4,000) shapes over two chained blocks;
     resample_up_f32 at the TX interpolators (SsbMod's L125 M1 K45, 2
     planes; AmMod's, one plane; NbfmMod's L25 M4, real, and L20 M1),
@@ -135,7 +137,10 @@ when the package cannot be imported, and when any phase fails:
     2), symbol_sync_mm_f32 and viterbi_stream_k7 bit-equal to their plain
     loops over two chained blocks of a real QPSK signal from the port's
     QpskMod (1 kHz off, noise, its first samples ~1e-20; 4,000 samples,
-    1,000 symbols, 1,000 soft pairs with lag 64), then timed at QPSK250K's
+    1,000 symbols, 1,000 soft pairs with lag 64); symbol_sync_mm_f32 on
+    the stress ramps (omega held at its limits, |e| at its clip, so the
+    positions run as far as its ring allows) over two chained blocks of
+    2048 x 4,000, bit-equal to its plain loop; then timed at QPSK250K's
     full shapes (the PLL over 100,000 samples, the symbol-rate loop over
     25,000, the sync 100,000 -> 25,000, the Viterbi 25,000 pairs) beside
     one call of the plain loop, the bound and the latency floor; the
@@ -1619,6 +1624,11 @@ def analog_rows(dev, gen):
                     n_in // ar.M, (st[:, 0, :],), "wbfm")
     rows += complex_fir_row("ssb_chan_bp", k1, ssb.chan_filter, N_CH,
                             AUDIO_PER_STEP, "ssb", dev, gen)
+    # AmMod's post filter: 963 complex taps over its 200,000 IQ samples a
+    # step in direct form, most of the AM TX step
+    rows += complex_fir_row("am_post_filter", k1,
+                            am_modulator(dev).post_filter, N_CH, T_STEP,
+                            "am_tx", dev, gen)
     af = ssb.audio_filter
     st = randn(N_CH, 2, af.ntaps - 1)
     rows += fir_row("ssb_audio_bp", "qradiolink_tpu/ops/pallas_fir.py:111",
@@ -2017,6 +2027,59 @@ def fll_rows(q_fll, dev, gen):
     return rows
 
 
+def stress_ramps(C, n, dev):
+    """The symbol sync's stress input (tests/test_torch_cuda.stress_ramps):
+    complex rows that ramp up (even rows) and down (odd rows) at slope 1 on
+    both planes. To the M&M TED every symbol is late (up) or early (down),
+    so |e| sits at its clip and omega at omax or omin: each symbol advances
+    the position by omax + gain_mu or omin - gain_mu, the extremes the
+    kernel's ring plan serves."""
+    t = torch.arange(n, device=dev, dtype=torch.float32)
+    v = torch.stack([t + 1, n - t]).repeat(C // 2, 1)
+    return torch.complex(v, v).contiguous()
+
+
+def sync_stress(dev):
+    """symbol_sync_mm_f32 on the stress ramps over two chained blocks of
+    2048 x LOOP_CHECK_T, QPSK250K's loop with gain_omega 1e-4 (omega at its
+    limit within the first block): every output and state leaf equal bit
+    for bit to the plain loop from the kernel's state, one launch a block,
+    and omega at omax on the rows that ramp up, omin on those that ramp
+    down, after each block."""
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+    from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    ss = SymbolSync(4, gain_mu=0.02, gain_omega=1e-4, omega_limit=0.0016,
+                    lead_shape=(N_CH,), device=dev)
+    x = stress_ramps(N_CH, 2 * LOOP_CHECK_T, dev)
+    omax = float(np.float32(ss.sps + ss.omega_limit))
+    omin = float(np.float32(ss.sps - ss.omega_limit))
+    st = ss.init_state()
+    for i in range(2):
+        xb = x[:, i * LOOP_CHECK_T:(i + 1) * LOOP_CHECK_T].contiguous()
+        pos, om, yp, dp, tail = st
+        args = (pos, om, yp, dp, LOOP_CHECK_T // 4, css.MODE_CONJ, None,
+                ss.sps, ss.alpha, ss.beta, ss.omega_limit, ss.ted_norm)
+        kernel_paths.reset()
+        got = css.symbol_sync(tail, xb, *args)
+        if kernel_paths.launches(css.OP) != 1:
+            raise RuntimeError(f"{css.OP} stress: not one launch")
+        xc = torch.cat([tail, xb], dim=-1)
+        r = css.symbol_sync_plain(xc.real.contiguous(), xc.imag.contiguous(),
+                                  *args)
+        equal_leaves(f"{css.OP} stress block {i}", got,
+                     (torch.complex(r[0], r[1]),) + r[2:])
+        if not (bool((got[2][0::2] == omax).all())
+                and bool((got[2][1::2] == omin).all())):
+            raise RuntimeError(f"{css.OP} stress block {i}: omega off its "
+                               f"limits")
+        st, _ = ss(st, xb)
+    print(f"  {css.OP} stress: 2 chained blocks of {N_CH} x {LOOP_CHECK_T} "
+          f"ramps, omega at {omax} / {omin}, equal bit for bit to the "
+          f"plain loop (outputs and state)", flush=True)
+
+
 def psk_rows(dev, gen):
     """The PSK paths' kernels: the three loop kernels bit-equal to their
     plain loops over two chained blocks at 2048 rows (a real QPSK signal,
@@ -2067,6 +2130,7 @@ def psk_rows(dev, gen):
         sync_plain, blocks, ss.init_state(),
         lambda g: (torch.clamp(g[1] - LOOP_CHECK_T, 0.0, ss.tail_len - 2.0),
                    *g[2:], blocks[0][:, -ss.tail_len:]))
+    sync_stress(dev)
     soft = torch.clamp(128.0 + 48.0 * torch.view_as_real(
         loop_signal(dev, gen, N_CH, 2 * VITERBI_CHECK_T)) * 4.0, 0.0, 255.0)
     vblocks = [soft[:, :VITERBI_CHECK_T].contiguous(),

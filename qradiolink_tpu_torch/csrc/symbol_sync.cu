@@ -1,6 +1,7 @@
 // symbol_sync_mm_f32: the M&M symbol sync's loop (SymbolSync, the
-// gr::digital::symbol_sync / clock_recovery_mm equivalent), one thread a
-// row, one iteration an output symbol.
+// gr::digital::symbol_sync / clock_recovery_mm equivalent), one lane a
+// row, one iteration an output symbol, the row's samples read from a ring
+// in shared memory that the warp fills ahead of the position.
 //
 // Not a port of a Pallas kernel: the JAX package runs the loop as a
 // lax.scan over output symbols (qradiolink_tpu/sync/symbol_sync.py:
@@ -19,7 +20,7 @@
 //          (r6 = 1/6 rounded to f32: XLA folds the quotients by constants
 //          into products with their reciprocals)
 //     y  = ((w0 c0 + w1 c1) + w2 c2) + w3 c3, plane by plane, w_k =
-//          xc[b - 1 + k] read straight from the tail or the block
+//          xc[b - 1 + k]
 //     d  = (sign(yr), sign(yi))                      MODE 0 and 2
 //        = (the first level l minimizing hypot(yr - l, yi), 0)   MODE 1
 //     e  = (dpr yr + dpi yi) - (dr ypr + di ypi)     MODE 0 (conj TED)
@@ -31,197 +32,394 @@
 // out, pos not shifted (the wrapper shifts it and cuts the new tail, as the
 // JAX block does). The TED's products are XLA's complex products written
 // out. Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn and the
-// file is built with --fmad=false
-// (utils/kernels._EXTRA), so the kernel equals the plain loop bit for bit.
+// file is built with --fmad=false (utils/kernels._EXTRA), so the kernel
+// equals the plain loop bit for bit.
 //
 // Bound on an H100 SXM: at QPSK250K (2048 rows x 100,000 samples -> 25,000
 // symbols) the bytes are the block read once (1.64 GB) and the symbols
 // written (0.41 GB): 0.61 ms at 3.35 TB/s; the ~60 operations a symbol
 // (3 GFLOP) bind nothing. Latency does: n_out dependent iterations a row,
-// each a chain through the position, the floor, the sample loads, the
-// interpolation, the decision and the loop update, ~150-300 cycles
-// estimated. Measured (chip_smoke.py, an H100 at 700 W): 9.92 ms at 2048 x
-// 100,000 -> 25,000, ~786 cycles a symbol at 1,980 MHz.
+// 64 chains at 2048 rows, less than one an SM, so nothing hides the chain
+// pos -> clip -> index -> samples -> y -> decision -> e -> omega -> pos.
+// Its floor, measured with the kernel's own coeffs and update
+// (scripts/loop_chain_floor.py, an H100 80GB HBM3 at 700 W, 1,980 MHz):
+// 1.84 ms, 146 cycles a symbol, with the samples in registers; 2.54 ms, 201
+// cycles, read from a ring in shared memory as this kernel reads them; this
+// kernel 3.08 ms, 244 cycles. The symbol's SASS (cuobjdump of the sm_90a
+// build): 23 instructions on the dependent chain (the clip 2, F2I.FLOOR,
+// the slot's LOP3 and IMAD, LDS.64, the interpolator's FMUL and 3 FADD, the
+// sign products' FSETP and FSEL, e 5, omega 4, pos 2), the coefficients'
+// 6 levels beside the loads. With the samples read from global memory on
+// that chain, as this kernel first did, a symbol took 786 cycles (9.94 ms).
 //
-// Design: one thread a row, 32-thread blocks (2048 rows make 64 blocks).
-// The four samples are read from global memory at the position the loop
-// has reached; a row's reads walk forward through it, 4 samples a symbol
-// at sps 4, so each 128-byte line serves several symbols from L1, and a
-// prefetch of the line kAhead samples ahead is issued every symbol, so
-// the next line is on its way before the loop reaches it. The levels (at
-// most 8) sit in registers.
+// Design: two warps a block for 32 rows. In warp 0 lane i runs row row0 +
+// i's chain; in warp 1 lane i fills that row's ring, a window of R samples
+// of [tail | x] in shared memory (R a power of 2, at most kMaxRing), so the
+// chain reads only registers and the ring. The symbols go in chunks of S
+// (a power of 2, at most 16). At a chunk's start warp 0 posts its
+// positions (named barrier 1); warp 1 computes how far each row's reads
+// can reach over this chunk and the next (the wrapper's `reach`: (2S - 1)
+// times the largest advance a symbol, omega at its limit and |e| = 1, plus
+// the position's rounding), copies the row's samples between its fill
+// pointer and that reach with 16-byte cp.async, waits for them and posts
+// that they landed (barrier 2), which warp 0 waits for at the start of the
+// chunk after next: the copies land while a chunk runs. Where a sample
+// comes from (the tail or the block) is settled per 16-byte granule when
+// it is copied, never on a read. The ring is large enough that a copy
+// never overwrites a sample the running chunk can still read (the
+// wrapper's plan, cuda_symbol_sync.ring_plan, which raises where kMaxRing
+// cannot serve the parameters). Issued by the chain's own warp, the copies
+// (~33 a lane a chunk at sps 4, 32 rows' 16-byte pieces an instruction)
+// held it ~105 cycles a symbol on an H100; copied row by row by the whole
+// warp, coalesced, with the rows' pointers broadcast by __shfl_sync, ~590
+// (PERF.md; scripts/loop_chain_floor.py). Real input (XC false) keeps
+// planar rings, the imaginary plane 0 past the tail. A symbol's four
+// samples are four 8-byte (complex) or eight 4-byte loads from the ring
+// (lanes whose rows sit at one position meet 2-way bank conflicts at most;
+// 4 8-byte loads measured ~10 cycles a symbol cheaper than the 3 16-byte
+// granules that hold them and a select). sign(yr) ypr and sign(yi) ypi are
+// two selp each of the products' bits, not a sign() times a value. The
+// symbols go through a shared tile of 32 a row, stored coalesced, a row at
+// a time (one bulk copy a row, cp.async.bulk, measured slower on an H100).
+// The levels (at most 8) sit in registers.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kRows = 32;      // rows a block: the lanes of one warp
+constexpr int kOutTile = 32;   // symbols a row in the output tile
 constexpr int kMaxLevels = 8;
-constexpr int kAhead = 32;  // samples ahead of the position to prefetch
+constexpr int kMaxRing = 512;  // samples a lane: 32 x 514 x 8 bytes
+constexpr int kMaxChunk = 16;
 constexpr float kInv6 = 1.0f / 6.0f;  // rounded to f32
 
 __device__ __forceinline__ float sgn(float v) {
     return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
 }
 
-template <bool XC>
-__device__ __forceinline__ float2 fetch(const float2* __restrict__ trow,
-                                        const void* __restrict__ xrow,
-                                        int L, int j) {
-    if (j < L) return trow[j];
-    if (XC) return ((const float2*)xrow)[j - L];
-    return make_float2(((const float*)xrow)[j - L], 0.0f);
+// sign(s) u, as __fmul_rn(sign(s), u) rounds it (sign(0) = 0): u, -u or
+// 0 u chosen by two selp, so that nvcc emits no branch for it
+__device__ __forceinline__ float sgn_mul(float s, float u) {
+    const float z = __fmul_rn(0.0f, u);
+    float r;
+    asm("{\n\t.reg .pred gt, lt;\n\t"
+        "setp.gt.f32 gt, %1, 0f00000000;\n\t"
+        "setp.lt.f32 lt, %1, 0f00000000;\n\t"
+        "selp.f32 %0, %3, %2, lt;\n\t"
+        "selp.f32 %0, %4, %0, gt;\n\t}"
+        : "=f"(r)
+        : "f"(s), "f"(z), "f"(-u), "f"(u));
+    return r;
 }
 
+// The step before the samples: p = clip(pos), b = floor(p), mu's four
+// coefficients into c; returns b - 1, the first sample's index.
+__device__ __forceinline__ int coeffs(float pos, float max_pos,
+                                      float (&c)[4]) {
+    const float p = fminf(fmaxf(pos, 2.0f), max_pos);
+    const float b = floorf(p);
+    const float mu = __fsub_rn(p, b);
+    const float mm1 = __fsub_rn(mu, 1.0f), mm2 = __fsub_rn(mu, 2.0f);
+    const float mp1 = __fadd_rn(mu, 1.0f);
+    c[0] = __fmul_rn(__fmul_rn(__fmul_rn(-mu, mm1), mm2), kInv6);
+    c[1] = __fmul_rn(__fmul_rn(__fmul_rn(mp1, mm1), mm2), 0.5f);
+    c[2] = __fmul_rn(__fmul_rn(__fmul_rn(-mp1, mu), mm2), 0.5f);
+    c[3] = __fmul_rn(__fmul_rn(__fmul_rn(mp1, mu), mm1), kInv6);
+    return __float2int_rd(p) - 1;  // floor(p) - 1, beside b, not after it
+}
+
+// The step after the samples w: y, the decision d, the TED's e and the loop
+// update of omega and pos; y_prev and d_prev become y and d.
+template <int MODE>
+__device__ __forceinline__ void update(const float2 (&w)[4],
+                                       const float (&c)[4],
+                                       const float (&lv)[kMaxLevels],
+                                       int n_lv, float omin, float omax,
+                                       float alpha, float beta,
+                                       float inv_norm, float& yr, float& yi,
+                                       float& dr, float& di, float& pos,
+                                       float& om, float2& yp, float2& dp) {
+    yr = __fmul_rn(w[0].x, c[0]);
+    yi = __fmul_rn(w[0].y, c[0]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+        yr = __fadd_rn(yr, __fmul_rn(w[k].x, c[k]));
+        yi = __fadd_rn(yi, __fmul_rn(w[k].y, c[k]));
+    }
+    if (MODE == 1) {
+        dr = lv[0];
+        float best = hypotf(__fsub_rn(yr, lv[0]), yi);
+#pragma unroll
+        for (int k = 1; k < kMaxLevels; ++k) {
+            if (k < n_lv) {
+                const float dist = hypotf(__fsub_rn(yr, lv[k]), yi);
+                if (dist < best) {
+                    best = dist;
+                    dr = lv[k];
+                }
+            }
+        }
+        di = 0.0f;
+    } else {
+        dr = sgn(yr);
+        di = sgn(yi);
+    }
+    // d y_prev's products: sign(yr) ypr as a select (sgn_mul)
+    const float dyr = MODE == 1 ? __fmul_rn(dr, yp.x) : sgn_mul(yr, yp.x);
+    const float dyi = MODE == 1 ? __fmul_rn(di, yp.y) : sgn_mul(yi, yp.y);
+    float e;
+    if (MODE == 0)
+        e = __fsub_rn(__fadd_rn(__fmul_rn(dp.x, yr), __fmul_rn(dp.y, yi)),
+                      __fadd_rn(dyr, dyi));
+    else
+        e = __fsub_rn(__fsub_rn(__fmul_rn(dp.x, yr), __fmul_rn(dp.y, yi)),
+                      __fsub_rn(dyr, dyi));
+    e = fminf(fmaxf(__fmul_rn(e, inv_norm), -1.0f), 1.0f);
+    om = fminf(fmaxf(__fadd_rn(om, __fmul_rn(beta, e)), omin), omax);
+    pos = __fadd_rn(__fadd_rn(pos, om), __fmul_rn(alpha, e));
+    yp = make_float2(yr, yi);
+    dp = make_float2(dr, di);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// named barriers 1-4 between the block's two warps (64 threads)
+__device__ __forceinline__ void bar_sync(int id) {
+    asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+    asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// The ring of a lane: complex input keeps float2 samples (a granule is 2
+// samples), a lane's ring R + 2 slots apart (16-byte aligned, lane bases 4
+// banks apart); real input keeps two planes (a granule is 4 samples),
+// R + 4 apart.
 template <bool XC>
-__device__ __forceinline__ void prefetch(const void* __restrict__ xrow,
-                                         int L, int T, int j) {
-    const int i = j - L;
-    if (i >= 0 && i < T) {
-        const void* a = XC ? (const void*)((const float2*)xrow + i)
-                           : (const void*)((const float*)xrow + i);
-        asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
+struct Ring {
+    static constexpr int G = XC ? 2 : 4;  // samples a 16-byte granule
+    static __host__ __device__ int stride(int R) { return XC ? R + 2 : R + 4; }
+    static __host__ __device__ size_t bytes(int R) {
+        return (size_t)kRows * stride(R) * 8;
+    }
+};
+
+// Copy granules [g_lo, g_hi) of this lane's row of xc = [tail | x] into
+// its ring (granule g to slot g mod (R / G)).
+template <bool XC>
+__device__ __forceinline__ void fill(float* re, float* im, int g_lo,
+                                     int g_hi, int R,
+                                     const float2* __restrict__ trow,
+                                     const void* __restrict__ xrow, int L) {
+    constexpr int G = Ring<XC>::G;
+    const int Rg = R / G;
+#pragma unroll 4
+    for (int g = g_lo; g < g_hi; ++g) {
+        const int j = g * G;
+        const int slot = (g & (Rg - 1)) * G;
+        if (XC) {
+            cp_async16(reinterpret_cast<float2*>(re) + slot,
+                       j < L ? (const void*)(trow + j)
+                             : (const void*)((const float2*)xrow + (j - L)));
+        } else if (j < L) {  // the tail is complex: split it into the planes
+            const float4 a = *reinterpret_cast<const float4*>(trow + j);
+            const float4 b = *reinterpret_cast<const float4*>(trow + j + 2);
+            *reinterpret_cast<float4*>(re + slot) =
+                make_float4(a.x, a.z, b.x, b.z);
+            *reinterpret_cast<float4*>(im + slot) =
+                make_float4(a.y, a.w, b.y, b.w);
+        } else {
+            cp_async16(re + slot, (const float*)xrow + (j - L));
+            *reinterpret_cast<float4*>(im + slot) =
+                make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
     }
 }
 
 template <bool XC, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(2 * kRows)
 sync_kernel(const float2* __restrict__ tail, const void* __restrict__ x,
             const float* __restrict__ pos0, const float* __restrict__ om0,
             const float2* __restrict__ yp0, const float2* __restrict__ dp0,
             float2* __restrict__ y, float* __restrict__ pos_out,
             float* __restrict__ om_out, float2* __restrict__ yp_out,
-            float2* __restrict__ dp_out, int rows, int L, int T, int n_out,
-            const float* __restrict__ levels, int n_lv, float omin,
-            float omax, float alpha, float beta, float inv_norm,
-            float max_pos) {
-    const int row = blockIdx.x * kThreads + threadIdx.x;
-    if (row >= rows) return;
+            float2* __restrict__ dp_out, int rows, int L, int T, int ld,
+            int n_out, const float* __restrict__ levels, int n_lv,
+            float omin, float omax, float alpha, float beta, float inv_norm,
+            float max_pos, int S, int R, float reach) {
+    extern __shared__ __align__(16) float ring[];
+    __shared__ float2 s_y[kRows][kOutTile + 1];
+    constexpr int G = Ring<XC>::G;
+    const int Rg = R / G;
+    const int st = Ring<XC>::stride(R);
+    __shared__ float s_pos[2][kRows];  // each chunk's starting positions
+    const int lane = threadIdx.x & (kRows - 1);
+    const bool producer = threadIdx.x >= kRows;
+    const int row0 = blockIdx.x * kRows;
+    const int n_rows = min(kRows, rows - row0);
+    const bool mine = lane < n_rows;
+    const int row = row0 + (mine ? lane : 0);
     float lv[kMaxLevels];
 #pragma unroll
     for (int k = 0; k < kMaxLevels; ++k)
         lv[k] = (MODE == 1 && k < n_lv) ? levels[k] : 0.0f;
+    float pos = mine ? pos0[row] : 0.0f, om = mine ? om0[row] : 0.0f;
+    float2 yp = mine ? yp0[row] : make_float2(0.0f, 0.0f);
+    float2 dp = mine ? dp0[row] : make_float2(0.0f, 0.0f);
+    float* my_re = ring + (XC ? 2 : 1) * lane * st;  // float2 slots if XC
+    float* my_im = ring + (kRows + lane) * st;
+    const float2* my_c = reinterpret_cast<const float2*>(my_re);
     const float2* trow = tail + (size_t)row * L;
-    const void* xrow = XC ? (const void*)((const float2*)x + (size_t)row * T)
-                          : (const void*)((const float*)x + (size_t)row * T);
-    float2* yrow = y + (size_t)row * n_out;
-    float pos = pos0[row], om = om0[row];
-    float2 yp = yp0[row], dp = dp0[row];
+    const void* xrow = XC ? (const void*)((const float2*)x + (size_t)row * ld)
+                          : (const void*)((const float*)x + (size_t)row * ld);
 
-    for (int m = 0; m < n_out; ++m) {
-        const float p = fminf(fmaxf(pos, 2.0f), max_pos);
-        const float b = floorf(p);
-        const float mu = __fsub_rn(p, b);
-        const int j0 = (int)b - 1;
-        prefetch<XC>(xrow, L, T, j0 + kAhead);
-        const float mm1 = __fsub_rn(mu, 1.0f), mm2 = __fsub_rn(mu, 2.0f);
-        const float mp1 = __fadd_rn(mu, 1.0f);
-        float c[4];
-        c[0] = __fmul_rn(__fmul_rn(__fmul_rn(-mu, mm1), mm2), kInv6);
-        c[1] = __fmul_rn(__fmul_rn(__fmul_rn(mp1, mm1), mm2), 0.5f);
-        c[2] = __fmul_rn(__fmul_rn(__fmul_rn(-mp1, mu), mm2), 0.5f);
-        c[3] = __fmul_rn(__fmul_rn(__fmul_rn(mp1, mu), mm1), kInv6);
-        float2 w[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = fetch<XC>(trow, xrow, L, j0 + k);
-        float yr = __fmul_rn(w[0].x, c[0]), yi = __fmul_rn(w[0].y, c[0]);
-#pragma unroll
-        for (int k = 1; k < 4; ++k) {
-            yr = __fadd_rn(yr, __fmul_rn(w[k].x, c[k]));
-            yi = __fadd_rn(yi, __fmul_rn(w[k].y, c[k]));
+    // Chunk j's positions go out on barrier 1 + j % 2, its copies' landing
+    // on barrier 3 + j % 2: two posts in a row on one barrier are always a
+    // whole exchange apart, so no barrier counts one warp's arrivals twice.
+    if (producer) {
+        // warp 1: at each chunk's start, from the positions warp 0 posts,
+        // copy each row's samples out to the reach of this chunk and the
+        // next (lane i for row i), wait for them, and post that they landed
+        int filled = 0;  // granules of this lane's row copied so far
+        for (int m0 = 0, j = 0; m0 < n_out; m0 += S, ++j) {
+            bar_sync(1 + (j & 1));
+            const float p = s_pos[j & 1][lane];
+            const float t = fminf(fmaxf(__fadd_rn(p, reach), 2.0f), max_pos);
+            const int g_hi = mine ? max(filled, ((int)t + 3 + G - 1) / G) : 0;
+            const int g_lo = max(filled, g_hi - Rg);
+            filled = g_hi;
+            fill<XC>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);
+            cp_async_commit();
+            cp_async_wait_all();
+            bar_arrive(3 + (j & 1));
         }
-        float dr, di;
-        if (MODE == 1) {
-            dr = lv[0];
-            float best = hypotf(__fsub_rn(yr, lv[0]), yi);
-#pragma unroll
-            for (int k = 1; k < kMaxLevels; ++k) {
-                if (k < n_lv) {
-                    const float dist = hypotf(__fsub_rn(yr, lv[k]), yi);
-                    if (dist < best) {
-                        best = dist;
-                        dr = lv[k];
-                    }
-                }
-            }
-            di = 0.0f;
-        } else {
-            dr = sgn(yr);
-            di = sgn(yi);
-        }
-        float e;
-        if (MODE == 0)
-            e = __fsub_rn(__fadd_rn(__fmul_rn(dp.x, yr), __fmul_rn(dp.y, yi)),
-                          __fadd_rn(__fmul_rn(dr, yp.x), __fmul_rn(di, yp.y)));
-        else
-            e = __fsub_rn(__fsub_rn(__fmul_rn(dp.x, yr), __fmul_rn(dp.y, yi)),
-                          __fsub_rn(__fmul_rn(dr, yp.x), __fmul_rn(di, yp.y)));
-        e = fminf(fmaxf(__fmul_rn(e, inv_norm), -1.0f), 1.0f);
-        om = fminf(fmaxf(__fadd_rn(om, __fmul_rn(beta, e)), omin), omax);
-        pos = __fadd_rn(__fadd_rn(pos, om), __fmul_rn(alpha, e));
-        yrow[m] = make_float2(yr, yi);
-        yp = make_float2(yr, yi);
-        dp = make_float2(dr, di);
+        return;
     }
-    pos_out[row] = pos;
-    om_out[row] = om;
-    yp_out[row] = yp;
-    dp_out[row] = dp;
+    for (int m0 = 0, j = 0; m0 < n_out; m0 += S, ++j) {
+        s_pos[j & 1][lane] = pos;
+        bar_arrive(1 + (j & 1));
+        // this chunk's samples landed with the copies from chunk j - 1's
+        // positions (chunks 0 and 1: from chunk 0's)
+        if (j == 0)
+            bar_sync(3);
+        else if (j > 1)
+            bar_sync(3 + ((j - 1) & 1));
+        const int n = min(S, n_out - m0);
+        for (int i = 0; i < n; ++i) {
+            float c[4];
+            const int j0 = coeffs(pos, max_pos, c);
+            float2 w[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int s = (j0 + k) & (R - 1);
+                w[k] = XC ? my_c[s] : make_float2(my_re[s], my_im[s]);
+            }
+            float yr, yi, dr, di;
+            update<MODE>(w, c, lv, n_lv, omin, omax, alpha, beta, inv_norm,
+                         yr, yi, dr, di, pos, om, yp, dp);
+            s_y[lane][(m0 + i) & (kOutTile - 1)] = make_float2(yr, yi);
+        }
+        __syncwarp();
+        const int m1 = m0 + n;
+        if ((m1 & (kOutTile - 1)) == 0 || m1 == n_out) {
+            // the output tile, a row at a time, coalesced
+            const int t0 = (m1 - 1) & ~(kOutTile - 1);
+            if (lane < m1 - t0) {
+                for (int r = 0; r < n_rows; ++r)
+                    y[(size_t)(row0 + r) * n_out + t0 + lane] = s_y[r][lane];
+            }
+            __syncwarp();
+        }
+    }
+    if (mine) {
+        pos_out[row] = pos;
+        om_out[row] = om;
+        yp_out[row] = yp;
+        dp_out[row] = dp;
+    }
 }
 
 template <bool XC, int MODE>
-void launch(const void* tail, const void* x, const void* pos0,
-            const void* om0, const void* yp0, const void* dp0, void* y,
-            void* pos_out, void* om_out, void* yp_out, void* dp_out,
-            int rows, int L, int T, int n_out, const void* levels, int n_lv,
-            float omin, float omax, float alpha, float beta, float inv_norm,
-            float max_pos, cudaStream_t st) {
-    sync_kernel<XC, MODE><<<(rows + kThreads - 1) / kThreads, kThreads, 0,
-                            st>>>(
+int launch(const void* tail, const void* x, const void* pos0,
+           const void* om0, const void* yp0, const void* dp0, void* y,
+           void* pos_out, void* om_out, void* yp_out, void* dp_out, int rows,
+           int L, int T, int ld, int n_out, const void* levels, int n_lv,
+           float omin, float omax, float alpha, float beta, float inv_norm,
+           float max_pos, int S, int R, float reach, cudaStream_t st) {
+    const size_t smem = Ring<XC>::bytes(R);
+    cudaError_t e = cudaFuncSetAttribute(
+        sync_kernel<XC, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    sync_kernel<XC, MODE><<<(rows + kRows - 1) / kRows, 2 * kRows, smem, st>>>(
         (const float2*)tail, x, (const float*)pos0, (const float*)om0,
         (const float2*)yp0, (const float2*)dp0, (float2*)y, (float*)pos_out,
-        (float*)om_out, (float2*)yp_out, (float2*)dp_out, rows, L, T, n_out,
-        (const float*)levels, n_lv, omin, omax, alpha, beta, inv_norm,
-        max_pos);
+        (float*)om_out, (float2*)yp_out, (float2*)dp_out, rows, L, T, ld,
+        n_out, (const float*)levels, n_lv, omin, omax, alpha, beta, inv_norm,
+        max_pos, S, R, reach);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// tail: contiguous (rows, L) complex64; x: contiguous (rows, T) complex64
-// (x_complex 1) or f32 (0); pos0, om0, pos_out, om_out: (rows,) f32; yp0,
-// dp0, yp_out, dp_out: (rows,) complex64; y: contiguous (rows, n_out)
-// complex64; levels: n_lv f32 (mode 1). mode: 0 complex input with sign
-// decisions, 1 levels, 2 real input with sign decisions. Returns a CUDA
-// error code, 0 after a clean launch.
+// tail: contiguous (rows, L) complex64; x: (rows, T) complex64 (x_complex
+// 1) or f32 (0), rows ld elements apart; tail and x 16-byte aligned, L and
+// ld multiples of the granule (2 complex, 4 real samples); pos0, om0,
+// pos_out, om_out: (rows,) f32; yp0, dp0, yp_out, dp_out: (rows,)
+// complex64; y: contiguous (rows, n_out) complex64; levels: n_lv f32 (mode
+// 1). mode: 0 complex input with sign decisions, 1 levels, 2 real input
+// with sign decisions. S (chunk, a power of 2 up to 16), R (ring samples a
+// lane, a power of 2 from 16 to 512) and reach come from the wrapper's plan
+// (cuda_symbol_sync.ring_plan). Returns a CUDA error code, 0 after a clean
+// launch.
 int symbol_sync_mm_f32(const void* tail, const void* x, const void* pos0,
                        const void* om0, const void* yp0, const void* dp0,
                        void* y, void* pos_out, void* om_out, void* yp_out,
-                       void* dp_out, int rows, int L, int T, int n_out,
-                       int x_complex, int mode, const void* levels,
+                       void* dp_out, int rows, int L, int T, int ld,
+                       int n_out, int x_complex, int mode, const void* levels,
                        int n_lv, float omin, float omax, float alpha,
-                       float beta, float inv_norm, float max_pos,
-                       void* stream) {
-    if (rows < 1 || L < 4 || T < 0 || n_out < 0 || mode < 0 || mode > 2 ||
-        (mode == 1 && (n_lv < 1 || n_lv > kMaxLevels)) ||
-        (mode == 0 && !x_complex) || (mode == 2 && x_complex))
+                       float beta, float inv_norm, float max_pos, int S,
+                       int R, float reach, void* stream) {
+    const int G = x_complex ? Ring<true>::G : Ring<false>::G;
+    if (rows < 1 || L < 4 || T < 0 || ld < T || n_out < 0 || mode < 0 ||
+        mode > 2 || (mode == 1 && (n_lv < 1 || n_lv > kMaxLevels)) ||
+        (mode == 0 && !x_complex) || (mode == 2 && x_complex) ||
+        L % G || ld % G || S < 1 || S > kMaxChunk || (S & (S - 1)) ||
+        R < 16 || R > kMaxRing || (R & (R - 1)) ||
+        ((size_t)tail | (size_t)x) % 16)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
 #define QRL_SYNC_ARGS                                                      \
     tail, x, pos0, om0, yp0, dp0, y, pos_out, om_out, yp_out, dp_out, rows, \
-        L, T, n_out, levels, n_lv, omin, omax, alpha, beta, inv_norm,       \
-        max_pos, st
+        L, T, ld, n_out, levels, n_lv, omin, omax, alpha, beta, inv_norm,   \
+        max_pos, S, R, reach, st
+    int err;
     if (mode == 0)
-        launch<true, 0>(QRL_SYNC_ARGS);
+        err = launch<true, 0>(QRL_SYNC_ARGS);
     else if (mode == 2)
-        launch<false, 2>(QRL_SYNC_ARGS);
+        err = launch<false, 2>(QRL_SYNC_ARGS);
     else if (x_complex)
-        launch<true, 1>(QRL_SYNC_ARGS);
+        err = launch<true, 1>(QRL_SYNC_ARGS);
     else
-        launch<false, 1>(QRL_SYNC_ARGS);
+        err = launch<false, 1>(QRL_SYNC_ARGS);
 #undef QRL_SYNC_ARGS
-    return (int)cudaGetLastError();
+    return err;
 }
 
 const char* symbol_sync_error_string(int err) {

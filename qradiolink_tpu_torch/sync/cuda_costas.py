@@ -20,9 +20,11 @@ package's order, each operation rounded on its own:
 
 On a CPU tensor the wrapper takes the plain version (a loop over the
 samples, about 25 PyTorch ops each); on a CUDA tensor it launches the
-kernel, one thread a row, or raises. On the card the two are equal bit for
-bit: the kernel's cosf/sinf give torch.cos/torch.sin's bits there
-(chip_smoke.py and tests/test_torch_cuda.py check it).
+kernel, one lane a row, or raises. On the card the two are equal bit for
+bit: the kernel's sincosf gives torch.cos/torch.sin's bits there for every
+f32 (`nco` below; tests/test_torch_cuda.py checks all 2^32), and its wrap
+is an exact select for fmod's (chip_smoke.py and the card tests check the
+loop).
 """
 
 from __future__ import annotations
@@ -92,6 +94,8 @@ def _lib():
         lib.costas_loop_f32.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f,
                                         f, f, p]
         lib.costas_loop_f32.restype = ctypes.c_int
+        lib.costas_nco_f32.argtypes = [p, p, p, ctypes.c_longlong, p]
+        lib.costas_nco_f32.restype = ctypes.c_int
         lib.costas_error_string.argtypes = [i]
         lib.costas_error_string.restype = ctypes.c_char_p
         lib._qrl_bound = True
@@ -140,3 +144,28 @@ def costas_loop(x, phase, freq, order: int, alpha: float, beta: float,
                            f"{lib.costas_error_string(err).decode()}")
     kernel_paths.record(OP, True, key)
     return y, ph_out, fr_out
+
+
+def nco(ph):
+    """The kernel's NCO, exp(-1j ph) as (cos ph, -sin ph), over f32 phases:
+    on a CUDA tensor by the kernel's own code (costas_nco_f32), on the CPU
+    by torch.cos and torch.sin, which the kernel's must equal bit for
+    bit."""
+    if ph.dtype != torch.float32:
+        raise ValueError(f"ph must be f32, got {ph.dtype}")
+    if ph.device.type == "cpu":
+        return torch.cos(ph), -torch.sin(ph)
+    if ph.device.type != "cuda":
+        raise ValueError(f"no {OP} kernel for device {ph.device}")
+    ph = ph.contiguous()
+    c, s = torch.empty_like(ph), torch.empty_like(ph)
+    lib = _lib()
+    with torch.cuda.device(ph.device):
+        err = lib.costas_nco_f32(ph.data_ptr(), c.data_ptr(), s.data_ptr(),
+                                 ph.numel(),
+                                 torch.cuda.current_stream(
+                                     ph.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"costas_nco_f32 launch failed: "
+                           f"{lib.costas_error_string(err).decode()}")
+    return c, s

@@ -30,7 +30,11 @@ around the loop, as the JAX block does (symbol_sync.py:157-159).
 
 On a CPU tensor the wrapper takes the plain version (a loop over the
 symbols, about 45 PyTorch ops each); on a CUDA tensor it launches the
-kernel, one thread a row, or raises. The two are equal bit for bit.
+kernel, one lane a row, or raises. The two are equal bit for bit. The
+kernel reads each row's samples from a ring in shared memory that a second
+warp fills a chunk of symbols ahead of the position; `ring_plan` sizes the ring and
+the chunk from the loop's parameters, and the wrapper raises, on either
+device, where the largest ring cannot serve them.
 """
 
 from __future__ import annotations
@@ -46,6 +50,53 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 OP = "symbol_sync_mm_f32"
 MODE_CONJ, MODE_LEVELS, MODE_SIGN = 0, 1, 2
 MAX_LEVELS = 8
+# the kernel's ring: at most RING_MAX samples a lane (32 lanes x (512 + 2)
+# x 8 bytes of shared memory), chunks of CHUNKS symbols, the largest that
+# fits first; a 16-byte granule holds 2 complex or 4 real samples
+RING_MAX = 512
+RING_MIN = 16
+CHUNKS = (16, 8, 4, 2, 1)
+
+
+def granule(complex_in: bool) -> int:
+    return 2 if complex_in else 4
+
+
+def ring_plan(sps: float, alpha: float, omega_lim: float, total: int,
+              complex_in: bool) -> tuple[int, int, float]:
+    """(S, R, reach) of symbol_sync_mm_f32 for a block of `total` samples of
+    [tail | x]: chunks of S symbols, a ring of R samples a lane, and the
+    reach that a lane's fill covers past its position at a chunk's start:
+    that chunk and the next, 2S - 1 symbols of the largest advance a symbol
+    (omega at its limit, |e| = 1, and the two roundings of the position),
+    plus one sample. The ring must hold that reach, the granule the fill
+    rounds up to and the interpolator's 4 taps behind the position: R >=
+    reach + G + 6. Raises ValueError where no chunk fits RING_MAX samples,
+    or where a symbol's advance can be 0 or negative (the fill assumes the
+    position moves forward)."""
+    f32 = np.float32
+    omax = float(f32(sps + omega_lim))
+    omin = float(f32(sps - omega_lim))
+    a = abs(float(f32(alpha)))
+    # two roundings a symbol of a position below 2 (total + 512)
+    eps = 2.0 ** -22 * (total + 512)
+    adv_max, adv_min = omax + a + eps, omin - a - eps
+    if not adv_min > 0:
+        raise ValueError(f"{OP}: a symbol's advance can reach {adv_min:.3g} "
+                         f"samples (sps {sps}, gain_mu {alpha}, omega_limit "
+                         f"{omega_lim}); the kernel's ring needs it above 0")
+    G = granule(complex_in)
+    for S in CHUNKS:
+        reach = (2 * S - 1) * adv_max + 1.0
+        R = RING_MIN
+        while R < reach + G + 6:
+            R *= 2
+        if R <= RING_MAX:
+            # the f32 the kernel adds, rounded up
+            return S, R, float(np.nextafter(f32(reach), f32(np.inf)))
+    raise ValueError(f"{OP}: a symbol can advance {adv_max:.3g} samples (sps "
+                     f"{sps}, gain_mu {alpha}, omega_limit {omega_lim}); the "
+                     f"kernel's ring of {RING_MAX} samples cannot hold one")
 
 
 def mode_of(complex_in: bool, levels) -> int:
@@ -140,8 +191,8 @@ def _lib():
     if not getattr(lib, "_qrl_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.symbol_sync_mm_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, p, i, f, f, f,
-                                           f, f, f, p]
+                                           i, i, i, i, i, i, i, p, i, f, f,
+                                           f, f, f, f, i, i, f, p]
         lib.symbol_sync_mm_f32.restype = ctypes.c_int
         lib.symbol_sync_error_string.argtypes = [i]
         lib.symbol_sync_error_string.restype = ctypes.c_char_p
@@ -175,7 +226,8 @@ def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
     if mode != mode_of(complex_in, levels):
         raise ValueError(f"mode {mode} does not fit this input")
     dev = x.device
-    T = x.shape[-1]
+    L, T = tail.shape[-1], x.shape[-1]
+    S, R, reach = ring_plan(sps, alpha, omega_lim, L + T, complex_in)
     key = shape_key(rows, T, n_out, mode)
     if dev.type == "cpu":
         kernel_paths.record(OP, False, key)
@@ -192,8 +244,18 @@ def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
         raise ValueError(f"{OP} takes at most {MAX_LEVELS} levels")
     if levels is not None and levels.device != dev:
         levels = levels.to(dev)
-    L = tail.shape[-1]
     tail, x = tail.contiguous(), x.contiguous()
+    # the ring's 16-byte copies: rows of x a whole number of granules apart,
+    # tail and x on 16-byte boundaries
+    G = granule(complex_in)
+    ld = T
+    if T % G or x.data_ptr() % 16:
+        ld = -(-T // G) * G
+        xp = x.new_zeros((rows, ld))
+        xp[:, :T] = x
+        x = xp
+    if tail.data_ptr() % 16:
+        tail = tail.clone()
     pos, omega = pos.contiguous(), omega.contiguous()
     y_prev, d_prev = y_prev.contiguous(), d_prev.contiguous()
     y = torch.empty((rows, n_out), dtype=torch.complex64, device=dev)
@@ -207,10 +269,10 @@ def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
         err = lib.symbol_sync_mm_f32(
             tail.data_ptr(), x.data_ptr(), pos.data_ptr(), omega.data_ptr(),
             y_prev.data_ptr(), d_prev.data_ptr(), y.data_ptr(),
-            *(o.data_ptr() for o in outs), rows, L, T, n_out,
+            *(o.data_ptr() for o in outs), rows, L, T, ld, n_out,
             int(complex_in), mode, lv.data_ptr(), n_lv, sps - omega_lim,
             sps + omega_lim, alpha, beta, recip(ted_norm), float(L + T - 3),
-            torch.cuda.current_stream(dev).cuda_stream)
+            S, R, reach, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{OP} launch failed: "
                            f"{lib.symbol_sync_error_string(err).decode()}")

@@ -980,12 +980,15 @@ def test_costas_kernel_equals_plain(cuda, name, order):
         ph, fr = ph2, fr2
 
 
-# name: (rows, samples a block, sps, mode)
+# name: (rows, samples a block, sps, mode); odd_T and sign_real_pad take the
+# wrapper's padded copy (rows a whole number of 16-byte granules apart)
 SYNC_CASES = {"qpsk_wide": (2048, 800, 4, "conj"),
               "qpsk_ragged": (45, 400, 4, "conj"),
               "bpsk_sps10": (33, 500, 10, "conj"),
               "short": (5, 8, 4, "conj"),
+              "odd_T": (9, 401, 4, "conj"),
               "sign_real": (40, 400, 4, "sign"),
+              "sign_real_pad": (40, 402, 4, "sign"),
               "levels_real": (40, 400, 4, "levels"),
               "levels_complex": (7, 200, 4, "levels")}
 
@@ -1029,6 +1032,100 @@ def test_symbol_sync_kernel_equals_plain(cuda, name):
         for a, b in zip(got[1:], want[2:]):
             assert torch.equal(a, b)
         st, _ = ss(st, xb)
+
+
+def stress_ramps(C, n, complex_in, slope=1.0):
+    """The symbol sync's stress input (numpy): rows that ramp up (even
+    rows, slope (t + 1)) and down (odd rows, slope (n - t)), on both planes
+    of complex input. To the M&M TED every symbol is late (up) or early
+    (down) by more than any clock the loop may take, so |e| sits at its
+    clip, +1 or -1, and omega runs to omax or omin and stays there: each
+    symbol advances the position by omax + gain_mu or omin - gain_mu, the
+    extremes the kernel's ring plan (cuda_symbol_sync.ring_plan) serves."""
+    t = np.arange(n, dtype=np.float64)
+    v = np.stack([slope * (t + 1) if r % 2 == 0 else slope * (n - t)
+                  for r in range(C)])
+    return (v * (1 + 1j)).astype(np.complex64) if complex_in \
+        else v.astype(np.float32)
+
+
+# name: SymbolSync kwargs and real levels (None: complex sign decisions):
+# QPSK250K's loop and DMR's (the largest gain_mu of the JAX chains), each
+# with a gain_omega that takes omega to its limit within the first block
+SYNC_STRESS = {"qpsk250k": (dict(sps=4, gain_mu=0.02, gain_omega=1e-4,
+                                 omega_limit=0.0016), None),
+               "dmr": (dict(sps=5, gain_mu=0.2869, gain_omega=0.005,
+                            omega_limit=0.06), (-1.5, -0.5, 0.5, 1.5))}
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_STRESS))
+def test_symbol_sync_stress_equals_plain(cuda, name):
+    """The stress ramps at 2048 rows over two chained blocks of 4,000:
+    omega at omax on the rows that ramp up and omin on those that ramp
+    down after each block, |e| at its clip, so each chunk's reads reach as
+    far as the ring allows; the symbols and every state leaf equal the
+    plain loop's, one launch a block."""
+    from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync
+
+    kw, lv = SYNC_STRESS[name]
+    C, T = 2048, 4000
+    ss = SymbolSync(decisions=lv, lead_shape=(C,), device=cuda, **kw)
+    x = torch.from_numpy(stress_ramps(C, 2 * T, lv is None)).to(cuda)
+    m = cuda_symbol_sync.mode_of(torch.is_complex(x), ss.levels)
+    st = ss.init_state()
+    omax = np.float32(ss.sps + ss.omega_limit)
+    omin = np.float32(ss.sps - ss.omega_limit)
+    for blk in range(2):
+        xb = x[:, blk * T:(blk + 1) * T].contiguous()
+        pos, omega, yp, dp, tail = st
+        args = (tail, xb, pos, omega, yp, dp, int(round(T / ss.sps)), m,
+                ss.levels, ss.sps, ss.alpha, ss.beta, ss.omega_limit,
+                ss.ted_norm)
+        kernel_paths.reset()
+        got = cuda_symbol_sync.symbol_sync(*args)
+        assert kernel_paths.launches(cuda_symbol_sync.OP) == 1
+        xc = torch.cat([tail, xb.to(torch.complex64)], dim=-1)
+        want = cuda_symbol_sync.symbol_sync_plain(
+            xc.real.contiguous(), xc.imag.contiguous(), *args[2:])
+        assert torch.equal(got[0].real, want[0])
+        assert torch.equal(got[0].imag, want[1])
+        for a, b in zip(got[1:], want[2:]):
+            assert torch.equal(a, b)
+        om = got[2].cpu().numpy()
+        assert np.all(om[0::2] == omax) and np.all(om[1::2] == omin)
+        st, _ = ss(st, xb)
+
+
+def test_symbol_sync_raises_where_the_ring_cannot_serve(cuda):
+    """sps 600: a symbol's advance outgrows the largest ring; the wrapper
+    raises before any launch."""
+    from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync
+
+    ss = SymbolSync(600, lead_shape=(4,), device=cuda)
+    kernel_paths.reset()
+    with pytest.raises(ValueError):
+        ss(ss.init_state(), torch.zeros((4, 2400), dtype=torch.complex64,
+                                        device=cuda))
+    assert kernel_paths.launches(cuda_symbol_sync.OP) == 0
+
+
+def test_costas_nco_equals_torch_for_every_f32(cuda):
+    """The Costas kernel's NCO (its sincosf, through costas_nco_f32) gives
+    torch.cos's and -torch.sin's bits for all 2^32 f32 patterns (NaN
+    against NaN counts as equal), in chunks of 2^28."""
+    n = 1 << 28
+    bad = 0
+    for k in range(16):
+        bits = torch.arange(-(1 << 31) + k * n, -(1 << 31) + (k + 1) * n,
+                            dtype=torch.int32, device=cuda)
+        ph = bits.view(torch.float32)
+        c, s = cuda_costas.nco(ph)
+        for got, want in ((c, torch.cos(ph)), (s, -torch.sin(ph))):
+            same = (got.view(torch.int32) == want.view(torch.int32)) | (
+                torch.isnan(got) & torch.isnan(want))
+            bad += int((~same).sum())
+        del bits, ph, c, s
+    assert bad == 0
 
 
 # name: (rows, pairs a block, lag); lag 0 is viterbi_decode's form

@@ -43,6 +43,7 @@ from qradiolink_tpu_torch.sync.fll import FllBandEdge  # noqa: E402
 from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync  # noqa: E402
 from qradiolink_tpu_torch.utils import kernels  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
+from tests.test_torch_cuda import SYNC_STRESS, stress_ramps  # noqa: E402
 from tests.torch_parity import stream_both  # noqa: E402
 
 CSRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
@@ -167,6 +168,7 @@ def test_wrappers_check_their_inputs():
 # -- numpy models of the kernels ----------------------------------------------
 
 ROWS, TILE = 32, 32
+NEAR_BOUND = 6.0  # costas.cu kNearBound
 F = np.float32
 
 
@@ -174,17 +176,32 @@ def _sgn(v):
     return np.where(v > 0, F(1), np.where(v < 0, F(-1), F(0))).astype(F)
 
 
+def wrap_near(a, pi, two_pi):
+    """costas.cu's select for fmodf(a, 2 pi) (+ 2 pi where negative), then
+    - pi, over f32 arrays a = phase + pi with |a| < 4 pi."""
+    lo = (a + two_pi).astype(F)
+    lo2 = (lo + two_pi).astype(F)
+    hi = (a - two_pi).astype(F)
+    r = np.where(a >= two_pi, hi,
+                 np.where(a >= 0, a, np.where(a >= -two_pi, lo, lo2)))
+    return (r.astype(F) - pi).astype(F)
+
+
 def costas_model(x, ph0, fr0, order, alpha, beta, max_freq):
-    """costas_loop_f32 in numpy: blocks of ROWS rows, lane i owning row
-    row0 + i; tiles of TILE samples loaded lane-wise (lane i takes sample
-    t0 + i of every row, 0 past the end), the next tile's loads before the
-    current tile's loop; each lane walks its row across the tile into the
-    output tile, which the block stores lane-wise. f32 arithmetic, each
-    operation rounded on its own; cos and sin from torch (the kernel's
-    cosf/sinf are the card's torch.cos/torch.sin). Asserts that every
-    output is written once."""
+    """costas_loop_f32 in numpy: blocks of ROWS rows, lane i of the chain's
+    warp owning row row0 + i; tiles of TILE samples staged lane-wise by the
+    other warp (lane i takes sample t0 + i of every row, 0 past the end),
+    two tiles ahead; each chain lane walks its row across the tile into the
+    output tile, which the other warp stores lane-wise. The wrap: fmod's path on
+    a block's first tile and on a ragged tile, `wrap_near` on every other
+    tile where max_freq + |alpha| <= NEAR_BOUND (in f32, as the kernel
+    compares). f32 arithmetic, each operation rounded on its own; cos and
+    sin from torch (the kernel's NCO, sincosf or nco_near, gives
+    torch.cos/torch.sin's bits on the card for every f32). Asserts that
+    every output is written once."""
     alpha, beta, max_freq = F(alpha), F(beta), F(max_freq)
     pi, two_pi = F(cuda_costas.PI), F(cuda_costas.TWO_PI)
+    near = bool(F(max_freq + abs(alpha)) <= F(NEAR_BOUND))
     C, T = x.shape
     y = np.full((C, T), np.nan, np.complex64)
     ph_out = np.full(C, np.nan, F)
@@ -209,6 +226,7 @@ def costas_model(x, ph0, fr0, order, alpha, beta, max_freq):
             s_x = v.copy()
             v = load(t0 + TILE)
             n = min(TILE, T - t0)
+            fast = near and t0 > 0 and n == TILE
             s_y = np.full((ROWS, TILE), np.nan, np.complex64)
             for j in range(n):
                 xj = s_x[lanes, j]
@@ -220,13 +238,18 @@ def costas_model(x, ph0, fr0, order, alpha, beta, max_freq):
                 e = yi * _sgn(yr) if order == 2 else (
                     _sgn(yr) * yi - _sgn(yi) * yr)
                 e = np.minimum(np.maximum(e.astype(F), F(-1)), F(1))
-                fr = np.where(mine, np.minimum(np.maximum(
-                    (fr + beta * e).astype(F), -max_freq), max_freq), fr)
+                fr = np.minimum(np.maximum((fr + beta * e).astype(F),
+                                           -max_freq), max_freq)
                 p = ((ph + fr).astype(F) + (alpha * e).astype(F)).astype(F)
-                r = np.fmod((p + pi).astype(F), two_pi).astype(F)
-                r = np.where(r < 0, (r + two_pi).astype(F), r)
-                ph = np.where(mine, (r - pi).astype(F), ph)
-                s_y[mine, j] = (yr + 1j * yi)[mine]
+                a = (p + pi).astype(F)
+                if fast:
+                    assert np.all(np.abs(a) < 2 * two_pi)
+                    ph = wrap_near(a, pi, two_pi)
+                else:
+                    r = np.fmod(a, two_pi).astype(F)
+                    r = np.where(r < 0, (r + two_pi).astype(F), r)
+                    ph = (r - pi).astype(F)
+                s_y[:, j] = yr + 1j * yi
             for r in range(n_rows):
                 for lane in range(n):
                     assert np.isnan(y[row0 + r, t0 + lane])
@@ -239,16 +262,19 @@ def costas_model(x, ph0, fr0, order, alpha, beta, max_freq):
 
 # (C, T): full and ragged row blocks and tiles, a block shorter than a tile,
 # one sample
-COSTAS_MODEL_CASES = [(32, 64), (45, 70), (3, 31), (33, 1)]
+COSTAS_MODEL_CASES = [(32, 64), (45, 70), (3, 31), (33, 1), (5, 160)]
 
 
 @pytest.mark.parametrize("order", [2, 4])
 @pytest.mark.parametrize("C,T", COSTAS_MODEL_CASES)
 def test_costas_model_matches_plain(rng, order, C, T):
-    """The kernel's tiling and step give the plain loop's outputs and
-    state bit for bit, over two chained blocks."""
+    """The kernel's tiling, its step and its two wraps give the plain
+    loop's outputs and state bit for bit, over two chained blocks; the
+    carried phase starts off [-pi, pi] so that the first tile's fmod path
+    wraps it."""
     x = qpsk_like(rng, C, -(-2 * T // 4), 4, offset=0.02, tiny=20)
-    ph, fr = np.zeros(C, F), np.zeros(C, F)
+    ph = (rng.uniform(-30.0, 30.0, C)).astype(F)
+    fr = np.zeros(C, F)
     args = (order, 0.0786, 0.00309, 1.0)
     for blk in range(2):
         xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
@@ -262,75 +288,192 @@ def test_costas_model_matches_plain(rng, order, C, T):
         np.testing.assert_array_equal(fr, fr_p.numpy())
 
 
+def _in_domain(a):
+    """-4 pi <= a < 4 pi: where the select equals fmod's path (at a = +4 pi
+    it would give +pi where fmod gives -pi; the kernel's bound keeps a
+    below it)."""
+    two_pi = F(cuda_costas.TWO_PI)
+    return a[(a >= -2 * two_pi) & (a < 2 * two_pi)]
+
+
+def _edges():
+    """a = phase + pi at the select's edges (+-2 pi, +-4 pi, +-0, +-pi) and
+    the next f32 either side of each, in the select's domain."""
+    two_pi = F(cuda_costas.TWO_PI)
+    out = []
+    for v in (two_pi, 2 * two_pi, F(0), F(cuda_costas.PI)):
+        for w in (v, -v):
+            out += [w, np.nextafter(w, F(np.inf)), np.nextafter(w, F(-np.inf))]
+    return _in_domain(np.array(out, F))
+
+
+@pytest.mark.parametrize("kind", ["edges", "dense"])
+def test_wrap_select_equals_fmod(rng, kind):
+    """The kernel's wrap select equals wrap_pm_pi's fmod path (torch.fmod,
+    then + 2 pi where negative, then - pi) bit for bit: on the edges and on
+    a dense seeded sample of -4 pi < a < 4 pi (the f32s nearest 0 among
+    them)."""
+    two_pi = F(cuda_costas.TWO_PI)
+    if kind == "edges":
+        a = _edges()
+        assert len(a) == 21 and np.signbit(a[a == 0]).any()
+        assert -2 * two_pi in a and 2 * two_pi not in a
+    else:
+        a = rng.uniform(-2 * two_pi, 2 * two_pi, 2_000_000).astype(F)
+        a = _in_domain(np.concatenate(
+            [a, (rng.standard_normal(10_000) * 1e-30).astype(F)]))
+    want = (cuda_costas.mod_2pi(torch.from_numpy(a))
+            - cuda_costas.PI).numpy()
+    got = wrap_near(a, F(cuda_costas.PI), two_pi)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_wrap_select_bound():
+    """Where the kernel takes the select (max_freq + |alpha| <= NEAR_BOUND,
+    the phase wrapped to [-pi, pi]), |phase + pi| stays below 4 pi: the
+    largest reachable a, every operation rounded up, is below it."""
+    pi, two_pi = F(cuda_costas.PI), F(cuda_costas.TWO_PI)
+    # |phase| <= pi, then + freq, + alpha e, + pi, each rounding up by an
+    # ulp at most
+    assert 2 * float(pi) + NEAR_BOUND + 3 * 2.0 ** -20 < 2 * float(two_pi)
+    # the QPSK and BPSK chains' loops take the select
+    for loop in (CostasLoop(np.pi / 200, 4, device="cpu"),
+                 CostasLoop(2 * np.pi / 200, 2, device="cpu")):
+        assert F(loop.max_freq + abs(loop.alpha)) <= F(NEAR_BOUND)
+
+
 def sync_model(tail, x, pos, om, yp, dp, n_out, mode, levels, sps, alpha,
                beta, omega_lim, ted_norm):
-    """symbol_sync_mm_f32 in numpy, one row at a time: the samples fetched
-    from the tail or the block by index (no concatenation), the
-    coefficients with the f32 reciprocal of 6, the four products summed in
-    order, the decision, the TED, the clip and the loop update, each f32
-    operation rounded on its own."""
+    """symbol_sync_mm_f32 in numpy, one row at a time, with its ring: the
+    plan (S, R, reach) from cuda_symbol_sync.ring_plan; at each chunk's
+    start the row's fill of granules [g_lo, g_hi) into slots g mod (R / G)
+    (each slot remembers which sample it holds); each sample read asserted
+    to be in its slot both before the chunk's copies land and after (the
+    kernel's copies may land at any time during the chunk; the first
+    chunk waits for its own); then the coefficients with the f32
+    reciprocal of 6, the four products summed in order, the decision, the
+    TED, the clip and the loop update, each f32 operation rounded on its
+    own. Returns the kernel's outputs and, as a last item, the plan with
+    how far past a chunk's starting position the floor of a position in
+    that chunk or the next came (at most reach): (S, R, reach, used)."""
+    xc = np.iscomplexobj(x)
     inv6 = F(cuda_symbol_sync.INV6)
     inv_norm = F(cuda_symbol_sync.recip(ted_norm))
     omin, omax = F(sps - omega_lim), F(sps + omega_lim)
     alpha, beta = F(alpha), F(beta)
     rows, L = tail.shape
     T = x.shape[1]
+    S, R, reach = cuda_symbol_sync.ring_plan(sps, alpha, omega_lim, L + T,
+                                             xc)
+    G = cuda_symbol_sync.granule(xc)
+    Rg = R // G
     max_pos = F(L + T - 3)
-    y = np.zeros((rows, n_out), np.complex64)
+    y = np.full((rows, n_out), np.nan, np.complex64)
     out = [np.zeros(rows, F), np.zeros(rows, F),
            np.zeros(rows, np.complex64), np.zeros(rows, np.complex64)]
+    used = 0.0
     for r in range(rows):
         p_, o_ = F(pos[r]), F(om[r])
         ypr, ypi = F(yp[r].real), F(yp[r].imag)
         dpr, dpi = F(dp[r].real), F(dp[r].imag)
 
-        def fetch(j):
+        def sample(j):
             if j < L:
                 return F(tail[r, j].real), F(tail[r, j].imag)
             v = x[r, j - L]
-            return (F(v.real), F(v.imag)) if np.iscomplexobj(x) else (
-                F(v), F(0))
+            return (F(v.real), F(v.imag)) if xc else (F(v), F(0))
 
-        for m in range(n_out):
-            p = min(max(p_, F(2)), max_pos)
-            b = F(np.floor(p))
-            mu = F(p - b)
-            mm1, mm2, mp1 = F(mu - F(1)), F(mu - F(2)), F(mu + F(1))
-            c = [F(F(F(-mu * mm1) * mm2) * inv6),
-                 F(F(F(mp1 * mm1) * mm2) * F(0.5)),
-                 F(F(F(-mp1 * mu) * mm2) * F(0.5)),
-                 F(F(F(mp1 * mu) * mm1) * inv6)]
-            w = [fetch(int(b) - 1 + k) for k in range(4)]
-            yr, yi = F(w[0][0] * c[0]), F(w[0][1] * c[0])
-            for k in range(1, 4):
-                yr = F(yr + F(w[k][0] * c[k]))
-                yi = F(yi + F(w[k][1] * c[k]))
-            if mode == cuda_symbol_sync.MODE_LEVELS:
-                d = [F(np.hypot(F(yr - F(lv)), yi)) for lv in levels]
-                dr, di = F(levels[int(np.argmin(d))]), F(0)
-            else:
-                dr, di = F(np.sign(yr)), F(np.sign(yi))
-            if mode == cuda_symbol_sync.MODE_CONJ:
-                e = F(F(F(dpr * yr) + F(dpi * yi)) - F(F(dr * ypr)
-                                                        + F(di * ypi)))
-            else:
-                e = F(F(F(dpr * yr) - F(dpi * yi)) - F(F(dr * ypr)
-                                                        - F(di * ypi)))
-            e = min(max(F(e * inv_norm), F(-1)), F(1))
-            o_ = min(max(F(o_ + F(beta * e)), omin), omax)
-            p_ = F(F(p_ + o_) + F(alpha * e))
-            y[r, m] = yr + 1j * yi
-            ypr, ypi, dpr, dpi = yr, yi, dr, di
+        ring = np.full(R, -1, np.int64)  # the sample each slot holds
+        filled = 0
+        starts, ends = [], []  # each chunk's starting position, last read
+        for m0 in range(0, n_out, S):
+            starts.append(p_)
+            ends.append(-1)
+            t = min(max(F(p_ + F(reach)), F(2)), max_pos)
+            g_hi = max(filled, (int(t) + 3 + G - 1) // G)
+            g_lo = max(filled, g_hi - Rg)
+            landed = ring.copy()
+            for g in range(g_lo, g_hi):
+                ring[(g % Rg) * G:(g % Rg + 1) * G] = np.arange(G) + g * G
+            filled = g_hi
+            if m0 == 0:
+                landed = ring
+            for m in range(m0, min(m0 + S, n_out)):
+                p = min(max(p_, F(2)), max_pos)
+                b = F(np.floor(p))
+                mu = F(p - b)
+                mm1, mm2, mp1 = F(mu - F(1)), F(mu - F(2)), F(mu + F(1))
+                c = [F(F(F(-mu * mm1) * mm2) * inv6),
+                     F(F(F(mp1 * mm1) * mm2) * F(0.5)),
+                     F(F(F(-mp1 * mu) * mm2) * F(0.5)),
+                     F(F(F(mp1 * mu) * mm1) * inv6)]
+                j0 = int(b) - 1
+                for k in range(4):
+                    slot = (j0 + k) & (R - 1)
+                    assert landed[slot] == ring[slot] == j0 + k, (r, m, k)
+                ends[-1] = max(ends[-1], j0 + 3)
+                w = [sample(j0 + k) for k in range(4)]
+                yr, yi = F(w[0][0] * c[0]), F(w[0][1] * c[0])
+                for k in range(1, 4):
+                    yr = F(yr + F(w[k][0] * c[k]))
+                    yi = F(yi + F(w[k][1] * c[k]))
+                if mode == cuda_symbol_sync.MODE_LEVELS:
+                    d = [F(np.hypot(F(yr - F(lv)), yi)) for lv in levels]
+                    dr, di = F(levels[int(np.argmin(d))]), F(0)
+                else:
+                    dr, di = F(np.sign(yr)), F(np.sign(yi))
+                if mode == cuda_symbol_sync.MODE_CONJ:
+                    e = F(F(F(dpr * yr) + F(dpi * yi)) - F(F(dr * ypr)
+                                                            + F(di * ypi)))
+                else:
+                    e = F(F(F(dpr * yr) - F(dpi * yi)) - F(F(dr * ypr)
+                                                            - F(di * ypi)))
+                e = min(max(F(e * inv_norm), F(-1)), F(1))
+                o_ = min(max(F(o_ + F(beta * e)), omin), omax)
+                p_ = F(F(p_ + o_) + F(alpha * e))
+                assert np.isnan(y[r, m])
+                y[r, m] = yr + 1j * yi
+                ypr, ypi, dpr, dpi = yr, yi, dr, di
         out[0][r], out[1][r] = p_, o_
         out[2][r], out[3][r] = ypr + 1j * ypi, dpr + 1j * dpi
-    return y, *out
+        for k in range(len(starts) - 1):
+            # b = floor(p) of the last symbol read: its last sample - 2
+            used = max(used, ends[k + 1] - 2 - float(starts[k]))
+    assert not np.isnan(y).any()
+    return y, *out, (S, R, reach, used)
+
+
+def _sync_blocks(ss, x, T, n_blocks=2):
+    """Chain SymbolSync ss over n_blocks blocks of T of x through the
+    wrapper (the plain loop on the CPU) and through sync_model; assert
+    every output and state leaf equal. Returns the omegas after each
+    block and the plan."""
+    mode = cuda_symbol_sync.mode_of(np.iscomplexobj(x), ss.levels)
+    st = ss.init_state()
+    omegas = []
+    for blk in range(n_blocks):
+        xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
+        pos, om, yp, dp, tail = st
+        args = (int(round(T / ss.sps)), mode, ss.levels, ss.sps, ss.alpha,
+                ss.beta, ss.omega_limit, ss.ted_norm)
+        got = cuda_symbol_sync.symbol_sync(
+            tail, torch.from_numpy(xb), pos, om, yp, dp, *args)
+        *want, plan = sync_model(
+            tail.numpy(), xb, pos.numpy(), om.numpy(), yp.numpy(),
+            dp.numpy(), *args[:2],
+            None if ss.levels is None else ss.levels.numpy(), *args[3:])
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a.numpy(), b)
+        st, _ = ss(st, torch.from_numpy(xb))
+        omegas.append(st[1].numpy().copy())
+    return omegas, plan
 
 
 @pytest.mark.parametrize("variant", ["complex_sign", "real_levels",
                                      "real_sign"])
 def test_sync_model_matches_plain(rng, variant):
-    """The kernel's loop, sample fetches and arithmetic give the plain
-    loop's symbols and state bit for bit over two chained blocks."""
+    """The kernel's chunks, ring fills and reads and its arithmetic give the
+    plain loop's symbols and state bit for bit over two chained blocks."""
     C, T, sps = 3, 120, 4
     x = qpsk_like(rng, C, 2 * T // sps, sps, tiny=10)
     lv = None
@@ -340,22 +483,91 @@ def test_sync_model_matches_plain(rng, variant):
                       axis=1).astype(np.float32)
     elif variant == "real_sign":
         x = np.ascontiguousarray(x.real)
-    ss = SymbolSync(sps, decisions=lv, lead_shape=(C,), device="cpu")
-    mode = cuda_symbol_sync.mode_of(np.iscomplexobj(x), ss.levels)
-    st = ss.init_state()
-    for blk in range(2):
-        xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
-        pos, om, yp, dp, tail = st
-        args = (T // sps, mode, ss.levels, ss.sps, ss.alpha, ss.beta,
-                ss.omega_limit, ss.ted_norm)
-        got = cuda_symbol_sync.symbol_sync(
-            tail, torch.from_numpy(xb), pos, om, yp, dp, *args)
-        want = sync_model(tail.numpy(), xb, pos.numpy(), om.numpy(),
-                          yp.numpy(), dp.numpy(), *args[:2],
-                          None if lv is None else np.float32(lv), *args[3:])
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(a.numpy(), b)
-        st, _ = ss(st, torch.from_numpy(xb))
+    _sync_blocks(SymbolSync(sps, decisions=lv, lead_shape=(C,),
+                            device="cpu"), x, T)
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_STRESS))
+def test_sync_model_on_the_stress_input(name):
+    """On the stress ramps (tests/test_torch_cuda.stress_ramps) omega sits
+    at omax (rows up) and omin (rows down) and |e| at 1, so the positions
+    advance as far as the ring plan allows for: the model, its ring
+    asserted on every read, equals the plain loop over two chained blocks,
+    and the reads of some chunk and the next reach within 2 samples of the
+    plan's reach."""
+    kw, lv = SYNC_STRESS[name]
+    C, T = 4, 1200
+    ss = SymbolSync(decisions=lv, lead_shape=(C,), device="cpu", **kw)
+    x = stress_ramps(C, 2 * T, lv is None)
+    omegas, (S, R, reach, used) = _sync_blocks(ss, x, T)
+    omax, omin = F(ss.sps + ss.omega_limit), F(ss.sps - ss.omega_limit)
+    for om in omegas:
+        assert np.all(om[0::2] == omax) and np.all(om[1::2] == omin), om
+    assert reach - 2 <= used <= reach, (used, reach)
+
+
+# every SymbolSync the JAX package's chains build: (sps, gain_mu,
+# gain_omega, omega_limit as SymbolSync takes it, a fraction of sps)
+JAX_SYNCS = {
+    # qradiolink_tpu/chains/psk.py:136 (QpskDemod, the default gains)
+    "QPSK250K": (4, 0.02, 1e-5, 0.0016),
+    "QPSK20K": (4, 0.02, 1e-5, 0.02),
+    "QPSK2K": (40, 0.2, 1e-4, 0.2),
+    # qradiolink_tpu/chains/psk.py:54 (BpskDemod)
+    "BPSK2K": (10, 0.05, 2.5e-5, 0.001),
+    "BPSK1K": (20, 0.05, 2.5e-5, 0.001),
+    # qradiolink_tpu/chains/fsk.py:92 (Fsk4Demod variants)
+    "4FSK2K": (10, 0.085, 0.0038, 0.05),
+    "4FSK10KFM": (8, 0.085, 0.0038, 0.05),
+    "4FSK100K": (5, 0.085, 0.0038, 0.05),
+    # qradiolink_tpu/chains/fsk.py:309 (4FSK filter bank), :357 (2FSK),
+    # :436 (2FSK filter bank)
+    "4FSK2KFB": (10, 0.085, 0.0038, 0.05),
+    "2FSK2K": (10, 0.085, 0.0038, 0.05),
+    "2FSK1K": (20, 0.085, 0.0038, 0.05),
+    "2FSK10K": (4, 0.085, 0.0038, 0.05),
+    # qradiolink_tpu/chains/m17.py:64
+    "M17": (5, 0.085, 0.0038, 0.05),
+    # qradiolink_tpu/chains/dmr.py:72: the largest gain_mu
+    "DMR": (5, 0.2869, 0.005, 0.06),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_SYNCS))
+@pytest.mark.parametrize("complex_in", [True, False])
+def test_ring_plan_covers_the_worst_advance(name, complex_in):
+    """For each chain's loop, the plan's reach covers 2S - 1 symbols of the
+    largest advance (omega at its limit, |e| = 1), and its ring holds that
+    reach, the granule and the 4 taps: R >= reach + G + 6, R <= RING_MAX.
+    A block of 200,000 samples (the paths' step), its tail included."""
+    sps, mu, _, lim = JAX_SYNCS[name]
+    ss = SymbolSync(sps, gain_mu=mu, omega_limit=lim, device="cpu")
+    total = 200_000 + ss.tail_len
+    S, R, reach = cuda_symbol_sync.ring_plan(ss.sps, ss.alpha,
+                                             ss.omega_limit, total,
+                                             complex_in)
+    adv = float(F(ss.sps + ss.omega_limit)) + abs(float(F(ss.alpha)))
+    assert S in cuda_symbol_sync.CHUNKS and R & (R - 1) == 0
+    assert reach >= (2 * S - 1) * adv + 1.0
+    assert reach + cuda_symbol_sync.granule(complex_in) + 6 <= R
+    assert R <= cuda_symbol_sync.RING_MAX
+    assert float(F(ss.sps - ss.omega_limit)) - abs(float(F(ss.alpha))) > 0
+    if name in ("QPSK250K", "BPSK2K", "DMR", "M17"):
+        assert S == 16  # the driven paths and the next ports: full chunks
+
+
+@pytest.mark.parametrize("sps,mu,lim", [(600, 0.05, 0.001),
+                                        (4, 5.0, 0.005), (4, 0.02, 1.1)])
+def test_sync_wrapper_raises_where_the_ring_cannot_serve(sps, mu, lim):
+    """Parameters whose advance a symbol outgrows the largest ring (sps
+    600), or whose position can step back (gain_mu 5 at sps 4; omega down
+    to 0): the plan and the wrapper raise, on the CPU as on the card."""
+    with pytest.raises(ValueError):
+        cuda_symbol_sync.ring_plan(sps, mu, lim * sps, 10_000, True)
+    ss = SymbolSync(sps, gain_mu=mu, omega_limit=lim, lead_shape=(2,),
+                    device="cpu")
+    with pytest.raises(ValueError):
+        ss(ss.init_state(), torch.zeros((2, 4 * sps), dtype=torch.complex64))
 
 
 # fll_band_edge_f32's outputs a lane a pass and the warp's pass
@@ -535,14 +747,74 @@ def test_fll_wrapper_checks_its_inputs():
 
 
 def test_models_follow_the_sources():
-    """The models' block and tile sizes and the sources' rounding rules."""
+    """The models' block and tile sizes, wraps, ring plan and reads, and the
+    sources' rounding rules."""
     src = (CSRC / "costas.cu").read_text()
     assert int(re.search(r"kRows = (\d+);", src).group(1)) == ROWS
     assert int(re.search(r"kTile = (\d+);", src).group(1)) == TILE
-    assert "cosf(ph)" in src and "__sinf(" not in src and "__fmul_rn" in src
+    assert float(re.search(r"kNearBound = ([\d.]+)f;", src).group(1)) \
+        == NEAR_BOUND
+    for line in [
+            "sincosf(ph, &sn, &c);",
+            "const float a = __fadd_rn(p, pi);",
+            "const float lo = __fadd_rn(a, two_pi);",
+            "const float lo2 = __fadd_rn(lo, two_pi);",
+            "const float hi = __fsub_rn(a, two_pi);",
+            "r = a >= two_pi ? hi",
+            ": (a >= 0.0f ? a : (a >= -two_pi ? lo : lo2));",
+            "r = fmodf(a, two_pi);",
+            "if (r < 0.0f) r = __fadd_rn(r, two_pi);",
+            "return __fsub_rn(r, pi);",
+            "if (NEAR && t0 > 0 && n == kTile) {",
+            "const bool near = max_freq + fabsf(alpha) <= kNearBound;",
+            "nco_near(ph, c, s);  // |ph| <= pi",
+            "if (fabsf(ph[i]) < 105615.0f)",
+            # warp 1 stages x two tiles ahead and stores y behind
+            "stage(s_x[b], x, row0, n_rows, T, t0 + 2 * kTile, lane);",
+            "bar_sync(3 + b);  // warp 0 wrote s_y[b] and is done with s_x[b]",
+            "bar_sync(1 + b);  // s_x[b] holds tile t; s_y[b]'s tile t - 2 is out",
+            "bar_arrive(3 + b);"]:
+        assert line in src, line
+    assert "__sinf(" not in src and "__cosf(" not in src \
+        and "__fmul_rn" in src
     sync = (CSRC / "symbol_sync.cu").read_text()
+    # sign(s) u in both kernels: u above 0, -u below, 0 u otherwise (NaN)
+    for text in (src, sync):
+        for line in ['const float z = __fmul_rn(0.0f, u);',
+                     '"setp.gt.f32 gt, %1, 0f00000000;',
+                     '"setp.lt.f32 lt, %1, 0f00000000;',
+                     '"selp.f32 %0, %3, %2, lt;',
+                     '"selp.f32 %0, %4, %0, gt;',
+                     ': "f"(s), "f"(z), "f"(-u), "f"(u));']:
+            assert line in text, line
     assert "kInv6 = 1.0f / 6.0f" in sync and "__fdiv_rn" not in sync
     assert "hypotf" in sync
+    assert f"constexpr int kMaxRing = {cuda_symbol_sync.RING_MAX};" in sync
+    assert f"constexpr int kMaxChunk = {cuda_symbol_sync.CHUNKS[0]};" in sync
+    assert (f"R < {cuda_symbol_sync.RING_MIN} || R > kMaxRing"
+            in sync)
+    assert cuda_symbol_sync.granule(True) == 2 \
+        and cuda_symbol_sync.granule(False) == 4
+    for line in [
+            "static constexpr int G = XC ? 2 : 4;",
+            "const float t = fminf(fmaxf(__fadd_rn(p, reach), 2.0f), "
+            "max_pos);",
+            "const int g_hi = mine ? max(filled, ((int)t + 3 + G - 1) / G) "
+            ": 0;",
+            "const int g_lo = max(filled, g_hi - Rg);",
+            "const int slot = (g & (Rg - 1)) * G;",
+            # the fill warp copies from each chunk's posted positions and
+            # posts their landing; the chain waits for chunk j - 1's
+            "const float p = s_pos[j & 1][lane];",
+            "bar_arrive(3 + (j & 1));",
+            "bar_arrive(1 + (j & 1));",
+            "if (j == 0)", "bar_sync(3);", "else if (j > 1)",
+            "bar_sync(3 + ((j - 1) & 1));",
+            "const int s = (j0 + k) & (R - 1);"]:
+        assert line in sync, line
+    for name in ("costas", "symbol_sync"):
+        assert kernels._EXTRA[name] == ["--fmad=false"]
+    assert not any("fast_math" in f for f in kernels._FLAGS)
     fll = (CSRC / "fll_band_edge.cu").read_text()
     for line in [
             f"constexpr int kR = {FLL_R};",
