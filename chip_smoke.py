@@ -14,7 +14,8 @@ when the package cannot be imported, and when any phase fails:
     csrc/fir_s1.cu, csrc/viterbi_bfly.cu, csrc/pfb_fft.cu,
     csrc/depthwise_run.cu, csrc/resample_poly.cu, csrc/resample_up.cu,
     csrc/agc2.cu, csrc/costas.cu, csrc/symbol_sync.cu,
-    csrc/viterbi_stream.cu, csrc/fll_band_edge.cu and
+    csrc/viterbi_stream.cu, csrc/viterbi_stream_warp.cu,
+    csrc/viterbi_stream_redux.cu, csrc/fll_band_edge.cu and
     csrc/resample_x2.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
@@ -102,9 +103,15 @@ when the package cannot be imported, and when any phase fails:
     SSB channel filter's 167 complex taps (two launches, one a tap plane,
     then the combine; one complex F.conv1d as the library call) and its
     audio band-pass (K97, real); AmMod's post filter, 963 complex taps
-    over 200,000 samples, the same way; agc2_gain_f32 bit-equal to its
-    plain loop
-    at the SSB (1,600) and AM (4,000) shapes over two chained blocks;
+    over 200,000 samples, the same way; agc2_f32 (the AGC stage in one
+    launch) bit-equal to its plain version (torch.abs, the loop, the
+    products) at the SSB (1,600 complex), AM (4,000 real) and 4,000
+    complex shapes over two chained blocks and at QPSK250K's (100,000
+    complex) over one, each timed in turns with the stage as it ran before
+    (torch.abs, agc2_gain_f32, the products) beside the recurrence's chain
+    floor (scripts/loop_chain_floor.py), and agc2_gain_f32, which no path
+    launches now, bit-equal to its plain loop and timed (rows with "path":
+    null);
     resample_up_f32 at the TX interpolators (SsbMod's L125 M1 K45, 2
     planes; AmMod's, one plane; NbfmMod's L25 M4, real, and L20 M1),
     its outputs and new state equal bit for bit to resample_poly_f32's,
@@ -113,7 +120,8 @@ when the package cannot be imported, and when any phase fails:
  9. the slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples for 3 steps (counters zeroed before, read after: the head on
     fir_long_f32, the channel band-pass 2 launches of fir_s1_f32, the
-    audio band-pass 1, agc2_gain_f32 1, a step; fir_stream_f32 never),
+    audio band-pass 1, agc2_f32 1, a step; fir_stream_f32 and
+    agc2_gain_f32 never),
     Msamples/s and vs_baseline (above 10) beside the host's pace (the
     host-clock time of a tiny op, before and after), one step stage by
     stage and one under torch.profiler; then WbfmDemod at the same width
@@ -122,6 +130,8 @@ when the package cannot be imported, and when any phase fails:
     audio samples a channel a step; then AmMod alone), 3 steps each, their
     counts read the same way (the interpolators on resample_up_f32 once
     each a step, resample_poly_f32 never), one more step of each traced;
+    then AmDemod at the same width, 3 steps, its AGC (2048 x 4,000 real)
+    one launch of agc2_f32 a step, agc2_gain_f32 never;
 10. SsbDemod, AmDemod and WbfmDemod at 4 channels x 2 blocks on the card
     against the port's CPU path: audio and state within 1e-5 of the peak,
     rssi within 1e-4 dB;
@@ -137,13 +147,18 @@ when the package cannot be imported, and when any phase fails:
     2), symbol_sync_mm_f32 and viterbi_stream_k7 bit-equal to their plain
     loops over two chained blocks of a real QPSK signal from the port's
     QpskMod (1 kHz off, noise, its first samples ~1e-20; 4,000 samples,
-    1,000 symbols, 1,000 soft pairs with lag 64); symbol_sync_mm_f32 on
+    1,000 symbols, 1,000 soft pairs with lag 64; viterbi_stream_k7 is
+    the route of the CCSDS code); symbol_sync_mm_f32 on
     the stress ramps (omega held at its limits, |e| at its clip, so the
     positions run as far as its ring allows) over two chained blocks of
     2048 x 4,000, bit-equal to its plain loop; then timed at QPSK250K's
     full shapes (the PLL over 100,000 samples, the symbol-rate loop over
     25,000, the sync 100,000 -> 25,000, the Viterbi 25,000 pairs) beside
-    one call of the plain loop, the bound and the latency floor; the
+    one call of the plain loop, the bound and the latency floor, the
+    Viterbi also in turns with viterbi_stream_warp_k7 (the one-warp design
+    it replaced) and viterbi_stream_redux_k7 (a one-warp design with each
+    step's minimum from the step before), both held bit-equal to it (their
+    rows have "path": null); the
     QPSK250K head K83 D2 and QPSK20K/2K's K1045 D25 (no path here runs
     it) on fir_cols_f32, each in turns with fir_stream_f32, the RRC K45
     on fir_s1_f32, against the plain FIR and F.conv1d; the FLL's complex
@@ -160,9 +175,10 @@ when the package cannot be imported, and when any phase fails:
     bytes a channel a step at 2048 channels, clean, through
     QpskDemod(125_000, 500_000) for 3 steps (counters zeroed before, read
     after: fir_cols_f32 for the head, fll_band_edge_f32, fir_s1_f32 for
-    the RRC alone, agc2_gain_f32, costas_loop_f32 twice,
-    symbol_sync_mm_f32, viterbi_stream_k7, a step; fir_stream_f32 never,
-    fir_s1_f32 at no other shape), BER < 0.01, step ms
+    the RRC alone, agc2_f32, costas_loop_f32 twice, symbol_sync_mm_f32,
+    viterbi_stream_k7, a step; fir_stream_f32, agc2_gain_f32 and
+    viterbi_stream_warp_k7 never, fir_s1_f32 at no other shape), BER <
+    0.01, step ms
     and vs_baseline (printed, not gated), one step stage by stage, one
     traced, and 3 steps at 10 dB with a 1 kHz offset (BER printed);
 15. the BPSK2K path: BpskMod -> BpskDemod at 2048 channels for 8 steps,
@@ -1217,7 +1233,7 @@ def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
 
 # -- the analog voice chains (SSB, AM, WBFM, the TX side) --------------------
 
-SSB_EVERY_STEP = ("fir_long_f32", "fir_s1_f32", "agc2_gain_f32")
+SSB_EVERY_STEP = ("fir_long_f32", "fir_s1_f32", "agc2_f32")
 WBFM_EVERY_STEP = ("fir_cols_f32", "fir_s1_f32")
 TX_EVERY_STEP = ("fir_s1_f32", "resample_up_f32")
 AUDIO_PER_STEP = T_STEP // 125   # 8 ksps audio samples a step (1,600)
@@ -1255,11 +1271,11 @@ def ssb_path(dev, gen):
     samples a step (the 4FSK path's shape), seeded IQ at 0.1 RMS a plane,
     3 steps with state carried and the counters zeroed just before; the
     head on fir_long_f32, the channel band-pass two fir_s1_f32 launches,
-    the audio band-pass one, agc2_gain_f32 one, a step, fir_stream_f32
-    none. The step must beat vs_baseline 10; it is printed beside the
-    host's pace just before and just after (host_pace_us), since the step
-    is partly host-bound. Then one more step stage by stage, and one under
-    torch.profiler. Returns the report."""
+    the audio band-pass one, agc2_f32 one, a step, fir_stream_f32 and
+    agc2_gain_f32 none. The step must beat vs_baseline 10; it is printed
+    beside the host's pace just before and just after (host_pace_us), since
+    the step is partly host-bound. Then one more step stage by stage, and
+    one under torch.profiler. Returns the report."""
     from qradiolink_tpu_torch.chains.ssb import SsbDemod
     from qradiolink_tpu_torch.core import IqPair, Sequencer
     from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
@@ -1286,8 +1302,8 @@ def ssb_path(dev, gen):
         ("fir_long_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
         ("fir_s1_f32", f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}"): 2,
         ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1,
-        ("agc2_gain_f32", f"{N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb",
-        never=("fir_stream_f32",))
+        ("agc2_f32", f"complex {N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb",
+        never=("fir_stream_f32", "agc2_gain_f32"))
     med = statistics.median([s * 1e3 for s in step_s[1:]])
     vs = N_CH * T_STEP / med / 1e3 / N_CH
     print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline {vs:.2f} "
@@ -1307,7 +1323,7 @@ def ssb_path(dev, gen):
               "launches)", lambda: seq(chain.chan_filter, x))
     timed(stages, "rssi", lambda: rssi_dbm(x))
     x = timed(stages, "power squelch", lambda: seq(chain.squelch, x))
-    x = timed(stages, "agc (agc2_gain_f32)", lambda: seq(chain.agc, x))
+    x = timed(stages, "agc (agc2_f32)", lambda: seq(chain.agc, x))
     x = timed(stages, "cessb clipper", lambda: chain.clipper.apply(x))
     x = timed(stages, "cessb stretcher", lambda: seq(chain.stretcher, x))
     x = timed(stages, "real x1.333", lambda: x.real * 1.333)
@@ -1426,6 +1442,27 @@ def am_tx_path(dev, gen):
     return report
 
 
+def am_path(dev, gen):
+    """AmDemod at 2048 x 200,000 a step, 3 steps, counters zeroed just
+    before: its AGC (on the real magnitudes, 2048 x 4,000) one launch of
+    agc2_f32 a step, agc2_gain_f32 none. Returns the report."""
+    from qradiolink_tpu_torch.chains.am import AmDemod
+    from qradiolink_tpu_torch.core import IqPair
+
+    chain = AmDemod(lead_shape=(N_CH,), device=dev)
+    iq = IqPair(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1,
+                torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1)
+    _, outs, step_s, report = drive(chain, chain.init_state(),
+                                    [iq] * N_STEPS, ("agc2_f32",))
+    audio = outs[-1]["audio"]
+    if tuple(audio.shape) != (N_CH, AUDIO_PER_STEP) \
+            or not bool(torch.isfinite(audio).all()):
+        raise RuntimeError(f"am audio: {tuple(audio.shape)} or non-finite")
+    require_shapes(report, {("agc2_f32", f"real {N_CH}x{T_STEP // 50}"): 1},
+                   N_STEPS, "am", never=("agc2_gain_f32",))
+    print(f"  {step_times(step_s, N_CH * T_STEP)}", flush=True)
+    return report
+
 def complex_fir_row(name, replaces, filt, C, n, run, dev, gen,
                     routed=True):
     """A FIR with complex taps over the (re, im) planes of C rows x n
@@ -1471,39 +1508,121 @@ def complex_fir_row(name, replaces, filt, C, n, run, dev, gen,
 
 
 def agc_rows(dev, gen):
-    """agc2_gain_f32 at the SSB path's shape (2048 x 1,600) and the AM
-    chain's at the same width (2048 x 4,000), two chained blocks of bursty
-    magnitudes each: gains and the carried gain equal bit for bit to the
-    plain loop's. Times at the SSB shape; no PyTorch call computes the
-    recurrence."""
+    """agc2_f32, the Agc2 stage in one launch, at the QPSK250K path's shape
+    (2048 x 100,000 complex, a QPSK signal whose first samples are ~1e-20),
+    the SSB path's (2048 x 1,600 complex) and the AM path's (2048 x 4,000
+    real): y and the carried gain equal bit for bit to the plain version's
+    (torch.abs, the loop, the products) over two chained blocks of bursty
+    input at the SSB and AM shapes and at 2048 x 4,000 complex, and at
+    QPSK250K's shape to one timed call of the plain version; each timed in
+    turns (old, new, new, old) with the stage as it ran before (torch.abs,
+    agc2_gain_f32, the products plane by plane), beside the chain's floor
+    (scripts/loop_chain_floor.py's agc variant, the recurrence alone on a
+    register ring). agc2_gain_f32, which no path launches now, stays
+    bit-equal to its plain loop at the SSB and AM shapes; its rows (path
+    null) give its time at the QPSK250K and SSB shapes. No PyTorch call
+    computes the recurrence."""
+    from qradiolink_tpu_torch.chains.am import AmDemod
+    from qradiolink_tpu_torch.chains.psk import QpskDemod
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod
     from qradiolink_tpu_torch.ops import cuda_agc
 
-    params = {"ssb": (1e-1, 1e-1, 0.25), "am": (1e-1, 1e-2, 1.0)}
-    for name, T in (("am", T_STEP // 50), ("ssb", AUDIO_PER_STEP)):
+    sys.path.insert(0, str(HERE / "scripts"))
+    import loop_chain_floor
+
+    src = "qradiolink_tpu_torch/csrc/agc2.cu"
+    where = "qradiolink_tpu/ops/agc.py:51"
+    agcs = {"qpsk": QpskDemod(125_000, 500_000, device=dev).agc,
+            "ssb": SsbDemod(usb=True, device=dev).agc,
+            "am": AmDemod(device=dev).agc}
+
+    def params(name):
+        a = agcs[name]
+        return a.attack, a.decay, a.reference, a.max_gain
+
+    def bursty(T, cplx):
         amp = torch.where((torch.arange(T, device=dev) // 150) % 2 == 0,
                           2.0, 0.02)
-        g = torch.ones(N_CH, device=dev)
-        for _ in range(2):
-            args = ((torch.randn((N_CH, T), generator=gen, device=dev)
-                     * amp).abs(), g, *params[name], 65536.0)
-            got = cuda_agc.agc2_gain(*args)
-            want = cuda_agc.agc2_gain_plain(*args)
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise RuntimeError(f"agc2_gain_f32 {name} {N_CH}x{T}: not "
-                                   f"bit-equal to the plain loop")
-            g = got[1]
-        print(f"  agc2_gain_f32/{name} {N_CH}x{T}: 2 chained blocks equal "
-              f"bit for bit to the plain loop", flush=True)
-    # the SSB shape's arguments, from the loop's last pass
-    ms = cuda_ms(lambda: cuda_agc.agc2_gain(*args))
-    plain_ms = cuda_ms(lambda: cuda_agc.agc2_gain_plain(*args), iters=3,
-                       warmup=1)
-    # m in, gains out, g0 in, g_last out; 7 operations a sample; the
-    # recurrence's own floor is latency, T dependent steps a row
-    b = bound(4 * (2 * N_CH * T + 2 * N_CH), 7 * N_CH * T)
-    return [row(f"{cuda_agc.OP}/ssb", "qradiolink_tpu_torch/csrc/agc2.cu",
-                "qradiolink_tpu/ops/agc.py:51", 0.0, ms, plain_ms, b, None,
-                "ssb", cuda_agc.shape_key(args[0]))]
+        dt = torch.complex64 if cplx else torch.float32
+        return torch.randn((N_CH, T), generator=gen, device=dev,
+                           dtype=dt) * amp
+
+    # two chained blocks: agc2_f32 against the plain stage; agc2_gain_f32
+    # against its plain loop
+    for name, T, cplx in (("ssb", AUDIO_PER_STEP, True),
+                          ("am", T_STEP // 50, False),
+                          ("qpsk", T_STEP // 50, True)):
+        g = gg = torch.ones(N_CH, device=dev)
+        for blk in range(2):
+            x = bursty(T, cplx)
+            if blk == 0:
+                x[:, :200] *= 1e-20
+            args = (*params(name),)
+            got = cuda_agc.agc2(x, g, *args)
+            equal_leaves(f"{cuda_agc.OP_FUSED}/{name} {N_CH}x{T} block "
+                         f"{blk}", got, cuda_agc.agc2_plain(x, g, *args))
+            m = torch.abs(x).float()
+            old = cuda_agc.agc2_gain(m, gg, *args)
+            equal_leaves(f"{cuda_agc.OP}/{name} {N_CH}x{T} block {blk}",
+                         old, cuda_agc.agc2_gain_plain(m, gg, *args))
+            g, gg = got[1], old[1]
+        print(f"  {cuda_agc.OP_FUSED} and {cuda_agc.OP} {name} {N_CH}x{T} "
+              f"{'complex' if cplx else 'real'}: 2 chained blocks equal bit "
+              f"for bit to their plain versions", flush=True)
+
+    chain_lib = loop_chain_floor.build_agc_chain()
+    rows = []
+    T_in = T_STEP // 2
+    for name, run, T, cplx in (("qpsk", "qpsk", T_in, True),
+                               ("ssb", "ssb", AUDIO_PER_STEP, True),
+                               ("am", "am", T_STEP // 50, False)):
+        x = loop_signal(dev, gen, N_CH, T) if name == "qpsk" else bursty(
+            T, cplx)
+        g0 = torch.ones(N_CH, device=dev)
+        args = (x, g0, *params(name))
+        (ms, seq) = turns_ms({
+            "stage_before": lambda: loop_chain_floor.agc_stage_before(*args),
+            cuda_agc.OP_FUSED: lambda: cuda_agc.agc2(*args)})
+        got = cuda_agc.agc2(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = cuda_agc.agc2_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        equal_leaves(f"{cuda_agc.OP_FUSED}/{name} at {tuple(x.shape)}", got,
+                     want)
+        floor = loop_chain_floor.agc_chain_ms(
+            chain_lib, torch.abs(x[:, :T - T % loop_chain_floor.RING]),
+            agcs[name]) if T >= 1008 else None
+        n = N_CH * T
+        # x in and y out, g0 in and g_last out; |x| (a hypot, ~12
+        # operations), the product (1 or 2) and the recurrence (7)
+        b = bound((16 if cplx else 8) * n + 8 * N_CH,
+                  ((12 + 2) if cplx else 2) * n + 7 * n)
+        r = row(f"{cuda_agc.OP_FUSED}/{name}", src, where, 0.0,
+                ms[cuda_agc.OP_FUSED], plain_ms, b, None, run,
+                cuda_agc.fused_key(x))
+        r["stage_before_ms"] = ms["stage_before"]
+        r["chain_floor_ms"] = floor
+        print(f"  {r['name']}: in turns with the stage before "
+              f"{json.dumps(seq)}; chain floor "
+              f"{'n/a' if floor is None else f'{floor:.4f} ms'}", flush=True)
+        rows.append(r)
+        if name != "am":
+            # agc2_gain_f32 alone at the same shape: no path launches it
+            m = torch.abs(x).float()
+            gargs = (m, g0, *params(name))
+            ms_old = cuda_ms(lambda: cuda_agc.agc2_gain(*gargs))
+            rows.append(row(
+                f"{cuda_agc.OP}/{name}", src, where, 0.0, ms_old,
+                cuda_ms(lambda: cuda_agc.agc2_gain_plain(*gargs), iters=1,
+                        warmup=0), bound(8 * n + 8 * N_CH, 7 * n), None, run,
+                cuda_agc.shape_key(m), routed=False))
+        del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 RESAMPLE_SOURCE = {
@@ -1815,7 +1934,7 @@ QPSK_FIXTURE = HERE / "tests" / "fixtures" / "iq_qpsk250k_10db.npz"
 QPSK_BYTES = 3_125      # a step's payload a channel: 200,000 IQ samples
 QPSK_SYMS = T_STEP // 8  # 25,000 symbols a step (500 ksps, sps 4)
 QPSK_EVERY_STEP = ("fir_cols_f32", "fll_band_edge_f32", "fir_s1_f32",
-                   "agc2_gain_f32", "costas_loop_f32", "symbol_sync_mm_f32",
+                   "agc2_f32", "costas_loop_f32", "symbol_sync_mm_f32",
                    "viterbi_stream_k7")
 BPSK_BYTES = 25          # a step's payload a channel at 2,000 symbols/s
 BPSK_STEPS = 8           # 1.6 s of signal: 1,600 bits a channel
@@ -2185,14 +2304,37 @@ def psk_rows(dev, gen):
     pm0 = torch.zeros((N_CH, 64), device=dev)
     tail = torch.full((N_CH, lag, 2), 128.0, device=dev)
     S = QPSK_SYMS + lag
+    v_bound = (N_CH * (8 * S + 2 * 8 * S + QPSK_SYMS + 2 * 4 * 64),
+               10 * 64 * N_CH * S)
     rows.append(loop_row(
         f"{vsc.OP}/qpsk", "qradiolink_tpu_torch/csrc/viterbi_stream.cu",
         "qradiolink_tpu/fec/conv.py:217",
         lambda: vsc.viterbi_stream(CCSDS_K7, pm0, tail, soft),
         lambda: vsc.viterbi_stream_plain(CCSDS_K7, pm0, tail, soft),
-        N_CH * (8 * S + 2 * 8 * S + QPSK_SYMS + 2 * 4 * 64),
-        10 * 64 * N_CH * S, "qpsk", vsc.shape_key(soft, lag)))
-    del soft
+        *v_bound, "qpsk", vsc.shape_key(soft, lag)))
+    # the one-warp design the CCSDS code had before and the one-warp
+    # design with the class minima, in turns with it and bit-equal to it
+    # (so to the plain loop); no path launches them
+    vfns = {vsc.OP_WARP: lambda: vsc.viterbi_stream_warp(CCSDS_K7, pm0,
+                                                         tail, soft),
+            vsc.OP_REDUX: lambda: vsc.viterbi_stream_redux(CCSDS_K7, pm0,
+                                                           tail, soft),
+            vsc.OP: lambda: vsc.viterbi_stream(CCSDS_K7, pm0, tail, soft)}
+    want = vfns[vsc.OP]()
+    errs = {op: equal_leaves(f"{op}/qpsk", vfns[op](), want)
+            for op in (vsc.OP_WARP, vsc.OP_REDUX)}
+    vms, vseq = turns_ms(vfns)
+    print(f"  {vsc.OP} in turns with {vsc.OP_WARP} and {vsc.OP_REDUX}: "
+          f"{json.dumps(vseq)}", flush=True)
+    rows[-1]["in_turns_ms"] = vms[vsc.OP]
+    plain_ms = rows[-1]["plain_ms"]
+    for op, src in ((vsc.OP_WARP, "viterbi_stream_warp.cu"),
+                    (vsc.OP_REDUX, "viterbi_stream_redux.cu")):
+        rows.append(row(f"{op}/qpsk", f"qradiolink_tpu_torch/csrc/{src}",
+                        "qradiolink_tpu/fec/conv.py:217", errs[op], vms[op],
+                        plain_ms, bound(*v_bound), None, "qpsk",
+                        vsc.shape_key(soft, lag), routed=False))
+    del soft, want
     torch.cuda.empty_cache()
 
     k1 = "qradiolink_tpu/ops/pallas_fir.py:218"
@@ -2266,8 +2408,9 @@ def qpsk_path(dev, gen):
     does), and QpskDemod(125_000, 500_000) runs 3 steps with state carried,
     the counters zeroed just before: the head on fir_cols_f32, the FLL on
     fll_band_edge_f32, the RRC on fir_s1_f32 (its only shape there),
-    agc2_gain_f32, costas_loop_f32 twice, symbol_sync_mm_f32 and
-    viterbi_stream_k7, each once a step; fir_stream_f32 never. BER < 0.01 on the steady-state
+    agc2_f32, costas_loop_f32 twice, symbol_sync_mm_f32 and
+    viterbi_stream_k7, each once a step; fir_stream_f32, agc2_gain_f32 and
+    viterbi_stream_warp_k7 never. BER < 0.01 on the steady-state
     segment. Then one more step stage by stage and one under
     torch.profiler; then 3 more steps at SNR 10 dB with a 1 kHz offset,
     their BER printed. The modulator runs before the counters are zeroed;
@@ -2308,12 +2451,14 @@ def qpsk_path(dev, gen):
         ("fir_cols_f32", f"K{chain.resamp.kp} D2 tail 2x{N_CH}"): 1,
         ("fll_band_edge_f32", f"{N_CH}x{T_in} sb{T_in // n_sub}"): 1,
         ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}"): 1,
-        ("agc2_gain_f32", f"{N_CH}x{T_in}"): 1,
+        ("agc2_f32", f"complex {N_CH}x{T_in}"): 1,
         ("costas_loop_f32", f"order4 {N_CH}x{T_in}"): 1,
         ("costas_loop_f32", f"order4 {N_CH}x{QPSK_SYMS}"): 1,
         ("symbol_sync_mm_f32", f"conj {N_CH}x{T_in}->{QPSK_SYMS}"): 1,
         ("viterbi_stream_k7", f"R{N_CH} T{QPSK_SYMS} lag64"): 1},
-        N_STEPS, "qpsk", never=("fir_stream_f32",))
+        N_STEPS, "qpsk",
+        never=("fir_stream_f32", "agc2_gain_f32", "viterbi_stream_warp_k7",
+               "viterbi_stream_redux_k7"))
     only_shape(report, "fir_s1_f32",
                f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}", "qpsk")
     sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
@@ -2335,7 +2480,7 @@ def qpsk_path(dev, gen):
     x = timed(stages, f"FLL (fll_band_edge_f32, {n_sub} sub-blocks)",
               lambda: seq(chain.fll, x))
     x = timed(stages, "RRC (fir_s1_f32 K45)", lambda: seq(chain.shaping, x))
-    x = timed(stages, "agc (agc2_gain_f32)", lambda: seq(chain.agc, x))
+    x = timed(stages, "agc (agc2_f32)", lambda: seq(chain.agc, x))
     x = timed(stages, "Costas PLL (costas_loop_f32, 100,000)",
               lambda: seq(chain.costas_pll, x))
     syms = timed(stages, "symbol sync (symbol_sync_mm_f32)",
@@ -2375,7 +2520,7 @@ def bpsk_path(dev, gen):
     steps with state carried, each step's IQ made just before it (the
     modulator's launches count too), the counters zeroed before the first:
     the head on fir_decim_f32, the FLL on fll_band_edge_f32, the RRC on
-    fir_s1_f32 (its only shape there), agc2_gain_f32, symbol_sync_mm_f32,
+    fir_s1_f32 (its only shape there), agc2_f32, symbol_sync_mm_f32,
     costas_loop_f32 (order 2) and
     viterbi_stream_k7 (the delay-diversity pair, 2 x 2048 rows), each its
     count a step, and the modulator's two interpolators on resample_up_f32
@@ -2418,11 +2563,13 @@ def bpsk_path(dev, gen):
         ("fir_decim_f32", f"K{chain.resamp.kp} D50 tail 2x{N_CH}"): 1,
         ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}"): 1,
         ("fll_band_edge_f32", f"{N_CH}x{T_in} sb{T_in // n_sub}"): 1,
-        ("agc2_gain_f32", f"{N_CH}x{T_in}"): 1,
+        ("agc2_f32", f"complex {N_CH}x{T_in}"): 1,
         ("symbol_sync_mm_f32", f"conj {N_CH}x{T_in}->{n_sym}"): 1,
         ("costas_loop_f32", f"order2 {N_CH}x{n_sym}"): 1,
         ("viterbi_stream_k7", f"R{2 * N_CH} T{n_sym // 2} lag64"): 1},
-        BPSK_STEPS, "bpsk", never=("fir_stream_f32", "resample_poly_f32"))
+        BPSK_STEPS, "bpsk",
+        never=("fir_stream_f32", "resample_poly_f32", "agc2_gain_f32",
+               "viterbi_stream_warp_k7", "viterbi_stream_redux_k7"))
     only_shape(report, "fir_s1_f32",
                f"K{chain.shaping.ntaps} D1 tail 2x{N_CH}", "bpsk")
     sent = torch.cat([bytes_to_bits(d) for d in data], dim=-1)
@@ -2574,14 +2721,15 @@ def main() -> int:
     # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
     # resample_up_f32 keep their rings in registers, viterbi_bfly_k7 its
     # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
-    # resample_poly_f32 and agc2_gain_f32 their loads in flight, the PSK
-    # loops (costas_loop_f32, symbol_sync_mm_f32, viterbi_stream_k7) their
-    # state; fll_band_edge_f32 and resample_x2_f32 their rings and
-    # accumulators
+    # resample_poly_f32 and agc2_gain_f32 their loads in flight, agc2_f32
+    # its rows' loads, the PSK loops (costas_loop_f32, symbol_sync_mm_f32,
+    # the viterbi_stream kernels) their state;
+    # fll_band_edge_f32 and resample_x2_f32 their rings and accumulators
     for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
                  "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
                  "resample_up", "agc2", "costas", "symbol_sync",
-                 "viterbi_stream", "fll_band_edge", "resample_x2"):
+                 "viterbi_stream", "viterbi_stream_warp",
+                 "viterbi_stream_redux", "fll_band_edge", "resample_x2"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -2634,6 +2782,10 @@ def main() -> int:
           f"{N_STEPS} steps", flush=True)
     reports["am_tx"] = am_tx_path(dev, gen)
     torch.cuda.empty_cache()
+    print(f"AM path: AmDemod {N_CH} ch x {T_STEP} samples, {N_STEPS} steps",
+          flush=True)
+    reports["am"] = am_path(dev, gen)
+    torch.cuda.empty_cache()
     print("analog chains, card against CPU:", flush=True)
     card_vs_cpu_phase(dev, gen)
     print("frozen SSB capture, card against CPU:", flush=True)
@@ -2662,7 +2814,8 @@ def main() -> int:
     # none for the one it replaced (a row with no path)
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS,
              "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS,
-             "am_tx": N_STEPS, "qpsk": N_STEPS, "bpsk": BPSK_STEPS,
+             "am_tx": N_STEPS, "am": N_STEPS, "qpsk": N_STEPS,
+             "bpsk": BPSK_STEPS,
              "psk_tx": N_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")

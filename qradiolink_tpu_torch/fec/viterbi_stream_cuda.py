@@ -20,8 +20,16 @@ the first T bits are the block's. With lag = 0 and an empty tail this is
 `viterbi_decode`, whose final metrics are pm1.
 
 On a CPU tensor the wrapper takes the plain version (the ACS loop over the
-S steps, then the traceback loop); on a CUDA tensor it launches the kernel,
-one warp a row, or raises. The two are equal bit for bit.
+S steps, then the traceback loop); on a CUDA tensor it launches the kernel
+`route(code)` names, or raises: `viterbi_stream_k7` (csrc/viterbi_stream.cu,
+eight lanes a row, the code's polynomials compiled in) for the CCSDS code
+{109, 79}, `viterbi_stream_warp_k7` (csrc/viterbi_stream_warp.cu, one warp
+a row, the polynomials given at launch) for the other K=7 rate-1/2 codes.
+`viterbi_stream_redux_k7` (csrc/viterbi_stream_redux.cu, one warp a row,
+each step's minimum from the step before; CCSDS only) is a design the
+route does not take, kept for timing in turns (`viterbi_stream_redux`), as
+`viterbi_stream_warp` launches the warp kernel whatever the code. All
+equal the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +44,10 @@ from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "viterbi_stream_k7"
+OP_WARP = "viterbi_stream_warp_k7"
+OP_REDUX = "viterbi_stream_redux_k7"
+# the code viterbi_stream_k7 is compiled for
+CCSDS_POLYS = (109, 79)
 
 
 @functools.lru_cache(maxsize=8)
@@ -99,14 +111,33 @@ def shape_key(soft, lag: int) -> str:
     return f"R{soft.shape[0]} T{soft.shape[1]} lag{lag}"
 
 
-def _lib():
-    lib = kernels.load("viterbi_stream")
+def route(code) -> str:
+    """The kernel that decodes `code` on the card: viterbi_stream_k7 for
+    the CCSDS code, viterbi_stream_warp_k7 for other K=7 rate-1/2 codes."""
+    return OP if tuple(code.polys) == CCSDS_POLYS else OP_WARP
+
+
+# op -> (csrc source, C entry, error-string entry)
+_ENTRIES = {OP: ("viterbi_stream", "viterbi_stream_k7",
+                 "viterbi_stream_error_string"),
+            OP_WARP: ("viterbi_stream_warp", "viterbi_stream_warp_k7",
+                      "viterbi_stream_warp_error_string"),
+            OP_REDUX: ("viterbi_stream_redux", "viterbi_stream_redux_k7",
+                       "viterbi_stream_redux_error_string")}
+
+
+def _lib(op: str):
+    src, entry, err = _ENTRIES[op]
+    lib = kernels.load(src)
     if not getattr(lib, "_qrl_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.viterbi_stream_k7.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.viterbi_stream_k7.restype = ctypes.c_int
-        lib.viterbi_stream_error_string.argtypes = [i]
-        lib.viterbi_stream_error_string.restype = ctypes.c_char_p
+        getattr(lib, entry).argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        getattr(lib, entry).restype = ctypes.c_int
+        getattr(lib, err).argtypes = [i]
+        getattr(lib, err).restype = ctypes.c_char_p
+        if op == OP:
+            lib.viterbi_stream_scratch_steps.argtypes = [i]
+            lib.viterbi_stream_scratch_steps.restype = i
         lib._qrl_bound = True
     return lib
 
@@ -115,6 +146,22 @@ def viterbi_stream(code, pm0, tail, soft):
     """One streamed block: pm0 (B, ns) f32 carried metrics, tail (B, lag, n)
     f32 pending soft pairs, soft (B, T, n) f32 in [0, 255] -> (pm1 (B, ns)
     the metrics after the first T steps, bits (B, T) uint8)."""
+    return _decode(route(code), code, pm0, tail, soft)
+
+
+def viterbi_stream_warp(code, pm0, tail, soft):
+    """viterbi_stream on viterbi_stream_warp_k7 whatever the code (the
+    design the CCSDS code had before, for timing the two in turns)."""
+    return _decode(OP_WARP, code, pm0, tail, soft)
+
+
+def viterbi_stream_redux(code, pm0, tail, soft):
+    """viterbi_stream on viterbi_stream_redux_k7 (one warp a row; the CCSDS
+    code only), for timing it in turns with the route."""
+    return _decode(OP_REDUX, code, pm0, tail, soft)
+
+
+def _decode(op, code, pm0, tail, soft):
     if soft.ndim != 3 or tail.ndim != 3 or pm0.ndim != 2 \
             or soft.shape[-1] != code.n or tail.shape[-1] != code.n \
             or tail.shape[0] != soft.shape[0] \
@@ -130,12 +177,12 @@ def viterbi_stream(code, pm0, tail, soft):
     lag = tail.shape[1]
     key = shape_key(soft, lag)
     if dev.type == "cpu":
-        kernel_paths.record(OP, False, key)
+        kernel_paths.record(op, False, key)
         return viterbi_stream_plain(code, pm0, tail, soft)
     if dev.type != "cuda":
-        raise ValueError(f"no {OP} kernel for device {dev}")
+        raise ValueError(f"no {op} kernel for device {dev}")
     if code.K != 7 or code.n != 2:
-        raise ValueError(f"{OP} decodes K=7 rate-1/2 codes only")
+        raise ValueError(f"{op} decodes K=7 rate-1/2 codes only")
     soft, tail, pm0 = soft.contiguous(), tail.contiguous(), pm0.contiguous()
     S = lag + T
     pm1 = torch.empty_like(pm0)
@@ -144,18 +191,21 @@ def viterbi_stream(code, pm0, tail, soft):
         return pm1, bits
     if S == 0:
         return pm1.copy_(pm0), bits
-    # one 64-bit word of decisions a step, bit s' of the word for state s'
-    # (scratch: B x S x 8 bytes)
-    decs = torch.empty((B, S), dtype=torch.int64, device=dev)
-    lib = _lib()
+    # 64-bit words of decisions, one a step (viterbi_stream_k7: byte g for
+    # lane g, bit r for its register r, its rows padded to whole chunks;
+    # the others: bit l for state 2l, bit 32 + l for 2l + 1)
+    lib = _lib(op)
+    steps = lib.viterbi_stream_scratch_steps(S) if op == OP else S
+    decs = torch.empty((B, steps), dtype=torch.int64, device=dev)
+    _, entry, err_entry = _ENTRIES[op]
     with torch.cuda.device(dev):
-        err = lib.viterbi_stream_k7(
+        err = getattr(lib, entry)(
             tail.data_ptr(), soft.data_ptr(), pm0.data_ptr(),
             pm1.data_ptr(), decs.data_ptr(), bits.data_ptr(), B, T, lag,
             code.polys[0], code.polys[1],
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"{OP} launch failed: "
-                           f"{lib.viterbi_stream_error_string(err).decode()}")
-    kernel_paths.record(OP, True, key)
+        raise RuntimeError(f"{op} launch failed: "
+                           f"{getattr(lib, err_entry)(err).decode()}")
+    kernel_paths.record(op, True, key)
     return pm1, bits

@@ -5,9 +5,9 @@ The reference inserts agc2 in the SSB and AM chains (reference
 src/gr/gr_demod_ssb.cpp AGC2(1e-1, 1e-1, 0.25)). The gain recurrence
     g[n+1] = clamp(g[n] + rate * (reference - |x[n]| * g[n]), 1e-6, max)
 is data-dependent (the attack rate while the envelope is above the
-reference, the decay rate below). On CUDA it is one launch of
-`agc2_gain_f32` (ops/cuda_agc.py), one thread a row; on the CPU its plain
-per-sample loop.
+reference, the decay rate below). On CUDA the stage (|x|, the recurrence
+and y = x g) is one launch of `agc2_f32` (ops/cuda_agc.py); on the CPU its
+plain version, torch.abs, the per-sample loop and the products.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
-from qradiolink_tpu_torch.ops.cuda_agc import agc2_gain
+from qradiolink_tpu_torch.ops.cuda_agc import agc2
 
 
 class Agc2(Block):
@@ -43,10 +43,6 @@ class Agc2(Block):
     def __call__(self, state, x):
         if isinstance(x, IqPair):
             x = x.to_complex()
-        gains, g_last = agc2_gain(torch.abs(x).float(), state, self.attack,
-                                  self.decay, self.reference, self.max_gain)
-        if torch.is_complex(x):
-            # plane by plane: the reference's complex-by-real product gives
-            # these bits, PyTorch's complex one need not
-            return g_last, torch.complex(x.real * gains, x.imag * gains)
-        return g_last, x * gains
+        y, g_last = agc2(x, state, self.attack, self.decay, self.reference,
+                         self.max_gain)
+        return g_last, y

@@ -33,8 +33,9 @@ _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # Costas loop, the symbol sync, the FLL) must round every f32 operation on
 # its own (see the notes in csrc/viterbi.cu and csrc/agc2.cu)
 _EXTRA = {name: ["--fmad=false"] for name in (
-    "viterbi", "viterbi_bfly", "viterbi_stream", "agc2", "costas",
-    "symbol_sync", "fll_band_edge")}
+    "viterbi", "viterbi_bfly", "viterbi_stream", "viterbi_stream_warp",
+    "viterbi_stream_redux", "agc2", "costas", "symbol_sync",
+    "fll_band_edge")}
 
 # shared memory one block may use on Hopper (227 KB), in bytes
 SMEM_MAX = 232_448

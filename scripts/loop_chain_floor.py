@@ -1,6 +1,7 @@
-"""The PSK loop kernels' dependent chains timed alone, on one card.
+"""The loop kernels' dependent chains timed alone, on one card.
 
-    python scripts/loop_chain_floor.py [--old DIR] [--sass DIR] [--trig]
+    python scripts/loop_chain_floor.py [--loops costas,sync,agc,viterbi]
+        [--old DIR] [--sass DIR] [--trig] [--ablate]
 
 `costas_loop_f32` and `symbol_sync_mm_f32` run one serial recurrence a row,
 32 rows a warp, 64 warps at 2048 rows: less than one warp an SM, so nothing
@@ -22,11 +23,20 @@ in the loop, the outputs folded into a checksum so that nothing is dead:
           4 8-byte loads as the kernel reads its ring ("ring": the kernel's
           chain without its fills and stores)
 
+  agc     csrc/agc2.cu's step(), the gain recurrence, on a register ring
+          of magnitudes ("chain")
+  viterbi csrc/viterbi_stream_warp.cu's acs_step and its two ballots, a
+          warp a row, the soft pairs from a register ring ("warp_acs":
+          the one-warp design's add-compare-select alone, without its
+          soft-pair shuffles, decision stores and traceback)
+
 each timed at QPSK250K's shapes (the carrier PLL 2048 x 100,000 and the
 symbol-rate loop 2048 x 25,000, order 4; the sync 2048 x 100,000 -> 25,000
-symbols), beside the kernels of csrc/ (through their wrappers) on a QPSK
-signal at the same shapes, while nvidia-smi samples the SM clock: ms, ns
-and cycles a step at the sampled clock.
+symbols; the AGC 2048 x 100,000; the Viterbi 2048 rows x 25,064 steps,
+25,000 pairs after a lag of 64), beside the kernels of csrc/ (through their
+wrappers) on a QPSK signal at the same shapes (the Viterbi on noisy soft
+pairs), while nvidia-smi samples the SM clock: ms, ns and cycles a step at
+the sampled clock. --loops picks the loops (all four by default).
 
 --old DIR   also builds DIR/costas.cu and DIR/symbol_sync.cu (an earlier
             design, whose symbol_sync_mm_f32 took no ld, S, R or reach),
@@ -37,9 +47,12 @@ and cycles a step at the sampled clock.
 --ablate    also builds each kernel with one part of its I/O taken away or
             changed (ABLATIONS below: the Costas input tiles not staged
             after the first two; no output stores; the sync's ring filled
-            once; its fills through L1) and times each build in turns with
-            the kernel at the shapes above: what each part still costs the
-            chain's warp (the builds' outputs are not checked).
+            once; its fills through L1; agc2_gain_f32's tiles not loaded
+            after the first, its gains not stored; viterbi_stream_warp_k7
+            without its soft-pair loads after the first chunk, its
+            decision-word stores or its traceback) and times each build in
+            turns with the kernel at the shapes above: what each part still
+            costs the chain's warp (the builds' outputs are not checked).
 --trig      checks over all 2^32 float bit patterns that `sincosf`, and
             `sinf` and `cosf` apart, give torch.sin's and torch.cos's bits
             on this card (NaN against NaN counts as equal), printing the
@@ -47,6 +60,7 @@ and cycles a step at the sampled clock.
 
 Prints the card's name and power limit first and one JSON line last.
 Needs one CUDA card and nvcc; builds into build/loop_chain_floor/.
+`agc_chain_ms` times the AGC's chain for chip_smoke.py's AGC rows.
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ import torch  # noqa: E402
 
 from chip_smoke import N_CH, QPSK_SYMS, T_STEP, cuda_ms, loop_signal  # noqa: E402
 from chip_smoke import turns_ms  # noqa: E402
+from qradiolink_tpu_torch.ops import cuda_agc  # noqa: E402
 from qradiolink_tpu_torch.sync import cuda_costas as cc  # noqa: E402
 from qradiolink_tpu_torch.sync import cuda_symbol_sync as css  # noqa: E402
 from qradiolink_tpu_torch.utils import kernels  # noqa: E402
@@ -306,6 +321,121 @@ int sync_chain_f32(const void* seed, void* pos_out, void* om_out, void* sink,
 }  // extern "C"
 """
 
+AGC_SRC = r"""
+#include "agc2.cu"
+
+namespace {
+
+constexpr int kRing = 8;
+
+// agc2.cu's step() on a ring of kRing magnitudes a row in registers; the
+// gain before each update is folded into a checksum, as the kernels store
+// it
+__global__ void __launch_bounds__(32)
+agc_chain(const float* __restrict__ seed, float* __restrict__ g_out,
+          unsigned* __restrict__ sink, int C, int T, float ref,
+          float attack, float decay, float lo, float hi) {
+    const int row = blockIdx.x * 32 + threadIdx.x;
+    if (row >= C) return;
+    float ring[kRing];
+#pragma unroll
+    for (int k = 0; k < kRing; ++k) ring[k] = seed[row * kRing + k];
+    float g = 1.0f;
+    unsigned acc = 0u;
+    for (int t = 0; t < T; t += kRing) {
+#pragma unroll
+        for (int k = 0; k < kRing; ++k) {
+            acc ^= __float_as_uint(g) << (k & 7);
+            g = step(g, ring[k], ref, attack, decay, lo, hi);
+        }
+    }
+    g_out[row] = g;
+    sink[row] = acc;
+}
+
+}  // namespace
+
+extern "C" int agc_chain_f32(const void* seed, void* g_out, void* sink,
+                             int C, int T, float ref, float attack,
+                             float decay, float lo, float hi,
+                             void* stream) {
+    if (C < 1 || T < 0 || T % kRing) return (int)cudaErrorInvalidValue;
+    agc_chain<<<(C + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
+        (const float*)seed, (float*)g_out, (unsigned*)sink, C, T, ref,
+        attack, decay, lo, hi);
+    return (int)cudaGetLastError();
+}
+"""
+
+VITERBI_SRC = r"""
+#include "viterbi_stream_warp.cu"
+
+namespace {
+
+constexpr int kRing = 8;
+
+// viterbi_stream_warp.cu's acs_step and the step's two ballots, a warp a
+// row as in that kernel (kWarps rows a block), the soft pair of each step
+// from a ring of kRing pairs in registers (the same in every lane); the
+// ballots folded into a checksum
+__global__ void __launch_bounds__(kWarps * 32)
+viterbi_chain(const float2* __restrict__ seed, float* __restrict__ pm_out,
+              unsigned* __restrict__ sink, int B, int S, unsigned poly0,
+              unsigned poly1) {
+    const int lane = threadIdx.x & 31;
+    const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (row >= B) return;
+    int pat[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+            const unsigned w = ((unsigned)(lane | (hi << 5)) << 1) | j;
+            pat[j][hi] = 2 * parity(w & poly0) + parity(w & poly1);
+        }
+    float2 ring[kRing];
+#pragma unroll
+    for (int k = 0; k < kRing; ++k) ring[k] = seed[row * kRing + k];
+    const int srcLo = lane >> 1, srcHi = 16 + (lane >> 1);
+    const bool odd = lane & 1;
+    float pmA = 0.0f, pmB = 0.0f;
+    unsigned acc = 0u;
+    for (int t = 0; t < S; t += kRing) {
+#pragma unroll
+        for (int k = 0; k < kRing; ++k) {
+            bool dA, dB;
+            acs_step(ring[k].x, ring[k].y, pat, srcLo, srcHi, odd, pmA, pmB,
+                     dA, dB);
+            acc ^= __ballot_sync(kFull, dA) ^ (__ballot_sync(kFull, dB) << 1);
+        }
+    }
+    pm_out[(size_t)row * 64 + 2 * lane] = pmA;
+    pm_out[(size_t)row * 64 + 2 * lane + 1] = pmB;
+    sink[(size_t)row * 32 + lane] = acc;
+}
+
+}  // namespace
+
+extern "C" int viterbi_chain_f32(const void* seed, void* pm_out, void* sink,
+                                 int B, int S, int poly0, int poly1,
+                                 void* stream) {
+    if (B < 1 || S < 0 || S % kRing) return (int)cudaErrorInvalidValue;
+    viterbi_chain<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0,
+                    (cudaStream_t)stream>>>(
+        (const float2*)seed, (float*)pm_out, (unsigned*)sink, B, S,
+        (unsigned)poly0, (unsigned)poly1);
+    return (int)cudaGetLastError();
+}
+"""
+# the variants' sources, by loop: (library name, source, kernel sources of
+# csrc/ that the loop times)
+VARIANTS = {"costas": ("chain_costas", COSTAS_SRC, ("costas",)),
+            "sync": ("chain_sync", SYNC_SRC, ("symbol_sync",)),
+            "agc": ("chain_agc", AGC_SRC, ("agc2",)),
+            "viterbi": ("chain_viterbi", VITERBI_SRC,
+                        ("viterbi_stream_warp", "viterbi_stream_redux",
+                         "viterbi_stream"))}
+
 
 def nvcc(cu: pathlib.Path, so: pathlib.Path) -> subprocess.Popen:
     """nvcc for one source with the loop kernels' flags (--fmad=false),
@@ -328,15 +458,21 @@ def finish(name: str, proc: subprocess.Popen, so: pathlib.Path):
     return ctypes.CDLL(str(so))
 
 
-def bind_chains(costas, sync):
+def bind_chain(name, lib):
+    """The C entry points of one chain variant's library."""
     p, i, f, ll, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong, ctypes.c_uint)
-    costas.costas_chain_f32.argtypes = [p, p, p, p, i, i, i, f, f, f, f, f, p]
-    costas.trig_bits_f32.argtypes = [p, p, p, p, u, ll, i, p]
-    sync.sync_chain_f32.argtypes = [p, p, p, p, i, i, i, f, f, f, f, f, f, f,
-                                    p]
-    for fn in (costas.costas_chain_f32, costas.trig_bits_f32,
-               sync.sync_chain_f32):
+    entries = {
+        "chain_costas": {"costas_chain_f32": [p, p, p, p, i, i, i, f, f, f,
+                                              f, f, p],
+                         "trig_bits_f32": [p, p, p, p, u, ll, i, p]},
+        "chain_sync": {"sync_chain_f32": [p, p, p, p, i, i, i, f, f, f, f, f,
+                                          f, f, p]},
+        "chain_agc": {"agc_chain_f32": [p, p, p, i, i, f, f, f, f, f, p]},
+        "chain_viterbi": {"viterbi_chain_f32": [p, p, p, i, i, i, i, p]}}
+    for entry, types in entries[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = types
         fn.restype = ctypes.c_int
 
 
@@ -446,7 +582,52 @@ ABLATIONS = (
     ("symbol_sync", "fills_ca",
      "cp.async.cg.shared.global [%0], [%1], 16;",
      "cp.async.ca.shared.global [%0], [%1], 16;"),
+    ("agc2", "no_staging",
+     "load_tile(v, m, row0, n_rows, T, t0 + kTile + lane);", ""),
+    ("agc2", "no_stores",
+     "gains[(size_t)(row0 + r) * T + t0 + lane] = s_g[r][lane];", ";"),
+    ("viterbi_stream_warp", "no_loads",
+     "nxt = load_pair(tail, soft, row, T, lag, t0 + kChunk + lane);", ""),
+    # the word is still formed (a store that never happens keeps it live)
+    ("viterbi_stream_warp", "no_stores",
+     "if (lane < n) dec_row[t0 + lane] = word;",
+     "if (lane < n && word == 0x5a5a5a5a5a5a5a5aull) "
+     "dec_row[t0 + lane] = word;"),
+    ("viterbi_stream_warp", "no_traceback",
+     "while (t_hi > 0) {", "while (t_hi < 0) {"),
+    # agc2_f32 with other counts of memory warps (16 rows each, 11 and a
+    # padded row, 4 rows)
+    ("agc2", "helpers2", "constexpr int kHelpers = 4;",
+     "constexpr int kHelpers = 2;"),
+    ("agc2", "helpers3", "constexpr int kHelpers = 4;",
+     "constexpr int kHelpers = 3;"),
+    ("agc2", "helpers8", "constexpr int kHelpers = 4;",
+     "constexpr int kHelpers = 8;"),
+    # and with tiles of 32 samples, a hand-over each 32 steps
+    ("agc2", "tile32", "constexpr int kFTile = 64;",
+     "constexpr int kFTile = 32;"),
+    ("viterbi_stream", "no_traceback",
+     "for (int ch = n_chunks - 1; ch >= 0; --ch) {",
+     "for (int ch = n_chunks - 1; ch < 0; --ch) {"),
+    ("viterbi_stream", "no_exchange",
+     "const float recv = __shfl_xor_sync(kFull, send, 1 << SJ);",
+     "const float recv = send;"),
+    ("viterbi_stream", "no_row_min",
+     "m = fminf(m, __shfl_xor_sync(kFull, m, o));", "m = fminf(m, m);"),
+    ("viterbi_stream", "no_dec_stores", "c.dec[j * kG] = (uint8_t)d;",
+     "if (d > 255u) c.dec[j * kG] = (uint8_t)d;"),
+    ("viterbi_stream_redux", "no_traceback",
+     "for (; t0 >= 0; t0 -= kChunk) {", "for (; t0 < 0; t0 -= kChunk) {"),
 )
+# the calls an ablation is timed on (all of its kernel's by default)
+ABLATION_SHAPES = {"helpers2": ("qpsk_fused",), "helpers3": ("qpsk_fused",),
+                   "helpers8": ("qpsk_fused",), "tile32": ("qpsk_fused",),
+                   "no_staging": ("qpsk",), "no_stores": ("qpsk",)}
+# the loop each ablated kernel belongs to
+ABLATION_LOOP = {"costas": "costas", "symbol_sync": "sync", "agc2": "agc",
+                 "viterbi_stream_warp": "viterbi",
+                 "viterbi_stream_redux": "viterbi",
+                 "viterbi_stream": "viterbi"}
 COSTAS_VARIANTS = ("cosf_sinf", "sincosf", "kernel")
 SYNC_VARIANTS = ("regs", "ring")
 
@@ -464,24 +645,18 @@ def with_lib(name, lib, fn):
     return run
 
 
-def ablate(libs, x, ph0, q, s0, sync_args):
-    """Each ABLATIONS build timed in turns with the kernel (kernel, build,
-    build, kernel) at the PLL's, the symbol-rate loop's and the sync's
-    QPSK250K shapes."""
-    T_in = x.shape[1]
-    shapes = {"costas": [("qpsk_pll", q.costas_pll, T_in),
-                         ("qpsk_symbols", q.costas, QPSK_SYMS)],
-              "symbol_sync": [("qpsk", None, None)]}
+def ablate(libs, calls):
+    """Each ABLATIONS build whose kernel has calls timed in turns with the
+    kernel (kernel, build, build, kernel); calls: kernel source -> [(shape,
+    a call of the kernel's wrapper at that shape)]."""
     out = {}
     for name, tag, _, _ in ABLATIONS:
+        if name not in calls:
+            continue
         lib = libs[f"{name} {tag}"]
-        for shape, loop, T in shapes[name]:
-            if name == "costas":
-                xs = x[:, :T].contiguous()
-                a = (4, loop.alpha, loop.beta, loop.max_freq)
-                fn = (lambda xs=xs, a=a: cc.costas_loop(xs, ph0, ph0, *a))
-            else:
-                fn = (lambda: css.symbol_sync(s0[4], x, *sync_args(s0)))
+        for shape, fn in calls[name]:
+            if name == "agc2" and shape not in ABLATION_SHAPES.get(tag, ()):
+                continue
             (ms, seq), mhz = sampled(lambda: turns_ms({
                 "kernel": fn, tag: with_lib(name, lib, fn)}))
             key = f"{name}/{shape}/{tag}"
@@ -490,22 +665,15 @@ def ablate(libs, x, ph0, q, s0, sync_args):
     return out
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("loop_chain_floor: CUDA is not available", file=sys.stderr)
-        return 1
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--old", type=pathlib.Path)
-    ap.add_argument("--sass", type=pathlib.Path)
-    ap.add_argument("--trig", action="store_true")
-    ap.add_argument("--ablate", action="store_true")
-    args = ap.parse_args(argv[1:])
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+def build(loops, args):
+    """Start every nvcc at once: the chain variants of `loops`, the earlier
+    design (--old), the ablated kernels (--ablate) and the kernels of csrc/
+    the loops time; returns (the variants' and builds' libraries, the
+    variants' library paths)."""
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, src in (("chain_costas", COSTAS_SRC), ("chain_sync", SYNC_SRC)):
+    for loop in loops:
+        name, src, _ = VARIANTS[loop]
         (OUT / f"{name}.cu").write_text(src)
         so = OUT / f"lib{name}.so"
         jobs[name] = (nvcc(OUT / f"{name}.cu", so), so)
@@ -515,6 +683,8 @@ def main(argv) -> int:
             jobs[f"old {name}"] = (nvcc(args.old / f"{name}.cu", so), so)
     if args.ablate:
         for name, tag, line, repl in ABLATIONS:
+            if ABLATION_LOOP[name] not in loops:
+                continue
             src = (kernels.CSRC / f"{name}.cu").read_text()
             if src.count(line) != 1:
                 raise RuntimeError(f"csrc/{name}.cu has no single `{line}`")
@@ -523,29 +693,112 @@ def main(argv) -> int:
             (d / f"{name}.cu").write_text(src.replace(line, repl))
             so = d / f"lib{name}.so"
             jobs[f"{name} {tag}"] = (nvcc(d / f"{name}.cu", so), so)
-    kjobs = [kernels._start(name) for name in ("costas", "symbol_sync")]
+    names = [k for loop in loops for k in VARIANTS[loop][2]]
+    kjobs = [kernels._start(name) for name in names]
     logs = {job[0]: kernels._finish(*job) for job in kjobs}
-    for name in ("costas", "symbol_sync"):
+    for name in names:
         for line in logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     libs = {k: finish(k, *v) for k, v in jobs.items()}
-    bind_chains(libs["chain_costas"], libs["chain_sync"])
-    chain, schain = libs["chain_costas"], libs["chain_sync"]
+    for loop in loops:
+        bind_chain(VARIANTS[loop][0], libs[VARIANTS[loop][0]])
+    return libs, {k: v[1] for k, v in jobs.items()}
+
+
+def write_sass(loops, paths, out):
+    out.mkdir(parents=True, exist_ok=True)
+    cuobjdump = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
+    libs = [(VARIANTS[loop][0], paths[VARIANTS[loop][0]]) for loop in loops]
+    libs += [(k, kernels._lib_path(k)) for loop in loops
+             for k in VARIANTS[loop][2]]
+    for name, so in libs:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        (out / f"{name}.sass").write_text(sass)
+    print(f"SASS written to {out}", flush=True)
+
+
+def timed_floor(floors, key, fn, steps):
+    ms, mhz = sampled(lambda: cuda_ms(fn, iters=5, warmup=1))
+    floors[key] = per_step(ms, steps, mhz)
+    print(f"{key}: {json.dumps(floors[key])}", flush=True)
+
+
+def agc_args(agc):
+    """The chain variant's parameters of an Agc2."""
+    return (agc.reference, agc.attack, agc.decay, cuda_agc.MIN_GAIN,
+            agc.max_gain)
+
+
+def agc_chain_ms(lib, m, agc, iters=5):
+    """The AGC chain variant over m's rows (magnitudes (C, T), T a multiple
+    of RING; the ring from samples 1,000-1,007, past the ~1e-20 ones), its
+    median ms over iters calls."""
+    C, T = m.shape
+    seed = m[:, 1000:1000 + RING].contiguous()
+    g_o = torch.empty(C, device=m.device)
+    sink = torch.empty(C, dtype=torch.int32, device=m.device)
+    return cuda_ms(lambda: check(lib.agc_chain_f32(
+        seed.data_ptr(), g_o.data_ptr(), sink.data_ptr(), C, T,
+        *agc_args(agc), stream()), "agc_chain"), iters=iters, warmup=1)
+
+
+def agc_stage_before(x, g0, attack, decay, reference, max_gain):
+    """The Agc2 stage on the card as it ran before agc2_f32: torch.abs,
+    agc2_gain_f32, the products plane by plane, torch.complex."""
+    gains, g_last = cuda_agc.agc2_gain(torch.abs(x).float(), g0, attack,
+                                       decay, reference, max_gain)
+    if torch.is_complex(x):
+        return torch.complex(x.real * gains, x.imag * gains), g_last
+    return x * gains, g_last
+
+
+def build_agc_chain():
+    """The AGC chain variant's library alone (for chip_smoke.py)."""
+    name, src, _ = VARIANTS["agc"]
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / f"{name}.cu").write_text(src)
+    so = OUT / f"lib{name}.so"
+    lib = finish(name, nvcc(OUT / f"{name}.cu", so), so)
+    bind_chain(name, lib)
+    return lib
+
+
+def vit_soft(dev, gen, C, T):
+    """Noisy soft pairs (C, T, 2) in [0, 255], as chip_smoke.py's Viterbi
+    row makes them."""
+    return torch.clamp(128.0 + 48.0 * torch.randn(
+        (C, T, 2), generator=gen, device=dev) * 2.0, 0.0, 255.0)
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("loop_chain_floor: CUDA is not available", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--loops", default="costas,sync,agc,viterbi")
+    ap.add_argument("--old", type=pathlib.Path)
+    ap.add_argument("--sass", type=pathlib.Path)
+    ap.add_argument("--trig", action="store_true")
+    ap.add_argument("--ablate", action="store_true")
+    args = ap.parse_args(argv[1:])
+    loops = [k for k in args.loops.split(",") if k]
+    if not loops or set(loops) - set(VARIANTS):
+        ap.error(f"--loops takes some of {', '.join(VARIANTS)}")
+    if (args.old or args.trig) and not {"costas", "sync"} <= set(loops):
+        ap.error("--old and --trig need the costas and sync loops")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    libs, paths = build(loops, args)
     if args.sass:
-        args.sass.mkdir(parents=True, exist_ok=True)
-        cuobjdump = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
-        for name, so in [("chain_costas", jobs["chain_costas"][1]),
-                         ("chain_sync", jobs["chain_sync"][1]),
-                         ("costas", kernels._lib_path("costas")),
-                         ("symbol_sync", kernels._lib_path("symbol_sync"))]:
-            sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
-                                  capture_output=True, text=True,
-                                  check=True).stdout
-            (args.sass / f"{name}.sass").write_text(sass)
-        print(f"SASS written to {args.sass}", flush=True)
+        write_sass(loops, paths, args.sass)
 
     from qradiolink_tpu_torch.chains.psk import QpskDemod
+    from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
+    from qradiolink_tpu_torch.fec.conv import CCSDS_K7
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -553,7 +806,7 @@ def main(argv) -> int:
     q = QpskDemod(125_000, 500_000, lead_shape=(N_CH,), device=dev)
     result = {"device": torch.cuda.get_device_name(0)}
     if args.trig:
-        bad = trig_all(chain, dev)
+        bad = trig_all(libs["chain_costas"], dev)
         result["trig_mismatches"] = dict(zip(
             ("sincosf_sin", "sincosf_cos", "sinf", "cosf"), bad))
         print(f"all 2^32 patterns against torch.sin / torch.cos: "
@@ -565,53 +818,94 @@ def main(argv) -> int:
     ph0 = torch.zeros(N_CH, device=dev)
     sink = torch.empty(N_CH, dtype=torch.int32, device=dev)
     ph_o, fr_o = torch.empty_like(ph0), torch.empty_like(ph0)
-    floors = {}
-    for name, loop, T in (("qpsk_pll", q.costas_pll, T_in),
-                          ("qpsk_symbols", q.costas, QPSK_SYMS)):
-        a = (loop.alpha, loop.beta, loop.max_freq, cc.PI, cc.TWO_PI)
-        seed8 = seed[:, :RING].contiguous()
-        fns = {}
-        for v, tag in enumerate(COSTAS_VARIANTS):
-            fns[tag] = (lambda v=v: check(chain.costas_chain_f32(
-                seed8.data_ptr(), ph_o.data_ptr(), fr_o.data_ptr(),
-                sink.data_ptr(), N_CH, T, v, *a, stream()), "costas_chain"))
-        xs = x[:, :T].contiguous()
-        fns["costas_loop_f32"] = lambda xs=xs, loop=loop: cc.costas_loop(
-            xs, ph0, ph0, 4, loop.alpha, loop.beta, loop.max_freq)
-        for k, fn in fns.items():
-            ms, mhz = sampled(lambda fn=fn: cuda_ms(fn, iters=5, warmup=1))
-            floors[f"costas/{name}/{k}"] = per_step(ms, T, mhz)
-            print(f"costas {name} {N_CH} x {T} {k}: "
-                  f"{json.dumps(floors[f'costas/{name}/{k}'])}", flush=True)
-        del xs
+    floors, calls = {}, {}
+    if "costas" in loops:
+        chain = libs["chain_costas"]
+        calls["costas"] = []
+        for name, loop, T in (("qpsk_pll", q.costas_pll, T_in),
+                              ("qpsk_symbols", q.costas, QPSK_SYMS)):
+            a = (loop.alpha, loop.beta, loop.max_freq, cc.PI, cc.TWO_PI)
+            seed8 = seed[:, :RING].contiguous()
+            for v, tag in enumerate(COSTAS_VARIANTS):
+                timed_floor(floors, f"costas/{name}/{tag}", (
+                    lambda v=v, a=a, T=T, seed8=seed8: check(
+                        chain.costas_chain_f32(
+                            seed8.data_ptr(), ph_o.data_ptr(),
+                            fr_o.data_ptr(), sink.data_ptr(), N_CH, T, v,
+                            *a, stream()), "costas_chain")), T)
+            xs = x[:, :T].contiguous()
+            ka = (4, loop.alpha, loop.beta, loop.max_freq)
+            fn = (lambda xs=xs, ka=ka: cc.costas_loop(xs, ph0, ph0, *ka))
+            timed_floor(floors, f"costas/{name}/costas_loop_f32", fn, T)
+            calls["costas"].append((name, fn))
     ss = q.symbol_sync
-    sargs = (ss.sps - ss.omega_limit, ss.sps + ss.omega_limit, ss.alpha,
-             ss.beta, css.recip(ss.ted_norm), float(ss.tail_len + T_in - 3),
-             ss.sps)
-    pos_o, om_o = torch.empty_like(ph0), torch.empty_like(ph0)
-    fns = {}
-    for src, tag in enumerate(SYNC_VARIANTS):
-        fns[tag] = (lambda src=src: check(schain.sync_chain_f32(
-            seed.data_ptr(), pos_o.data_ptr(), om_o.data_ptr(),
-            sink.data_ptr(), N_CH, QPSK_SYMS, src, *sargs, stream()),
-            "sync_chain"))
     s0 = ss.init_state()
 
     def sync_args(s):
         return (s[0], s[1], s[2], s[3], QPSK_SYMS, css.MODE_CONJ, None,
                 ss.sps, ss.alpha, ss.beta, ss.omega_limit, ss.ted_norm)
 
-    fns["symbol_sync_mm_f32"] = lambda: css.symbol_sync(s0[4], x,
-                                                        *sync_args(s0))
-    for k, fn in fns.items():
-        ms, mhz = sampled(lambda fn=fn: cuda_ms(fn, iters=5, warmup=1))
-        floors[f"sync/qpsk/{k}"] = per_step(ms, QPSK_SYMS, mhz)
-        print(f"sync {N_CH} x {T_in} -> {QPSK_SYMS} {k}: "
-              f"{json.dumps(floors[f'sync/qpsk/{k}'])}", flush=True)
+    if "sync" in loops:
+        schain = libs["chain_sync"]
+        sargs = (ss.sps - ss.omega_limit, ss.sps + ss.omega_limit, ss.alpha,
+                 ss.beta, css.recip(ss.ted_norm),
+                 float(ss.tail_len + T_in - 3), ss.sps)
+        pos_o, om_o = torch.empty_like(ph0), torch.empty_like(ph0)
+        for src, tag in enumerate(SYNC_VARIANTS):
+            timed_floor(floors, f"sync/qpsk/{tag}", (
+                lambda src=src: check(schain.sync_chain_f32(
+                    seed.data_ptr(), pos_o.data_ptr(), om_o.data_ptr(),
+                    sink.data_ptr(), N_CH, QPSK_SYMS, src, *sargs,
+                    stream()), "sync_chain")), QPSK_SYMS)
+        fn = (lambda: css.symbol_sync(s0[4], x, *sync_args(s0)))
+        timed_floor(floors, "sync/qpsk/symbol_sync_mm_f32", fn, QPSK_SYMS)
+        calls["symbol_sync"] = [("qpsk", fn)]
+    if "agc" in loops:
+        m = torch.abs(x)
+        g0 = torch.ones(N_CH, device=dev)
+        a = q.agc
+        kargs = (m, g0, a.attack, a.decay, a.reference, a.max_gain)
+        ms, mhz = sampled(lambda: agc_chain_ms(libs["chain_agc"], m, a))
+        floors["agc/qpsk/chain"] = per_step(ms, T_in, mhz)
+        print(f"agc/qpsk/chain: {json.dumps(floors['agc/qpsk/chain'])}",
+              flush=True)
+        fn = (lambda: cuda_agc.agc2_gain(*kargs))
+        timed_floor(floors, "agc/qpsk/agc2_gain_f32", fn, T_in)
+        calls["agc2"] = [("qpsk", fn)]
+        sargs = (x, g0, a.attack, a.decay, a.reference, a.max_gain)
+        fused = (lambda: cuda_agc.agc2(*sargs))
+        timed_floor(floors, f"agc/qpsk/{cuda_agc.OP_FUSED}", fused, T_in)
+        calls["agc2"].append(("qpsk_fused", fused))
+        timed_floor(floors, "agc/qpsk/stage_before",
+                    lambda: agc_stage_before(*sargs), T_in)
+    if "viterbi" in loops:
+        lag = q.fec_tail.viterbi.lag
+        S = QPSK_SYMS + lag
+        soft = vit_soft(dev, gen, N_CH, QPSK_SYMS)
+        pm0 = torch.zeros((N_CH, 64), device=dev)
+        tail = torch.full((N_CH, lag, 2), 128.0, device=dev)
+        vseed = soft[:, 1000:1000 + RING].contiguous()
+        pm_o = torch.empty((N_CH, 64), device=dev)
+        vsink = torch.empty((N_CH, 32), dtype=torch.int32, device=dev)
+        vchain = libs["chain_viterbi"]
+        timed_floor(floors, "viterbi/qpsk/warp_acs", (
+            lambda: check(vchain.viterbi_chain_f32(
+                vseed.data_ptr(), pm_o.data_ptr(), vsink.data_ptr(), N_CH,
+                S - S % RING, *CCSDS_K7.polys, stream()), "viterbi_chain")),
+            S - S % RING)
+        fn = (lambda: vsc.viterbi_stream_warp(CCSDS_K7, pm0, tail, soft))
+        timed_floor(floors, f"viterbi/qpsk/{vsc.OP_WARP}", fn, S)
+        calls["viterbi_stream_warp"] = [("qpsk", fn)]
+        fn = (lambda: vsc.viterbi_stream_redux(CCSDS_K7, pm0, tail, soft))
+        timed_floor(floors, f"viterbi/qpsk/{vsc.OP_REDUX}", fn, S)
+        calls["viterbi_stream_redux"] = [("qpsk", fn)]
+        fn = (lambda: vsc.viterbi_stream(CCSDS_K7, pm0, tail, soft))
+        timed_floor(floors, f"viterbi/qpsk/{vsc.OP}", fn, S)
+        calls["viterbi_stream"] = [("qpsk", fn)]
     result["floors"] = floors
 
     if args.ablate:
-        result["ablate"] = ablate(libs, x, ph0, q, s0, sync_args)
+        result["ablate"] = ablate(libs, calls)
     if args.old:
         bind_old(libs["old costas"], libs["old symbol_sync"])
         turns = {}
@@ -645,7 +939,6 @@ def main(argv) -> int:
         result["turns"] = turns
     print(json.dumps(result), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

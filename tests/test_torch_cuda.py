@@ -11,7 +11,8 @@ strided FIR and the per-row depthwise FIR) within 1e-5 (relative to the
 output's peak, and elementwise 1e-5 + 1e-5 |plain|), the bound the JAX
 package holds its FIR kernels to; the fused channelizer within 1e-5 of its
 output's peak, the JAX package's bound for it, with its carried state
-bit-equal; the Viterbi and the AGC's gain recurrence bit-exact; the
+bit-equal; the Viterbi, the AGC stage and its gain recurrence bit-exact
+(the AGC's |x| equal to torch.abs's bits); the
 rational resampler's two kernels bit-equal to each other; the analog
 chains on the card within 1e-5 of each output's and state leaf's peak of
 the same chain on the CPU (their FIRs' bound), rssi within 1e-4 dB; the
@@ -39,7 +40,8 @@ from qradiolink_tpu_torch.chains.wbfm import WbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair, _flatten  # noqa: E402
 from qradiolink_tpu_torch.chains.psk import (  # noqa: E402
     BpskDemod, QpskDemod, QpskMod)
-from qradiolink_tpu_torch.fec.conv import CCSDS_K7, conv_encode  # noqa: E402
+from qradiolink_tpu_torch.fec.conv import (  # noqa: E402
+    CCSDS_K7, ConvCode, conv_encode)
 from qradiolink_tpu_torch.fec import viterbi_stream_cuda  # noqa: E402
 from qradiolink_tpu_torch.fec.viterbi_cuda import (  # noqa: E402
     decode_stream, decode_stream_plain, decode_stream_tiled, decode_windows,
@@ -855,6 +857,83 @@ def test_agc2_kernel_equals_plain(cuda, gen, name, params):
         g = g_last
 
 
+# agc2_f32's shapes: name: (C, T, complex input, the chain's (attack,
+# decay, reference)): QPSK250K after the RRC, the SSB chain after its
+# squelch, the AM chain after ComplexToMag, all at 2048 channels x 200,000
+# samples; rows and tiles that do not fill a block, one sample
+AGC_FUSED_CASES = {"qpsk250k": (2048, 100_000, True, (1e-1, 1e-1, 1.0)),
+                   "ssb": (2048, 1600, True, AGC_PARAMS[0]),
+                   "am": (2048, 4000, False, AGC_PARAMS[1]),
+                   "ragged": (45, 100, True, AGC_PARAMS[0]),
+                   "ragged_real": (33, 97, False, AGC_PARAMS[1]),
+                   "one_sample": (3, 1, True, AGC_PARAMS[1])}
+
+
+@pytest.mark.parametrize("name", sorted(AGC_FUSED_CASES))
+def test_agc2_fused_kernel_equals_plain(cuda, gen, name):
+    """Two chained blocks of bursty input (the first samples ~1e-20): one
+    launch of agc2_f32 a block, y and the carried gain equal bit for bit
+    to the plain version's (torch.abs, the loop, the products)."""
+    C, T, cplx, params = AGC_FUSED_CASES[name]
+    amp = torch.where((torch.arange(T, device=cuda) // 150) % 2 == 0, 2.0,
+                      0.02)
+    g = torch.ones(C, device=cuda)
+    for blk in range(2):
+        dt = torch.complex64 if cplx else torch.float32
+        x = torch.randn((C, T), generator=gen, device=cuda, dtype=dt) * amp
+        if blk == 0:
+            x[:, :200] *= 1e-20
+        kernel_paths.reset()
+        y, g_last = cuda_agc.agc2(x, g, *params, 65536.0)
+        kind = "complex" if cplx else "real"
+        assert kernel_paths.report() == {cuda_agc.OP_FUSED: {
+            "cuda": 1, "plain": 0, "shapes": {f"cuda {kind} {C}x{T}": 1}}}
+        want, want_last = cuda_agc.agc2_plain(x, g, *params, 65536.0)
+        assert y.dtype == want.dtype
+        assert torch.equal(y, want) and torch.equal(g_last, want_last)
+        g = g_last
+
+
+def _abs_edges(dev):
+    """complex64 edge patterns: signed zeros, denormals, one plane far
+    above the other both ways, magnitudes near FLT_MAX that stay finite,
+    and their mixtures."""
+    f = torch.finfo(torch.float32)
+    vals = torch.tensor([0.0, -0.0, f.tiny, -f.tiny, f.tiny / 2, 1e-45,
+                         -1e-45, 1e-40, 1e-38, 1e-30, 1e-20, 1.0, -1.0,
+                         3.0, 1e10, 1e20, 1e30, 1e38, 2e38, -2e38,
+                         f.max / 2, f.max / 1.5, 2.3e38, -2.4e38],
+                        dtype=torch.float32, device=dev)
+    re, im = torch.meshgrid(vals, vals, indexing="ij")
+    return torch.complex(re.reshape(-1), im.reshape(-1))
+
+
+def test_agc2_abs_equals_torch_abs(cuda):
+    """agc2_f32's |x| (hypotf) gives torch.abs's bits on 2^28 complex64
+    values of random bit patterns (every exponent; NaN against NaN counts
+    as equal), 2^24 of randn pairs and the edge patterns."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    bad, n = 0, 0
+    for _ in range(8):
+        bits = torch.randint(-2**31, 2**31, (1 << 26,), generator=g,
+                             dtype=torch.int64, device=cuda).to(torch.int32)
+        x = bits.view(torch.float32).view(torch.complex64)
+        got, want = cuda_agc.abs_complex(x), torch.abs(x)
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (
+            torch.isnan(got) & torch.isnan(want))
+        bad += int((~same).sum())
+        n += x.numel()
+        del bits, x, got, want, same
+    for x in (torch.randn(1 << 24, generator=g, device=cuda,
+                          dtype=torch.complex64), _abs_edges(cuda)):
+        got, want = cuda_agc.abs_complex(x), torch.abs(x)
+        assert torch.isfinite(want).all()
+        bad += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        n += x.numel()
+    assert n >= 1 << 28 and bad == 0
+
+
 @pytest.mark.parametrize("kind", ["pair", "complex", "real"])
 def test_complex_tap_fir_on_card_matches_cpu(cuda, gen, kind):
     """The SSB channel filter's 167 complex taps: two launches of
@@ -1128,10 +1207,14 @@ def test_costas_nco_equals_torch_for_every_f32(cuda):
     assert bad == 0
 
 
-# name: (rows, pairs a block, lag); lag 0 is viterbi_decode's form
+# name: (rows, pairs a block, lag); lag 0 is viterbi_decode's form;
+# QPSK250K's shape and BPSK2K's (the delay-diversity pair, 2 x 2048 rows of
+# 200 pairs at 2,000 symbols/s)
 VITERBI_STREAM_CASES = {"wide": (2048, 500, 64), "ragged": (45, 100, 64),
                         "block_below_lag": (3, 30, 64),
-                        "decode": (33, 77, 0), "one_pair": (1, 1, 64)}
+                        "decode": (33, 77, 0), "one_pair": (1, 1, 64),
+                        "qpsk250k": (2048, 25_000, 64),
+                        "bpsk2k": (4096, 200, 64), "no_pair": (5, 0, 64)}
 
 
 def viterbi_soft(dev, B, T, seed=0):
@@ -1162,6 +1245,57 @@ def test_viterbi_stream_kernel_equals_plain(cuda, name):
         assert kernel_paths.launches(viterbi_stream_cuda.OP) == 1
         want_pm, want_bits = viterbi_stream_cuda.viterbi_stream_plain(
             CCSDS_K7, pm, tail, sb)
+        assert torch.equal(bits, want_bits) and torch.equal(pm1, want_pm)
+        pm = pm1
+        tail = torch.cat([tail, sb], dim=1)[:, T:].contiguous()
+
+
+@pytest.mark.parametrize("name", ["ragged", "decode", "one_pair", "wide",
+                                  "block_below_lag", "no_pair"])
+def test_viterbi_stream_redux_kernel_equals_plain(cuda, name):
+    """viterbi_stream_redux_k7, the one-warp design with the class minima,
+    kept for timing in turns: two chained blocks, bits and metrics equal
+    bit for bit to the plain loop's."""
+    B, T, lag = VITERBI_STREAM_CASES[name]
+    soft = viterbi_soft(cuda, B, 2 * T)
+    pm = torch.zeros((B, 64), device=cuda)
+    tail = torch.full((B, lag, 2), 128.0, device=cuda)
+    for blk in range(2):
+        sb = soft[:, blk * T:(blk + 1) * T].contiguous()
+        kernel_paths.reset()
+        pm1, bits = viterbi_stream_cuda.viterbi_stream_redux(CCSDS_K7, pm,
+                                                             tail, sb)
+        assert kernel_paths.launches(viterbi_stream_cuda.OP_REDUX) == 1
+        want_pm, want_bits = viterbi_stream_cuda.viterbi_stream_plain(
+            CCSDS_K7, pm, tail, sb)
+        assert torch.equal(bits, want_bits) and torch.equal(pm1, want_pm)
+        pm = pm1
+        tail = torch.cat([tail, sb], dim=1)[:, T:].contiguous()
+
+
+@pytest.mark.parametrize("name", ["ragged", "decode", "one_pair", "wide"])
+@pytest.mark.parametrize("polys", [(109, 79), (121, 91)])
+def test_viterbi_stream_warp_kernel_equals_plain(cuda, name, polys):
+    """viterbi_stream_warp_k7, the route of the other K=7 codes (and the
+    CCSDS code's design before viterbi_stream_k7): two chained blocks,
+    bits and metrics equal bit for bit to the plain loop's."""
+    code = CCSDS_K7 if polys == (109, 79) else ConvCode(7, polys)
+    B, T, lag = VITERBI_STREAM_CASES[name]
+    soft = viterbi_soft(cuda, B, 2 * T)
+    pm = torch.zeros((B, 64), device=cuda)
+    tail = torch.full((B, lag, 2), 128.0, device=cuda)
+    for blk in range(2):
+        sb = soft[:, blk * T:(blk + 1) * T].contiguous()
+        kernel_paths.reset()
+        if polys == (109, 79):
+            pm1, bits = viterbi_stream_cuda.viterbi_stream_warp(code, pm,
+                                                                tail, sb)
+        else:
+            pm1, bits = viterbi_stream_cuda.viterbi_stream(code, pm, tail,
+                                                           sb)
+        assert kernel_paths.launches(viterbi_stream_cuda.OP_WARP) == 1
+        want_pm, want_bits = viterbi_stream_cuda.viterbi_stream_plain(
+            code, pm, tail, sb)
         assert torch.equal(bits, want_bits) and torch.equal(pm1, want_pm)
         pm = pm1
         tail = torch.cat([tail, sb], dim=1)[:, T:].contiguous()
