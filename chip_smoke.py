@@ -153,8 +153,9 @@ when the package cannot be imported, and when any phase fails:
     positions run as far as its ring allows) over two chained blocks of
     2048 x 4,000, bit-equal to its plain loop; then timed at QPSK250K's
     full shapes (the PLL over 100,000 samples, the symbol-rate loop over
-    25,000, the sync 100,000 -> 25,000, the Viterbi 25,000 pairs) beside
-    one call of the plain loop, the bound and the latency floor, the
+    25,000, the sync 100,000 -> 25,000, the Viterbi 25,000 pairs; the
+    Viterbi also at BPSK2K's 4,096 rows x 200 pairs) beside one call of
+    the plain loop, the bound and the latency floor, the
     Viterbi also in turns with viterbi_stream_warp_k7 (the one-warp design
     it replaced) and viterbi_stream_redux_k7 (a one-warp design with each
     step's minimum from the step before), both held bit-equal to it (their
@@ -193,7 +194,49 @@ when the package cannot be imported, and when any phase fails:
     kernel bit-equal to resample_poly_f32 over two chained blocks and
     timed in turns with it; at the x2 (L 2 M 1 K 46, 2048 x 100,000 ->
     200,000) that is resample_x2_f32, F.conv1d with 2 output channels
-    beside them.
+    beside them;
+18. the M17 and DMR kernels at 2048 rows against their plain versions:
+    the 3/125 heads (M17's K349 a phase, DMR's K2091) on
+    resample_poly_f32 and on the per-phase route the JAX package takes
+    (one launch of the strided FIR's routed kernel a phase, fir_stream_f32
+    at M17's K349 D125 and fir_long_f32 at DMR's K2091, then the
+    interleave; cuda_resample.route gives DMR's head this route and M17's
+    resample_poly_f32), timed in turns, both within the FIR's bound of the
+    plain version, F.conv1d with L output channels beside them; fir_s1_f32 at
+    M17's channel LP (K11, 2 planes) and RRC (K251) and DMR's RRC (K125),
+    2048 x 4,800, in turns with fir_stream_f32 and bit-equal to it;
+    symbol_sync_mm_f32 in levels mode with M17's and DMR's loop
+    parameters, bit-equal to its plain loop over two chained blocks of
+    2048 x 4,800 -> 960 and once more beside one timed call of it;
+    resample_up_f32 at the TX interpolators (the 5/1 shapers, one plane,
+    960 -> 4,800, K51 and K25; the 125/3 interpolators, two planes, 4,800
+    -> 200,000, K9 and K51), bit-equal to resample_poly_f32 and timed in
+    turns with it;
+19. the M17 and DMR RX paths (BASELINE configs[2]): each row's own
+    transmission (M17: two preambles, the LSF, 11 stream frames of seeded
+    payloads; DMR: idle dibits, a voice LC header, a voice superframe and
+    the terminator) through the port's M17Mod / DmrMod on the card and
+    ChannelModel at 10 dB with a 100 Hz offset, at 2048 channels x
+    200,000 samples for 3 steps through M17Demod / DmrDemod (counters
+    zeroed before, read after: the head on resample_poly_f32 (M17) or
+    fir_long_f32 once a phase (DMR), fir_s1_f32 for the RRC and M17's
+    channel LP, symbol_sync_mm_f32 in levels mode, once a step;
+    fir_stream_f32 never), step ms and vs_baseline
+    (printed, not gated), one step stage by stage, one traced; the frame
+    layer on the host for 8 rows (M17: Deframer and FrameDecoder, the LSF
+    and at least 10 of the 11 payloads; DMR: find_bursts and decode_burst,
+    its block codes on the card, the LC's ids from the header or, where
+    acquisition lost it, the terminator, and frame A's voice bits), host
+    ms a row; 4 rows x 2 blocks on the card and on the port's
+    CPU path (bits equal; symbols within 1e-3 of their peak, soft and every
+    state leaf within 2e-5); then M17DemodFF / DmrDemodFF on the same
+    input for 3 steps, step ms;
+20. the M17/DMR TX path: M17Mod and DmrMod (its mask zeroing one
+    720-sample slot in three at 24 ksps) at 2048 channels, 1,920 seeded
+    bits a row a step, 3 steps (the 5/1 and 125/3 interpolators on
+    resample_up_f32, M17's post filter on fir_s1_f32, once each a step;
+    resample_poly_f32 and fir_stream_f32 never); a zeroed slot's power
+    below 1e-3 of an open slot's.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -1938,6 +1981,7 @@ QPSK_EVERY_STEP = ("fir_cols_f32", "fll_band_edge_f32", "fir_s1_f32",
                    "viterbi_stream_k7")
 BPSK_BYTES = 25          # a step's payload a channel at 2,000 symbols/s
 BPSK_STEPS = 8           # 1.6 s of signal: 1,600 bits a channel
+BPSK_PAIRS = 8 * BPSK_BYTES  # soft pairs a delay-diversity row a step (200)
 # the loop kernels' timing shapes: 2048 rows, short blocks for the checks
 # against the plain loops (whose every step is a dozen device ops)
 LOOP_CHECK_T = 4_000
@@ -2335,6 +2379,21 @@ def psk_rows(dev, gen):
                         plain_ms, bound(*v_bound), None, "qpsk",
                         vsc.shape_key(soft, lag), routed=False))
     del soft, want
+    # BPSK2K's shape: the delay-diversity pair, 2 x 2048 rows of 200 pairs
+    soft = torch.clamp(128.0 + 48.0 * torch.randn(
+        (2 * N_CH, BPSK_PAIRS, 2), generator=gen, device=dev) * 2.0, 0.0,
+        255.0)
+    pm0 = torch.zeros((2 * N_CH, 64), device=dev)
+    tail = torch.full((2 * N_CH, lag, 2), 128.0, device=dev)
+    S = BPSK_PAIRS + lag
+    rows.append(loop_row(
+        f"{vsc.OP}/bpsk", "qradiolink_tpu_torch/csrc/viterbi_stream.cu",
+        "qradiolink_tpu/fec/conv.py:217",
+        lambda: vsc.viterbi_stream(CCSDS_K7, pm0, tail, soft),
+        lambda: vsc.viterbi_stream_plain(CCSDS_K7, pm0, tail, soft),
+        2 * N_CH * (8 * S + 2 * 8 * S + BPSK_PAIRS + 2 * 4 * 64),
+        10 * 64 * 2 * N_CH * S, "bpsk", vsc.shape_key(soft, lag)))
+    del soft
     torch.cuda.empty_cache()
 
     k1 = "qradiolink_tpu/ops/pallas_fir.py:218"
@@ -2691,6 +2750,588 @@ def qpsk_capture_phase(dev):
           f"card vs CPU max |diff| {err:.3e}", flush=True)
 
 
+# -- the M17 and DMR modems --------------------------------------------------
+
+FSK4_T24 = T_STEP * 3 // 125     # samples a step at 24 ksps (4,800)
+FSK4_SYMS = FSK4_T24 // 5        # symbols a step (960)
+FSK4_BITS = 2 * FSK4_SYMS        # bits a row a step (1,920)
+FRAME_ROWS = 8                   # rows whose frames the host decodes
+CVC_ROWS = 4                     # rows of the card-against-CPU check
+# the card against the port's CPU path, relative to each one's peak: soft
+# and every state leaf within 2e-5 (tests/test_torch_dmr.py's bound against
+# the JAX chains; the FIRs' sums round apart on the two), the symbols
+# within 1e-3: over a 200,000-sample block DMR's symbols differed by
+# 3.0e-4 (the state leaves by 3.1e-6), an M&M decision near a level
+# boundary flipping on a FIR rounding and the loop carrying it into the
+# next symbols' timing until it reconverges; the bits are equal
+FSK4_TOL = 2e-5
+FSK4_SYM_TOL = 1e-3
+M17_STREAMS = 11                 # stream frames a row sends
+SLOT24 = 720                     # one TDMA slot at 24 ksps (30 ms)
+# besides the head's kernel (head_launches)
+FSK4_EVERY_STEP = ("fir_s1_f32", "symbol_sync_mm_f32")
+
+
+def fsk4_chains(kind):
+    """(modulator, M&M demodulator, feedforward demodulator) classes."""
+    from qradiolink_tpu_torch.chains import dmr, m17
+
+    if kind == "m17":
+        return m17.M17Mod, m17.M17Demod, m17.M17DemodFF
+    return dmr.DmrMod, dmr.DmrDemod, dmr.DmrDemodFF
+
+
+def m17_streams(rng, n_rows):
+    """Each row's M17 transmission over N_STEPS steps (15 frames of 384
+    bits = 5,760): two preambles, the LSF, M17_STREAMS stream frames of
+    seeded 16-byte payloads, one frame of zeros. Returns (bits (n_rows,
+    5,760) uint8, each row's payloads)."""
+    from qradiolink_tpu_torch.protocols import m17
+
+    lsf = m17.LinkSetupFrame.for_stream("SP5WWP", "AB1CDE", can=3)
+    bits, sent = [], []
+    for _ in range(n_rows):
+        enc = m17.FrameEncoder(lsf)
+        pays = [bytes(rng.integers(0, 256, 16).astype(np.uint8))
+                for _ in range(M17_STREAMS)]
+        frames = [enc.encode_preamble(), enc.encode_preamble(),
+                  enc.encode_lsf()]
+        frames += [enc.encode_stream(p, last=i == M17_STREAMS - 1)
+                   for i, p in enumerate(pays)]
+        bits.append(np.concatenate(frames + [np.zeros(384, np.uint8)]))
+        sent.append(pays)
+    return np.stack(bits), sent
+
+
+def dmr_streams(rng, n_rows):
+    """Each row's DMR transmission over N_STEPS steps (5,760 bits), as
+    tests/test_chains_dmr.py builds it: 8 frames of idle dibits, a voice
+    LC header, a voice superframe A-F with the embedded LC and the
+    terminator (color code 1, the row's own source id and voice bits),
+    then idle dibits. Built with the block codes on the CPU (test data).
+    Returns (bits (n_rows, 5,760) uint8, each row's (LinkControl, voice
+    bits (6, 216)))."""
+    from qradiolink_tpu_torch.protocols import dmr
+
+    n = N_STEPS * FSK4_BITS
+    lead = np.tile(np.array([0, 1, 1, 1], np.uint8), 66 * 8)
+    bits, sent = [], []
+    for r in range(n_rows):
+        lc = dmr.LinkControl(flco=dmr.FLCO_GROUP, dst_id=91,
+                             src_id=2_405_321 + r)
+        voice = rng.integers(0, 2, (6, 216)).astype(np.uint8)
+        bursts = [dmr.make_lc_burst(lc, 1, dmr.DT_VOICE_LC_HEADER,
+                                    device="cpu"),
+                  *dmr.make_voice_superframe(voice, lc, 1, device="cpu"),
+                  dmr.make_lc_burst(lc, 1, dmr.DT_TERMINATOR_WITH_LC,
+                                    device="cpu")]
+        row = np.concatenate([lead] + [b.ravel() for b in bursts])
+        tail = np.tile(np.array([0, 1, 1, 1], np.uint8),
+                       -(-(n - row.size) // 4))[:n - row.size]
+        bits.append(np.concatenate([row, tail]))
+        sent.append((lc, voice))
+    return np.stack(bits), sent
+
+
+def fsk4_rx_input(kind, dev):
+    """The RX paths' input: each row's transmission (m17_streams,
+    dmr_streams; host ms a row printed) through the port's modulator on
+    the card, N_STEPS steps of FSK4_BITS bits, then ChannelModel at 10 dB
+    with a 100 Hz offset (20 whole cycles a step, so the carrier runs on
+    across steps). Returns (IqPair a step, each row's sent frames)."""
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.core import IqPair
+
+    Mod = fsk4_chains(kind)[0]
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    bits, sent = (m17_streams if kind == "m17" else dmr_streams)(rng, N_CH)
+    print(f"  {kind}: {N_CH} rows' frames built on the host in "
+          f"{(time.perf_counter() - t0) / N_CH * 1e3:.3f} ms a row",
+          flush=True)
+    bits = torch.from_numpy(bits).to(dev)
+    mod = Mod(lead_shape=(N_CH,), device=dev)
+    chan = ChannelModel(1_000_000, snr_db=10.0, freq_offset_hz=100.0,
+                        seed=29)
+    st, iqs = mod.init_state(), []
+    for i in range(N_STEPS):
+        st, out = mod(st, bits[:, i * FSK4_BITS:(i + 1) * FSK4_BITS])
+        y = chan(out["iq"])
+        del out
+        iqs.append(IqPair(y.real.contiguous(), y.imag.contiguous()))
+        del y
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return iqs, sent
+
+
+def m17_frames_ok(bits, sent):
+    """M17 frame layer on one row's received bits: Deframer("M17") then
+    FrameDecoder. Returns (the LSF's source or None, payloads that match
+    the row's)."""
+    from qradiolink_tpu_torch.framing.layer1 import Deframer, FrameType
+    from qradiolink_tpu_torch.protocols.m17 import FrameDecoder
+
+    dec, lsf, ok = FrameDecoder(), None, 0
+    for ftype, fb in Deframer("M17").process(bits):
+        fbits = np.unpackbits(np.frombuffer(fb, np.uint8))
+        if ftype == FrameType.M17_LSF:
+            lsf = dec.decode_lsf(fbits) or lsf
+        elif ftype == FrameType.M17_STREAM:
+            ok += dec.decode_stream(fbits).payload in sent
+    if lsf is None and dec.lsf_valid:
+        lsf = dec.lsf  # late entry: the LSF from the LICH chunks
+    return (None if lsf is None else lsf.source), ok
+
+
+def dmr_frames_ok(bits, sent, dev):
+    """DMR frame layer on one row's received bits: find_bursts, then
+    decode_burst (block codes on the card) at each hit and, after a voice
+    sync, the 5 voice bursts by dead reckoning (tests/test_chains_dmr.py).
+    Returns ((src_id, dst_id) of the voice LC header and of the terminator
+    with LC, each None where it did not decode, frame A's voice bits
+    equal)."""
+    from qradiolink_tpu_torch.protocols import dmr
+
+    hits = dict(dmr.find_bursts(bits))
+    starts = set(hits)
+    for s, name in list(hits.items()):
+        if name.endswith("audio"):
+            starts |= {s + k * dmr.FRAME_BITS for k in range(1, 6)
+                       if s + (k + 1) * dmr.FRAME_BITS <= bits.size}
+    lcs = {dmr.DT_VOICE_LC_HEADER: None, dmr.DT_TERMINATOR_WITH_LC: None}
+    voice_a = False
+    for s in sorted(starts):
+        d = dmr.decode_burst(bits[s:s + dmr.FRAME_BITS], dev)
+        if d.kind == "data" and d.ok and lcs.get(d.data_type, 0) is None:
+            lcs[d.data_type] = (d.lc.src_id, d.lc.dst_id)
+        if d.kind == "voice_sync" and not voice_a:
+            voice_a = bool(np.array_equal(d.voice_bits, sent[1][0]))
+    return (lcs[dmr.DT_VOICE_LC_HEADER], lcs[dmr.DT_TERMINATOR_WITH_LC],
+            voice_a)
+
+
+def frame_phase(kind, rx_bits, sent, dev):
+    """The frame layer on the host for FRAME_ROWS rows spread over the
+    batch; each must pass its gate. M17: the LSF (or its late entry from
+    the LICH chunks) and all but one of the row's stream payloads. DMR:
+    frame A's voice bits, and the row's LC (src_id, dst_id) from the voice
+    LC header, or from the terminator where the header was lost: the
+    chain's M&M loop leaves the idle tone (alternating +-1.5) for the
+    header's random dibits with tens of bit errors in the header's first
+    ~110 bits on many rows (the JAX chain gives the same bits on this
+    input), as M17's LSF can be lost to acquisition. Prints how many
+    headers decoded, and the host ms a row."""
+    rows = np.linspace(0, N_CH - 1, FRAME_ROWS).astype(int)
+    got = rx_bits[torch.as_tensor(rows, device=rx_bits.device)].cpu().numpy()
+    t0 = time.perf_counter()
+    n_header = 0
+    for r, b in zip(rows, got):
+        if kind == "m17":
+            src, ok = m17_frames_ok(b, sent[r])
+            if src != "SP5WWP" or ok < M17_STREAMS - 1:
+                raise RuntimeError(f"m17 row {r}: LSF source {src}, {ok} of "
+                                   f"{M17_STREAMS} payloads")
+        else:
+            want = (sent[r][0].src_id, sent[r][0].dst_id)
+            header, term, voice_a = dmr_frames_ok(b, sent[r], dev)
+            n_header += header == want
+            if (header if header is not None else term) != want \
+                    or not voice_a:
+                raise RuntimeError(f"dmr row {r}: header {header}, "
+                                   f"terminator {term}, frame A voice bits "
+                                   f"equal {voice_a}")
+    host_ms = (time.perf_counter() - t0) / len(rows) * 1e3
+    gate = (f"the LSF and at least {M17_STREAMS - 1} of {M17_STREAMS} "
+            f"payloads" if kind == "m17" else
+            f"the LC's ids (from the header on {n_header} of {len(rows)} "
+            f"rows, the terminator on the others) and frame A's voice bits")
+    print(f"  {kind} frame layer on rows {rows.tolist()}: {gate} on every "
+          f"row; host {host_ms:.3f} ms a row of {rx_bits.shape[-1]} bits",
+          flush=True)
+
+
+def fsk4_card_vs_cpu(kind, iqs, dev):
+    """The M&M chain on CVC_ROWS rows x 2 blocks (the path's first two
+    steps) on the card and on the port's CPU path: bits equal; symbols
+    within FSK4_SYM_TOL of their peak, soft and every state leaf within
+    FSK4_TOL (each one's max |diff| over its peak printed)."""
+    from qradiolink_tpu_torch.core import IqPair, _flatten
+
+    Demod = fsk4_chains(kind)[1]
+    cpu = torch.device("cpu")
+    chains = {d.type: Demod(lead_shape=(CVC_ROWS,), device=d)
+              for d in (dev, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    diffs = {}
+    for blk in range(2):
+        outs = {}
+        for d in (dev, cpu):
+            iq = IqPair(iqs[blk].re[:CVC_ROWS].to(d).contiguous(),
+                        iqs[blk].im[:CVC_ROWS].to(d).contiguous())
+            states[d.type], outs[d.type] = chains[d.type](states[d.type], iq)
+        card, host = outs[dev.type], outs["cpu"]
+        if not torch.equal(card["bits"].cpu(), host["bits"]):
+            n = int((card["bits"].cpu() != host["bits"]).sum())
+            raise RuntimeError(f"{kind} card vs CPU block {blk}: {n} bits "
+                               f"differ")
+        pairs = [(k, card[k].cpu(), host[k]) for k in ("symbols", "soft")
+                 if k in host]
+        pairs += [(f"state leaf {i}", a.cpu(), b) for i, (a, b) in enumerate(
+            zip(_flatten(states[dev.type], []), _flatten(states["cpu"], [])))]
+        for name, a, b in pairs:
+            if a.is_complex():
+                a, b = torch.view_as_real(a), torch.view_as_real(b)
+            d = float((a.double() - b.double()).abs().max()) if a.numel() \
+                else 0.0
+            peak = max(float(b.abs().max()) if b.numel() else 0.0, 1.0)
+            diffs[name] = max(diffs.get(name, (0.0, peak)), (d / peak, peak))
+    print(f"  {kind} card vs CPU, {CVC_ROWS} rows x 2 blocks of {T_STEP}: "
+          f"bits equal; max |diff| / peak: " + ", ".join(
+              f"{k} {v[0]:.2e}" for k, v in diffs.items()), flush=True)
+    bad = {k: v for k, v in diffs.items() if not v[0] <= (
+        FSK4_SYM_TOL if k == "symbols" else FSK4_TOL)}
+    if bad:
+        raise RuntimeError(f"{kind} card vs CPU beyond the bound: {bad}")
+
+
+def fsk4_path(kind, dev):
+    """The M17 or DMR RX path (BASELINE configs[2]): each row's own
+    transmission (fsk4_rx_input) at 2048 channels x 200,000 samples a
+    step through M17Demod / DmrDemod for N_STEPS steps with state carried,
+    the counters zeroed just before: the 3/125 head on resample_poly_f32,
+    the RRC (and M17's channel LP) on fir_s1_f32, symbol_sync_mm_f32 on its
+    4 levels, each once a step; fir_stream_f32 never. Step ms and
+    vs_baseline (printed, not gated), one step stage by stage, one traced;
+    the frame layer on FRAME_ROWS rows (frame_phase); the card against
+    the CPU (fsk4_card_vs_cpu); then the feedforward chain on the same
+    input, step ms. Returns (the M&M run's report, the FF run's)."""
+    from qradiolink_tpu_torch.chains.m17 import constellation, dibit_bits
+    from qradiolink_tpu_torch.core import Sequencer
+    from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+
+    _, Demod, DemodFF = fsk4_chains(kind)
+    iqs, sent = fsk4_rx_input(kind, dev)
+    chain = Demod(lead_shape=(N_CH,), device=dev)
+    head, per_step = head_launches(chain.resamp)
+    heads = {"resample_poly_f32", "fir_long_f32"} - {head[0]}
+    state, outs, step_s, report = drive(chain, chain.init_state(), iqs,
+                                        (head[0],) + FSK4_EVERY_STEP)
+    for out in outs:
+        for key, shape, dt in (("bits", (N_CH, FSK4_BITS), torch.uint8),
+                               ("symbols", (N_CH, FSK4_SYMS), torch.float32),
+                               ("constellation", (N_CH, FSK4_SYMS),
+                                torch.complex64),
+                               ("rssi", (N_CH,), torch.float32)):
+            v = out[key]
+            fin = torch.isfinite(torch.view_as_real(v) if v.is_complex()
+                                 else v.float()).all()
+            if tuple(v.shape) != shape or v.dtype != dt or not bool(fin):
+                raise RuntimeError(f"{kind} {key}: {tuple(v.shape)} "
+                                   f"{v.dtype} or non-finite")
+    want = {head: per_step,
+            ("fir_s1_f32", f"K{chain.shaping.ntaps} D1 tail 1x{N_CH}"): 1,
+            ("symbol_sync_mm_f32", css.shape_key(
+                N_CH, FSK4_T24, FSK4_SYMS, css.MODE_LEVELS)): 1}
+    if kind == "m17":
+        want[("fir_s1_f32",
+              f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}")] = 1
+    require_shapes(report, want, N_STEPS, kind,
+                   never=("fir_stream_f32", "resample_up_f32", *heads))
+    med = statistics.median([s * 1e3 for s in step_s[1:]])
+    print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline "
+          f"{T_STEP / med / 1e3:.2f} Msamples/s per channel (printed, not "
+          f"gated)", flush=True)
+
+    iq = iqs[-1]
+    mag = 1.0 if kind == "m17" else 0.9
+
+    def stage_step():
+        seq, stages = Sequencer(state), {}
+        x = timed(stages, f"resampler 3/125 ({head[0]} x{per_step} "
+                  f"K{chain.resamp.kp})", lambda: seq(chain.resamp, iq))
+        if kind == "m17":
+            x = timed(stages, f"channel LP (fir_s1_f32 "
+                      f"K{chain.chan_filter.ntaps})",
+                      lambda: seq(chain.chan_filter, x))
+        timed(stages, "rssi", lambda: rssi_dbm(x))
+        x = timed(stages, "quadrature demod", lambda: seq(chain.quad, x))
+        x = timed(stages, f"RRC (fir_s1_f32 K{chain.shaping.ntaps})",
+                  lambda: seq(chain.shaping, x))
+        syms = timed(stages, "symbol sync (symbol_sync_mm_f32, levels)",
+                     lambda: seq(chain.symbol_sync, x))
+        timed(stages, "dibits + constellation",
+              lambda: (dibit_bits(syms, mag), constellation(syms)))
+        return stages
+
+    # the first pass stage by stage took ms in small ops (one-off work of
+    # the first calls in this order), so the second is printed
+    stage_step()
+    stages = stage_step()
+    print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
+          flush=True)
+    trace_step("one more step", lambda: chain(state, iq))
+    rx_bits = torch.cat([o["bits"] for o in outs], dim=-1)
+    del outs, state
+    torch.cuda.empty_cache()
+    frame_phase(kind, rx_bits, sent, dev)
+    fsk4_card_vs_cpu(kind, iqs, dev)
+
+    ff = DemodFF(lead_shape=(N_CH,), device=dev)
+    _, outs, step_s, ff_report = drive(ff, ff.init_state(), iqs,
+                                       (head[0], "fir_s1_f32"))
+    require_shapes(ff_report, {head: per_step}, N_STEPS, f"{kind}_ff",
+                   never=("fir_stream_f32", "symbol_sync_mm_f32", *heads))
+    if tuple(outs[-1]["bits"].shape) != (N_CH, FSK4_BITS) or not bool(
+            torch.isfinite(outs[-1]["symbols"]).all()):
+        raise RuntimeError(f"{kind}_ff: wrong bits shape or non-finite "
+                           f"symbols")
+    print(f"  {DemodFF.__name__}: {step_times(step_s, N_CH * T_STEP)}",
+          flush=True)
+    del outs, iqs
+    torch.cuda.empty_cache()
+    return report, ff_report
+
+
+def head_row(name, rs, run, dev, gen):
+    """A 3/125 head at its path's shape (2048 rows x 200,000, 2 planes, the
+    tails read in place): resample_poly_f32 and the per-phase route
+    (cuda_resample.resample_phases: one launch a phase of the strided
+    FIR's routed kernel, fir_stream_f32 at M17's K349, fir_long_f32 at
+    DMR's K2091, and the interleave), each against the plain version
+    (outputs within the FIR's bound, state equal), timed in turns, and one
+    F.conv1d with L output channels (TF32 off). The row of the one that
+    cuda_resample.route does not pick has no path."""
+    from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
+    import torch.nn.functional as F
+
+    L, M, K, taps = rs.L, rs.M, rs.kp, rs.poly_taps
+    xs = tuple(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1
+               for _ in range(2))
+    st = torch.randn((N_CH, 2, K - 1), generator=gen, device=dev) * 0.1
+    tails = (st[:, 0, :], st[:, 1, :])
+    op = cuda_resample.route(L, M, K)
+    ph_op = cuda_fir.route(K, M)
+    fns = {cuda_resample.OP: lambda: cuda_resample.launch(
+               cuda_resample.OP, xs, taps, L, M, tails),
+           ph_op: lambda: cuda_resample.resample_phases(xs, taps, L, M,
+                                                        tails)}
+    p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M, tails)
+    errs = {}
+    for k, fn in fns.items():
+        state, ys = fn()
+        errs[k] = check_fir(f"{k}/{name}", ys, p_ys)
+        if not torch.equal(state, p_state):
+            raise RuntimeError(f"{k}/{name}: state differs")
+        del state, ys
+    offs = cuda_resample.phase_offsets(L, M)
+    w = torch.zeros((L, 1, K + offs[-1]), device=dev)
+    for r, q in enumerate(offs):
+        w[r, 0, q:q + K] = taps[r]
+    lib_in = torch.stack([torch.cat([t, x], -1) for t, x in zip(tails, xs)]
+                         ).reshape(2 * N_CH, 1, -1)
+    lib = F.conv1d(lib_in, w, stride=M).transpose(1, 2).reshape(2, N_CH, -1)
+    check_fir(f"F.conv1d with L output channels/{name}", lib.unbind(0),
+              p_ys)
+    del lib, p_ys, p_state
+    torch.cuda.synchronize()
+    ms, turns = turns_ms(fns)
+    print(f"  {name} in turns: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+    plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
+        xs, taps, L, M, tails), iters=3, warmup=1)
+    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
+    n_out = T_STEP // M * L
+    b = bound(4 * (2 * N_CH * (K - 1 + T_STEP) + L * K + 2 * N_CH * n_out
+                   + 2 * N_CH * (K - 1)), 2 * K * 2 * N_CH * n_out)
+    other = ph_op if op == cuda_resample.OP else cuda_resample.OP
+    print(f"  {name}: the route's {op} {ms[other] / ms[op]:.2f}x {other} "
+          f"in turns, {lib_ms / ms[op]:.2f}x F.conv1d, {b[0] / ms[op]:.1%} "
+          f"of its bound", flush=True)
+    del lib_in
+    rows = [row(f"{cuda_resample.OP}/{name}", RESAMPLE_SOURCE[
+                cuda_resample.OP], "qradiolink_tpu/ops/pallas_fir.py:111",
+                errs[cuda_resample.OP], ms[cuda_resample.OP], plain_ms, b,
+                lib_ms, run, cuda_resample.shape_key(xs, L, K, M),
+                routed=op == cuda_resample.OP),
+            row(f"{ph_op}/{name}", FIR_SOURCE[ph_op],
+                "qradiolink_tpu/ops/pallas_fir.py:218", errs[ph_op],
+                ms[ph_op], plain_ms, b, lib_ms, run,
+                cuda_fir.shape_key(xs, K, M, tails), routed=op == ph_op)]
+    rows[-1]["per_step"] = L
+    del xs, st, tails
+    torch.cuda.empty_cache()
+    return rows
+
+
+def head_launches(rs):
+    """((kernel, shape key) of a 3/125 head on the route, launches a step)
+    at N_CH rows, 2 planes: resample_poly_f32 once, or fir_long_f32 once a
+    phase."""
+    from qradiolink_tpu_torch.ops import cuda_resample
+
+    op = cuda_resample.route(rs.L, rs.M, rs.kp)
+    if op == cuda_resample.OP:
+        return (op, f"L{rs.L} K{rs.kp} D{rs.M} tail 2x{N_CH}"), 1
+    return (op, f"K{rs.kp} D{rs.M} tail 2x{N_CH}"), rs.L
+
+
+def fsk4_signal(dev, gen, C, T):
+    """A 4-level signal at 5 samples a symbol: levels {-1.5, -0.5, 0.5,
+    1.5} held 5 samples, smoothed by a 5-tap moving average, noise at
+    0.05; (C, T) f32."""
+    lv = torch.tensor([-1.5, -0.5, 0.5, 1.5], device=dev)
+    idx = torch.randint(0, 4, (C, -(-T // 5) + 1), generator=gen,
+                        device=dev)
+    x = torch.repeat_interleave(lv[idx], 5, dim=-1)
+    x = torch.nn.functional.avg_pool1d(x[:, None], 5, 1)[:, 0, :T]
+    return (x + 0.05 * torch.randn(x.shape, generator=gen, device=dev)
+            ).contiguous()
+
+
+def fsk4_rows(dev, gen):
+    """The M17 and DMR paths' new kernel shapes against their plain
+    versions: the 3/125 heads (head_row); fir_s1_f32 at M17's channel LP
+    (K11, 2 planes) and RRC (K251) and DMR's RRC (K125), 2048 x 4,800, in
+    turns with fir_stream_f32 and bit-equal to it; symbol_sync_mm_f32 in
+    levels mode with each chain's loop over two chained blocks of 2048 x
+    4,800 -> 960, bit-equal to the plain loop, then timed at that shape
+    and held bit-equal once more against one timed call of the plain loop;
+    the TX interpolators on resample_up_f32 (poly_row: M17's and DMR's
+    5/1 shaper, one plane 960 -> 4,800, and 125/3, two planes 4,800 ->
+    200,000), bit-equal to resample_poly_f32 and timed in turns with it."""
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+
+    rows = []
+    k2 = "qradiolink_tpu/ops/pallas_fir.py:111"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for kind in ("m17", "dmr"):
+        Mod, Demod, _ = fsk4_chains(kind)
+        rx = Demod(lead_shape=(N_CH,), device=dev)
+        rows += head_row(f"{kind}_head", rx.resamp, kind, dev, gen)
+        filts = [("rrc", rx.shaping, 1)]
+        if kind == "m17":
+            filts.insert(0, ("chan_lp", rx.chan_filter, 2))
+        for fname, filt, planes in filts:
+            st = randn(N_CH, 2, filt.ntaps - 1)
+            rows += fir_row(f"{kind}_{fname}", k2 if fname == "rrc" else
+                            "qradiolink_tpu/ops/pallas_fir.py:218",
+                            tuple(randn(N_CH, FSK4_T24)
+                                  for _ in range(planes)),
+                            filt.taps_flipped, 1, FSK4_T24,
+                            (st[:, 0, :], st[:, 1, :])[:planes], kind)
+        ss = rx.symbol_sync
+        mode = css.MODE_LEVELS
+
+        def sync_args(s, ss=ss):
+            pos, om, yp, dp, _ = s
+            return (pos, om, yp, dp, FSK4_SYMS, mode, ss.levels, ss.sps,
+                    ss.alpha, ss.beta, ss.omega_limit, ss.ted_norm)
+
+        def sync_plain(b, s, ss=ss):
+            xc = torch.cat([s[4], b.to(torch.complex64)], dim=-1)
+            r = css.symbol_sync_plain(xc.real.contiguous(),
+                                      xc.imag.contiguous(), *sync_args(s))
+            return (torch.complex(r[0], r[1]),) + r[2:]
+
+        x = fsk4_signal(dev, gen, N_CH, 2 * FSK4_T24)
+        blocks = [x[:, :FSK4_T24].contiguous(), x[:, FSK4_T24:].contiguous()]
+        s1 = chained_equal(
+            f"{css.OP} levels ({kind})",
+            lambda b, s: css.symbol_sync(s[4], b, *sync_args(s)), sync_plain,
+            blocks, ss.init_state(),
+            lambda g: (torch.clamp(g[1] - FSK4_T24, 0.0, ss.tail_len - 2.0),
+                       *g[2:], blocks[0][:, -ss.tail_len:].to(
+                           torch.complex64)))
+        xb = blocks[1]
+        rows.append(loop_row(
+            f"{css.OP}/{kind}", "qradiolink_tpu_torch/csrc/symbol_sync.cu",
+            "qradiolink_tpu/sync/symbol_sync.py:152",
+            lambda: css.symbol_sync(s1[4], xb, *sync_args(s1)),
+            lambda: sync_plain(xb, s1),
+            4 * N_CH * (FSK4_T24 + ss.tail_len) + 8 * N_CH * FSK4_SYMS,
+            60 * N_CH * FSK4_SYMS, kind,
+            css.shape_key(N_CH, FSK4_T24, FSK4_SYMS, mode)))
+        del x, blocks, xb, s1
+        tx = Mod(lead_shape=(N_CH,), device=dev)
+        rows += poly_row(f"{kind}_tx_shaper", tx.shaper, 1, N_CH, FSK4_SYMS,
+                         "fsk4_tx", dev, gen)
+        rows += poly_row(f"{kind}_tx_up", tx.up, 2, N_CH, FSK4_T24,
+                         "fsk4_tx", dev, gen)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fsk4_tx_path(dev, gen):
+    """M17Mod and DmrMod at 2048 channels, N_STEPS steps of FSK4_BITS
+    seeded random bits a row each (200,000 IQ samples out of each), state
+    carried, the counters zeroed just before; DmrMod's mask zeroes one
+    720-sample slot in three at 24 ksps, the slots running on across
+    steps. Each 5/1 shaper and 125/3 interpolator on resample_up_f32 and
+    M17's post filter (K11) on fir_s1_f32, once each a step;
+    resample_poly_f32 and fir_stream_f32 never. The last step's DMR IQ
+    must be near zero in a zeroed slot. Returns the report."""
+    from qradiolink_tpu_torch.chains.dmr import DmrMod
+    from qradiolink_tpu_torch.chains.m17 import M17Mod
+
+    mm = M17Mod(lead_shape=(N_CH,), device=dev)
+    dm = DmrMod(lead_shape=(N_CH,), device=dev)
+    data = []
+    for i in range(N_STEPS):
+        b = [torch.randint(0, 2, (N_CH, FSK4_BITS), generator=gen,
+                           device=dev, dtype=torch.int64).to(torch.uint8)
+             for _ in range(2)]
+        t = torch.arange(i * FSK4_T24, (i + 1) * FSK4_T24, device=dev)
+        data.append((*b, ((t // SLOT24) % 3 != 1).float().expand(N_CH, -1)))
+
+    def step(states, d):
+        s1, o1 = mm(states[0], d[0])
+        s2, o2 = dm(states[1], d[1], mask=d[2])
+        return (s1, s2), (o1["iq"], o2["iq"])
+
+    _, outs, step_s, report = drive(
+        step, (mm.init_state(), dm.init_state()), data,
+        ("resample_up_f32", "fir_s1_f32"))
+    for name, v in zip(("m17", "dmr"), outs[-1]):
+        if tuple(v.shape) != (N_CH, T_STEP) or v.dtype != torch.complex64 \
+                or not bool(torch.isfinite(torch.view_as_real(v)).all()):
+            raise RuntimeError(f"{name} tx iq: wrong shape, dtype or "
+                               f"non-finite")
+    # the last step's first zeroed slot and the open slot two before it,
+    # both wholly inside the step: their middle 10,000 samples at 1 Msps
+    lo = (N_STEPS - 1) * FSK4_T24
+    s = -(-lo // SLOT24) + 2
+    s += (1 - s) % 3
+    iq = outs[-1][1]
+
+    def slot_power(k):
+        mid = ((k * SLOT24 - lo) + SLOT24 // 2) * 125 // 3
+        return float((iq[:, mid - 5000:mid + 5000].abs() ** 2).mean())
+
+    idle, busy = slot_power(s), slot_power(s - 2)
+    if not idle < 1e-3 * busy:
+        raise RuntimeError(f"dmr tx: the zeroed slot's power {idle:.3e} is "
+                           f"not below 1e-3 of {busy:.3e}")
+    print(f"  dmr tx mask: power in a zeroed slot {idle / busy:.2e} of the "
+          f"rest", flush=True)
+    del outs, iq
+    torch.cuda.empty_cache()
+    require_shapes(report, {
+        ("resample_up_f32", f"L5 K{mm.shaper.kp} D1 tail 1x{N_CH}"): 1,
+        ("resample_up_f32", f"L125 K{mm.up.kp} D3 tail 2x{N_CH}"): 1,
+        ("resample_up_f32", f"L5 K{dm.shaper.kp} D1 tail 1x{N_CH}"): 1,
+        ("resample_up_f32", f"L125 K{dm.up.kp} D3 tail 2x{N_CH}"): 1,
+        ("fir_s1_f32", f"K{mm.post_filter.ntaps} D1 tail 2x{N_CH}"): 1},
+        N_STEPS, "fsk4_tx", never=("resample_poly_f32", "fir_stream_f32"))
+    print(f"  {step_times(step_s, 2 * N_CH * T_STEP)} (IQ samples out of "
+          f"both modulators)", flush=True)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2808,6 +3449,19 @@ def main() -> int:
           f"samples a step each, {N_STEPS} steps", flush=True)
     reports["psk_tx"], mods = psk_tx_path(dev, gen)
     rows += psk_tx_rows(mods, dev, gen)
+    del mods
+    torch.cuda.empty_cache()
+
+    print("M17 and DMR kernels against their plain versions:", flush=True)
+    rows += fsk4_rows(dev, gen)
+    for kind in ("m17", "dmr"):
+        print(f"{kind.upper()} path: {fsk4_chains(kind)[1].__name__} {N_CH} "
+              f"ch x {T_STEP} samples, {N_STEPS} steps, then "
+              f"{fsk4_chains(kind)[2].__name__}", flush=True)
+        reports[kind], reports[f"{kind}_ff"] = fsk4_path(kind, dev)
+    print(f"M17/DMR TX path: M17Mod + DmrMod {N_CH} ch x {FSK4_BITS} bits, "
+          f"{T_STEP} IQ samples a step each, {N_STEPS} steps", flush=True)
+    reports["fsk4_tx"] = fsk4_tx_path(dev, gen)
 
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks,
@@ -2815,8 +3469,8 @@ def main() -> int:
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS,
              "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS,
              "am_tx": N_STEPS, "am": N_STEPS, "qpsk": N_STEPS,
-             "bpsk": BPSK_STEPS,
-             "psk_tx": N_STEPS}
+             "bpsk": BPSK_STEPS, "psk_tx": N_STEPS, "m17": N_STEPS,
+             "dmr": N_STEPS, "fsk4_tx": N_STEPS}
     for r in rows:
         run, shape = r.pop("run"), r.pop("shape")
         per_step = r.pop("per_step", 1)

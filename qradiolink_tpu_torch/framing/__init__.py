@@ -1,0 +1,13 @@
+"""Layer-1 framing (host-side; port of qradiolink_tpu/framing: layer1 only,
+layer2 and tdma are not ported yet).
+
+Mirrors the reference's split: device-side chains produce continuous bit
+streams; sync hunting and frame assembly happen in the control plane
+(reference src/gr_modem.cpp:1019-1441, src/layer1framing.h). The
+bit-serial shift-register hunt is a vectorized sliding-word search over
+bit blocks.
+"""
+
+from qradiolink_tpu_torch.framing.layer1 import (  # noqa: F401
+    FrameType, Layer1Framer, Deframer, MODE_FRAME_CONFIG, FrameConfig,
+)

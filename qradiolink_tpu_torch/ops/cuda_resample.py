@@ -19,14 +19,17 @@ One plane is real input (the new state's second plane is zeros); two are
 the re and im planes of an IqPair. `route(L, M, K)` picks the kernel:
 `resample_x2_f32`, both phases of 16 output times a thread, at L 2 M 1
 (QpskMod's x2); `resample_up_f32`, register-blocked over output times of
-one phase, at L >= 3 and M <= 5 (the TX side's 125/1, 20/1 and 25/4);
-`resample_poly_f32`, one output a lane, elsewhere (the NBFM audio
-resampler 2/5, M17's 3/125).
+one phase, at L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1
+and 125/3); `fir_long_f32` once a phase where a phase's strided FIR is
+that kernel's shape (M >= 32, 17 to 64 taps a row of M: DMR's 3/125 head,
+K2091, `resample_phases`), the phases then interleaved; `resample_poly_f32`,
+one output a lane, elsewhere (the NBFM audio resampler 2/5, M17's 3/125).
 
 On a CPU tensor the wrapper takes the plain version (a strided F.conv1d
 per phase over the concatenation, then the interleave) and records it
-under the routed kernel's name; on a CUDA tensor it launches that kernel
-or raises.
+under the routed kernel's name (the per-phase route: its strided FIRs'
+plain version, once a phase); on a CUDA tensor it launches that kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from qradiolink_tpu_torch.ops import cuda_fir
 from qradiolink_tpu_torch.ops.cuda_fir import no_tf32
 from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
@@ -123,13 +127,22 @@ def route(L: int, M: int, K: int) -> str:
     resample_x2_f32 at L 2 M 1 (QpskMod's x2, measured faster in turns
     than resample_poly_f32 in chip_smoke.py, and than resample_up_f32 at
     that shape as PERF.md records), resample_up_f32 at L >= 3 and
-    M <= 5, resample_poly_f32 otherwise (the NBFM audio resampler 2/5,
-    M17's 3/125).
-    K does not enter the rule: the kernels stage all L*K taps in one
-    block, and the wrapper raises where they do not fit."""
+    M <= 5; fir_long_f32, L launches of it (resample_phases), where
+    cuda_fir.route gives a phase's FIR (K taps, stride M) to it: at DMR's
+    3/125 head (K2091, 17 rows of 125 taps) chip_smoke.py measured it 2.2x
+    faster in turns than resample_poly_f32, whose lanes each run a chain
+    of K FMAs with two shared-memory loads apiece; resample_poly_f32
+    otherwise (the NBFM audio resampler 2/5, M17's 3/125 at K349, where
+    the per-phase route on fir_stream_f32 lost 6.3x). resample_x2_f32,
+    resample_up_f32 and resample_poly_f32 stage all L*K taps in one block,
+    and the wrapper raises where they do not fit."""
     if L == 2 and M == 1:
         return X2_OP
-    return UP_OP if L >= UP_MIN_L and M <= UP_MAX_M else OP
+    if L >= UP_MIN_L and M <= UP_MAX_M:
+        return UP_OP
+    if cuda_fir.route(K, M) == cuda_fir.LONG_OP:
+        return cuda_fir.LONG_OP
+    return OP
 
 
 def _lib(op):
@@ -153,9 +166,31 @@ def _lib(op):
     return lib
 
 
+def resample_phases(xs, phase_taps, L: int, M: int, tails):
+    """The per-phase route, as the JAX package runs the resampler: one
+    strided FIR a phase (cuda_fir.fir_stream with shift q_r, on the kernel
+    cuda_fir.route(K, M) picks, or its plain version on the CPU), the
+    phases interleaved, the new state [tail | x]'s last K-1 samples.
+    resample_poly's arguments and result."""
+    xs, tails = tuple(xs), tuple(tails)
+    K = _check(xs, phase_taps, L, M, tails)
+    T = xs[0].shape[-1]
+    n_pp = T // M
+    phases = [cuda_fir.fir_stream(xs, phase_taps[r], M, n_pp, tails=tails,
+                                  shift=q)
+              for r, q in enumerate(phase_offsets(L, M))]
+    ys = tuple(torch.stack([p[i] for p in phases], dim=-1).reshape(
+        xs[0].shape[:-1] + (n_pp * L,)) for i in range(len(xs)))
+    new = [x[..., T - (K - 1):] if T >= K - 1
+           else torch.cat([t, x], dim=-1)[..., T:] for x, t in zip(xs, tails)]
+    if len(new) == 1:
+        new.append(torch.zeros_like(new[0]))
+    return torch.stack(new, dim=-2), ys
+
+
 def resample_poly(xs, phase_taps, L: int, M: int, tails):
     """Polyphase L/M resampling of each plane in `xs`, all phases at once,
-    on the kernel route(L, M, K) names.
+    on the kernel route(L, M, K) names (fir_long_f32: resample_phases).
 
     xs: tuple of 1 or 2 f32 planes (..., T) of one shape, T % M == 0;
     phase_taps: (L, K) f32, row r phase r's taps reversed; tails: one
@@ -166,6 +201,8 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
     op = route(L, M, K)
+    if op == cuda_fir.LONG_OP:
+        return resample_phases(xs, phase_taps, L, M, tails)
     dev = xs[0].device
     if dev.type == "cpu":
         kernel_paths.record(op, False, shape_key(xs, L, K, M))

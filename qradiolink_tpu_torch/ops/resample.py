@@ -11,8 +11,10 @@ At L > 1 every call (real, complex or IqPair input) is one launch of the
 kernel `ops/cuda_resample.route()` picks, which computes all L phases,
 interleaves them and writes the new state, reading the tail in place from
 the state: `resample_up_f32` at L >= 3 and M <= 5 (the TX side's 125/1,
-20/1 and 25/4), `resample_poly_f32` elsewhere (the NBFM audio resampler,
-2/5). At L = 1 the decimator is one
+20/1, 25/4, 5/1 and 125/3), `resample_poly_f32` elsewhere (the NBFM audio
+resampler, 2/5; M17's 3/125 head) except where a phase's strided FIR is
+`fir_long_f32`'s shape (DMR's 3/125 head, K2091 a phase): there L
+launches of it, one a phase, then the interleave. At L = 1 the decimator is one
 launch of the strided FIR kernel that `ops/cuda_fir.route()` picks, over
 the planes of an IqPair, a complex tensor or a real one (the WBFM audio
 resampler, 1/25), with the tails read in place from the state: the
@@ -142,7 +144,7 @@ class RationalResampler(Block):
             tails = tails[:1]
         if self.L > 1:
             # every phase and the new state in one launch of the routed
-            # kernel
+            # kernel (fir_long_f32: one launch a phase)
             new_state, ys = resample_poly(planes, self.poly_taps, self.L,
                                           self.M, tails)
         else:

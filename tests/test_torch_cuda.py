@@ -20,7 +20,9 @@ PSK chains' loop kernels (the Costas loop, the M&M symbol sync, the
 streaming Viterbi) bit-equal to their plain loops over two chained blocks,
 every output and state leaf; the FLL kernel within the FLL's bound of its
 plain loop (it sums each sub-block's band-edge energy in its own order),
-elementwise 2e-5 + 1e-5 |plain|, the phase as a distance on the circle.
+elementwise 2e-5 + 1e-5 |plain|, the phase as a distance on the circle;
+the M17 and DMR chains on the card against their CPU path: bits equal,
+symbols, soft and every state leaf within 2e-5 of their peak.
 """
 
 import pathlib
@@ -33,6 +35,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from qradiolink_tpu_torch.chains.am import AmDemod  # noqa: E402
+from qradiolink_tpu_torch.chains.dmr import (  # noqa: E402
+    DmrDemod, DmrDemodFF, DmrMod)
+from qradiolink_tpu_torch.chains.m17 import (  # noqa: E402
+    M17Demod, M17DemodFF, M17Mod)
 from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: E402
 from qradiolink_tpu_torch.chains.nbfm import NbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.chains.ssb import SsbDemod  # noqa: E402
@@ -364,6 +370,10 @@ S1_CASES = {
     "one_row_one_plane": (1, 1500, 55, 0, 1, True),
     "ragged_tile": (2, 1025, 55, 0, 2, True),  # n_out = one tile + 1
     "k_at_limit": (2, 1500, 2048, 0, 1, True),
+    # the M17 and DMR paths' filters at 24 ksps, 4,800 samples a step
+    "m17_chan_lp": (3, 4800, 11, 0, 2, True),
+    "m17_rrc": (3, 4800, 251, 0, 1, True),
+    "dmr_rrc": (3, 4800, 125, 0, 1, True),
 }
 
 
@@ -378,6 +388,10 @@ def s1_taps(name, K, rng):
         tf = NbfmDemod(device="cpu").chan_filter.taps_flipped
     elif name == "audio_lp":
         tf = NbfmDemod(device="cpu").audio_filter.taps_flipped
+    elif name.startswith(("m17_", "dmr_")):
+        rx = (M17Demod if name.startswith("m17") else DmrDemod)(device="cpu")
+        tf = (rx.chan_filter if name.endswith("chan_lp")
+              else rx.shaping).taps_flipped
     else:
         return (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
     return tf.numpy()
@@ -1433,3 +1447,177 @@ def test_cuda_mean_is_the_sum_times_the_f32_reciprocal(cuda, gen):
     x = torch.randn((2048, 500), generator=gen, device=cuda)
     assert torch.equal(x.mean(dim=-1),
                        x.sum(dim=-1) * cuda_fll.inv_sb(500))
+
+
+# -- the M17 and DMR chains -----------------------------------------------
+
+@pytest.mark.parametrize("kind", ["m17", "dmr"])
+def test_fsk4_head_matches_plain(cuda, gen, kind):
+    """The 3/125 head with the chain's taps (M17 K349 a phase, DMR K2091),
+    64 rows, two chained blocks of 25,000, on its route: M17's one
+    resample_poly_f32 launch a block, DMR's three fir_long_f32 launches
+    (one a phase, cuda_resample.resample_phases); outputs within 1e-5 of
+    the plain version, the state equal; the other route too."""
+    rs = (M17Demod if kind == "m17" else DmrDemod)(
+        lead_shape=(64,), device=cuda).resamp
+    op = cuda_resample.route(3, 125, rs.kp)
+    assert op == (cuda_resample.OP if kind == "m17" else cuda_fir.LONG_OP)
+    key, n = ((f"cuda L3 K{rs.kp} D125 tail 2x64", 1) if kind == "m17"
+              else (f"cuda K{rs.kp} D125 tail 2x64", 3))
+    state = torch.randn((64, 2, rs.kp - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = [torch.randn((64, 25_000), generator=gen, device=cuda)
+              for _ in range(2)]
+        tails = (state[:, 0], state[:, 1])
+        kernel_paths.reset()
+        new_state, got = resample_poly(xs, rs.poly_taps, 3, 125, tails)
+        assert kernel_paths.report() == {op: {
+            "cuda": n, "plain": 0, "shapes": {key: n}}}
+        want_state, want = resample_poly_plain(xs, rs.poly_taps, 3, 125,
+                                               tails)
+        _assert_fir_close(got, want)
+        assert torch.equal(new_state, want_state)
+        other = cuda_resample.resample_phases(
+            xs, rs.poly_taps, 3, 125, tails) if op == cuda_resample.OP \
+            else cuda_resample.launch(cuda_resample.OP, xs, rs.poly_taps, 3,
+                                      125, tails)
+        _assert_fir_close(other[1], want)
+        assert torch.equal(other[0], want_state)
+        state = new_state
+
+
+@pytest.mark.parametrize("kind", ["m17", "dmr"])
+def test_fsk4_symbol_sync_equals_plain(cuda, gen, kind):
+    """The chain's M&M loop in levels mode on real input at sps 5 (M17's
+    gains and DMR's, the largest of the JAX chains), 2048 rows, two
+    chained blocks of 4,800 (a path step at 24 ksps): symbols and every
+    state leaf equal to the plain loop's, one launch a block."""
+    ss = (M17Demod if kind == "m17" else DmrDemod)(
+        lead_shape=(2048,), device=cuda).symbol_sync
+    lv = ss.levels[torch.randint(0, 4, (2048, 1921), generator=gen,
+                                 device=cuda)]
+    x = torch.nn.functional.avg_pool1d(
+        torch.repeat_interleave(lv, 5, dim=-1)[:, None], 5, 1)[:, 0, :9600]
+    x = x + 0.05 * torch.randn(x.shape, generator=gen, device=cuda)
+    m = cuda_symbol_sync.mode_of(False, ss.levels)
+    assert m == cuda_symbol_sync.MODE_LEVELS
+    st = ss.init_state()
+    for blk in range(2):
+        xb = x[:, blk * 4800:(blk + 1) * 4800].contiguous()
+        pos, omega, yp, dp, tail = st
+        args = (tail, xb, pos, omega, yp, dp, 960, m, ss.levels, ss.sps,
+                ss.alpha, ss.beta, ss.omega_limit, ss.ted_norm)
+        kernel_paths.reset()
+        got = cuda_symbol_sync.symbol_sync(*args)
+        assert kernel_paths.launches(cuda_symbol_sync.OP) == 1
+        xc = torch.cat([tail, xb.to(torch.complex64)], dim=-1)
+        want = cuda_symbol_sync.symbol_sync_plain(
+            xc.real.contiguous(), xc.imag.contiguous(), *args[2:])
+        assert torch.equal(got[0].real, want[0])
+        assert torch.equal(got[0].imag, want[1])
+        for a, b in zip(got[1:], want[2:]):
+            assert torch.equal(a, b)
+        st, _ = ss(st, xb)
+
+
+# the M17 and DMR TX interpolators: name: (chain, attribute, planes, T)
+FSK4_TX_CASES = {"m17_shaper": (M17Mod, "shaper", 1, 960),
+                 "m17_up": (M17Mod, "up", 2, 4800),
+                 "dmr_shaper": (DmrMod, "shaper", 1, 960),
+                 "dmr_up": (DmrMod, "up", 2, 4800)}
+
+
+@pytest.mark.parametrize("name", sorted(FSK4_TX_CASES))
+def test_fsk4_tx_interpolator_matches_plain(cuda, gen, name):
+    """The chain's 5/1 shaper or 125/3 interpolator at 2048 rows, a path
+    step, two chained blocks: one resample_up_f32 launch a block, outputs
+    and state equal bit for bit to resample_poly_f32's, within 1e-5 of the
+    plain version (the state equal to it)."""
+    Mod, attr, planes, T = FSK4_TX_CASES[name]
+    rs = getattr(Mod(lead_shape=(2048,), device=cuda), attr)
+    L, M = rs.L, rs.M
+    assert cuda_resample.route(L, M, rs.kp) == cuda_resample.UP_OP
+    state = torch.randn((2048, 2, rs.kp - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = [torch.randn((2048, T), generator=gen, device=cuda)
+              for _ in range(planes)]
+        tails = (state[:, 0], state[:, 1])[:planes]
+        kernel_paths.reset()
+        new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
+        assert kernel_paths.launches(cuda_resample.UP_OP) == 1
+        old_state, old = cuda_resample.launch(cuda_resample.OP, xs,
+                                              rs.poly_taps, L, M, tails)
+        want_state, want = resample_poly_plain(xs, rs.poly_taps, L, M,
+                                               tails)
+        assert torch.equal(new_state, old_state)
+        assert torch.equal(new_state, want_state)
+        for g, o in zip(got, old):
+            assert torch.equal(g, o)
+        _assert_fir_close(got, want)
+        state = new_state
+
+
+def test_dmr_mask_zeroes_idle_slot_on_card(cuda, gen):
+    """DmrMod on the card with a mask zeroing one 720-sample slot in three
+    at 24 ksps (IqPair and complex output): the zeroed slot's middle
+    10,000 samples at 1 Msps carry under 1e-3 of an open slot's power, and
+    the two outputs agree."""
+    bits = torch.randint(0, 2, (4, 9600), generator=gen, device=cuda,
+                         dtype=torch.int64).to(torch.uint8)
+    t = torch.arange(24_000, device=cuda)
+    mask = ((t // 720) % 3 != 1).float()
+    outs = {}
+    for pair in (False, True):
+        mod = DmrMod(lead_shape=(4,), pair=pair, device=cuda)
+        outs[pair] = mod(mod.init_state(), bits, mask=mask)[1]["iq"]
+    iq = outs[False]
+    assert torch.equal(outs[True].re, iq.real)
+    assert torch.equal(outs[True].im, iq.imag)
+
+    def power(slot):
+        mid = (slot * 720 + 360) * 125 // 3
+        return float((iq[:, mid - 5000:mid + 5000].abs() ** 2).mean())
+
+    for slot in (1, 4, 7):
+        assert power(slot) < 1e-3 * power(slot + 1), slot
+
+
+FSK4_CHAINS = {"m17": (M17Mod, M17Demod), "m17_ff": (M17Mod, M17DemodFF),
+               "dmr": (DmrMod, DmrDemod), "dmr_ff": (DmrMod, DmrDemodFF)}
+
+
+@pytest.mark.parametrize("name", sorted(FSK4_CHAINS))
+def test_fsk4_chain_on_card_matches_cpu(cuda, gen, name):
+    """The modulator's IQ (2 rows, seeded bits) with noise at 0.05 a
+    plane, two blocks of 25,000 samples, through the demodulator on the
+    card and on the CPU: bits equal; symbols, soft and every state leaf
+    within 2e-5 of their peak (the FIRs' sums round apart on the two);
+    the modulator's IQ on the card and the CPU within 1e-5."""
+    Mod, Demod = FSK4_CHAINS[name]
+    cpu = torch.device("cpu")
+    bits = torch.randint(0, 2, (2, 480), generator=gen, device=cuda,
+                         dtype=torch.int64).to(torch.uint8)
+    iqs = {}
+    for d in (cuda, cpu):
+        mod = Mod(lead_shape=(2,), device=d)
+        iqs[d.type] = mod(mod.init_state(), bits.to(d))[1]["iq"]
+    _assert_peak_close(torch.view_as_real(iqs["cuda"]).cpu(),
+                       torch.view_as_real(iqs["cpu"]), what="iq")
+    iq = iqs["cuda"] + 0.05 * torch.randn(iqs["cuda"].shape, generator=gen,
+                                          device=cuda, dtype=torch.complex64)
+    chains = {d.type: Demod(lead_shape=(2,), device=d) for d in (cuda, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    for blk in range(2):
+        xb = iq[:, blk * 25_000:(blk + 1) * 25_000]
+        outs = {}
+        for d in (cuda, cpu):
+            x = IqPair(xb.real.to(d).contiguous(), xb.imag.to(d).contiguous())
+            states[d.type], outs[d.type] = chains[d.type](states[d.type], x)
+        assert torch.equal(outs["cuda"]["bits"].cpu(), outs["cpu"]["bits"])
+        for k in ("symbols", "soft"):
+            if k in outs["cpu"]:
+                _assert_peak_close(outs["cuda"][k].cpu(), outs["cpu"][k],
+                                   rtol=2e-5, what=k)
+        for i, (a, b) in enumerate(zip(_flatten(states["cuda"], []),
+                                       _flatten(states["cpu"], []))):
+            _assert_peak_close(a.cpu(), b, rtol=2e-5, what=f"state leaf {i}")

@@ -305,8 +305,9 @@ def _up_case(rng, L, M, planes, T, C=2, blocks=2):
 # (L, M): block length; each leaves a ragged last tile that ends inside a
 # job: L 125 M 1, n_pp 850 -> tiles of 432 + 418; L 20 M 1, n_pp 5,000 ->
 # 2,512 + 2,488; L 25 M 4, n_pp 2,001 -> 1,008 + 993 (M 4: a ring of 29
-# registers)
-UP_CASES = {(125, 1): 850, (20, 1): 5000, (25, 4): 8004}
+# registers); L 125 M 3 (the M17 and DMR TX interpolators), n_pp 1,001 ->
+# 336 + 336 + 329 (a ring of 22)
+UP_CASES = {(125, 1): 850, (20, 1): 5000, (25, 4): 8004, (125, 3): 3003}
 
 
 @pytest.mark.parametrize("planes", [1, 2])
@@ -366,6 +367,10 @@ def test_up_tile_widths():
     assert up_tile_times(125, 1, 1600) == 544
     assert up_tile_times(20, 1, 10_000) == 3344
     assert up_tile_times(25, 4, 400) == 400
+    # the M17 and DMR TX shapes: 125/3 over 4,800 samples in 5 tiles of
+    # 320 times (40 jobs a phase, 20 a thread), 5/1 over 960 in one tile
+    assert up_tile_times(125, 3, 1600) == 320
+    assert up_tile_times(5, 1, 960) == 960
 
 
 def test_up_model_follows_the_kernel_source():
@@ -715,3 +720,27 @@ def test_resample_poly_rejects_bad_input():
                  ((x.double(),), taps, 2, 5, (t,))]:
         with pytest.raises(ValueError):
             resample_poly(*args)
+
+
+def test_resample_route_per_phase_where_fir_long_takes_a_phase(rng):
+    """route() gives fir_long_f32, one launch a phase, where a phase's
+    strided FIR is its shape (DMR's 3/125 head, K2091 a phase: 17 rows of
+    125 taps), resample_poly_f32 at M17's (K349) and the NBFM audio
+    resampler's; the DMR head on the CPU records the FIR's plain version
+    once a phase and matches the JAX resampler over two blocks (IqPair)."""
+    from qradiolink_tpu_torch.ops import firdes
+
+    assert route(3, 125, 2091) == cuda_fir.LONG_OP
+    assert route(3, 125, 349) == OP and route(2, 5, 113) == OP
+    # DmrDemod's head (qradiolink_tpu/chains/dmr.py:58)
+    taps = firdes.low_pass(3.0, 3_000_000, 5000.0, 2000.0,
+                           firdes.WIN_BLACKMAN_HARRIS)
+    rs = RationalResampler(3, 125, taps=taps, lead_shape=(2,), device="cpu")
+    assert rs.kp == 2091
+    blocks = [tuple(rng.standard_normal((2, 125 * 45)).astype(np.float32)
+                    for _ in range(2)) for _ in range(2)]
+    kernel_paths.reset()
+    stream_both(JaxResampler(3, 125, taps=taps, lead_shape=(2,)), rs, blocks)
+    assert kernel_paths.report() == {cuda_fir.LONG_OP: {
+        "cuda": 0, "plain": 6,
+        "shapes": {"plain K2091 D125 tail 2x2": 6}}}
