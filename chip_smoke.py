@@ -103,7 +103,8 @@ when the package cannot be imported, and when any phase fails:
     SSB channel filter's 167 complex taps (two launches, one a tap plane,
     then the combine; one complex F.conv1d as the library call) and its
     audio band-pass (K97, real); AmMod's post filter, 963 complex taps
-    over 200,000 samples, the same way; agc2_f32 (the AGC stage in one
+    over 200,000 samples, the same way (its row with "path": null: the
+    path runs that filter as an FFT, 21 below); agc2_f32 (the AGC stage in one
     launch) bit-equal to its plain version (torch.abs, the loop, the
     products) at the SSB (1,600 complex), AM (4,000 real) and 4,000
     complex shapes over two chained blocks and at QPSK250K's (100,000
@@ -127,9 +128,11 @@ when the package cannot be imported, and when any phase fails:
     stage and one under torch.profiler; then WbfmDemod at the same width
     (the head and the audio resampler on fir_cols_f32 once each a step,
     fir_stream_f32 never) and the TX side (SsbMod and NbfmMod on 1,600
-    audio samples a channel a step; then AmMod alone), 3 steps each, their
-    counts read the same way (the interpolators on resample_up_f32 once
-    each a step, resample_poly_f32 never), one more step of each traced;
+    audio samples a channel a step; then AmMod alone, its post filter
+    the FFT form once a step and fir_s1_f32 never at its shape), 3 steps
+    each, their counts read the same way (the interpolators on
+    resample_up_f32 once each a step, resample_poly_f32 never), one more
+    step of each traced;
     then AmDemod at the same width, 3 steps, its AGC (2048 x 4,000 real)
     one launch of agc2_f32 a step, agc2_gain_f32 never;
 10. SsbDemod, AmDemod and WbfmDemod at 4 channels x 2 blocks on the card
@@ -236,13 +239,71 @@ when the package cannot be imported, and when any phase fails:
     bits a row a step, 3 steps (the 5/1 and 125/3 interpolators on
     resample_up_f32, M17's post filter on fir_s1_f32, once each a step;
     resample_poly_f32 and fir_stream_f32 never); a zeroed slot's power
-    below 1e-3 of an open slot's.
+    below 1e-3 of an open slot's;
+21. the FFT form (ops/fir.py, torch.fft) against the direct kernels at
+    every complex-tap filter of more than 96 taps at decimation 1, each at
+    its path's shape, timed in turns: AmMod's post filter K963 at 2048 x
+    200,000, SsbDemod's band-pass (IqPair) and SsbMod's analytic filter
+    K167 at 2048 x 1,600, FreeDvDemod's K167 (IqPair) and FreeDvMod's K133
+    at 256 x 8,000; the FFT within 1e-3 of the direct form's peak
+    (tests/test_fir.py's bound), ops/fir.auto_impl taking the FFT only
+    where it ran faster and AmMod's filter on the faster form; the AM TX
+    step with the post filter forced direct, beside the AM TX path's in 9;
+22. the slice-6 full-width paths, every mode built through
+    models/registry.py: 4FSK2KFB (Fsk4FbDemod) at 14 dB and GMSK2K at
+    12 dB (the JAX tests' SNRs), 2048 channels x 200,000 samples, 3 steps,
+    each row its own transmission from the registry's TX chain through
+    ChannelModel (the modulator's launches counted too); every launch of
+    the run, kernel and shape, exactly as the chains' stages give it
+    (chain_launches: each FIR, resampler, symbol sync and streaming
+    Viterbi at its count a step, and nothing else); BER below 0.02 on 8
+    sampled rows (GMSK: the better of bits and bits_alt); step ms and
+    vs_baseline; one step stage by stage and one traced; 4 rows x 2 steps
+    on the card and the CPU (bits equal; GMSK2K's symbols within 1e-3 of
+    their peak and state leaves within 1e-4, the filter bank's within 0.1
+    and 3e-3, its discriminator flipping where two tone magnitudes tie
+    within a rounding, CVC_TOLS); then each kernel shape of the run
+    (call_capture, captured_rows): each FIR and resampler shape against
+    its plain version on seeded inputs (fir_row, poly_row, with the kernel
+    the route replaced in turns), each loop (the conj-mode and
+    levels-mode sync, the Viterbi) on the path's own inputs bit-equal to
+    one timed call of its plain loop;
+23. MMDVMmulti at its real size: one site, 7 carriers, 250,000 samples a
+    step at 250 ksps, 3 steps, the TX (MmdvmMultiTx, IqPair out) into the
+    RX on IqPair planes, every launch as chain_launches gives it:
+    pfb_channelize_f32 at M 10 and depthwise_fir_f32 at the synthesizer's
+    kp 53 once a step (pfb_fft_f32 and depthwise_run_f32 never); each
+    carrier's tone SNR above 25 dB, carrier 0's tone below 10 dB in
+    carrier 3, a mask zeroing carrier 1 of 3 below 1e-4 of the others' RF
+    power (tests/test_chains_mmdvm.py); the two kernels at M 10 against
+    their plain versions;
+24. the sweep: every other new mode at 256 rows x 2 steps through the
+    registry's TX and RX chains, every launch as chain_launches gives it
+    (the data modes each row's own payload, seeded on the CPU, long enough
+    steps for 2,000 bits or more), the JAX tests' gates on 8 sampled rows:
+    BER (4FSK2K, 4FSK1KFM, 4FSK10KFM, 4FSK100K, 2FSK2K, 2FSK1K, 2FSK10K,
+    2FSK2KFB, 2FSK1KFB, GMSK1K, GMSK10K, clean or at their tests' SNR:
+    each sampled row's decoding stream equal bit for bit to the port's CPU
+    path's on the same IQ, and below the limit but for at most one row of
+    4FSK1KFM, whose JAX chain fails such payloads too,
+    tests/test_torch_fsk.py); BPSKDSSS8 (its four bit streams equal to the
+    CPU path's on the sampled rows of the 256-row run, its symbols and
+    state leaves within CVC_TOLS, then the JAX test's gate on 8 rows of
+    24 s in one block); MMDVM's tone SNR above 30 dB; CW's key-down power
+    above 100 times its key-up power; FreeDV1600USB and FreeDV700DLSB, the
+    DSP ends only, a passband tone's SNR above 25 dB at 10 dB and the card
+    against the CPU on 4 rows x 2 steps within 1e-5; then each kernel
+    shape as in 22: the FIRs and resamplers against their plain versions,
+    the loops (BPSKDSSS8's Costas loop of order 2 and Agc2 among them) on
+    the run's own inputs bit-equal to their plain loops.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -1341,9 +1402,14 @@ def ssb_path(dev, gen):
                                f"non-finite")
     if not float(out["audio"].abs().max()) > 0:
         raise RuntimeError("ssb audio is all zero")
+    from qradiolink_tpu_torch.ops.fir import FFT_OP
+
+    cf = chain.chan_filter
     require_shapes(report, {
         ("fir_long_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
-        ("fir_s1_f32", f"K{chain.chan_filter.ntaps} D1 tail 2x{N_CH}"): 2,
+        (FFT_OP, f"K{cf.ntaps} D1 2x{N_CH}") if cf.form(False) == "fft"
+        else ("fir_s1_f32", f"K{cf.ntaps} D1 tail 2x{N_CH}"): (
+            1 if cf.form(False) == "fft" else 2),
         ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1,
         ("agc2_f32", f"complex {N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb",
         never=("fir_stream_f32", "agc2_gain_f32"))
@@ -1362,8 +1428,10 @@ def ssb_path(dev, gen):
     x = timed(stages, "resampler 1/125 (fir_long_f32 K5597 D125)",
               lambda: seq(chain.resamp, iq))
     x = timed(stages, "x0.9", lambda: 0.9 * x)
-    x = timed(stages, "channel band-pass (fir_s1_f32 K167 complex, 2 "
-              "launches)", lambda: seq(chain.chan_filter, x))
+    x = timed(stages, f"channel band-pass (K{cf.ntaps} complex, "
+              + ("FFT)" if cf.form(False) == "fft"
+                 else "fir_s1_f32, 2 launches)"),
+              lambda: seq(chain.chan_filter, x))
     timed(stages, "rssi", lambda: rssi_dbm(x))
     x = timed(stages, "power squelch", lambda: seq(chain.squelch, x))
     x = timed(stages, "agc (agc2_f32)", lambda: seq(chain.agc, x))
@@ -1468,17 +1536,28 @@ def am_tx_path(dev, gen):
     resample_up_f32 once a step, resample_poly_f32 never; complex64 IQ of
     200,000 samples a channel out; then one more step under
     torch.profiler. Returns the report."""
+    from qradiolink_tpu_torch.ops.fir import FFT_OP
+
     am = am_modulator(dev)
     audio = tx_audio(dev, gen)
-    state, outs, step_s, report = drive(am, am.init_state(),
-                                        [audio] * N_STEPS, TX_EVERY_STEP)
+    fft = am.post_filter.form(True) == "fft"
+    state, outs, step_s, report = drive(
+        am, am.init_state(), [audio] * N_STEPS,
+        TX_EVERY_STEP + ((FFT_OP,) if fft else ()))
     iq = outs[-1]["iq"]
     if tuple(iq.shape) != (N_CH, T_STEP) or iq.dtype != torch.complex64 \
             or not bool(torch.isfinite(torch.view_as_real(iq)).all()):
         raise RuntimeError("am tx iq: wrong shape, dtype or non-finite")
-    require_shapes(report, {
-        ("resample_up_f32", f"L125 K{am.up.kp} D1 tail 1x{N_CH}"): 1},
-        N_STEPS, "am_tx", never=("resample_poly_f32",))
+    pf = am.post_filter
+    want = {("resample_up_f32", f"L125 K{am.up.kp} D1 tail 1x{N_CH}"): 1}
+    if fft:
+        want[(FFT_OP, f"K{pf.ntaps} D1 2x{N_CH}")] = 1
+    require_shapes(report, want, N_STEPS, "am_tx",
+                   never=("resample_poly_f32",))
+    direct_key = f"cuda K{pf.ntaps} D1 tail 2x{N_CH}"
+    if fft and report.get("fir_s1_f32", {}).get("shapes", {}).get(
+            direct_key):
+        raise RuntimeError("am_tx: the post filter launched fir_s1_f32")
     print(f"  {step_times(step_s, N_CH * T_STEP)} (IQ samples out)",
           flush=True)
     trace_step("one more step", lambda: am(state, audio))
@@ -1785,12 +1864,16 @@ def analog_rows(dev, gen):
                     (randn(N_CH, n_in),), ar.phase_taps[0], ar.M,
                     n_in // ar.M, (st[:, 0, :],), "wbfm")
     rows += complex_fir_row("ssb_chan_bp", k1, ssb.chan_filter, N_CH,
-                            AUDIO_PER_STEP, "ssb", dev, gen)
+                            AUDIO_PER_STEP, "ssb", dev, gen,
+                            routed=ssb.chan_filter.form(False) == "conv")
     # AmMod's post filter: 963 complex taps over its 200,000 IQ samples a
-    # step in direct form, most of the AM TX step
-    rows += complex_fir_row("am_post_filter", k1,
-                            am_modulator(dev).post_filter, N_CH, T_STEP,
-                            "am_tx", dev, gen)
+    # step in direct form; ops/fir.auto_impl gives it the FFT form, so no
+    # path launches the direct kernels at this shape (fft_route_phase times
+    # the two forms in turns)
+    am_pf = am_modulator(dev).post_filter
+    rows += complex_fir_row("am_post_filter", k1, am_pf, N_CH, T_STEP,
+                            "am_tx", dev, gen,
+                            routed=am_pf.form(True) == "conv")
     af = ssb.audio_filter
     st = randn(N_CH, 2, af.ntaps - 1)
     rows += fir_row("ssb_audio_bp", "qradiolink_tpu/ops/pallas_fir.py:111",
@@ -3332,51 +3415,1317 @@ def fsk4_tx_path(dev, gen):
     return report
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
+# -- slice 6: the remaining modems (FSK family, DSSS, CW, FreeDV's DSP ends,
+# MMDVM) through the registry, and AmMod's FFT post filter ------------------
+SWEEP_ROWS = 256
+SWEEP_STEPS = 2
+SAMPLE_ROWS = 8            # rows whose bits the BER gates read
+FB_SNR_DB = 14.0           # tests/test_fsk4_variants.py:49-51
+GMSK_SNR_DB = 12.0         # tests/test_chains_digital.py:126-133
+# payload bytes of the slice's data modes come from a CPU generator seeded
+# with PAYLOAD_SEED, one a run: row r of step i is row r of the i-th (rows,
+# bytes) draw, so any row's payload can be made again off the card
+PAYLOAD_SEED = 41
+# the full-width paths: mode -> (bytes a row a step, channel SNR dB)
+FULL_PATHS = {"4FSK2KFB": (50, FB_SNR_DB), "GMSK2K": (25, GMSK_SNR_DB)}
+# the card against the CPU on these paths (bits equal on both): mode ->
+# (symbols' bound, state leaves' bound), relative to each one's peak.
+# GMSK2K: the M17/DMR symbol bound above (measured 2.4e-5); its state
+# leaves 1e-4, as the sync carries its last symbol (y_prev, 2.4e-5; the
+# other leaves 1.0e-5). The filter bank's discriminator takes a tone only
+# on a strict maximum of four magnitudes, and where two magnitudes lie
+# within a rounding of each other (the card's fir_s1_f32 and the CPU's
+# F.conv1d sum apart) its point flips to another corner, 1.41 away, before
+# the K837 symbol LP: 4FSK2KFB's symbols within 0.1 (measured 4.5e-2 over 4
+# rows x 2 steps), its state leaves within 3e-3 (1.2e-3: the soft values
+# and path metrics the symbols feed). BPSKDSSS8 (the sampled rows of the
+# sweep run): the FIRs' sums round apart on the card and the CPU, and the
+# Costas loop, AGC and fold carry that; its bounds are FSK4_SYM_TOL and
+# FSK4_TOL
+CVC_TOLS = {"4FSK2KFB": (0.1, 3e-3), "GMSK2K": (FSK4_SYM_TOL, 1e-4),
+            "BPSKDSSS8": (FSK4_SYM_TOL, FSK4_TOL)}
+# the sweep's data modes: mode -> (samples a step, bytes a row a step,
+# channel SNR dB or None, BER limit), the JAX tests' loopback gates
+# (tests/test_chains_digital.py, tests/test_fsk4_variants.py); each step
+# long enough that [n/2, 7n/8) of 2 steps' bits lies past the chain's delay
+SWEEP_MODES = {
+    "4FSK2K": (500_000, 125, 12.0, 0.02),
+    "4FSK1KFM": (1_000_000, 125, None, 0.01),
+    "4FSK10KFM": (200_000, 250, None, 0.01),
+    "4FSK100K": (200_000, 2500, 14.0, 0.02),
+    "2FSK2K": (1_000_000, 125, None, 0.01),
+    "2FSK1K": (2_000_000, 125, None, 0.01),
+    "2FSK10K": (200_000, 250, None, 0.01),
+    "2FSK2KFB": (1_000_000, 125, None, 0.01),
+    "2FSK1KFB": (2_000_000, 125, None, 0.01),
+    "GMSK1K": (2_000_000, 125, GMSK_SNR_DB, 0.02),
+    "GMSK10K": (200_000, 250, GMSK_SNR_DB, 0.02),
+}
+# sampled rows a sweep mode may have at or above its BER limit, where the
+# JAX chain is shown to fail the same payloads: 4FSK1KFM's M&M loop slips
+# on some random payloads on a clean channel, and
+# tests/test_torch_fsk.py::test_4fsk1kfm_slips_as_the_jax_chain holds the
+# port's bits to the JAX chain's on such rows (PAYLOAD_SEED 41: rows 45,
+# 138, 198 of 256). Every other mode: none.
+SLIP_WITNESSED = {"4FSK1KFM": 1}
+DSSS_T = 250_000           # a multiple of 62,500 holding whole soft pairs
+DSSS_GATE_BYTES = 24       # tests/test_chains_dsss_cw.py: 24 s of signal
+FREEDV_T = 1_000_000       # 1 s a step: 8,000 passband samples
+MMDVM_T = 250_000          # 1 s at 250 ksps: 24,000 audio samples
+CW_T = 200_000             # 1,600 key samples at 8 kHz
+# FreeDV's passband tone through FreeDvMod -> ChannelModel -> FreeDvDemod
+# (tests/test_torch_freedv_mmdvm.py): SNR above 25 dB at 10 dB
+FREEDV_SNR_DB, FREEDV_TONE_DB = 10.0, 25.0
+FREEDV_TOL = 1e-5          # card against CPU, relative to the peak
+MULTI_C = 7
+AM_FFT_TOL = 1e-3          # tests/test_fir.py:66-70, FFT against direct
+# the loop kernels: op -> (source, the TPU-era function it replaces)
+LOOP_SOURCE = {
+    "costas_loop_f32": ("qradiolink_tpu_torch/csrc/costas.cu",
+                        "qradiolink_tpu/sync/costas.py:64"),
+    "symbol_sync_mm_f32": ("qradiolink_tpu_torch/csrc/symbol_sync.cu",
+                           "qradiolink_tpu/sync/symbol_sync.py:152"),
+    "viterbi_stream_k7": ("qradiolink_tpu_torch/csrc/viterbi_stream.cu",
+                          "qradiolink_tpu/fec/conv.py:217"),
+    "agc2_f32": ("qradiolink_tpu_torch/csrc/agc2.cu",
+                 "qradiolink_tpu/ops/agc.py:51")}
+
+
+@contextlib.contextmanager
+def call_capture():
+    """While active, records every FIR (ops/cuda_fir.fir_stream, as
+    FirFilter and the L = 1 resampler call it), every resampler
+    (ops/cuda_resample.resample_poly) and every loop kernel call (the
+    Costas loop, the symbol sync, Agc2 and the streaming Viterbi as their
+    blocks call them): {(kernel, shape key): [calls, meta]}, meta enough to
+    build the same shape again (FIRs, resamplers: taps, stride, rows,
+    planes, lengths) or the first call's own inputs (loops: the wrapper
+    and a copy of its arguments)."""
+    from qradiolink_tpu_torch.fec import conv
+    from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
+    from qradiolink_tpu_torch.ops import agc as agc_mod
+    from qradiolink_tpu_torch.ops import cuda_agc, cuda_fir, cuda_resample
+    from qradiolink_tpu_torch.ops import fir as fir_mod
+    from qradiolink_tpu_torch.ops import resample as rs_mod
+    from qradiolink_tpu_torch.sync import costas as costas_mod
+    from qradiolink_tpu_torch.sync import cuda_costas as cc
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+    from qradiolink_tpu_torch.sync import symbol_sync as ss_mod
+
+    seen = {}
+    orig_fs, orig_rp = cuda_fir.fir_stream, cuda_resample.resample_poly
+
+    def note(key, meta):
+        seen.setdefault(key, [0, meta])[0] += 1
+
+    def fs(xs, taps_flipped, stride, n_out, tails=None, shift=0):
+        K = taps_flipped.shape[0]
+        if shift == 0:
+            note((cuda_fir.route(K, stride),
+                  cuda_fir.shape_key(xs, K, stride, tails)),
+                 dict(kind="fir", taps=taps_flipped, stride=stride,
+                      n_out=n_out, planes=len(xs),
+                      lead=tuple(xs[0].shape[:-1]), T=xs[0].shape[-1],
+                      tail=tails is not None))
+        return orig_fs(xs, taps_flipped, stride, n_out, tails=tails,
+                       shift=shift)
+
+    def rp(xs, phase_taps, L, M, tails):
+        K = phase_taps.shape[1]
+        note((cuda_resample.route(L, M, K),
+              cuda_resample.shape_key(xs, L, K, M)),
+             dict(kind="poly", taps=phase_taps, L=L, M=M,
+                  planes=len(xs), lead=tuple(xs[0].shape[:-1]),
+                  T=xs[0].shape[-1]))
+        return orig_rp(xs, phase_taps, L, M, tails)
+
+    # the loops: (module, name, kernel, key of a call's arguments)
+    loops = [(costas_mod, "costas_loop", cc.OP,
+              lambda a: cc.shape_key(a[0], a[3])),
+             (ss_mod, "symbol_sync", css.OP,
+              lambda a: css.shape_key(a[0].shape[0], a[1].shape[-1], a[6],
+                                      a[7])),
+             (agc_mod, "agc2", cuda_agc.OP_FUSED,
+              lambda a: cuda_agc.fused_key(a[0])),
+             (conv, "viterbi_stream", vsc.OP,
+              lambda a: vsc.shape_key(a[3], a[2].shape[1]))]
+    origs = [getattr(mod, name) for mod, name, _, _ in loops]
+
+    def loop(fn, op, key_of):
+        def call(*args):
+            key = (op, key_of(args))
+            if key not in seen:
+                seen[key] = [0, dict(kind="loop", fn=fn, args=tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args))]
+            seen[key][0] += 1
+            return fn(*args)
+        return call
+
+    fir_mod.fir_stream = rs_mod.fir_stream = fs
+    rs_mod.resample_poly = rp
+    for (mod, name, op, key_of), fn in zip(loops, origs):
+        setattr(mod, name, loop(fn, op, key_of))
+    try:
+        yield seen
+    finally:
+        fir_mod.fir_stream = rs_mod.fir_stream = orig_fs
+        rs_mod.resample_poly = orig_rp
+        for (mod, name, _, _), fn in zip(loops, origs):
+            setattr(mod, name, fn)
+
+
+def fir_launches(f, planes, rows, complex_in=False):
+    """{(kernel, shape key): launches} of one call of FirFilter f on
+    `planes` planes of `rows` rows (complex_in: a complex tensor, not an
+    IqPair or real planes): the FFT form once, or the routed kernel once a
+    tap plane (two for complex taps)."""
+    from qradiolink_tpu_torch.ops import cuda_fir
+    from qradiolink_tpu_torch.ops.fir import FFT_OP
+
+    K, D = f.ntaps, f.decim
+    if f.form(complex_in) == "fft":
+        return {(FFT_OP, f"K{K} D{D} {planes}x{rows}"): 1}
+    return {(cuda_fir.route(K, D), f"K{K} D{D} tail {planes}x{rows}"):
+            len(f.tap_planes)}
+
+
+def rs_launches(rs, planes, rows):
+    """{(kernel, shape key): launches} of one call of RationalResampler rs:
+    at L 1 the routed strided FIR once; else the routed resampler once, or
+    fir_long_f32 once a phase."""
+    from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
+
+    if rs.L == 1:
+        return {(cuda_fir.route(rs.kp, rs.M),
+                 f"K{rs.kp} D{rs.M} tail {planes}x{rows}"): 1}
+    op = cuda_resample.route(rs.L, rs.M, rs.kp)
+    if op == cuda_fir.LONG_OP:
+        return {(op, f"K{rs.kp} D{rs.M} tail {planes}x{rows}"): rs.L}
+    return {(op, f"L{rs.L} K{rs.kp} D{rs.M} tail {planes}x{rows}"): 1}
+
+
+def chain_launches(chain, rows, T=0):
+    """{(kernel, shape key): launches} of one call of a slice-6 chain at
+    `rows` rows, stage by stage from its blocks (the keys of the launch
+    report); T: an RX chain's input samples a row, which set its loops'
+    shapes. IQ between stages is an IqPair or a complex tensor (2 planes),
+    FM audio, quadrature output and soft ratios real (1)."""
+    from collections import Counter
+    from qradiolink_tpu_torch.chains import dsss, freedv, fsk, mmdvm
+    from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
+    from qradiolink_tpu_torch.ops import cuda_agc, cuda_pfb
+    from qradiolink_tpu_torch.ops import cuda_depthwise as dw
+    from qradiolink_tpu_torch.sync import cuda_costas as cc
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+
+    w = Counter()
+
+    def fir(f, planes, complex_in=False, n=rows):
+        w.update(fir_launches(f, planes, n, complex_in))
+
+    def rs(r, planes, n=rows):
+        w.update(rs_launches(r, planes, n))
+
+    def sync_fec(mode, t, streams, per_sym):
+        """The symbol sync on t samples and the Viterbi on `streams` x rows
+        rows of per_sym soft pairs a symbol."""
+        n = int(round(t / chain.symbol_sync.sps))
+        w[(css.OP, css.shape_key(rows, t, n, mode))] += 1
+        w[(vsc.OP, f"R{streams * rows} T{int(n * per_sym)} "
+                   f"lag{chain.fec_tail.viterbi.lag}")] += 1
+
+    c = chain
+    if isinstance(c, fsk.Fsk4Mod):
+        rs(c.shaper, 1)
+        rs(c.up1, 2)
+        if c.up2 is not None:
+            rs(c.up2, 2)
+    elif isinstance(c, fsk._BinaryFskModBase):
+        rs(c.shaper, 1)
+        rs(c.up, 2)
+    elif isinstance(c, dsss.DsssBpskMod):
+        rs(c.shaper, 2)
+        fir(c.post, 2, True)
+        rs(c.up_if, 2)
+        rs(c.up_rf, 2)
+    elif isinstance(c, dsss.CwMod):
+        fir(c.key_filter, 1)
+        fir(c.ssb.audio_filter, 1)
+        fir(c.ssb.analytic, 2, True)
+        rs(c.ssb.up, 2)
+    elif isinstance(c, freedv.FreeDvMod):
+        fir(c.chan_filter, 2, True)
+        rs(c.up, 2)
+    elif isinstance(c, mmdvm.MmdvmMod):
+        fir(c.post, 2)
+        rs(c.up, 2)
+    elif isinstance(c, mmdvm.MmdvmMultiTx):
+        fir(c.chan_filter, 2, n=c.C)
+        rs(c.resamp, 2, n=c.C)
+        M, kp = c.synthesizer._bt_flipped.shape
+        w[(dw.OP, f"C{M} kp{kp} tail")] += 1
+    elif isinstance(c, mmdvm.MmdvmMultiRx):
+        w[(cuda_pfb.OP, f"M{c.channelizer.M} kp{c.channelizer.kp}")] += 1
+        rs(c.resamp, 2, n=c.C)
+        fir(c.chan_filter, 2, n=c.C)
+    elif isinstance(c, mmdvm.MmdvmDemod):
+        rs(c.resamp, 2)
+        fir(c.chan_filter, 2)
+    elif isinstance(c, freedv.FreeDvDemod):
+        rs(c.resamp, 2)
+        fir(c.chan_filter, 2)
+        w[(cuda_agc.OP_FUSED, f"real {rows}x{T // c.resamp.M}")] += 1
+        fir(c.audio_filter, 1)
+    elif isinstance(c, dsss.DsssBpskDemod):
+        rs(c.resamp, 2)
+        rs(c.resamp_if, 2)
+        t = T // c.resamp.M * c.resamp_if.L // c.resamp_if.M
+        w[(cc.OP, f"order{c.costas_freq.order} {rows}x{t}")] += 1
+        fir(c.chan_filter, 2, True)
+        w[(cuda_agc.OP_FUSED, f"complex {rows}x{t}")] += 1
+        fir(c.matched, 2, True)
+        w[(vsc.OP, f"R{4 * rows} T{t // dsss.BIT_SAMPLES // 2} "
+                   f"lag{c.fec_tail.viterbi.lag}")] += 1
+    else:
+        rs(c.resamp, 2)
+        fir(c.chan_filter, 2)
+        t = T // c.resamp.M * c.resamp.L
+        if isinstance(c, fsk.Fsk4Demod):
+            fir(c.shaping, 1)
+            sync_fec(css.MODE_LEVELS, t, 1, 1)
+        elif isinstance(c, fsk.Fsk4FbDemod):
+            for f in c.tone_bank:
+                fir(f, 2)
+            fir(c.symbol_filter, 2, True)
+            sync_fec(css.MODE_CONJ, t, 1, 1)
+        elif isinstance(c, fsk._BinaryFskDemodBase):
+            fir(c.shaping, 1)
+            sync_fec(css.MODE_LEVELS, t, 2, 0.5)
+        elif isinstance(c, fsk.Fsk2FbDemod):
+            fir(c.lower, 2)
+            fir(c.upper, 2)
+            fir(c.symbol_filter, 1)
+            sync_fec(css.MODE_LEVELS, t, 2, 0.5)
+        else:
+            raise TypeError(f"no launch table for {type(c).__name__}")
+    return w
+
+
+def times(launches, n):
+    """Each count of a launch table n times (n calls), a Counter."""
+    from collections import Counter
+
+    return Counter({k: v * n for k, v in launches.items()})
+
+
+def require_exactly(report, want, run):
+    """The `run` path launched each (kernel, shape key) of `want` exactly
+    its count of times and no other kernel or shape on the card: a stage
+    that launched twice, or not at all, or at another shape, fails."""
+    from collections import Counter
+
+    got = {(op, k[len("cuda "):]): n for op, r in report.items()
+           for k, n in r.get("shapes", {}).items()
+           if k.startswith("cuda ") and n}
+    want = dict(Counter(want))
+    if got != want:
+        diff = {f"{op} {key}": (got.get((op, key), 0), n) for (op, key), n
+                in {**got, **want}.items()
+                if got.get((op, key), 0) != want.get((op, key), 0)}
+        raise RuntimeError(f"{run}: launches (got, want) differ from the "
+                           f"chains' launch table: {diff}")
+    print(f"  {run}: every launch as the chains' stages give it: "
+          + ", ".join(f"{op} {key} x{n}" for (op, key), n in want.items()),
+          flush=True)
+
+
+def loop_capture_row(op, key, meta, run):
+    """A loop kernel's row at a path's shape, on the arguments its first
+    call there had (call_capture): loop_row, bit-equal to the plain loop;
+    bytes: each input read once and each output written once, operations
+    as psk_rows and agc_rows count them."""
+    from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
+    from qradiolink_tpu_torch.ops import cuda_agc
+    from qradiolink_tpu_torch.sync import cuda_costas as cc
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+
+    fn, a = meta["fn"], meta["args"]
+    if op == cc.OP:
+        x = a[0]
+        C, T = math.prod(x.shape[:-1]), x.shape[-1]
+
+        def plain():
+            r = cc.costas_loop_plain(x.real, x.imag, *a[1:])
+            return (torch.complex(r[0], r[1]),) + r[2:]
+        b = (2 * 8 * C * T + 16 * C, 60 * C * T)
+    elif op == css.OP:
+        tail, x = a[:2]
+        C, T, n = x.shape[0], x.shape[-1], a[6]
+
+        def plain():
+            xc = torch.cat([tail, x.to(torch.complex64)], dim=-1)
+            r = css.symbol_sync_plain(xc.real.contiguous(),
+                                      xc.imag.contiguous(), *a[2:])
+            return (torch.complex(r[0], r[1]),) + r[2:]
+        planes = 2 if x.is_complex() else 1
+        b = (4 * C * (planes * T + 2 * tail.shape[-1]) + 8 * C * n,
+             60 * C * n)
+    elif op == vsc.OP:
+        soft, lag = a[3], a[2].shape[1]
+        C, pairs = soft.shape[0], soft.shape[1]
+        S = pairs + lag
+
+        def plain():
+            return vsc.viterbi_stream_plain(*a)
+        b = (C * (8 * S + 2 * 8 * S + pairs + 2 * 4 * 64), 10 * 64 * C * S)
+    else:
+        x = a[0]
+        n, cplx = x.numel(), x.is_complex()
+        C = n // x.shape[-1]
+
+        def plain():
+            return cuda_agc.agc2_plain(*a)
+        b = ((16 if cplx else 8) * n + 8 * C,
+             ((12 + 2) if cplx else 2) * n + 7 * n)
+    src, where = LOOP_SOURCE[op]
+    return loop_row(f"{op}/{run}", src, where, lambda: fn(*a), plain, *b,
+                    run, key)
+
+
+def captured_rows(seen, want, run, done, dev, gen):
+    """A row for each kernel shape of `run` that call_capture saw in its
+    first step and no earlier row has: a FIR or resampler shape's routed
+    kernel on seeded inputs of that shape against its plain version
+    (fir_row, poly_row: F.conv1d beside, and the kernel the route replaced
+    in turns where there is one), a loop's on the path's own inputs
+    against its plain loop (loop_capture_row). Each row on the path must
+    have launched want[(kernel, shape)] times in the run."""
+    from qradiolink_tpu_torch.ops import cuda_fir
+
+    rows = []
+    for (op, key), (_, meta) in seen.items():
+        if (op, key) not in want:
+            raise RuntimeError(f"{run}: {op} at {key} is not in the launch "
+                               f"table")
+        if (op, key) in done:
+            continue
+        done.add((op, key))
+        name = f"{run} {key}"
+        if meta["kind"] == "loop":
+            new = [loop_capture_row(op, key, meta, run)]
+        elif meta["kind"] == "poly":
+            new = poly_row(name, types.SimpleNamespace(
+                L=meta["L"], M=meta["M"], kp=meta["taps"].shape[1],
+                poly_taps=meta["taps"]), meta["planes"],
+                math.prod(meta["lead"]), meta["T"], run, dev, gen)
+        else:
+            C = math.prod(meta["lead"])
+            K, D = meta["taps"].shape[0], meta["stride"]
+            xs = tuple(torch.randn((C, meta["T"]), generator=gen,
+                                   device=dev) for _ in range(meta["planes"]))
+            tails = None
+            if meta["tail"]:
+                st = torch.randn((C, 2, K - 1), generator=gen, device=dev)
+                tails = (st[:, 0, :], st[:, 1, :])[:meta["planes"]]
+            new = fir_row(name, "qradiolink_tpu/ops/pallas_fir.py:"
+                          + ("111" if D == 1 else "218"), xs, meta["taps"],
+                          D, meta["n_out"], tails, run)
+            if op != cuda_fir.route(K, D):
+                raise RuntimeError(f"{name}: captured {op}")
+            del xs, tails
+        for r in new:
+            if r["path"] is not None:
+                r["want"] = want[(op, key)]
+        rows += new
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rx_planes(iq):
+    """An IqPair of contiguous planes from a TX chain's output."""
+    from qradiolink_tpu_torch.core import IqPair
+
+    if isinstance(iq, IqPair):
+        return IqPair(iq.re.contiguous(), iq.im.contiguous())
+    return IqPair(iq.real.contiguous(), iq.imag.contiguous())
+
+
+def sampled_rows(n_rows):
+    """SAMPLE_ROWS rows spread over n_rows."""
+    return torch.linspace(0, n_rows - 1, min(SAMPLE_ROWS, n_rows)).long()
+
+
+def mode_ber(outs, sent, rows):
+    """The steady-state BER of each sampled row, the least over `bits` and
+    `bits_alt` where the chain has both."""
+    keys = [k for k in ("bits", "bits_alt", "bits_inv", "bits_alt_inv")
+            if k in outs[0]]
+    bers = [best_ber_rows(psk_bits(outs, k)[rows].cpu(), sent[rows].cpu(),
+                          400) for k in keys]
+    return torch.stack(bers).min(dim=0).values
+
+
+def payloads(rows, n_bytes):
+    """Draw i: (rows, n_bytes) payload bytes, on the CPU (PAYLOAD_SEED)."""
+    g = torch.Generator()
+    g.manual_seed(PAYLOAD_SEED)
+    while True:
+        yield torch.randint(0, 256, (rows, n_bytes), generator=g,
+                            dtype=torch.int64).to(torch.uint8)
+
+
+def data_source(mode, rows, T, n_bytes, snr, seed, dev, sent):
+    """Step i's RX input of a data mode: the i-th payload draw (payloads())
+    through the registry's TX chain of `mode` at `rows` rows and
+    ChannelModel at snr dB (None: clean; seed: its noise's), T samples a
+    row (checked); each step's bits are appended to `sent` (CPU). Returns
+    (TX chain, source)."""
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.chains.digital_common import bytes_to_bits
+    from qradiolink_tpu_torch.models import registry
+
+    tx = registry.tx_chain(mode, lead_shape=(rows,), device=dev)
+    chan = ChannelModel(1_000_000, snr_db=snr, seed=seed)
+    draws = payloads(rows, n_bytes)
+    st = [tx.init_state()]
+
+    def source(i):
+        d = next(draws)
+        sent.append(bytes_to_bits(d))
+        st[0], out = tx(st[0], d.to(dev))
+        iq = rx_planes(chan(out["iq"]) if snr is not None else out["iq"])
+        if iq.re.shape[-1] != T:
+            raise RuntimeError(f"{mode}: {iq.re.shape[-1]} IQ samples a "
+                               f"step, not {T}")
+        return iq
+    return tx, source
+
+
+def run_steps(rx, steps, source, keep=None):
+    """`steps` steps of the RX chain `rx` (None: a TX-only mode, whose
+    source's output is the result), step i's input source(i) made just
+    before it; the first step under call_capture, the RX step timed. keep:
+    True keeps each step's RX input, a tensor of row indices those rows'
+    on the CPU. Returns (captured calls, RX state, outputs, inputs kept,
+    RX step seconds)."""
+    from qradiolink_tpu_torch.core import IqPair
+
+    rs = rx.init_state() if rx is not None else None
+    seen, outs, iqs, step_s = {}, [], [], []
+    for i in range(steps):
+        with (call_capture() if i == 0 else contextlib.nullcontext()) as s:
+            iq = source(i)
+            if rx is None:
+                y = iq
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rs, y = rx(rs, iq)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        if s is not None:
+            seen.update(s)
+        outs.append(y)
+        if keep is True:
+            iqs.append(iq)
+        elif keep is not None:
+            iqs.append(IqPair(iq.re[keep].cpu(), iq.im[keep].cpu()))
+        del iq
+    return seen, rs, outs, iqs, step_s
+
+
+def finite(name, out):
+    """Every float output of a chain finite."""
+    from qradiolink_tpu_torch.core import IqPair
+
+    for k, v in out.items():
+        for p in (v if isinstance(v, IqPair) else (v,)):
+            if p.is_complex():
+                p = torch.view_as_real(p)
+            if p.is_floating_point() and not bool(torch.isfinite(p).all()):
+                raise RuntimeError(f"{name}: {k} not finite")
+
+
+def run_report(name, steps):
+    """The launch report since the last reset; raises if a stage took a
+    plain path on the card."""
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    report = kernel_paths.report()
+    print(f"  kernel paths over {steps} steps: {json.dumps(report)}",
+          flush=True)
+    if not kernel_paths.served_only():
+        raise RuntimeError(f"{name}: a stage took the plain path on the card")
+    return report
+
+
+def cpu_twin(mode, iqs):
+    """The port's CPU path of `mode` on the kept RX inputs (CPU IqPairs of
+    n rows, one a step): (outputs a step, final state)."""
+    from qradiolink_tpu_torch.models import registry
+
+    cpu = registry.rx_chain(mode, lead_shape=(iqs[0].re.shape[0],),
+                            device="cpu")
+    st, outs = cpu.init_state(), []
+    for iq in iqs:
+        st, y = cpu(st, iq)
+        outs.append(y)
+    return outs, st
+
+
+def rel_diffs(pairs, diffs):
+    """For each (name, card, CPU) tensor pair, max |card - CPU| over the
+    CPU's peak (at least 1), the largest so far kept in diffs[name]."""
+    for name, a, b in pairs:
+        a = a.cpu()
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        d = float((a.double() - b.double()).abs().max()) if a.numel() \
+            else 0.0
+        peak = max(float(b.abs().max()) if b.numel() else 0.0, 1.0)
+        diffs[name] = max(diffs.get(name, (0.0, peak)), (d / peak, peak))
+    return diffs
+
+
+def check_diffs(mode, diffs, what):
+    """Prints diffs (rel_diffs) and holds the symbols and every state leaf
+    to CVC_TOLS[mode]."""
+    print(f"  {mode} card vs CPU, {what}: bits equal; max |diff| / peak: "
+          + ", ".join(f"{k} {v[0]:.2e}" for k, v in diffs.items()),
+          flush=True)
+    sym_tol, tol = CVC_TOLS[mode]
+    bad = {k: v for k, v in diffs.items() if not v[0] <= (
+        sym_tol if k == "symbols" else tol)}
+    if bad:
+        raise RuntimeError(f"{mode} card vs CPU beyond the bound: {bad}")
+
+
+def sweep_data_mode(mode, dev, gen, done):
+    """A data mode of the sweep at SWEEP_ROWS rows: TX -> ChannelModel ->
+    RX for SWEEP_STEPS steps, the counters zeroed before and read after,
+    every launch as chain_launches gives it; every output finite. On
+    SAMPLE_ROWS rows the port's CPU path runs on the same IQ (the parity
+    tests hold it to the JAX chain's bits): each row's decoding stream
+    (its best) has the same bits on the card and the CPU, and its BER is
+    below the JAX test's limit, but for at most SLIP_WITNESSED[mode] rows
+    (a mode whose JAX chain is shown to fail such payloads). Then the rows
+    of its kernel shapes. Returns (report, rows)."""
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    T, n_bytes, snr, limit = SWEEP_MODES[mode]
+    rows = sampled_rows(SWEEP_ROWS)
+    sent = []
+    tx, source = data_source(mode, SWEEP_ROWS, T, n_bytes, snr, 41, dev,
+                             sent)
+    rx = registry.rx_chain(mode, lead_shape=(SWEEP_ROWS,), device=dev)
+    kernel_paths.reset()
+    seen, _, outs, iqs, step_s = run_steps(rx, SWEEP_STEPS, source,
+                                           keep=rows.to(dev))
+    report = run_report(mode, SWEEP_STEPS)
+    run = f"sweep_{mode}"
+    want = times(chain_launches(rx, SWEEP_ROWS, T) + chain_launches(
+        tx, SWEEP_ROWS), SWEEP_STEPS)
+    require_exactly(report, want, run)
+    for out in outs:
+        finite(mode, out)
+    ref, _ = cpu_twin(mode, iqs)
+    keys = [k for k in ("bits", "bits_alt") if k in ref[0]]
+    card = {k: psk_bits(outs, k)[rows].cpu() for k in keys}
+    host = {k: psk_bits(ref, k) for k in keys}
+    sent = torch.cat(sent, dim=-1)[rows]
+    # a row decodes on its best stream (the binary chains' other pairing
+    # decodes misaligned pairs, whose Viterbi decisions tie and flip on a
+    # rounding)
+    ber_card = torch.stack([best_ber_rows(card[k], sent, 400) for k in keys])
+    best = ber_card.argmin(dim=0)
+    bers = ber_card.min(dim=0).values
+    ber_report(f"{mode} ({'clean' if snr is None else f'{snr} dB'})", bers)
+    fails = []
+    for j in range(len(rows)):
+        k = keys[int(best[j])]
+        if not torch.equal(card[k][j], host[k][j]):
+            raise RuntimeError(f"{mode}: row {int(rows[j])}'s {k} differ "
+                               f"between the card and the CPU")
+        if not bers[j] < limit:
+            fails.append(int(rows[j]))
+    print(f"  {mode}: on {len(rows)} rows the decoding stream's bits equal "
+          f"on the card and the CPU; rows at or above the JAX test's BER "
+          f"limit {limit}: {fails} of payload seed {PAYLOAD_SEED} (per row "
+          f"{[round(float(b), 4) for b in bers]})", flush=True)
+    if len(fails) > SLIP_WITNESSED.get(mode, 0):
+        raise RuntimeError(f"{mode}: rows {fails} fail")
+    print(f"  {mode}: RX {step_times(step_s, SWEEP_ROWS * T)}", flush=True)
+    del outs, iqs
+    torch.cuda.empty_cache()
+    return report, captured_rows(seen, want, run, done, dev, gen)
+
+
+def dsss_mode(dev, gen, done):
+    """BPSKDSSS8 at SWEEP_ROWS rows x SWEEP_STEPS steps of DSSS_T (4 coded
+    bits a step): one payload byte a row (1 s of IQ) through the TX once,
+    its IQ cut into the RX's steps; every launch as chain_launches gives
+    it, outputs finite. On the SAMPLE_ROWS sampled rows the port's CPU path
+    runs on the same IQ: the four bit streams equal, the symbols and every
+    state leaf (the card's cut to those rows) within CVC_TOLS. Then the
+    JAX test's gate on SAMPLE_ROWS rows: DSSS_GATE_BYTES bytes a row (24 s
+    of IQ) in one block, the best of the four streams below 1% BER over
+    [n/4, n/2) (tests/test_chains_dsss_cw.py). Then the rows of its kernel
+    shapes, its loops on the path's own inputs. Returns (report, rows)."""
+    from qradiolink_tpu_torch.chains.digital_common import bytes_to_bits
+    from qradiolink_tpu_torch.core import IqPair, _flatten
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    mode, T, run = "BPSKDSSS8", DSSS_T, "sweep_BPSKDSSS8"
+    rows = sampled_rows(SWEEP_ROWS)
+    tx = registry.tx_chain(mode, lead_shape=(SWEEP_ROWS,), device=dev)
+    rx = registry.rx_chain(mode, lead_shape=(SWEEP_ROWS,), device=dev)
+    held = {}
+
+    def source(i):
+        if i == 0:
+            d = next(payloads(SWEEP_ROWS, 1)).to(dev)
+            held["iq"] = rx_planes(tx(tx.init_state(), d)[1]["iq"])
+        iq = held["iq"]
+        return IqPair(iq.re[:, i * T:(i + 1) * T].contiguous(),
+                      iq.im[:, i * T:(i + 1) * T].contiguous())
+
+    kernel_paths.reset()
+    seen, state, outs, iqs, _ = run_steps(rx, SWEEP_STEPS, source,
+                                          keep=rows.to(dev))
+    report = run_report(mode, SWEEP_STEPS)
+    held.clear()
+    # the TX ran once, the RX SWEEP_STEPS times
+    want = times(chain_launches(rx, SWEEP_ROWS, T), SWEEP_STEPS) + \
+        chain_launches(tx, SWEEP_ROWS)
+    require_exactly(report, want, run)
+    for out in outs:
+        finite(mode, out)
+    ref, ref_state = cpu_twin(mode, iqs)
+    diffs = {}
+    for blk, (y, h) in enumerate(zip(outs, ref)):
+        for k in ("bits", "bits_alt", "bits_inv", "bits_alt_inv"):
+            if not torch.equal(y[k][rows].cpu(), h[k]):
+                raise RuntimeError(f"{mode} card vs CPU block {blk}: {k} "
+                                   f"differ")
+        rel_diffs([("symbols", y["symbols"][rows], h["symbols"])], diffs)
+    leaves = []
+    for i, (a, b) in enumerate(zip(_flatten(state, []),
+                                   _flatten(ref_state, []))):
+        # the card's leaf cut to the sampled rows on its row axis
+        ax = [d for d in range(a.ndim) if a.shape[d] != b.shape[d]]
+        leaves.append((f"state leaf {i}", a.index_select(
+            ax[0], rows.to(a.device)) if ax else a, b))
+    check_diffs(mode, rel_diffs(leaves, diffs),
+                f"{len(rows)} sampled rows x {SWEEP_STEPS} steps")
+    del outs, iqs, state
+    torch.cuda.empty_cache()
+    txg = registry.tx_chain(mode, lead_shape=(SAMPLE_ROWS,), device=dev)
+    rxg = registry.rx_chain(mode, lead_shape=(SAMPLE_ROWS,), device=dev)
+    data = next(payloads(SAMPLE_ROWS, DSSS_GATE_BYTES))
+    iq = txg(txg.init_state(), data.to(dev))[1]["iq"]
+    m = iq.shape[-1] - iq.shape[-1] % 125_000
+    t0 = time.perf_counter()
+    out = rxg(rxg.init_state(), rx_planes(iq[:, :m]))[1]
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    sent = bytes_to_bits(data).numpy()
+    bers = []
+    for r in range(SAMPLE_ROWS):
+        n = sent.shape[-1]
+        lo, hi = n // 4, n // 2
+        best = 1.0
+        for k in ("bits", "bits_alt", "bits_inv", "bits_alt_inv"):
+            dec = out[k][r].cpu().numpy()
+            for off in range(200):
+                seg = dec[off + lo: off + hi]
+                if len(seg) < hi - lo:
+                    break
+                best = min(best, float(np.mean(seg != sent[r, lo:hi])))
+        bers.append(best)
+    print(f"  {mode} gate: {SAMPLE_ROWS} rows x {m} samples in one block "
+          f"({gate_s:.3f} s), best-stream BER per row {bers}", flush=True)
+    if not max(bers) < 0.01:
+        raise RuntimeError(f"{mode}: BER {max(bers)} is not below 0.01")
+    del iq, out
+    torch.cuda.empty_cache()
+    return report, captured_rows(seen, want, run, done, dev, gen)
+
+
+def freedv_tone(rows, n, dev):
+    """A 1 kHz passband tone at 0.5, rows x n at 8 kHz."""
+    t = torch.arange(n, device=dev) / 8000.0
+    return (0.5 * torch.sin(2 * np.pi * 1000.0 * t)).expand(rows, n
+                                                           ).contiguous()
+
+
+def freedv_mode(mode, dev, gen, done):
+    """A FreeDV mode's DSP ends at SWEEP_ROWS rows: FreeDvMod on a passband
+    tone -> ChannelModel at FREEDV_SNR_DB -> FreeDvDemod, SWEEP_STEPS steps
+    of FREEDV_T, every launch as chain_launches gives it; the second step's
+    passband tone SNR above FREEDV_TONE_DB on SAMPLE_ROWS rows (the
+    libcodec2 halves stay on the host and are not ported); then the card
+    against the CPU on 4 rows x 2 steps (passband, IQ and every state leaf
+    within FREEDV_TOL of the peak). Returns (report, rows)."""
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.core import _flatten
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    n_pb = FREEDV_T // 125
+    tone = freedv_tone(SWEEP_ROWS, n_pb, dev)
+    tx = registry.tx_chain(mode, lead_shape=(SWEEP_ROWS,), device=dev)
+    rx = registry.rx_chain(mode, lead_shape=(SWEEP_ROWS,), device=dev)
+    chan = ChannelModel(1_000_000, snr_db=FREEDV_SNR_DB, seed=43)
+    st = [tx.init_state()]
+
+    def source(i):
+        st[0], out = tx(st[0], tone)
+        return rx_planes(chan(out["iq"]))
+
+    kernel_paths.reset()
+    seen, _, outs, _, _ = run_steps(rx, SWEEP_STEPS, source)
+    report = run_report(mode, SWEEP_STEPS)
+    run = f"sweep_{mode}"
+    want = times(chain_launches(rx, SWEEP_ROWS, FREEDV_T) + chain_launches(
+        tx, SWEEP_ROWS), SWEEP_STEPS)
+    require_exactly(report, want, run)
+    for y in outs:
+        finite(mode, y)
+    pb = outs[-1]["passband"][sampled_rows(SWEEP_ROWS)].cpu().numpy()
+    snrs = [tone_snr(p[n_pb // 2:], 1000.0) for p in pb]
+    print(f"  {mode}: passband tone SNR on {len(snrs)} rows, worst "
+          f"{min(snrs):.1f} dB", flush=True)
+    if not min(snrs) > FREEDV_TONE_DB:
+        raise RuntimeError(f"{mode}: tone SNR {min(snrs):.1f} dB")
+    del outs
+    # the card against the CPU
+    cpu = torch.device("cpu")
+    pair = {d.type: (registry.tx_chain(mode, lead_shape=(CVC_ROWS,),
+                                       device=d),
+                     registry.rx_chain(mode, lead_shape=(CVC_ROWS,),
+                                       device=d)) for d in (dev, cpu)}
+    sts = {k: (t.init_state(), r.init_state()) for k, (t, r) in pair.items()}
+    worst = 0.0
+    for blk in range(2):
+        pbs = (freedv_tone(CVC_ROWS, n_pb, dev)
+               + 0.1 * torch.randn((CVC_ROWS, n_pb), generator=gen,
+                                   device=dev))
+        got = {}
+        for d in (dev, cpu):
+            t, r = pair[d.type]
+            s_t, s_r = sts[d.type]
+            s_t, o = t(s_t, pbs.to(d))
+            s_r, y = r(s_r, rx_planes(o["iq"]))
+            sts[d.type] = (s_t, s_r)
+            got[d.type] = (o["iq"], y["passband"])
+        pairs = [(f"block {blk} iq", got[dev.type][0], got["cpu"][0]),
+                 (f"block {blk} passband", got[dev.type][1], got["cpu"][1])]
+        pairs += [(f"block {blk} state leaf {i}", a, b) for i, (a, b) in
+                  enumerate(zip(_flatten(sts[dev.type], []),
+                                _flatten(sts["cpu"], [])))]
+        for name, a, b in pairs:
+            a = a.cpu()
+            if a.is_complex():
+                a, b = torch.view_as_real(a), torch.view_as_real(b)
+            d = float((a.double() - b.double()).abs().max())
+            peak = max(float(b.abs().max()), 1e-30)
+            worst = max(worst, d / peak)
+            if not d <= FREEDV_TOL * peak:
+                raise RuntimeError(f"{mode} card vs CPU {name}: {d:.3e} "
+                                   f"of a peak {peak:.3e}")
+    print(f"  {mode} card vs CPU, {CVC_ROWS} rows x 2 blocks: max |diff| / "
+          f"peak {worst:.2e} (bound {FREEDV_TOL})", flush=True)
+    torch.cuda.empty_cache()
+    return report, captured_rows(seen, want, run, done, dev, gen)
+
+
+def mmdvm_tone(rows, n, dev, freq=1000.0, amp=0.15):
+    """tests/test_chains_mmdvm._tone on every row (amp 0.15: a 1.9 kHz
+    deviation) at 24 kHz, row r's phase r / 8 rad."""
+    t = torch.arange(n, device=dev, dtype=torch.float64) / 24_000.0
+    ph = torch.arange(rows, device=dev, dtype=torch.float64)[:, None] / 8
+    return (amp * torch.sin(2 * np.pi * freq * t + ph)).float()
+
+
+def mmdvm_snr(audio, freq):
+    """tests/test_chains_mmdvm._tone_snr_db."""
+    x = np.asarray(audio, np.float64)
+    x = x - x.mean()
+    spec = np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2
+    f = np.fft.rfftfreq(len(x), 1 / 24_000)
+    sig = spec[np.abs(f - freq) < 150].sum()
+    noise = spec[(np.abs(f - freq) >= 150) & (f > 50) & (f < 4000)].sum()
+    return 10 * np.log10(sig / (noise + 1e-12))
+
+
+def audio_source(tx, audio, n):
+    """Step i's RX input: TX chain tx on audio[..., i n:(i + 1) n]."""
+    st = [tx.init_state()]
+
+    def source(i):
+        st[0], out = tx(st[0], audio[..., i * n:(i + 1) * n].contiguous())
+        return rx_planes(out["iq"])
+    return source
+
+
+def mmdvm_mode(dev, gen, done):
+    """MMDVM single-carrier at SWEEP_ROWS rows: MmdvmMod (IqPair, the
+    registry's form) on a 1 kHz tone -> MmdvmDemod, SWEEP_STEPS steps of
+    MMDVM_T at 250 ksps, every launch as chain_launches gives it; tone SNR
+    above 30 dB on SAMPLE_ROWS rows of the second step
+    (tests/test_chains_mmdvm.py:31-43). Returns (report, rows)."""
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    n24 = MMDVM_T * 12 // 125
+    tx = registry.tx_chain("MMDVM", lead_shape=(SWEEP_ROWS,), device=dev)
+    rx = registry.rx_chain("MMDVM", lead_shape=(SWEEP_ROWS,), device=dev)
+    source = audio_source(tx, mmdvm_tone(SWEEP_ROWS, 2 * n24, dev), n24)
+    kernel_paths.reset()
+    seen, _, outs, _, _ = run_steps(rx, SWEEP_STEPS, source)
+    report = run_report("MMDVM", SWEEP_STEPS)
+    want = times(chain_launches(rx, SWEEP_ROWS, MMDVM_T) + chain_launches(
+        tx, SWEEP_ROWS), SWEEP_STEPS)
+    require_exactly(report, want, "sweep_MMDVM")
+    for y in outs:
+        finite("MMDVM", y)
+    y = outs[-1]
+    rec = y["audio"][sampled_rows(SWEEP_ROWS)].cpu().numpy()
+    snrs = [mmdvm_snr(r[2000:], 1000.0) for r in rec]
+    print(f"  MMDVM: tone SNR on {len(snrs)} rows, worst {min(snrs):.1f} dB "
+          f"(rssi_slots {tuple(y['rssi_slots'].shape)})", flush=True)
+    if not min(snrs) > 30.0:
+        raise RuntimeError(f"MMDVM: tone SNR {min(snrs):.1f} dB")
+    return report, captured_rows(seen, want, "sweep_MMDVM", done, dev, gen)
+
+
+def cw_mode(dev, gen, done):
+    """CW at SWEEP_ROWS rows: CwMod on a key a row (down for 75 ms from
+    37.5 ms into each 200 ms step), SWEEP_STEPS steps of CW_T, every launch
+    as chain_launches gives it; on SAMPLE_ROWS rows the key-down power
+    above 100 times the key-up power (tests/test_chains_dsss_cw.py:42).
+    Returns (report, rows)."""
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    n8 = CW_T // 125
+    key = torch.zeros((SWEEP_ROWS, n8), device=dev)
+    key[:, 300:900] = 1.0
+    tx = registry.tx_chain("CW", lead_shape=(SWEEP_ROWS,), device=dev)
+    st = [tx.init_state()]
+
+    def source(i):
+        st[0], out = tx(st[0], key)
+        return out
+
+    kernel_paths.reset()
+    seen, _, outs, _, _ = run_steps(None, SWEEP_STEPS, source)
+    report = run_report("CW", SWEEP_STEPS)
+    want = times(chain_launches(tx, SWEEP_ROWS), SWEEP_STEPS)
+    require_exactly(report, want, "sweep_CW")
+    for out in outs:
+        finite("CW", out)
+    p = torch.abs(outs[-1]["iq"][sampled_rows(SWEEP_ROWS)]) ** 2
+    on = p[:, 500 * 125:800 * 125].mean(dim=-1)
+    off = p[:, 1100 * 125:1500 * 125].mean(dim=-1)
+    ratio = float((on / torch.clamp(off, min=1e-12)).min())
+    print(f"  CW: key-down / key-up power on {p.shape[0]} rows, least "
+          f"{ratio:.3e}", flush=True)
+    if not ratio > 100.0:
+        raise RuntimeError(f"CW: keying ratio {ratio:.3e}")
+    return report, captured_rows(seen, want, "sweep_CW", done, dev, gen)
+
+
+def sweep_phase(dev, gen, done):
+    """Every other new mode at SWEEP_ROWS rows x SWEEP_STEPS steps through
+    the registry. Returns ({run: report}, rows)."""
+    reports, rows = {}, []
+    for mode in SWEEP_MODES:
+        print(f"sweep: {mode}, {SWEEP_ROWS} rows x {SWEEP_STEPS} steps of "
+              f"{SWEEP_MODES[mode][0]} samples", flush=True)
+        reports[f"sweep_{mode}"], r = sweep_data_mode(mode, dev, gen, done)
+        rows += r
+    for name, fn in (("BPSKDSSS8", dsss_mode), ("MMDVM", mmdvm_mode),
+                     ("CW", cw_mode)):
+        print(f"sweep: {name}, {SWEEP_ROWS} rows x {SWEEP_STEPS} steps",
+              flush=True)
+        reports[f"sweep_{name}"], r = fn(dev, gen, done)
+        rows += r
+    for mode in ("FreeDV1600USB", "FreeDV700DLSB"):
+        print(f"sweep: {mode}, {SWEEP_ROWS} rows x {SWEEP_STEPS} steps of "
+              f"{FREEDV_T} samples", flush=True)
+        reports[f"sweep_{mode}"], r = freedv_mode(mode, dev, gen, done)
+        rows += r
+    return reports, rows
+
+
+def fsk_card_vs_cpu(mode, iqs, dev):
+    """The registry's RX chain of `mode` on CVC_ROWS rows x 2 steps (the
+    path's first two) on the card and on the port's CPU path: bits equal,
+    symbols and the state leaves within their bounds of the peak
+    (CVC_TOLS; max |diff| / peak printed)."""
+    from qradiolink_tpu_torch.core import IqPair, _flatten
+    from qradiolink_tpu_torch.models import registry
+
+    cpu = torch.device("cpu")
+    chains = {d.type: registry.rx_chain(mode, lead_shape=(CVC_ROWS,),
+                                        device=d) for d in (dev, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    diffs = {}
+    for blk in range(2):
+        outs = {}
+        for d in (dev, cpu):
+            iq = IqPair(iqs[blk].re[:CVC_ROWS].to(d).contiguous(),
+                        iqs[blk].im[:CVC_ROWS].to(d).contiguous())
+            states[d.type], outs[d.type] = chains[d.type](states[d.type], iq)
+        card, host = outs[dev.type], outs["cpu"]
+        for k in ("bits", "bits_alt"):
+            if k in host and not torch.equal(card[k].cpu(), host[k]):
+                n = int((card[k].cpu() != host[k]).sum())
+                raise RuntimeError(f"{mode} card vs CPU block {blk}: {n} "
+                                   f"{k} differ")
+        pairs = [("symbols", card["symbols"], host["symbols"])]
+        pairs += [(f"state leaf {i}", a, b) for i, (a, b) in enumerate(
+            zip(_flatten(states[dev.type], []), _flatten(states["cpu"], [])))]
+        rel_diffs(pairs, diffs)
+    check_diffs(mode, diffs, f"{CVC_ROWS} rows x 2 blocks of {T_STEP}")
+
+
+def full_path(mode, dev, gen, done):
+    """4FSK2KFB (Fsk4FbDemod: the tone bank, the K837 complex symbol LP,
+    the conj-mode sync) or GMSK2K (the K2239 head, the Viterbi on the
+    delay-diversity pair) at N_CH rows x T_STEP samples, N_STEPS steps,
+    state carried: each row's own transmission from the registry's TX chain
+    through ChannelModel at the JAX test's SNR (a step's IQ made just
+    before the step), the counters zeroed before the first step and read
+    after the last (the modulator's launches count too), every launch as
+    chain_launches gives it. Step ms and vs_baseline; BER below 0.02 on
+    SAMPLE_ROWS rows (GMSK: the least over bits and bits_alt); one step
+    stage by stage and one traced; the card against the CPU; then the rows
+    of the path's kernel shapes, its loops on the path's own inputs.
+    Returns (report, rows)."""
+    from qradiolink_tpu_torch.core import Sequencer
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.ops.spectrum import rssi_dbm
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    n_bytes, snr = FULL_PATHS[mode]
+    run = mode.lower()
+    sent = []
+    tx, source = data_source(mode, N_CH, T_STEP, n_bytes, snr, 47, dev, sent)
+    chain = registry.rx_chain(mode, lead_shape=(N_CH,), device=dev)
+    kernel_paths.reset()
+    seen, state, outs, iqs, step_s = run_steps(chain, N_STEPS, source,
+                                               keep=True)
+    report = run_report(run, N_STEPS)
+    want = times(chain_launches(chain, N_CH, T_STEP) + chain_launches(
+        tx, N_CH), N_STEPS)
+    require_exactly(report, want, run)
+    for out in outs:
+        finite(mode, out)
+    ber = ber_report(f"{mode} ({snr} dB)", mode_ber(
+        outs, torch.cat(sent, dim=-1), sampled_rows(N_CH)))
+    if not ber < 0.02:
+        raise RuntimeError(f"{mode}: BER {ber} is not below 0.02")
+    med = statistics.median([s * 1e3 for s in step_s[1:]])
+    print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline "
+          f"{T_STEP / med / 1e3:.2f} Msamples/s per channel (printed, not "
+          f"gated)", flush=True)
+    fb = mode == "4FSK2KFB"
+    iq = iqs[-1]
+
+    def stage_step():
+        seq, stages = Sequencer(state), {}
+        x = timed(stages, "head", lambda: seq(chain.resamp, iq))
+        x = timed(stages, f"channel LP K{chain.chan_filter.ntaps}",
+                  lambda: seq(chain.chan_filter, x))
+        timed(stages, "rssi", lambda: rssi_dbm(x))
+        if fb:
+            from qradiolink_tpu_torch.chains.fsk import _mag
+            mags = timed(stages, "tone bank (4 x K"
+                         f"{chain.tone_bank[0].ntaps} complex) + |x|",
+                         lambda: torch.stack([_mag(seq(f, x)) for f in
+                                              chain.tone_bank], dim=-2))
+            pts = timed(stages, "discriminator",
+                        lambda: chain.discriminator(mags))
+            x = timed(stages, f"symbol LP K{chain.symbol_filter.ntaps} "
+                      "(complex points)", lambda: seq(chain.symbol_filter,
+                                                      pts))
+        else:
+            x = timed(stages, "quadrature demod", lambda: seq(chain.quad, x))
+            x = timed(stages, f"symbol LP K{chain.shaping.ntaps}",
+                      lambda: seq(chain.shaping, x))
+        syms = timed(stages, "symbol sync (symbol_sync_mm_f32, "
+                     f"{'conj' if fb else 'levels'})",
+                     lambda: seq(chain.symbol_sync, x))
+        if fb:
+            soft = timed(stages, "soft pairs", lambda: torch.clamp(
+                torch.stack([syms.real, syms.imag], -1).reshape(
+                    N_CH, -1) * 181.0 + 128.0, 0.0, 255.0))
+        else:
+            from qradiolink_tpu_torch.chains.fsk import _delay_diversity
+            soft = timed(stages, "soft pairs (delay diversity)",
+                         lambda: _delay_diversity(torch.clamp(
+                             syms * 128.0 + 128.0, 0.0, 255.0)))
+        timed(stages, "FEC tail (viterbi_stream_k7 + descrambler)",
+              lambda: seq(chain.fec_tail, soft))
+        return stages
+
+    stage_step()
+    stages = stage_step()
+    print(f"  stage ms (one step, CUDA events): {json.dumps(stages)}",
+          flush=True)
+    trace_step("one more step", lambda: chain(state, iq))
+    del outs, state
+    torch.cuda.empty_cache()
+    fsk_card_vs_cpu(mode, iqs, dev)
+    del iqs, iq
+    torch.cuda.empty_cache()
+    return report, captured_rows(seen, want, run, done, dev, gen)
+
+
+def mmdvm_multi_path(dev, gen, done):
+    """MMDVMmulti at its real size: one site, MULTI_C carriers, MMDVM_T
+    samples a step at 250 ksps, N_STEPS steps. The registry's TX
+    (MmdvmMultiTx, IqPair out) on a tone a carrier, then MmdvmMultiRx on
+    the IqPair (the fused channelizer), the counters zeroed before the
+    first step and read after the last, every launch as chain_launches
+    gives it: pfb_channelize_f32 at M 10 and depthwise_fir_f32 at the
+    synthesizer's kp once a step each, depthwise_run_f32 and pfb_fft_f32
+    never. Gates of tests/test_chains_mmdvm.py: each carrier's tone SNR
+    above 25 dB after 4,000 samples, carrier 0's tone below 10 dB in
+    carrier 3; a mask zeroing carrier 1 of 3 leaves its RF power below
+    1e-4 of the others'. Then pfb_channelize_f32 and depthwise_fir_f32
+    against their plain versions at M 10 (rows). Returns (report, rows)."""
+    from qradiolink_tpu_torch.chains.mmdvm import MmdvmMultiTx
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.ops import cuda_depthwise as dw
+    from qradiolink_tpu_torch.ops import cuda_pfb
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    n24 = MMDVM_T * 24 // 250
+    freqs = 600.0 + 300.0 * torch.arange(MULTI_C, device=dev)
+    t = torch.arange(N_STEPS * n24, device=dev, dtype=torch.float64) / 24_000
+    audio = (0.15 * torch.sin(2 * np.pi * freqs[:, None] * t)).float()
+    tx = registry.tx_chain("MMDVMmulti", device=dev)
+    rx = registry.rx_chain("MMDVMmulti", device=dev)
+    kernel_paths.reset()
+    seen, _, outs, _, step_s = run_steps(rx, N_STEPS,
+                                         audio_source(tx, audio, n24))
+    report = run_report("mmdvm_multi", N_STEPS)
+    M, kp_ch, kp_syn = (rx.channelizer.M, rx.channelizer.kp,
+                        tx.synthesizer.kp)
+    if cuda_pfb.route(M, kp_ch) != cuda_pfb.OP or dw.route(kp_syn) != dw.OP:
+        raise RuntimeError(f"MMDVMmulti routes: {cuda_pfb.route(M, kp_ch)}, "
+                           f"{dw.route(kp_syn)}")
+    want = times(chain_launches(rx, 1, MMDVM_T) + chain_launches(tx, 1),
+                 N_STEPS)
+    require_exactly(report, want, "mmdvm_multi")
+    for y in outs:
+        finite("MMDVMmulti", y)
+    print(f"  RX {step_times(step_s, MMDVM_T)} (one site, {MULTI_C} "
+          f"carriers)", flush=True)
+    rec = torch.cat([y["audio"] for y in outs], dim=-1).cpu().numpy()
+    snrs = [mmdvm_snr(rec[c, 4000:], float(freqs[c])) for c in
+            range(MULTI_C)]
+    leak = mmdvm_snr(rec[3, 4000:], float(freqs[0]))
+    print(f"  MMDVMmulti loopback: tone SNR per carrier "
+          f"{[round(s, 1) for s in snrs]} dB, carrier 0's tone in carrier "
+          f"3 {leak:.1f} dB", flush=True)
+    if not (min(snrs) > 25.0 and leak < 10.0):
+        raise RuntimeError("MMDVMmulti loopback gate failed")
+    # the mask gate at 3 carriers
+    tx3 = MmdvmMultiTx(3, device=dev)
+    a3 = (0.15 * torch.sin(2 * np.pi * (800.0 + 200.0 * torch.arange(
+        3, device=dev))[:, None] * t[:4 * 2400])).float()
+    mask = torch.ones((3, 4 * 2400 * 25 // 24), device=dev)
+    mask[1] = 0.0
+    iq3 = tx3(tx3.init_state(), a3, mask=mask)[1]["iq"].cpu().numpy()[5000:]
+    spec = np.abs(np.fft.fft(iq3 * np.hanning(len(iq3)))) ** 2
+    f = np.fft.fftfreq(len(iq3), 1 / 250_000)
+
+    def carrier_pow(fc):
+        return spec[np.abs(f - fc) < 13_000].sum()
+
+    p_on = carrier_pow(0.0) + carrier_pow(50_000.0)
+    p_off = carrier_pow(25_000.0)
+    print(f"  MMDVMmulti mask: gated carrier {p_off / p_on:.2e} of the "
+          f"others' power", flush=True)
+    if not p_off < 1e-4 * p_on:
+        raise RuntimeError("MMDVMmulti mask gate failed")
+    rows = captured_rows(seen, want, "mmdvm_multi", done, dev, gen)
+    pfb_rows = mmdvm_pfb_rows(rx.channelizer, tx.synthesizer, dev, gen)
+    for r in pfb_rows:
+        r["want"] = want[(r["name"].split("/")[0], r["shape"])]
+    return report, rows + pfb_rows
+
+
+def mmdvm_pfb_rows(ch, syn, dev, gen):
+    """pfb_channelize_f32 at the MMDVMmulti channelizer's shape (M 10, its
+    kp, MMDVM_T samples) within 1e-5 of the plain version's peak, and
+    depthwise_fir_f32 at the synthesizer's (10 rows, kp, the tails read in
+    place, MMDVM_T / 10 outputs) within the FIR's bound of its plain
+    version, F.conv1d(groups=10) beside it."""
+    from qradiolink_tpu_torch.ops import cuda_depthwise as dw
+    from qradiolink_tpu_torch.ops import cuda_pfb
+    from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain
+    import torch.nn.functional as F
+
+    M, kp = ch.M, ch.kp
+    Tm = MMDVM_T // M
+    xs = tuple(torch.randn((MMDVM_T,), generator=gen, device=dev) * 0.1
+               for _ in range(2))
+    hist = torch.randn((2, kp * M), generator=gen, device=dev) * 0.1
+    got = cuda_pfb.channelize(xs, hist, ch._ct, ch._dft)
+    plain = channelize_plain(xs, hist, ch._ct)
+    err = peak_err(f"{cuda_pfb.OP} M{M}", got, plain, 1e-5)
+    ms = cuda_ms(lambda: cuda_pfb.channelize(xs, hist, ch._ct, ch._dft))
+    plain_ms = cuda_ms(lambda: channelize_plain(xs, hist, ch._ct))
+    b = bound(4 * (2 * Tm * M + 2 * kp * M + 2 * M * Tm + (kp + 1) * M),
+              2 * (kp + 1) * 2 * Tm * M + 8 * M * M * Tm)
+    rows = [row(f"{cuda_pfb.OP}/mmdvm_multi",
+                "qradiolink_tpu_torch/csrc/pfb.cu",
+                "qradiolink_tpu/ops/pallas_pfb.py:186", err, ms, plain_ms, b,
+                None, "mmdvm_multi", f"M{M} kp{kp}")]
+    tf = syn._bt_flipped
+    C, kps = tf.shape
+    st = torch.randn((2, C, kps - 1), generator=gen, device=dev)
+    tails = (st[0], st[1])
+    ws = tuple(torch.randn((C, Tm), generator=gen, device=dev)
+               for _ in range(2))
+    key = f"C{C} kp{kps} tail"
+    got = dw.depthwise_fir(ws, tf, Tm, tails=tails)
+    plain = dw.depthwise_fir_plain(ws, tf, Tm, tails)
+    err = check_fir(f"{dw.OP} synth M{M}", got, plain)
+    xcat = torch.stack([torch.cat([t_, w], -1) for t_, w in zip(tails, ws)])
+    w = tf.reshape(C, 1, kps)
+    check_fir(f"F.conv1d groups synth M{M}", F.conv1d(xcat, w, groups=C
+                                                      ).unbind(0), plain)
+    ms = cuda_ms(lambda: dw.depthwise_fir(ws, tf, Tm, tails=tails))
+    plain_ms = cuda_ms(lambda: dw.depthwise_fir_plain(ws, tf, Tm, tails))
+    lib_ms = cuda_ms(lambda: F.conv1d(xcat, w, groups=C))
+    b = bound(4 * (2 * C * (Tm + kps - 1) + 2 * C * Tm + C * kps),
+              2 * kps * 2 * C * Tm)
+    rows.append(row(f"{dw.OP}/mmdvm_multi",
+                    "qradiolink_tpu_torch/csrc/depthwise.cu",
+                    "qradiolink_tpu/ops/pallas_fir.py:401", err, ms,
+                    plain_ms, b, lib_ms, "mmdvm_multi", key))
+    return rows
+
+
+def fft_route_phase(dev, gen):
+    """The FFT form against the direct kernels at the candidates' shapes
+    (complex taps of more than 96 at decimation 1, on the paths' input):
+    AmMod's post filter K963 at N_CH x T_STEP, SsbDemod's channel
+    band-pass K167 and SsbMod's analytic filter K167 at N_CH x
+    AUDIO_PER_STEP, FreeDvDemod's K167 and FreeDvMod's K133 at SWEEP_ROWS
+    x FREEDV_T / 125. At each, the two
+    forms (FirFilter impl="fft", torch.fft; impl="conv", two fir_s1_f32
+    launches and the combine) on the same input and state: the states
+    equal, the FFT within AM_FFT_TOL of the direct form's peak, then timed
+    in turns (direct, fft, fft, direct); "auto" (ops/fir.auto_impl) must
+    take the FFT only where it ran faster, and AmMod's filter on the faster
+    form. Then the AM TX step with AmMod's
+    post filter forced direct (the route before the FFT form), 3 steps.
+    Returns {candidate: {form: ms}}."""
+    from qradiolink_tpu_torch.chains.freedv import FreeDvDemod, FreeDvMod
+    from qradiolink_tpu_torch.chains.ssb import SsbDemod
+    from qradiolink_tpu_torch.ops.fir import FirFilter
+
+    am = am_modulator(dev)
+    cands = {
+        "am_post_filter": (am.post_filter, N_CH, T_STEP, True),
+        "ssb_chan_bp": (SsbDemod(usb=True, lead_shape=(1,),
+                                 device=dev).chan_filter, N_CH,
+                        AUDIO_PER_STEP, False),
+        "freedv_rx_bp": (FreeDvDemod(lead_shape=(1,),
+                                     device=dev).chan_filter, SWEEP_ROWS,
+                         FREEDV_T // 125, False),
+        "freedv_tx_bp": (FreeDvMod(lead_shape=(1,), device=dev).chan_filter,
+                         SWEEP_ROWS, FREEDV_T // 125, True),
+        # SsbMod's (and CwMod's) analytic filter, the other complex K167
+        "ssb_tx_analytic": (tx_modulators(dev)[0].analytic, N_CH,
+                            AUDIO_PER_STEP, True)}
+    result, wrong = {}, []
+    for name, (filt, C, T, complex_in) in cands.items():
+        forms = {impl: FirFilter(filt.taps, impl=impl, lead_shape=(C,),
+                                 device=dev) for impl in ("conv", "fft")}
+        x = torch.complex(*(torch.randn((C, T), generator=gen, device=dev)
+                            for _ in range(2)))
+        # the modulators filter real signals as complex, the demodulator
+        # an IqPair
+        x = x.real.to(torch.complex64) if complex_in else rx_planes(x)
+        st = torch.randn((C, 2, filt.ntaps - 1), generator=gen, device=dev)
+        outs = {k: f(st, x) for k, f in forms.items()}
+        if not torch.equal(outs["conv"][0], outs["fft"][0]):
+            raise RuntimeError(f"{name}: the two forms' states differ")
+        ys = {k: (o[1].to_complex() if hasattr(o[1], "to_complex")
+                  else o[1]) for k, o in outs.items()}
+        d = float((ys["fft"] - ys["conv"]).abs().max())
+        peak = float(ys["conv"].abs().max())
+        del outs, ys
+        if not d <= AM_FFT_TOL * peak:
+            raise RuntimeError(f"{name}: FFT off the direct form by {d:.3e}")
+        torch.cuda.empty_cache()
+        ms, turns = turns_ms({k: (lambda f=f: f(st, x)) for k, f in
+                              forms.items()})
+        auto = filt.form(complex_in)
+        print(f"  {name} K{filt.ntaps} complex, {C} x {T}"
+              f"{'' if complex_in else ' (IqPair)'}: FFT against direct max "
+              f"|diff| {d:.3e} of a peak {peak:.3e} ({d / peak:.2e}); in "
+              f"turns: " + ", ".join(f"{k} {t:.4f} ms" for k, t in turns)
+              + f"; auto takes {auto}, the FFT {ms['conv'] / ms['fft']:.2f}x "
+              f"the direct form", flush=True)
+        # the FFT only where it ran faster; AmMod's filter on the faster
+        if (auto == "fft" and ms["fft"] > ms["conv"]) or (
+                name == "am_post_filter" and auto == "conv"
+                and ms["fft"] < ms["conv"]):
+            wrong.append(f"{name}: auto took {auto} ({ms})")
+        result[name] = ms
+        del x, st, forms
+        torch.cuda.empty_cache()
+    if wrong:
+        raise RuntimeError("; ".join(wrong))
+    am.post_filter = FirFilter(am.post_filter.taps, impl="conv",
+                               lead_shape=(N_CH,), device=dev)
+    audio = tx_audio(dev, gen)
+    _, _, step_s, _ = drive(am, am.init_state(), [audio] * N_STEPS,
+                            ("resample_up_f32", "fir_s1_f32"))
+    print(f"  AM TX with the post filter direct: "
+          f"{step_times(step_s, N_CH * T_STEP)}", flush=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def slice6_phase(dev, gen, rows):
+    """The slice's paths and their rows (their shapes deduplicated against
+    the rows so far). Returns ({run: report}, new rows)."""
+    done = {(r["name"].split("/")[0], r["shape"]) for r in rows}
+    reports, new = {}, []
+    for mode in FULL_PATHS:
+        print(f"{mode} path: {N_CH} ch x {T_STEP} samples, {N_STEPS} steps, "
+              f"each row its own transmission at {FULL_PATHS[mode][1]} dB",
+              flush=True)
+        reports[mode.lower()], r = full_path(mode, dev, gen, done)
+        new += r
+    print(f"MMDVMmulti path: one site, {MULTI_C} carriers, {MMDVM_T} "
+          f"samples a step, {N_STEPS} steps", flush=True)
+    reports["mmdvm_multi"], r = mmdvm_multi_path(dev, gen, done)
+    new += r
+    rep, r = sweep_phase(dev, gen, done)
+    reports.update(rep)
+    new += r
+    return reports, new
+
+
+def earlier_phases(dev, gen):
+    """The phases of the earlier slices, in order (1-20 above). Returns
+    (kernel rows, {run: report})."""
     from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
     from qradiolink_tpu_torch.chains.nbfm import NbfmDemod
-    from qradiolink_tpu_torch.utils import kernels
 
-    # the reference computes in full f32: no TF32 in cuDNN or cuBLAS
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    t0 = time.perf_counter()
-    logs = kernels.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{', '.join(kernels.sources())}", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
-    # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
-    # resample_up_f32 keep their rings in registers, viterbi_bfly_k7 its
-    # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
-    # resample_poly_f32 and agc2_gain_f32 their loads in flight, agc2_f32
-    # its rows' loads, the PSK loops (costas_loop_f32, symbol_sync_mm_f32,
-    # the viterbi_stream kernels) their state;
-    # fll_band_edge_f32 and resample_x2_f32 their rings and accumulators
-    for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
-                 "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
-                 "resample_up", "agc2", "costas", "symbol_sync",
-                 "viterbi_stream", "viterbi_stream_warp",
-                 "viterbi_stream_redux", "fll_band_edge", "resample_x2"):
-        if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
-            raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     chain = Fsk4DemodFF(lead_shape=(N_CH,), device=dev)
     nbfm = NbfmDemod(lead_shape=(MIX_M // 2,), device=dev)
 
@@ -3462,10 +4811,65 @@ def main() -> int:
     print(f"M17/DMR TX path: M17Mod + DmrMod {N_CH} ch x {FSK4_BITS} bits, "
           f"{T_STEP} IQ samples a step each, {N_STEPS} steps", flush=True)
     reports["fsk4_tx"] = fsk4_tx_path(dev, gen)
+    torch.cuda.empty_cache()
+    return rows, reports
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from qradiolink_tpu_torch.utils import kernels
+
+    # the reference computes in full f32: no TF32 in cuDNN or cuBLAS
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    logs = kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{', '.join(kernels.sources())}", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+    # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
+    # resample_up_f32 keep their rings in registers, viterbi_bfly_k7 its
+    # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
+    # resample_poly_f32 and agc2_gain_f32 their loads in flight, agc2_f32
+    # its rows' loads, the PSK loops (costas_loop_f32, symbol_sync_mm_f32,
+    # the viterbi_stream kernels) their state;
+    # fll_band_edge_f32 and resample_x2_f32 their rings and accumulators
+    for name in ("fir_decim", "fir_long", "fir_cols", "fir_s1",
+                 "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
+                 "resample_up", "agc2", "costas", "symbol_sync",
+                 "viterbi_stream", "viterbi_stream_warp",
+                 "viterbi_stream_redux", "fll_band_edge", "resample_x2"):
+        if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
+            raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows, reports = earlier_phases(dev, gen)
+    print("the FFT form against the direct kernels, in turns:", flush=True)
+    fft_route_phase(dev, gen)
+    torch.cuda.empty_cache()
+    rep6, rows6 = slice6_phase(dev, gen, rows)
+    reports.update(rep6)
+    rows += rows6
 
     # each kernel's launches at its shape in the run of the path that
-    # gives it that shape: one a step for the kernel that the route picks,
-    # none for the one it replaced (a row with no path)
+    # gives it that shape: one a step for the kernel that the route picks
+    # (the slice-6 rows: the count their launch table gives, "want"), none
+    # for the one it replaced (a row with no path)
     steps = {"fsk": N_STEPS, "mixed": N_STEPS, "round_trip": RT_STEPS,
              "ssb": N_STEPS, "wbfm": N_STEPS, "tx": N_STEPS,
              "am_tx": N_STEPS, "am": N_STEPS, "qpsk": N_STEPS,
@@ -3477,7 +4881,11 @@ def main() -> int:
         op = r["name"].split("/")[0]
         r["launches"] = reports[run].get(op, {}).get("shapes", {}).get(
             f"cuda {shape}", 0)
-        want = 0 if r["path"] is None else per_step * steps[run]
+        want = r.pop("want", None)
+        if r["path"] is None:
+            want = 0
+        elif want is None:
+            want = per_step * steps[run]
         if r["launches"] != want:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
                                f"times at {shape} on the {run} path, not "

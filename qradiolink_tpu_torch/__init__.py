@@ -13,14 +13,19 @@ This package imports torch and never jax, and nothing of qradiolink_tpu.
 Ported so far (slice 1, the 4FSK feedforward RX chain
 `chains.fsk.Fsk4DemodFF`; slice 2, the mixed 64-channel receiver
 `parallel.sharding.MultichannelRx` with `chains.nbfm.NbfmDemod`; slice 3,
-the analog voice chains; slice 4, the PSK modems):
+the analog voice chains; slice 4, the PSK modems; slice 5, M17 and DMR
+with their frame layers; slice 6, every other modem and the mode
+registry `models.registry`, whose `rx_chain` / `tx_chain` build any of
+the 41 modes):
   core        blocks, IqPair, state trees and npz snapshots
-  ops/        firdes, fir (FirFilter, conv1d_valid; real or complex taps),
+  ops/        firdes, fir (FirFilter, conv1d_valid; real or complex taps;
+              the FFT form fft_fir_block, FftFirFilter, fir_filter),
               resample (with the default Kaiser taps), analog
               (QuadratureDemod, FrequencyMod, PhaseMod, Emphasis,
               DcBlocker, ComplexToMag, ComplexToReal, Scale), agc (Agc2),
               cessb (CessbClipper, CessbStretcher), rotator, iir, squelch
-              (PowerSquelch, CtcssSquelch), spectrum (rssi_dbm),
+              (PowerSquelch, CtcssSquelch), spectrum (rssi_dbm,
+              rssi_dbm_slots, RssiProbe, SpectrumProbe),
               channelizer (PfbChannelizer, PfbSynthesizer), and the
               kernels cuda_fir, cuda_resample, cuda_agc, cuda_depthwise,
               cuda_pfb
@@ -32,9 +37,14 @@ the analog voice chains; slice 4, the PSK modems):
               Descrambler), and the kernels viterbi_cuda,
               viterbi_stream_cuda
   chains/     digital_common (TxFecHead, RxFecTail, RxFecTailFF), fsk
-              (Fsk4DemodFF), psk (BpskDemod, BpskMod, QpskDemod,
-              QpskMod), nbfm (NbfmDemod, NbfmMod), ssb (SsbDemod,
-              SsbMod), am (AmDemod, AmMod), wbfm (WbfmDemod), channel
-              (ChannelModel)
+              (Fsk4Demod, Fsk4DemodFF, Fsk4FbDemod, Fsk4Mod, Fsk2Demod,
+              Fsk2FbDemod, GmskDemod, Fsk2Mod, GmskMod), psk (BpskDemod,
+              BpskMod, QpskDemod, QpskMod), nbfm (NbfmDemod, NbfmMod), ssb
+              (SsbDemod, SsbMod), am (AmDemod, AmMod), wbfm (WbfmDemod),
+              m17, dmr, dsss (DsssBpskDemod, DsssBpskMod, CwMod), freedv
+              (FreeDvDemod, FreeDvMod: the DSP ends), mmdvm (MmdvmDemod,
+              MmdvmMod, MmdvmMultiRx, MmdvmMultiTx), channel (ChannelModel)
+  framing/, protocols/  the M17 and DMR frame layers
+  models/     registry (ModeSpec, MODES, MODEM_TYPE_MAP, rx_chain, tx_chain)
   parallel/   sharding (MultichannelRx, one card)
 """

@@ -10,9 +10,21 @@ from qradiolink_tpu_torch.chains.channel import ChannelModel  # noqa: F401
 from qradiolink_tpu_torch.chains.dmr import (  # noqa: F401
     DmrDemod, DmrDemodFF, DmrMod,
 )
-from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF  # noqa: F401
+from qradiolink_tpu_torch.chains.dsss import (  # noqa: F401
+    CwMod, DsssBpskDemod, DsssBpskMod,
+)
+from qradiolink_tpu_torch.chains.freedv import (  # noqa: F401
+    FeedforwardAgc, FreeDvDemod, FreeDvMod,
+)
+from qradiolink_tpu_torch.chains.fsk import (  # noqa: F401
+    Fsk2Demod, Fsk2FbDemod, Fsk2Mod, Fsk4Demod, Fsk4DemodFF, Fsk4FbDemod,
+    Fsk4Mod, GmskDemod, GmskMod,
+)
 from qradiolink_tpu_torch.chains.m17 import (  # noqa: F401
     M17Demod, M17DemodFF, M17Mod,
+)
+from qradiolink_tpu_torch.chains.mmdvm import (  # noqa: F401
+    MmdvmDemod, MmdvmMod, MmdvmMultiRx, MmdvmMultiTx,
 )
 from qradiolink_tpu_torch.chains.nbfm import NbfmDemod, NbfmMod  # noqa: F401
 from qradiolink_tpu_torch.chains.psk import (  # noqa: F401

@@ -14,8 +14,9 @@ On CUDA the RX head (5,597 default taps, stride 125) runs `fir_stream_f32`,
 the 167-tap complex band-pass two launches of `fir_s1_f32` (one a tap
 plane, over both IQ planes), the AGC's recurrence `agc2_gain_f32`, and the
 97-tap audio band-pass `fir_s1_f32`; the squelch, the CESSB blocks and the
-scalings are plain PyTorch. The TX interpolator is `resample_poly_f32`
-(L 125, 45 taps a phase).
+scalings are plain PyTorch. The TX's analytic band-pass (167 complex taps
+on a complex tensor) is the FFT form, `torch.fft` (`ops/fir.auto_impl`);
+the TX interpolator is `resample_up_f32` (L 125, 45 taps a phase).
 """
 
 from __future__ import annotations

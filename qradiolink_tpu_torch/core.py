@@ -180,6 +180,50 @@ def iq_take(x, idx, axis: int = -2):
     return take(x)
 
 
+def put_iq_pair(x, device=None) -> IqPair:
+    """Complex IQ to the device as an IqPair of two f32 planes: an IqPair
+    as is, a (re, im) tuple of arrays, or a complex array (numpy or a
+    tensor). device: None means CUDA (resolve_device)."""
+    if isinstance(x, IqPair):
+        return x
+    dev = resolve_device(device)
+    if isinstance(x, tuple) and len(x) == 2:
+        re, im = x
+    else:
+        a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+        re, im = a.real, a.imag
+    return IqPair(*(torch.from_numpy(np.ascontiguousarray(
+        p.detach().cpu().numpy() if isinstance(p, torch.Tensor) else p,
+        dtype=np.float32)).to(dev) for p in (re, im)))
+
+
+def put_iq(x, device=None) -> torch.Tensor:
+    """An IQ array (numpy or a tensor) to the device: complex64 for complex
+    input, as is otherwise. device: None means CUDA (resolve_device)."""
+    dev = resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        return (x.to(torch.complex64) if torch.is_complex(x) else x).to(dev)
+    a = np.asarray(x)
+    if np.iscomplexobj(a):
+        a = a.astype(np.complex64)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def get_iq(x) -> np.ndarray:
+    """IQ to the host as numpy: complex64 for an IqPair or a complex
+    tensor; a numpy array passes through."""
+    if isinstance(x, IqPair):
+        return (x.re.detach().cpu().numpy()
+                + 1j * x.im.detach().cpu().numpy()).astype(np.complex64)
+    if isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, torch.Tensor):
+        a = x.detach().cpu().numpy()
+        return a.astype(np.complex64) if np.iscomplexobj(a) else a
+    return np.asarray(x)
+
+
 def run_stream(block: Block, chunks: Iterable, state: State = None):
     """Host-side streaming loop: feed successive chunks through `block`,
     yielding the output of each."""

@@ -101,3 +101,64 @@ def test_iq_take_and_abs(rng):
                                   im[[4, 0]])
     np.testing.assert_allclose(core.iq_abs(pair),
                                torch.abs(pair.to_complex()), rtol=1e-6)
+
+
+# the chains of slice 6: (JAX module, class, kwargs); each built with
+# lead_shape (2,) but the MMDVM multi-carrier pair, whose channel axis is
+# its own
+NEW_CHAINS = [
+    ("fsk", "Fsk4Demod", {}), ("fsk", "Fsk4Demod", {"variant": "96K"}),
+    ("fsk", "Fsk4FbDemod", {}), ("fsk", "Fsk4Mod", {"variant": "10KFM"}),
+    ("fsk", "Fsk2Demod", {}), ("fsk", "Fsk2FbDemod", {}),
+    ("fsk", "GmskDemod", {}), ("fsk", "Fsk2Mod", {}), ("fsk", "GmskMod", {}),
+    ("dsss", "DsssBpskDemod", {}), ("dsss", "DsssBpskMod", {}),
+    ("dsss", "CwMod", {}), ("freedv", "FreeDvDemod", {}),
+    ("freedv", "FreeDvMod", {"usb": False}), ("mmdvm", "MmdvmDemod", {}),
+    ("mmdvm", "MmdvmMod", {}), ("mmdvm", "MmdvmMultiRx", {}),
+    ("mmdvm", "MmdvmMultiTx", {"num_channels": 5})]
+
+
+@pytest.mark.parametrize("mod,cls,kw", NEW_CHAINS, ids=[
+    "-".join([c] + [str(v) for v in k.values()]) for _, c, k in NEW_CHAINS])
+def test_new_chain_snapshot_crosses(tmp_path, rng, mod, cls, kw):
+    """A random JAX state of the chain saved by the JAX package loads into
+    the port's chain leaf for leaf (dtypes, shapes and values), and the
+    port's initial state equals the JAX chain's."""
+    import importlib
+
+    jmod = importlib.import_module(f"qradiolink_tpu.chains.{mod}")
+    tmod = importlib.import_module(f"qradiolink_tpu_torch.chains.{mod}")
+    lead = {} if cls.startswith("MmdvmMulti") else {"lead_shape": (2,)}
+    jchain = getattr(jmod, cls)(**lead, **kw)
+    tchain = getattr(tmod, cls)(**lead, **kw, device="cpu")
+    assert_states_same(jchain.init_state(), tchain.init_state(), 0, 0)
+    st = _random_state(jchain.init_state(), rng)
+    jcore.save_state(tmp_path / "j.npz", jax.tree_util.tree_map(
+        jnp.asarray, st))
+    assert_states_same(st, core.load_state(tmp_path / "j.npz",
+                                           tchain.init_state()), 0, 0)
+
+
+def test_put_and_get_iq_match_jax(rng):
+    """put_iq, put_iq_pair and get_iq on the CPU: the same values and dtypes
+    as the JAX package's, complex64 back from an IqPair or a complex
+    tensor, real input as is."""
+    x = (rng.standard_normal((2, 50))
+         + 1j * rng.standard_normal((2, 50))).astype(np.complex128)
+    y = core.put_iq(x, device="cpu")
+    assert y.dtype == torch.complex64 and y.device.type == "cpu"
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jcore.put_iq(x)))
+    p = core.put_iq_pair(x, device="cpu")
+    jp = jcore.put_iq_pair(x)
+    np.testing.assert_array_equal(p.re.numpy(), np.asarray(jp.re))
+    np.testing.assert_array_equal(p.im.numpy(), np.asarray(jp.im))
+    assert core.put_iq_pair(p) is p
+    p2 = core.put_iq_pair((x.real, x.imag), device="cpu")
+    np.testing.assert_array_equal(p2.im.numpy(), p.im.numpy())
+    for v in (p, y):
+        got = core.get_iq(v)
+        assert got.dtype == np.complex64
+        np.testing.assert_array_equal(got, jcore.get_iq(jp))
+    r = rng.standard_normal(7).astype(np.float32)
+    np.testing.assert_array_equal(core.put_iq(r, device="cpu").numpy(), r)
+    assert core.get_iq(r) is r

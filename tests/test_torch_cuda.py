@@ -22,7 +22,18 @@ every output and state leaf; the FLL kernel within the FLL's bound of its
 plain loop (it sums each sub-block's band-edge energy in its own order),
 elementwise 2e-5 + 1e-5 |plain|, the phase as a distance on the circle;
 the M17 and DMR chains on the card against their CPU path: bits equal,
-symbols, soft and every state leaf within 2e-5 of their peak.
+symbols, soft and every state leaf within 2e-5 of their peak. Slice 6: the
+FFT form (torch.fft, cuFFT) against its CPU form within 1e-5 of the peak
+and against the direct kernels within 1e-3 (tests/test_fir.py's bound);
+the MMDVMmulti channelizer (pfb_channelize_f32, M 10) and synthesizer
+(depthwise_fir_f32, kp 53) against their plain versions; every FIR and
+resampler block of the new modes on the card against the same block on the
+CPU (the kernel against its plain version at the block's shape: outputs
+within the FIR's bound, the new state equal); each new mode's chains on
+the card against the CPU on 2 rows (the demodulators' bits equal, symbols
+within 1e-3 of their peak and state leaves within 2e-5; the float outputs
+of FreeDV and MMDVM within 1e-5; the modulators' IQ within 2e-4 of its
+peak, FrequencyMod's phase a cumulative sum in another order on each).
 """
 
 import pathlib
@@ -950,14 +961,16 @@ def test_agc2_abs_equals_torch_abs(cuda):
 
 @pytest.mark.parametrize("kind", ["pair", "complex", "real"])
 def test_complex_tap_fir_on_card_matches_cpu(cuda, gen, kind):
-    """The SSB channel filter's 167 complex taps: two launches of
-    fir_s1_f32 a block (one a tap plane) at one key, over two chained
-    blocks, output and state within the FIR bound of the CPU path's."""
+    """The SSB channel filter's 167 complex taps in direct form
+    (impl="conv": "auto" gives a complex tensor the FFT form,
+    test_fft_fir_on_card_matches_cpu): two launches of fir_s1_f32 a block
+    (one a tap plane) at one key, over two chained blocks, output and
+    state within the FIR bound of the CPU path's."""
     from qradiolink_tpu_torch.ops import firdes
     taps = firdes.complex_band_pass(1.0, 8000, 200.0, 2700.0, 200.0,
                                     firdes.WIN_BLACKMAN_HARRIS)
     C, T = 16, 1600
-    fs = {d: FirFilter(taps, lead_shape=(C,), device=d)
+    fs = {d: FirFilter(taps, impl="conv", lead_shape=(C,), device=d)
           for d in (cuda, torch.device("cpu"))}
     states = {d: f.init_state() for d, f in fs.items()}
     for _ in range(2):
@@ -1621,3 +1634,244 @@ def test_fsk4_chain_on_card_matches_cpu(cuda, gen, name):
         for i, (a, b) in enumerate(zip(_flatten(states["cuda"], []),
                                        _flatten(states["cpu"], []))):
             _assert_peak_close(a.cpu(), b, rtol=2e-5, what=f"state leaf {i}")
+
+
+
+# -- slice 6: the FFT form, MMDVMmulti's K4/K5 shapes, the new modes --------
+@pytest.mark.parametrize("K,complex_taps,complex_in,decim", [
+    (963, True, True, 1), (167, True, False, 1), (133, True, True, 1),
+    (101, False, False, 2)])
+def test_fft_fir_on_card_matches_cpu(cuda, gen, K, complex_taps, complex_in,
+                                     decim):
+    """FirFilter(impl="fft") on the card against the same filter on the
+    CPU, 8 rows x two blocks of 4,000: outputs within 1e-5 of the peak, the
+    states equal; and within 1e-3 of the direct kernels' output on the
+    card (tests/test_fir.py's FFT-against-direct bound)."""
+    rng = np.random.default_rng(K)
+    taps = rng.standard_normal(K) + (1j * rng.standard_normal(K)
+                                     if complex_taps else 0)
+    taps = taps.astype(np.complex64 if complex_taps else np.float32)
+    cpu = torch.device("cpu")
+    blks = {d.type: FirFilter(taps, decim, impl="fft", lead_shape=(8,),
+                              device=d) for d in (cuda, cpu)}
+    direct = FirFilter(taps, decim, impl="conv", lead_shape=(8,),
+                       device=cuda)
+    states = {k: b.init_state() for k, b in blks.items()}
+    ds = direct.init_state()
+    for _ in range(2):
+        x = torch.randn((8, 4000), generator=gen, device=cuda)
+        if complex_in:
+            x = torch.complex(x, torch.randn((8, 4000), generator=gen,
+                                             device=cuda))
+        kernel_paths.reset()
+        states["cuda"], y = blks["cuda"](states["cuda"], x)
+        assert kernel_paths.launches("torch_fft_fir") == 1
+        states["cpu"], yc = blks["cpu"](states["cpu"], x.cpu())
+        ds, yd = direct(ds, x)
+        assert torch.equal(states["cuda"].cpu(), states["cpu"])
+        assert torch.equal(states["cuda"], ds)
+        to_np = (lambda v: torch.view_as_real(v).cpu().numpy()
+                 if v.is_complex() else v.cpu().numpy())
+        _assert_peak_close(to_np(y), to_np(yc), what="card vs CPU")
+        _assert_peak_close(to_np(y), to_np(yd), rtol=1e-3,
+                           what="fft vs direct")
+
+
+def test_mmdvm_multi_kernels_match_plain(cuda, gen):
+    """MmdvmMultiRx's channelizer (M 10, kp 56) on pfb_channelize_f32 over
+    two chained blocks of 250,000 IqPair samples within 1e-5 of the plain
+    version's peak, its raw history carried bit-equal; MmdvmMultiTx's
+    synthesizer branch FIRs (10 rows, kp 53, tails in place) on
+    depthwise_fir_f32 within the FIR's bound of the plain version."""
+    from qradiolink_tpu_torch.chains.mmdvm import MmdvmMultiRx, MmdvmMultiTx
+
+    ch = MmdvmMultiRx(device=cuda).channelizer
+    M, kp = ch.M, ch.kp
+    assert (M, cuda_pfb.route(M, kp)) == (10, cuda_pfb.OP)
+    state = ch.init_state()
+    for _ in range(2):
+        x = IqPair(torch.randn((250_000,), generator=gen, device=cuda) * 0.1,
+                   torch.randn((250_000,), generator=gen, device=cuda) * 0.1)
+        kernel_paths.reset()
+        new_state, y = ch(state, x)
+        assert kernel_paths.launches(cuda_pfb.OP) == 1
+        want = channelize_plain((x.re, x.im), state, ch._ct)
+        peak = max(float(w.abs().max()) for w in want)
+        for g, w in zip((y.re, y.im), want):
+            assert float((g - w).abs().max()) <= 1e-5 * peak
+        assert torch.equal(new_state, torch.cat(
+            [state, torch.stack([x.re, x.im])], -1)[..., -kp * M:])
+        state = new_state
+    syn = MmdvmMultiTx(device=cuda).synthesizer
+    tf = syn._bt_flipped
+    C, kps = tf.shape
+    assert (C, cuda_depthwise.route(kps)) == (10, cuda_depthwise.OP)
+    st = torch.randn((2, C, kps - 1), generator=gen, device=cuda)
+    xs = [torch.randn((C, 25_000), generator=gen, device=cuda)
+          for _ in range(2)]
+    kernel_paths.reset()
+    got = depthwise_fir(xs, tf, 25_000, tails=(st[0], st[1]))
+    assert kernel_paths.launches(cuda_depthwise.OP) == 1
+    _assert_fir_close(got, depthwise_fir_plain(xs, tf, 25_000,
+                                               (st[0], st[1])))
+
+
+# the new modes: registry name -> (RX block length at 1 Msps or 250 ksps,
+# TX input: ("bytes", n) | ("audio", n) | ("key", n))
+NEW_MODES = {
+    "4FSK2K": (25_000, ("bytes", 13)), "4FSK2KFB": (25_000, ("bytes", 13)),
+    "4FSK1KFM": (25_000, ("bytes", 13)), "4FSK10KFM": (25_000, ("bytes", 63)),
+    "4FSK100K": (10_000, ("bytes", 260)), "2FSK2K": (25_000, ("bytes", 7)),
+    "2FSK1K": (50_000, ("bytes", 7)), "2FSK10K": (10_000, ("bytes", 30)),
+    "2FSK2KFB": (25_000, ("bytes", 7)), "2FSK1KFB": (50_000, ("bytes", 7)),
+    "GMSK2K": (25_000, ("bytes", 7)), "GMSK1K": (50_000, ("bytes", 7)),
+    "GMSK10K": (10_000, ("bytes", 30)),
+    "BPSKDSSS8": (250_000, ("bytes", 1)),
+    "FreeDV1600USB": (25_000, ("audio", 400)),
+    "FreeDV700DLSB": (25_000, ("audio", 400)),
+    "MMDVM": (25_000, ("audio", 4800)),
+    "MMDVMmulti": (25_000, ("audio", 4800)),
+    "CW": (None, ("key", 800)),
+}
+
+
+def _chain_blocks(chain):
+    """The FIR and resampler blocks of a chain, nested chains and filter
+    banks included."""
+    from qradiolink_tpu_torch.ops.fir import FirFilter as Fir
+
+    out = []
+    for v in vars(chain).values():
+        for b in (v if isinstance(v, list) else [v]):
+            if isinstance(b, (Fir, RationalResampler)):
+                out.append(b)
+            elif hasattr(b, "blocks") and b is not chain:
+                out += _chain_blocks(b)
+    return out
+
+
+def _lead(mode, rows):
+    return {} if mode == "MMDVMmulti" else {"lead_shape": (rows,)}
+
+
+@pytest.mark.parametrize("mode", sorted(NEW_MODES))
+def test_new_mode_blocks_on_card_match_cpu(cuda, gen, mode):
+    """Every FIR and resampler block of the mode's RX and TX chains on the
+    card against the same block on the CPU, on seeded IqPair input of 8 (or
+    the chain's channel count of) rows x two blocks (a multiple of its
+    decimation): outputs within the FIR's bound of the plain version, the
+    new state equal (the FFT form within 1e-5 of the peak)."""
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.ops.fir import FirFilter as Fir
+
+    cpu = torch.device("cpu")
+    spec = registry.get_mode(mode)
+    pairs = []
+    for fac in (spec.rx_factory, spec.tx_factory):
+        if fac is None:
+            continue
+        made = [_chain_blocks(fac(**_lead(mode, 8), device=d))
+                for d in (cuda, cpu)]
+        pairs += list(zip(*made))
+    assert pairs
+    for bc, bh in pairs:
+        rows = bc.lead_shape or (1,)
+        M = bc.M if isinstance(bc, RationalResampler) else bc.decim
+        T = 4000 - 4000 % M
+        sc, sh = bc.init_state(), bh.init_state()
+        for _ in range(2):
+            x = IqPair(*(torch.randn(tuple(rows) + (T,), generator=gen,
+                                     device=cuda) for _ in range(2)))
+            sc, yc = bc(sc, x)
+            sh, yh = bh(sh, IqPair(x.re.cpu(), x.im.cpu()))
+            what = f"{type(bc).__name__} K{getattr(bc, 'ntaps', None)}"
+            if isinstance(bc, Fir) and bc.impl == "fft":
+                _assert_peak_close(yc.re.cpu(), yh.re, what=what)
+                _assert_peak_close(yc.im.cpu(), yh.im, what=what)
+            else:
+                _assert_fir_close((yc.re.cpu(), yc.im.cpu()), (yh.re, yh.im))
+            assert torch.equal(sc.cpu(), sh), what
+
+
+def _tx_input(kind, n, rows, gen, cuda):
+    if kind == "bytes":
+        return torch.randint(0, 256, (rows, n), generator=gen, device=cuda,
+                             dtype=torch.int64).to(torch.uint8)
+    if kind == "key":
+        return (torch.arange(n, device=cuda) % 400 < 150).float().expand(
+            rows, n).contiguous()
+    t = torch.arange(n, device=cuda) / 8000.0
+    return (0.3 * torch.sin(2 * np.pi * 700.0 * t)
+            + 0.05 * torch.randn((rows, n), generator=gen, device=cuda))
+
+
+def _cmp(a, b, rtol, what):
+    if isinstance(a, IqPair):
+        a, b = torch.stack([a.re, a.im]), torch.stack([b.re, b.im])
+    a = a.cpu()
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if not a.is_floating_point():
+        assert torch.equal(a, b), what
+        return
+    _assert_peak_close(a.numpy(), b.numpy(), rtol=rtol, what=what)
+
+
+@pytest.mark.parametrize("mode", sorted(NEW_MODES))
+def test_new_mode_on_card_matches_cpu(cuda, gen, mode):
+    """The mode's TX chain on 2 rows (7 carriers for MMDVMmulti) of seeded
+    input on the card and on the CPU: IQ within 2e-4 of its peak. Its RX
+    chain on that IQ with noise at 0.05 a plane, two blocks, card and CPU:
+    bits equal; symbols within 1e-3 of their peak, every state leaf within
+    2e-5 of its peak (the carried FM and carrier phases as distances on the
+    circle); FreeDV's passband and MMDVM's audio within 1e-5."""
+    from qradiolink_tpu_torch.models import registry
+
+    T, (kind, n) = NEW_MODES[mode]
+    rows = 7 if mode == "MMDVMmulti" else 2
+    cpu = torch.device("cpu")
+    lead = _lead(mode, rows)
+    x = _tx_input(kind, n, rows, gen, cuda)
+    iqs = {}
+    for d in (cuda, cpu):
+        tx = registry.tx_chain(mode, device=d, **lead)
+        iqs[d.type] = tx(tx.init_state(), x.to(d))[1]["iq"]
+    _cmp(iqs["cuda"], iqs["cpu"], 2e-4, f"{mode} iq")
+    if T is None:
+        return
+    iq = iqs["cuda"]
+    iq = iq.to_complex() if isinstance(iq, IqPair) else iq
+    if mode == "MMDVMmulti":
+        iq = iq.reshape(1, -1)
+    iq = iq[..., :2 * T]
+    iq = iq + 0.05 * torch.randn(iq.shape, generator=gen, device=cuda,
+                                 dtype=torch.complex64)
+    if mode == "MMDVMmulti":
+        iq = iq[0]
+    chains = {d.type: registry.rx_chain(mode, device=d, **(
+        {} if mode == "MMDVMmulti" else {"lead_shape": (rows,)}))
+        for d in (cuda, cpu)}
+    states = {k: c.init_state() for k, c in chains.items()}
+    float_tol = 1e-5 if mode.startswith(("FreeDV", "MMDVM")) else 1e-3
+    for blk in range(2):
+        xb = iq[..., blk * T:(blk + 1) * T]
+        outs = {}
+        for d in (cuda, cpu):
+            xp = IqPair(xb.real.to(d).contiguous(), xb.imag.to(d).contiguous())
+            states[d.type], outs[d.type] = chains[d.type](states[d.type], xp)
+        for k, v in outs["cpu"].items():
+            _cmp(outs["cuda"][k], v, 1e-4 if k == "rssi" or k == "rssi_slots"
+                 else float_tol, f"{mode} block {blk} {k}")
+        for i, (a, b) in enumerate(zip(_flatten(states["cuda"], []),
+                                       _flatten(states["cpu"], []))):
+            a = a.cpu()
+            if a.is_complex():
+                a, b = torch.view_as_real(a), torch.view_as_real(b)
+            if not a.is_floating_point():
+                assert torch.equal(a, b), f"{mode} state leaf {i}"
+                continue
+            d = (a.double() - b.double()).abs()
+            d = torch.minimum(d, (d - 2 * np.pi).abs())
+            peak = max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+            assert float(d.max()) <= 2e-5 * max(peak, 1.0), \
+                f"{mode} block {blk} state leaf {i}"

@@ -900,3 +900,180 @@ def test_sass_opcode_mix_and_row_runs():
     assert runs[0]["FFMA"] == 16 and runs[0]["BRA"] == 1
     assert runs[1]["FFMA"] == 17 and runs[1]["EXIT"] == 1
     assert sass.runs(fns["_Z8kernelILi9EEvPf"]) == []
+
+
+# -- the FFT form (fft_fir_block, FftFirFilter, fir_filter, "auto") ---------
+# Bounds: tests/test_fir.py's, 1e-4 (rtol and atol) against numpy for the
+# short filters and 1e-3 for the long one; the port against the JAX
+# functions on the same inputs within 1e-5 of the output's peak (measured
+# 5e-7: both are f32 FFTs of the same length, rounded apart).
+FFT_TOL = 1e-5
+
+
+def _ref_fir(x, h, decim=1):
+    """y[m] = sum_k h[k] x[m*decim - k], x[<0] = 0 (tests/test_fir.py)."""
+    return np.convolve(x, h)[: len(x)][::decim]
+
+
+def _taps_of(rng, K, complex_taps):
+    h = rng.standard_normal(K)
+    if complex_taps:
+        h = h + 1j * rng.standard_normal(K)
+    return h.astype(np.complex64 if complex_taps else np.float32)
+
+
+@pytest.mark.parametrize("decim", [1, 2])
+@pytest.mark.parametrize("complex_x,complex_taps",
+                         [(False, False), (True, False), (False, True),
+                          (True, True)])
+def test_fft_fir_block_matches_jax(rng, complex_x, complex_taps, decim):
+    """fft_fir_block against the JAX function on [history | block] of 2 x
+    (K - 1 + 600): the same dtype (real for real input and taps) and
+    values within FFT_TOL of the peak."""
+    K, T = 101, 600
+    h = _taps_of(rng, K, complex_taps)
+    x = rng.standard_normal((2, K - 1 + T))
+    if complex_x:
+        x = x + 1j * rng.standard_normal(x.shape)
+    x = x.astype(np.complex64 if complex_x else np.float32)
+    want = np.asarray(jfir.fft_fir_block(jnp.asarray(x), jnp.asarray(h),
+                                         decim))
+    got = fir.fft_fir_block(torch.from_numpy(x), h, decim).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.abs(got - want).max() <= FFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("complex_taps", [False, True])
+@pytest.mark.parametrize("kind", ["pair", "real", "complex"])
+def test_fft_fir_filter_streamed(rng, kind, complex_taps):
+    """FftFirFilter against the JAX FftFirFilter streamed over two blocks
+    of 3 x 700: every output and state leaf within FFT_TOL of its peak.
+    (On IqPair input the JAX FirFilter is always direct; the port's takes
+    the FFT it is told to, within the same bound.)"""
+    h = _taps_of(rng, 133, complex_taps)
+    if kind == "real":
+        x = rng.standard_normal((3, 1400)).astype(np.float32)
+        blocks = np.split(x, 2, axis=-1)
+    else:
+        x = (rng.standard_normal((3, 1400))
+             + 1j * rng.standard_normal((3, 1400))).astype(np.complex64)
+        blocks = [b if kind == "complex" else (b.real.copy(), b.imag.copy())
+                  for b in np.split(x, 2, axis=-1)]
+    stream_both(jfir.FftFirFilter(h, lead_shape=(3,)),
+                fir.FftFirFilter(h, lead_shape=(3,), device="cpu"), blocks,
+                rtol=FFT_TOL, atol=0.0, peak=True)
+
+
+@pytest.mark.parametrize("impl", ["conv", "fft"])
+@pytest.mark.parametrize("nchunks", [1, 4, 8])
+def test_fir_impl_block_size_invariance(rng, impl, nchunks):
+    """tests/test_fir.py's block-size invariance on the port: complex 512
+    samples, 33 real taps, in 1, 4 or 8 blocks, within 1e-4 of numpy."""
+    x = (rng.standard_normal(512)
+         + 1j * rng.standard_normal(512)).astype(np.complex64)
+    h = rng.standard_normal(33).astype(np.float32)
+    blk = fir.FirFilter(h, impl=impl, device="cpu")
+    st, ys = blk.init_state(), []
+    for part in np.split(x, nchunks):
+        st, y = blk(st, torch.from_numpy(part))
+        ys.append(y.numpy())
+    np.testing.assert_allclose(np.concatenate(ys), _ref_fir(x, h),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_fft_fir_long_taps(rng):
+    """tests/test_fir.py's long-filter case on the port: 401 taps over
+    4096 complex samples, within 1e-3 of numpy."""
+    x = (rng.standard_normal(4096)
+         + 1j * rng.standard_normal(4096)).astype(np.complex64)
+    h = np.asarray(np.hamming(401) * np.sinc(np.linspace(-4, 4, 401)),
+                   np.float32)
+    y = fir.FftFirFilter(h, device="cpu").one_shot(
+        torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y, _ref_fir(x, h), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("decim", [1, 3])
+def test_fir_filter_oneshot_matches_jax(rng, decim):
+    """fir_filter (zero history) against the JAX function and numpy,
+    within 1e-5 (tests/test_fir.py's bound)."""
+    x = rng.standard_normal((2, 129)).astype(np.float32)
+    h = rng.standard_normal(9).astype(np.float32)
+    got = fir.fir_filter(torch.from_numpy(x), h, decim).numpy()
+    want = np.asarray(jfir.fir_filter(jnp.asarray(x), jnp.asarray(h), decim))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0], _ref_fir(x[0], h, decim), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("K,complex_taps,decim,complex_in,want", [
+    (963, True, 1, True, "fft"),     # AmMod's post filter
+    (133, True, 1, True, "fft"),     # FreeDvMod's band-pass
+    (167, True, 1, False, "conv"),   # SsbDemod's band-pass, on IqPair
+    (fir.FFT_MIN_TAPS, True, 1, True, "fft"),
+    (fir.FFT_MIN_TAPS - 1, True, 1, True, "conv"),
+    (963, True, 2, True, "conv"),
+    (963, False, 1, True, "conv"),   # real taps stay direct
+    (837, False, 1, True, "conv"),   # the 4FSK filter bank's symbol LP
+])
+def test_auto_impl_rule(K, complex_taps, decim, complex_in, want):
+    """"auto" resolves by taps, decimation and the input's kind alone, the
+    same rule on every device: the FFT only for complex taps of more than
+    96 at decimation 1 on a complex tensor."""
+    assert fir.FFT_MIN_TAPS == 97
+    h = np.ones(K, np.complex64 if complex_taps else np.float32)
+    assert fir.auto_impl(h, decim, complex_in) == want
+    blk = fir.FirFilter(h, decim, device="cpu")
+    assert blk.impl == "auto" and blk.form(complex_in) == want
+    assert fir.FirFilter(h, decim, impl="conv", device="cpu").form(
+        complex_in) == "conv"
+
+
+def test_auto_takes_the_direct_form_on_iq_pairs(rng):
+    """A complex K167 filter: an IqPair block launches the direct kernels'
+    plain version (fir_s1_f32 twice), a complex tensor the FFT form."""
+    h = _taps_of(rng, 167, True)
+    blk = fir.FirFilter(h, lead_shape=(2,), device="cpu")
+    x = (rng.standard_normal((2, 800))
+         + 1j * rng.standard_normal((2, 800))).astype(np.complex64)
+    kernel_paths.reset()
+    blk(blk.init_state(), IqPair(torch.from_numpy(x.real.copy()),
+                                 torch.from_numpy(x.imag.copy())))
+    assert set(kernel_paths.report()) == {"fir_s1_f32"}
+    kernel_paths.reset()
+    blk(blk.init_state(), torch.from_numpy(x))
+    assert set(kernel_paths.report()) == {fir.FFT_OP}
+
+
+def test_fft_form_records_its_route_on_cpu(rng):
+    """The FFT form records one plain call a block under FFT_OP, with taps,
+    stride, planes and rows; the direct kernels are not called."""
+    h = _taps_of(rng, 963, True)
+    blk = fir.FirFilter(h, lead_shape=(2,), device="cpu")
+    x = torch.from_numpy((rng.standard_normal((2, 2000))
+                          + 1j * rng.standard_normal((2, 2000))
+                          ).astype(np.complex64))
+    kernel_paths.reset()
+    blk(blk.init_state(), x)
+    rep = kernel_paths.report()
+    assert set(rep) == {fir.FFT_OP}
+    assert rep[fir.FFT_OP]["shapes"] == {"plain K963 D1 2x2": 1}
+
+
+def test_fft_matches_direct_at_ammod_bound(rng):
+    """The port's two forms of AmMod's post filter (963 complex taps) on
+    the same real-as-complex input: within 1e-3 of the direct form's peak,
+    the JAX package's FFT-against-direct bound (tests/test_fir.py)."""
+    from qradiolink_tpu_torch.chains.am import AmMod
+
+    taps = AmMod(device="cpu").post_filter.taps
+    x = torch.from_numpy(rng.standard_normal((2, 3000)).astype(
+        np.float32)).to(torch.complex64)
+    ys = {}
+    for impl in ("conv", "fft"):
+        blk = fir.FirFilter(taps, impl=impl, lead_shape=(2,), device="cpu")
+        st, y1 = blk(blk.init_state(), x[:, :1500])
+        st, y2 = blk(st, x[:, 1500:])
+        ys[impl] = torch.cat([y1, y2], -1).numpy()
+    peak = np.abs(ys["conv"]).max()
+    assert np.abs(ys["fft"] - ys["conv"]).max() <= 1e-3 * peak
