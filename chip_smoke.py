@@ -33,7 +33,10 @@ when the package cannot be imported, and when any phase fails:
       fir_stream_f32, which served the shape before, is held against the
       plain version too and timed in turns with it (old, new, new, old),
       its row kept with "path": null; fir_s1_f32 must equal
-      fir_stream_f32 bit for bit;
+      fir_stream_f32 bit for bit. At a shape the route gives
+      fir_stream_f32, its first design fir_stream_v0_f32
+      (csrc/fir_stream_v0.cu, on no path) takes that place: bit-equal to
+      fir_stream_f32, timed in turns, its row with "path": null;
     - the NBFM audio resampler (L 2, M 5, 113 taps a phase, real, 32 x
       2,000 -> 800) on resample_poly_f32 over two chained blocks, its
       outputs and new state equal bit for bit to the two-launch route that
@@ -265,7 +268,8 @@ when the package cannot be imported, and when any phase fails:
     within a rounding, CVC_TOLS); then each kernel shape of the run
     (call_capture, captured_rows): each FIR and resampler shape against
     its plain version on seeded inputs (fir_row, poly_row, with the kernel
-    the route replaced in turns), each loop (the conj-mode and
+    the route replaced in turns; at fir_stream_f32's shapes
+    fir_stream_v0_f32, bit-equal), each loop (the conj-mode and
     levels-mode sync, the Viterbi) on the path's own inputs bit-equal to
     one timed call of its plain loop;
 23. MMDVMmulti at its real size: one site, 7 carriers, 250,000 samples a
@@ -442,6 +446,8 @@ def row(name, source, replaces, err, ms, plain_ms, b, lib_ms, run, shape,
 
 
 FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
+              "fir_stream_v0_f32":
+                  "qradiolink_tpu_torch/csrc/fir_stream_v0.cu",
               "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu",
               "fir_long_f32": "qradiolink_tpu_torch/csrc/fir_long.cu",
               "fir_cols_f32": "qradiolink_tpu_torch/csrc/fir_cols.cu",
@@ -456,8 +462,10 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
     row with no path and no launch on `run`). Where the route picks a new
     kernel, fir_stream_f32, which served the shape before, is held against
     the plain version too and timed in turns with it (old, new, new, old);
-    its row has no path. fir_s1_f32 keeps fir_stream_f32's sum order, so
-    their outputs must be equal bit for bit."""
+    its row has no path. Where the route gives the shape to
+    fir_stream_f32, its first design fir_stream_v0_f32 takes that place.
+    fir_s1_f32 and fir_stream_v0_f32 keep fir_stream_f32's sum order, so
+    their outputs must be equal to its bit for bit."""
     from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
@@ -469,16 +477,20 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
     if op != cuda_fir.OP:
         fns = {cuda_fir.OP: lambda: cuda_fir._launch_stream(
             xs, tf, D, n_out, tails), **fns}
+    else:
+        fns = {cuda_fir.V0_OP: lambda: cuda_fir.fir_stream_v0(
+            xs, tf, D, n_out, tails), **fns}
     plain = cuda_fir.fir_stream_plain(xs, tf, D, n_out, tails=tails)
     outs = {k: fn() for k, fn in fns.items()}
     errs = {k: check_fir(f"{k}/{name}", y, plain) for k, y in outs.items()}
-    if cuda_fir.S1_OP in outs:
+    for same in (cuda_fir.S1_OP, cuda_fir.V0_OP):
+        if same not in outs:
+            continue
         if not all(torch.equal(a, b) for a, b in
-                   zip(outs[cuda_fir.S1_OP], outs[cuda_fir.OP])):
-            raise RuntimeError(f"{cuda_fir.S1_OP}/{name}: not bit-equal "
-                               f"to {cuda_fir.OP}")
-        print(f"  {cuda_fir.S1_OP}/{name}: bit-equal to {cuda_fir.OP}",
-              flush=True)
+                   zip(outs[same], outs[cuda_fir.OP])):
+            raise RuntimeError(f"{same}/{name}: not bit-equal to "
+                               f"{cuda_fir.OP}")
+        print(f"  {same}/{name}: bit-equal to {cuda_fir.OP}", flush=True)
     del outs
     torch.cuda.synchronize()
     if not timing:
@@ -4672,12 +4684,19 @@ def fft_route_phase(dev, gen):
         ms, turns = turns_ms({k: (lambda f=f: f(st, x)) for k, f in
                               forms.items()})
         auto = filt.form(complex_in)
-        print(f"  {name} K{filt.ntaps} complex, {C} x {T}"
+        # the function's bound: its bytes (complex in and out, the state's
+        # two planes of K-1, the complex taps); the direct form's: its f32
+        # operations, 8 a complex tap and output
+        K = filt.ntaps
+        b_bytes = bound(8 * C * T * 2 + 4 * C * 2 * (K - 1) + 8 * K, 0)
+        b_ops = bound(0, 8 * K * C * T)
+        print(f"  {name} K{K} complex, {C} x {T}"
               f"{'' if complex_in else ' (IqPair)'}: FFT against direct max "
               f"|diff| {d:.3e} of a peak {peak:.3e} ({d / peak:.2e}); in "
               f"turns: " + ", ".join(f"{k} {t:.4f} ms" for k, t in turns)
               + f"; auto takes {auto}, the FFT {ms['conv'] / ms['fft']:.2f}x "
-              f"the direct form", flush=True)
+              f"the direct form; bound {b_bytes[0]:.4f} ms (bytes), the "
+              f"direct form's {b_ops[0]:.4f} ms (operations)", flush=True)
         # the FFT only where it ran faster; AmMod's filter on the faster
         if (auto == "fft" and ms["fft"] > ms["conv"]) or (
                 name == "am_post_filter" and auto == "conv"

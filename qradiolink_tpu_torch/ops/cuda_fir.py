@@ -1,7 +1,9 @@
-"""Strided streaming FIR: wrapper, plain version and the five CUDA kernels
-that compute it, `fir_stream_f32` (csrc/fir.cu), `fir_decim_f32`
+"""Strided streaming FIR: wrapper, plain version and the CUDA kernels that
+compute it, `fir_stream_f32` (csrc/fir.cu), `fir_decim_f32`
 (csrc/fir_decim.cu), `fir_long_f32` (csrc/fir_long.cu), `fir_cols_f32`
-(csrc/fir_cols.cu) and `fir_s1_f32` (csrc/fir_s1.cu).
+(csrc/fir_cols.cu) and `fir_s1_f32` (csrc/fir_s1.cu), and the first design
+of `fir_stream_f32`, `fir_stream_v0_f32` (csrc/fir_stream_v0.cu), which no
+route names: `fir_stream_v0()` launches it for timing in turns.
 
 Port of the two Pallas TPU kernels of qradiolink_tpu/ops/pallas_fir.py,
 `banded_fir_stream` (K1) and `banded_fir` (K2), which compute the same
@@ -27,14 +29,19 @@ phase:
   WBFM audio resampler (K 1121 D 25);
 - `fir_s1_f32`, register-blocked over outputs, for stride 1 with at most
   2,048 taps (the channel low-passes, the RRC, the audio filters);
-- `fir_stream_f32` for every other shape (such as A > 64).
-`fir_s1_f32` sums in the order of `fir_stream_f32`, so the two give equal
-bits; the polyphase kernels sum in other orders and are held to the FIR's
-bound. Every default `RationalResampler(1, M)` has A = 45 (its Kaiser
-design gives about 44.8 M taps), so each such head takes one of the
-polyphase kernels. The rational resampler at L > 1 (the NBFM audio
-resampler) is not a call of this wrapper: `ops/cuda_resample.py` runs all
-its phases in one launch.
+- `fir_stream_f32` for every other shape: A <= 16 at D 2-31 or D > 64
+  (FreeDV's head K1045 D125, 4FSK1KFM's K837 D100, 4FSK100K's K17 D2),
+  A > 64, stride 1 above 2,048 taps. Its design (one stream of outputs a
+  lane, a systolic ring of accumulators) takes any shape whose taps and
+  rings fit a block's shared memory (`fir_stream_smem_bytes`), and rows
+  past the grid's 65,535.
+`fir_s1_f32` and `fir_stream_v0_f32` sum in the order of `fir_stream_f32`,
+so the three give equal bits; the polyphase kernels sum in other orders
+and are held to the FIR's bound. Every default `RationalResampler(1, M)`
+has A = 45 (its Kaiser design gives about 44.8 M taps), so each such head
+takes one of the polyphase kernels. The rational resampler at L > 1 (the
+NBFM audio resampler) is not a call of this wrapper: `ops/cuda_resample.py`
+runs all its phases in one launch.
 
 On a CPU tensor the wrapper takes the plain version (F.conv1d over the
 explicit concatenation) and records it under the routed kernel's name; on a
@@ -53,6 +60,7 @@ from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "fir_stream_f32"
+V0_OP = "fir_stream_v0_f32"
 DECIM_OP = "fir_decim_f32"
 LONG_OP = "fir_long_f32"
 COLS_OP = "fir_cols_f32"
@@ -165,9 +173,10 @@ def _lib(name, launch, error_string):
         fn.restype = ctypes.c_int
         getattr(lib, error_string).argtypes = [i]
         getattr(lib, error_string).restype = ctypes.c_char_p
-        if name == "fir":
-            lib.fir_stream_smem_bytes.argtypes = [i, i]
-            lib.fir_stream_smem_bytes.restype = ctypes.c_longlong
+        if name in ("fir", "fir_stream_v0"):
+            smem = getattr(lib, f"{launch.removesuffix('_f32')}_smem_bytes")
+            smem.argtypes = [i, i]
+            smem.restype = ctypes.c_longlong
         lib._qrl_bound = True
     return lib
 
@@ -307,11 +316,10 @@ def _launch(op, fn, err_string, xs, taps_flipped, stride, n_out, tails,
 
 
 def _launch_stream(xs, taps_flipped, stride, n_out, tails=None, shift=0):
-    """fir_stream_f32 on CUDA planes, at any shape."""
+    """fir_stream_f32 on CUDA planes, at any shape whose block fits the
+    shared memory."""
     C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
-    if C > _GRID_Y_MAX:
-        raise ValueError(f"{C} rows exceed the grid's {_GRID_Y_MAX}")
-    lib = _lib("fir", "fir_stream_f32", "fir_error_string")
+    lib = _lib("fir", OP, "fir_error_string")
     if lib.fir_stream_smem_bytes(taps_flipped.shape[0], stride) \
             > kernels.SMEM_MAX:
         raise ValueError(f"K={taps_flipped.shape[0]}, D={stride} needs more "
@@ -319,3 +327,30 @@ def _launch_stream(xs, taps_flipped, stride, n_out, tails=None, shift=0):
     return _launch(OP, lib.fir_stream_f32, lib.fir_error_string, xs,
                    taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
                    tail_ld)
+
+
+def fir_stream_v0(xs, taps_flipped, stride: int, n_out: int, tails=None,
+                  shift: int = 0):
+    """fir_stream_f32's first design, `fir_stream_v0_f32`, which no route
+    names: the plain version on CPU planes, the kernel on CUDA planes (one
+    block a tile of 128 outputs and a row, so at most 65,535 rows)."""
+    xs = tuple(xs)
+    tails = None if tails is None else tuple(tails)
+    K, _ = _check(xs, taps_flipped, stride, n_out, tails, shift)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        kernel_paths.record(V0_OP, False, shape_key(xs, K, stride, tails))
+        return fir_stream_plain(xs, taps_flipped, stride, n_out, tails,
+                                shift)
+    if dev.type != "cuda":
+        raise ValueError(f"no {V0_OP} kernel for device {dev}")
+    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
+    if C > _GRID_Y_MAX:
+        raise ValueError(f"{C} rows exceed the grid's {_GRID_Y_MAX}")
+    lib = _lib("fir_stream_v0", V0_OP, "fir_stream_v0_error_string")
+    if lib.fir_stream_v0_smem_bytes(K, stride) > kernels.SMEM_MAX:
+        raise ValueError(f"K={K}, D={stride} needs more shared memory than "
+                         f"a block has")
+    return _launch(V0_OP, lib.fir_stream_v0_f32,
+                   lib.fir_stream_v0_error_string, xs, taps_flipped, stride,
+                   n_out, tails, shift, C, tail_ptrs, tail_ld)

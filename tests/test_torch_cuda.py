@@ -460,6 +460,110 @@ def _assert_fir_close(got, ref):
         assert bool((diff <= 1e-5 + 1e-5 * r.abs()).all())
 
 
+# fir_stream_f32 (csrc/fir.cu) against its first design fir_stream_v0_f32
+# (csrc/fir_stream_v0.cu), whose sum order it keeps: a grid of taps and
+# strides; at each, three layouts (tail, planes, shift, rows, outputs a
+# row), the outputs ragged against every tile and chunk
+STREAM_K = (1, 17, 837, 1045, 2239)
+STREAM_D = (1, 2, 31, 100, 125, 200)
+STREAM_LAYOUTS = ((True, 2, 0, 3, 517), (True, 1, 3, 2, 300),
+                  (False, 2, 2, 3, 261))
+
+
+@pytest.mark.parametrize("D", STREAM_D)
+@pytest.mark.parametrize("K", STREAM_K)
+def test_fir_stream_kernel_matches_v0_and_plain(cuda, gen, K, D):
+    """fir_stream_f32 bit-equal to fir_stream_v0_f32 and within the FIR's
+    1e-5 of the plain version, with the tails read in place as strided
+    views of the (C, 2, K-1) state (as _cuda_args takes them) or no tail,
+    1 and 2 planes, shift 0 and above."""
+    for tail, planes, shift, C, n_out in STREAM_LAYOUTS:
+        T = (n_out - 1) * D + shift + K - (K - 1 if tail else 0) + 5
+        tf = torch.randn((K,), generator=gen, device=cuda) / K ** 0.5
+        xs = [torch.randn((C, T), generator=gen, device=cuda)
+              for _ in range(planes)]
+        st = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
+        tails = (st[:, 0, :], st[:, 1, :])[:planes] if tail else None
+        kernel_paths.reset()
+        got = cuda_fir._launch_stream(xs, tf, D, n_out, tails, shift)
+        old = cuda_fir.fir_stream_v0(xs, tf, D, n_out, tails, shift)
+        assert kernel_paths.launches(cuda_fir.OP) == 1
+        assert kernel_paths.launches(cuda_fir.V0_OP) == 1
+        for g, o in zip(got, old):
+            assert torch.equal(g, o)
+        _assert_fir_close(got, fir_stream_plain(xs, tf, D, n_out,
+                                                tails=tails, shift=shift))
+
+
+def test_fir_stream_path_shapes_match_v0(cuda, gen):
+    """The three shapes the route gives fir_stream_f32 on a path (FreeDV's
+    head K1045 D125, 4FSK1KFM's K837 D100, 4FSK100K's K17 D2), with the
+    chains' taps, 8 rows x 2 planes, tails in place: bit-equal to
+    fir_stream_v0_f32 over two chained blocks."""
+    from qradiolink_tpu_torch.chains.freedv import FreeDvDemod
+    from qradiolink_tpu_torch.chains.fsk import Fsk4Demod
+
+    for rs, T in ((FreeDvDemod(device=cuda).resamp, 40_000),
+                  (Fsk4Demod(variant="1KFM", device=cuda).resamp, 40_000),
+                  (Fsk4Demod(variant="96K", device=cuda).resamp, 20_000)):
+        tf, D = rs.phase_taps[0], rs.M
+        K = tf.shape[0]
+        assert route(K, D) == cuda_fir.OP
+        st = torch.randn((8, 2, K - 1), generator=gen, device=cuda)
+        for _ in range(2):
+            xs = [torch.randn((8, T), generator=gen, device=cuda)
+                  for _ in range(2)]
+            tails = (st[:, 0, :], st[:, 1, :])
+            got = fir_stream(xs, tf, D, T // D, tails=tails)
+            old = cuda_fir.fir_stream_v0(xs, tf, D, T // D, tails)
+            for g, o in zip(got, old):
+                assert torch.equal(g, o)
+            _assert_fir_close(got, fir_stream_plain(xs, tf, D, T // D,
+                                                    tails=tails))
+            st = torch.stack([x[:, -(K - 1):] for x in xs], 1).contiguous()
+
+
+def test_fir_stream_gate_raises_and_never_launches(cuda, gen):
+    """Where a block's shared memory cannot hold the design (the taps by
+    period position grow with D), the wrapper raises before any launch;
+    one stride below, it launches and matches the plain version."""
+    lib = cuda_fir._lib("fir", cuda_fir.OP, "fir_error_string")
+    K = 3
+    lo, hi = 1, 1 << 20  # the first D whose block does not fit
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if lib.fir_stream_smem_bytes(K, mid) > kernels.SMEM_MAX:
+            hi = mid
+        else:
+            lo = mid + 1
+    tf = torch.randn((K,), generator=gen, device=cuda)
+    for D in (lo, lo - 4):
+        xs = [torch.randn((2, 3 * D + K), generator=gen, device=cuda)]
+        kernel_paths.reset()
+        if D == lo:
+            with pytest.raises(ValueError, match="shared memory"):
+                cuda_fir._launch_stream(xs, tf, D, 3)
+            with pytest.raises(ValueError, match="shared memory"):
+                fir_stream(xs, tf, D, 3)
+            assert kernel_paths.launches(cuda_fir.OP) == 0
+        else:
+            got = cuda_fir._launch_stream(xs, tf, D, 3)
+            assert kernel_paths.launches(cuda_fir.OP) == 1
+            _assert_fir_close(got, fir_stream_plain(xs, tf, D, 3))
+
+
+def test_fir_stream_rows_past_the_grid(cuda, gen):
+    """fir_stream_f32 takes more rows than a grid's y dimension (65,535),
+    where fir_stream_v0_f32 raises."""
+    C, T, K, D = 70_000, 40, 17, 2
+    tf = torch.randn((K,), generator=gen, device=cuda)
+    xs = [torch.randn((C, T), generator=gen, device=cuda)]
+    got = cuda_fir._launch_stream(xs, tf, D, (T - K) // D + 1)
+    _assert_fir_close(got, fir_stream_plain(xs, tf, D, (T - K) // D + 1))
+    with pytest.raises(ValueError, match="rows exceed"):
+        cuda_fir.fir_stream_v0(xs, tf, D, (T - K) // D + 1)
+
+
 @pytest.mark.parametrize("C,kp,lead,planes,n_out", [
     (64, 24, (), 2, 5000),     # channelizer branches (kp rounded to 8)
     (64, 23, (), 2, 5000),     # synthesizer branches (kp 23)

@@ -869,6 +869,364 @@ def test_cols_constants_match_the_source():
                    "kMaxD": 31, "kMinD": 2}
     assert "kTapRow = kMaxA" in src
 
+
+# ---- fir_stream_f32 (csrc/fir.cu): the plain version at its path shapes
+# against the JAX package, and a numpy model of the kernel's schedule ------
+
+def _stream_shape_taps(name):
+    """The flipped taps of the three shapes the route gives fir_stream_f32
+    on a path: FreeDV's head (K1045 D125), 4FSK1KFM's head (K837 D100) and
+    4FSK100K's head (K17 D2), from the chains' own designs."""
+    from qradiolink_tpu_torch.chains.fsk import Fsk4Demod
+    from qradiolink_tpu_torch.chains.freedv import FreeDvDemod
+
+    rs = {"freedv_head": lambda: FreeDvDemod(device="cpu").resamp,
+          "fsk1kfm_head": lambda: Fsk4Demod(variant="1KFM",
+                                            device="cpu").resamp,
+          "fsk100k_head": lambda: Fsk4Demod(variant="96K",
+                                            device="cpu").resamp}[name]()
+    return rs.phase_taps[0], rs.M
+
+
+# name: (K, D, samples a block); the blocks are the shortest that
+# stream_plan serves with two slabs of 128 outputs
+STREAM_PATH_SHAPES = {"freedv_head": (1045, 125, 32_000),
+                      "fsk1kfm_head": (837, 100, 25_600),
+                      "fsk100k_head": (17, 2, 1_024)}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_PATH_SHAPES))
+def test_plain_fir_matches_pallas_stream_at_stream_shapes(pallas_interp,
+                                                          rng, name):
+    """fir_stream's plain version against the Pallas banded_fir_stream, in
+    interpret mode, at the three shapes that route() gives fir_stream_f32
+    on a path, with the chains' own taps: two chained blocks (the tails
+    carried), 2 planes, within 1e-5. 8 rows, not 4: stream_plan takes
+    channel tiles of 8 to 128 rows, and refuses 4 rows at every shape."""
+    K, D, T = STREAM_PATH_SHAPES[name]
+    tf, M = _stream_shape_taps(name)
+    assert (tf.shape[0], M) == (K, D) and route(K, D) == "fir_stream_f32"
+    taps = tf.numpy()[::-1].copy()
+    C, n_out = 8, T // D
+    tails = [rng.standard_normal((C, K - 1)).astype(np.float32)
+             for _ in range(2)]
+    for _ in range(2):
+        xs = [rng.standard_normal((C, T)).astype(np.float32)
+              for _ in range(2)]
+        res = pf.banded_fir_stream(tuple(jnp.asarray(t) for t in tails),
+                                   tuple(jnp.asarray(x) for x in xs),
+                                   taps, D, n_out)
+        assert res is not None, "Pallas stream kernel did not run"
+        ys, n_main = res
+        assert n_main == n_out
+        got = fir_stream_plain([torch.from_numpy(x) for x in xs], tf, D,
+                               n_out, tails=[torch.from_numpy(t)
+                                             for t in tails])
+        for y, g in zip(ys, got):
+            np.testing.assert_allclose(g.numpy(), np.asarray(y), rtol=1e-5,
+                                       atol=1e-5)
+        tails = [x[:, -(K - 1):] for x in xs]
+
+
+FIR_SRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
+           / "csrc" / "fir.cu")
+STREAM_WARPS, STREAM_CH, STREAM_SLOTS = 4, 64, 2
+STREAM_PITCH, STREAM_OUT, STREAM_MAX_S = 33, 32, 16
+STREAM_STREAM_WORDS = 12   # sizeof(Stream) / 4
+STREAM_SMALL_PD = (2, 4)   # periods the kernel runs as straight-line code
+
+
+def stream_plan(K, D):
+    """(S, P, PD, qmax) of csrc/fir.cu's plan_of: accumulators a lane,
+    outputs a lane's outputs lie apart, a period's positions, and the
+    position from which the oldest accumulator takes no tap."""
+    A = -(-K // D)
+    P = 1 if A <= STREAM_MAX_S else -(-A // STREAM_MAX_S)
+    S = -(-A // P)
+    return S, P, P * D, K - (S - 1) * P * D
+
+
+def stream_tap_row(S):
+    return S if S <= 2 else -(-S // 4) * 4
+
+
+def stream_smem_bytes(K, D):
+    """fir_stream_smem_bytes: the taps by position, and a warp's stream
+    table, ring and output buffer."""
+    S, P, PD, _ = stream_plan(K, D)
+    taps = -(-PD * stream_tap_row(S) // 4) * 4
+    warp = (32 * STREAM_STREAM_WORDS + STREAM_SLOTS * STREAM_CH
+            * STREAM_PITCH + 32 * (STREAM_OUT + 1))
+    return 4 * (taps + STREAM_WARPS * warp)
+
+
+def stream_work(K, D, n_out, rows, lanes):
+    """(L, NSR, n_streams, n_samp) of launch<S>() when one wave holds
+    `lanes` lanes: outputs a stream, streams a (plane, row), streams, and
+    positions a stream reads."""
+    S, P, PD, _ = stream_plan(K, D)
+    segs = max(1, lanes // (rows * P))
+    L = -(-n_out // (P * segs))
+    NSR = P * -(-n_out // (P * L))
+    return L, NSR, rows * NSR, P * (L - 1) * D + K
+
+
+def fma32(t, x, acc):
+    """fmaf on f32 arrays in numpy: the product is exact in f64, the sum
+    rounds in f64 and then to f32 (the card rounds once). The model and the
+    reference below both use it, so their bits differ only where their
+    order or indices do."""
+    return (np.float64(t) * x.astype(np.float64)
+            + acc.astype(np.float64)).astype(np.float32)
+
+
+def stream_reference(state, xs, tf, D, shift, n_out):
+    """Each output as one sequential f32 sum, j = 0 .. K-1 from 0."""
+    K = tf.shape[0]
+    ys = []
+    for p, x in enumerate(xs):
+        xc = x if state is None else np.concatenate([state[:, p], x], -1)
+        idx = np.arange(n_out) * D + shift
+        acc = np.zeros((x.shape[0], n_out), np.float32)
+        for j in range(K):
+            acc = fma32(tf[j], xc[:, idx + j], acc)
+        ys.append(acc)
+    return ys
+
+
+def stream_model(state, xs, tf, D, shift, n_out, lanes):
+    """numpy model of fir_stream_f32's schedule, line for line, every lane
+    at once, for a wave of `lanes` lanes: the taps by period position
+    (taps[q*SP + k] = tf[q + k*PD]; every other word NaN, so a tap read
+    outside the schedule shows); each lane's stream (plane, row, first
+    output s0, outputs s0 + P e, their count n_valid); the warp's ring of
+    STREAM_SLOTS slots of STREAM_CH positions at pitch 33 (the pad word
+    NaN), each chunk copied kSlots - 1 ahead: where the chunk lies in x for
+    all 32 streams of the warp, from x alone (the copy without tests; its
+    range is asserted), else element by element with the tail/x seam
+    resolved, the tails read through their row stride in the (C, 2, K-1)
+    state, and 0 past the input; the runs of a period with and without the
+    oldest accumulator, its output staged at qmax, the shift at the
+    period's end; at a period of 2 or 4 positions, whole periods a chunk
+    (the last chunk's past the stream's end too) with the output staged at
+    the period's end; each kOut outputs (or the last) stored, a stream's
+    run at stride P. There is no copy alignment to model: the copies are
+    4-byte. Every output must be written once. state: (C, 2, K-1) or None;
+    xs: one (C, T) array a plane. Returns the outputs and (S, P, L, NSR,
+    n_samp)."""
+    K = tf.shape[0]
+    S, P, PD, qmax = stream_plan(K, D)
+    SP = stream_tap_row(S)
+    CH, NSL, OUT = STREAM_CH, STREAM_SLOTS, STREAM_OUT
+    e_ = np.arange(PD * SP)
+    q_, k_ = e_ // SP, e_ % SP
+    j_ = q_ + k_ * PD
+    taps = np.full(PD * SP, np.nan, np.float32)
+    ok = (k_ < S) & (j_ < K)
+    taps[ok] = tf[j_[ok]]
+
+    planes = len(xs)
+    C, T = xs[0].shape
+    tail_len = 0 if state is None else K - 1
+    lim = tail_len + T
+    L, NSR, n_streams, n_samp = stream_work(K, D, n_out, planes * C, lanes)
+    n_warps = -(-n_streams // 32)   # warps past the work return
+    sid = np.arange(n_warps * 32)
+    idv = np.where(sid < n_streams, sid, 0)
+    rp, sigma = idv // NSR, idv % NSR
+    plane, row = rp // C, rp % C
+    s0 = (sigma // P) * P * L + sigma % P
+    v0 = s0 * D + shift
+    n_valid = np.where((sid < n_streams) & (s0 < n_out),
+                       np.minimum(L, -(-(n_out - s0) // P)), 0)
+    warp, lane = sid // 32, sid % 32
+    c_lo = np.where(v0 >= tail_len, 0, -(-(tail_len - v0) // CH))
+    c_hi = np.fix((lim - v0) / CH).astype(np.int64) - 1
+    c_lo_w = c_lo.reshape(n_warps, 32).max(1)
+    c_hi_w = c_hi.reshape(n_warps, 32).min(1)
+    x_all = np.stack(xs)
+    flat = None if state is None else np.ascontiguousarray(state).ravel()
+    tail_ld = 2 * (K - 1)
+
+    ring = np.full((n_warps, NSL, CH, STREAM_PITCH), np.nan, np.float32)
+
+    def copy(c):
+        u = v0[:, None] + c * CH + np.arange(CH)  # (lanes, CH)
+        fast = ((c >= c_lo_w) & (c <= c_hi_w))[warp]
+        xi = u - tail_len
+        assert ((xi[fast] >= 0) & (xi[fast] < T)).all()
+        val = x_all[plane[:, None], row[:, None], np.clip(xi, 0, T - 1)]
+        if tail_len:
+            ti = (row[:, None] * tail_ld + plane[:, None] * (K - 1)
+                  + np.clip(u, 0, K - 2))
+            val = np.where(u < tail_len, flat[ti], val)
+        ring[warp, c % NSL, :, lane] = np.where(u < lim, val, 0)
+
+    ys = [np.full((C, n_out), np.nan, np.float32) for _ in xs]
+    written = np.zeros((planes, C, n_out), np.int64)
+    obuf = np.full((len(sid), OUT + 1), np.nan, np.float32)
+
+    def flush(e_base, count):
+        ee = e_base + np.arange(count)
+        li, ci = np.nonzero(ee[None, :] < n_valid[:, None])
+        m = s0[li] + ee[ci] * P
+        for p in range(planes):
+            sel = plane[li] == p
+            ys[p][row[li][sel], m[sel]] = obuf[li[sel], ci[sel]]
+        np.add.at(written, (plane[li], row[li], m), 1)
+
+    acc = np.zeros((S, len(sid)), np.float32)
+    q, e, tp, left = 0, 1 - S, 0, n_samp
+    per_left = L + S - 1
+
+    def emit():
+        nonlocal e
+        if e >= 0:
+            r = e % OUT
+            obuf[:, r] = acc[S - 1]
+            if r == OUT - 1 or e == L - 1:
+                flush(e - r, r + 1)
+        e += 1
+
+    n_chunks = -(-n_samp // CH)
+    for c in range(min(NSL - 1, n_chunks)):
+        copy(c)
+    for c in range(n_chunks):
+        if c + NSL - 1 < n_chunks:
+            copy(c + NSL - 1)
+        xs_ = ring[warp, c % NSL, :, lane]  # (lanes, CH)
+        if PD in STREAM_SMALL_PD:  # whole periods, the taps in registers
+            n_per = min(CH // PD, per_left)
+            per_left -= n_per
+            for i in range(n_per):
+                for qq in range(PD):
+                    x = xs_[:, i * PD + qq]
+                    t = taps[qq * SP: qq * SP + SP]
+                    for k in range(S - 1):
+                        acc[k] = fma32(t[k], x, acc[k])
+                    if qq < qmax:
+                        acc[S - 1] = fma32(t[S - 1], x, acc[S - 1])
+                emit()
+                acc[1:] = acc[:-1].copy()
+                acc[0] = 0
+            continue
+        o_end, o = min(CH, left), 0
+        while o < o_end:
+            oldest = q < qmax
+            n = min(o_end - o, (qmax if oldest else PD) - q)
+            for i in range(n):
+                x = xs_[:, o + i]
+                t = taps[tp + i * SP: tp + i * SP + SP]
+                for k in range(S - 1):
+                    acc[k] = fma32(t[k], x, acc[k])
+                if oldest:
+                    acc[S - 1] = fma32(t[S - 1], x, acc[S - 1])
+            o, q, tp = o + n, q + n, tp + n * SP
+            if q == qmax:
+                emit()
+            if q == PD:
+                acc[1:] = acc[:-1].copy()
+                acc[0] = 0
+                q, tp = 0, 0
+        left -= o_end
+    assert (written == 1).all(), "an output was written twice or never"
+    return ys, (S, P, L, NSR, n_samp)
+
+
+# name: (C, T, K, D, shift, planes, tail, lanes of the wave); the first
+# three are the path shapes cut to a few chunks a stream
+STREAM_CASES = {
+    "freedv_head": (2, 5_000, 1045, 125, 0, 2, True, 16),
+    "fsk1kfm_head": (2, 4_000, 837, 100, 0, 2, True, 16),
+    "fsk100k_head": (2, 2_000, 17, 2, 0, 2, True, 32),
+    "ragged": (3, 2_222, 17, 2, 0, 2, True, 40),
+    "shift": (2, 3_000, 400, 60, 7, 2, True, 16),
+    "no_tail": (2, 3_000, 837, 100, 0, 1, False, 16),
+    "one_plane": (3, 2_000, 17, 2, 0, 1, True, 32),
+    "d4": (2, 3_001, 50, 4, 1, 2, True, 24),
+    "d_above_chunk": (2, 6_000, 300, 200, 3, 2, True, 16),
+    "k_below_d": (2, 5_000, 40, 125, 0, 2, True, 16),
+    "one_tap": (2, 600, 1, 3, 1, 1, True, 32),
+    "a_above_16": (2, 2_800, 2239, 1, 0, 1, False, 64),
+}
+
+
+def stream_case(name, rng):
+    C, T, K, D, shift, planes, tail, lanes = STREAM_CASES[name]
+    if name in STREAM_PATH_SHAPES:
+        tf = _stream_shape_taps(name)[0].numpy()
+    else:
+        tf = (rng.standard_normal(K) / np.sqrt(K)).astype(np.float32)
+    xs = [rng.standard_normal((C, T)).astype(np.float32)
+          for _ in range(planes)]
+    state = (rng.standard_normal((C, 2, K - 1)).astype(np.float32)
+             if tail else None)
+    n_out = (T - shift) // D if tail else (T - shift - K) // D + 1
+    return state, xs, tf, D, shift, n_out, lanes
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_CASES))
+def test_stream_model_matches_sequential_sum(rng, name):
+    """fir_stream_f32's schedule (the numpy model) bit-equal to one
+    sequential f32 sum an output, j = 0 .. K-1, at every case: what makes
+    the kernel bit-equal to fir_stream_v0_f32 and fir_s1_f32."""
+    state, xs, tf, D, shift, n_out, lanes = stream_case(name, rng)
+    got, (S, P, L, NSR, n_samp) = stream_model(state, xs, tf, D, shift,
+                                               n_out, lanes)
+    ref = stream_reference(state, xs, tf, D, shift, n_out)
+    for g, r in zip(got, ref):
+        assert not np.isnan(g).any(), "an output was never written"
+        assert np.array_equal(g, r)
+    # and within the FIR's 1e-5 of the plain version
+    tails = None if state is None else [torch.from_numpy(state[:, p])
+                                        for p in range(len(xs))]
+    plain = fir_stream_plain([torch.from_numpy(x) for x in xs],
+                             torch.from_numpy(tf), D, n_out, tails=tails,
+                             shift=shift)
+    for g, r in zip(got, plain):
+        np.testing.assert_allclose(g, r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_stream_cases_cover_the_plan():
+    """The model's cases reach what they are named for: several streams a
+    row with a ragged last one, periods longer than a chunk (D > 64), A = 1,
+    and P > 1 (A > 16: residues of one segment on several lanes)."""
+    plans = {}
+    for name, (C, T, K, D, shift, planes, tail, lanes) in \
+            STREAM_CASES.items():
+        n_out = (T - shift) // D if tail else (T - shift - K) // D + 1
+        S, P, PD, qmax = stream_plan(K, D)
+        L, NSR, n_streams, n_samp = stream_work(K, D, n_out, planes * C,
+                                                lanes)
+        plans[name] = (S, P, PD, qmax, L, NSR, n_out)
+    assert plans["freedv_head"][:4] == (9, 1, 125, 45)
+    assert plans["fsk1kfm_head"][:4] == (9, 1, 100, 37)
+    assert plans["fsk100k_head"][:4] == (9, 1, 2, 1)
+    assert plans["d4"][2] == 4 and plans["d4"][3] < 4
+    S, P, PD, qmax, L, NSR, n_out = plans["ragged"]
+    assert NSR > 1 and n_out % L != 0
+    assert plans["d_above_chunk"][2] > STREAM_CH
+    assert plans["k_below_d"][0] == 1 and plans["one_tap"][:4] == (1, 1, 3, 1)
+    S, P, PD, qmax, L, NSR, n_out = plans["a_above_16"]
+    assert (S, P) == (16, 140) and NSR >= P
+
+
+def test_stream_constants_match_the_source():
+    """The model's constants are csrc/fir.cu's, and the shared memory of
+    the path shapes fits a block with room for two blocks an SM."""
+    src = FIR_SRC.read_text()
+    got = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kWarps|kCh|kSlots|kPitch|kOut|kMaxS) = (\d+);", src)}
+    assert got == {"kWarps": STREAM_WARPS, "kCh": STREAM_CH,
+                   "kSlots": STREAM_SLOTS, "kPitch": STREAM_PITCH,
+                   "kOut": STREAM_OUT, "kMaxS": STREAM_MAX_S}
+    assert "    int pad;\n};" in src   # sizeof(Stream) == 48
+    for pd in STREAM_SMALL_PD:
+        assert f"a.PD == {pd}" in src
+    for K, D in ((1045, 125), (837, 100), (17, 2)):
+        assert 2 * stream_smem_bytes(K, D) <= 232_448
+
+
 SASS = """
 \t\tFunction : _Z8kernelILi15EEvPf
 \t.headerflags\t@"EF_CUDA_SM90"
