@@ -250,8 +250,10 @@ when the package cannot be imported, and when any phase fails:
     K167 at 2048 x 1,600, FreeDvDemod's K167 (IqPair) and FreeDvMod's K133
     at 256 x 8,000; the FFT within 1e-3 of the direct form's peak
     (tests/test_fir.py's bound), ops/fir.auto_impl taking the FFT only
-    where it ran faster and AmMod's filter on the faster form; the AM TX
-    step with the post filter forced direct, beside the AM TX path's in 9;
+    where it ran faster and AmMod's filter on the faster form; beside them
+    the library call, one complex F.conv1d over the tail and the block
+    (TF32 off), held to the same bound; the AM TX step with the post
+    filter forced direct, beside the AM TX path's in 9;
 22. the slice-6 full-width paths, every mode built through
     models/registry.py: 4FSK2KFB (Fsk4FbDemod) at 14 dB and GMSK2K at
     12 dB (the JAX tests' SNRs), 2048 channels x 200,000 samples, 3 steps,
@@ -299,13 +301,40 @@ when the package cannot be imported, and when any phase fails:
     against the CPU on 4 rows x 2 steps within 1e-5; then each kernel
     shape as in 22: the FIRs and resamplers against their plain versions,
     the loops (BPSKDSSS8's Costas loop of order 2 and Agc2 among them) on
-    the run's own inputs bit-equal to their plain loops.
+    the run's own inputs bit-equal to their plain loops;
+25. the application (slice 7) on the card through its entry points
+    (app/cli.py, app/controller.py), one radio at 1 Msps: `modes` lists
+    the registry's 41 modes; `tx --mode 4FSK2K --text` to a file, then
+    `rx` of it prints the text; `loopback --mode 4FSK2K --snr 12` returns
+    0; FM `tx --wav-in` (2 s of 800 Hz) then `rx --wav-out` keeps the
+    tone within 40 Hz; tests/test_app.py's DMR call through
+    RadioController.rx_block in 125,000-sample blocks gives a voice event
+    (audio, or frame where codec2 is missing), receive_end and the
+    source id. Each run's launches equal, kernel and shape, the calls the
+    same run makes on the CPU (app_counted), counters zeroed just before
+    and read just after. The median ms of a 125,000-sample block (125 ms
+    of air) of 4FSK2K and of DMR RX, its part outside the chain call and
+    the real-time factor are printed;
+26. the DMR call layer at the DMR path's width: 2048 rows, each its own
+    late-entry call (tests/test_dmr_call.py:162-174: slot 2 two
+    superframes of AMBE-coded voice with the row's source id, no header,
+    the terminator), through DmrMod, ChannelModel at 10 dB with 100 Hz
+    and DmrDemod, 6 steps of 200,000 samples, every launch as
+    chain_launches gives it; the call stack (DmrRxStream, DmrControl, AMBE
+    regeneration) on 32 sampled rows with its block codes on the card
+    and, in turns, on CPU tensors, the two giving the same events: each
+    row its terminator with its own source and group (late entry through
+    the embedded LC), at least 3/4 of the rows with 8 or more of their 12
+    voice bursts recovered and 8 in 12 of all bursts (CALL_ROWS' comment
+    says why the voice gate is over the rows); the stack's host ms a row
+    and a second of air.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import io
 import json
 import math
 import pathlib
@@ -320,6 +349,8 @@ import numpy as np
 import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
+# the card's name and power limit (nvidia-smi), printed beside the numbers
+CARD = ""
 FIXTURE = HERE / "tests" / "fixtures" / "iq_4fsk2k_-6db.npz"
 SSB_FIXTURE = HERE / "tests" / "fixtures" / "iq_ssb_usb_-10db.npz"
 
@@ -3623,7 +3654,7 @@ def chain_launches(chain, rows, T=0):
     shapes. IQ between stages is an IqPair or a complex tensor (2 planes),
     FM audio, quadrature output and soft ratios real (1)."""
     from collections import Counter
-    from qradiolink_tpu_torch.chains import dsss, freedv, fsk, mmdvm
+    from qradiolink_tpu_torch.chains import dmr, dsss, freedv, fsk, mmdvm
     from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
     from qradiolink_tpu_torch.ops import cuda_agc, cuda_pfb
     from qradiolink_tpu_torch.ops import cuda_depthwise as dw
@@ -3683,6 +3714,14 @@ def chain_launches(chain, rows, T=0):
     elif isinstance(c, mmdvm.MmdvmDemod):
         rs(c.resamp, 2)
         fir(c.chan_filter, 2)
+    elif isinstance(c, dmr.DmrMod):
+        rs(c.shaper, 1)
+        rs(c.up, 2)
+    elif isinstance(c, dmr.DmrDemod):
+        rs(c.resamp, 2)
+        fir(c.shaping, 1)
+        t = T // c.resamp.M * c.resamp.L
+        w[(css.OP, css.shape_key(rows, t, t // c.sps, css.MODE_LEVELS))] += 1
     elif isinstance(c, freedv.FreeDvDemod):
         rs(c.resamp, 2)
         fir(c.chan_filter, 2)
@@ -4641,10 +4680,13 @@ def fft_route_phase(dev, gen):
     take the FFT only where it ran faster, and AmMod's filter on the faster
     form. Then the AM TX step with AmMod's
     post filter forced direct (the route before the FFT form), 3 steps.
+    Beside them, the library call: one complex F.conv1d over the tail and
+    the block (TF32 off), within AM_FFT_TOL of the direct form's peak.
     Returns {candidate: {form: ms}}."""
     from qradiolink_tpu_torch.chains.freedv import FreeDvDemod, FreeDvMod
     from qradiolink_tpu_torch.chains.ssb import SsbDemod
     from qradiolink_tpu_torch.ops.fir import FirFilter
+    import torch.nn.functional as F
 
     am = am_modulator(dev)
     cands = {
@@ -4677,10 +4719,26 @@ def fft_route_phase(dev, gen):
                   else o[1]) for k, o in outs.items()}
         d = float((ys["fft"] - ys["conv"]).abs().max())
         peak = float(ys["conv"].abs().max())
-        del outs, ys
+        # the library call: one complex F.conv1d over the tail and the
+        # block (TF32 off), held to the direct form as the FFT is
+        xc = torch.complex(*(torch.cat([st[:, i], p], -1) for i, p in
+                             enumerate((x.real, x.imag) if complex_in
+                                       else (x.re, x.im))))
+        wc = torch.complex(*filt.tap_planes).reshape(1, 1, -1) \
+            if len(filt.tap_planes) == 2 else None
+        if wc is None:
+            raise RuntimeError(f"{name}: expected complex taps")
+        lib = F.conv1d(xc.reshape(C, 1, -1), wc).reshape(C, T)
+        d_lib = float((lib - ys["conv"]).abs().max())
+        del outs, ys, lib
         if not d <= AM_FFT_TOL * peak:
             raise RuntimeError(f"{name}: FFT off the direct form by {d:.3e}")
+        if not d_lib <= AM_FFT_TOL * peak:
+            raise RuntimeError(f"{name}: complex F.conv1d off the direct "
+                               f"form by {d_lib:.3e}")
         torch.cuda.empty_cache()
+        lib_ms = cuda_ms(lambda: F.conv1d(xc.reshape(C, 1, -1), wc))
+        del xc
         ms, turns = turns_ms({k: (lambda f=f: f(st, x)) for k, f in
                               forms.items()})
         auto = filt.form(complex_in)
@@ -4695,14 +4753,16 @@ def fft_route_phase(dev, gen):
               f"|diff| {d:.3e} of a peak {peak:.3e} ({d / peak:.2e}); in "
               f"turns: " + ", ".join(f"{k} {t:.4f} ms" for k, t in turns)
               + f"; auto takes {auto}, the FFT {ms['conv'] / ms['fft']:.2f}x "
-              f"the direct form; bound {b_bytes[0]:.4f} ms (bytes), the "
-              f"direct form's {b_ops[0]:.4f} ms (operations)", flush=True)
+              f"the direct form; one complex F.conv1d {lib_ms:.4f} ms (max "
+              f"|diff| {d_lib:.3e}); bound {b_bytes[0]:.4f} ms (bytes), the "
+              f"direct form's {b_ops[0]:.4f} ms (operations) ({CARD})",
+              flush=True)
         # the FFT only where it ran faster; AmMod's filter on the faster
         if (auto == "fft" and ms["fft"] > ms["conv"]) or (
                 name == "am_post_filter" and auto == "conv"
                 and ms["fft"] < ms["conv"]):
             wrong.append(f"{name}: auto took {auto} ({ms})")
-        result[name] = ms
+        result[name] = {**ms, "F.conv1d": lib_ms}
         del x, st, forms
         torch.cuda.empty_cache()
     if wrong:
@@ -4833,6 +4893,590 @@ def earlier_phases(dev, gen):
     torch.cuda.empty_cache()
     return rows, reports
 
+# ---------------------------------------------------------------------------
+# slice 7: the application and the DMR call layer
+
+APP_BLOCK = 125_000        # the application's block: 125 ms of air at 1 Msps
+APP_TEXT = "cq de tpu " * 6
+CALL_STEPS = 6             # the call path's steps: 1.2 s of air a row
+CALL_SRC = 3_100_000       # row r's source id is CALL_SRC + r
+CALL_DST = 91
+CALL_ROWS = 32            # rows whose call the host stack decodes
+# The voice gate of tests/test_dmr_call.py:198-213 (8 of a row's 12 voice
+# bursts FEC-recovered) holds for its one seeded call, not on every row at
+# 10 dB with 100 Hz: the reference chain's M&M loop misses a superframe's
+# voice sync on a few rows, and its 6 bursts are never taken (in a CPU run
+# of this phase at 48 rows 4 rows recovered 5-6, their bits equal to the
+# JAX chain's). So every sampled row's bits must equal those of DmrDemod
+# on the CPU, given the row's IQ from the same run (a row's miss is then
+# the chain's, not a kernel's), and give its terminator; and at least
+# CALL_ROW_SHARE of the rows pass the per-row gate and CALL_BURST_SHARE of
+# all their bursts are recovered (on the H100 30 of 32 rows and 368 of
+# 384 bursts; PERF.md section 7).
+CALL_ROW_SHARE = 7 / 8
+CALL_BURST_SHARE = 11 / 12
+
+
+def cpu_launch_table(fn):
+    """{(kernel, shape key): calls} that fn() makes on the CPU: the plain
+    calls each wrapper records, kernel and shape, which are launches where
+    the same work runs on the card."""
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    kernel_paths.reset()
+    fn()
+    return {(op, k[len("plain "):]): n
+            for op, r in kernel_paths.report().items()
+            for k, n in r["shapes"].items() if k.startswith("plain ") and n}
+
+
+def app_counted(run, card_fn, cpu_fn):
+    """card_fn() with the launch counters zeroed just before and read just
+    after: every call on the card launched its kernel, and the launches
+    equal, kernel and shape, the calls of cpu_fn() (the same work on the
+    CPU, cpu_launch_table). Returns (card_fn()'s result, cpu_fn()'s), the
+    CPU's the plain versions' witness that the caller holds the card's
+    to."""
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    cpu_out = []
+    want = cpu_launch_table(lambda: cpu_out.append(cpu_fn()))
+    kernel_paths.reset()
+    out = card_fn()
+    torch.cuda.synchronize()
+    report = kernel_paths.report()
+    if not kernel_paths.served_only():
+        raise RuntimeError(f"{run}: a call took the plain path on the card: "
+                           f"{json.dumps(report)}")
+    require_exactly(report, want, run)
+    return out, cpu_out[0]
+
+
+def same_events(run, want, got):
+    """The card's controller events equal the CPU's (tests/test_torch_app.py
+    assert_same_events): kinds, texts, frame types, payloads and sample
+    times exactly, rssi within 1e-3 dB, audio within NbfmDemod's bound
+    (audio_close)."""
+    if [e.kind for e in got] != [e.kind for e in want]:
+        raise RuntimeError(f"{run}: events {[e.kind for e in got]} on the "
+                           f"card, {[e.kind for e in want]} on the CPU")
+    for i, (w, g) in enumerate(zip(want, got)):
+        for f in ("text", "frame_type", "payload", "sample_time"):
+            if getattr(g, f) != getattr(w, f):
+                raise RuntimeError(f"{run}: event {i} ({w.kind}) {f} "
+                                   f"{getattr(g, f)!r} on the card, "
+                                   f"{getattr(w, f)!r} on the CPU")
+        if (w.rssi is None) != (g.rssi is None) or (
+                w.rssi is not None and abs(g.rssi - w.rssi) > 1e-3):
+            raise RuntimeError(f"{run}: event {i} rssi {g.rssi} on the "
+                               f"card, {w.rssi} on the CPU")
+        if (w.audio is None) != (g.audio is None) or (
+                w.audio is not None and not audio_close(w.audio, g.audio)):
+            raise RuntimeError(f"{run}: event {i}'s audio differs")
+
+
+def audio_close(want, got, rtol=1e-5, atol=1e-5):
+    """got within atol + rtol x |want| of want, sample by sample, the same
+    shape (np.allclose; NbfmDemod's bound in tests/test_torch_nbfm.py)."""
+    return got.shape == want.shape and bool(np.allclose(got, want, rtol=rtol,
+                                                        atol=atol))
+
+
+def fm_phase_drift(card_path, cpu_path):
+    """Prints how the card's FM TX IQ file differs from the CPU's: the
+    largest difference, and the phase between the two (its largest value
+    and its largest change a sample). The carried phase is an f32 cumsum
+    over the whole call (2,000,000 samples in app_phase), whose rounding
+    differs between the card's scan and the CPU's: the phase drifts slowly
+    and the IQ parts by far more than NbfmMod's 5e-5 of the peak at its
+    parity test's 50,000 samples, while the frequency a sample (the
+    kernels' output, scaled) stays within rounding. The caller holds the
+    TX to the CPU's through the CPU's RX (app_phase)."""
+    from qradiolink_tpu_torch.io.iq import read_iq
+
+    got, want = read_iq(card_path), read_iq(cpu_path)
+    if got.shape != want.shape:
+        raise RuntimeError(f"app tx FM: {got.shape} IQ samples on the card, "
+                           f"{want.shape} on the CPU")
+    d = np.angle(got.astype(np.complex128) * np.conj(want))
+    print(f"  app tx FM: {got.size} IQ samples, the card's within "
+          f"{float(np.abs(got - want).max()):.3g} of the CPU's (peak "
+          f"{float(np.abs(want).max()):.3g}); the phase between them at most "
+          f"{float(np.abs(d).max()):.3g} rad, its change a sample at most "
+          f"{float(np.abs(np.diff(d)).max()):.3g} rad", flush=True)
+
+
+def iq_close(run, card_path, cpu_path, rtol):
+    """The IQ file that the card wrote within rtol x the peak of the one
+    that the CPU wrote (the modulator's bound in its parity test)."""
+    from qradiolink_tpu_torch.io.iq import read_iq
+
+    got, want = read_iq(card_path), read_iq(cpu_path)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    peak = float(np.abs(want).max())
+    print(f"  {run}: {got.size} IQ samples, the card's within {err:.3g} of "
+          f"the CPU's (peak {peak:.3g}, bound {rtol:g} x the peak)",
+          flush=True)
+    if not err <= rtol * peak:
+        raise RuntimeError(f"{run}: the card's IQ differs from the CPU's by "
+                           f"{err} (shape {got.shape} against {want.shape})")
+
+
+def cli_out(argv):
+    """(return code, standard output) of cli.main(argv)."""
+    from qradiolink_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def cli_ok(argv, dev):
+    """cli.main(argv + --device) must return 0; returns its stdout."""
+    rc, out = cli_out(argv + ["--device", dev.type])
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv)} returned {rc}: {out}")
+    return out
+
+
+def app_text(out):
+    """The text of the [text] lines of `rx`'s output, a frame a line."""
+    return "".join(ln[len("[text] "):] for ln in out.splitlines()
+                   if ln.startswith("[text] "))
+
+
+def tone_hz(audio, rate=8000):
+    """The strongest frequency in 200-3,000 Hz (tests/test_app.py:93-117)."""
+    x = audio[4000:]
+    spec = np.abs(np.fft.rfft(x * np.hanning(len(x))))
+    f = np.fft.rfftfreq(len(x), 1 / rate)
+    band = (f > 200) & (f < 3000)
+    return float(f[band][np.argmax(spec[band])])
+
+
+def app_dmr_iq(dev):
+    """tests/test_app.py:398-405's stream, built with the port's burst
+    builders (block codes on the CPU: test data): slot 2 a voice LC
+    header, one superframe of AMBE-coded voice and the terminator (source
+    44556, group 9), slot 1 idle, four idle slots ahead, through DmrMod on
+    `dev`. Returns complex64 numpy IQ, whole APP_BLOCKs."""
+    from qradiolink_tpu_torch.chains.dmr import DmrMod
+    from qradiolink_tpu_torch.core import get_iq
+    from qradiolink_tpu_torch.fec import ambe
+    from qradiolink_tpu_torch.protocols import dmr
+    from qradiolink_tpu_torch.protocols.dmr_stream import build_bs_stream
+
+    cpu = "cpu"
+    rng = np.random.default_rng(2)
+    lc = dmr.LinkControl(flco=dmr.FLCO_GROUP, src_id=44556, dst_id=9)
+    voice = ambe.voice_encode(
+        rng.integers(0, 2, (6, 3, 49)).astype(np.uint8), cpu)
+    slot2 = ([dmr.make_lc_burst(lc, 1, dmr.DT_VOICE_LC_HEADER, device=cpu)]
+             + list(dmr.make_voice_superframe(voice, lc, 1, device=cpu))
+             + [dmr.make_lc_burst(lc, 1, dmr.DT_TERMINATOR_WITH_LC,
+                                  device=cpu)])
+    idle = dmr.make_data_burst(np.zeros(196, np.uint8), 1, dmr.DT_IDLE,
+                               device=cpu)
+    bits = build_bs_stream([idle] * (len(slot2) + 2), slot2, lead_idle=4,
+                           device=cpu)
+    mod = DmrMod(device=dev)
+    iq = get_iq(mod(mod.init_state(), torch.from_numpy(bits).to(dev))[1]
+                ["iq"])
+    return iq[:len(iq) - len(iq) % APP_BLOCK]
+
+
+def app_controller(mode, dev):
+    """An RX controller on `dev`, codec2 taken out (as in
+    tests/test_torch_app.py) so that voice arrives as frames whose payloads
+    compare exactly, whether or not the library is installed."""
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+
+    s = Settings()
+    s.rx_mode = s.tx_mode = mode
+    c = RadioController(s, device=dev)
+    c.toggle_rx_mode(mode)
+    c._codec = None
+    if mode == "DMR":
+        c._dmr_stack().config.timeslot = 2
+    return c
+
+
+def rx_blocks(ctl, blocks):
+    """ctl.rx_block over the blocks in turn; their events."""
+    return [e for b in blocks for e in ctl.rx_block(b)]
+
+
+def rx_blocks_timed(ctl, blocks):
+    """ctl.rx_block over the blocks, each timed on the host clock, and the
+    chain call inside it fenced and timed apart (the block's IQ put on
+    the card, then the chain's launches and their device time). Returns
+    (events, block ms, chain ms)."""
+    chain, chain_s = ctl._rx, []
+
+    def fenced(state, x):
+        t0 = time.perf_counter()
+        out = chain(state, x)
+        torch.cuda.synchronize()
+        chain_s.append(time.perf_counter() - t0)
+        return out
+
+    ctl._rx = fenced
+    events, block_s = [], []
+    try:
+        for b in blocks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events += ctl.rx_block(b)
+            block_s.append(time.perf_counter() - t0)
+    finally:
+        ctl._rx = chain
+    return events, [t * 1e3 for t in block_s], [t * 1e3 for t in chain_s]
+
+
+def block_report(name, block_ms, chain_ms):
+    """Median ms of a block after the first, the chain call's part, the
+    rest (host dispatch, the copies, framing), the real-time factor."""
+    blk = statistics.median(block_ms[1:])
+    ch = statistics.median(chain_ms[1:])
+    print(f"  {name} RX, one radio: a {APP_BLOCK}-sample block (125 ms of "
+          f"air) median {blk:.3f} ms over {len(block_ms) - 1} blocks after "
+          f"the first ({[round(m, 3) for m in block_ms]}); the chain call "
+          f"{ch:.3f} ms, outside it {blk - ch:.3f} ms ({(blk - ch) / blk:.1%}"
+          f" of the block); real-time factor {125.0 / blk:.1f} ({CARD})",
+          flush=True)
+    return {"block_ms": blk, "chain_ms": ch, "rtf": 125.0 / blk}
+
+
+def app_phase(dev):
+    """The application on the card through its public entry points
+    (app/cli.py, app/controller.py). Each run's launches equal, kernel and
+    shape, the same run's calls on the CPU, and its output equals the
+    CPU's (app_counted's witness) within the bounds of the chains' parity
+    tests:
+    - `modes` lists the registry's 41 modes;
+    - `tx --mode 4FSK2K --text` to a file: its IQ within Fsk4Mod's 1e-4 of
+      the peak of the CPU's; `rx` of it prints the CPU's lines exactly,
+      the text whole but for at most its first frame (the RX loops lock
+      during it: `tx` sends no preamble, as in the JAX CLI);
+    - `loopback --mode 4FSK2K --snr 12` returns 0 and prints the CPU's
+      line;
+    - FM `tx --wav-in` (2 s of an 800 Hz tone), then `rx --wav-out` of
+      its IQ: the tone at 800 +- 40 Hz, the WAV within NbfmDemod's bound
+      and a 16-bit step of the CPU's RX of the same file, and that within
+      the same bound of the CPU's RX of the CPU's TX IQ (the TX's phase
+      drifts over the call: fm_phase_drift);
+    - 4FSK2K and the DMR call of tests/test_app.py:398-427 through
+      RadioController.rx_block in APP_BLOCK blocks: the CPU's events
+      (same_events), codec2 taken out (app_controller); DMR's voice
+      frames, receive_end and the source id in a callsign or receive_end
+      event;
+    - the median ms of an APP_BLOCK block of 4FSK2K and of DMR RX, its
+      part outside the chain call and the real-time factor (block_report).
+    Files go to a temporary directory under build/. Returns {name: ms}."""
+    import tempfile
+
+    from qradiolink_tpu_torch.framing.layer1 import MODE_FRAME_CONFIG
+    from qradiolink_tpu_torch.io.iq import read_iq
+    from qradiolink_tpu_torch.io.wav import read_wav, write_wav
+    from qradiolink_tpu_torch.models.registry import MODES
+
+    cpu = torch.device("cpu")
+    out = {}
+    rc, text = cli_out(["modes"])
+    names = [ln.split()[0] for ln in text.splitlines()[1:]]
+    if rc != 0 or names != list(MODES) or len(names) != 41:
+        raise RuntimeError(f"modes: rc {rc}, {len(names)} modes")
+    print(f"  modes: the registry's {len(names)} modes", flush=True)
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        iq_path, iq_cpu = tmp / "text.cf32", tmp / "text_cpu.cf32"
+        argv = ["tx", "--mode", "4FSK2K", "--text", APP_TEXT]
+        app_counted("app tx 4FSK2K",
+                    lambda: cli_ok(argv + ["--iq-out", str(iq_path)], dev),
+                    lambda: cli_ok(argv + ["--iq-out", str(iq_cpu)], cpu))
+        iq_close("app tx 4FSK2K", iq_path, iq_cpu, 1e-4)
+        argv = ["rx", "--mode", "4FSK2K", "--iq-in", str(iq_path)]
+        got, want = app_counted("app rx 4FSK2K", lambda: cli_ok(argv, dev),
+                                lambda: cli_ok(argv, cpu))
+        lost = len(APP_TEXT) - len(app_text(got))
+        if got != want or not APP_TEXT.endswith(app_text(got)) \
+                or lost > MODE_FRAME_CONFIG["4FSK2K"].frame_length \
+                or "[end of transmission]" not in got:
+            raise RuntimeError(f"rx 4FSK2K printed {got!r} on the card, "
+                               f"{want!r} on the CPU")
+        print(f"  tx --text then rx, 4FSK2K: {app_text(got)!r}, the CPU's "
+              f"lines exactly ({lost} characters of the first frame lost "
+              f"while the loops lock)", flush=True)
+        argv = ["loopback", "--mode", "4FSK2K", "--snr", "12"]
+        got, want = app_counted("app loopback 4FSK2K",
+                                lambda: cli_ok(argv, dev),
+                                lambda: cli_ok(argv, cpu))
+        if got != want:
+            raise RuntimeError(f"loopback printed {got!r} on the card, "
+                               f"{want!r} on the CPU")
+        print(f"  {got.strip()}, as on the CPU", flush=True)
+
+        t = np.arange(16_000) / 8000.0
+        write_wav(tmp / "in.wav",
+                  (0.5 * np.sin(2 * np.pi * 800 * t)).astype(np.float32))
+        argv = ["tx", "--mode", "FM", "--wav-in", str(tmp / "in.wav")]
+        app_counted("app tx FM",
+                    lambda: cli_ok(argv + ["--iq-out", str(tmp / "fm.cf32")],
+                                   dev),
+                    lambda: cli_ok(argv + ["--iq-out",
+                                           str(tmp / "fm_c.cf32")], cpu))
+        fm_phase_drift(tmp / "fm.cf32", tmp / "fm_c.cf32")
+        argv = ["rx", "--mode", "FM", "--iq-in", str(tmp / "fm.cf32")]
+        app_counted("app rx FM",
+                    lambda: cli_ok(argv + ["--wav-out",
+                                           str(tmp / "out.wav")], dev),
+                    lambda: cli_ok(argv + ["--wav-out",
+                                           str(tmp / "out_c.wav")], cpu))
+        # the CPU's TX IQ through the CPU's RX: the card's TX held to it
+        cli_ok(argv[:-1] + [str(tmp / "fm_c.cf32"), "--wav-out",
+                            str(tmp / "out_cc.wav")], cpu)
+        audio, rate = read_wav(tmp / "out.wav")
+        want, _ = read_wav(tmp / "out_c.wav")
+        want_tx, _ = read_wav(tmp / "out_cc.wav")
+        f = tone_hz(audio)
+        step = 1e-5 + 1 / 32767
+        if rate != 8000 or audio.size <= 8000 or abs(f - 800.0) >= 40.0 \
+                or not audio_close(want, audio, atol=step) \
+                or not audio_close(want_tx, want, atol=step):
+            raise RuntimeError(f"FM rx: {audio.size} samples at {rate} Hz, "
+                               f"tone {f:.1f} Hz, the CPU's {want.size} and "
+                               f"{want_tx.size} samples")
+        print(f"  FM tx --wav-in then rx --wav-out: {audio.size} samples, "
+              f"the tone at {f:.1f} Hz; within NbfmDemod's bound and a "
+              f"16-bit step: the card's RX WAV of the CPU's RX of the same "
+              f"IQ (largest difference "
+              f"{float(np.abs(audio - want).max()):.3g}), the CPU's RX of "
+              f"the card's TX IQ of the CPU's RX of the CPU's TX IQ "
+              f"({float(np.abs(want - want_tx).max()):.3g})", flush=True)
+        fsk_iq = read_iq(iq_path)
+
+    # the RX block's time at the application's width, one radio
+    fsk_iq = np.concatenate([fsk_iq, np.zeros((-fsk_iq.size) % APP_BLOCK,
+                                              np.complex64)])
+    blocks = list(fsk_iq.reshape(-1, APP_BLOCK)) * 4
+    (events, block_ms, chain_ms), want = app_counted(
+        "app rx_block 4FSK2K",
+        lambda: rx_blocks_timed(app_controller("4FSK2K", dev), blocks),
+        lambda: rx_blocks(app_controller("4FSK2K", cpu), blocks))
+    same_events("app rx_block 4FSK2K", want, events)
+    print(f"  4FSK2K through rx_block: {len(events)} events, the CPU's",
+          flush=True)
+    out["4FSK2K"] = block_report("4FSK2K", block_ms, chain_ms)
+
+    dmr_blocks = list(app_dmr_iq(dev).reshape(-1, APP_BLOCK))
+    (events, block_ms, chain_ms), want = app_counted(
+        "app rx_block DMR",
+        lambda: rx_blocks_timed(app_controller("DMR", dev), dmr_blocks),
+        lambda: rx_blocks(app_controller("DMR", cpu), dmr_blocks))
+    same_events("app rx_block DMR", want, events)
+    kinds = [e.kind for e in events]
+    ids = [e.text for e in events if e.kind in ("callsign", "receive_end")]
+    if kinds.count("frame") < 4 or "receive_end" not in kinds \
+            or "44556" not in ids:
+        raise RuntimeError(f"DMR rx_block: events {kinds}, ids {ids}")
+    print(f"  DMR through rx_block: the CPU's events, "
+          f"{kinds.count('frame')} voice frames, receive_end, source 44556 "
+          f"in {ids}", flush=True)
+    out["DMR"] = block_report("DMR", block_ms, chain_ms)
+    return out
+
+
+def dmr_call_bits(n_rows):
+    """Each row's late-entry BS call (tests/test_dmr_call.py:162-174): slot
+    1 idle; slot 2 two superframes of ambe.voice_encode voice with the
+    row's own source id (CALL_SRC + r, group CALL_DST) in the embedded LC,
+    no header, and the terminator with LC; two idle slots ahead and idle
+    bursts after, CALL_STEPS steps of FSK4_BITS bits. Built with the block
+    codes on the CPU (test data; host ms a row printed). Returns (bits
+    (n_rows, CALL_STEPS * FSK4_BITS) uint8, payloads (n_rows, 12, 3,
+    49))."""
+    from qradiolink_tpu_torch.fec import ambe
+    from qradiolink_tpu_torch.protocols import dmr
+    from qradiolink_tpu_torch.protocols.dmr_stream import (SLOT_BITS,
+                                                           build_bs_stream)
+
+    cpu = "cpu"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    payloads = rng.integers(0, 2, (n_rows, 12, 3, 49)).astype(np.uint8)
+    voice = ambe.voice_encode(payloads, cpu)
+    idle = dmr.make_data_burst(np.zeros(196, np.uint8), 1, dmr.DT_IDLE,
+                               device=cpu)
+    pairs = CALL_STEPS * FSK4_BITS // (2 * SLOT_BITS) - 1
+    bits = np.empty((n_rows, CALL_STEPS * FSK4_BITS), np.uint8)
+    for r in range(n_rows):
+        lc = dmr.LinkControl(flco=dmr.FLCO_GROUP, src_id=CALL_SRC + r,
+                             dst_id=CALL_DST)
+        slot2 = [*dmr.make_voice_superframe(voice[r, :6], lc, 1, device=cpu),
+                 *dmr.make_voice_superframe(voice[r, 6:], lc, 1, device=cpu),
+                 dmr.make_lc_burst(lc, 1, dmr.DT_TERMINATOR_WITH_LC,
+                                   device=cpu)]
+        bits[r] = build_bs_stream([idle] * pairs, slot2, lead_idle=2,
+                                  device=cpu)
+    print(f"  dmr_call: {n_rows} rows' calls built on the host in "
+          f"{(time.perf_counter() - t0) / n_rows * 1e3:.3f} ms a row",
+          flush=True)
+    return bits, payloads
+
+
+def call_stack(bits, dev):
+    """The call layer (DmrRxStream + DmrControl, AMBE regeneration on,
+    tests/test_dmr_call.py's RX config) on one row's received bits, a
+    step's bits a push, its block codes on `dev`. Returns (events in
+    order, host seconds)."""
+    from qradiolink_tpu_torch.protocols import dmr_control as dc
+    from qradiolink_tpu_torch.protocols.dmr_stream import DmrRxStream
+
+    ctl = dc.DmrControl(dc.DmrConfig(color_code=1, timeslot=2, source_id=0,
+                                     destination_id=0, vocoder=True),
+                        device=dev)
+    events = []
+    ctl.on_digital_audio = lambda b: events.append(("voice", b))
+    ctl.on_header = lambda h: events.append(("header", h.src_id, h.dst_id))
+    ctl.on_terminator = lambda h: events.append(("term", h.src_id, h.dst_id))
+    rx = DmrRxStream(ctl)
+    t0 = time.perf_counter()
+    for i in range(0, bits.size, FSK4_BITS):
+        rx.push_bits(bits[i:i + FSK4_BITS])
+    return events, time.perf_counter() - t0
+
+
+def dmr_call_phase(dev):
+    """The DMR call layer at the DMR path's width (BASELINE configs[2]):
+    each of 2048 rows its own late-entry call (dmr_call_bits) through
+    DmrMod, ChannelModel (10 dB, 100 Hz) and DmrDemod on the card,
+    CALL_STEPS steps of 200,000 samples, the chains' launches exactly
+    their stages' (chain_launches); DmrDemod on the CPU, on the same IQ of
+    CALL_ROWS rows, as the card's witness: each row's bits equal; then the
+    call stack on the host for those rows, its block codes on the card
+    and, in turns, on CPU tensors, the two giving the same events.
+    tests/test_dmr_call.py:198-213's gate: each row one terminator with
+    its own source and group (from the embedded LC: late entry); 8 or more
+    of its 12 voice bursts FEC-recovered to the sent payloads on
+    CALL_ROW_SHARE of the rows, CALL_BURST_SHARE of all bursts recovered
+    (CALL_ROWS' comment). Prints the stack's host ms a row and a second of
+    air."""
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.chains.dmr import DmrDemod, DmrMod
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.fec import ambe
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    cpu = torch.device("cpu")
+    bits, payloads = dmr_call_bits(N_CH)
+    bits_dev = torch.from_numpy(bits).to(dev)
+    mod = DmrMod(lead_shape=(N_CH,), device=dev)
+    dem = DmrDemod(lead_shape=(N_CH,), device=dev)
+    chan = ChannelModel(1_000_000, snr_db=10.0, freq_offset_hz=100.0,
+                        seed=31)
+    rows = np.linspace(0, N_CH - 1, CALL_ROWS).astype(int)
+    rows_dev = torch.as_tensor(rows, device=dev)
+    ms_, ds_ = mod.init_state(), dem.init_state()
+    rx_bits, step_s, iq_rows = [], [], []
+    kernel_paths.reset()
+    for i in range(CALL_STEPS):
+        ms_, tx = mod(ms_, bits_dev[:, i * FSK4_BITS:(i + 1) * FSK4_BITS])
+        y = chan(tx["iq"])
+        del tx
+        iq = IqPair(y.real.contiguous(), y.imag.contiguous())
+        del y
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds_, out = dem(ds_, iq)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        rx_bits.append(out["bits"])
+        iq_rows.append(IqPair(iq.re[rows_dev].cpu(), iq.im[rows_dev].cpu()))
+        del iq, out
+    report = kernel_paths.report()
+    if not kernel_paths.served_only():
+        raise RuntimeError("dmr_call: a stage took the plain path")
+    want = times(chain_launches(mod, N_CH), CALL_STEPS)
+    want.update(times(chain_launches(dem, N_CH, T_STEP), CALL_STEPS))
+    require_exactly(report, want, "dmr_call")
+    print(f"  DmrDemod: {step_times(step_s, N_CH * T_STEP)} ({CARD})",
+          flush=True)
+    got = torch.cat(rx_bits, -1)[rows_dev].cpu().numpy()
+    del rx_bits, bits_dev
+    torch.cuda.empty_cache()
+
+    # the witness: DmrDemod's plain versions on the CPU, the same IQ
+    t0 = time.perf_counter()
+    dem_cpu = DmrDemod(lead_shape=(CALL_ROWS,), device=cpu)
+    s_cpu, ref = dem_cpu.init_state(), []
+    for iq in iq_rows:
+        s_cpu, out = dem_cpu(s_cpu, iq)
+        ref.append(out["bits"])
+    ref = torch.cat(ref, -1).numpy()
+    del iq_rows
+    if ref.shape != got.shape:
+        raise RuntimeError(f"dmr_call: bits {got.shape} on the card, "
+                           f"{ref.shape} on the CPU")
+    diff = (ref != got).sum(-1)
+    print(f"  dmr_call: DmrDemod on the CPU on the same IQ of the {CALL_ROWS} "
+          f"rows in {time.perf_counter() - t0:.1f} s; bits that differ from "
+          f"the card's a row of {got.shape[-1]}: {diff.tolist()}", flush=True)
+    if diff.any():
+        raise RuntimeError(f"dmr_call: rows {rows[diff > 0].tolist()}'s bits "
+                           f"differ from DmrDemod's on the CPU")
+
+    host = {"card": [], "cpu": []}
+    recovered, no_term = [], []
+    for k, (r, b) in enumerate(zip(rows, got)):
+        order = (("card", dev), ("cpu", cpu))
+        evs = {}
+        for name, d in order if k % 2 == 0 else order[::-1]:
+            evs[name], sec = call_stack(b, d)
+            host[name].append(sec * 1e3)
+        if evs["card"] != evs["cpu"]:
+            raise RuntimeError(f"dmr_call row {r}: the stack's events on the "
+                               f"card and on the CPU differ")
+        terms = [e[1:] for e in evs["card"] if e[0] == "term"]
+        if terms != [(CALL_SRC + r, CALL_DST)]:
+            no_term.append((int(r), terms))
+        sent = {tuple(np.packbits(p.reshape(-1))) for p in payloads[r]}
+        ok = 0
+        for e in evs["card"]:
+            if e[0] == "voice":
+                dec, _ = ambe.voice_decode(
+                    np.unpackbits(np.frombuffer(e[1], np.uint8)), "cpu")
+                ok += tuple(np.packbits(dec.reshape(-1))) in sent
+        recovered.append(ok)
+    rec = np.array(recovered)
+    passed = int((rec >= 8).sum())
+    print(f"  dmr_call: voice bursts FEC-recovered of 12 on rows "
+          f"{rows.tolist()}: {rec.tolist()}; {passed} of {len(rows)} rows "
+          f"pass tests/test_dmr_call.py's per-row gate (>= 8), "
+          f"{rec.sum()} of {12 * len(rows)} bursts in all", flush=True)
+    if no_term:
+        raise RuntimeError(f"dmr_call: rows without their own terminator "
+                           f"(row, terminators): {no_term}")
+    if passed < CALL_ROW_SHARE * len(rows) \
+            or rec.sum() < CALL_BURST_SHARE * 12 * len(rows):
+        raise RuntimeError(f"dmr_call: {passed} of {len(rows)} rows pass the "
+                           f"voice gate, {rec.sum()} bursts recovered")
+    air_s = CALL_STEPS * T_STEP / 1e6
+    med = {k: statistics.median(v) for k, v in host.items()}
+    print(f"  dmr_call: every sampled row one terminator with its own "
+          f"source and group from the embedded LC (late entry), its bits "
+          f"those of the CPU's chain, the card's and the CPU's stacks "
+          f"giving the same events; the call "
+          f"stack's host time a row of {air_s:.1f} s of air, block codes on "
+          f"the card {med['card']:.2f} ms ({med['card'] / air_s:.2f} ms a "
+          f"second of air; rows {[round(v, 1) for v in host['card']]}), on "
+          f"CPU tensors {med['cpu']:.2f} ms ({med['cpu'] / air_s:.2f}; "
+          f"{[round(v, 1) for v in host['cpu']]}) ({CARD})", flush=True)
+    return med
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4848,6 +5492,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -4884,6 +5530,14 @@ def main() -> int:
     rep6, rows6 = slice6_phase(dev, gen, rows)
     reports.update(rep6)
     rows += rows6
+    torch.cuda.empty_cache()
+    print("app: the application on the card (CLI, RadioController):",
+          flush=True)
+    app_phase(dev)
+    print(f"dmr_call: {N_CH} rows' late-entry calls, DmrMod -> 10 dB -> "
+          f"DmrDemod, {CALL_STEPS} steps, the call stack on {CALL_ROWS} "
+          f"rows", flush=True)
+    dmr_call_phase(dev)
 
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks

@@ -16,7 +16,9 @@ Ported so far (slice 1, the 4FSK feedforward RX chain
 the analog voice chains; slice 4, the PSK modems; slice 5, M17 and DMR
 with their frame layers; slice 6, every other modem and the mode
 registry `models.registry`, whose `rx_chain` / `tx_chain` build any of
-the 41 modes):
+the 41 modes; slice 7, the application: `python -m qradiolink_tpu_torch
+modes | rx | tx | loopback` and `RadioController` over the registry, with
+the DMR call layer they dispatch to):
   core        blocks, IqPair, state trees and npz snapshots
   ops/        firdes, fir (FirFilter, conv1d_valid; real or complex taps;
               the FFT form fft_fir_block, FftFirFilter, fir_filter),
@@ -34,8 +36,8 @@ the 41 modes):
               the kernels cuda_costas, cuda_symbol_sync
   fec/        conv (ConvCode, viterbi_decode, StreamingViterbi,
               depuncture), conv_ff (TiledViterbi), scrambler (Scrambler,
-              Descrambler), and the kernels viterbi_cuda,
-              viterbi_stream_cuda
+              Descrambler), bch (BCH(63,16)), ambe (DMR's AMBE voice FEC),
+              and the kernels viterbi_cuda, viterbi_stream_cuda
   chains/     digital_common (TxFecHead, RxFecTail, RxFecTailFF), fsk
               (Fsk4Demod, Fsk4DemodFF, Fsk4FbDemod, Fsk4Mod, Fsk2Demod,
               Fsk2FbDemod, GmskDemod, Fsk2Mod, GmskMod), psk (BpskDemod,
@@ -44,7 +46,20 @@ the 41 modes):
               m17, dmr, dsss (DsssBpskDemod, DsssBpskMod, CwMod), freedv
               (FreeDvDemod, FreeDvMod: the DSP ends), mmdvm (MmdvmDemod,
               MmdvmMod, MmdvmMultiRx, MmdvmMultiTx), channel (ChannelModel)
-  framing/, protocols/  the M17 and DMR frame layers
+  framing/    layer1 (Layer1Framer, Deframer), layer2 (layer-2 frames,
+              their protobuf wire form)
+  protocols/  m17, dmr (the M17 and DMR frame layers) and DMR's call
+              layer: dmr_stream (DmrRxStream, DmrTxStream), dmr_control
+              (DmrControl, DmrTiming), dmr_data, dmr_signalling, dmr_utils
   models/     registry (ModeSpec, MODES, MODEM_TYPE_MAP, rx_chain, tx_chain)
   parallel/   sharding (MultichannelRx, one card)
+  app/        controller (RadioController, RxEvent, FrequencyScanner,
+              RepeaterForwarder, beacon_frame), cli (modes, rx, tx,
+              loopback; `--device`), limits; `__main__` runs the CLI
+  io/         iq (read_iq, write_iq, IqFileSource, IqFileSink,
+              SignalSource), wav
+  audio/      codecs (Codec2 and Opus through the system libraries, when
+              present)
+  config, logger  Settings and RadioChannels (the JAX package's JSON
+              schema), the log format
 """

@@ -125,6 +125,13 @@ class BlockCode:
         w = 1 << np.arange(H.shape[0], dtype=np.uint32)
         return (s_bits.astype(np.uint32) @ w).astype(np.int64)
 
+    @property
+    def Ht(self) -> np.ndarray:
+        """H^T over all n bits, (n, n - k) int32, as numpy (read-only)."""
+        v = self._Ht.view()
+        v.flags.writeable = False
+        return v
+
     def tables(self, device) -> dict:
         """G, H^T, the syndrome weights and the error and ok tables as
         tensors on `device`, made at the first call for that device."""

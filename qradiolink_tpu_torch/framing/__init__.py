@@ -1,5 +1,5 @@
-"""Layer-1 framing (host-side; port of qradiolink_tpu/framing: layer1 only,
-layer2 and tdma are not ported yet).
+"""Layer-1 and layer-2 framing (host-side; port of qradiolink_tpu/framing:
+layer1 and layer2; tdma is not ported yet).
 
 Mirrors the reference's split: device-side chains produce continuous bit
 streams; sync hunting and frame assembly happen in the control plane
@@ -10,4 +10,7 @@ bit blocks.
 
 from qradiolink_tpu_torch.framing.layer1 import (  # noqa: F401
     FrameType, Layer1Framer, Deframer, MODE_FRAME_CONFIG, FrameConfig,
+)
+from qradiolink_tpu_torch.framing.layer2 import (  # noqa: F401
+    build_layer2_frame, parse_layer2_frame, PageMessage,
 )

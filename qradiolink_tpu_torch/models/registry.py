@@ -4,9 +4,10 @@ Mirrors the reference's mode <-> modem-type mapping (reference
 src/radiocontroller.cpp:2111-2360 RX / :2361-2525 TX and the
 gr_modem_types enum in src/modem_types.h): one ModeSpec per user-facing
 mode with its RX/TX chain factories over this package's chains, framing
-config key, and scan step. The factories pass their keyword arguments
-through to the chain, `device` among them: None (the default) builds on
-CUDA, device="cpu" on the CPU.
+config key, and scan step. The factories (Chain) pass their keyword
+arguments through to the chain, `device` among them: None (the default)
+builds on CUDA, device="cpu" on the CPU; chain_keywords names those a
+mode's chain takes.
 
     from qradiolink_tpu_torch.models import registry
     rx = registry.rx_chain("GMSK2K", lead_shape=(2048,))
@@ -15,8 +16,9 @@ CUDA, device="cpu" on the CPU.
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Optional
 
 from qradiolink_tpu_torch.chains.am import AmDemod, AmMod
 from qradiolink_tpu_torch.chains.dmr import DmrDemod, DmrMod
@@ -39,12 +41,29 @@ from qradiolink_tpu_torch.chains.wbfm import WbfmDemod
 class ModeSpec:
     name: str
     kind: str                     # 'analog' | 'digital_voice' | 'digital_data'
-    rx_factory: Optional[Callable]
-    tx_factory: Optional[Callable]
+    rx_factory: Optional["Chain"]
+    tx_factory: Optional["Chain"]
     framing: Optional[str] = None   # key into MODE_FRAME_CONFIG
     scan_step_hz: int = 12500       # per-mode scan step (reference tables)
     audio_rate: int = 8000
     bit_rate: int = 0
+
+
+class Chain:
+    """A mode's chain factory: `cls(**fixed, **defaults)`, where a caller's
+    keywords replace `defaults` and may not name a `fixed` one (the mode's
+    own rate or variant). `keywords` are the names a caller may pass."""
+
+    def __init__(self, cls, fixed=None, **defaults):
+        self.cls, self.fixed, self.defaults = cls, dict(fixed or {}), defaults
+
+    def __call__(self, **kwargs):
+        return self.cls(**self.fixed, **{**self.defaults, **kwargs})
+
+    @property
+    def keywords(self) -> frozenset:
+        return frozenset(inspect.signature(self.cls).parameters) \
+            - frozenset(self.fixed)
 
 
 def _spec(name, kind, rx, tx, framing=None, step=12500, bit_rate=0):
@@ -52,128 +71,128 @@ def _spec(name, kind, rx, tx, framing=None, step=12500, bit_rate=0):
 
 
 MODES = {
-    "FM": _spec("FM", "analog", lambda **k: NbfmDemod(**{"filter_width": 5000.0, **k}),
-                lambda **k: NbfmMod(**{"filter_width": 5000.0, **k}), step=12500),
+    "FM": _spec("FM", "analog", Chain(NbfmDemod, filter_width=5000.0),
+                Chain(NbfmMod, filter_width=5000.0), step=12500),
     "NBFM": _spec("NBFM", "analog",
-                  lambda **k: NbfmDemod(**{"filter_width": 2500.0, **k}),
-                  lambda **k: NbfmMod(**{"filter_width": 2500.0, **k}), step=6250),
-    "WBFM": _spec("WBFM", "analog", lambda **k: WbfmDemod(**k), None,
+                  Chain(NbfmDemod, filter_width=2500.0),
+                  Chain(NbfmMod, filter_width=2500.0), step=6250),
+    "WBFM": _spec("WBFM", "analog", Chain(WbfmDemod), None,
                   step=200000),
-    "AM": _spec("AM", "analog", lambda **k: AmDemod(**k),
-                lambda **k: AmMod(**k), step=10000),
-    "USB": _spec("USB", "analog", lambda **k: SsbDemod(usb=True, **k),
-                 lambda **k: SsbMod(usb=True, **k), step=2500),
-    "LSB": _spec("LSB", "analog", lambda **k: SsbDemod(usb=False, **k),
-                 lambda **k: SsbMod(usb=False, **k), step=2500),
+    "AM": _spec("AM", "analog", Chain(AmDemod),
+                Chain(AmMod), step=10000),
+    "USB": _spec("USB", "analog", Chain(SsbDemod, dict(usb=True)),
+                 Chain(SsbMod, dict(usb=True)), step=2500),
+    "LSB": _spec("LSB", "analog", Chain(SsbDemod, dict(usb=False)),
+                 Chain(SsbMod, dict(usb=False)), step=2500),
     "BPSK2K": _spec("BPSK2K", "digital_voice",
-                    lambda **k: BpskDemod(symbol_rate=2000, **k),
-                    lambda **k: BpskMod(symbol_rate=2000, **k),
+                    Chain(BpskDemod, dict(symbol_rate=2000)),
+                    Chain(BpskMod, dict(symbol_rate=2000)),
                     framing="BPSK2K", bit_rate=2000),
     "BPSK1K": _spec("BPSK1K", "digital_voice",
-                    lambda **k: BpskDemod(symbol_rate=1000, **k),
-                    lambda **k: BpskMod(symbol_rate=1000, **k),
+                    Chain(BpskDemod, dict(symbol_rate=1000)),
+                    Chain(BpskMod, dict(symbol_rate=1000)),
                     framing="BPSK1K", step=6250, bit_rate=1000),
     "QPSK2K": _spec("QPSK2K", "digital_voice",
-                    lambda **k: QpskDemod(symbol_rate=1000,
-                                          target_rate=40_000, **k),
-                    lambda **k: QpskMod(symbol_rate=1000, **k),
+                    Chain(QpskDemod, dict(symbol_rate=1000,
+                                          target_rate=40_000)),
+                    Chain(QpskMod, dict(symbol_rate=1000)),
                     framing="QPSK2K", step=6250, bit_rate=2000),
     "QPSK20K": _spec("QPSK20K", "digital_voice",
-                     lambda **k: QpskDemod(symbol_rate=10_000,
-                                           target_rate=40_000, **k),
-                     lambda **k: QpskMod(symbol_rate=10_000, **k),
+                     Chain(QpskDemod, dict(symbol_rate=10_000,
+                                           target_rate=40_000)),
+                     Chain(QpskMod, dict(symbol_rate=10_000)),
                      framing="QPSK20K", step=25000, bit_rate=20000),
     "QPSK250K": _spec("QPSK250K", "digital_data",
-                      lambda **k: QpskDemod(symbol_rate=125_000,
-                                            target_rate=500_000, **k),
-                      lambda **k: QpskMod(symbol_rate=125_000, **k),
+                      Chain(QpskDemod, dict(symbol_rate=125_000,
+                                            target_rate=500_000)),
+                      Chain(QpskMod, dict(symbol_rate=125_000)),
                       framing="QPSK250K", step=500000, bit_rate=250000),
     # video over DQPSK: the QPSK250K waveform with the 3122-byte video
     # frame budget (reference gr_modem.cpp:159-162, modem_types.h
     # ModemTypeQPSKVideo)
     "QPSKVideo": _spec("QPSKVideo", "video",
-                       lambda **k: QpskDemod(symbol_rate=125_000,
-                                             target_rate=500_000, **k),
-                       lambda **k: QpskMod(symbol_rate=125_000, **k),
+                       Chain(QpskDemod, dict(symbol_rate=125_000,
+                                             target_rate=500_000)),
+                       Chain(QpskMod, dict(symbol_rate=125_000)),
                        framing="QPSKVideo", bit_rate=250000),
     "2FSK2K": _spec("2FSK2K", "digital_voice",
-                    lambda **k: Fsk2Demod(symbol_rate=2000, **k),
-                    lambda **k: Fsk2Mod(symbol_rate=2000, **k),
+                    Chain(Fsk2Demod, dict(symbol_rate=2000)),
+                    Chain(Fsk2Mod, dict(symbol_rate=2000)),
                     framing="2FSK2K", bit_rate=2000),
     "2FSK1K": _spec("2FSK1K", "digital_voice",
-                    lambda **k: Fsk2Demod(symbol_rate=1000, **k),
-                    lambda **k: Fsk2Mod(symbol_rate=1000, **k),
+                    Chain(Fsk2Demod, dict(symbol_rate=1000)),
+                    Chain(Fsk2Mod, dict(symbol_rate=1000)),
                     framing="2FSK1K", bit_rate=1000),
     "GMSK2K": _spec("GMSK2K", "digital_voice",
-                    lambda **k: GmskDemod(symbol_rate=2000, **k),
-                    lambda **k: GmskMod(symbol_rate=2000, **k),
+                    Chain(GmskDemod, dict(symbol_rate=2000)),
+                    Chain(GmskMod, dict(symbol_rate=2000)),
                     framing="GMSK2K", bit_rate=2000),
     "GMSK1K": _spec("GMSK1K", "digital_voice",
-                    lambda **k: GmskDemod(symbol_rate=1000, **k),
-                    lambda **k: GmskMod(symbol_rate=1000, **k),
+                    Chain(GmskDemod, dict(symbol_rate=1000)),
+                    Chain(GmskMod, dict(symbol_rate=1000)),
                     framing="GMSK1K", bit_rate=1000),
     # reference mode table: 4FSK2K is the non-FM filter-bank variant,
     # 4FSK2KFM the FM-discriminator one (gr_demod_base.cpp:211-214)
     "4FSK2K": _spec("4FSK2K", "digital_voice",
-                    lambda **k: Fsk4Demod(**k), lambda **k: Fsk4Mod(**k),
+                    Chain(Fsk4Demod), Chain(Fsk4Mod),
                     framing="4FSK2K", bit_rate=2000),
     "4FSK2KFB": _spec("4FSK2KFB", "digital_voice",
-                      lambda **k: Fsk4FbDemod(variant="2K", **k),
-                      lambda **k: Fsk4Mod(variant="2K", **k),
+                      Chain(Fsk4FbDemod, dict(variant="2K")),
+                      Chain(Fsk4Mod, dict(variant="2K")),
                       framing="4FSK2K", bit_rate=2000),
     "4FSK1KFM": _spec("4FSK1KFM", "digital_voice",
-                      lambda **k: Fsk4Demod(variant="1KFM", **k),
-                      lambda **k: Fsk4Mod(variant="1KFM", **k),
+                      Chain(Fsk4Demod, dict(variant="1KFM")),
+                      Chain(Fsk4Mod, dict(variant="1KFM")),
                       framing="4FSK1KFM", bit_rate=1000),
     "4FSK10KFM": _spec("4FSK10KFM", "digital_data",
-                       lambda **k: Fsk4Demod(variant="10KFM", **k),
-                       lambda **k: Fsk4Mod(variant="10KFM", **k),
+                       Chain(Fsk4Demod, dict(variant="10KFM")),
+                       Chain(Fsk4Mod, dict(variant="10KFM")),
                        framing="4FSK10KFM", step=50000, bit_rate=10000),
     "4FSK100K": _spec("4FSK100K", "digital_data",
-                      lambda **k: Fsk4Demod(variant="96K", **k),
-                      lambda **k: Fsk4Mod(variant="96K", **k),
+                      Chain(Fsk4Demod, dict(variant="96K")),
+                      Chain(Fsk4Mod, dict(variant="96K")),
                       framing="4FSK100K", step=500000, bit_rate=100000),
     "2FSK10K": _spec("2FSK10K", "digital_data",
-                     lambda **k: Fsk2Demod(symbol_rate=20_000,
+                     Chain(Fsk2Demod, dict(symbol_rate=20_000,
                                            filter_width=25000.0,
-                                           target_rate=80_000, **k),
-                     lambda **k: Fsk2Mod(symbol_rate=20_000,
-                                         filter_width=25000.0, **k),
+                                           target_rate=80_000)),
+                     Chain(Fsk2Mod, dict(symbol_rate=20_000,
+                                         filter_width=25000.0)),
                      framing="2FSK10KFM", step=50000, bit_rate=20000),
     "2FSK2KFB": _spec("2FSK2KFB", "digital_voice",
-                      lambda **k: Fsk2FbDemod(symbol_rate=2000,
-                                              filter_width=4000.0, **k),
-                      lambda **k: Fsk2Mod(symbol_rate=2000,
-                                          filter_width=4000.0, **k),
+                      Chain(Fsk2FbDemod, dict(symbol_rate=2000,
+                                              filter_width=4000.0)),
+                      Chain(Fsk2Mod, dict(symbol_rate=2000,
+                                          filter_width=4000.0)),
                       framing="2FSK2K", bit_rate=2000),
     "2FSK1KFB": _spec("2FSK1KFB", "digital_voice",
-                      lambda **k: Fsk2FbDemod(symbol_rate=1000,
-                                              filter_width=2500.0, **k),
-                      lambda **k: Fsk2Mod(symbol_rate=1000,
-                                          filter_width=2500.0, **k),
+                      Chain(Fsk2FbDemod, dict(symbol_rate=1000,
+                                              filter_width=2500.0)),
+                      Chain(Fsk2Mod, dict(symbol_rate=1000,
+                                          filter_width=2500.0)),
                       framing="2FSK1K", bit_rate=1000),
     # GMSK10K: 20 ksym/s at 80 ksps (4 sps) with the 47-byte IP-modem
     # framing (reference gr_demod_gmsk.cpp:53-60, gr_modem.cpp:187-190,
     # radiocontroller.cpp:2269-2273 scan step 50 kHz)
     "GMSK10K": _spec("GMSK10K", "digital_data",
-                     lambda **k: GmskDemod(symbol_rate=20_000,
+                     Chain(GmskDemod, dict(symbol_rate=20_000,
                                            filter_width=20000.0,
-                                           target_rate=80_000, **k),
-                     lambda **k: GmskMod(symbol_rate=20_000,
-                                         filter_width=20000.0, **k),
+                                           target_rate=80_000)),
+                     Chain(GmskMod, dict(symbol_rate=20_000,
+                                         filter_width=20000.0)),
                      framing="2FSK10KFM", step=50000, bit_rate=20000),
     # reference ModemTypeBPSK8: 7-byte frames with the 8*8 bit buffer
     # (gr_modem.cpp:219-222) — the BPSK2K frame shape, not BPSK1K's
     "BPSKDSSS8": _spec("BPSKDSSS8", "digital_voice",
-                       lambda **k: DsssBpskDemod(**k),
-                       lambda **k: DsssBpskMod(**k),
+                       Chain(DsssBpskDemod),
+                       Chain(DsssBpskMod),
                        framing="BPSK2K", bit_rate=8),
-    "CW": _spec("CW", "analog", None, lambda **k: CwMod(**k), step=100),
+    "CW": _spec("CW", "analog", None, Chain(CwMod), step=100),
     "M17": _spec("M17", "digital_voice",
-                 lambda **k: M17Demod(**k), lambda **k: M17Mod(**k),
+                 Chain(M17Demod), Chain(M17Mod),
                  framing="M17", bit_rate=9600),
     "DMR": _spec("DMR", "digital_voice",
-                 lambda **k: DmrDemod(**k), lambda **k: DmrMod(**k),
+                 Chain(DmrDemod), Chain(DmrMod),
                  bit_rate=9600),
 }
 
@@ -195,10 +214,8 @@ def _freedv_entries():
             fw = 4000.0 if fdv_mode == "2400A" else 2500.0
             out[name] = _spec(
                 name, "digital_voice",
-                lambda usb=usb, fw=fw, **k: FreeDvDemod(
-                    usb=usb, **{"filter_width": fw, **k}),
-                lambda usb=usb, fw=fw, **k: FreeDvMod(
-                    usb=usb, **{"filter_width": fw, **k}),
+                Chain(FreeDvDemod, dict(usb=usb), filter_width=fw),
+                Chain(FreeDvMod, dict(usb=usb), filter_width=fw),
                 step=2500, bit_rate=rates[fdv_mode])
     return out
 
@@ -214,15 +231,12 @@ def _mmdvm_entries():
         # TX chains default to IqPair planes (core.get_iq fetches either
         # form to the host)
         "MMDVM": _spec("MMDVM", "mmdvm",
-                       lambda **k: MmdvmDemod(**k),
-                       lambda **k: MmdvmMod(**{"pair": True, **k}),
+                       Chain(MmdvmDemod),
+                       Chain(MmdvmMod, pair=True),
                        step=12500, bit_rate=9600),
         "MMDVMmulti": _spec("MMDVMmulti", "mmdvm",
-                            lambda num_channels=7, **k:
-                            MmdvmMultiRx(num_channels=num_channels, **k),
-                            lambda num_channels=7, **k:
-                            MmdvmMultiTx(**{"num_channels": num_channels,
-                                            "pair": True, **k}),
+                            Chain(MmdvmMultiRx, num_channels=7),
+                            Chain(MmdvmMultiTx, num_channels=7, pair=True),
                             step=12500, bit_rate=9600),
     }
 
@@ -297,6 +311,14 @@ def rx_chain(name: str, **kwargs):
     if spec.rx_factory is None:
         raise ValueError(f"mode {name} has no RX chain")
     return spec.rx_factory(**kwargs)
+
+
+def chain_keywords(name: str, rx: bool = True) -> frozenset:
+    """The keywords that the mode's RX (rx=True) or TX chain takes from a
+    caller (Chain.keywords); empty where the mode has no such chain."""
+    spec = get_mode(name)
+    factory = spec.rx_factory if rx else spec.tx_factory
+    return frozenset() if factory is None else factory.keywords
 
 
 def tx_chain(name: str, **kwargs):

@@ -1,6 +1,6 @@
 """Standards-based digital voice protocol stacks, M17 and DMR (port of
-qradiolink_tpu/protocols: m17 and dmr; dmr_stream, dmr_control and the
-data/signalling layers are not ported yet).
+qradiolink_tpu/protocols: m17, dmr, and DMR's call layer dmr_stream,
+dmr_control, dmr_data, dmr_signalling and dmr_utils).
 
 Frame-level FEC transforms are array ops over bit arrays; per-transmission
 bookkeeping (LSF reassembly, slot state machines) is host-side Python —
