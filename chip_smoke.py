@@ -327,7 +327,40 @@ when the package cannot be imported, and when any phase fails:
     the embedded LC), at least 3/4 of the rows with 8 or more of their 12
     voice bursts recovered and 8 in 12 of all bursts (CALL_ROWS' comment
     says why the voice gate is over the rows); the stack's host ms a row
-    and a second of air.
+    and a second of air;
+27. the headless service (slice 8), after two probe lines (whether
+    `import zmq` can succeed, `g++ --version`): (a) the CLI's `headless
+    --udp --start-trx --rx-mode 4FSK2K` (app/cli.HeadlessService, its loop
+    in a thread, ephemeral ports) on the card and with `--device cpu`: the
+    port's 4FSK2K TX of a text as cf32 datagrams in APP_BLOCK blocks, at
+    most UDP_WINDOW datagrams ahead of the service's reads; telnet verbs
+    (a status verb, a mode change and back, PTT on and off, shutdown); the
+    card's replies and text events equal the CPU's, the text whole, its
+    launches the CPU run's calls; then on the card with the sender in a
+    process of its own, the same replies and texts; for each sender, ms a
+    block from its first datagram to its events and from one block's
+    events to the next's, the part in UdpIqSource.read_block and, of that,
+    in its socket's recvfrom, the real-time factor; read_block's ms with
+    every datagram at hand (no sender, no socket);
+    (b) MMDVM and MMDVMmulti (7 carriers) through RadioController, 8 RX
+    blocks of 30,000 samples at 250 ksps and 4 TX polls, on ZeroMQ ipc
+    sockets under build/ where pyzmq is present, else on the port's
+    publisher and poller with in-memory queues (the same wire bytes; a line
+    says which): the slots within one int16 step and rssi within 1 of the
+    CPU run's, the TX IQ within the parity tests' bound and the gated
+    masks equal, the launches the CPU's calls; ms a block and the
+    real-time factor for RX and TX; a row for each FIR and resampler shape
+    and, for MMDVMmulti, K5 and K4 at the block's shape; (c) IP-over-radio:
+    NetPump(LoopbackNetDevice(), "QPSK250K") -> tx_net_poll -> the same
+    controller's RX gives the three payloads back (no TUN/TAP device), on
+    the card and on the CPU (in a spawned process while the card runs and
+    its rows are built): the card's TX IQ within 1e-4 of the peak of
+    the CPU's, its RX events the CPU's, its launches the CPU's calls; a
+    row for each kernel shape of the first poll and RX block (the FIRs and
+    interpolators on seeded inputs, the loops, the FLL's among them, on
+    the path's own) that no earlier row has;
+    (d) the C++ engine's conversions against the numpy forms (MS/s) and
+    UdpRxEngine's datagrams a second on loopback.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -337,6 +370,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -3539,8 +3573,8 @@ def call_capture():
     """While active, records every FIR (ops/cuda_fir.fir_stream, as
     FirFilter and the L = 1 resampler call it), every resampler
     (ops/cuda_resample.resample_poly) and every loop kernel call (the
-    Costas loop, the symbol sync, Agc2 and the streaming Viterbi as their
-    blocks call them): {(kernel, shape key): [calls, meta]}, meta enough to
+    Costas loop, the symbol sync, Agc2, the streaming Viterbi and the FLL
+    as their blocks call them): {(kernel, shape key): [calls, meta]}, meta enough to
     build the same shape again (FIRs, resamplers: taps, stride, rows,
     planes, lengths) or the first call's own inputs (loops: the wrapper
     and a copy of its arguments)."""
@@ -3552,7 +3586,9 @@ def call_capture():
     from qradiolink_tpu_torch.ops import resample as rs_mod
     from qradiolink_tpu_torch.sync import costas as costas_mod
     from qradiolink_tpu_torch.sync import cuda_costas as cc
+    from qradiolink_tpu_torch.sync import cuda_fll as cf
     from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+    from qradiolink_tpu_torch.sync import fll as fll_mod
     from qradiolink_tpu_torch.sync import symbol_sync as ss_mod
 
     seen = {}
@@ -3591,7 +3627,9 @@ def call_capture():
              (agc_mod, "agc2", cuda_agc.OP_FUSED,
               lambda a: cuda_agc.fused_key(a[0])),
              (conv, "viterbi_stream", vsc.OP,
-              lambda a: vsc.shape_key(a[3], a[2].shape[1]))]
+              lambda a: vsc.shape_key(a[3], a[2].shape[1])),
+             (fll_mod, "fll_band_edge", cf.OP,
+              lambda a: cf.shape_key(a[0], a[8]))]
     origs = [getattr(mod, name) for mod, name, _, _ in loops]
 
     def loop(fn, op, key_of):
@@ -3794,13 +3832,17 @@ def loop_capture_row(op, key, meta, run):
     """A loop kernel's row at a path's shape, on the arguments its first
     call there had (call_capture): loop_row, bit-equal to the plain loop;
     bytes: each input read once and each output written once, operations
-    as psk_rows and agc_rows count them."""
+    as psk_rows and agc_rows count them. The FLL's row is
+    fll_capture_row's."""
     from qradiolink_tpu_torch.fec import viterbi_stream_cuda as vsc
     from qradiolink_tpu_torch.ops import cuda_agc
     from qradiolink_tpu_torch.sync import cuda_costas as cc
+    from qradiolink_tpu_torch.sync import cuda_fll as cf
     from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
 
     fn, a = meta["fn"], meta["args"]
+    if op == cf.OP:
+        return fll_capture_row(fn, a, run, key)
     if op == cc.OP:
         x = a[0]
         C, T = math.prod(x.shape[:-1]), x.shape[-1]
@@ -3841,6 +3883,36 @@ def loop_capture_row(op, key, meta, run):
     src, where = LOOP_SOURCE[op]
     return loop_row(f"{op}/{run}", src, where, lambda: fn(*a), plain, *b,
                     run, key)
+
+
+def fll_capture_row(fn, a, run, key):
+    """fll_band_edge_f32's row at a path's shape, on the arguments its
+    first call there had (call_capture): within FLL_ATOL + FLL_RTOL |plain|
+    of one timed call of the plain loop (fll_diffs), bytes and operations
+    as fll_rows counts them."""
+    from qradiolink_tpu_torch.sync import cuda_fll as cf
+
+    xr, xi, taps = a[0], a[1], a[5]
+    C, T, K = math.prod(xr.shape[:-1]), xr.shape[-1], taps.shape[-1]
+    name = f"{cf.OP}/{run}"
+    ms = cuda_ms(lambda: fn(*a), iters=5, warmup=1)
+    got = fn(*a)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = cf.fll_plain(xr, torch.zeros_like(xr) if xi is None else xi,
+                        *a[2:])
+    end.record()
+    end.synchronize()
+    d = fll_diffs(f"{name} at {key}", got, want, gate=True)
+    print(f"  {name}: at {key} within {FLL_ATOL} + {FLL_RTOL} |plain| of "
+          f"the plain loop, max |diff| {json.dumps(d)}", flush=True)
+    planes = 1 if xi is None else 2
+    b = bound(4 * planes * C * T + 8 * C * T + 16 * K + 16 * C * K,
+              2 * 2 * 4 * K * C * T)
+    return row(name, "qradiolink_tpu_torch/csrc/fll_band_edge.cu",
+               "qradiolink_tpu/sync/fll.py:93", max(d.values()), ms,
+               start.elapsed_time(end), b, None, run, key)
 
 
 def captured_rows(seen, want, run, done, dev, gen):
@@ -4613,20 +4685,20 @@ def mmdvm_multi_path(dev, gen, done):
     return report, rows + pfb_rows
 
 
-def mmdvm_pfb_rows(ch, syn, dev, gen):
+def mmdvm_pfb_rows(ch, syn, dev, gen, T=MMDVM_T, run="mmdvm_multi"):
     """pfb_channelize_f32 at the MMDVMmulti channelizer's shape (M 10, its
-    kp, MMDVM_T samples) within 1e-5 of the plain version's peak, and
+    kp, T samples) within 1e-5 of the plain version's peak, and
     depthwise_fir_f32 at the synthesizer's (10 rows, kp, the tails read in
-    place, MMDVM_T / 10 outputs) within the FIR's bound of its plain
-    version, F.conv1d(groups=10) beside it."""
+    place, T / 10 outputs) within the FIR's bound of its plain version,
+    F.conv1d(groups=10) beside it; the rows of the `run` path."""
     from qradiolink_tpu_torch.ops import cuda_depthwise as dw
     from qradiolink_tpu_torch.ops import cuda_pfb
     from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain
     import torch.nn.functional as F
 
     M, kp = ch.M, ch.kp
-    Tm = MMDVM_T // M
-    xs = tuple(torch.randn((MMDVM_T,), generator=gen, device=dev) * 0.1
+    Tm = T // M
+    xs = tuple(torch.randn((T,), generator=gen, device=dev) * 0.1
                for _ in range(2))
     hist = torch.randn((2, kp * M), generator=gen, device=dev) * 0.1
     got = cuda_pfb.channelize(xs, hist, ch._ct, ch._dft)
@@ -4636,10 +4708,11 @@ def mmdvm_pfb_rows(ch, syn, dev, gen):
     plain_ms = cuda_ms(lambda: channelize_plain(xs, hist, ch._ct))
     b = bound(4 * (2 * Tm * M + 2 * kp * M + 2 * M * Tm + (kp + 1) * M),
               2 * (kp + 1) * 2 * Tm * M + 8 * M * M * Tm)
-    rows = [row(f"{cuda_pfb.OP}/mmdvm_multi",
+    tag = run if T == MMDVM_T else f"{run} T{T}"
+    rows = [row(f"{cuda_pfb.OP}/{tag}",
                 "qradiolink_tpu_torch/csrc/pfb.cu",
                 "qradiolink_tpu/ops/pallas_pfb.py:186", err, ms, plain_ms, b,
-                None, "mmdvm_multi", f"M{M} kp{kp}")]
+                None, run, f"M{M} kp{kp}")]
     tf = syn._bt_flipped
     C, kps = tf.shape
     st = torch.randn((2, C, kps - 1), generator=gen, device=dev)
@@ -4659,10 +4732,10 @@ def mmdvm_pfb_rows(ch, syn, dev, gen):
     lib_ms = cuda_ms(lambda: F.conv1d(xcat, w, groups=C))
     b = bound(4 * (2 * C * (Tm + kps - 1) + 2 * C * Tm + C * kps),
               2 * kps * 2 * C * Tm)
-    rows.append(row(f"{dw.OP}/mmdvm_multi",
+    rows.append(row(f"{dw.OP}/{tag}",
                     "qradiolink_tpu_torch/csrc/depthwise.cu",
                     "qradiolink_tpu/ops/pallas_fir.py:401", err, ms,
-                    plain_ms, b, lib_ms, "mmdvm_multi", key))
+                    plain_ms, b, lib_ms, run, key))
     return rows
 
 
@@ -4930,17 +5003,12 @@ def cpu_launch_table(fn):
             for k, n in r["shapes"].items() if k.startswith("plain ") and n}
 
 
-def app_counted(run, card_fn, cpu_fn):
+def card_counted(run, card_fn):
     """card_fn() with the launch counters zeroed just before and read just
-    after: every call on the card launched its kernel, and the launches
-    equal, kernel and shape, the calls of cpu_fn() (the same work on the
-    CPU, cpu_launch_table). Returns (card_fn()'s result, cpu_fn()'s), the
-    CPU's the plain versions' witness that the caller holds the card's
-    to."""
+    after: every call on the card must have launched its kernel. Returns
+    (card_fn()'s result, the launch report)."""
     from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
-    cpu_out = []
-    want = cpu_launch_table(lambda: cpu_out.append(cpu_fn()))
     kernel_paths.reset()
     out = card_fn()
     torch.cuda.synchronize()
@@ -4948,6 +5016,17 @@ def app_counted(run, card_fn, cpu_fn):
     if not kernel_paths.served_only():
         raise RuntimeError(f"{run}: a call took the plain path on the card: "
                            f"{json.dumps(report)}")
+    return out, report
+
+
+def app_counted(run, card_fn, cpu_fn):
+    """card_fn() under card_counted, its launches equal, kernel and shape,
+    to the calls of cpu_fn() (the same work on the CPU, run first,
+    cpu_launch_table). Returns (card_fn()'s result, cpu_fn()'s), the CPU's
+    the plain versions' witness that the caller holds the card's to."""
+    cpu_out = []
+    want = cpu_launch_table(lambda: cpu_out.append(cpu_fn()))
+    out, report = card_counted(run, card_fn)
     require_exactly(report, want, run)
     return out, cpu_out[0]
 
@@ -5478,6 +5557,846 @@ def dmr_call_phase(dev):
     return med
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the headless service
+
+HEADLESS_TEXT = "cq de tpu headless " * 3
+HEADLESS_VERBS = ["rxstatus", "rxmode", "setrxmode NBFM", "rxmode",
+                  "setrxmode 4FSK2K", "ptt_on", "txactive", "ptt_off",
+                  "txactive"]
+UDP_WINDOW = 32            # datagrams in flight ahead of the reader
+MMDVM_BLOCK = 30_000       # 120 ms of air at 250 ksps: 2,880 samples at
+#                            24 ksps, four 720-sample slots
+MMDVM_RX_BLOCKS = 8
+MMDVM_TX_BLOCKS = 4
+MMDVM_BURSTS = 14          # 720-sample bursts served to carrier 0 (to
+#                            carrier c, 14 - c): 3.5 blocks, then idle
+MMDVM_TX_TOL = {1: 3e-3, 7: 6e-3}   # tests/test_torch_freedv_mmdvm.py
+NET_BLOCK = 50_000         # tests/test_net.py's RX block
+NET_SIZES = (120, 1500, 64)          # tests/test_net.py's payloads
+NET_PRE, NET_TAIL = 1000, 1000       # preamble and tail bytes (tests/test_net.py: 3000, 2000)
+NET_TX_TOL = 1e-4          # of the peak: tests/test_torch_net.py's TX_TOL
+PEER_WAIT_MS = 20_000
+
+
+def probe_lines():
+    """Prints whether `import zmq` can succeed here and `g++ --version`;
+    returns the former."""
+    import importlib.util
+
+    has_zmq = importlib.util.find_spec("zmq") is not None
+    print(f"  probe: import zmq {'finds pyzmq' if has_zmq else 'fails: no pyzmq on this machine'}",
+          flush=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    print(f"  probe: g++ --version: {gxx}", flush=True)
+    return has_zmq
+
+
+def telnet_lines(port, lines):
+    """A telnet session on 127.0.0.1:port: the banner's two lines, then
+    each line's reply (up to its CRLF; `shutdown`'s up to the close)."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as c:
+        f = c.makefile("rwb")
+        got = [f.readline(), f.readline()]
+        for line in lines:
+            f.write(line.encode() + b"\n")
+            f.flush()
+            if line == "shutdown":
+                got.append(f.read())
+                break
+            reply = f.readline()
+            while reply and not reply.endswith(b"\r\n"):
+                reply += f.readline()
+            got.append(reply)
+    return got
+
+
+class CountedSocket:
+    """The service's UDP socket, counting its reads in `reads` (a shared
+    multiprocessing counter, which a sender in another process can read:
+    the sender's window waits on it, so no datagram outruns the socket's
+    buffer) and summing the seconds spent in recvfrom, the wait for the
+    sender included."""
+
+    def __init__(self, sock, reads):
+        self.sock = sock
+        self.reads = reads
+        self.recv_s = 0.0
+
+    def recvfrom(self, n):
+        t0 = time.perf_counter()
+        out = self.sock.recvfrom(n)
+        self.recv_s += time.perf_counter() - t0
+        self.reads.value += 1
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.sock, name)
+
+
+def udp_send(port, iq, block, reads, sent):
+    """Sends iq to 127.0.0.1:port as UdpIqSink's cf32 datagrams, at most
+    UDP_WINDOW ahead of the shared read count `reads`; sent[b] gets the
+    time.perf_counter() (the system's monotonic clock, one for every
+    process) of sending the datagram that carries block b's first
+    sample."""
+    from qradiolink_tpu_torch.io.iq import UdpIqSink
+
+    sink = UdpIqSink(port)
+    n_blocks, nb = iq.size // block, 0
+    for k, i in enumerate(range(0, iq.size, sink.chunk)):
+        while k - reads.value >= UDP_WINDOW:
+            time.sleep(0.0002)
+        while nb < n_blocks and nb * block < i + sink.chunk:
+            sent[nb] = time.perf_counter()
+            nb += 1
+        sink.write(iq[i:i + sink.chunk])
+    sink.close()
+
+
+def headless_session(device, iq, block, sender="thread"):
+    """The CLI's headless service (app/cli.HeadlessService, the loop that
+    `headless` runs) with `--udp --udp-port 0 --control-port 0 --rx-mode
+    4FSK2K --start-trx --device <device>`, its loop in a thread: the telnet
+    verbs HEADLESS_VERBS, then `iq` as cf32 datagrams (udp_send), then
+    `rxstatus` and `shutdown`. sender "thread": udp_send runs in this
+    process, beside the service's loop; "process": in a process of its
+    own (multiprocessing, spawned), which shares no interpreter lock with
+    the loop. Returns (telnet replies, the text events, {first datagram
+    sent, read_block s, its part in recvfrom s, rx_block s, events out: a
+    list a block})."""
+    import multiprocessing
+    import threading
+
+    from qradiolink_tpu_torch.app import cli
+
+    args = cli.build_parser().parse_args(
+        ["headless", "--udp", "--udp-port", "0", "--control-port", "0",
+         "--rx-mode", "4FSK2K", "--start-trx", "--device", device])
+    svc = cli.HeadlessService(args)
+    mp = multiprocessing.get_context("spawn")
+    n_blocks = iq.size // block
+    sent = mp.Array("d", n_blocks, lock=False)
+    counted = CountedSocket(svc.src.sock, mp.Value("q", 0, lock=False))
+    svc.src.sock = counted
+    t = {"read": [], "recv": [], "rx": [], "out": []}
+    events = []
+    read_inner, rx_inner = svc.src.read_block, svc.ctl.rx_block
+
+    def read_block():
+        t0, r0 = time.perf_counter(), counted.recv_s
+        b = read_inner()
+        t["read"].append(time.perf_counter() - t0)
+        t["recv"].append(counted.recv_s - r0)
+        return b
+
+    def rx_block(b):
+        t0 = time.perf_counter()
+        new = rx_inner(b)
+        t1 = time.perf_counter()
+        t["rx"].append(t1 - t0)
+        t["out"].append(t1)
+        events.append(new)
+        return new
+
+    svc.src.read_block, svc.ctl.rx_block = read_block, rx_block
+    rc = []
+    th = threading.Thread(target=lambda: rc.append(svc.run()), daemon=True)
+    th.start()
+    proc = None
+    try:
+        replies = telnet_lines(svc.telnet.port, HEADLESS_VERBS)
+        send = (counted.getsockname()[1], iq, block, counted.reads, sent)
+        if sender == "process":
+            proc = mp.Process(target=udp_send, args=send)
+            proc.start()
+        else:
+            udp_send(*send)
+        end = time.monotonic() + 300
+        while len(events) < n_blocks and time.monotonic() < end:
+            time.sleep(0.005)
+        replies += telnet_lines(svc.telnet.port, ["rxstatus",
+                                                  "shutdown"])[2:]
+        th.join(timeout=60)
+    finally:
+        if th.is_alive():
+            svc.telnet.server.stop_flag.set()
+            th.join(timeout=60)
+        if proc is not None:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    if rc != [0] or len(events) != n_blocks or (
+            proc is not None and proc.exitcode != 0):
+        raise RuntimeError(f"headless on {device}: loop returned {rc}, "
+                           f"{len(events)} of {n_blocks} blocks, sender "
+                           f"{sender} exit {proc and proc.exitcode}")
+    t["sent"] = list(sent)
+    texts = [e.text for new in events for e in new if e.kind == "text"]
+    return replies, texts, t
+
+
+def read_block_at_hand(iq, block):
+    """UdpIqSource.read_block's ms a block (all but the first) with every
+    datagram already at hand: its socket a stand-in whose recvfrom returns
+    the next of udp_send's cf32 datagrams at once, so the time is the
+    decoding and reassembly alone, with no wait on a sender or a socket."""
+    from qradiolink_tpu_torch.io.iq import UdpIqSource
+
+    chunk = 1472 // 8
+    inter = np.empty(2 * iq.size, np.float32)
+    inter[0::2], inter[1::2] = iq.real, iq.imag
+    grams = iter([inter[2 * i:2 * (i + chunk)].tobytes()
+                  for i in range(0, iq.size, chunk)])
+
+    class AtHand:
+        def recvfrom(self, n):
+            return next(grams), None
+
+    src = UdpIqSource(0, block)
+    src.sock.close()
+    src.sock = AtHand()
+    ms = []
+    for _ in range(iq.size // block):
+        t0 = time.perf_counter()
+        src.read_block()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[1:])
+
+
+def session_figures(t):
+    """Median ms a block (all but the first): from its first datagram sent
+    to its events out, from the last block's events out to its own (the
+    service's period), in read_block, in read_block's recvfrom calls, in
+    rx_block."""
+    n = len(t["out"])
+    block = [(t["out"][i] - t["sent"][i]) * 1e3 for i in range(n)]
+    return {"block_ms": statistics.median(block[1:]),
+            "period_ms": statistics.median(np.diff(t["out"]) * 1e3),
+            "read_ms": statistics.median(t["read"][1:]) * 1e3,
+            "recv_ms": statistics.median(t["recv"][1:]) * 1e3,
+            "rx_ms": statistics.median(t["rx"][1:]) * 1e3,
+            "blocks": [round(b, 3) for b in block]}
+
+
+def headless_service_phase(dev):
+    """(a) The headless service, one radio, 4FSK2K RX at 1 Msps in
+    APP_BLOCK blocks (headless_session): the port's own 4FSK2K TX of a
+    text (preamble frames, the text, zeros) as cf32 datagrams. The card's
+    launches equal the CPU session's calls (app_counted), its telnet
+    replies and decoded texts equal the CPU's, the text arrives whole;
+    then the same on the card with the sender in a process of its own,
+    its replies and texts the same. For each sender, prints ms a block
+    from its first datagram sent to its events out, the part in
+    UdpIqSource.read_block and, of that, in its socket's recvfrom (the
+    wait for the sender), and the real-time factor 125 / ms; then
+    read_block's ms with the datagrams at hand (read_block_at_hand).
+    Returns the figures."""
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+    from qradiolink_tpu_torch.framing.layer1 import FrameType
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    tx = RadioController(Settings(tx_mode="4FSK2K"), device=dev)
+    tx.toggle_tx_mode("4FSK2K")
+    pre = tx._framer.frame(b"\xaa" * 64, FrameType.VOICE_1) * 6
+    iq = np.concatenate([tx.tx_bytes(pre), tx.tx_text(HEADLESS_TEXT),
+                         np.zeros(60_000, np.complex64)])
+    iq = np.concatenate([iq, np.zeros((-iq.size) % APP_BLOCK,
+                                      np.complex64)]).astype(np.complex64)
+    (replies, texts, t), (c_replies, c_texts, _) = app_counted(
+        "headless 4FSK2K", lambda: headless_session(dev.type, iq, APP_BLOCK),
+        lambda: headless_session("cpu", iq, APP_BLOCK))
+    report = kernel_paths.report()
+    print_stages("headless 4FSK2K", report)
+    if replies != c_replies or texts != c_texts \
+            or HEADLESS_TEXT not in "".join(texts):
+        raise RuntimeError(f"headless: replies {replies} / texts {texts} on "
+                           f"the card, {c_replies} / {c_texts} on the CPU")
+    print(f"  headless: telnet replies equal the CPU session's "
+          f"({len(replies) - 2} verbs: {[r.decode().strip() for r in replies[2:]]}); "
+          f"the text decoded whole, the CPU's text events", flush=True)
+    p_replies, p_texts, p_t = headless_session(dev.type, iq, APP_BLOCK,
+                                               sender="process")
+    if p_replies != replies or p_texts != texts:
+        raise RuntimeError(f"headless, sender in a process: replies "
+                           f"{p_replies} / texts {p_texts}")
+    figs = {}
+    for sender, tt in (("in the service's process", t),
+                       ("in a process of its own", p_t)):
+        f = session_figures(tt)
+        print(f"  headless 4FSK2K, one radio, {len(tt['out'])} blocks of "
+              f"{APP_BLOCK} samples in cf32 datagrams of 184 (1,472 "
+              f"bytes), the sender {sender}: a block from its first "
+              f"datagram sent to its events out median {f['block_ms']:.3f} "
+              f"ms ({f['blocks']}); UdpIqSource.read_block "
+              f"{f['read_ms']:.3f} ms ({f['read_ms'] / f['block_ms']:.1%}), "
+              f"of which in recvfrom {f['recv_ms']:.3f} ms; rx_block "
+              f"{f['rx_ms']:.3f} ms; real-time factor "
+              f"{125.0 / f['block_ms']:.2f}; from one block's events to "
+              f"the next's {f['period_ms']:.3f} ms (real-time factor "
+              f"{125.0 / f['period_ms']:.2f}) ({CARD})", flush=True)
+        figs[sender] = f
+    at_hand = read_block_at_hand(iq, APP_BLOCK)
+    print(f"  headless: UdpIqSource.read_block with every datagram at hand "
+          f"(no sender, no socket): {at_hand:.3f} ms a block of "
+          f"{APP_BLOCK} (host clock, {CARD})", flush=True)
+    figs["at_hand_ms"] = at_hand
+    return figs
+
+
+def print_stages(run, report):
+    """Which kernel served each stage: the launch report's shapes."""
+    print(f"  {run}: kernels a stage served: " + "; ".join(
+        f"{op} {k[len('cuda '):]} x{n}" for op, r in report.items()
+        for k, n in r["shapes"].items() if n), flush=True)
+
+
+def launch_counts(report):
+    """{(kernel, shape key): launches} on the card in a launch report."""
+    from collections import Counter
+
+    return Counter({(op, k[len("cuda "):]): n for op, r in report.items()
+                    for k, n in r["shapes"].items()
+                    if k.startswith("cuda ") and n})
+
+
+@contextlib.contextmanager
+def capture_into(seen, on):
+    """call_capture's calls inside the block go to the dict `seen` where
+    `on` holds and seen is not None; otherwise nothing is recorded."""
+    if seen is None or not on:
+        yield
+        return
+    with call_capture() as s:
+        yield
+    seen.update(s)
+
+
+def queue_transport():
+    """The port's MMDVM publisher and poller with their ZMQ sockets
+    replaced by in-memory queues (the transport's _send and _request):
+    the same slotting and the same wire bytes, for a machine without
+    pyzmq. Returns (QueuePublisher, QueuePoller)."""
+    from qradiolink_tpu_torch.io import mmdvm_transport as mt
+
+    class QueuePublisher(mt.MmdvmRxPublisher):
+        def __init__(self, num_channels):
+            self._init_slots(num_channels)
+            self.sent = [[] for _ in range(num_channels)]
+
+        def _send(self, chan, msg):
+            self.sent[chan].append(msg)
+
+        def close(self):
+            pass
+
+    class QueuePoller(mt.MmdvmTxPoller):
+        def __init__(self, served):
+            self.served = served
+
+        def _request(self, chan):
+            q = self.served[chan]
+            return q.pop(0) if q else b""
+
+        def close(self):
+            pass
+
+    return QueuePublisher, QueuePoller
+
+
+class MmdvmPeer:
+    """MMDVMHost's side of C carriers: unpacks the radio's RX slot
+    messages and answers every TX poll with the next queued burst (a
+    wire message) or an idle reply (b""). With pyzmq: PULL and REP
+    sockets on ipc paths in `tmp`, the replies from a thread; without:
+    queue_transport's publisher and poller."""
+
+    def __init__(self, C, bursts, tmp, has_zmq):
+        from qradiolink_tpu_torch.app import mmdvm_session as ms
+
+        self.C, self.has_zmq = C, has_zmq
+        self.session_cls = ms.MmdvmSession
+        self.served = [list(b) for b in bursts]
+        self.sess = None
+        if has_zmq:
+            import threading
+            import zmq
+
+            rel = os.path.relpath(tmp)
+            self.tpl = {k: f"ipc://{rel}/{k}{{}}.ipc" for k in ("rx", "tx")}
+            ctx = zmq.Context.instance()
+            self.pulls, self.reps = [], []
+            for c in range(C):
+                p = ctx.socket(zmq.PULL)
+                p.setsockopt(zmq.RCVTIMEO, PEER_WAIT_MS)
+                p.connect(self.tpl["rx"].format(c + 1))
+                r = ctx.socket(zmq.REP)
+                r.bind(self.tpl["tx"].format(c + 1))
+                self.pulls.append(p)
+                self.reps.append(r)
+            self.stop = threading.Event()
+            self.thread = threading.Thread(target=self._serve, daemon=True)
+            self.thread.start()
+
+    def _serve(self):
+        import zmq
+
+        poller = zmq.Poller()
+        for r in self.reps:
+            poller.register(r, zmq.POLLIN)
+        while not self.stop.is_set():
+            for sock, _ in poller.poll(50):
+                c = self.reps.index(sock)
+                sock.recv()
+                q = self.served[c]
+                sock.send(q.pop(0) if q else b"")
+
+    def session(self, settings, num_channels=1):
+        """app/mmdvm_session.MmdvmSession on this peer's transport (the
+        controller builds its session through this while the peer is
+        installed)."""
+        if self.has_zmq:
+            import zmq
+
+            sess = self.session_cls(settings, num_channels,
+                                    rx_path_tpl=self.tpl["rx"],
+                                    tx_path_tpl=self.tpl["tx"],
+                                    timeout_ms=PEER_WAIT_MS)
+            for s in sess.publisher.socks:
+                if not s.poll(PEER_WAIT_MS, zmq.POLLOUT):
+                    raise RuntimeError("MMDVM peer never connected")
+        else:
+            pub_cls, poll_cls = queue_transport()
+            sess = self.session_cls(settings, num_channels,
+                                    publisher=pub_cls(num_channels),
+                                    poller=poll_cls(self.served))
+        self.sess = sess
+        return sess
+
+    def slots(self, chan, n):
+        """The next n RX slot messages of carrier chan, unpacked."""
+        from qradiolink_tpu_torch.io.mmdvm_transport import unpack_rx_message
+
+        if self.has_zmq:
+            return [unpack_rx_message(self.pulls[chan].recv())
+                    for _ in range(n)]
+        sent = self.sess.publisher.sent[chan]
+        out = [unpack_rx_message(m) for m in sent[:n]]
+        del sent[:n]
+        return out
+
+    def close(self):
+        if self.has_zmq:
+            self.stop.set()
+            self.thread.join(timeout=60)
+            for s in self.pulls + self.reps:
+                s.close(0)
+
+
+def mmdvm_bursts(C):
+    """Carrier c's served TX: MMDVM_BURSTS - c wire messages of 720
+    seeded int16 samples, MARK_SLOT1 then MARK_SLOT2."""
+    from qradiolink_tpu_torch.io import mmdvm_transport as mt
+
+    rng = np.random.default_rng(21)
+    out = []
+    for c in range(C):
+        msgs = []
+        for k in range(MMDVM_BURSTS - c):
+            s = (8000 * np.sin(np.arange(720) * (0.05 + 0.01 * c) + k)
+                 + rng.normal(0, 50, 720)).astype(np.int16)
+            ctrl = np.full(720, mt.MARK_SLOT1 + k % 2, np.uint8)
+            msgs.append(mt.pack_tx_message(s, ctrl))
+        out.append(msgs)
+    return out
+
+
+def mmdvm_headless(mode, device, blocks, has_zmq, tmp, seen=None):
+    """RadioController on `device` in `mode` with its session on an
+    MmdvmPeer: rx_block over `blocks` (each timed, events kept), the
+    peer's slots, then MMDVM_TX_BLOCKS of mmdvm_tx_poll(2,880) (each
+    timed; the mask handed to the TX chain kept), then NBFM, which must
+    close the session. seen: a dict that call_capture's calls of the
+    first RX and the first TX block go to. Returns a dict of the
+    results."""
+    from qradiolink_tpu_torch.app import mmdvm_session as ms
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+
+    C = Settings().mmdvm_channels if mode == "MMDVMmulti" else 1
+    peer = MmdvmPeer(C, mmdvm_bursts(C), tmp, has_zmq)
+    ms.MmdvmSession = peer.session
+    try:
+        c = RadioController(Settings(), device=device)
+        c.toggle_rx_mode(mode)
+        c.toggle_tx_mode(mode)
+        events, rx_ms = [], []
+        for i, b in enumerate(blocks):
+            with capture_into(seen, i == 0):
+                t0 = time.perf_counter()
+                events.append(c.rx_block(b))
+                rx_ms.append((time.perf_counter() - t0) * 1e3)
+        slots = [peer.slots(k, len(blocks) * 4) for k in range(C)]
+        masks, tx_ms, iqs = [], [], []
+        inner = c._tx
+
+        def spy(state, audio, mask=None):
+            masks.append(mask.cpu().numpy())
+            return inner(state, audio, mask=mask)
+
+        c._tx = spy
+        for i in range(MMDVM_TX_BLOCKS):
+            with capture_into(seen, i == 0):
+                t0 = time.perf_counter()
+                iqs.append(c.mmdvm_tx_poll(2880))
+                tx_ms.append((time.perf_counter() - t0) * 1e3)
+        c._tx = inner
+        sess = c._mmdvm
+        c.toggle_rx_mode("NBFM")
+        if c._mmdvm is not None or sess is None:
+            raise RuntimeError(f"{mode}: the session outlived the mode")
+    finally:
+        ms.MmdvmSession = peer.session_cls
+        peer.close()
+    return dict(C=C, events=events, slots=slots, masks=masks, iqs=iqs,
+                rx_ms=rx_ms, tx_ms=tx_ms)
+
+
+def mmdvm_blocks(mode, C):
+    """MMDVM_RX_BLOCKS blocks of MMDVM_BLOCK samples at 250 ksps: the
+    port's TX chain on the CPU on a 1 kHz tone a carrier (carrier c's
+    phase c / 8), plus seeded noise at 0.01 a plane."""
+    from qradiolink_tpu_torch.chains import mmdvm
+    from qradiolink_tpu_torch.core import get_iq
+
+    n24 = MMDVM_RX_BLOCKS * MMDVM_BLOCK * 24 // 250
+    t = np.arange(n24) / 24_000.0
+    a = (0.15 * np.sin(2 * np.pi * 1000.0 * t
+                       + np.arange(C)[:, None] / 8)).astype(np.float32)
+    tx = mmdvm.MmdvmMultiTx(C, device="cpu") if mode == "MMDVMmulti" \
+        else mmdvm.MmdvmMod(device="cpu")
+    iq = get_iq(tx(tx.init_state(), torch.from_numpy(
+        a if mode == "MMDVMmulti" else a[0]))[1]["iq"])
+    rng = np.random.default_rng(22)
+    iq = iq + 0.01 * (rng.standard_normal(iq.size)
+                      + 1j * rng.standard_normal(iq.size))
+    return list(iq.astype(np.complex64).reshape(MMDVM_RX_BLOCKS, -1))
+
+
+def mmdvm_headless_phase(has_zmq, dev, gen, done):
+    """(b) MMDVM through RadioController: one carrier, then MMDVMmulti at
+    settings.mmdvm_channels carriers, MMDVM_RX_BLOCKS RX blocks of
+    MMDVM_BLOCK at 250 ksps and MMDVM_TX_BLOCKS TX polls, on the card and
+    on the CPU (app_counted: the card's launches those of the CPU's calls).
+    The card's slots (int16 samples, rssi) within one step of the CPU's,
+    control bytes equal; the TX IQ within the parity tests' bound of the
+    peak of the CPU's and the gated masks equal; a row for every FIR and
+    resampler shape the card run launched (captured_rows) and, for
+    MMDVMmulti, K5 and K4 at the block's shape (mmdvm_pfb_rows). Prints
+    ms a block and the real-time factor (120 ms of air a block) for RX and
+    TX. Returns ({run: report}, rows, figures)."""
+    import tempfile
+
+    from qradiolink_tpu_torch.chains import mmdvm
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    reports, rows, figs = {}, [], {}
+    (HERE / "build").mkdir(exist_ok=True)
+    print("  MMDVM transport: " + (
+        "ZeroMQ ipc sockets in a directory under build/" if has_zmq else
+        "no pyzmq here: the port's publisher and poller with in-memory "
+        "queues for sockets (queue_transport), the same wire bytes"),
+        flush=True)
+    for mode in ("MMDVM", "MMDVMmulti"):
+        C = 7 if mode == "MMDVMmulti" else 1
+        blocks = mmdvm_blocks(mode, C)
+        run = f"headless_{mode.lower()}"
+        seen = {}
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+            os.mkdir(os.path.join(tmp, "card"))
+            os.mkdir(os.path.join(tmp, "cpu"))
+            got, want = app_counted(
+                run, lambda: mmdvm_headless(mode, dev.type, blocks, has_zmq,
+                                            os.path.join(tmp, "card"), seen),
+                lambda: mmdvm_headless(mode, "cpu", blocks, has_zmq,
+                                       os.path.join(tmp, "cpu")))
+        report = kernel_paths.report()
+        reports[run] = report
+        print_stages(run, report)
+        if got["C"] != C or len(got["slots"]) != C:
+            raise RuntimeError(f"{mode}: {got['C']} carriers")
+        worst_s = worst_r = 0
+        for ch, cch in zip(got["slots"], want["slots"]):
+            if len(ch) != len(cch) or len(ch) != 4 * MMDVM_RX_BLOCKS:
+                raise RuntimeError(f"{mode}: {len(ch)} slots, the CPU "
+                                   f"{len(cch)}")
+            for (s, ctrl, r), (cs, cctrl, cr) in zip(ch, cch):
+                if s.size != 720 or not np.array_equal(ctrl, cctrl):
+                    raise RuntimeError(f"{mode}: a slot's size or control")
+                worst_s = max(worst_s, int(np.abs(s.astype(int)
+                                                  - cs.astype(int)).max()))
+                worst_r = max(worst_r, abs(r - cr))
+        if worst_s > 1 or worst_r > 1:
+            raise RuntimeError(f"{mode}: slots {worst_s} int16 steps, rssi "
+                               f"{worst_r} from the CPU's")
+        tol = MMDVM_TX_TOL[C]
+        if len(got["iqs"]) != MMDVM_TX_BLOCKS or any(
+                x is None for x in got["iqs"] + want["iqs"]):
+            raise RuntimeError(f"{mode}: a TX poll gave no IQ")
+        tx_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                     for a, b in zip(got["iqs"], want["iqs"]))
+        masks_equal = all(np.array_equal(a, b) for a, b in
+                          zip(got["masks"], want["masks"]))
+        if tx_err > tol or not masks_equal or \
+                len(got["masks"]) != MMDVM_TX_BLOCKS:
+            raise RuntimeError(f"{mode}: TX IQ {tx_err:.3g} of the peak "
+                               f"from the CPU's (bound {tol}), masks equal "
+                               f"{masks_equal}")
+        gated = [round(float(m.mean()), 4) for m in got["masks"]]
+        rx_med = statistics.median(got["rx_ms"][1:])
+        tx_med = statistics.median(got["tx_ms"][1:])
+        print(f"  {mode} ({C} carrier{'s' if C > 1 else ''}, "
+              f"{'ZeroMQ ipc' if has_zmq else 'in-memory queues: no pyzmq'}): "
+              f"{4 * MMDVM_RX_BLOCKS} slots a carrier, int16 samples within "
+              f"{worst_s} step and rssi within {worst_r} of the CPU's; TX IQ "
+              f"within {tx_err:.3g} of the peak of the CPU's (bound {tol}), "
+              f"the gated masks equal (open share a block {gated}); RX a "
+              f"{MMDVM_BLOCK}-sample block (120 ms of air) median "
+              f"{rx_med:.3f} ms ({[round(m, 3) for m in got['rx_ms']]}), "
+              f"real-time factor {120.0 / rx_med:.1f}; TX a poll of 2,880 "
+              f"samples median {tx_med:.3f} ms "
+              f"({[round(m, 3) for m in got['tx_ms']]}), real-time factor "
+              f"{120.0 / tx_med:.1f} ({CARD})", flush=True)
+        figs[mode] = {"rx_ms": rx_med, "tx_ms": tx_med,
+                      "rx_rtf": 120.0 / rx_med, "tx_rtf": 120.0 / tx_med}
+        launched = launch_counts(report)
+        blocks_n = MMDVM_RX_BLOCKS + MMDVM_TX_BLOCKS
+        print(f"  {run}: launches a block (RX and TX blocks together, "
+              f"{blocks_n}): " + ", ".join(
+                  f"{op} {k} {n / blocks_n:g}" for (op, k), n in
+                  launched.items()), flush=True)
+        rows += captured_rows(seen, launched, run, done, dev, gen)
+        if C > 1:
+            rx = mmdvm.MmdvmMultiRx(C, device=dev)
+            tx = mmdvm.MmdvmMultiTx(C, device=dev)
+            pfb = mmdvm_pfb_rows(rx.channelizer, tx.synthesizer, dev, gen,
+                                 T=MMDVM_BLOCK, run=run)
+            for r in pfb:
+                r["want"] = launched[(r["name"].split("/")[0], r["shape"])]
+            rows += pfb
+        torch.cuda.empty_cache()
+    return reports, rows, figs
+
+
+def net_session(device, seen=None):
+    """IP-over-radio through one RadioController on `device`:
+    NetPump(LoopbackNetDevice(), "QPSK250K") (burst mode) with
+    tests/test_net.py's three payloads, tx_net_poll for each between its
+    NET_PRE-byte preamble and NET_TAIL-byte tail (tx_bytes; each part
+    timed), then the same controller's RX with the pump attached, NET_BLOCK
+    blocks (each timed, events kept). seen: a dict that call_capture's
+    calls of the first poll and the first RX block go to. Returns a dict
+    of the results."""
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+    from qradiolink_tpu_torch.net import LoopbackNetDevice, NetPump
+
+    rng = np.random.default_rng(3)
+    payloads = [bytes(rng.integers(0, 256, n, dtype=np.uint8))
+                for n in NET_SIZES]
+    netdev = LoopbackNetDevice()
+    pump = NetPump(netdev, "QPSK250K", burst_mode=True)
+    for p in payloads:
+        netdev.inject(p)
+    c = RadioController(Settings(tx_mode="QPSK250K", rx_mode="QPSK250K"),
+                        device=device)
+    c.start_transmission()
+    parts, tx_ms = [c.tx_bytes(b"\xaa" * NET_PRE)], []
+    for i in range(len(payloads)):
+        with capture_into(seen, i == 0):
+            t0 = time.perf_counter()
+            parts.append(c.tx_net_poll(pump, 0.05))
+            tx_ms.append((time.perf_counter() - t0) * 1e3)
+    if c.tx_net_poll(pump, 0.05) is not None:
+        raise RuntimeError("net: the dry pump in burst mode sent a frame")
+    parts.append(c.tx_bytes(b"\xaa" * NET_TAIL))
+    iq = np.concatenate(parts)
+    c.attach_net(pump)
+    c.toggle_rx_mode("QPSK250K")
+    rx_ms, events = [], []
+    for k, i in enumerate(range(0, iq.size - iq.size % NET_BLOCK,
+                                NET_BLOCK)):
+        with capture_into(seen, k == 0):
+            t0 = time.perf_counter()
+            events += c.rx_block(iq[i:i + NET_BLOCK])
+            rx_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(payloads=payloads, delivered=netdev.delivered(),
+                parts=parts, events=events, tx_ms=tx_ms, rx_ms=rx_ms)
+
+
+def net_cpu_twin():
+    """net_session on the CPU and its calls (cpu_launch_table), in a
+    process of its own (two threads; no card)."""
+    torch.set_num_threads(2)
+    out = []
+    want = cpu_launch_table(lambda: out.append(net_session("cpu")))
+    return want, out[0]
+
+
+def net_headless_phase(dev, gen, done):
+    """(c) IP-over-radio (net_session) on the card and on the CPU, the
+    CPU's run (net_cpu_twin) in a spawned process while the card runs and
+    its rows are built: the card's launches those of the CPU's calls
+    (card_counted, require_exactly); the card delivers the payloads back,
+    in order; each TX part within NET_TX_TOL of the peak of the CPU's; the
+    RX events the CPU's (same_events); a row for each kernel shape of the
+    first poll and the first RX block that no earlier row has
+    (captured_rows: the FIRs and interpolators on seeded inputs of their
+    shape, the loops on the path's own inputs). Prints ms a poll and a
+    block and the real-time factor. Returns ({run: report}, rows,
+    figures)."""
+    import concurrent.futures
+    import multiprocessing
+
+    run = "headless_net"
+    seen = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        twin = pool.submit(net_cpu_twin)
+        got, report = card_counted(run, lambda: net_session(dev.type, seen))
+        print_stages(run, report)
+        rows = captured_rows(seen, launch_counts(report), run, done, dev,
+                             gen)
+        want_calls, want = twin.result(timeout=900)
+    require_exactly(report, want_calls, run)
+    payloads = got["payloads"]
+    if got["delivered"] != payloads or want["delivered"] != payloads:
+        raise RuntimeError(
+            f"net: delivered {[len(g) for g in got['delivered']]} bytes on "
+            f"the card, {[len(g) for g in want['delivered']]} on the CPU, "
+            f"sent {[len(p) for p in payloads]}")
+    if [p.shape for p in got["parts"]] != [p.shape for p in want["parts"]]:
+        raise RuntimeError(f"net: TX parts {[p.shape for p in got['parts']]}"
+                           f" on the card, {[p.shape for p in want['parts']]}"
+                           f" on the CPU")
+    tx_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                 for a, b in zip(got["parts"], want["parts"]))
+    if not tx_err <= NET_TX_TOL:
+        raise RuntimeError(f"net: TX IQ {tx_err:.3g} of the peak from the "
+                           f"CPU's (bound {NET_TX_TOL})")
+    same_events(run, want["events"], got["events"])
+    rx_med = statistics.median(got["rx_ms"][1:])
+    print(f"  net QPSK250K: the {len(payloads)} payloads "
+          f"({list(NET_SIZES)} bytes) back through the device in order, on "
+          f"the card and on the CPU; the TX IQ ({len(got['parts'])} parts) "
+          f"within {tx_err:.3g} of the peak of the CPU's (bound "
+          f"{NET_TX_TOL}); the {len(got['events'])} RX events the CPU's "
+          f"({sum(e.kind == 'net' for e in got['events'])} net); "
+          f"tx_net_poll {[round(m, 3) for m in got['tx_ms']]} ms; RX a "
+          f"{NET_BLOCK}-sample block (50 ms of air) median {rx_med:.3f} ms "
+          f"over {len(got['rx_ms'])} blocks, real-time factor "
+          f"{50.0 / rx_med:.1f} ({CARD})", flush=True)
+    return {run: report}, rows, {"rx_ms": rx_med,
+                                 "tx_ms": statistics.median(got["tx_ms"])}
+
+
+def engine_phase():
+    """(d) The C++ host-IO engine (io/native.py): the four conversions
+    against the numpy forms on 4 M complex samples (MS/s, host clock,
+    median of 5), and UdpRxEngine's datagrams a second for 20,000 1,472-
+    byte datagrams from one Python socket on loopback, at most UDP_WINDOW
+    ahead of the engine's count (the socket's buffer never overflows;
+    the sender's pace bounds the rate; printed, not gated)."""
+    import socket
+
+    from qradiolink_tpu_torch.io import native
+
+    n = 1 << 23
+    rng = np.random.default_rng(5)
+    s16 = rng.integers(-32768, 32768, n).astype(np.int16)
+    u8 = rng.integers(0, 256, n).astype(np.uint8)
+    f = rng.uniform(-1.1, 1.1, n).astype(np.float32)
+    cases = [
+        ("cs16 read", lambda: native.cs16_to_f32(s16),
+         lambda: s16.astype(np.float32) / 32767.0),
+        ("cs16 write", lambda: native.f32_to_cs16(f),
+         lambda: np.round(np.clip(f * 32767.0, -32767, 32767)
+                          ).astype(np.int16)),
+        ("cu8 read", lambda: native.cu8_to_f32(u8),
+         lambda: (u8.astype(np.float32) - 127.5) / 127.5),
+        ("cu8 write", lambda: native.f32_to_cu8(f),
+         lambda: np.round(np.clip(f * 127.5 + 127.5, 0, 255)
+                          ).astype(np.uint8))]
+
+    def rate(fn):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return n / 2 / statistics.median(ts) / 1e6
+
+    out = {}
+    for name, nat, ref in cases:
+        out[name] = (rate(nat), rate(ref))
+    print("  engine: " + "; ".join(
+        f"{k} {a:.0f} MS/s against numpy's {b:.0f} ({a / b:.2f}x)"
+        for k, (a, b) in out.items()) + " (complex samples, host clock)",
+        flush=True)
+    n_dg, size = 20_000, 1472
+    eng = native.UdpRxEngine(port=0, ring_bytes=1 << 25)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    payload = bytes(size)
+    try:
+        t0 = time.perf_counter()
+        for k in range(n_dg):
+            while k - eng.datagrams >= UDP_WINDOW:
+                time.sleep(0)
+            tx.sendto(payload, ("127.0.0.1", eng.port))
+        end = time.monotonic() + 30
+        while eng.datagrams < n_dg and time.monotonic() < end:
+            time.sleep(0.0002)
+        t1 = time.perf_counter()
+        got, dropped = eng.datagrams, eng.dropped
+        drained = len(eng.read(n_dg * size))
+    finally:
+        eng.close()
+        tx.close()
+    print(f"  engine: UdpRxEngine took {got} of {n_dg} datagrams of {size} "
+          f"bytes in {(t1 - t0) * 1e3:.1f} ms ({got / (t1 - t0):.0f} a "
+          f"second, {got * size / (t1 - t0) / 1e6:.1f} MB/s), {dropped} "
+          f"dropped at its ring, {drained} bytes read back", flush=True)
+    if got != n_dg or dropped or drained != n_dg * size:
+        raise RuntimeError(f"engine: {got} datagrams, {dropped} dropped, "
+                           f"{drained} bytes")
+    out["udp_rx_dps"] = got / (t1 - t0)
+    return out
+
+
+def headless_phase(dev, gen):
+    """The headless service (slice 8) on the card, after the probes
+    (probe_lines): (a) headless_service_phase, (b) mmdvm_headless_phase,
+    (c) net_headless_phase, (d) engine_phase. Returns ({run: report},
+    rows)."""
+    has_zmq = probe_lines()
+    t0 = time.perf_counter()
+    headless_service_phase(dev)
+    done = set()
+    reports, rows, _ = mmdvm_headless_phase(has_zmq, dev, gen, done)
+    rep, net_rows, _ = net_headless_phase(dev, gen, done)
+    reports.update(rep)
+    rows += net_rows
+    engine_phase()
+    print(f"  headless phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return reports, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5538,6 +6457,11 @@ def main() -> int:
           f"DmrDemod, {CALL_STEPS} steps, the call stack on {CALL_ROWS} "
           f"rows", flush=True)
     dmr_call_phase(dev)
+    print("headless: the headless service on the card (UDP IQ, telnet, "
+          "MMDVM's session, IP-over-radio, the C++ engine):", flush=True)
+    rep8, rows8 = headless_phase(dev, gen)
+    reports.update(rep8)
+    rows += rows8
 
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks

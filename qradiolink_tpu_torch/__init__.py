@@ -18,7 +18,9 @@ with their frame layers; slice 6, every other modem and the mode
 registry `models.registry`, whose `rx_chain` / `tx_chain` build any of
 the 41 modes; slice 7, the application: `python -m qradiolink_tpu_torch
 modes | rx | tx | loopback` and `RadioController` over the registry, with
-the DMR call layer they dispatch to):
+the DMR call layer they dispatch to; slice 8, the headless service:
+`headless` (UDP IQ, telnet and GPredict control, IP-over-radio) and
+`mmdvm-proxy`, MMDVM's session and transports, the C++ host-IO engine):
   core        blocks, IqPair, state trees and npz snapshots
   ops/        firdes, fir (FirFilter, conv1d_valid; real or complex taps;
               the FFT form fft_fir_block, FftFirFilter, fir_filter),
@@ -47,17 +49,27 @@ the DMR call layer they dispatch to):
               (FreeDvDemod, FreeDvMod: the DSP ends), mmdvm (MmdvmDemod,
               MmdvmMod, MmdvmMultiRx, MmdvmMultiTx), channel (ChannelModel)
   framing/    layer1 (Layer1Framer, Deframer), layer2 (layer-2 frames,
-              their protobuf wire form)
+              their protobuf wire form), tdma (BurstTimer, slot_mask)
   protocols/  m17, dmr (the M17 and DMR frame layers) and DMR's call
               layer: dmr_stream (DmrRxStream, DmrTxStream), dmr_control
               (DmrControl, DmrTiming), dmr_data, dmr_signalling, dmr_utils
   models/     registry (ModeSpec, MODES, MODEM_TYPE_MAP, rx_chain, tx_chain)
   parallel/   sharding (MultichannelRx, one card)
   app/        controller (RadioController, RxEvent, FrequencyScanner,
-              RepeaterForwarder, beacon_frame), cli (modes, rx, tx,
-              loopback; `--device`), limits; `__main__` runs the CLI
+              RepeaterForwarder, beacon_frame), mmdvm_session
+              (MmdvmSession), command (CommandProcessor), telnet
+              (TelnetServer), gpredict (GPredictControl, GPredictServer),
+              cli (modes, rx, tx, loopback, headless, mmdvm-proxy;
+              `--device`), limits; `__main__` runs the CLI
   io/         iq (read_iq, write_iq, IqFileSource, IqFileSink,
-              SignalSource), wav
+              UdpIqSource, UdpIqSink, SignalSource; cs16 and cu8 through
+              the engine), native (the C++ host-IO engine,
+              native/qrl_native.cpp built with g++: conversions,
+              RingBuffer, UdpRxEngine, UdpTxEngine), mmdvm_transport
+              (MMDVMHost's wire format, MmdvmRxPublisher, MmdvmTxPoller),
+              zmq_proxy (ZmqUdpProxy), wav
+  net/        netdev (IP-over-radio frames, LoopbackNetDevice,
+              TunTapDevice, NetPump)
   audio/      codecs (Codec2 and Opus through the system libraries, when
               present)
   config, logger  Settings and RadioChannels (the JAX package's JSON

@@ -1,5 +1,5 @@
-"""Layer-1 and layer-2 framing (host-side; port of qradiolink_tpu/framing:
-layer1 and layer2; tdma is not ported yet).
+"""Layer-1 and layer-2 framing and the TDMA slot clock (host-side; port of
+qradiolink_tpu/framing: layer1, layer2 and tdma).
 
 Mirrors the reference's split: device-side chains produce continuous bit
 streams; sync hunting and frame assembly happen in the control plane
@@ -13,4 +13,7 @@ from qradiolink_tpu_torch.framing.layer1 import (  # noqa: F401
 )
 from qradiolink_tpu_torch.framing.layer2 import (  # noqa: F401
     build_layer2_frame, parse_layer2_frame, PageMessage,
+)
+from qradiolink_tpu_torch.framing.tdma import (  # noqa: F401
+    BurstTimer, slot_mask,
 )

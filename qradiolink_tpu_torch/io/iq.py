@@ -1,31 +1,33 @@
-"""IQ sample sources and sinks: raw files and a synthesizer (port of
-qradiolink_tpu/io/iq.py: the file path and SignalSource, with the numpy
-format conversions; the C++ host-IO engine and the UDP transports come
-with the headless service, ROADMAP.md).
+"""IQ sample sources and sinks: raw files, UDP datagrams, synthesizers
+(port of qradiolink_tpu/io/iq.py).
 
 The reference reads complex baseband from SDR hardware (gr-osmosdr /
 UHD / LimeSDR blocks selected in src/gr/gr_demod_base.cpp:96-163); the
-framework ingests from files instead. Formats follow SDR conventions:
+framework ingests from files or the network instead. Formats follow SDR
+conventions:
 
   cf32 — interleaved float32 I/Q (GNU Radio file_sink default)
   cs16 — interleaved int16 I/Q (UHD/LimeSDR wire format), full scale
          32767
   cu8  — offset uint8 I/Q (RTL-SDR), zero at 127.5
 
-The conversions are the JAX module's numpy forms (its path when its C++
-engine is absent); the engine's cs16/cu8 reads multiply by a reciprocal
-and its writes round ties away from zero, so they can differ from these in
-the last bit. All sources yield fixed-length complex64 numpy blocks sized for the
-chains' decimator contracts; the last partial block is zero-padded (a
+cs16 and cu8 convert through the C++ host-IO engine (io/native.py), as
+the JAX module does wherever g++ builds its engine, so the two packages
+read and write the same bytes and samples. All sources yield
+fixed-length complex64 numpy blocks sized for the chains' decimator
+contracts; the last partial block is zero-padded (a
 flushed stream tail, like stopping an SDR stream mid-buffer). The blocks
 reach the card in the controller (core.put_iq_pair).
 """
 
 from __future__ import annotations
 
+import socket
 from pathlib import Path
 
 import numpy as np
+
+from qradiolink_tpu_torch.io import native
 
 _FORMATS = ("cf32", "cs16", "cu8")
 
@@ -34,10 +36,9 @@ def _decode(buf: bytes, fmt: str) -> np.ndarray:
     if fmt == "cf32":
         x = np.frombuffer(buf, np.float32)
     elif fmt == "cs16":
-        x = np.frombuffer(buf, np.int16).astype(np.float32) / 32767.0
+        x = native.cs16_to_f32(np.frombuffer(buf, np.int16))
     elif fmt == "cu8":
-        x = (np.frombuffer(buf, np.uint8).astype(np.float32)
-             - 127.5) / 127.5
+        x = native.cu8_to_f32(np.frombuffer(buf, np.uint8))
     else:
         raise ValueError(f"unknown IQ format {fmt!r}; expected {_FORMATS}")
     return x[0::2] + 1j * x[1::2]
@@ -50,11 +51,9 @@ def _encode(x: np.ndarray, fmt: str) -> bytes:
     if fmt == "cf32":
         return inter.tobytes()
     if fmt == "cs16":
-        q = np.round(np.clip(inter * 32767.0, -32767, 32767))
-        return q.astype(np.int16).tobytes()
+        return native.f32_to_cs16(inter).tobytes()
     if fmt == "cu8":
-        q = np.round(np.clip(inter * 127.5 + 127.5, 0, 255))
-        return q.astype(np.uint8).tobytes()
+        return native.f32_to_cu8(inter).tobytes()
     raise ValueError(f"unknown IQ format {fmt!r}; expected {_FORMATS}")
 
 
@@ -117,6 +116,57 @@ class IqFileSink:
 
     def __exit__(self, *a):
         self.close()
+
+
+class UdpIqSource:
+    """Receive IQ blocks over UDP datagrams (reference: network sample
+    transport boundary, SURVEY §2.9). Reassembles datagrams into
+    fixed-length blocks."""
+
+    def __init__(self, port: int, block_len: int, fmt: str = "cf32",
+                 host: str = "127.0.0.1", timeout: float | None = 5.0):
+        self.block_len = int(block_len)
+        self.fmt = fmt
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind((host, port))
+        if timeout is not None:
+            self.sock.settimeout(timeout)
+        self._buf = np.zeros(0, np.complex64)
+
+    def read_block(self) -> np.ndarray:
+        while self._buf.size < self.block_len:
+            data, _ = self.sock.recvfrom(65536)
+            self._buf = np.concatenate(
+                [self._buf, _decode(data, self.fmt).astype(np.complex64)])
+        out, self._buf = self._buf[:self.block_len], self._buf[self.block_len:]
+        return out
+
+    def close(self):
+        self.sock.close()
+
+
+class UdpIqSink:
+    """Send IQ blocks as UDP datagrams (chunked under the MTU).
+
+    The default chunk is sized from the sample format so each datagram
+    stays under the 1472-byte UDP payload of a standard 1500-byte-MTU
+    link (cf32 -> 184 samples/datagram), avoiding IP fragmentation."""
+
+    def __init__(self, port: int, fmt: str = "cf32",
+                 host: str = "127.0.0.1", chunk: int | None = None):
+        self.addr = (host, port)
+        self.fmt = fmt
+        self.chunk = int(chunk) if chunk is not None \
+            else 1472 // _item_bytes(fmt)
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def write(self, x) -> None:
+        x = np.asarray(x).ravel()
+        for i in range(0, x.size, self.chunk):
+            self.sock.sendto(_encode(x[i:i + self.chunk], self.fmt), self.addr)
+
+    def close(self):
+        self.sock.close()
 
 
 class SignalSource:

@@ -1,5 +1,6 @@
 """The port's host modules against the JAX package's, on the CPU: the IQ
-file formats (io/iq.py) byte for byte and array for array, IqFileSource's
+file formats (io/iq.py) byte for byte and array for array against the JAX
+module's default path (its C++ engine for cs16 and cu8), IqFileSource's
 blocks, SignalSource, the WAV round trip (io/wav.py), Settings and
 RadioChannels saved by the JAX package loading in the port (config.py),
 the layer-2 frames and protobuf bytes (framing/layer2.py), the band plan
@@ -32,17 +33,8 @@ def _iq(n, seed=0, scale=0.7):
     return x.astype(np.complex64)
 
 
-@pytest.fixture
-def jax_numpy_iq(monkeypatch):
-    """The JAX io/iq.py on its numpy conversions (its path without the C++
-    engine), the port's only path: the engine's cs16/cu8 reads multiply by
-    a reciprocal and its writes round ties away from zero, so the two JAX
-    paths differ in the last bit."""
-    monkeypatch.setattr(jiq, "_native", lambda: None)
-
-
 @pytest.mark.parametrize("fmt", ["cf32", "cs16", "cu8"])
-def test_iq_formats_match_jax(fmt, tmp_path, jax_numpy_iq):
+def test_iq_formats_match_jax(fmt, tmp_path):
     x = _iq(10_007)
     iq.write_iq(tmp_path / "t.iq", x, fmt)
     jiq.write_iq(tmp_path / "j.iq", x, fmt)
@@ -57,7 +49,7 @@ def test_iq_formats_match_jax(fmt, tmp_path, jax_numpy_iq):
 
 
 @pytest.mark.parametrize("fmt", ["cf32", "cu8"])
-def test_iq_file_source_and_sink_match_jax(fmt, tmp_path, jax_numpy_iq):
+def test_iq_file_source_and_sink_match_jax(fmt, tmp_path):
     x = _iq(5_300, seed=1)
     with iq.IqFileSink(tmp_path / "s.iq", fmt=fmt) as sink:
         sink.write(x[:2000])
@@ -72,6 +64,27 @@ def test_iq_file_source_and_sink_match_jax(fmt, tmp_path, jax_numpy_iq):
     it = iter(rep)
     blocks = [next(it) for _ in range(8)]
     np.testing.assert_array_equal(blocks[6], got[0])
+
+
+@pytest.mark.parametrize("fmt", ["cs16", "cu8"])
+def test_every_code_and_half_step_match_jax(fmt, tmp_path):
+    """Every cs16 code or all 256 cu8 codes read, and writes at every half
+    step of the format (the ties), equal qradiolink_tpu.io.iq's as it
+    stands (its engine where g++ builds it), byte for byte."""
+    codes = np.arange(-32768, 32768, dtype=np.int16) if fmt == "cs16" \
+        else np.arange(256, dtype=np.uint8)
+    (tmp_path / "codes.iq").write_bytes(codes.tobytes())
+    got = iq.read_iq(tmp_path / "codes.iq", fmt)
+    want = jiq.read_iq(tmp_path / "codes.iq", fmt)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    scale, offset = (32767.0, 0.0) if fmt == "cs16" else (127.5, 127.5)
+    steps = np.arange(-32767, 32767) if fmt == "cs16" else np.arange(256)
+    half = ((steps + 0.5 - offset) / scale).astype(np.float32)
+    x = (half[0::2] + 1j * half[1::2]).astype(np.complex64)
+    iq.write_iq(tmp_path / "t.iq", x, fmt)
+    jiq.write_iq(tmp_path / "j.iq", x, fmt)
+    assert (tmp_path / "t.iq").read_bytes() == \
+        (tmp_path / "j.iq").read_bytes()
 
 
 def test_signal_source_matches_jax():
