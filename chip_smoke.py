@@ -361,6 +361,34 @@ when the package cannot be imported, and when any phase fails:
     the path's own) that no earlier row has;
     (d) the C++ engine's conversions against the numpy forms (MS/s) and
     UdpRxEngine's datagrams a second on loopback.
+28. the application's audio, FreeDV vocoder, video and VOIP (slice 9),
+    after a probe line (libcodec2 and its FreeDV API, libopus, Pillow),
+    each part on the card against the same work on CPU tensors: (a) FreeDV
+    1600 USB and LSB: the stored utterance through FreeDvTx's band-pass
+    (fir_s1_f32 K95 at one row), freedv_tx (without the FreeDV API the
+    stored stream tests/fixtures/freedv1600_modem.npz), FreeDvMod,
+    ChannelModel at 20 dB, FreeDvDemod, freedv_rx: the band-pass within
+    1e-5 of the CPU's peak, FreeDvMod's IQ and FreeDvDemod's passband on
+    the card's inputs within 1e-5, the int16 PCM for freedv_tx and
+    freedv_rx within one LSB (the flips printed), with the API
+    tests/test_freedv.py's gates; one RadioController in FreeDV1600USB RX
+    through rx_block, its events the CPU's; (b) UdpAudioClient's
+    resamplers (fir_cols_f32 K269 D6 and resample_up_f32 L6 K45 at one
+    row) within 1e-5 of the CPU's peak over three reads and three writes,
+    none a multiple of 6, then a 400 Hz UDP round trip within 20 Hz;
+    (c) the TX audio processor through tx_audio_block (FM with the
+    compressor, USB with the compressor and the denoiser, 4FSK2K's Codec2
+    where libcodec2 loads): its PCM and state bit for bit the CPU's, the
+    IQ held to the CPU's; (d) setaudiorecorder 1, FM RX of (c)'s IQ,
+    setaudiorecorder 0: the FLAC decodes to the events' samples; (e) a
+    video frame through tx_video_frame and QPSKVideo RX: one video event
+    whose JPEG bytes are those sent and the CPU run's (its CPU twin in a
+    spawned process); (f) VOIP through a local Mumble peer (plain TCP):
+    connectserver, the card's FM RX audio through VoipForwarder (Opus
+    packets where libopus loads), a private text command answered through
+    the forwarder, mumblemsg, mutemumble, disconnectserver. Every counted
+    run's launches equal the CPU run's calls; each new kernel shape gets a
+    row against its plain version.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -6379,21 +6407,788 @@ def engine_phase():
     return out
 
 
-def headless_phase(dev, gen):
+def headless_phase(dev, gen, done):
     """The headless service (slice 8) on the card, after the probes
     (probe_lines): (a) headless_service_phase, (b) mmdvm_headless_phase,
-    (c) net_headless_phase, (d) engine_phase. Returns ({run: report},
-    rows)."""
+    (c) net_headless_phase, (d) engine_phase. done: the (kernel, shape)
+    keys that have rows, which the rows made here join. Returns ({run:
+    report}, rows)."""
     has_zmq = probe_lines()
     t0 = time.perf_counter()
     headless_service_phase(dev)
-    done = set()
     reports, rows, _ = mmdvm_headless_phase(has_zmq, dev, gen, done)
     rep, net_rows, _ = net_headless_phase(dev, gen, done)
     reports.update(rep)
     rows += net_rows
     engine_phase()
     print(f"  headless phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return reports, rows
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the application's audio, FreeDV vocoder, video and VOIP
+
+FREEDV_STREAM = HERE / "tests" / "fixtures" / "freedv1600_modem.npz"
+FREEDV_SNR_DB = 20.0       # tests/test_freedv.py:65
+FREEDV_SECONDS = 3         # the stored stream's utterance
+MIXER_READS = (1201, 2405, 599)   # 48 kHz samples a read, none a multiple of 6
+MIXER_WRITES = (331, 800, 157)    # 8 kHz samples a write
+MIXER_TOL = 1e-5           # the resamplers' float output, of the CPU's peak
+PROC_BLOCK = 1_600         # 200 ms of 8 kHz audio a TX block
+PROC_BLOCKS = 4            # the compressor's gain opens within ~0.4 s
+PROC_MODES = {"FM": False, "USB": True, "4FSK2K": False}   # mode: denoise
+PROC_TX_TOL = 6.25e-6      # the TX IQ against the CPU's, of its peak (not
+#                            FM's: its f32 phase cumsum drifts, fm_drift)
+VIDEO_PRE, VIDEO_TAIL = 600, 600   # bytes of 0xaa around the frame
+VIDEO_BLOCK = 50_000       # tests/test_video.py's RX block
+MUMBLE_SESSION = 42
+
+
+def probe_av():
+    """Prints which host libraries the slice's parts find here: Pillow,
+    libcodec2 and its FreeDV API, libopus. Returns {name: found}."""
+    import importlib.util
+
+    from qradiolink_tpu_torch.audio import codecs, freedv
+
+    found = {"pil": importlib.util.find_spec("PIL") is not None,
+             "codec2": codecs.codec2_available(),
+             "freedv": freedv.freedv_available(),
+             "opus": codecs.opus_available()}
+    print(f"  probe: libcodec2 {'loads' if found['codec2'] else 'is missing'}"
+          f"; its FreeDV API (freedv_open) "
+          f"{'is there' if found['freedv'] else 'is missing'}; libopus "
+          f"{'loads' if found['opus'] else 'is missing'}; Pillow "
+          f"{'imports' if found['pil'] else 'is missing'}", flush=True)
+    if not found["pil"]:
+        raise RuntimeError("video: Pillow is missing")
+    return found
+
+
+def lsb_flips(what, got, want):
+    """int16 samples of got that differ from want's, every one by at most
+    one LSB (a truncation toward zero of floats a rounding apart)."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"{what}: {got.shape} int16 samples on the card, "
+                           f"{want.shape} on the CPU")
+    d = np.abs(got.astype(np.int32) - want)
+    if d.max(initial=0) > 1:
+        raise RuntimeError(f"{what}: int16 samples {int(d.max())} apart")
+    return int((d > 0).sum())
+
+
+def host_close(what, got, want, tol):
+    """max |got - want| within tol x want's peak; returns it."""
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    peak = float(np.abs(want).max())
+    if not err <= tol * peak:
+        raise RuntimeError(f"{what}: {err:.3g} from the CPU's (peak "
+                           f"{peak:.3g}, bound {tol:g} x the peak; shapes "
+                           f"{got.shape}, {want.shape})")
+    return err
+
+
+def freedv_chain_run(device, usb, found, modem_in=None, iq_in=None):
+    """One FreeDV 1600 transmission through the port on `device`: the
+    stored utterance through FreeDvTx's band-pass (tx_audio_filter), x32765
+    to int16 (what FreeDvTx hands to freedv_tx), freedv_tx (or, without the
+    FreeDV API, the stored stream), FreeDvMod, ChannelModel at
+    FREEDV_SNR_DB, FreeDvDemod, x32768 to int16 (what FreeDvRx hands to
+    freedv_rx), freedv_rx (with the API). modem_in / iq_in: the modem
+    samples and channel IQ to use instead of this run's own (the CPU's run
+    takes the card's, so each stage sees the card's inputs). Returns a dict
+    of every stage's output as numpy."""
+    from qradiolink_tpu_torch.audio.freedv import FreeDV
+    from qradiolink_tpu_torch.chains import freedv
+    from qradiolink_tpu_torch.chains.channel import ChannelModel
+    from qradiolink_tpu_torch.core import get_iq, put_iq_pair
+
+    stream = np.load(FREEDV_STREAM)
+    speech = stream["speech"]
+    out = {}
+    af = freedv.tx_audio_filter(device)
+    _, y = af(af.init_state(), torch.from_numpy(
+        speech.astype(np.float32) / 32768.0).to(device))
+    out["filtered"] = y.cpu().numpy()
+    out["pcm_tx"] = np.clip(out["filtered"] * 32765.0, -32765,
+                            32765).astype(np.int16)
+    if modem_in is not None:
+        out["modem"] = modem_in
+    elif found["freedv"]:
+        out["modem"] = FreeDV("1600").tx(out["pcm_tx"])
+    else:
+        out["modem"] = stream["modem"]
+    mod = freedv.FreeDvMod(usb=usb, device=device)
+    _, m = mod(mod.init_state(), torch.from_numpy(
+        out["modem"].astype(np.float32) / 32765.0).to(device))
+    out["iq"] = get_iq(m["iq"])
+    if iq_in is None:
+        iq = ChannelModel(1_000_000, snr_db=FREEDV_SNR_DB, seed=2)(m["iq"])
+        iq_in = get_iq(iq)
+    out["channel"] = iq_in
+    dem = freedv.FreeDvDemod(usb=usb, device=device)
+    _, d = dem(dem.init_state(), put_iq_pair(iq_in, device))
+    out["passband"] = d["passband"].cpu().numpy()
+    out["pcm_rx"] = np.clip(out["passband"] * 32768.0, -32767,
+                            32767).astype(np.int16)
+    if found["freedv"]:
+        fd = FreeDV("1600")
+        out["speech_out"] = fd.rx(out["pcm_rx"]).astype(np.float32) \
+            / 32768.0 * 2.0
+        out["sync"] = fd.sync
+    return out
+
+
+def freedv_events_close(run, want, got):
+    """Controller events in FreeDV: the same kinds and sample times, rssi
+    within 1e-3 dB, audio of the same length (decoded speech may draw from
+    a generator the process shares, so it is compared by length)."""
+    if [e.kind for e in got] != [e.kind for e in want]:
+        raise RuntimeError(f"{run}: events {[e.kind for e in got]} on the "
+                           f"card, {[e.kind for e in want]} on the CPU")
+    for w, g in zip(want, got):
+        if g.sample_time != w.sample_time or (
+                w.rssi is not None and abs(g.rssi - w.rssi) > 1e-3) or (
+                w.audio is not None and g.audio.shape != w.audio.shape):
+            raise RuntimeError(f"{run}: event {w.kind} at {w.sample_time} "
+                               f"differs")
+
+
+def freedv_av_part(dev, gen, done, found):
+    """FreeDV 1600, USB and LSB (freedv_chain_run on the card, counted, then
+    on the CPU with the card's inputs): the band-pass within FIR_TOL of the
+    CPU's peak and the int16 PCM for freedv_tx within one LSB (the flips
+    counted), FreeDvMod's IQ on the same modem samples and FreeDvDemod's
+    passband on the same channel IQ within FREEDV_TOL of the CPU's peak,
+    the PCM for freedv_rx within one LSB; with the FreeDV API
+    tests/test_freedv.py's gates (sync, more than half the speech, mean
+    power above 1e-4). Then one RadioController in FreeDV1600USB RX over
+    the USB channel IQ in APP_BLOCK blocks, its events the CPU's
+    controller's. Returns ({run: report}, rows)."""
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+
+    cpu = torch.device("cpu")
+    run = "av_freedv"
+    seen = {}
+    t0 = time.perf_counter()
+    with capture_into(seen, True):
+        card, report = card_counted(run, lambda: [
+            freedv_chain_run(dev, usb, found) for usb in (True, False)])
+    wall = time.perf_counter() - t0
+    cpu_runs = []
+    want_calls = cpu_launch_table(lambda: cpu_runs.extend(
+        freedv_chain_run(cpu, usb, found, c["modem"], c["channel"])
+        for usb, c in zip((True, False), card)))
+    require_exactly(report, want_calls, run)
+    print_stages(run, report)
+    flips = {"tx": 0, "rx": 0}
+    for usb, c, w in zip(("USB", "LSB"), card, cpu_runs):
+        e_bp = host_close(f"FreeDV {usb} band-pass", c["filtered"],
+                          w["filtered"], FIR_TOL)
+        flips["tx"] += lsb_flips(f"FreeDV {usb} PCM for freedv_tx",
+                                 c["pcm_tx"], w["pcm_tx"])
+        e_iq = host_close(f"FreeDV {usb} FreeDvMod IQ", c["iq"], w["iq"],
+                          FREEDV_TOL)
+        e_pb = host_close(f"FreeDV {usb} FreeDvDemod passband",
+                          c["passband"], w["passband"], FREEDV_TOL)
+        flips["rx"] += lsb_flips(f"FreeDV {usb} PCM for freedv_rx",
+                                 c["pcm_rx"], w["pcm_rx"])
+        gates = "no FreeDV API here: the stored modem stream, no speech"
+        if found["freedv"]:
+            n_sp = FREEDV_SECONDS * 8000
+            p = float(np.mean(c["speech_out"] ** 2))
+            if not (c["sync"] and c["speech_out"].size > n_sp // 2
+                    and p > 1e-4):
+                raise RuntimeError(f"FreeDV {usb}: sync {c['sync']}, "
+                                   f"{c['speech_out'].size} samples, power "
+                                   f"{p:.3g}")
+            gates = (f"sync, {c['speech_out'].size} speech samples, mean "
+                     f"power {p:.3g}")
+        print(f"  FreeDV 1600 {usb}: band-pass within {e_bp:.3g} of the "
+              f"CPU's, FreeDvMod IQ ({c['iq'].size} samples) within "
+              f"{e_iq:.3g}, FreeDvDemod passband within {e_pb:.3g}; "
+              f"{gates}", flush=True)
+    stored = lsb_flips("FreeDV PCM for freedv_tx against the stored "
+                       "stream's", card[0]["pcm_tx"],
+                       np.load(FREEDV_STREAM)["pcm"])
+    print(f"  FreeDV 1600: the card's PCM for freedv_tx {stored} samples "
+          f"one LSB from the stored stream's (the JAX band-pass on a CPU); "
+          f"{flips['tx']} of {2 * card[0]['pcm_tx'].size} "
+          f"PCM samples for freedv_tx and {flips['rx']} of "
+          f"{2 * card[0]['pcm_rx'].size} for freedv_rx one LSB from the "
+          f"CPU's; {wall * 1e3 / (2 * FREEDV_SECONDS):.1f} ms of wall time "
+          f"a second of audio, TX and RX ({CARD})", flush=True)
+    rows = captured_rows(seen, launch_counts(report), run, done, dev, gen)
+    reports = {run: report}
+
+    iq = card[0]["channel"]
+    iq = iq[:iq.size - iq.size % APP_BLOCK].reshape(-1, APP_BLOCK)
+
+    def ctl_events(device):
+        c = RadioController(Settings(rx_mode="FreeDV1600USB"),
+                            device=device)
+        c.toggle_rx_mode("FreeDV1600USB")
+        return rx_blocks(c, iq)
+
+    run = "av_freedv_rx_block"
+    t0 = time.perf_counter()
+    events, want = app_counted(run, lambda: ctl_events(dev),
+                               lambda: ctl_events(cpu))
+    wall = time.perf_counter() - t0
+    freedv_events_close(run, want, events)
+    audio = [e.audio.size for e in events if e.kind == "audio"]
+    if found["freedv"] and not audio:
+        raise RuntimeError(f"{run}: no audio event")
+    print(f"  FreeDV1600USB through rx_block: {len(events)} events, the "
+          f"CPU's: {sum(e.kind == 'rssi' for e in events)} rssi, "
+          f"{len(audio)} audio ({sum(audio)} samples"
+          f"{'' if found['freedv'] else ': no FreeDV API here'}); "
+          f"{wall * 1e3 / (iq.size / 1e6):.1f} ms of wall time a second of "
+          f"air, card and CPU ({CARD})", flush=True)
+    return reports, rows
+
+
+def mixer_run(device, pcms_48k, pcms_8k):
+    """One UdpAudioClient on `device` (48 kHz wire): each 48 kHz read
+    through the 48k -> 8k resampler and each 8 kHz write through the 8k ->
+    48k one as the client runs them (_resample), beside the float output
+    that it truncates. Returns [(floats, int16)] of the reads, then the
+    writes."""
+    from qradiolink_tpu_torch.audio.mixer import UdpAudioClient
+
+    c = UdpAudioClient(listen_port=0, send_port=0, device=device)
+    out = []
+    try:
+        for rs, M, pcms in ((c._rs_down, c._down[1], pcms_48k),
+                            (c._rs_up, c._down[0], pcms_8k)):
+            for pcm in pcms:
+                x = pcm.astype(np.float32) / 32768.0
+                x = np.concatenate([x, np.zeros((-x.size) % M, np.float32)])
+                _, y = rs[0](rs[1].clone(), torch.from_numpy(x).to(device))
+                out.append((y.cpu().numpy(), c._resample(rs, pcm, M)))
+    finally:
+        c.close()
+    return out
+
+
+def mixer_av_part(dev, gen, done):
+    """UdpAudioClient's resamplers on the card (counted) and the CPU over
+    MIXER_READS and MIXER_WRITES: each float output within MIXER_TOL of the
+    CPU's peak, the int16 within one LSB (flips counted); then two card
+    clients on 127.0.0.1 carry a 400 Hz tone 8k -> 48k -> UDP -> 8k, its
+    peak within 20 Hz (tests/test_mixer.py:35-56). Returns ({run: report},
+    rows)."""
+    from qradiolink_tpu_torch.audio.mixer import UdpAudioClient
+
+    rng = np.random.default_rng(11)
+
+    def tone(n, rate):
+        t = np.arange(n) / rate
+        return (9000 * np.sin(2 * np.pi * 400 * t)
+                + 2000 * rng.standard_normal(n)).astype(np.int16)
+
+    pcms_48k = [tone(n, 48_000.0) for n in MIXER_READS]
+    pcms_8k = [tone(n, 8000.0) for n in MIXER_WRITES]
+    run = "av_mixer"
+    seen = {}
+    cpu_out = []
+    want_calls = cpu_launch_table(lambda: cpu_out.extend(
+        mixer_run(torch.device("cpu"), pcms_48k, pcms_8k)))
+    with capture_into(seen, True):
+        got, report = card_counted(run, lambda: mixer_run(dev, pcms_48k,
+                                                          pcms_8k))
+    require_exactly(report, want_calls, run)
+    print_stages(run, report)
+    errs, flips = [], 0
+    for k, ((gf, gi), (wf, wi)) in enumerate(zip(got, cpu_out)):
+        errs.append(host_close(f"mixer resampler call {k}", gf, wf,
+                               MIXER_TOL) / float(np.abs(wf).max()))
+        flips += lsb_flips(f"mixer resampler call {k}", gi, wi)
+    rows = captured_rows(seen, launch_counts(report), run, done, dev, gen)
+
+    rx = UdpAudioClient(listen_port=0, send_port=0, device=dev)
+    tx = UdpAudioClient(listen_port=0, send_port=rx.port, device=dev)
+    try:
+        t0 = time.perf_counter()
+        tx.write_audio(tone(8000, 8000.0))
+        back = np.zeros(0, np.int16)
+        end = time.monotonic() + PEER_WAIT_MS / 1000
+        while back.size < 6000 and time.monotonic() < end:
+            time.sleep(0.005)
+            back = np.concatenate([back, rx.read_audio()])
+        wall = time.perf_counter() - t0
+    finally:
+        rx.close()
+        tx.close()
+    x = back[1000:6000].astype(np.float64)
+    f = np.fft.rfftfreq(x.size, 1 / 8000)
+    peak = float(f[np.argmax(np.abs(np.fft.rfft(x * np.hanning(x.size)))[1:])
+                   + 1]) if x.size else 0.0
+    if back.size < 6000 or abs(peak - 400.0) >= 20.0:
+        raise RuntimeError(f"mixer round trip: {back.size} samples, peak at "
+                           f"{peak} Hz")
+    print(f"  mixer: {len(got)} resampler calls ({len(MIXER_READS)} 48 kHz "
+          f"reads of {list(MIXER_READS)} samples, {len(MIXER_WRITES)} 8 kHz "
+          f"writes), each float output within {max(errs):.3g} of the CPU's "
+          f"peak, {flips} int16 samples one LSB apart; the UDP round trip "
+          f"8k -> 48k -> 8k: {back.size} samples, the tone at {peak:.1f} Hz, "
+          f"{wall * 1e3:.1f} ms of wall time for its 1 s of audio ({CARD})",
+          flush=True)
+    return {run: report}, rows
+
+
+def processor_run(device, mode, denoise, audio):
+    """RadioController TX in `mode` on `device` with audio_compressor (and
+    audio_denoise): PROC_BLOCKS blocks of `audio`. Returns (the IQ blocks,
+    the processor's PCM out a block, its state leaves)."""
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.audio.processor import AudioProcessor
+    from qradiolink_tpu_torch.config import Settings
+
+    c = RadioController(Settings(tx_mode=mode, audio_compressor=True,
+                                 audio_denoise=denoise, agc_attack=3,
+                                 agc_decay=70), device=device)
+    c.start_transmission()
+    pcm, orig = [], AudioProcessor.write_preprocess
+
+    def write_preprocess(self, *a, **k):
+        y = orig(self, *a, **k)
+        pcm.append(y)
+        return y
+
+    AudioProcessor.write_preprocess = write_preprocess
+    try:
+        iqs = [c.tx_audio_block(b) for b in
+               np.split(audio[:PROC_BLOCK * PROC_BLOCKS], PROC_BLOCKS)]
+    finally:
+        AudioProcessor.write_preprocess = orig
+    ap = c._audio_proc
+    state = [ap._bp_tail] + [getattr(comp, n) for comp in ap._comp.values()
+                             for n in ("detectoravg", "compgain",
+                                       "maxcompdiffdb", "_delay", "_wr",
+                                       "_rd")]
+    if ap.denoiser is not None:
+        state += [getattr(ap.denoiser, n) for n in
+                  ("noise", "psd_s", "_in_tail", "_ola_tail", "agc_gain")]
+    return iqs, pcm, state
+
+
+def processor_av_part(dev, found):
+    """The TX audio processor through RadioController.tx_audio_block:
+    FM with audio_compressor, USB with audio_compressor and audio_denoise,
+    and 4FSK2K (Codec2) with audio_compressor where libcodec2 loads, on
+    the card and on the CPU (app_counted), on two tones keyed 120 ms in
+    200 (silence first, the denoiser's noise estimate learning from the
+    gaps) in light noise: the processor's PCM and every state leaf equal
+    bit for bit (host numpy), the last block's PCM above 0.1 (the
+    compressor's gain has opened), the IQ within PROC_TX_TOL of the CPU's
+    peak; FM's IQ, whose f32 phase cumsum drifts from the CPU's (PR 20's
+    finding), is printed (fm_drift) and held through the CPU's RX in
+    recorder_av_part. Returns ({mode: the card's IQ}, {mode: the CPU's}),
+    each one array."""
+    rng = np.random.default_rng(13)
+    t = np.arange(PROC_BLOCK * PROC_BLOCKS) / 8000.0
+    audio = (((t % 0.2) >= 0.08) * (0.6 * np.sin(2 * np.pi * 440 * t)
+                                    + 0.3 * np.sin(2 * np.pi * 1270 * t))
+             + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    card_iq, cpu_iq = {}, {}
+    for mode, denoise in PROC_MODES.items():
+        if mode == "4FSK2K" and not found["codec2"]:
+            print("  processor 4FSK2K (Codec2): not run, libcodec2 is "
+                  "missing here (digital voice TX needs it)", flush=True)
+            continue
+        run = f"av_processor {mode}"
+        t0 = time.perf_counter()
+        (iqs, pcm, state), (w_iqs, w_pcm, w_state) = app_counted(
+            run, lambda: processor_run(dev, mode, denoise, audio),
+            lambda: processor_run("cpu", mode, denoise, audio))
+        wall = time.perf_counter() - t0
+        if len(pcm) != len(w_pcm) or not all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(pcm, w_pcm)):
+            raise RuntimeError(f"{run}: the processor's PCM differs")
+        if len(state) != len(w_state) or not all(
+                np.array_equal(a, b) for a, b in zip(state, w_state)):
+            raise RuntimeError(f"{run}: a processor state leaf differs")
+        if not float(np.abs(pcm[-1]).max()) > 0.1:
+            raise RuntimeError(f"{run}: the processor's last block peaks at "
+                               f"{float(np.abs(pcm[-1]).max()):.3g}")
+        card_iq[mode], cpu_iq[mode] = np.concatenate(iqs), \
+            np.concatenate(w_iqs)
+        if mode == "FM":
+            held = fm_drift(card_iq[mode], cpu_iq[mode])
+        else:
+            err = max(host_close(f"{run} IQ block {k}", g, w, PROC_TX_TOL)
+                      / float(np.abs(w).max())
+                      for k, (g, w) in enumerate(zip(iqs, w_iqs)))
+            held = f"within {err:.3g} of its peak"
+        print(f"  processor {mode} (compressor"
+              f"{', denoiser' if denoise else ''}): the PCM (last block's "
+              f"peak {float(np.abs(pcm[-1]).max()):.3f}) and "
+              f"{len(state)} state leaves the CPU's bit for bit, the IQ "
+              f"({card_iq[mode].size} samples) {held}; "
+              f"{wall * 1e3 / (audio.size / 8000):.1f} ms of wall time a "
+              f"second of audio, card and CPU ({CARD})", flush=True)
+    return card_iq, cpu_iq
+
+
+def fm_drift(got, want):
+    """How the card's FM IQ differs from the CPU's (as fm_phase_drift):
+    the largest difference and the phase between the two, its largest
+    value and its largest change a sample."""
+    d = np.angle(got.astype(np.complex128) * np.conj(want))
+    return (f"within {float(np.abs(got - want).max()):.3g} of the CPU's "
+            f"(the phase between them at most {float(np.abs(d).max()):.3g} "
+            f"rad, its change a sample at most "
+            f"{float(np.abs(np.diff(d)).max()):.3g} rad; held through the "
+            f"CPU's RX by the recorder)")
+
+
+def recorder_run(device, blocks, tmp):
+    """`setaudiorecorder 1` through a CommandProcessor in `tmp` (its
+    AudioRecorder in the working directory), FM RX of `blocks`, then
+    `setaudiorecorder 0`. Returns (answers, events, the FLAC's path)."""
+    from qradiolink_tpu_torch.app.command import CommandProcessor
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+
+    tmp.mkdir()
+    cp = CommandProcessor(RadioController(Settings(rx_mode="FM"),
+                                          device=device))
+    with contextlib.chdir(tmp):
+        answers = [cp.process(v) for v in ("recordstatus",
+                                           "setaudiorecorder 1",
+                                           "recordstatus")]
+        cp.ctl.toggle_rx_mode("FM")
+        events = rx_blocks(cp.ctl, blocks)
+        answers += [cp.process("setaudiorecorder 0"),
+                    cp.process("recordstatus")]
+    (path,) = list(tmp.iterdir())
+    return answers, events, path
+
+
+def recorder_av_part(dev, fm_iq, fm_iq_cpu, tmp):
+    """setaudiorecorder 1, FM RX of the processor part's card IQ (fm_iq)
+    in APP_BLOCK blocks, setaudiorecorder 0, on the card and on the CPU
+    (app_counted): the answers the CPU's; the FLAC decodes (read_flac) to
+    exactly the int16 samples of the audio events the recorder was given;
+    the card's within one LSB of the CPU's. Then the CPU's RX of the CPU's
+    TX IQ (fm_iq_cpu): its FLAC within one LSB of the CPU's RX of the
+    card's, which holds the card's FM TX to the CPU's. Returns the card's
+    events."""
+    from qradiolink_tpu_torch.audio.flac import read_flac
+
+    def whole(iq):
+        return iq[:iq.size - iq.size % APP_BLOCK].reshape(-1, APP_BLOCK)
+
+    blocks = whole(fm_iq)
+    run = "av_recorder"
+    t0 = time.perf_counter()
+    (answers, events, path), (w_answers, w_events, w_path) = app_counted(
+        run, lambda: recorder_run(dev, blocks, tmp / "card"),
+        lambda: recorder_run("cpu", blocks, tmp / "cpu"))
+    wall = time.perf_counter() - t0
+    if answers != w_answers or answers[1] != "Setting audio recording to 1":
+        raise RuntimeError(f"{run}: answers {answers}, the CPU's "
+                           f"{w_answers}")
+    same_events(run, w_events, events)
+    samples, rate = read_flac(path)
+    want = np.concatenate([np.clip(e.audio * 32767.0, -32767, 32767).astype(
+        np.int16) for e in events if e.kind == "audio"])
+    if rate != 8000 or not np.array_equal(samples, want):
+        raise RuntimeError(f"{run}: the FLAC holds {samples.size} samples at "
+                           f"{rate} Hz, the events {want.size}")
+    flips = lsb_flips(run, samples, read_flac(w_path)[0])
+    _, _, cc_path = recorder_run("cpu", whole(fm_iq_cpu), tmp / "cpu_tx")
+    tx_flips = lsb_flips("FM TX through the CPU's RX", read_flac(w_path)[0],
+                         read_flac(cc_path)[0])
+    print(f"  recorder: {answers}; {path.name} decodes to the "
+          f"{samples.size} samples of the {len(blocks)} blocks' audio "
+          f"events, {flips} one LSB from the CPU's file; the CPU's RX of "
+          f"the CPU's FM TX IQ {tx_flips} one LSB from its RX of the "
+          f"card's; "
+          f"{wall * 1e3 / (samples.size / 8000):.1f} ms of wall time a "
+          f"second of audio, card and CPU ({CARD})", flush=True)
+    return events
+
+
+def video_test_image():
+    """tests/test_video.py:12-19: 320x240 gradient and blocks."""
+    y, x = np.mgrid[0:240, 0:320]
+    return np.stack([(x * 255 // 320).astype(np.uint8),
+                     (y * 255 // 240).astype(np.uint8),
+                     (((x // 40 + y // 40) % 2) * 200).astype(np.uint8)],
+                    axis=-1)
+
+
+def video_session(device, seen=None):
+    """QPSKVideo through RadioControllers on `device`: VIDEO_PRE bytes,
+    tx_video_frame of video_test_image, VIDEO_TAIL bytes (tx_bytes), then a
+    clean channel into another controller's rx_block in VIDEO_BLOCK blocks.
+    seen: call_capture's calls of the frame's TX and the first RX block.
+    Returns a dict of the results."""
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+    from qradiolink_tpu_torch.video import encode_jpeg_frame
+
+    s = Settings(rx_mode="QPSKVideo", tx_mode="QPSKVideo")
+    tx = RadioController(s, device=device)
+    tx.toggle_tx_mode("QPSKVideo")
+    t0 = time.perf_counter()
+    parts = [tx.tx_bytes(b"\xaa" * VIDEO_PRE)]
+    with capture_into(seen, True):
+        t1 = time.perf_counter()
+        parts.append(tx.tx_video_frame(video_test_image()))
+        tx_ms = (time.perf_counter() - t1) * 1e3
+    parts.append(tx.tx_bytes(b"\xaa" * VIDEO_TAIL))
+    iq = np.concatenate(parts)
+    rx = RadioController(Settings(rx_mode="QPSKVideo"), device=device)
+    rx.toggle_rx_mode("QPSKVideo")
+    events, rx_ms = [], []
+    for k, i in enumerate(range(0, iq.size - iq.size % VIDEO_BLOCK,
+                                VIDEO_BLOCK)):
+        with capture_into(seen, k == 0):
+            t1 = time.perf_counter()
+            events += rx.rx_block(iq[i:i + VIDEO_BLOCK])
+            rx_ms.append((time.perf_counter() - t1) * 1e3)
+    return dict(parts=parts, events=events, tx_ms=tx_ms, rx_ms=rx_ms,
+                wall_s=time.perf_counter() - t0,
+                frame=encode_jpeg_frame(video_test_image()))
+
+
+def video_cpu_twin():
+    """video_session on the CPU and its calls (cpu_launch_table), in a
+    process of its own (two threads; no card)."""
+    torch.set_num_threads(2)
+    out = []
+    want = cpu_launch_table(lambda: out.append(video_session("cpu")))
+    return want, out[0]
+
+
+def video_av_part(dev, gen, done, twin):
+    """video_session on the card (counted) against its CPU twin (`twin`, a
+    future of video_cpu_twin): the launches the CPU's calls; the TX parts
+    within NET_TX_TOL of the CPU's peak (QpskMod's bound); one `video`
+    event whose JPEG bytes equal those sent and the CPU run's, decoding to
+    a 240 x 320 image; the RX events the CPU's (same_events). A row for
+    each kernel shape of the frame's TX and the first RX block that no
+    earlier row has. Returns ({run: report}, rows)."""
+    run = "av_video"
+    seen = {}
+    got, report = card_counted(run, lambda: video_session(dev.type, seen))
+    print_stages(run, report)
+    rows = captured_rows(seen, launch_counts(report), run, done, dev, gen)
+    want_calls, want = twin.result(timeout=900)
+    require_exactly(report, want_calls, run)
+    if [p.shape for p in got["parts"]] != [p.shape for p in want["parts"]]:
+        raise RuntimeError(f"{run}: TX parts differ in shape")
+    err = max(host_close(f"{run} TX part {k}", g, w, NET_TX_TOL)
+              / float(np.abs(w).max())
+              for k, (g, w) in enumerate(zip(got["parts"], want["parts"])))
+    vids = [e for e in got["events"] if e.kind == "video"]
+    if len(vids) != 1 or vids[0].payload != got["frame"] \
+            or got["frame"] != want["frame"] or vids[0].image is None \
+            or vids[0].image.shape != (240, 320, 3):
+        raise RuntimeError(f"{run}: {len(vids)} video events, the frame "
+                           f"{'as sent' if vids and vids[0].payload == got['frame'] else 'not as sent'}")
+    same_events(run, want["events"], got["events"])
+    print(f"  video: one video event, its {len(got['frame'])} JPEG bytes "
+          f"those sent and the CPU run's; the TX IQ ({len(got['parts'])} "
+          f"parts) within {err:.3g} of the CPU's peak; tx_video_frame "
+          f"{got['tx_ms']:.1f} ms, RX median "
+          f"{statistics.median(got['rx_ms'][1:]):.3f} ms a {VIDEO_BLOCK}-"
+          f"sample block; {got['wall_s'] * 1e3:.1f} ms of wall time for the "
+          f"frame, TX and RX ({CARD})", flush=True)
+    return {run: report}, rows
+
+
+class MumblePeer:
+    """A Mumble server on 127.0.0.1 for one client, plain TCP
+    (tests/test_mumble.py's FakeServer): on Authenticate the channel tree
+    and ServerSync (session MUMBLE_SESSION); it keeps every message it
+    receives and sends what `say` queues. Its thread ends at `close`."""
+
+    def __init__(self):
+        import queue
+        import socket
+        import threading
+
+        self.srv = socket.socket()
+        self.srv.bind(("127.0.0.1", 0))
+        self.srv.listen(1)
+        self.srv.settimeout(PEER_WAIT_MS / 1000)
+        self.port = self.srv.getsockname()[1]
+        self.received, self.outbox = [], queue.Queue()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def say(self, mtype, payload):
+        self.outbox.put((mtype, payload))
+
+    def _serve(self):
+        import socket
+        import struct
+
+        from qradiolink_tpu_torch.framing.layer2 import _pb_str, _pb_uint
+        from qradiolink_tpu_torch.voip import mumble
+
+        c, _ = self.srv.accept()
+        c.settimeout(0.01)
+        buf = b""
+        try:
+            while not self.stop.is_set():
+                while not self.outbox.empty():
+                    t, p = self.outbox.get()
+                    c.sendall(struct.pack(">HI", t, len(p)) + p)
+                try:
+                    chunk = c.recv(65536)
+                except socket.timeout:
+                    continue
+                if not chunk:
+                    break
+                buf += chunk
+                while len(buf) >= 6:
+                    t, n = struct.unpack(">HI", buf[:6])
+                    if len(buf) < 6 + n:
+                        break
+                    self.received.append((t, buf[6:6 + n]))
+                    buf = buf[6 + n:]
+                    if t == mumble.MSG_AUTHENTICATE:
+                        self.say(mumble.MSG_CHANNELSTATE,
+                                 _pb_uint(1, 0) + _pb_str(3, "Root"))
+                        self.say(mumble.MSG_SERVERSYNC,
+                                 _pb_uint(1, MUMBLE_SESSION))
+        finally:
+            c.close()
+            self.srv.close()
+
+    def texts(self):
+        from qradiolink_tpu_torch.framing.layer2 import _pb_scan
+        from qradiolink_tpu_torch.voip import mumble
+
+        return [dict((k, v) for k, _w, v in _pb_scan(p)).get(5, b"").decode()
+                for t, p in self.received if t == mumble.MSG_TEXTMESSAGE]
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        if self.thread.is_alive():
+            raise RuntimeError("the Mumble peer's thread did not end")
+
+
+def poll_until(client, done, what):
+    end = time.monotonic() + PEER_WAIT_MS / 1000
+    while not done() and time.monotonic() < end:
+        client.poll()
+        time.sleep(0.002)
+    if not done():
+        raise RuntimeError(f"voip: no {what} within {PEER_WAIT_MS} ms")
+
+
+def voip_av_part(dev, audio_events, found):
+    """VOIP through the port's MumbleClient (plain TCP) and a MumblePeer:
+    `connectserver` through the CommandProcessor of a card controller
+    with the client attached;
+    the card's FM RX audio events (recorder_av_part's) through
+    VoipForwarder.radio_rx_audio, leaving as Opus voice packets (where
+    libopus loads; without it the forwarder has no codec and sends none, as
+    the JAX forwarder); a private text `rxstatus` from the peer answered
+    through the forwarder; `mumblemsg`, `mutemumble`, `disconnectserver`.
+    Every answer equals a CPU controller's processor's for the same
+    verb (rxstatus) or the JAX processor's text (the others,
+    tests/test_torch_video_voip.py)."""
+    from qradiolink_tpu_torch.app.command import CommandProcessor
+    from qradiolink_tpu_torch.app.controller import RadioController
+    from qradiolink_tpu_torch.config import Settings
+    from qradiolink_tpu_torch.framing.layer2 import _pb_str, _pb_uint
+    from qradiolink_tpu_torch.voip import VoipForwarder, mumble
+
+    peer = MumblePeer()
+    cl = mumble.MumbleClient("127.0.0.1", peer.port, username="N0TPU",
+                             use_ssl=False)
+    cp = CommandProcessor(RadioController(Settings(), device=dev), voip=cl)
+    ref = CommandProcessor(RadioController(Settings(), device="cpu"))
+    try:
+        t0 = time.perf_counter()
+        answers = [cp.process(f"connectserver 127.0.0.1 {peer.port}")]
+        poll_until(cl, lambda: cl.synchronized, "ServerSync")
+        fwd = VoipForwarder(cl, command_processor=cp)
+        pcm = np.concatenate([e.audio for e in audio_events
+                              if e.kind == "audio"])
+        fwd.radio_rx_audio(pcm)
+        n_voice = (pcm.size // 320) if fwd.codec is not None else 0
+        poll_until(cl, lambda: sum(t == mumble.MSG_UDPTUNNEL for t, _ in
+                                   peer.received) >= n_voice, "voice")
+        peer.say(mumble.MSG_TEXTMESSAGE, _pb_uint(1, 33)
+                 + _pb_uint(2, MUMBLE_SESSION) + _pb_str(5, "rxstatus"))
+        want_text = ref.process("rxstatus")
+        poll_until(cl, lambda: want_text in peer.texts(), "text answer")
+        answers += [cp.process(v) for v in ("voipstatus", "mumblemsg hello",
+                                            "mutemumble 1")]
+        poll_until(cl, lambda: "hello" in peer.texts(), "mumblemsg")
+        answers.append(cp.process("disconnectserver"))
+        answers.append(cp.process("voipstatus"))
+        wall = time.perf_counter() - t0
+    finally:
+        cl.close()
+        peer.close()
+    want = [f"Connecting to server 127.0.0.1 port {peer.port}",
+            "VOIP connected", "Sending message: hello",
+            "Setting Mumble mute to 1", "Disconnected from VOIP server",
+            "VOIP disconnected"]
+    if answers != want:
+        raise RuntimeError(f"voip: answers {answers}, want {want}")
+    voice = [p for t, p in peer.received if t == mumble.MSG_UDPTUNNEL]
+    if len(voice) != n_voice or any(p[0] >> 5 != mumble.VOICE_OPUS
+                                    for p in voice):
+        raise RuntimeError(f"voip: {len(voice)} voice packets, want "
+                           f"{n_voice}")
+    print(f"  voip: connectserver, {len(voice)} Opus voice packets from "
+          f"{pcm.size} samples of the card's FM RX audio"
+          f"{'' if found['opus'] else ' (libopus is missing here: the forwarder has no codec and sends none, as the JAX one)'}"
+          f", `rxstatus` by private text answered {want_text!r} (the CPU "
+          f"controller's answer), mumblemsg, mutemumble, disconnectserver: "
+          f"{answers}; {wall * 1e3:.1f} ms of wall time ({CARD})",
+          flush=True)
+
+
+def audio_video_voip_phase(dev, gen, done):
+    """The application's audio, FreeDV vocoder, video and VOIP on the card
+    (slice 9), each part against the same work on CPU tensors, after the
+    probe (probe_av): freedv_av_part, mixer_av_part, processor_av_part,
+    recorder_av_part, video_av_part (its CPU twin in a spawned process
+    while the other parts run), voip_av_part. Returns ({run: report},
+    rows)."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    found = probe_av()
+    t0 = time.perf_counter()
+    reports, rows = {}, []
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        twin = pool.submit(video_cpu_twin)
+        rep, new = freedv_av_part(dev, gen, done, found)
+        reports.update(rep)
+        rows += new
+        rep, new = mixer_av_part(dev, gen, done)
+        reports.update(rep)
+        rows += new
+        card_iq, cpu_iq = processor_av_part(dev, found)
+        (HERE / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+            events = recorder_av_part(dev, card_iq["FM"], cpu_iq["FM"],
+                                      pathlib.Path(tmp))
+        voip_av_part(dev, events, found)
+        rep, new = video_av_part(dev, gen, done, twin)
+        reports.update(rep)
+        rows += new
+    print(f"  audio_video_voip phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return reports, rows
 
 
@@ -6459,9 +7254,15 @@ def main() -> int:
     dmr_call_phase(dev)
     print("headless: the headless service on the card (UDP IQ, telnet, "
           "MMDVM's session, IP-over-radio, the C++ engine):", flush=True)
-    rep8, rows8 = headless_phase(dev, gen)
+    done = set()
+    rep8, rows8 = headless_phase(dev, gen, done)
     reports.update(rep8)
     rows += rows8
+    print("audio_video_voip: the application's audio, FreeDV vocoder, "
+          "video and VOIP on the card:", flush=True)
+    rep9, rows9 = audio_video_voip_phase(dev, gen, done)
+    reports.update(rep9)
+    rows += rows9
 
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks

@@ -11,11 +11,9 @@ and Mumble text (commandprocessor.h:131).
 
 Verbs whose hardware doesn't exist in this framework (relays, LimeRFE,
 Mumble) respond with a clear "not available" instead of silently
-succeeding. Every verb answers with the JAX processor's text; where its
-handler needs a module the port does not have yet (the audio recorder,
-the Mumble client) it raises NotImplementedError naming the module at
-the point where the JAX handler imports it, which process() reports as
-"Command failed: ..." as it reports any handler's fault.
+succeeding. Every verb answers with the JAX processor's text: the
+recorder verbs through audio/recorder.py, the Mumble verbs through
+voip/mumble.py.
 """
 
 from __future__ import annotations
@@ -23,7 +21,6 @@ from __future__ import annotations
 import re
 from typing import Callable
 
-from qradiolink_tpu_torch.app.controller import _not_ported
 from qradiolink_tpu_torch.models.registry import MODES
 
 
@@ -391,8 +388,8 @@ class CommandProcessor:
             return None
         rec = getattr(self.ctl, "_recorder", None)
         if rec is None:
-            # the JAX package's audio/recorder.py AudioRecorder
-            raise _not_ported("audio/recorder.py (the audio recorder)")
+            from qradiolink_tpu_torch.audio.recorder import AudioRecorder
+            rec = AudioRecorder()
             self.ctl.attach_recorder(rec)
         if b:
             rec.start()
@@ -459,11 +456,12 @@ class CommandProcessor:
         self.settings.voip_server = str(host)
         self.settings.voip_port = port
         if self.voip is None:
-            # the JAX package's voip/mumble.py MumbleClient, whose import
-            # and construction the JAX handler wraps: the client sees
-            # "Command failed: <reason>"
-            return ("Command failed: "
-                    f"{_not_ported('voip/mumble.py (the Mumble client)')}")
+            try:
+                from qradiolink_tpu_torch.voip.mumble import MumbleClient
+                self.voip = MumbleClient(str(host), port,
+                                         password=self.settings.voip_password)
+            except Exception as e:
+                return f"Command failed: {e}"
         try:
             self.voip.connect()
         except Exception as e:

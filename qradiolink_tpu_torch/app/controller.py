@@ -11,10 +11,11 @@ blocks, host-side framing/dispatch between steps (SURVEY §2.8
 The controller runs its chains on one device: `device=None` means CUDA
 and raises without a card (core.resolve_device); tests pass "cpu". An
 IQ block goes to the device as two f32 planes (core.put_iq_pair), and a
-block's results come back to the host in one copy (`_fetch`). Branches
-that need a module the port does not have yet (FreeDV's host vocoder,
-the audio processor, the recorder, video) raise NotImplementedError
-naming it. The MMDVM modes publish to MMDVMHost through the session
+block's results come back to the host in one copy (`_fetch`). The host
+halves run on the host as in the JAX controller: the voice codecs,
+FreeDV's vocoder-modem (audio/freedv.py), the TX audio processor
+(audio/processor.py), the recorder (audio/recorder.py) and the JPEG video
+codec (video/). The MMDVM modes publish to MMDVMHost through the session
 (app/mmdvm_session.py); without pyzmq entering one raises, where the JAX
 controller logs and runs without a transport.
 
@@ -58,12 +59,6 @@ except Exception:  # pragma: no cover
     AudioEncoder, codec2_available = None, lambda: False
 
 
-def _not_ported(module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{module} is not ported to qradiolink_tpu_torch yet "
-        "(ROADMAP.md, Queue 1, item 18)")
-
-
 @dataclass
 class RxEvent:
     """One event from the RX dispatch loop (the reference's Qt signals
@@ -103,6 +98,7 @@ class RadioController:
         self._last_data_time = None
         self._in_reception = False
         self._mmdvm = None
+        self._freedv_rx = {}           # RX mode -> FreeDV (or None)
 
     # ------------------------------------------------------------------ RX
     def toggle_rx_mode(self, mode: str):
@@ -517,7 +513,13 @@ class RadioController:
         if ftype == FrameType.VIDEO:
             # video dispatch (reference receiveVideoData -> JPEG decode
             # -> videoImage, radiocontroller.cpp:1625-1665)
-            raise _not_ported("video/ (the JPEG video codec)")
+            if not hasattr(self, "_video_dec"):
+                from qradiolink_tpu_torch.video import VideoEncoder
+                self._video_dec = VideoEncoder()
+            img = self._video_dec.decode(bytes(payload))
+            ev = RxEvent("video", payload=bytes(payload), sample_time=t)
+            ev.image = img
+            return ev
         if ftype == FrameType.TEXT:
             txt = bytes(payload).rstrip(b"\x00").decode("utf-8", "replace")
             return RxEvent("text", text=txt, sample_time=t)
@@ -540,13 +542,8 @@ class RadioController:
         t = self._rx_sample_time
         self._rx_sample_time += iq.shape[-1] / self.settings.rx_sample_rate
         events: list[RxEvent] = []
-        if "passband" in out:
-            # FreeDV: the chain carries the 8 kHz modem passband; the
-            # vocoder-modem runs on the host (the JAX package's
-            # audio/freedv.py)
-            raise _not_ported("audio/freedv.py (FreeDV's host vocoder)")
         key = "bits" if "bits" in out else "audio" if "audio" in out \
-            else None
+            else "passband" if "passband" in out else None
         # MMDVM baseband goes to MMDVMHost with its per-slot rssi, in the
         # block's one copy
         mmdvm = self._rx_mode in ("MMDVM", "MMDVMmulti") and key == "audio"
@@ -595,7 +592,44 @@ class RadioController:
             if rec is not None and rec.recording:
                 rec.write(audio)
             events.append(RxEvent("audio", audio=audio, sample_time=t))
+        elif key == "passband":
+            events.extend(self._freedv_rx_events(host, t))
         return events
+
+    def _freedv_rx_events(self, passband: np.ndarray, t: float) -> list:
+        """FreeDV: the chain carries the 8 kHz modem passband; the
+        vocoder-modem runs on the host (audio/freedv.py, one FreeDV a RX
+        mode). Without libcodec2's FreeDV API there is no audio, as in the
+        JAX controller; the port logs that once."""
+        modems = self._freedv_rx
+        mode = self._rx_mode
+        if mode not in modems:
+            from qradiolink_tpu_torch.audio.freedv import (
+                FreeDV, freedv_available)
+            modems[mode] = FreeDV(self._freedv_variant(mode)) \
+                if freedv_available() else None
+            if modems[mode] is None:
+                self.log.warning("%s: libcodec2's FreeDV API is missing, "
+                                 "no audio", mode)
+        fd = modems[mode]
+        if fd is None:
+            return []
+        pcm = fd.rx(np.clip(passband * 32768.0, -32767,
+                            32767).astype(np.int16))
+        if not pcm.size:
+            return []
+        audio = pcm.astype(np.float32) / 32768.0 * 2.0 \
+            * self.settings.rx_volume
+        return [RxEvent("audio", audio=audio, sample_time=t)]
+
+    @staticmethod
+    def _freedv_variant(mode: str) -> str:
+        """FreeDV1600USB -> '1600' etc."""
+        m = (mode or "")[6:]
+        for sb in ("USB", "LSB"):
+            if m.endswith(sb):
+                return m[:-3]
+        return "1600"
 
     def run_rx(self, iq_blocks: Iterable) -> Iterable[RxEvent]:
         """Stream loop: the reference's RadioController::run RX half."""
@@ -689,9 +723,21 @@ class RadioController:
         spec = get_mode(self._tx_mode)
         s = self.settings
         if s.audio_compressor or s.audio_denoise:
-            # the per-mode compressor + band-pass (the JAX package's
-            # audio/processor.py AudioProcessor)
-            raise _not_ported("audio/processor.py (the audio processor)")
+            # host numpy, as in the reference (audio/processor.py)
+            if not hasattr(self, "_audio_proc"):
+                from qradiolink_tpu_torch.audio.processor import (
+                    AudioProcessor)
+                self._audio_proc = AudioProcessor(
+                    denoise=s.audio_denoise,
+                    agc_attack=s.agc_attack, agc_decay=s.agc_decay)
+            if spec.kind == "analog":
+                amode = self._audio_proc.AUDIO_MODE_ANALOG
+            elif self._voice_codec(self._tx_mode or "")[0] == "opus":
+                amode = self._audio_proc.AUDIO_MODE_OPUS
+            else:
+                amode = self._audio_proc.AUDIO_MODE_CODEC2
+            pcm = self._audio_proc.write_preprocess(
+                pcm, amode, compress=s.audio_compressor)
         if spec.kind == "analog":
             self._tx_state, out = self._tx(
                 self._tx_state,
@@ -748,8 +794,17 @@ class RadioController:
     def tx_video_frame(self, rgb) -> np.ndarray:
         """One camera frame -> QPSKVideo IQ (reference
         processVideoFrame: JPEG encode to the 3122-byte budget ->
-        FrameTypeVideo): video/, not ported yet."""
-        raise _not_ported("video/ (the JPEG video codec)")
+        FrameTypeVideo)."""
+        if not hasattr(self, "_video_enc"):
+            from qradiolink_tpu_torch.video import VideoEncoder
+            self._video_enc = VideoEncoder()
+        frame = self._video_enc.encode(np.asarray(rgb))
+        if self._tx is None or self._tx_mode != "QPSKVideo":
+            self.toggle_tx_mode("QPSKVideo")
+        data = self._framer.frame(frame, FrameType.VIDEO)
+        self._tx_state, out = self._tx(self._tx_state, self._put(
+            np.frombuffer(data, np.uint8)))
+        return get_iq(out["iq"]) * self.settings.bb_gain
 
     def tx_net_poll(self, pump, dt: float = 0.05):
         """One net-pump TX tick (reference processInputNetStream,

@@ -4,9 +4,9 @@ CPU:
 
 - CommandProcessor: every verb of the reference's list served, and a
   script of every verb with valid and refused arguments answered with the
-  JAX processor's text, leaving the same settings; the verbs whose JAX
-  handler needs a module the port lacks (the audio recorder, the Mumble
-  client) answer "Command failed: " with the port's reason;
+  JAX processor's text, leaving the same settings, the recorder's and the
+  Mumble client's verbs among them (a recording in the working
+  directory, a connection to a port that refuses it);
   tests/test_command.py's and tests/test_command_parity.py's cases on the
   port.
 - TelnetServer: the same bytes on the wire as the JAX server for the same
@@ -67,8 +67,9 @@ def _pair(**kw):
 
 
 # every verb: 0-argument ones bare, the rest with a valid argument, a
-# refused one, or none; the verbs that need the recorder or a Mumble
-# server come after (their JAX handlers open files and connections)
+# refused one, or none; the recorder's and the Mumble client's verbs come
+# after (their handlers open files and connections: test_script_answers_
+# as_jax runs them in a temporary directory, against a refusing port)
 SCRIPT = [
     "rxstatus", "txstatus", "txactive", "rxmode", "txmode", "rxvolume",
     "txvolume", "squelch", "rssi", "voxstatus", "rxfreq", "txfreq",
@@ -99,7 +100,12 @@ SCRIPT = [
     "setagcattack 5", "agcattack", "setagcdecay 250", "setagcdecay 9000",
     "setvoipvolume 55", "voipvolume", "setrxsamprate 2",
     "setrxsamprate 0", "setrelays 1", "disconnectserver", "mumblemsg hi",
-    "mutemumble 1", "mutemumble 5", "connectserver host", "shutdown",
+    "mutemumble 1", "mutemumble 5", "connectserver host",
+    "recordstatus", "setaudiorecorder 1", "recordstatus",
+    "setaudiorecorder 7", "setaudiorecorder 0", "recordstatus",
+    "connectserver 127.0.0.1 {refusing}", "voipstatus",
+    "connectserver 127.0.0.1 x", "disconnectserver", "mumblemsg hi",
+    "mutemumble 0", "shutdown",
 ]
 
 
@@ -118,11 +124,33 @@ def test_every_reference_verb_served_as_in_jax():
             assert "Command failed" not in resp, (verb, resp)
 
 
-def test_script_answers_as_jax():
+def test_script_answers_as_jax(tmp_path, monkeypatch):
     """Every line of SCRIPT: the JAX processor's reply, the same settings
-    after, the same chain state (modes, transmitting)."""
+    after, the same chain state (modes, transmitting). The recordings go
+    to the working directory (a temporary one); `connectserver` meets a
+    port that is bound but does not listen."""
+    monkeypatch.chdir(tmp_path)
     p, j = _pair()
-    for line in SCRIPT:
+    refusing = socket.socket()
+    refusing.bind(("127.0.0.1", 0))
+    port = refusing.getsockname()[1]
+    script = [line.format(refusing=port) for line in SCRIPT]
+    try:
+        _run_script(p, j, script)
+    finally:
+        refusing.close()
+    assert p.shutdown_requested and j.shutdown_requested
+    # one recording a processor, named by the second it started in (the
+    # two may share a name)
+    recs = list(tmp_path.iterdir())
+    assert 1 <= len(recs) <= 2
+    assert all(r.name.startswith("rec-") and r.suffix == ".flac"
+               for r in recs)
+    assert p.settings.voip_port == port
+
+
+def _run_script(p, j, script):
+    for line in script:
         assert p.process(line) == j.process(line), line
         assert dataclasses.asdict(p.settings) == \
             dataclasses.asdict(j.settings), line
@@ -130,27 +158,6 @@ def test_script_answers_as_jax():
                 p.ctl._rx is None, p.ctl._tx is None) == \
             (j.ctl._rx_mode, j.ctl._tx_mode, j.ctl.transmitting,
              j.ctl._rx is None, j.ctl._tx is None), line
-    assert p.shutdown_requested and j.shutdown_requested
-
-
-def test_unported_verbs_fail_with_the_port_reason(tmp_path, monkeypatch):
-    """setaudiorecorder and connectserver answer as the JAX handler does
-    when its module fails, "Command failed: " and the reason: here the
-    module the port has not got."""
-    monkeypatch.chdir(tmp_path)
-    p, _ = _pair()
-    assert p.process("recordstatus") == "Not recording"
-    r = p.process("setaudiorecorder 1")
-    assert r.startswith("Command failed: ") and "audio/recorder.py" in r
-    assert p.process("setaudiorecorder 7") == \
-        "Parameter value is not supported"
-    r = p.process("connectserver 127.0.0.1 64738")
-    assert r.startswith("Command failed: ") and "voip/mumble.py" in r
-    assert p.settings.voip_server == "127.0.0.1"
-    assert p.process("connectserver 127.0.0.1 x") == \
-        "Parameter value is not supported"
-    assert p.process("voipstatus") == "VOIP disconnected"
-    assert not list(tmp_path.iterdir())
 
 
 def test_status_and_set_verbs():
