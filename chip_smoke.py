@@ -389,6 +389,31 @@ when the package cannot be imported, and when any phase fails:
     the forwarder, mumblemsg, mutemumble, disconnectserver. Every counted
     run's launches equal the CPU run's calls; each new kernel shape gets a
     row against its plain version.
+29. scale-out (slice 10): two ranks, processes of this script
+    (--scale-out-rank), both on cuda:0 over gloo (NCCL refuses two ranks
+    on one card; it fails, and says so, where the card's compute mode
+    forbids two processes). Each rank runs the channel-sharded main path
+    (Fsk4DemodFF at N_CH x T_STEP, N_CH / 2 rows a rank, 2 steps with state
+    carried, each rank making the global block from the phase's seed and
+    ingesting its rows: multihost.distribute_channels), MultichannelRx
+    over the mesh (the mixed config), the time-sharded Fsk4DemodFF
+    (sync_window 320, 2 x 768,000 samples, halo 64,000) and the
+    time-sharded FIR (tests/test_time_sharded.py's taps). Held to the same
+    work in this process: the main path's bits equal and symbols within
+    1e-5, the mixed FSK bits equal and symbols within 1e-4 and its audio
+    within 1e-5 of the peak, the chain's bits equal beyond the first shard
+    with at most 16 differences in it, the FIR within 1e-4. Every rank's
+    launch report must show kernels only; each rank's step ms (CUDA
+    events, on a card the two share) is printed beside the single
+    process's. The phase adds no kernel row.
+30. the last parts (slice 10), each against the same call on CPU tensors:
+    scan_stream of the main path over 3 blocks at 256 rows (the frozen
+    capture, each row rolled) equal to run_stream and, on 8 rows, to the
+    CPU's bits; step_timer, and annotate inside trace (the Chrome trace
+    must hold the region); vv_carrier_correct at N_CH x T_STEP (64 rows on
+    the CPU, within 1e-4); the complex-tap RationalResampler at L 3 M 2
+    and L 1 M 5, a launch a tap plane a block, its launches the CPU's
+    calls, its outputs within 1e-5 of the CPU's peak and its state equal.
 
 The second-to-last line is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.
@@ -7192,10 +7217,556 @@ def audio_video_voip_phase(dev, gen, done):
     return reports, rows
 
 
+# -- slice 10: scale-out on torch.distributed, and the last parts ------------
+SCALE_SEED = 2300
+SCALE_STEPS = 2
+SCALE_RANKS = 2
+RANK_TIMEOUT_S = 420
+TS_LOCAL, TS_HALO = 768_000, 64_000  # a multiple of one Viterbi tile; one
+TS_BYTES = 400                       # tile (tests/test_time_sharded.py)
+TSF_LOCAL = 1 << 20                  # the time-sharded FIR's samples a rank
+TS_HEAD_MISMATCHES = 16              # tests/test_time_sharded.py:59
+SYM_TOL = 1e-5                       # the channel-sharded symbols
+MIXED_SYM_TOL = 1e-4                 # tests/test_torch_mixed.py OUT_TOL
+TSF_TOL = 1e-4                       # tests/test_time_sharded.py:78
+PARTS_ROWS = 256
+PARTS_CPU_ROWS = 8
+VV_CPU_ROWS = 64
+VV_TOL = 1e-4                        # corrected IQ, of its peak, and rad
+
+
+def scale_fsk_block(i, dev):
+    """Step i's global block of the channel-sharded main path, made on the
+    card from the phase's seed: the same numbers in every process."""
+    from qradiolink_tpu_torch.core import IqPair
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SCALE_SEED + i)
+    return IqPair(*(torch.randn((N_CH, T_STEP), generator=g, device=dev)
+                    * 0.1 for _ in range(2)))
+
+
+def scale_mixed_block(i, dev):
+    """Step i's wideband block of the mixed config (bench.py:136-137:
+    complex normal IQ at 0.05 RMS a plane)."""
+    from qradiolink_tpu_torch.core import IqPair
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SCALE_SEED + 100 + i)
+    return IqPair(*(torch.randn((MIX_M * MIX_T,), generator=g, device=dev)
+                    * 0.05 for _ in range(2)))
+
+
+def scale_fir_input(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(SCALE_SEED + 200)
+    return torch.randn((SCALE_RANKS * TSF_LOCAL,), generator=g, device=dev)
+
+
+def scale_fir_taps():
+    from qradiolink_tpu_torch.ops import firdes
+
+    return firdes.low_pass(1.0, 1e6, 100e3, 50e3)  # test_time_sharded.py:72
+
+
+def event_ms(fn):
+    """fn() between CUDA events: (its result, device ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    y = fn()
+    end.record()
+    end.synchronize()
+    return y, round(start.elapsed_time(end), 3)
+
+
+def steps_on_card(fn, state, blocks, keep):
+    """state, out = fn(state, block()) for each block maker in turn, each
+    step timed by CUDA events; returns (state, [{key: numpy}] a step, step
+    ms)."""
+    outs, ms = [], []
+    for make in blocks:
+        x = make()
+        (state, out), t = event_ms(lambda: fn(state, x))
+        outs.append(keep(out))
+        ms.append(t)
+        del x
+    return state, outs, ms
+
+
+def fsk_keep(out):
+    return {"bits": out["bits"].cpu().numpy(),
+            "symbols": out["symbols"].cpu().numpy()}
+
+
+def mixed_keep(outs):
+    """The mixed step's outputs a group (None where this rank holds no row
+    of a group)."""
+    fsk, nb = outs
+    kept = {}
+    if fsk is not None:
+        kept.update(fsk_keep(fsk))
+    if nb is not None:
+        kept["audio"] = nb["audio"].cpu().numpy()
+    return kept
+
+
+def time_sharded_signal(dev):
+    """tests/test_time_sharded.py's signal: 400 seeded bytes through the
+    port's Fsk4Mod on the card, zero-padded or cut to the ranks' span."""
+    from qradiolink_tpu_torch.chains.fsk import Fsk4Mod
+
+    data = np.random.default_rng(5).integers(0, 256, TS_BYTES)
+    mod = Fsk4Mod(device=dev)
+    iq = mod(mod.init_state(), torch.from_numpy(data.astype(np.uint8)).to(
+        dev))[1]["iq"].cpu().numpy()
+    out = np.zeros(SCALE_RANKS * TS_LOCAL, np.complex64)
+    out[:min(len(iq), out.size)] = iq[:out.size]
+    return out
+
+
+def pair_of(iq, dev):
+    from qradiolink_tpu_torch.core import IqPair
+
+    return IqPair(torch.from_numpy(np.ascontiguousarray(iq.real)).to(dev),
+                  torch.from_numpy(np.ascontiguousarray(iq.imag)).to(dev))
+
+
+def scale_out_references(dev, tmp):
+    """The single-process runs the ranks are held to, on the card: the main
+    path on all N_CH rows, the mixed config, the serial chain and FIR over
+    the whole stream. Writes the time-sharded signal for the ranks."""
+    from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
+    from qradiolink_tpu_torch.ops.fir import FirFilter
+    from qradiolink_tpu_torch.parallel.sharding import MultichannelRx
+
+    ref = {}
+    chain = Fsk4DemodFF(lead_shape=(N_CH,), device=dev)
+    _, ref["fsk"], ref["fsk_ms"] = steps_on_card(
+        chain, chain.init_state(),
+        [lambda i=i: scale_fsk_block(i, dev) for i in range(SCALE_STEPS)],
+        fsk_keep)
+    del chain
+    rx = MultichannelRx(MIX_M, mixed_groups(), device=dev)
+    _, ref["mixed"], ref["mixed_ms"] = steps_on_card(
+        rx, rx.init_state(),
+        [lambda i=i: scale_mixed_block(i, dev) for i in range(SCALE_STEPS)],
+        mixed_keep)
+    del rx
+    iq = time_sharded_signal(dev)
+    np.save(tmp / "ts_iq.npy", iq)
+    chain = Fsk4DemodFF(sync_window=320, device=dev)
+    out, ref["ts_ms"] = event_ms(
+        lambda: chain(chain.init_state(), pair_of(iq, dev))[1])
+    ref["ts_bits"] = out["bits"].cpu().numpy()
+    fir = FirFilter(scale_fir_taps(), device=dev)
+    x = scale_fir_input(dev)
+    y, ref["tsf_ms"] = event_ms(lambda: fir(fir.init_state(), x)[1])
+    ref["tsf"] = y.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def counted_part(reports, name, fn, every=(), never=()):
+    """fn() with the launch counters zeroed just before and read just
+    after: nothing may take a plain path, every op of `every` must launch
+    on each of the SCALE_STEPS steps, no op of `never` at all."""
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    kernel_paths.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    report = kernel_paths.report()
+    reports[name] = report
+    if not kernel_paths.served_only():
+        raise RuntimeError(f"{name}: a stage took the plain path on the "
+                           f"card: {json.dumps(report)}")
+    for op in every:
+        if kernel_paths.launches(op) < SCALE_STEPS:
+            raise RuntimeError(f"{name}: {op} did not launch every step")
+    for op in never:
+        if kernel_paths.launches(op):
+            raise RuntimeError(f"{name}: {op} launched")
+    return out
+
+
+def scale_out_rank(rank, port, tmp, device):
+    """One rank of scale_out_phase, in a process of its own on `device`
+    (cuda:0 for every rank) over gloo: the channel-sharded main path
+    (multihost: each rank ingests its rows of the global block),
+    MultichannelRx over the mesh, the time-sharded chain and FIR. Saves
+    its outputs, kernel reports and step ms under tmp."""
+    from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
+    from qradiolink_tpu_torch.core import IqPair
+    from qradiolink_tpu_torch.parallel import multihost, sharding
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = pathlib.Path(tmp)
+    dev = multihost.init_process(f"127.0.0.1:{port}", SCALE_RANKS, rank,
+                                 backend="gloo", device=device,
+                                 timeout_s=RANK_TIMEOUT_S)
+    reports, ms, saved = {}, {}, {}
+    try:
+        mesh = multihost.pod_mesh(device=dev)
+        rows = multihost.local_channel_slice(N_CH)
+        chain = Fsk4DemodFF(lead_shape=(N_CH // mesh.size,), device=dev)
+        step = multihost.multihost_step(chain, mesh)
+
+        def ingest(i):
+            g = scale_fsk_block(i, dev)
+            return multihost.distribute_channels(
+                IqPair(g.re[rows], g.im[rows]), N_CH, mesh)
+
+        _, outs, ms["fsk"] = counted_part(
+            reports, "fsk", lambda: steps_on_card(
+                step, chain.init_state(),
+                [lambda i=i: ingest(i) for i in range(SCALE_STEPS)],
+                fsk_keep), FSK_EVERY_STEP)
+        for i, o in enumerate(outs):
+            saved.update({f"fsk_{k}{i}": v for k, v in o.items()})
+        del chain, step
+        torch.cuda.empty_cache()
+
+        mesh_ch = sharding.make_mesh(axis="ch", device=dev)
+        rx = sharding.MultichannelRx(MIX_M, mixed_groups(), mesh=mesh_ch)
+        _, outs, ms["mixed"] = counted_part(
+            reports, "mixed", lambda: steps_on_card(
+                rx.step(), rx.init_state(),
+                [lambda i=i: scale_mixed_block(i, dev)
+                 for i in range(SCALE_STEPS)], mixed_keep),
+            MIXED_EVERY_STEP, ("fir_stream_f32", "pfb_channelize_f32"))
+        for i, o in enumerate(outs):
+            saved.update({f"mixed_{k}{i}": v for k, v in o.items()})
+        saved["mixed_rows"] = np.concatenate([idxs for _, idxs in rx.groups])
+        del rx
+        torch.cuda.empty_cache()
+
+        mesh_t = sharding.make_mesh(axis="t", device=dev)
+        iq = np.load(tmp / "ts_iq.npy")
+        lo = mesh_t.index * TS_LOCAL
+        fn = sharding.time_sharded_chain(
+            Fsk4DemodFF(sync_window=320, device=dev), mesh_t, halo=TS_HALO,
+            out_keys=("bits",))
+        x = pair_of(iq[lo:lo + TS_LOCAL], dev)
+        out, ms["ts"] = counted_part(
+            reports, "time_chain", lambda: event_ms(lambda: fn(x)))
+        saved["ts_bits"] = out["bits"].cpu().numpy()
+        fir = sharding.time_sharded_fir(scale_fir_taps(), mesh_t)
+        x = scale_fir_input(dev)[mesh_t.index * TSF_LOCAL:
+                                 (mesh_t.index + 1) * TSF_LOCAL]
+        y, ms["tsf"] = counted_part(
+            reports, "time_fir", lambda: event_ms(lambda: fir(x)))
+        saved["tsf"] = y.cpu().numpy()
+        np.savez(tmp / f"rank{rank}.npz", **saved)
+        (tmp / f"rank{rank}.json").write_text(json.dumps(
+            {"reports": reports, "ms": ms, "device": str(dev)}))
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"rank {rank}: done", flush=True)
+    return 0
+
+
+def spawn_ranks(tmp, device):
+    """SCALE_RANKS processes of this script, each a rank on `device` over
+    gloo; returns each rank's (arrays, json). Fails with their output where
+    one fails; none outlives the call."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(SCALE_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--scale-out-rank",
+         str(r), str(port), str(tmp), device], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(SCALE_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} (exit {p.returncode}):\n"
+                          + "\n".join(text.splitlines()[-40:]))
+    if failed:
+        raise RuntimeError("a rank failed:\n" + "\n".join(failed))
+    out = []
+    for r in range(SCALE_RANKS):
+        with np.load(tmp / f"rank{r}.npz") as f:
+            out.append((dict(f), json.loads(
+                (tmp / f"rank{r}.json").read_text())))
+    return out
+
+
+def ts_contract(what, got, want, per_shard):
+    """The time-sharded contract (tests/test_time_sharded.py:52-60): equal
+    beyond the first shard (its first per_shard bits), at most
+    TS_HEAD_MISMATCHES differences in it. Returns the head's
+    differences."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"{what}: shape {got.shape} != {want.shape}")
+    n_rest = int((got[per_shard:] != want[per_shard:]).sum())
+    head = int((got[:per_shard] != want[:per_shard]).sum())
+    if n_rest or head > TS_HEAD_MISMATCHES:
+        raise RuntimeError(f"{what}: {n_rest} bits differ beyond the first "
+                           f"shard, {head} in it")
+    return head
+
+
+def scale_out_phase(dev):
+    """Slice 10's scale-out on the card: two ranks on cuda:0 over gloo
+    (NCCL refuses two ranks on one card), spawned once, each running the
+    channel-sharded main path, MultichannelRx over the mesh and the
+    time-sharded chain and FIR (scale_out_rank), held to the same work in
+    this process (scale_out_references). Every rank's kernel reports must
+    show kernels only."""
+    import tempfile
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"  compute mode: {mode}", flush=True)
+    if mode.splitlines()[0].strip() in ("Exclusive_Process", "Prohibited"):
+        raise RuntimeError(f"compute mode {mode} forbids two processes on "
+                           f"the card")
+    t0 = time.perf_counter()
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        ref = scale_out_references(dev, tmp)
+        t1 = time.perf_counter()
+        # both ranks on the parent's card: cuda:0
+        ranks = spawn_ranks(tmp, f"{dev.type}:0" if dev.type == "cuda"
+                            else dev.type)
+        t2 = time.perf_counter()
+    per = N_CH // SCALE_RANKS
+    half = MIX_M // 2
+    errs = {"fsk": 0.0, "mixed": 0.0, "audio": 0.0, "tsf": 0.0}
+    ts_bits = []
+    for r, (arr, meta) in enumerate(ranks):
+        rows = slice(r * per, (r + 1) * per)
+        for i in range(SCALE_STEPS):
+            want = ref["fsk"][i]
+            if not np.array_equal(arr[f"fsk_bits{i}"], want["bits"][rows]):
+                n = int((arr[f"fsk_bits{i}"] != want["bits"][rows]).sum())
+                raise RuntimeError(f"rank {r} step {i}: {n} bits differ "
+                                   f"from the single-process run")
+            errs["fsk"] = max(errs["fsk"], float(np.abs(
+                arr[f"fsk_symbols{i}"] - want["symbols"][rows]).max()))
+            mrows = arr["mixed_rows"]
+            fsk_rows, nb_rows = mrows[mrows < half], mrows[mrows >= half] \
+                - half
+            want = ref["mixed"][i]
+            if not np.array_equal(arr[f"mixed_bits{i}"],
+                                  want["bits"][fsk_rows]):
+                raise RuntimeError(f"rank {r} mixed step {i}: bits differ")
+            errs["mixed"] = max(errs["mixed"], float(np.abs(
+                arr[f"mixed_symbols{i}"] - want["symbols"][fsk_rows]).max()))
+            errs["audio"] = max(errs["audio"], float(np.abs(
+                arr[f"mixed_audio{i}"] - want["audio"][nb_rows]).max())
+                / float(np.abs(want["audio"]).max()))
+        ts_bits.append(arr["ts_bits"])
+        lo = r * TSF_LOCAL
+        errs["tsf"] = max(errs["tsf"], float(np.abs(
+            arr["tsf"] - ref["tsf"][lo:lo + TSF_LOCAL]).max()))
+        for name, rep in meta["reports"].items():
+            plain = {op: v["plain"] for op, v in rep.items() if v["plain"]}
+            if plain:
+                raise RuntimeError(f"rank {r} {name}: plain calls {plain}")
+        print(f"  rank {r} on {meta['device']}: kernel launches "
+              + "; ".join(f"{name} " + ", ".join(
+                  f"{op} {v['cuda']}" for op, v in rep.items())
+                  for name, rep in meta["reports"].items()), flush=True)
+        print(f"  rank {r} step ms (CUDA events, a shared card): "
+              f"{json.dumps(meta['ms'])}", flush=True)
+    head = ts_contract("time-sharded chain", np.concatenate(ts_bits),
+                       ref["ts_bits"], len(ts_bits[0]))
+    bad = {k: v for k, v in errs.items() if not v <= {
+        "fsk": SYM_TOL, "mixed": MIXED_SYM_TOL, "audio": FIR_TOL,
+        "tsf": TSF_TOL}[k]}
+    if bad:
+        raise RuntimeError(f"ranks beyond the bounds: {bad}")
+    print(f"  single process step ms (CUDA events): fsk "
+          f"{ref['fsk_ms']} ({N_CH} rows), mixed {ref['mixed_ms']}, "
+          f"time-sharded chain serial {ref['ts_ms']}, FIR serial "
+          f"{ref['tsf_ms']}; {CARD}", flush=True)
+    print(f"  ranks against one process: {N_CH} x {T_STEP} main path bits "
+          f"equal, symbols max |diff| {errs['fsk']:.3e}; mixed bits equal, "
+          f"symbols {errs['mixed']:.3e}, audio {errs['audio']:.3e} of its "
+          f"peak; time-sharded chain {head} head differences, the rest "
+          f"equal; FIR max |diff| {errs['tsf']:.3e}", flush=True)
+    print(f"  scale_out phase: {time.perf_counter() - t0:.1f} s (references "
+          f"{t1 - t0:.1f} s, ranks {t2 - t1:.1f} s)", flush=True)
+
+
+def parts_phase(dev, gen):
+    """Slice 10's parts of ported modules on the card, each held to the same
+    call on CPU tensors: scan_stream of the main path, step_timer and
+    annotate inside trace, vv_carrier_correct, the complex-tap
+    RationalResampler."""
+    import tempfile
+
+    from qradiolink_tpu_torch.chains.fsk import Fsk4DemodFF
+    from qradiolink_tpu_torch.core import (IqPair, concat_stream_out,
+                                           run_stream, scan_stream)
+    from qradiolink_tpu_torch.ops.resample import RationalResampler
+    from qradiolink_tpu_torch.sync.feedforward import vv_carrier_correct
+    from qradiolink_tpu_torch.utils.profiling import (annotate, kernel_paths,
+                                                      step_timer, trace)
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    # scan_stream: the capture, each row rolled by 2,000 samples more
+    data = np.load(FIXTURE)
+    n = 3 * T_STEP
+    planes = []
+    for key in ("iq_re", "iq_im"):
+        full = torch.from_numpy(data[key].astype(np.float32)).to(dev)
+        rows = torch.stack([torch.roll(full, -2000 * r)[:n]
+                            for r in range(PARTS_ROWS)])
+        planes.append(rows.reshape(PARTS_ROWS, 3, T_STEP).transpose(0, 1)
+                      .contiguous())
+    xs = IqPair(*planes)
+    chain = Fsk4DemodFF(lead_shape=(PARTS_ROWS,), device=dev)
+    (state, ys), report = card_counted(
+        "scan_stream", lambda: scan_stream(chain, xs))
+    for op in FSK_EVERY_STEP:
+        if report.get(op, {}).get("cuda", 0) < 3:
+            raise RuntimeError(f"scan_stream: {op} did not launch a block")
+    outs = list(run_stream(chain, [IqPair(xs.re[i], xs.im[i])
+                                   for i in range(3)]))
+    for key in ("bits", "symbols"):
+        if not torch.equal(ys[key], torch.stack([o[key] for o in outs])):
+            raise RuntimeError(f"scan_stream's {key} differ from run_stream")
+    bits = concat_stream_out(ys["bits"])
+    if tuple(bits.shape) != (PARTS_ROWS, 3 * T_STEP // 500):
+        raise RuntimeError(f"concat_stream_out shape {tuple(bits.shape)}")
+    cchain = Fsk4DemodFF(lead_shape=(PARTS_CPU_ROWS,), device=cpu)
+    _, cys = scan_stream(cchain, IqPair(
+        xs.re[:, :PARTS_CPU_ROWS].cpu(), xs.im[:, :PARTS_CPU_ROWS].cpu()))
+    n_diff = int((ys["bits"][:, :PARTS_CPU_ROWS].cpu() != cys["bits"]).sum())
+    sym = float((ys["symbols"][:, :PARTS_CPU_ROWS].cpu()
+                 - cys["symbols"]).abs().max())
+    print(f"  scan_stream: {PARTS_ROWS} rows x 3 blocks of {T_STEP}, equal "
+          f"to run_stream; on {PARTS_CPU_ROWS} rows against the CPU: "
+          f"{n_diff} bits differ, symbols max |diff| {sym:.3e}", flush=True)
+    if n_diff or not sym <= MIXED_SYM_TOL:
+        raise RuntimeError("scan_stream on the card differs from the CPU")
+
+    # step_timer, and annotate inside trace
+    x0 = IqPair(xs.re[0], xs.im[0])
+    stats = step_timer(chain, state, x0, iters=3,
+                       samples_per_step=PARTS_ROWS * T_STEP)
+    cstats = step_timer(cchain, cchain.init_state(), IqPair(
+        x0.re[:PARTS_CPU_ROWS].cpu(), x0.im[:PARTS_CPU_ROWS].cpu()),
+        iters=1, samples_per_step=PARTS_CPU_ROWS * T_STEP)
+    if not set(stats) == set(cstats) == {"step_ms", "samples_per_s"}:
+        raise RuntimeError(f"step_timer keys {set(stats)}, {set(cstats)}")
+    (HERE / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as tmp:
+        with trace(tmp):
+            with annotate("slice10-region"):
+                chain(state, x0)
+                torch.cuda.synchronize()
+        events = json.loads(pathlib.Path(tmp, "trace.json").read_text())
+    names = {e.get("name") for e in events.get("traceEvents", [])}
+    n_dev = sum(1 for e in events.get("traceEvents", [])
+                if e.get("cat") == "kernel")
+    if "slice10-region" not in names:
+        raise RuntimeError("the trace lacks the annotated region")
+    print(f"  step_timer: {stats['step_ms']:.3f} ms a step "
+          f"({stats['samples_per_s'] / 1e6:.1f} Msamples/s, CUDA events; "
+          f"CPU {cstats['step_ms']:.1f} ms at {PARTS_CPU_ROWS} rows); "
+          f"trace: the region and {n_dev} kernel events", flush=True)
+    del chain, cchain, state, ys, outs, xs, planes
+    torch.cuda.empty_cache()
+
+    # vv_carrier_correct: BPSK at sps 10, a phase and a slow carrier
+    # offset a row, noise at 0.1 a plane
+    C, T = N_CH, T_STEP
+    syms = torch.randint(0, 2, (C, T // 10), generator=gen, device=dev)
+    bpsk = (2.0 * syms.float() - 1.0).repeat_interleave(10, dim=1)
+    ph0 = torch.rand((C, 1), generator=gen, device=dev) * 6.0 - 3.0
+    cfo = (torch.rand((C, 1), generator=gen, device=dev) - 0.5) * 2e-5
+    t = torch.arange(T, device=dev, dtype=torch.float32)
+    phase = ph0 + 2 * np.pi * cfo * t
+    noise = [torch.randn((C, T), generator=gen, device=dev) * 0.1
+             for _ in range(2)]
+    x = torch.complex(bpsk * torch.cos(phase) + noise[0],
+                      bpsk * torch.sin(phase) + noise[1])
+    del bpsk, phase, noise
+    (y, ph), vv_ms = event_ms(lambda: vv_carrier_correct(x, 2, 16))
+    cy, cph = vv_carrier_correct(x[:VV_CPU_ROWS].cpu(), 2, 16)
+    y_err = float((y[:VV_CPU_ROWS].cpu() - cy).abs().max()) / float(
+        cy.abs().max())
+    ph_err = float((ph[:VV_CPU_ROWS].cpu() - cph).abs().max())
+    rot = torch.angle(y[:, ::10]).abs()
+    rot = torch.minimum(rot, np.pi - rot).median().item()
+    print(f"  vv_carrier_correct: {C} x {T} in {vv_ms} ms (CUDA events); "
+          f"on {VV_CPU_ROWS} rows against the CPU: corrected max |diff| "
+          f"{y_err:.3e} of its peak, phases {ph_err:.3e} rad; median "
+          f"residual rotation {rot:.3f} rad", flush=True)
+    if not (y_err <= VV_TOL and ph_err <= VV_TOL and rot < 0.2):
+        raise RuntimeError("vv_carrier_correct differs from the CPU")
+    del x, y, ph
+    torch.cuda.empty_cache()
+
+    # the complex-tap resampler: two tap planes, each a launch a block
+    from qradiolink_tpu_torch.ops import firdes
+    lp = np.asarray(firdes.low_pass(1.0, 1.0, 0.15, 0.05), np.float64)
+    taps = (lp * np.exp(2j * np.pi * 0.05 * np.arange(len(lp)))).astype(
+        np.complex64)
+    for L, M in ((3, 2), (1, 5)):
+        rs = {d.type: RationalResampler(L, M, taps=taps, lead_shape=(64,),
+                                        device=d) for d in (dev, cpu)}
+        blocks = [IqPair(*(torch.randn((64, 100_000), generator=gen,
+                                       device=dev) for _ in range(2)))
+                  for _ in range(2)]
+
+        def stream(d):
+            s, out = rs[d.type].init_state(), []
+            for b in blocks:
+                s, y = rs[d.type](s, IqPair(b.re.to(d), b.im.to(d)))
+                out.append(y)
+            return s, out
+
+        run = f"complex-tap resampler L{L} M{M}"
+        (s_card, y_card), (s_cpu, y_cpu) = app_counted(
+            run, lambda: stream(dev), lambda: stream(cpu))
+        report = kernel_paths.report()   # the card run's, app_counted's last
+        launches = sum(v["cuda"] for v in report.values())
+        if launches < 2 * len(blocks):
+            raise RuntimeError(f"{run}: {launches} launches, not one a tap "
+                               f"plane a block")
+        err = max(peak_err(run, (a.re.cpu(), a.im.cpu()), (b.re, b.im),
+                           FIR_TOL) for a, b in zip(y_card, y_cpu))
+        if not torch.equal(s_card.cpu(), s_cpu):
+            raise RuntimeError(f"{run}: state differs from the CPU's")
+        print(f"  {run} K{len(taps)}, 64 x 2 blocks of 100,000: "
+              + ", ".join(f"{op} x{v['cuda']}" for op, v in report.items())
+              + f"; max |diff| {err:.3e} against the CPU, state equal",
+              flush=True)
+    print(f"  parts phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--scale-out-rank"]:
+        return scale_out_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5])
     from qradiolink_tpu_torch.utils import kernels
 
     # the reference computes in full f32: no TF32 in cuDNN or cuBLAS
@@ -7263,6 +7834,14 @@ def main() -> int:
     rep9, rows9 = audio_video_voip_phase(dev, gen, done)
     reports.update(rep9)
     rows += rows9
+    torch.cuda.empty_cache()
+    print(f"scale_out: {SCALE_RANKS} ranks on cuda:0 over gloo (the "
+          f"channel-sharded main path, MultichannelRx over the mesh, the "
+          f"time-sharded chain and FIR):", flush=True)
+    scale_out_phase(dev)
+    print("parts: scan_stream, step_timer and trace, vv_carrier_correct, "
+          "the complex-tap resampler on the card:", flush=True)
+    parts_phase(dev, gen)
 
     # each kernel's launches at its shape in the run of the path that
     # gives it that shape: one a step for the kernel that the route picks

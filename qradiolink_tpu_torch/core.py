@@ -19,7 +19,7 @@ nested tuple of tensors on that device. All blocks operate on the LAST axis
 
 from __future__ import annotations
 
-from typing import Any, Iterable, NamedTuple, Sequence
+from typing import Any, Callable, Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -72,6 +72,17 @@ class Stateless(Block):
         return state, self.apply(x)
 
 
+class Fn(Stateless):
+    """Wrap a plain function as a stateless block."""
+
+    def __init__(self, fn: Callable, name: str | None = None):
+        self.fn = fn
+        self.name = name or getattr(fn, "__name__", "fn")
+
+    def apply(self, x):
+        return self.fn(x)
+
+
 class Chain(Block):
     """Serial composition of blocks. State is a tuple of member states."""
 
@@ -109,6 +120,17 @@ class Sequencer:
 
 def init_states(blocks: Sequence[Block]) -> State:
     return tuple(b.init_state() for b in blocks)
+
+
+def device_init_state(block: Block) -> State:
+    """A block's initial state on its device: its init_state(), whose
+    leaves every block of this package creates on its device already.
+
+    The JAX package needs a function of its own here because the TPU it
+    was written for cannot transfer a complex64 array from the host (such
+    a transfer poisons the device stream), so it creates the state inside
+    a jitted program; PyTorch on CUDA moves complex64 like any dtype."""
+    return block.init_state()
 
 
 class IqPair(NamedTuple):
@@ -232,6 +254,43 @@ def run_stream(block: Block, chunks: Iterable, state: State = None):
     for chunk in chunks:
         state, y = block(state, chunk)
         yield y
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of trees of one structure: nested dicts, tuples,
+    lists and IqPairs (rebuilt as IqPairs) of tensors; None stays None."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(u[k] for u in trees)) for k in t}
+    if isinstance(t, IqPair):
+        return IqPair(*(tree_map(fn, *parts) for parts in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return tuple(tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def scan_stream(block: Block, x_blocks, state: State = None):
+    """Run `block` over a pre-split stream, one block after another on the
+    block's device (the JAX package's lax.scan).
+
+    x_blocks: a tensor (N, ...block shape...), or an IqPair of such
+    planes. Returns (final_state, y_blocks), every leaf of the output
+    stacked to (N, ...)."""
+    if state is None:
+        state = block.init_state()
+    ys = []
+    for i in range(x_blocks.shape[0]):
+        state, y = block(state, tree_map(lambda a: a[i], x_blocks))
+        ys.append(y)
+    return state, tree_map(lambda *leaves: torch.stack(leaves), *ys)
+
+
+def concat_stream_out(y_blocks: torch.Tensor) -> torch.Tensor:
+    """Collapse scan_stream block outputs (N, ..., T) back to (..., N*T)."""
+    y = torch.movedim(y_blocks, 0, -2)
+    return y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1])
 
 
 # -- state trees --------------------------------------------------------------

@@ -107,6 +107,16 @@ def _load():
         return lib
 
 
+def native_available() -> bool:
+    """True when the engine builds (or is built) and loads. Every call of
+    the engine still raises with g++'s output where it does not."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 

@@ -87,11 +87,20 @@ def fir_planes(planes, tap_planes, stride: int, n_out: int, tails=None):
     and for complex taps on complex input the JAX package's combine
     (qradiolink_tpu/ops/fir.py:304-311), (rr - ii, ri + ir). Returns one
     output plane for real input and real taps, two (re, im) otherwise."""
-    ys = [fir_stream(planes, t, stride, n_out, tails=tails)
-          for t in tap_planes]
+    return combine_tap_planes([fir_stream(planes, t, stride, n_out,
+                                          tails=tails)
+                               for t in tap_planes])
+
+
+def combine_tap_planes(ys):
+    """The output planes of a filter from its runs a tap plane: ys[j] the
+    output planes of tap plane j over every input plane. One tap plane:
+    its run as it is; complex taps on real input: (real-tap run,
+    imaginary-tap run); complex taps on complex input: the JAX package's
+    combine (rr - ii, ri + ir)."""
     if len(ys) == 1:
         return ys[0]
-    if len(planes) == 1:  # real input, complex taps
+    if len(ys[0]) == 1:  # real input, complex taps
         return ys[0][0], ys[1][0]
     (rr, ir), (ri, ii) = ys
     return rr - ii, ri + ir

@@ -7,17 +7,18 @@ Grouping outputs by residue r = m mod L gives per-phase strided FIRs:
 with h_r = h[p_r::L]. Streaming requires block length T % M == 0; then each
 block yields T*L/M outputs and the phase pattern repeats exactly.
 
-At L > 1 every call (real, complex or IqPair input) is one launch of the
-kernel `ops/cuda_resample.route()` picks, which computes all L phases,
-interleaves them and writes the new state, reading the tail in place from
-the state: `resample_up_f32` at L >= 3 and M <= 5 (the TX side's 125/1,
-20/1, 25/4, 5/1 and 125/3), `resample_poly_f32` elsewhere (the NBFM audio
-resampler, 2/5; M17's 3/125 head) except where a phase's strided FIR is
-`fir_long_f32`'s shape (DMR's 3/125 head, K2091 a phase): there L
-launches of it, one a phase, then the interleave. At L = 1 the decimator is one
-launch of the strided FIR kernel that `ops/cuda_fir.route()` picks, over
-the planes of an IqPair, a complex tensor or a real one (the WBFM audio
-resampler, 1/25), with the tails read in place from the state: the
+At L > 1 every call (real, complex or IqPair input) is one launch a tap
+plane (two for complex taps) of the kernel `ops/cuda_resample.route()`
+picks, which computes all L phases, interleaves them and writes the new
+state, reading the tail in place from the state: `resample_up_f32` at
+L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1 and 125/3),
+`resample_poly_f32` elsewhere (the NBFM audio resampler, 2/5; M17's 3/125
+head) except where a phase's strided FIR is `fir_long_f32`'s shape (DMR's
+3/125 head, K2091 a phase): there L launches of it, one a phase, then the
+interleave. At L = 1 the decimator is one launch a tap plane of the
+strided FIR kernel that `ops/cuda_fir.route()` picks, over the planes of
+an IqPair, a complex tensor or a real one (the WBFM audio resampler,
+1/25), with the tails read in place from the state: the
 concatenation [tail | x] is never built.
 """
 
@@ -29,10 +30,10 @@ import numpy as np
 import torch
 
 from qradiolink_tpu_torch.core import Block, IqPair, resolve_device
-from qradiolink_tpu_torch.ops.cuda_fir import fir_stream
 from qradiolink_tpu_torch.ops.cuda_resample import (phase_offsets,
                                                     resample_poly)
-from qradiolink_tpu_torch.ops.fir import flipped_taps, next_tail
+from qradiolink_tpu_torch.ops.fir import (combine_tap_planes, fir_planes,
+                                          flipped_taps, next_tail)
 
 
 # design_resampler_taps and kaiser_low_pass: copied verbatim (pure numpy)
@@ -81,7 +82,10 @@ class RationalResampler(Block):
     State: (..., 2, Kp-1) f32, the last Kp-1 input samples as (re, im)
     planes (Kp = per-phase tap count). Each block length T must satisfy
     T % M == 0. taps=None designs the default Kaiser low-pass
-    (design_resampler_taps); complex taps are not supported yet.
+    (design_resampler_taps). Complex taps run the same kernels once a tap
+    plane (the real part, the imaginary part), each over every input
+    plane, and combine the runs as a complex product (combine_tap_planes);
+    their output is complex for real input.
     """
 
     def __init__(self, interpolation: int, decimation: int, taps=None,
@@ -94,9 +98,6 @@ class RationalResampler(Block):
         if taps is None:
             taps = design_resampler_taps(self.L, self.M, fractional_bw)
         taps = np.asarray(taps)
-        if np.iscomplexobj(taps):
-            raise ValueError("complex taps are not supported by the port's "
-                             "RationalResampler yet")
         # pad taps to a multiple of L and split into L phases
         kp = -(-taps.shape[0] // self.L)
         padded = np.zeros(kp * self.L, dtype=taps.dtype)
@@ -104,10 +105,14 @@ class RationalResampler(Block):
         self.kp = kp
         self.lead_shape = tuple(lead_shape)
         # phase-r taps h[p_r::L] with p_r = (r*M) mod L, flipped, as the
-        # rows of one (L, kp) tensor; offsets q_r = floor(r*M/L)
-        self.poly_taps = torch.stack([
-            flipped_taps(padded[(r * self.M) % self.L::self.L], self.device)
-            for r in range(self.L)])
+        # rows of one (L, kp) tensor a tap plane (the real part, and the
+        # imaginary part of complex taps); offsets q_r = floor(r*M/L)
+        parts = (padded.real, padded.imag) if np.iscomplexobj(taps) \
+            else (padded,)
+        self.poly_tap_planes = tuple(torch.stack([
+            flipped_taps(part[(r * self.M) % self.L::self.L], self.device)
+            for r in range(self.L)]) for part in parts)
+        self.poly_taps = self.poly_tap_planes[0]
         self.phase_taps = list(self.poly_taps.unbind(0))
         self.offsets = phase_offsets(self.L, self.M)
 
@@ -116,12 +121,13 @@ class RationalResampler(Block):
                            dtype=torch.float32, device=self.device)
 
     def _decimate(self, planes, tails):
-        """L = 1: one launch over the planes, the tails read in place from
-        the state; the new state's im plane is zero for one plane."""
+        """L = 1: one launch over the planes a tap plane, the tails read in
+        place from the state; the new state's im plane is zero for one
+        plane."""
         T = planes[0].shape[-1]
         k1 = self.kp - 1
-        ys = fir_stream(planes, self.phase_taps[0], self.M, T // self.M,
-                        tails=tails)
+        ys = fir_planes(planes, [p[0] for p in self.poly_tap_planes],
+                        self.M, T // self.M, tails=tails)
         new = [next_tail(t, p, k1) for t, p in zip(tails, planes)]
         if len(new) == 1:
             new.append(torch.zeros_like(new[0]))
@@ -129,7 +135,8 @@ class RationalResampler(Block):
 
     def __call__(self, state, x):
         """One block of an IqPair, a complex tensor or a real one; the
-        output is of the input's kind."""
+        output is of the input's kind (complex for real input and complex
+        taps)."""
         T = x.shape[-1]
         if T % self.M != 0:
             raise ValueError(
@@ -144,9 +151,11 @@ class RationalResampler(Block):
             tails = tails[:1]
         if self.L > 1:
             # every phase and the new state in one launch of the routed
-            # kernel (fir_long_f32: one launch a phase)
-            new_state, ys = resample_poly(planes, self.poly_taps, self.L,
-                                          self.M, tails)
+            # kernel a tap plane (fir_long_f32: one launch a phase)
+            runs = [resample_poly(planes, taps, self.L, self.M, tails)
+                    for taps in self.poly_tap_planes]
+            new_state = runs[0][0]
+            ys = combine_tap_planes([ys for _, ys in runs])
         else:
             new_state, ys = self._decimate(planes, tails)
         if isinstance(x, IqPair):

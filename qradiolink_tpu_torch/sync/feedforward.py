@@ -1,11 +1,14 @@
-"""Feedforward (block-parallel) symbol timing (port of
-qradiolink_tpu/sync/feedforward.py: block_agc, the Oerder & Meyr timing
-estimator, the Farrow interpolator, symbol_pick and FeedforwardSymbolSync).
+"""Feedforward (block-parallel) synchronization (port of
+qradiolink_tpu/sync/feedforward.py: block_agc, the Viterbi & Viterbi
+carrier recovery, the Oerder & Meyr timing estimator, the Farrow
+interpolator, symbol_pick and FeedforwardSymbolSync).
 
-Timing is estimated per sub-block from the symbol-rate spectral line of
-|x|^2 (Oerder & Meyr 1988) and applied with a cubic-Lagrange Farrow
-fractional delay plus an integer symbol pick, so a whole block is a handful
-of reshapes, reductions and elementwise ops with no sequential loop.
+Carrier phase is estimated per sub-block from x^order (Viterbi & Viterbi
+1983) and interpolated linearly over time. Timing is estimated per
+sub-block from the symbol-rate spectral line of |x|^2 (Oerder & Meyr 1988)
+and applied with a cubic-Lagrange Farrow fractional delay plus an integer
+symbol pick, so a whole block is a handful of reshapes, reductions and
+elementwise ops with no sequential loop.
 """
 
 from __future__ import annotations
@@ -28,6 +31,67 @@ def block_agc(x: torch.Tensor, reference: float = 1.0, n_sub: int = 16,
     rms = torch.sqrt(torch.mean(torch.abs(sub) ** 2, dim=-1, keepdim=True)
                      + eps)
     return (sub * (reference / rms)).reshape(x.shape)
+
+
+def _subblock_phases(x: torch.Tensor, order: int, n_sub: int):
+    """V&V: phase of sum(x^order) per sub-block, divided by order."""
+    t = x.shape[-1]
+    lead = tuple(x.shape[:-1])
+    xm = x
+    for _ in range(int(np.log2(order))):
+        xm = xm * xm  # order is 2 or 4
+    s = torch.sum(xm.reshape(lead + (n_sub, t // n_sub)), dim=-1)
+    return torch.atan2(s.imag, s.real) / order  # (..., n_sub)
+
+
+def _unwrap(ph: torch.Tensor, period: float) -> torch.Tensor:
+    """Unwrap sub-block phase estimates: the jump corrections summed by a
+    prefix-sum tree of adds over the small sub-block axis, as the JAX
+    package does (the same additions in the same order)."""
+    corr = -torch.round((ph[..., 1:] - ph[..., :-1]) / period) * period
+    n = corr.shape[-1]
+    acc = corr
+    shift = 1
+    while shift < n:
+        pad = torch.zeros(tuple(corr.shape[:-1]) + (shift,),
+                          dtype=corr.dtype, device=corr.device)
+        acc = acc + torch.cat([pad, acc[..., :-shift]], dim=-1)
+        shift *= 2
+    return torch.cat([ph[..., :1], ph[..., 1:] + acc], dim=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _vv_tables(t: int, n_sub: int, device: torch.device):
+    """Each sample's interpolation weight between its two knots and the
+    one-hot (t, n_sub) selectors of those knots (f32, made once a
+    shape)."""
+    ls = t // n_sub
+    centers = (torch.arange(n_sub, dtype=torch.float32) + 0.5) * ls
+    tt = torch.arange(t, dtype=torch.float32)
+    seg = torch.clamp((tt - centers[0]) / ls, 0, n_sub - 1 - 1e-6)
+    i0 = torch.floor(seg)
+    ar = torch.arange(n_sub, dtype=torch.float32)
+    oh0 = (i0[:, None] == ar[None, :]).float()
+    oh1 = ((i0 + 1)[:, None] == ar[None, :]).float()
+    return tuple(v.to(device) for v in (seg - i0, oh0.T.contiguous(),
+                                         oh1.T.contiguous()))
+
+
+def vv_carrier_correct(x: torch.Tensor, order: int = 2, n_sub: int = 16):
+    """Viterbi & Viterbi carrier recovery: estimate the residual carrier
+    phase per sub-block from x^order, interpolate it linearly between the
+    sub-block centres, and derotate. x: complex (..., T), T a multiple of
+    n_sub. Returns (corrected, phases (..., n_sub)).
+
+    The knots are selected with one-hot products (torch.matmul, in full
+    f32: TF32 stays off), as the JAX package does."""
+    ph = _unwrap(_subblock_phases(x, order, n_sub), 2 * np.pi / order)
+    frac, oh0, oh1 = _vv_tables(x.shape[-1], int(n_sub), x.device)
+    p0 = torch.matmul(ph, oh0)
+    p1 = torch.matmul(ph, oh1)
+    phase_t = p0 + frac * (p1 - p0)
+    rot = torch.complex(torch.cos(phase_t), -torch.sin(phase_t))
+    return x * rot, ph
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,5 +1,15 @@
-"""Which path served each kernel call (counterpart of
-qradiolink_tpu/utils/profiling.py PallasPathRecorder).
+"""Tracing and profiling hooks (port of qradiolink_tpu/utils/profiling.py):
+
+  with trace("build/qrl-trace"):      # torch.profiler trace of a step
+      step(state, iq)
+
+  with annotate("front-half"):        # a named region inside a trace
+      ...
+
+  stats = step_timer(step, state, iq)   # fenced step time and throughput
+
+and which path served each kernel call (KernelPathRecorder, the
+counterpart of the JAX package's PallasPathRecorder).
 
 Every kernel wrapper records each call: `launched=True` where it launches
 its CUDA kernel (and only there), `launched=False` where it took the plain
@@ -18,6 +28,63 @@ stride for the FIR), so a report shows which stage went through which path.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block under torch.profiler (the CPU, and the card where
+    there is one) and write its Chrome trace to logdir/trace.json, for
+    chrome://tracing or Perfetto."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """A named region inside an active trace."""
+    return torch.profiler.record_function(name)
+
+
+def step_timer(fn, *args, iters: int = 10, samples_per_step: int = 0):
+    """Time fn(*args): one warm-up call, then `iters` calls between CUDA
+    events on the current stream where the outputs lie on a card, or on
+    the host clock otherwise. Returns {"step_ms"} and, when
+    samples_per_step is given, {"samples_per_s"}."""
+    from qradiolink_tpu_torch.core import tree_map
+
+    leaves = []
+    tree_map(leaves.append, fn(*args))
+    cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in leaves)
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        dt = (time.perf_counter() - t0) / iters
+    res = {"step_ms": dt * 1e3}
+    if samples_per_step:
+        res["samples_per_s"] = samples_per_step / dt
+    return res
 
 
 class KernelPathRecorder:

@@ -87,3 +87,21 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_scale_out_entry_points_need_cuda_or_a_device(monkeypatch):
+    """A rank runs on the card unless the caller names its device: with no
+    card and no device, init_process raises before it joins a group, and
+    so do the mesh's device and a MultichannelRx."""
+    from qradiolink_tpu_torch.parallel import multihost, sharding
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.init_process("127.0.0.1:1", 2, 0, backend="gloo")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.rank_device()
+    assert sharding.rank_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.MultichannelRx(8, [])
+    with pytest.raises(RuntimeError, match="init_process"):
+        sharding.make_mesh(device="cpu")
