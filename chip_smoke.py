@@ -277,12 +277,15 @@ when the package cannot be imported, and when any phase fails:
 23. MMDVMmulti at its real size: one site, 7 carriers, 250,000 samples a
     step at 250 ksps, 3 steps, the TX (MmdvmMultiTx, IqPair out) into the
     RX on IqPair planes, every launch as chain_launches gives it:
-    pfb_channelize_f32 at M 10 and depthwise_fir_f32 at the synthesizer's
-    kp 53 once a step (pfb_fft_f32 and depthwise_run_f32 never); each
-    carrier's tone SNR above 25 dB, carrier 0's tone below 10 dB in
-    carrier 3, a mask zeroing carrier 1 of 3 below 1e-4 of the others' RF
-    power (tests/test_chains_mmdvm.py); the two kernels at M 10 against
-    their plain versions;
+    pfb_fft_f32 at M 10, kp 56 and depthwise_run_f32 at the synthesizer's
+    kp 53 once a step (pfb_channelize_f32 and depthwise_fir_f32, which
+    served those shapes before, never); each carrier's tone SNR above 25
+    dB, carrier 0's tone below 10 dB in carrier 3, a mask zeroing carrier
+    1 of 3 below 1e-4 of the others' RF power (tests/test_chains_mmdvm.py);
+    the two kernels at one site, and at a farm of 64 sites, against their
+    plain versions and, in turns, the kernels they replaced (K5 within
+    1e-5 of the plain version's peak, K4 bit-equal over two chained
+    blocks), beside the launch floor and, for K4, F.conv1d;
 24. the sweep: every other new mode at 256 rows x 2 steps through the
     registry's TX and RX chains, every launch as chain_launches gives it
     (the data modes each row's own payload, seeded on the CPU, long enough
@@ -350,7 +353,9 @@ when the package cannot be imported, and when any phase fails:
     CPU run's, the TX IQ within the parity tests' bound and the gated
     masks equal, the launches the CPU's calls; ms a block and the
     real-time factor for RX and TX; a row for each FIR and resampler shape
-    and, for MMDVMmulti, K5 and K4 at the block's shape; (c) IP-over-radio:
+    and, for MMDVMmulti, K5 and K4 at the block's shape (pfb_fft_f32 and
+    depthwise_run_f32 once a block, the kernels they replaced never, the
+    two in turns); (c) IP-over-radio:
     NetPump(LoopbackNetDevice(), "QPSK250K") -> tx_net_poll -> the same
     controller's RX gives the three payloads back (no TUN/TAP device), on
     the card and on the CPU (in a spawned process while the card runs and
@@ -3797,9 +3802,10 @@ def chain_launches(chain, rows, T=0):
         fir(c.chan_filter, 2, n=c.C)
         rs(c.resamp, 2, n=c.C)
         M, kp = c.synthesizer._bt_flipped.shape
-        w[(dw.OP, f"C{M} kp{kp} tail")] += 1
+        w[(dw.route(kp), f"C{M} kp{kp} tail")] += 1
     elif isinstance(c, mmdvm.MmdvmMultiRx):
-        w[(cuda_pfb.OP, f"M{c.channelizer.M} kp{c.channelizer.kp}")] += 1
+        M, kp = c.channelizer.M, c.channelizer.kp
+        w[(cuda_pfb.route(M, kp), f"M{M} kp{kp}")] += 1
         rs(c.resamp, 2, n=c.C)
         fir(c.chan_filter, 2, n=c.C)
     elif isinstance(c, mmdvm.MmdvmDemod):
@@ -4668,13 +4674,14 @@ def mmdvm_multi_path(dev, gen, done):
     (MmdvmMultiTx, IqPair out) on a tone a carrier, then MmdvmMultiRx on
     the IqPair (the fused channelizer), the counters zeroed before the
     first step and read after the last, every launch as chain_launches
-    gives it: pfb_channelize_f32 at M 10 and depthwise_fir_f32 at the
-    synthesizer's kp once a step each, depthwise_run_f32 and pfb_fft_f32
-    never. Gates of tests/test_chains_mmdvm.py: each carrier's tone SNR
-    above 25 dB after 4,000 samples, carrier 0's tone below 10 dB in
-    carrier 3; a mask zeroing carrier 1 of 3 leaves its RF power below
-    1e-4 of the others'. Then pfb_channelize_f32 and depthwise_fir_f32
-    against their plain versions at M 10 (rows). Returns (report, rows)."""
+    gives it: pfb_fft_f32 at M 10, kp 56 and depthwise_run_f32 at the
+    synthesizer's kp 53 once a step each, pfb_channelize_f32 and
+    depthwise_fir_f32 never. Gates of tests/test_chains_mmdvm.py: each
+    carrier's tone SNR above 25 dB after 4,000 samples, carrier 0's tone
+    below 10 dB in carrier 3; a mask zeroing carrier 1 of 3 leaves its RF
+    power below 1e-4 of the others'. Then the two kernels at one site and
+    at the farm shape against their plain versions and the kernels they
+    replaced (mmdvm_pfb_rows). Returns (report, rows)."""
     from qradiolink_tpu_torch.chains.mmdvm import MmdvmMultiTx
     from qradiolink_tpu_torch.models import registry
     from qradiolink_tpu_torch.ops import cuda_depthwise as dw
@@ -4693,12 +4700,14 @@ def mmdvm_multi_path(dev, gen, done):
     report = run_report("mmdvm_multi", N_STEPS)
     M, kp_ch, kp_syn = (rx.channelizer.M, rx.channelizer.kp,
                         tx.synthesizer.kp)
-    if cuda_pfb.route(M, kp_ch) != cuda_pfb.OP or dw.route(kp_syn) != dw.OP:
+    if (cuda_pfb.route(M, kp_ch), dw.route(kp_syn)) != (cuda_pfb.FFT_OP,
+                                                        dw.RUN_OP):
         raise RuntimeError(f"MMDVMmulti routes: {cuda_pfb.route(M, kp_ch)}, "
                            f"{dw.route(kp_syn)}")
     want = times(chain_launches(rx, 1, MMDVM_T) + chain_launches(tx, 1),
                  N_STEPS)
     require_exactly(report, want, "mmdvm_multi")
+    replaced_not_launched("mmdvm_multi", report)
     for y in outs:
         finite("MMDVMmulti", y)
     print(f"  RX {step_times(step_s, MMDVM_T)} (one site, {MULTI_C} "
@@ -4734,62 +4743,201 @@ def mmdvm_multi_path(dev, gen, done):
     rows = captured_rows(seen, want, "mmdvm_multi", done, dev, gen)
     pfb_rows = mmdvm_pfb_rows(rx.channelizer, tx.synthesizer, dev, gen)
     for r in pfb_rows:
-        r["want"] = want[(r["name"].split("/")[0], r["shape"])]
+        if r["path"] is not None:
+            r["want"] = want[(r["name"].split("/")[0], r["shape"])]
     return report, rows + pfb_rows
 
 
-def mmdvm_pfb_rows(ch, syn, dev, gen, T=MMDVM_T, run="mmdvm_multi"):
-    """pfb_channelize_f32 at the MMDVMmulti channelizer's shape (M 10, its
-    kp, T samples) within 1e-5 of the plain version's peak, and
-    depthwise_fir_f32 at the synthesizer's (10 rows, kp, the tails read in
-    place, T / 10 outputs) within the FIR's bound of its plain version,
-    F.conv1d(groups=10) beside it; the rows of the `run` path."""
+def replaced_not_launched(run, report):
+    """MMDVMmulti's channelizer and synthesizer shapes on the kernels that
+    served them before their redesign: none in the run's report."""
     from qradiolink_tpu_torch.ops import cuda_depthwise as dw
     from qradiolink_tpu_torch.ops import cuda_pfb
+
+    for op, key in ((cuda_pfb.OP, "cuda M10 kp56"),
+                    (dw.OP, "cuda C10 kp53 tail")):
+        n = report.get(op, {}).get("shapes", {}).get(key, 0)
+        if n:
+            raise RuntimeError(f"{run}: {op} launched {n} times at {key}")
+
+
+MMDVM_FARM = 64            # sites of the farm shape: the blocks' lead_shape
+
+
+def mmdvm_pfb_rows(ch, syn, dev, gen, T=MMDVM_T, run="mmdvm_multi"):
+    """MMDVMmulti's two kernels at the shape of a `run` step or block (T
+    samples at one site) and, at the one-site shape, again at a farm of
+    MMDVM_FARM sites (lead shape (64,), which no chain runs): K5
+    (pfb_fft_f32 at M 10, kp 56) within 1e-5 of the plain version's peak
+    and of pfb_channelize_f32's output, which served the shape before; K4
+    (depthwise_run_f32 at the synthesizer's kp 53, the tails read in place)
+    over two chained blocks through PfbSynthesizer._branches, outputs and
+    state equal bit for bit to the route it had (the concatenation, then
+    depthwise_fir_f32) and within the FIR's bound of the plain version,
+    F.conv1d(groups=10) beside it. Each new kernel timed in turns with the
+    old one (K4's old route with its two concatenations, as it ran, and
+    its kernel alone), the empty kernel's launch floor beside; K4's run
+    count (the grid covering the card) in turns with the count it had (at
+    most one run a tile).
+    Returns the rows: the new kernels' on the `run` path, the old ones' and
+    the farm's with no path."""
+    rows = []
+    tag = run if T == MMDVM_T else f"{run} T{T}"
+    rows += k5_rows(ch, dev, gen, T, (), run, tag)
+    rows += k4_rows(syn, dev, gen, T // ch.M, (), run, tag)
+    if T == MMDVM_T:
+        lead = (MMDVM_FARM,)
+        rows += k5_rows(ch, dev, gen, T, lead, run, f"{tag} farm")
+        torch.cuda.empty_cache()
+        rows += k4_rows(syn, dev, gen, T // ch.M, lead, run, f"{tag} farm")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def launch_floor(dev):
+    """The median device time of an empty kernel's launch, in ms."""
+    from qradiolink_tpu_torch.ops import cuda_resample
+
+    return cuda_ms(lambda: cuda_resample.empty_launch(dev))
+
+
+def k5_rows(ch, dev, gen, T, lead, run, tag):
+    """K5 at M 10, kp 56 on lead + (T,) IqPair planes: pfb_fft_f32 (the
+    route) and pfb_channelize_f32 against the plain version, each within
+    1e-5 of its peak, timed in turns; rows for both (the old one with no
+    path; the farm's rows, lead not (), with no path either)."""
+    from qradiolink_tpu_torch.ops import cuda_pfb
     from qradiolink_tpu_torch.ops.cuda_pfb import channelize_plain
-    import torch.nn.functional as F
 
     M, kp = ch.M, ch.kp
     Tm = T // M
-    xs = tuple(torch.randn((T,), generator=gen, device=dev) * 0.1
+    new, old = cuda_pfb.route(M, kp), cuda_pfb.OP
+    if new != cuda_pfb.FFT_OP:
+        raise RuntimeError(f"M{M} kp{kp} routes to {new}")
+    xs = tuple(torch.randn(lead + (T,), generator=gen, device=dev) * 0.1
                for _ in range(2))
-    hist = torch.randn((2, kp * M), generator=gen, device=dev) * 0.1
+    hist = torch.randn(lead + (2, kp * M), generator=gen, device=dev) * 0.1
     got = cuda_pfb.channelize(xs, hist, ch._ct, ch._dft)
+    was = cuda_pfb._launch(xs, hist, ch._ct, ch._dft)
     plain = channelize_plain(xs, hist, ch._ct)
-    err = peak_err(f"{cuda_pfb.OP} M{M}", got, plain, 1e-5)
-    ms = cuda_ms(lambda: cuda_pfb.channelize(xs, hist, ch._ct, ch._dft))
+    err = peak_err(f"{new} M{M} {tag}", got, plain, 1e-5)
+    old_err = peak_err(f"{old} M{M} {tag}", was, plain, 1e-5)
+    peak_err(f"{new} against {old} M{M} {tag}", got, was, 1e-5)
+    del got, was, plain
+    ms, turns = turns_ms({
+        old: lambda: cuda_pfb._launch(xs, hist, ch._ct, ch._dft),
+        new: lambda: cuda_pfb.channelize(xs, hist, ch._ct, ch._dft)})
+    floor_ms = launch_floor(dev)
     plain_ms = cuda_ms(lambda: channelize_plain(xs, hist, ch._ct))
-    b = bound(4 * (2 * Tm * M + 2 * kp * M + 2 * M * Tm + (kp + 1) * M),
-              2 * (kp + 1) * 2 * Tm * M + 8 * M * M * Tm)
-    tag = run if T == MMDVM_T else f"{run} T{T}"
-    rows = [row(f"{cuda_pfb.OP}/{tag}",
-                "qradiolink_tpu_torch/csrc/pfb.cu",
-                "qradiolink_tpu/ops/pallas_pfb.py:186", err, ms, plain_ms, b,
-                None, run, f"M{M} kp{kp}")]
+    B = math.prod(lead)
+    # the planes in and out, the history and the taps; the column FIR's
+    # FMAs and the DFT at an FFT's cost, 5 M log2 M flops a row of M
+    b = bound(4 * (B * (2 * Tm * M + 2 * kp * M + 2 * M * Tm) + (kp + 1) * M),
+              B * (2 * (kp + 1) * 2 * Tm * M + 5 * M * np.log2(M) * Tm))
+    print(f"  K5 M{M} kp{kp} {tag} ({B} x {T} samples) in turns: "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in turns)
+          + f"; launch floor {floor_ms:.4f} ms; bound {b[0]:.4f} ms, "
+          f"{new} at {100 * b[0] / ms[new]:.1f}% of it ({CARD})", flush=True)
+    replaces = "qradiolink_tpu/ops/pallas_pfb.py:186"
+    shape = f"M{M} kp{kp}" + (f" lead {lead}" if lead else "")
+    return [row(f"{new}/{tag}", "qradiolink_tpu_torch/csrc/pfb_fft.cu",
+                replaces, err, ms[new], plain_ms, b, None, run, shape,
+                routed=not lead),
+            row(f"{old}/{tag}", "qradiolink_tpu_torch/csrc/pfb.cu", replaces,
+                old_err, ms[old], plain_ms, b, None, run, shape,
+                routed=False)]
+
+
+def k4_rows(syn, dev, gen, Tm, lead, run, tag):
+    """K4 at the synthesizer's 10 rows and kp 53, lead + (10, Tm) planes
+    with the (..., 2, 10, 52) state: two chained blocks through
+    PfbSynthesizer._branches (depthwise_run_f32, the tails read in place)
+    and the route it had (two concatenations, then depthwise_fir_f32),
+    outputs and new state equal bit for bit, each output within the FIR's
+    bound of the plain version; then the two routes' FIR calls (the old
+    one with its concatenations, and its kernel alone) timed in turns, and
+    depthwise_run_f32 at its own run count in turns with the count its
+    launcher took before (at most one run a tile), where the two differ;
+    F.conv1d(groups=10) beside."""
+    from qradiolink_tpu_torch.ops import cuda_depthwise as dw
+    import torch.nn.functional as F
+
     tf = syn._bt_flipped
-    C, kps = tf.shape
-    st = torch.randn((2, C, kps - 1), generator=gen, device=dev)
-    tails = (st[0], st[1])
-    ws = tuple(torch.randn((C, Tm), generator=gen, device=dev)
-               for _ in range(2))
-    key = f"C{C} kp{kps} tail"
-    got = dw.depthwise_fir(ws, tf, Tm, tails=tails)
+    C, kp = tf.shape
+    k1 = kp - 1
+    if dw.route(kp) != dw.RUN_OP:
+        raise RuntimeError(f"kp{kp} routes to {dw.route(kp)}")
+    key = f"C{C} kp{kp} tail"
+
+    def old_branches(state, wre, wim):
+        wc = [torch.cat([state[..., p, :, :], x], -1)
+              for p, x in enumerate((wre, wim))]
+        vr, vi = dw._launch_fir(wc, tf, Tm, key)
+        return torch.stack([c[..., -k1:] for c in wc], -3), vr, vi
+
+    state = torch.randn(lead + (2, C, k1), generator=gen, device=dev)
+    err = 0.0
+    for blk in range(2):
+        ws = [torch.randn(lead + (C, Tm), generator=gen, device=dev)
+              for _ in range(2)]
+        got, want = syn._branches(state, *ws), old_branches(state, *ws)
+        if not all(torch.equal(g, o) for g, o in zip(got, want)):
+            raise RuntimeError(f"{dw.RUN_OP} {tag} block {blk}: outputs or "
+                               f"state not bit-equal to {dw.OP}'s route")
+        tails = (state[..., 0, :, :], state[..., 1, :, :])
+        err = max(err, check_fir(f"{dw.RUN_OP} {tag} block {blk}", got[1:],
+                                 dw.depthwise_fir_plain(ws, tf, Tm, tails)))
+        state = got[0]
+    print(f"  {dw.RUN_OP}/{tag}: 2 chained blocks bit-equal to {dw.OP} on "
+          f"the concatenation, state too", flush=True)
+    tails = (state[..., 0, :, :], state[..., 1, :, :])
+    xcat = torch.stack([torch.cat([t, w], -1) for t, w in zip(tails, ws)])
+    w = tf.reshape(C, 1, kp)
+    lib_in = xcat.reshape(-1, C, Tm + k1)
     plain = dw.depthwise_fir_plain(ws, tf, Tm, tails)
-    err = check_fir(f"{dw.OP} synth M{M}", got, plain)
-    xcat = torch.stack([torch.cat([t_, w], -1) for t_, w in zip(tails, ws)])
-    w = tf.reshape(C, 1, kps)
-    check_fir(f"F.conv1d groups synth M{M}", F.conv1d(xcat, w, groups=C
-                                                      ).unbind(0), plain)
-    ms = cuda_ms(lambda: dw.depthwise_fir(ws, tf, Tm, tails=tails))
+    check_fir(f"F.conv1d groups {tag}", F.conv1d(lib_in, w, groups=C)
+              .reshape(xcat.shape[:-1] + (Tm,)).unbind(0), plain)
+    del plain
+    rows_n = math.prod(lead) * C
+    runs = dw.run_count(rows_n, kp, Tm, 2, dev)
+    # the count the launcher took first: at most one run a tile of 2,048
+    tile_runs = min(runs, -(-Tm // 2048))
+    xcat_planes = tuple(xcat.unbind(0))
+    alone = f"{dw.OP} alone"
+    ms, turns = turns_ms({
+        dw.OP: lambda: dw._launch_fir(tuple(torch.cat([t, x], -1) for t, x
+                                            in zip(tails, ws)), tf, Tm, key),
+        alone: lambda: dw._launch_fir(xcat_planes, tf, Tm, key),
+        dw.RUN_OP: lambda: dw.depthwise_fir(ws, tf, Tm, tails=tails)})
+    run_turns = [(f"{runs} runs, as one run a tile gave too", ms[dw.RUN_OP])]
+    if tile_runs != runs:
+        _, run_turns = turns_ms({
+            f"{tile_runs} runs": lambda: dw._launch_run(
+                ws, tf, Tm, tails, key, runs=tile_runs),
+            f"{runs} runs": lambda: dw._launch_run(ws, tf, Tm, tails, key)})
+    floor_ms = launch_floor(dev)
     plain_ms = cuda_ms(lambda: dw.depthwise_fir_plain(ws, tf, Tm, tails))
-    lib_ms = cuda_ms(lambda: F.conv1d(xcat, w, groups=C))
-    b = bound(4 * (2 * C * (Tm + kps - 1) + 2 * C * Tm + C * kps),
-              2 * kps * 2 * C * Tm)
-    rows.append(row(f"{dw.OP}/{tag}",
-                    "qradiolink_tpu_torch/csrc/depthwise.cu",
-                    "qradiolink_tpu/ops/pallas_fir.py:401", err, ms,
-                    plain_ms, b, lib_ms, run, key))
-    return rows
+    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, groups=C))
+    b = bound(4 * (2 * rows_n * (Tm + k1) + 2 * rows_n * Tm + C * kp),
+              2 * kp * 2 * rows_n * Tm)
+    print(f"  K4 C{C} kp{kp} {tag} ({rows_n} rows x {Tm} outputs) in turns: "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in turns)
+          + f" ({dw.OP} with its two concatenations, and alone on them); "
+          f"{dw.RUN_OP} by runs a "
+          f"row-plane, in turns: " + ", ".join(
+              f"{k} {t:.4f} ms" for k, t in run_turns)
+          + f"; launch floor {floor_ms:.4f} ms; F.conv1d(groups={C}) "
+          f"{lib_ms:.4f} ms; bound {b[0]:.4f} ms, {dw.RUN_OP} at "
+          f"{100 * b[0] / ms[dw.RUN_OP]:.1f}% of it ({CARD})", flush=True)
+    replaces = "qradiolink_tpu/ops/pallas_fir.py:401"
+    shape = key + (f" lead {lead}" if lead else "")
+    return [row(f"{dw.RUN_OP}/{tag}",
+                "qradiolink_tpu_torch/csrc/depthwise_run.cu", replaces, err,
+                ms[dw.RUN_OP], plain_ms, b, lib_ms, run, shape,
+                routed=not lead),
+            row(f"{dw.OP}/{tag}", "qradiolink_tpu_torch/csrc/depthwise.cu",
+                replaces, err, ms[dw.OP], plain_ms, b, lib_ms, run, shape,
+                routed=False)]
 
 
 def fft_route_phase(dev, gen):
@@ -6237,10 +6385,13 @@ def mmdvm_headless_phase(has_zmq, dev, gen, done):
         if C > 1:
             rx = mmdvm.MmdvmMultiRx(C, device=dev)
             tx = mmdvm.MmdvmMultiTx(C, device=dev)
+            replaced_not_launched(run, report)
             pfb = mmdvm_pfb_rows(rx.channelizer, tx.synthesizer, dev, gen,
                                  T=MMDVM_BLOCK, run=run)
             for r in pfb:
-                r["want"] = launched[(r["name"].split("/")[0], r["shape"])]
+                if r["path"] is not None:
+                    r["want"] = launched[(r["name"].split("/")[0],
+                                          r["shape"])]
             rows += pfb
         torch.cuda.empty_cache()
     return reports, rows, figs

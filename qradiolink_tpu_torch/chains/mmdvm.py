@@ -20,8 +20,8 @@ caller: a mask a sample, applied by the TX chains.
 
 On CUDA the resamplers and FIRs run the kernels `ops/cuda_fir.route` and
 `ops/cuda_resample.route` pick; the channelizer on IqPair input
-`pfb_channelize_f32` (`ops/cuda_pfb.route` at M 10), the synthesizer's
-branch FIRs `depthwise_fir_f32` (`ops/cuda_depthwise.route` at kp 53); the
+`pfb_fft_f32` (`ops/cuda_pfb.route` at M 10, kp 56), the synthesizer's
+branch FIRs `depthwise_run_f32` (`ops/cuda_depthwise.route` at kp 53); the
 gather, the scatter, the demod and the rssi are plain PyTorch.
 """
 

@@ -4,7 +4,13 @@
 // Replaces the Pallas TPU kernel of qradiolink_tpu/ops/pallas_fir.py
 // `depthwise_fir` -> `_depthwise_call` (pallas_fir.py:401), which runs the
 // PFB channelizer's branch filters (here: on complex input) and the PFB
-// synthesizer's branch filters.
+// synthesizer's branch filters, at every kp that csrc/depthwise_run.cu
+// (depthwise_run_f32) has no instance for (ops/cuda_depthwise.route). No
+// registry path runs it: MMDVMmulti's synthesizer (kp 53), its last path,
+// went to depthwise_run_f32, whose tail form reads the tails
+// in place; here the tail form is a concatenation first (two launches),
+// and each block stages its span behind one barrier with 4-byte loads
+// and tests bounds at every FMA. chip_smoke.py times the two in turns.
 //
 // Function, for row r of a (rows, Tc) plane, with tf the flipped taps of
 // that row's filter c = r mod C (tf[c][j] = taps[c][kp-1-j]):

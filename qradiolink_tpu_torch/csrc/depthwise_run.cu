@@ -1,14 +1,15 @@
 // depthwise_run_f32: stride-1 FIR with its own taps on every row, over one
 // or two f32 planes, each block walking a contiguous run of one row with
 // the row's taps in registers and its samples staged asynchronously; for
-// kp in {23, 24} taps a row.
+// kp in {23, 24, 53} taps a row.
 //
 // Replaces the Pallas TPU kernel of qradiolink_tpu/ops/pallas_fir.py
 // `depthwise_fir` -> `_depthwise_call` (pallas_fir.py:401) at those kp: the
-// PFB synthesizer's branch filters (kp 23 at M 8-64 with default taps) and
-// the channelizer's on complex input (kp 24, rounded up to a multiple of
-// 8). Every other kp stays on csrc/depthwise.cu (depthwise_fir_f32), and
-// ops/cuda_depthwise.route() says which kernel takes a call.
+// PFB synthesizer's branch filters (kp 23 at M 8-64 with default taps; kp
+// 53 in MMDVMmulti's synthesizer, M 10) and the channelizer's on complex
+// input (kp 24, rounded up to a multiple of 8). Every other kp stays on
+// csrc/depthwise.cu (depthwise_fir_f32), and ops/cuda_depthwise.route()
+// says which kernel takes a call.
 //
 // Function, for row r with tf the flipped taps of its filter c = r mod C
 // (tf[c][j] = taps[c][kp-1-j]), over the virtual row xc = [halo (kp-1) |
@@ -28,13 +29,20 @@
 // 80GB HBM3 at 700 W (chip_smoke.py). csrc/depthwise.cu took 0.071 ms:
 // 25,088 blocks, each staging its span with 4-byte loads behind one
 // barrier (no overlap within a block), 5 shared loads and a bounds test
-// for every 4 FMAs, 4-byte stores.
+// for every 4 FMAs, 4-byte stores. At kp 53 (MMDVMmulti, 10 rows) one site
+// moves 4 MB (0.0012 ms) and 64 sites 256 MB (0.076 ms) against 3.4 GFLOP
+// (0.051 ms): still bytes-bound, but the FMAs are two thirds of it, so the
+// inner loop must stay FMA-dense (4 kp FMAs to kp/4 + 1 shared loads).
 //
 // Design, after csrc/pfb_fft.cu: a grid of (plane, row, run) blocks of 128
-// threads, runs = the blocks the card holds over planes x rows (at least
-// 2 an SM; 128 row-planes alone would be under one), each run a contiguous
-// range of the row's outputs that starts at a multiple of 4. A block walks
-// its run in tiles of kTT = 2048 outputs:
+// threads, each run a contiguous range of the row's outputs that starts at
+// a multiple of 4. Runs: the blocks the card holds over planes x rows (at
+// least 2 an SM; 128 row-planes alone would be under one), at most one a
+// kSubTT = 512 outputs (one group of 4 a thread). A short row therefore
+// still spreads over the card: 10 rows x 2 planes x 3,000 outputs (the
+// headless MMDVMmulti block) run as 6 runs a row-plane, 120 blocks that
+// cover the card once, where a cap of one run a tile gave 40. A block
+// walks its run in tiles of kTT = 2048 outputs:
 //   * Staging: a ring of 2 stages, each [halo room | tile body]. The next
 //     tile's body is copied with 16-byte cp.async while this tile computes
 //     (one tile ahead: in pfb_fft_f32 a ring of 2 stages measured faster
@@ -56,6 +64,10 @@
 //     window feeds output o with tap s - o: kp + 3 samples, 4 kp FMAs and
 //     one 16-byte store for 4 outputs (4-byte stores on a row that is not
 //     16-byte aligned).
+//   * Registers: the kp taps and the window of kp + 3 samples stay in
+//     registers (about 2 kp + 10). At kp <= 32 the block asks for 4 blocks
+//     an SM (128 registers a thread); at kp 53 for 2 (up to 255), so that
+//     ptxas does not spill, and the SM holds what the registers allow.
 // Sum order: each output accumulates tf[0], tf[1], ..., tf[kp-1] in order
 // with fmaf from 0.0f, depthwise_fir_f32's order, so the two kernels'
 // outputs are equal bit for bit (chip_smoke.py checks this).
@@ -68,7 +80,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kR = 4;                        // outputs a thread at once
 constexpr int kSub = 4;                      // groups of kR a thread a tile
-constexpr int kTT = kThreads * kR * kSub;    // outputs a tile
+constexpr int kSubTT = kThreads * kR;       // outputs of one group a thread
+constexpr int kTT = kSubTT * kSub;           // outputs a tile
 constexpr int kStages = 2;                   // staging ring
 constexpr int kMaxDev = 64;
 
@@ -83,6 +96,11 @@ __host__ __device__ constexpr int stage_words(int KP) {
 }
 __host__ __device__ constexpr int smem_bytes(int KP) {
     return 4 * kStages * stage_words(KP);
+}
+// blocks an SM the instance asks registers for: 4 (128 registers a thread)
+// while the taps and window fit, 2 (up to 255) above kp 32
+__host__ __device__ constexpr int min_blocks(int KP) {
+    return KP > 32 ? 2 : 4;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -188,7 +206,7 @@ struct Args {
 };
 
 template <int KP>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, min_blocks(KP))
 depthwise_run_kernel(const Args a, int runs) {
     constexpr int SW = stage_words(KP);
     constexpr int HB = halo_room(KP);
@@ -257,51 +275,65 @@ depthwise_run_kernel(const Args a, int runs) {
     }
 }
 
-// Launches the instance on `a`. The first call on a device sets the
-// shared-memory attribute and reads the occupancy and the SM count.
+// The run count on a device where an SM holds `held` blocks of the
+// instance: the blocks the card holds over the lanes (row-planes), at least
+// 1 and at most one a kSubTT outputs.
+long long auto_runs(int held, int sms, long long lanes, int n_out) {
+    const long long cap = (n_out + kSubTT - 1) / kSubTT;
+    const long long runs = held * (long long)sms / lanes;
+    return runs < 1 ? 1 : (runs > cap ? cap : runs);
+}
+
+// Launches the instance on `a` with `runs` runs a row-plane (0: auto_runs).
+// The first call on a device sets the shared-memory attribute and reads
+// the occupancy and the SM count; `plan_only` returns the run count that a
+// launch would use and launches nothing.
 template <int KP>
-int launch(const Args& a) {
+long long launch(const Args& a, int runs_asked, bool plan_only) {
     static int held[kMaxDev], sms[kMaxDev];  // 0 until read
     constexpr int smem = smem_bytes(KP);
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev >= kMaxDev) return (int)cudaErrorInvalidDevice;
+    if (e != cudaSuccess) return -(long long)e;
+    if (dev >= kMaxDev) return -(long long)cudaErrorInvalidDevice;
     if (held[dev] == 0) {
         if (smem > 48 * 1024 &&
             (e = cudaFuncSetAttribute(
                  depthwise_run_kernel<KP>,
                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
                 cudaSuccess)
-            return (int)e;
+            return -(long long)e;
         if ((e = cudaDeviceGetAttribute(&sms[dev],
                                         cudaDevAttrMultiProcessorCount,
                                         dev)) != cudaSuccess)
-            return (int)e;
+            return -(long long)e;
         int n = 0;
         if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                  &n, depthwise_run_kernel<KP>, kThreads, smem)) !=
             cudaSuccess)
-            return (int)e;
+            return -(long long)e;
         held[dev] = n > 0 ? n : 1;
     }
     const long long lanes = (long long)a.rows * a.planes;
-    const int tiles = (a.n_out + kTT - 1) / kTT;
-    long long runs = held[dev] * (long long)sms[dev] / lanes;
-    runs = runs < 1 ? 1 : (runs > tiles ? tiles : runs);
-    if (lanes * runs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const long long runs = runs_asked > 0
+                               ? runs_asked
+                               : auto_runs(held[dev], sms[dev], lanes,
+                                           a.n_out);
+    if (lanes * runs > 0x7fffffffLL) return -(long long)cudaErrorInvalidValue;
+    if (plan_only) return runs;
     depthwise_run_kernel<KP><<<(unsigned)(lanes * runs), kThreads, smem,
                                a.stream>>>(a, (int)runs);
-    return (int)cudaGetLastError();
+    return -(long long)cudaGetLastError();
 }
 
-using Launch = int (*)(const Args&);
+using Launch = long long (*)(const Args&, int, bool);
 
 // The instance for kp, null for a kp the kernel does not take.
 Launch pick(int kp) {
     switch (kp) {
         case 23: return launch<23>;
         case 24: return launch<24>;
+        case 53: return launch<53>;
     }
     return nullptr;
 }
@@ -314,22 +346,39 @@ extern "C" {
 // adjacent floats; b0/b1: the body, n_out adjacent floats, likewise; taps:
 // contiguous (C, kp) flipped taps, row r using taps row r mod C; y0/y1:
 // contiguous (rows, n_out). rows = (leading size) * C; planes 1 or 2 (the
-// *1 pointers are read only for 2). Returns a CUDA error code, 0 after a
+// *1 pointers are read only for 2); runs: the runs a row-plane, 0 for the
+// launcher's own choice (auto_runs). Returns a CUDA error code, 0 after a
 // clean launch.
 int depthwise_run_f32(const void* h0, const void* h1, long long h_outer,
                       int h_inner, const void* b0, const void* b1,
                       long long b_outer, int b_inner,
                       const void* taps_flipped, void* y0, void* y1, int rows,
-                      int C, int kp, int n_out, int planes, void* stream) {
+                      int C, int kp, int n_out, int planes, int runs,
+                      void* stream) {
     const Launch f = pick(kp);
     if (f == nullptr || rows < 1 || C < 1 || rows % C || n_out < 1 ||
-        planes < 1 || planes > 2)
+        planes < 1 || planes > 2 || runs < 0)
         return (int)cudaErrorInvalidValue;
     const Args a = {(const float*)h0, (const float*)h1, h_outer, h_inner,
                     (const float*)b0, (const float*)b1, b_outer, b_inner,
                     (const float*)taps_flipped, (float*)y0, (float*)y1,
                     rows, C, n_out, planes, (cudaStream_t)stream};
-    return f(a);
+    return (int)-f(a, runs, false);
+}
+
+// The runs a row-plane that depthwise_run_f32 chooses for this shape on
+// the current device (reading the device as a first launch does), or minus
+// a CUDA error code.
+long long depthwise_run_runs(int rows, int kp, int n_out, int planes) {
+    const Launch f = pick(kp);
+    if (f == nullptr || rows < 1 || n_out < 1 || planes < 1 || planes > 2)
+        return -(long long)cudaErrorInvalidValue;
+    Args a = {};
+    a.rows = rows;
+    a.C = 1;
+    a.n_out = n_out;
+    a.planes = planes;
+    return f(a, 0, true);
 }
 
 const char* depthwise_run_error_string(int err) {

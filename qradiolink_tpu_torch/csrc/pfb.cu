@@ -3,7 +3,11 @@
 // B streams of f32 (re, im) planes with a carried raw-history state.
 //
 // Replaces the Pallas TPU kernel of qradiolink_tpu/ops/pallas_pfb.py
-// `channelize` -> `_fused_call` (pallas_pfb.py:186). Its lane packing
+// `channelize` -> `_fused_call` (pallas_pfb.py:186) at the shapes that
+// csrc/pfb_fft.cu (pfb_fft_f32) has no instance for; ops/cuda_pfb.route()
+// says which kernel takes a call. No registry path runs it: MMDVMmulti's
+// channelizer (M 10, kp 56), its last path, went to pfb_fft_f32, and
+// chip_smoke.py times the two there in turns. Its lane packing
 // (`_pack`, the g_str/fold plan) exists only because Mosaic cannot copy
 // windows narrower than 128 lanes; here rows of the input are contiguous
 // memory and nothing is packed.
@@ -44,7 +48,16 @@
 //   3. DFT stage 1, one thread per (p1, row), into z over the staged rows'
 //      space, and stage 2, one thread per (k2, row), straight to global
 //      memory, a warp's 32 rows of a channel in one coalesced store.
-// Every sum is f32 FMAs in a fixed order (no TF32, no tensor cores).
+// Every sum is f32 FMAs in a fixed order (no TF32, no tensor cores). The
+// launcher reads the SM count once per device and the occupancy once per
+// device and shared-memory size.
+//
+// What held it back at M 10, kp 56 (0.0183 ms for one site's 4 MB, 6.5%
+// of the bound, on an H100): each 64-row tile's four phases run one after
+// another behind barriers with no copy in flight during the compute; the
+// kp = 56 halo rows are staged again every tile (120 rows read for 64); the
+// column FIR has M x 64/8 = 80 jobs for 256 threads; and the launcher
+// queried the CUDA runtime (device, SM count, occupancy) on every call.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores), at the main path's B = 1, M = 64, Tm = 100,000, kp = 24: the
@@ -62,6 +75,8 @@ constexpr int kTT = 64;       // x2d rows (output samples per channel) per tile
 constexpr int kVS = kTT + 1;  // row stride of the v and z planes, odd
 constexpr int kR = 8;         // FIR rows per thread
 constexpr int kKC = 8;        // DFT outputs per thread per pass
+constexpr int kMaxDev = 64;
+constexpr int kSlots = 8;     // shared-memory sizes remembered a device
 
 __host__ __device__ inline int pad8(int n) { return (n + kKC - 1) / kKC * kKC; }
 __host__ __device__ inline long long pad4(long long n) { return (n + 3) / 4 * 4; }
@@ -288,24 +303,45 @@ int pfb_channelize_f32(const void* x_re, const void* x_im, const void* hist,
                        const void* ct, const void* dft, void* y_re,
                        void* y_im, int B, int Tm, int M, int kp, int M1,
                        void* stream) {
+    // per device: the SM count, the largest dynamic shared memory set so
+    // far, and (shared bytes, blocks an SM) for the sizes launched
+    static int sms[kMaxDev], smem_set[kMaxDev];
+    static int occ_smem[kMaxDev][kSlots], occ_blocks[kMaxDev][kSlots];
     const int smem = (int)pfb_smem_bytes(M, kp, M1);
     cudaError_t e;
-    if (smem > 48 * 1024) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if (dev >= kMaxDev) return (int)cudaErrorInvalidDevice;
+    if (smem > 48 * 1024 && smem > smem_set[dev]) {
         e = cudaFuncSetAttribute(pfb_channelize_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
         if (e != cudaSuccess) return (int)e;
+        smem_set[dev] = smem;
     }
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+    if (sms[dev] == 0 &&
+        (e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
         return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, pfb_channelize_kernel, kThreads, smem)) != cudaSuccess)
-        return (int)e;
+    int per_sm = 0, slot = 0;
+    while (slot < kSlots && occ_blocks[dev][slot] != 0 &&
+           occ_smem[dev][slot] != smem)
+        ++slot;
+    if (slot < kSlots && occ_blocks[dev][slot] != 0) {
+        per_sm = occ_blocks[dev][slot];
+    } else {
+        if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, pfb_channelize_kernel, kThreads, smem)) !=
+            cudaSuccess)
+            return (int)e;
+        per_sm = per_sm > 0 ? per_sm : 1;
+        if (slot < kSlots) {
+            occ_smem[dev][slot] = smem;
+            occ_blocks[dev][slot] = per_sm;
+        }
+    }
     const long long tiles = (long long)B * ((Tm + kTT - 1) / kTT);
-    long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    long long grid = (long long)sms[dev] * per_sm;
     if (grid > tiles) grid = tiles;
     pfb_channelize_kernel<<<(int)grid, kThreads, (size_t)smem,
                             (cudaStream_t)stream>>>(

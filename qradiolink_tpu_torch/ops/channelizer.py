@@ -15,14 +15,17 @@ branch filters g[p::M] -> commutate branches into the output stream.
 
 Routes: the channelizer runs IqPair input through the fused kernel (K5)
 that ops/cuda_pfb.route(M, kp) picks: `pfb_fft_f32` at M = 8, 16, 32, 64
-(kp 8-32), `pfb_channelize_f32` at every other shape. The JAX package's
+(kp 8-32) and at M 10 with kp 56 (MMDVMmulti's channelizer),
+`pfb_channelize_f32` at every other shape. The JAX package's
 default route (commutator, depthwise branch FIRs, four einsums) is slower
 on an H100 (PERF.md) and is not ported as a second IqPair route. Complex
 input runs the commutator in PyTorch, the branch FIRs in the K4 kernel
 that ops/cuda_depthwise.route(kp) picks (`depthwise_run_f32` at the
 default kp 24, its VALID form) and the IDFT through torch.fft.ifft. The
 synthesizer's branch FIRs run K4 in its tail form (`depthwise_run_f32` at
-the default kp 23), reading the carried tails in place from the state. On
+the default kp 23 and at MMDVMmulti's kp 53; `depthwise_fir_f32` after a
+concatenation at any other kp), reading the carried tails in place from
+the state. On
 CPU tensors each kernel wrapper takes its plain version.
 """
 

@@ -18,9 +18,10 @@ out_len outputs.
 
 `route(kp)` picks the kernel: `depthwise_run_f32`, runs of a row with the
 taps in registers and the samples staged asynchronously, for kp in RUN_KP
-(23, the synthesizer's with default taps at M 8-64, and 24, the
-channelizer's, rounded up to a multiple of 8); `depthwise_fir_f32` for
-every other kp, the tail form after an explicit concatenation.
+(23, the synthesizer's with default taps at M 8-64; 24, the channelizer's,
+rounded up to a multiple of 8; 53, MMDVMmulti's synthesizer at M 10);
+`depthwise_fir_f32` for every other kp, the tail form after an explicit
+concatenation.
 
 On a CPU tensor the wrapper takes the plain version (the kp slice-MAC
 terms of the JAX package's `_branch_fir`, in the same order) and records
@@ -40,7 +41,7 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 OP = "depthwise_fir_f32"
 RUN_OP = "depthwise_run_f32"
 # depthwise_run_f32's instances (`pick` in csrc/depthwise_run.cu)
-RUN_KP = (23, 24)
+RUN_KP = (23, 24, 53)
 _GRID_Y_MAX = 65_535
 
 
@@ -72,8 +73,10 @@ def _run_lib():
     if not getattr(lib, "_qrl_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.depthwise_run_f32.argtypes = [p, p, ll, i, p, p, ll, i, p, p, p,
-                                          i, i, i, i, i, p]
+                                          i, i, i, i, i, i, p]
         lib.depthwise_run_f32.restype = ctypes.c_int
+        lib.depthwise_run_runs.argtypes = [i, i, i, i]
+        lib.depthwise_run_runs.restype = ll
         lib.depthwise_run_error_string.argtypes = [i]
         lib.depthwise_run_error_string.restype = ctypes.c_char_p
         lib._qrl_bound = True
@@ -171,10 +174,25 @@ def _row_strides(t, C):
     return v.stride(0), v.stride(1)
 
 
-def _launch_run(xs, taps_flipped, out_len, tails, key):
+def run_count(rows: int, kp: int, out_len: int, planes: int,
+              device) -> int:
+    """The runs a row-plane that depthwise_run_f32 chooses for `rows` rows
+    of `planes` planes and out_len outputs on the CUDA `device` (the blocks
+    the card holds over the row-planes, at most one a 512 outputs)."""
+    lib = _run_lib()
+    with torch.cuda.device(device):
+        n = lib.depthwise_run_runs(rows, kp, out_len, planes)
+    if n < 0:
+        raise RuntimeError(f"{RUN_OP} plan failed: "
+                           f"{lib.depthwise_run_error_string(-n).decode()}")
+    return n
+
+
+def _launch_run(xs, taps_flipped, out_len, tails, key, runs=0):
     """depthwise_run_f32 on CUDA planes (kp in RUN_KP). The tail form reads
     halo and body from the tails and the planes; the VALID form reads both
-    from the planes, the body from sample kp-1 on."""
+    from the planes, the body from sample kp-1 on. runs: the runs a
+    row-plane, 0 for the kernel's own choice (run_count)."""
     C, kp = taps_flipped.shape
     if route(kp) != RUN_OP:
         raise ValueError(f"{RUN_OP} does not take kp={kp}")
@@ -201,7 +219,7 @@ def _launch_run(xs, taps_flipped, out_len, tails, key):
             bodies[1].data_ptr() if two else None, b_outer, b_inner,
             taps_flipped.data_ptr(), ys[0].data_ptr(),
             ys[1].data_ptr() if two else None, rows, C, kp, out_len,
-            len(xs), stream)
+            len(xs), runs, stream)
     if err:
         raise RuntimeError(f"{RUN_OP} launch failed: "
                            f"{lib.depthwise_run_error_string(err).decode()}")

@@ -13,12 +13,13 @@ column-permuted DFT matrix W):
     v[t, c] = sum_{l=0..kp} ct[l, c] * x2d[t - l, c]
     y[k, t] = sum_p exp(+2 pi i k p / M) * v[t, (M - p) mod M]
 
-`route(M, kp)` picks the kernel: `pfb_fft_f32`, the DFT as two radix-2/4/8
+`route(M, kp)` picks the kernel: `pfb_fft_f32`, the DFT as two radix-2/4/5/8
 butterfly stages (M = R1 * R2, `FFT_RADICES`, twiddles from `fft_table`)
-and the rows staged asynchronously, for M in 8, 16, 32, 64 with kp in 8,
-16, 24, 32 (the mixed path's M = 64, kp = 24); `pfb_channelize_f32`, the
+and the rows staged asynchronously, for the shapes in FFT_SHAPES: M in 8,
+16, 32, 64 with kp in 8, 16, 24, 32 (the mixed path's M = 64, kp = 24),
+and M 10 with kp 56 (MMDVMmulti's channelizer); `pfb_channelize_f32`, the
 DFT in two dense factored stages (M = M1 * M2, `dft_factors`, tables from
-`pfb_tables`), for every other shape (M = 10, the MMDVM channelizer). The
+`pfb_tables`), for every other shape (M 10 at other kp, M 13). The
 TPU kernel's lane packing (`_pack`, the g_str/fold plan) and its remainder
 rows have no counterpart here: every call on a CUDA tensor launches a
 kernel and computes all Tm rows.
@@ -41,17 +42,19 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "pfb_channelize_f32"
 FFT_OP = "pfb_fft_f32"
-# pfb_fft_f32's instances: M = R1 * R2 (Radix<M> in csrc/pfb_fft.cu) and
-# the taps a branch, at most its tile of 32 rows
-FFT_RADICES = {8: (2, 4), 16: (4, 4), 32: (4, 8), 64: (8, 8)}
+# pfb_fft_f32's instances (`pick` in csrc/pfb_fft.cu): M = R1 * R2
+# (Radix<M>); at M 8-64 the taps a branch FFT_KP, at most their tile of 32
+# rows; at M 10 MMDVMmulti's kp 56 alone (Shape<10, 56>: tiles of 64 rows)
+FFT_RADICES = {8: (2, 4), 10: (2, 5), 16: (4, 4), 32: (4, 8), 64: (8, 8)}
 FFT_KP = (8, 16, 24, 32)
+FFT_SHAPES = frozenset([(M, kp) for M in (8, 16, 32, 64) for kp in FFT_KP]
+                       + [(10, 56)])
 
 
 def route(M: int, kp: int) -> str:
     """The kernel that channelizes M channels with kp taps a branch:
-    pfb_fft_f32 for M in FFT_RADICES and kp in FFT_KP, pfb_channelize_f32
-    otherwise."""
-    if M in FFT_RADICES and kp in FFT_KP:
+    pfb_fft_f32 for (M, kp) in FFT_SHAPES, pfb_channelize_f32 otherwise."""
+    if (M, kp) in FFT_SHAPES:
         return FFT_OP
     return OP
 
@@ -233,12 +236,13 @@ def _twiddles(M: int, device: torch.device) -> torch.Tensor:
 
 def _aligned(t):
     """t, or a copy of it at a fresh allocation when its data is not
-    16-byte aligned (pfb_fft_f32 stages rows with 16-byte copies)."""
+    16-byte aligned (pfb_fft_f32 stages rows with 16-byte copies, 8-byte at
+    M 10)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch_fft(xs, hist, ct):
-    """pfb_fft_f32 on CUDA tensors (M in FFT_RADICES, kp in FFT_KP)."""
+    """pfb_fft_f32 on CUDA tensors ((M, kp) in FFT_SHAPES)."""
     M, kp = _check(xs, hist, ct)
     if route(M, kp) != FFT_OP:
         raise ValueError(f"{FFT_OP} does not take M={M}, kp={kp}")

@@ -231,16 +231,49 @@ def test_plain_channelize_matches_pallas(pallas_interp, rng):
                               axis=-1)[..., -kp * M:]
 
 
-# pfb_fft_f32's tiling (csrc/pfb_fft.cu: kTT, kStages), which run_model
-# follows; test_models_follow_the_kernel_source reads them from the source
+# pfb_fft_f32's tiling (csrc/pfb_fft.cu: kTT, kStages, Shape<M, KP>), which
+# run_model and fir_jobs follow; test_models_follow_the_kernel_source reads
+# them from the source. FFT_TILING: (M, kp) -> (TT rows a tile, FR rows a
+# FIR job, NT threads); every other instance takes FFT_TILING[None]
 FFT_TT, FFT_STAGES = 32, 2
+FFT_TILING = {None: (FFT_TT, 16, 256), (10, 56): (128, 8, 320)}
 FFT_SRC = (pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch"
            / "csrc" / "pfb_fft.cu")
+# Bfly<5>'s constants: cos and sin of 2 pi/5 and 4 pi/5, rounded once to f32
+C5 = {"c1": np.cos(2 * np.pi / 5), "s1": np.sin(2 * np.pi / 5),
+      "c2": np.cos(4 * np.pi / 5), "s2": np.sin(4 * np.pi / 5)}
+
+
+def fft_tiling(M, kp):
+    """(TT, FR, NT) of pfb_fft_f32's instance at (M, kp)."""
+    return FFT_TILING.get((M, kp), FFT_TILING[None])
+
+
+def fir_jobs(M, kp):
+    """pfb_fft_f32's column-FIR jobs, as the kernel maps them: an (NJOB, 3)
+    array of (plane, column, chunk) by thread, column fastest, then chunk,
+    then plane."""
+    TT, FR, _ = fft_tiling(M, kp)
+    nch = TT // FR
+    return np.array([(t // (M * nch), t % M, t // M % nch)
+                     for t in range(2 * M * nch)])
 
 
 def _bfly(r, i):
     """csrc/pfb_fft.cu's Bfly<R> on lists of R f32 arrays (re, im): the
-    inverse DFT X[k] = sum_n x[n] exp(+2 pi i k n / R), R in 2, 4, 8."""
+    inverse DFT X[k] = sum_n x[n] exp(+2 pi i k n / R), R in 2, 4, 5, 8."""
+    if len(r) == 5:
+        c1, s1, c2, s2 = (np.float32(C5[k]) for k in ("c1", "s1", "c2", "s2"))
+        a1r, a1i, b1r, b1i = r[1] + r[4], i[1] + i[4], r[1] - r[4], i[1] - i[4]
+        a2r, a2i, b2r, b2i = r[2] + r[3], i[2] + i[3], r[2] - r[3], i[2] - i[3]
+        u1r, u1i = r[0] + c1 * a1r + c2 * a2r, i[0] + c1 * a1i + c2 * a2i
+        u2r, u2i = r[0] + c2 * a1r + c1 * a2r, i[0] + c2 * a1i + c1 * a2i
+        t1r, t1i = s1 * b1r + s2 * b2r, s1 * b1i + s2 * b2i
+        t2r, t2i = s2 * b1r - s1 * b2r, s2 * b1i - s1 * b2i
+        return ([r[0] + a1r + a2r, u1r - t1i, u2r - t2i, u2r + t2i,
+                 u1r + t1i],
+                [i[0] + a1i + a2i, u1i + t1r, u2i + t2r, u2i - t2r,
+                 u1i - t1r])
     if len(r) == 2:
         return [r[0] + r[1], r[0] - r[1]], [i[0] + i[1], i[0] - i[1]]
     if len(r) == 4:
@@ -288,7 +321,7 @@ def fft_model(vr, vi, tw):
     return yr, yi
 
 
-@pytest.mark.parametrize("M", [8, 16, 32, 64])
+@pytest.mark.parametrize("M", [8, 16, 32, 64, 10])
 def test_fft_model_is_the_inverse_dft(rng, M):
     """The kernel's butterflies and twiddle table give the unscaled inverse
     DFT of the columns in polyphase order."""
@@ -301,17 +334,21 @@ def test_fft_model_is_the_inverse_dft(rng, M):
 
 
 def run_model(xr, xi, hist, ct, tw, runs):
-    """pfb_fft_f32's schedule in numpy: stream b's tiles of FFT_TT rows cut
-    into `runs` contiguous runs; each run walks a ring of FFT_STAGES stages
-    of [kp halo rows | FFT_TT rows], its first tile's halo staged from the
-    input (the history for t < 0), every later halo copied from the last
-    kp rows of the tile before; rows past Tm are never staged (the stages
-    start as NaN, so a row read before it is written shows). The column
-    FIR sums taps kp .. 0 as the kernel does, then fft_model. xr, xi:
-    (B, Tm*M); hist (B, 2, kp*M). Returns (y_re, y_im), (B, M, Tm), and
-    asserts that every output was written once."""
+    """pfb_fft_f32's schedule in numpy: stream b's tiles of TT rows (the
+    instance's, fft_tiling) cut into `runs` contiguous runs; each run walks
+    a ring of FFT_STAGES stages of [kp halo rows | TT rows], its first
+    tile's halo staged from the input (the history for t < 0), every later
+    halo copied from stage rows [TT, TT + kp) of the tile before; rows past
+    Tm are never staged (the stages start as NaN, so a row read before it
+    is written shows). The column FIR runs job by job as fir_jobs maps
+    them, each summing taps kp .. 0 over its FR rows as the kernel does
+    (asserting every (plane, column, row) is written once), then
+    fft_model. xr, xi: (B, Tm*M); hist (B, 2, kp*M). Returns (y_re, y_im),
+    (B, M, Tm), and asserts that every output was written once."""
     kp1, M = ct.shape
-    kp, TT = kp1 - 1, FFT_TT
+    kp = kp1 - 1
+    TT, FR = fft_tiling(M, kp)[:2]
+    jobs = fir_jobs(M, kp)
     B, Tm = xr.shape[0], xr.shape[1] // M
     tiles = -(-Tm // TT)
     runs = min(runs, tiles)
@@ -333,9 +370,15 @@ def run_model(xr, xi, hist, ct, tw, runs):
                 st[:, kp:kp + hi - t0] = x[:, t0:hi]
                 if j + 1 < g1 - g0:
                     ring[(j + 1) % FFT_STAGES][:, :kp] = st[:, TT:TT + kp]
-                v = np.zeros((2, TT, M), np.float32)
-                for l in range(kp, -1, -1):
-                    v = v + ct[l] * st[:, kp - l:kp - l + TT]
+                v = np.full((2, TT, M), np.nan, np.float32)
+                for p, c, ch in jobs:
+                    rows = slice(ch * FR, ch * FR + FR)
+                    assert np.isnan(v[p, rows, c]).all()
+                    acc = np.zeros(FR, np.float32)
+                    for l in range(kp, -1, -1):
+                        acc = acc + ct[l, c] * st[p, kp - l + ch * FR:
+                                                  kp - l + ch * FR + FR, c]
+                    v[p, rows, c] = acc
                 yr, yi = fft_model(v[0][:, order], v[1][:, order], tw)
                 assert np.isnan(y[:, b, :, t0:hi]).all()
                 y[0, b, :, t0:hi] = yr[:hi - t0].T
@@ -349,10 +392,31 @@ def test_run_model_matches_plain(rng, M, B):
     """Two chained blocks of Tm = 229 rows (7 full tiles and a ragged one of
     5) cut into 1, 3 (2 + 3 + 3 tiles) and 8 runs (a halo from global memory
     at every tile), within 1e-5 of the plain version's peak."""
-    ch = tch.PfbChannelizer(M, lead_shape=(B,), device="cpu")
+    _run_model_case(rng, tch.PfbChannelizer(M, lead_shape=(B,),
+                                            device="cpu"), M, B)
+
+
+def _mmdvm_taps():
+    from qradiolink_tpu_torch.chains import mmdvm
+    return mmdvm._lp(1.0, mmdvm.DEVICE_RATE, mmdvm.FILTER_WIDTH)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_run_model_at_mmdvm_multi_shape(rng, B):
+    """MMDVMmulti's channelizer (M 10, kp 56): its instance's tiles of 128
+    rows, FIR jobs of 8 rows laid out as fir_jobs maps them, the halo of 56
+    rows copied stage to stage; two chained blocks of Tm = 421 rows (3 full
+    tiles and a ragged one of 37) in 1, 3 and 8 runs, within 1e-5 of the
+    plain version's peak."""
+    ch = tch.PfbChannelizer(10, taps=_mmdvm_taps(), lead_shape=(B,),
+                            device="cpu")
+    assert (ch.kp, fft_tiling(10, ch.kp)[0]) == (56, 128)
+    _run_model_case(rng, ch, 10, B, Tm=421)
+
+
+def _run_model_case(rng, ch, M, B, Tm=229):
     ct, tw = ch._ct.numpy(), fft_table(M)
     assert cuda_pfb.route(M, ch.kp) == cuda_pfb.FFT_OP
-    Tm = 229
     hist = rng.standard_normal((B, 2, ch.kp * M)).astype(np.float32)
     for _ in range(2):
         x = _iq(rng, (B, Tm * M))
@@ -368,7 +432,8 @@ def test_run_model_matches_plain(rng, M, B):
 
 
 def test_models_follow_the_kernel_source():
-    """run_model's tiling and fft_model's radices are the kernel's."""
+    """run_model's tiling, fir_jobs' layout, fft_model's radices and
+    radix-5 constants, and the route's instances are the kernel's."""
     src = FFT_SRC.read_text()
     assert f"constexpr int kTT = {FFT_TT};" in src
     assert f"constexpr int kStages = {FFT_STAGES};" in src
@@ -378,11 +443,42 @@ def test_models_follow_the_kernel_source():
     for kp in cuda_pfb.FFT_KP:
         assert f"case {kp}: return launch<M, {kp}>;" in src
         assert kp <= FFT_TT
+    shapes = re.findall(r"struct Shape(<\d+, \d+>)? \{\s*static constexpr int "
+                        r"TT = (\w+), FR = (\w+), NT = (\d+);", src)
+    got = {}
+    for inst, tt, fr, nt in shapes:
+        key = tuple(map(int, re.findall(r"\d+", inst))) or None
+        got[key] = (FFT_TT if tt == "kTT" else int(tt),
+                    16 if fr == "kRows" else int(fr), int(nt))
+    assert "constexpr int kRows = 16;" in src
+    assert got == FFT_TILING
+    extra = {(M, kp) for M, kp in cuda_pfb.FFT_SHAPES
+             if M not in (8, 16, 32, 64)}
+    assert extra == {k for k in FFT_TILING if k}
+    for M, kp in extra:
+        assert f"case {M}: return kp == {kp} ? launch<{M}, {kp}> : " \
+               f"nullptr;" in src
+    for k, v in C5.items():
+        lit = re.search(rf"constexpr float {k} = (-?[0-9.]+)f;", src)
+        assert np.float32(float(lit.group(1))) == np.float32(v), k
+
+
+@pytest.mark.parametrize("M,kp", [(8, 24), (16, 32), (64, 24), (10, 56)])
+def test_fir_jobs_cover_each_column_once(M, kp):
+    """Every (plane, column, chunk) of a tile is one thread's job, within
+    the block's threads."""
+    TT, FR, NT = fft_tiling(M, kp)[:3]
+    jobs = fir_jobs(M, kp)
+    assert len(jobs) <= NT
+    assert sorted(map(tuple, jobs)) == [(p, c, ch) for p in range(2)
+                                        for c in range(M)
+                                        for ch in range(TT // FR)]
 
 
 @pytest.mark.parametrize("M,kp,op", [
     (64, 24, "pfb_fft_f32"), (16, 32, "pfb_fft_f32"),
     (8, 24, "pfb_fft_f32"), (16, 8, "pfb_fft_f32"), (32, 32, "pfb_fft_f32"),
+    (10, 56, "pfb_fft_f32"), (10, 48, "pfb_channelize_f32"),
     (10, 24, "pfb_channelize_f32"), (13, 24, "pfb_channelize_f32"),
     (12, 24, "pfb_channelize_f32"), (128, 24, "pfb_channelize_f32"),
     (64, 40, "pfb_channelize_f32"), (64, 12, "pfb_channelize_f32")])
@@ -538,6 +634,34 @@ def test_dw_run_model_matches_plain(rng, form, runs):
                            for t, x in zip(tails, xs)])
 
 
+@pytest.mark.parametrize("runs", [1, 6])
+def test_dw_run_model_at_kp53(rng, runs):
+    """MMDVMmulti's synthesizer taps (kp 53, 3 of its 10 rows) in the tail
+    form over two chained blocks of 2 tiles and a ragged one, in 1 run and
+    in 6 (the run count the kernel takes at a short row: runs shorter than
+    a tile); within 1e-5 of depthwise_fir_plain's peak."""
+    from qradiolink_tpu_torch.chains import mmdvm
+    tf = mmdvm.MmdvmMultiTx(device="cpu").synthesizer._bt_flipped[:3]
+    tf = tf.numpy()
+    M, kp = tf.shape
+    n_out = 2 * RUN_TT + 37
+    assert kp == 53 and cuda_depthwise.route(kp) == cuda_depthwise.RUN_OP
+    st = rng.standard_normal((2, M, kp - 1)).astype(np.float32)
+    for _ in range(2):
+        xs = [rng.standard_normal((M, n_out)).astype(np.float32)
+              for _ in range(2)]
+        tails = [st[0], st[1]]
+        offsets = [[(p * M + r) * n_out for r in range(M)] for p in range(2)]
+        got = dw_run_model(xs, tf, n_out, tails, runs, offsets)
+        want = depthwise_fir_plain(
+            tuple(torch.from_numpy(x) for x in xs), torch.from_numpy(tf),
+            n_out, tuple(torch.from_numpy(t) for t in tails))
+        for g, w in zip(got, want):
+            assert_same(w.numpy(), g, TOL, 0, peak=True)
+        st = np.stack([np.concatenate([t, x], -1)[:, -(kp - 1):]
+                       for t, x in zip(tails, xs)])
+
+
 def test_dw_run_model_follows_the_kernel_source():
     """dw_run_model's block, ring and kp set are the kernel's."""
     src = RUN_SRC.read_text()
@@ -555,6 +679,7 @@ def test_dw_run_model_follows_the_kernel_source():
 
 @pytest.mark.parametrize("kp,op", [
     (23, "depthwise_run_f32"), (24, "depthwise_run_f32"),
+    (53, "depthwise_run_f32"), (52, "depthwise_fir_f32"),
     (1, "depthwise_fir_f32"), (8, "depthwise_fir_f32"),
     (13, "depthwise_fir_f32"), (16, "depthwise_fir_f32"),
     (22, "depthwise_fir_f32"), (25, "depthwise_fir_f32"),

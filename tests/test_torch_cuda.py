@@ -25,8 +25,10 @@ the M17 and DMR chains on the card against their CPU path: bits equal,
 symbols, soft and every state leaf within 2e-5 of their peak. Slice 6: the
 FFT form (torch.fft, cuFFT) against its CPU form within 1e-5 of the peak
 and against the direct kernels within 1e-3 (tests/test_fir.py's bound);
-the MMDVMmulti channelizer (pfb_channelize_f32, M 10) and synthesizer
-(depthwise_fir_f32, kp 53) against their plain versions; every FIR and
+the MMDVMmulti channelizer (pfb_fft_f32 at M 10, kp 56) and synthesizer
+(depthwise_run_f32 at kp 53) against their plain versions and the kernels
+that served them before (pfb_channelize_f32 within the same bound,
+depthwise_fir_f32 bit for bit); every FIR and
 resampler block of the new modes on the card against the same block on the
 CPU (the kernel against its plain version at the block's shape: outputs
 within the FIR's bound, the new state equal); each new mode's chains on
@@ -597,6 +599,12 @@ RUN_CASES = {
     "valid_misaligned": (64, 24, (), 2, 5000, "valid", 3),
     "lead_one_plane": (7, 23, (3,), 1, 777, "tail", 0),
     "short_rows": (5, 24, (2,), 2, 9, "valid", 1),
+    # MMDVMmulti's synthesizer (kp 53): one site, the headless block, a
+    # farm of 64 sites; the VALID form on misaligned rows
+    "mmdvm_synth": (10, 53, (), 2, 25_000, "tail", 0),
+    "mmdvm_headless": (10, 53, (), 2, 3_000, "tail", 0),
+    "mmdvm_farm": (10, 53, (64,), 2, 25_000, "tail", 0),
+    "kp53_valid_misaligned": (10, 53, (), 2, 5000 + 1, "valid", 3),
 }
 
 
@@ -626,6 +634,21 @@ def test_depthwise_run_matches_plain(cuda, gen, name):
     _assert_fir_close(got, depthwise_fir_plain(xs, taps, n_out, tails))
     for g, o in zip(got, _depthwise_old(xs, taps, n_out, tails)):
         assert torch.equal(g, o)
+
+
+@pytest.mark.parametrize("n_out,runs", [(3_000, 6), (25_000, None),
+                                        (100_000, None)])
+def test_depthwise_run_spreads_short_rows(cuda, n_out, runs):
+    """depthwise_run_f32's run count at 10 rows x 2 planes, kp 53: the
+    blocks the card holds over the 20 row-planes, at most one a 512
+    outputs, so that the headless block (3,000 outputs) runs as 6 runs a
+    row-plane, 120 blocks, and a long row as many as the card holds."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = cuda_depthwise.run_count(10, 53, n_out, 2, cuda)
+    cap = -(-n_out // 512)
+    if runs is not None:
+        assert got == runs
+    assert 1 <= got <= cap and 20 * got >= min(sms, 20 * cap)
 
 
 def test_synthesizer_branches_equal_the_old_route(cuda, gen):
@@ -779,14 +802,14 @@ def test_nbfm_audio_resampler_is_one_launch(cuda, gen):
         state = new_state
 
 
-def _pfb_two_blocks(cuda, gen, M, B, Tm):
+def _pfb_two_blocks(cuda, gen, M, B, Tm, taps=None):
     """Two chained blocks through the channelizer's fused route: each
     block's output within 1e-5 of the plain version's peak from the same
     state, the second block reading the history the first one left (the
     seam), and the carried state bit-equal to the last kp*M input samples.
     Each block launches the kernel route(M, kp) picks, once, and not the
     other; returns that kernel's name."""
-    ch = PfbChannelizer(M, lead_shape=(B,), device=cuda)
+    ch = PfbChannelizer(M, taps=taps, lead_shape=(B,), device=cuda)
     op = cuda_pfb.route(M, ch.kp)
     other = ({cuda_pfb.OP, cuda_pfb.FFT_OP} - {op}).pop()
     state = torch.randn((B, 2, ch.kp * M), generator=gen, device=cuda)
@@ -827,6 +850,22 @@ def test_pfb_fft_kernel_matches_plain(cuda, gen, M, B, Tm):
     The tiles outnumber the blocks the card holds several times over, so
     runs are several tiles long and the staging ring wraps."""
     assert _pfb_two_blocks(cuda, gen, M, B, Tm) == cuda_pfb.FFT_OP
+
+
+def _mmdvm_taps():
+    from qradiolink_tpu_torch.chains import mmdvm
+    return mmdvm._lp(1.0, mmdvm.DEVICE_RATE, mmdvm.FILTER_WIDTH)
+
+
+@pytest.mark.parametrize("B,Tm", [(1, 25_000), (1, 3_000), (3, 64 * 1200 + 27),
+                                  (64, 25_000), (2, 5)])
+def test_pfb_fft_at_mmdvm_multi_shape(cuda, gen, B, Tm):
+    """pfb_fft_f32 at M 10, kp 56 (MMDVMmulti's channelizer taps): one
+    site, the headless block, three streams with runs of several tiles and
+    a ragged last tile, a farm of 64 sites, and a block shorter than one
+    tile, over two chained blocks."""
+    assert _pfb_two_blocks(cuda, gen, 10, B, Tm, _mmdvm_taps()) == \
+        cuda_pfb.FFT_OP
 
 
 def test_pfb_kernels_agree_at_the_mixed_shape(cuda, gen):
@@ -1782,42 +1821,54 @@ def test_fft_fir_on_card_matches_cpu(cuda, gen, K, complex_taps, complex_in,
 
 
 def test_mmdvm_multi_kernels_match_plain(cuda, gen):
-    """MmdvmMultiRx's channelizer (M 10, kp 56) on pfb_channelize_f32 over
-    two chained blocks of 250,000 IqPair samples within 1e-5 of the plain
-    version's peak, its raw history carried bit-equal; MmdvmMultiTx's
+    """MmdvmMultiRx's channelizer (M 10, kp 56) on pfb_fft_f32 over two
+    chained blocks of 250,000 IqPair samples within 1e-5 of the plain
+    version's peak, and pfb_channelize_f32, which served it before, within
+    the same bound; its raw history carried bit-equal. MmdvmMultiTx's
     synthesizer branch FIRs (10 rows, kp 53, tails in place) on
-    depthwise_fir_f32 within the FIR's bound of the plain version."""
+    depthwise_run_f32 within the FIR's bound of the plain version and equal
+    bit for bit to depthwise_fir_f32 on the concatenation."""
     from qradiolink_tpu_torch.chains.mmdvm import MmdvmMultiRx, MmdvmMultiTx
 
     ch = MmdvmMultiRx(device=cuda).channelizer
     M, kp = ch.M, ch.kp
-    assert (M, cuda_pfb.route(M, kp)) == (10, cuda_pfb.OP)
+    assert (M, kp, cuda_pfb.route(M, kp)) == (10, 56, cuda_pfb.FFT_OP)
     state = ch.init_state()
     for _ in range(2):
         x = IqPair(torch.randn((250_000,), generator=gen, device=cuda) * 0.1,
                    torch.randn((250_000,), generator=gen, device=cuda) * 0.1)
         kernel_paths.reset()
         new_state, y = ch(state, x)
-        assert kernel_paths.launches(cuda_pfb.OP) == 1
+        assert kernel_paths.launches(cuda_pfb.FFT_OP) == 1
+        assert kernel_paths.launches(cuda_pfb.OP) == 0
         want = channelize_plain((x.re, x.im), state, ch._ct)
+        old = cuda_pfb._launch((x.re, x.im), state, ch._ct, ch._dft)
         peak = max(float(w.abs().max()) for w in want)
-        for g, w in zip((y.re, y.im), want):
+        for g, o, w in zip((y.re, y.im), old, want):
             assert float((g - w).abs().max()) <= 1e-5 * peak
+            assert float((o - w).abs().max()) <= 1e-5 * peak
         assert torch.equal(new_state, torch.cat(
             [state, torch.stack([x.re, x.im])], -1)[..., -kp * M:])
         state = new_state
     syn = MmdvmMultiTx(device=cuda).synthesizer
     tf = syn._bt_flipped
     C, kps = tf.shape
-    assert (C, cuda_depthwise.route(kps)) == (10, cuda_depthwise.OP)
+    assert (C, kps, cuda_depthwise.route(kps)) == (10, 53,
+                                                   cuda_depthwise.RUN_OP)
     st = torch.randn((2, C, kps - 1), generator=gen, device=cuda)
-    xs = [torch.randn((C, 25_000), generator=gen, device=cuda)
-          for _ in range(2)]
-    kernel_paths.reset()
-    got = depthwise_fir(xs, tf, 25_000, tails=(st[0], st[1]))
-    assert kernel_paths.launches(cuda_depthwise.OP) == 1
-    _assert_fir_close(got, depthwise_fir_plain(xs, tf, 25_000,
-                                               (st[0], st[1])))
+    for _ in range(2):
+        xs = [torch.randn((C, 25_000), generator=gen, device=cuda)
+              for _ in range(2)]
+        kernel_paths.reset()
+        new_st, vr, vi = syn._branches(st, *xs)
+        assert kernel_paths.launches(cuda_depthwise.RUN_OP) == 1
+        assert kernel_paths.launches(cuda_depthwise.OP) == 0
+        tails = (st[0], st[1])
+        _assert_fir_close((vr, vi), depthwise_fir_plain(xs, tf, 25_000,
+                                                        tails))
+        for g, o in zip((vr, vi), _depthwise_old(xs, tf, 25_000, tails)):
+            assert torch.equal(g, o)
+        st = new_st
 
 
 # the new modes: registry name -> (RX block length at 1 Msps or 250 ksps,

@@ -197,6 +197,36 @@ def test_mmdvm_multi_rx_matches_jax(kind):
                 blocks, RX_TOL, RX_TOL, peak=True)
 
 
+def test_mmdvm_multi_registry_chains_take_the_redesigned_kernels():
+    """MMDVMmulti's RX and TX as the registry builds them on the CPU: the
+    TX records its synthesizer's branch FIRs under depthwise_run_f32 (kp
+    53, the tail form) and the RX its channelizer under pfb_fft_f32 (M 10,
+    kp 56), a call a block, and nothing under pfb_channelize_f32 or
+    depthwise_fir_f32; both still match the JAX chains (two blocks each)."""
+    from qradiolink_tpu.models import registry as jregistry
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    tx = registry.tx_chain("MMDVMmulti", device="cpu")
+    a = seven_tones(48_000)
+    kernel_paths.reset()
+    (_, ttx), _ = stream_both(jregistry.tx_chain("MMDVMmulti"), tx,
+                              np.split(a, 2, axis=-1), MULTI_TX_TOL,
+                              MULTI_TX_TOL, peak=True, wrap_phase=True)
+    rep = kernel_paths.report()
+    assert rep["depthwise_run_f32"]["shapes"] == {"plain C10 kp53 tail": 2}
+    cplx = mmdvm.MmdvmMultiTx(device="cpu")
+    iq = to_numpy(cplx(cplx.init_state(), torch.from_numpy(a))[1]["iq"])
+    rx = registry.rx_chain("MMDVMmulti", device="cpu")
+    kernel_paths.reset()
+    stream_both(jregistry.rx_chain("MMDVMmulti"), rx, planes(iq), RX_TOL,
+                RX_TOL, peak=True)
+    rep = kernel_paths.report()
+    assert rep["pfb_fft_f32"]["shapes"] == {"plain M10 kp56": 2}
+    assert "pfb_channelize_f32" not in rep
+    assert "depthwise_fir_f32" not in rep
+
+
 def test_mmdvm_single_loopback():
     """tests/test_chains_mmdvm.py: a 1 kHz tone, SNR above 30 dB."""
     mod, dem = mmdvm.MmdvmMod(device="cpu"), mmdvm.MmdvmDemod(device="cpu")
