@@ -15,8 +15,8 @@ when the package cannot be imported, and when any phase fails:
     csrc/depthwise_run.cu, csrc/resample_poly.cu, csrc/resample_up.cu,
     csrc/agc2.cu, csrc/costas.cu, csrc/symbol_sync.cu,
     csrc/viterbi_stream.cu, csrc/viterbi_stream_warp.cu,
-    csrc/viterbi_stream_redux.cu, csrc/fll_band_edge.cu and
-    csrc/resample_x2.cu);
+    csrc/viterbi_stream_redux.cu, csrc/fll_band_edge.cu,
+    csrc/resample_x2.cu and csrc/resample_rat.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -285,7 +285,12 @@ when the package cannot be imported, and when any phase fails:
     the two kernels at one site, and at a farm of 64 sites, against their
     plain versions and, in turns, the kernels they replaced (K5 within
     1e-5 of the plain version's peak, K4 bit-equal over two chained
-    blocks), beside the launch floor and, for K4, F.conv1d;
+    blocks), beside the launch floor and, for K4, F.conv1d; the 25/24 TX
+    and 24/25 RX resamplers on resample_rat_f32 once a step each
+    (resample_poly_f32 never), and, at the farm (448 rows, no chain runs
+    it), the two against their plain versions and bit-equal to
+    resample_poly_f32 over two chained blocks, in turns with it, beside
+    F.conv1d and the launch floor (rows with no path);
 24. the sweep: every other new mode at 256 rows x 2 steps through the
     registry's TX and RX chains, every launch as chain_launches gives it
     (the data modes each row's own payload, seeded on the CPU, long enough
@@ -1885,20 +1890,23 @@ def agc_rows(dev, gen):
 RESAMPLE_SOURCE = {
     "resample_poly_f32": "qradiolink_tpu_torch/csrc/resample_poly.cu",
     "resample_up_f32": "qradiolink_tpu_torch/csrc/resample_up.cu",
-    "resample_x2_f32": "qradiolink_tpu_torch/csrc/resample_x2.cu"}
+    "resample_x2_f32": "qradiolink_tpu_torch/csrc/resample_x2.cu",
+    "resample_rat_f32": "qradiolink_tpu_torch/csrc/resample_rat.cu"}
 
 
-def poly_row(name, rs, planes, C, T, run, dev, gen):
-    """A TX interpolator's shape (C rows x T input samples, `planes`
-    planes, the tails read in place): the kernel that the route gives it
-    against the plain version (outputs within 1e-5, the new state equal).
-    Where the route gives it resample_up_f32 or resample_x2_f32,
+def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
+    """A resampler's shape (C rows x T input samples, `planes` planes, the
+    tails read in place): the kernel that the route gives it against the
+    plain version (outputs within 1e-5, the new state equal). Where the
+    route gives it resample_up_f32, resample_x2_f32 or resample_rat_f32,
     resample_poly_f32, which served it before, is held against the plain
     version too, the two outputs and states must be equal bit for bit over
     two chained blocks (the second from the routed kernel's new state), and
     they are timed in turns (old, new, new, old); the row of the kernel the
-    route does not pick has no path. One F.conv1d with L output channels is the library call,
-    beside each."""
+    route does not pick has no path. One F.conv1d with L output channels is
+    the library call, beside each; at resample_rat_f32's shapes an empty
+    kernel's launch floor too. on_path false: a shape no chain runs on
+    `run` (every row with no path)."""
     from qradiolink_tpu_torch.ops import cuda_resample
     import torch.nn.functional as F
 
@@ -1960,13 +1968,20 @@ def poly_row(name, rs, planes, C, T, run, dev, gen):
                    + 2 * C * (K - 1)), 2 * K * planes * C * n_out)
     old = "".join(f"{ms[k] / ms[op]:.2f}x {k} in turns, "
                   for k in kinds[1:])
+    floor = ""
+    if op == cuda_resample.RAT_OP:
+        floor_ms = launch_floor(dev)
+        floor = f", launch floor {floor_ms:.4f} ms"
     print(f"  {op}/{name}: {old}{lib_ms / ms[op]:.2f}x F.conv1d, "
-          f"{b[0] / ms[op]:.1%} of its bound", flush=True)
+          f"{b[0] / ms[op]:.1%} of its bound{floor} ({CARD})", flush=True)
     shape = cuda_resample.shape_key(xs, L, K, M)
-    return [row(f"{k}/{name}", RESAMPLE_SOURCE[k],
+    rows = [row(f"{k}/{name}", RESAMPLE_SOURCE[k],
                 "qradiolink_tpu/ops/pallas_fir.py:111", errs[k], ms[k],
-                plain_ms, b, lib_ms, run, shape, routed=k == op)
+                plain_ms, b, lib_ms, run, shape, routed=on_path and k == op)
             for k in kinds]
+    if floor:
+        rows[0]["launch_floor_ms"] = floor_ms
+    return rows
 
 
 def analog_rows(dev, gen):
@@ -3872,6 +3887,8 @@ def require_exactly(report, want, run):
     that launched twice, or not at all, or at another shape, fails."""
     from collections import Counter
 
+    from qradiolink_tpu_torch.ops import cuda_resample
+
     got = {(op, k[len("cuda "):]): n for op, r in report.items()
            for k, n in r.get("shapes", {}).items()
            if k.startswith("cuda ") and n}
@@ -3885,6 +3902,12 @@ def require_exactly(report, want, run):
     print(f"  {run}: every launch as the chains' stages give it: "
           + ", ".join(f"{op} {key} x{n}" for (op, key), n in want.items()),
           flush=True)
+    # the shapes resample_rat_f32 took over: the table is the whole report,
+    # so resample_poly_f32 launched at none of them
+    moved = [key for op, key in want if op == cuda_resample.RAT_OP]
+    if moved:
+        print(f"  {run}: {cuda_resample.RAT_OP} at {', '.join(moved)}; "
+              f"{cuda_resample.OP} 0 times there", flush=True)
 
 
 def loop_capture_row(op, key, meta, run):
@@ -4745,6 +4768,13 @@ def mmdvm_multi_path(dev, gen, done):
     for r in pfb_rows:
         if r["path"] is not None:
             r["want"] = want[(r["name"].split("/")[0], r["shape"])]
+    # the two resamplers at the farm of MMDVM_FARM sites, where rates bind
+    for name, rs, T in (("TX 25/24", tx.resamp, n24),
+                        ("RX 24/25", rx.resamp, MMDVM_T // rx.channelizer.M)):
+        pfb_rows += poly_row(f"mmdvm_multi farm {name}", rs, 2,
+                             MMDVM_FARM * MULTI_C, T, "mmdvm_multi", dev,
+                             gen, on_path=False)
+        torch.cuda.empty_cache()
     return report, rows + pfb_rows
 
 
@@ -7942,7 +7972,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
-    # resample_up_f32 keep their rings in registers, viterbi_bfly_k7 its
+    # resample_up_f32 keep their rings in registers, resample_rat_f32 its
+    # taps and accumulators, viterbi_bfly_k7 its
     # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
     # resample_poly_f32 and agc2_gain_f32 their loads in flight, agc2_f32
     # its rows' loads, the PSK loops (costas_loop_f32, symbol_sync_mm_f32,
@@ -7952,7 +7983,8 @@ def main() -> int:
                  "viterbi_bfly", "pfb_fft", "depthwise_run", "resample_poly",
                  "resample_up", "agc2", "costas", "symbol_sync",
                  "viterbi_stream", "viterbi_stream_warp",
-                 "viterbi_stream_redux", "fll_band_edge", "resample_x2"):
+                 "viterbi_stream_redux", "fll_band_edge", "resample_x2",
+                 "resample_rat"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 

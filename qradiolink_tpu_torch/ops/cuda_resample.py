@@ -1,7 +1,8 @@
 """Polyphase rational resampler at L > 1: wrapper, plain version and the
-three CUDA kernels that compute it, `resample_poly_f32`
-(csrc/resample_poly.cu), `resample_up_f32` (csrc/resample_up.cu) and
-`resample_x2_f32` (csrc/resample_x2.cu).
+four CUDA kernels that compute it, `resample_poly_f32`
+(csrc/resample_poly.cu), `resample_up_f32` (csrc/resample_up.cu),
+`resample_x2_f32` (csrc/resample_x2.cu) and `resample_rat_f32`
+(csrc/resample_rat.cu).
 
 Port of the Pallas TPU kernel qradiolink_tpu/ops/pallas_fir.py
 `banded_fir` (K2), which the JAX package's RationalResampler runs once per
@@ -20,10 +21,15 @@ the re and im planes of an IqPair. `route(L, M, K)` picks the kernel:
 `resample_x2_f32`, both phases of 16 output times a thread, at L 2 M 1
 (QpskMod's x2); `resample_up_f32`, register-blocked over output times of
 one phase, at L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1
-and 125/3); `fir_long_f32` once a phase where a phase's strided FIR is
-that kernel's shape (M >= 32, 17 to 64 taps a row of M: DMR's 3/125 head,
-K2091, `resample_phases`), the phases then interleaved; `resample_poly_f32`,
-one output a lane, elsewhere (the NBFM audio resampler 2/5, M17's 3/125).
+and 125/3); `resample_rat_f32`, a thread a phase with its taps in
+registers streaming its samples, at L >= 24 and the (M, K) it has an
+instance for (MMDVM's TX 125/12 and MMDVMmulti's 25/24 at K 51,
+MMDVMmulti's RX 24/25 at K 53, DSSS's TX 50/13 at K 2); `fir_long_f32`
+once a phase where a phase's strided FIR is that kernel's shape (M >= 32,
+17 to 64 taps a row of M: DMR's 3/125 head, K2091, `resample_phases`), the
+phases then interleaved; `resample_poly_f32`, one output a lane, elsewhere
+(the NBFM audio resampler 2/5, M17's 3/125, MMDVM's RX 12/125, DSSS's RX
+13/50, the 2/25 heads).
 
 On a CPU tensor the wrapper takes the plain version (a strided F.conv1d
 per phase over the concatenation, then the interleave) and records it
@@ -48,11 +54,17 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 OP = "resample_poly_f32"
 UP_OP = "resample_up_f32"
 X2_OP = "resample_x2_f32"
+RAT_OP = "resample_rat_f32"
 # resample_up_f32's shapes: from 3 phases (the lowest L of
 # scripts/resample_route_sweep.py, where it was 2.6-5.3x faster), and the
 # decimations with a ring instance in csrc/resample_up.cu
 UP_MIN_L = 3
 UP_MAX_M = 5
+# resample_rat_f32's shapes: from 24 phases to the 128 threads of its block
+# (a thread a phase), and the (M, K) with an instance in
+# csrc/resample_rat.cu (has_instance)
+RAT_MIN_L, RAT_MAX_L = 24, 128
+RAT_SHAPES = ((12, 51), (13, 2), (24, 51), (25, 53))
 _GRID_Y_MAX = 65_535
 
 
@@ -124,22 +136,27 @@ def shape_key(xs, L, K, M):
 
 def route(L: int, M: int, K: int) -> str:
     """The kernel that serves an L/M resampler of K taps a phase (L > 1):
-    resample_x2_f32 at L 2 M 1 (QpskMod's x2, measured faster in turns
-    than resample_poly_f32 in chip_smoke.py, and than resample_up_f32 at
-    that shape as PERF.md records), resample_up_f32 at L >= 3 and
-    M <= 5; fir_long_f32, L launches of it (resample_phases), where
+    resample_x2_f32 at L 2 M 1 (QpskMod's x2, measured faster in turns than
+    resample_poly_f32 in chip_smoke.py, and than resample_up_f32 at that
+    shape as PERF.md records), resample_up_f32 at L >= 3 and M <= 5;
+    resample_rat_f32 at 24 <= L <= 128 and an (M, K) of RAT_SHAPES (the
+    wide rational shapes, where resample_poly_f32 lost 1.1-4.5x to one
+    F.conv1d: MMDVM's TX 125/12, MMDVMmulti's 25/24 and 24/25, DSSS's TX
+    50/13); fir_long_f32, L launches of it (resample_phases), where
     cuda_fir.route gives a phase's FIR (K taps, stride M) to it: at DMR's
     3/125 head (K2091, 17 rows of 125 taps) chip_smoke.py measured it 2.2x
-    faster in turns than resample_poly_f32, whose lanes each run a chain
-    of K FMAs with two shared-memory loads apiece; resample_poly_f32
-    otherwise (the NBFM audio resampler 2/5, M17's 3/125 at K349, where
-    the per-phase route on fir_stream_f32 lost 6.3x). resample_x2_f32,
-    resample_up_f32 and resample_poly_f32 stage all L*K taps in one block,
-    and the wrapper raises where they do not fit."""
+    faster in turns than resample_poly_f32, whose lanes each run a chain of
+    K FMAs with two shared-memory loads apiece; resample_poly_f32 otherwise
+    (the NBFM audio resampler 2/5, M17's 3/125 at K349, where the per-phase
+    route on fir_stream_f32 lost 6.3x). resample_x2_f32, resample_up_f32
+    and resample_poly_f32 stage all L*K taps in one block, and the wrapper
+    raises where they do not fit."""
     if L == 2 and M == 1:
         return X2_OP
     if L >= UP_MIN_L and M <= UP_MAX_M:
         return UP_OP
+    if RAT_MIN_L <= L <= RAT_MAX_L and (M, K) in RAT_SHAPES:
+        return RAT_OP
     if cuda_fir.route(K, M) == cuda_fir.LONG_OP:
         return cuda_fir.LONG_OP
     return OP
@@ -213,8 +230,8 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
 
 
 def launch(op, xs, phase_taps, L: int, M: int, tails):
-    """One launch of kernel `op` (OP, UP_OP or X2_OP) on CUDA planes,
-    whatever the route: resample_poly's arguments and result."""
+    """One launch of kernel `op` (OP, UP_OP, X2_OP or RAT_OP) on CUDA
+    planes, whatever the route: resample_poly's arguments and result."""
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
     dev = xs[0].device
@@ -224,6 +241,8 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
         raise ValueError(f"{op} takes M <= {UP_MAX_M}, not {M}")
     if op == X2_OP and (L, M) != (2, 1):
         raise ValueError(f"{op} takes L 2 M 1 only, not L {L} M {M}")
+    if op == RAT_OP and (M, K) not in RAT_SHAPES:
+        raise ValueError(f"{op} has no instance for M {M}, K {K}")
     for x in xs:
         if not x.is_contiguous():
             raise ValueError("planes must be contiguous")
@@ -248,7 +267,8 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
     lib = _lib(op)
     name = op.removesuffix("_f32")
     smem_args = (L, M, K, T) if op == UP_OP else (L, M, K)
-    if getattr(lib, f"{name}_smem_bytes")(*smem_args) > kernels.SMEM_MAX:
+    smem = getattr(lib, f"{name}_smem_bytes")(*smem_args)
+    if smem < 0 or smem > kernels.SMEM_MAX:
         raise ValueError(f"L={L}, M={M}, K={K} needs more shared memory "
                          f"than a block of {op} has")
     n_out = T // M * L

@@ -12,6 +12,8 @@ plane (two for complex taps) of the kernel `ops/cuda_resample.route()`
 picks, which computes all L phases, interleaves them and writes the new
 state, reading the tail in place from the state: `resample_up_f32` at
 L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1 and 125/3),
+`resample_rat_f32` at L >= 24 and the (M, K) it has an instance for
+(MMDVM's TX 125/12, MMDVMmulti's 25/24 and 24/25, DSSS's TX 50/13),
 `resample_poly_f32` elsewhere (the NBFM audio resampler, 2/5; M17's 3/125
 head) except where a phase's strided FIR is `fir_long_f32`'s shape (DMR's
 3/125 head, K2091 a phase): there L launches of it, one a phase, then the

@@ -38,46 +38,59 @@ from qradiolink_tpu_torch.utils import kernels  # noqa: E402
 from scripts.resample_route_sweep import ROWS, tx_shapes  # noqa: E402
 
 
-def start_build(spec: str):
-    """nvcc for one variant, started; returns (spec, .so path, process)."""
-    src = (kernels.CSRC / "resample_up.cu").read_text()
+def start_build(spec: str, kernel: str = "resample_up", patches=None):
+    """nvcc for one variant of csrc/<kernel>.cu, started; returns (spec,
+    .so path, process). An item of `spec` is NAME=VALUE or a key of
+    `patches`, a list of (text, replacement) pairs that must each match
+    the source once."""
+    src = (kernels.CSRC / f"{kernel}.cu").read_text()
     for item in filter(None, spec.strip("-").split(",")):
+        if "=" not in item:
+            for old, new in (patches or {})[item]:
+                if src.count(old) != 1:
+                    raise RuntimeError(f"csrc/{kernel}.cu: {item} matches "
+                                       f"{src.count(old)} times")
+                src = src.replace(old, new)
+            continue
         name, value = item.split("=")
         line = re.compile(rf"constexpr int {name} = -?\d+;")
         if len(line.findall(src)) != 1:
-            raise RuntimeError(f"csrc/resample_up.cu has no single {name}")
+            raise RuntimeError(f"csrc/{kernel}.cu has no single {name}")
         src = line.sub(f"constexpr int {name} = {int(value)};", src)
     tag = re.sub(r"[^A-Za-z0-9]+", "_", spec) or "base"
-    out = ROOT / "build" / "resample_up_variants" / tag
+    out = ROOT / "build" / f"{kernel}_variants" / tag
     out.mkdir(parents=True, exist_ok=True)
-    (out / "resample_up.cu").write_text(src)
-    so = out / "libresample_up.so"
+    (out / f"{kernel}.cu").write_text(src)
+    so = out / f"lib{kernel}.so"
     proc = subprocess.Popen([kernels._nvcc(), *kernels._ARCH,
                              *kernels._FLAGS, "-o", str(so),
-                             str(out / "resample_up.cu")],
+                             str(out / f"{kernel}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return spec, so, proc
 
 
-def bind(so):
+def bind(so, op: str = "resample_up_f32"):
+    """A variant's library, its kernel `op` bound (resample_poly's C
+    arguments) as lib.fn."""
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.resample_up_f32.argtypes = [p, p, i, p, p, p, p, p, p,
-                                    i, i, i, i, i, i, p]
-    lib.resample_up_f32.restype = ctypes.c_int
+    lib.fn = getattr(lib, op)
+    lib.fn.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fn.restype = ctypes.c_int
     return lib
 
 
 def call(lib, xs, taps, L, M, tails):
-    """One launch of a variant: resample_poly's arguments and result."""
+    """One launch of a variant (bind's lib): resample_poly's arguments and
+    result."""
     C, T = xs[0].shape
     K = taps.shape[1]
     ys = tuple(torch.empty((C, T // M * L), device=xs[0].device)
                for _ in xs)
     state = torch.empty((C, 2, K - 1), device=xs[0].device)
     two = len(xs) == 2
-    err = lib.resample_up_f32(
+    err = lib.fn(
         tails[0].data_ptr(), tails[1].data_ptr() if two else None,
         tails[0].stride(0), xs[0].data_ptr(),
         xs[1].data_ptr() if two else None, taps.data_ptr(),

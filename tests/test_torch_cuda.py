@@ -683,7 +683,11 @@ def _resample_old(xs, taps, L, M, tails):
         xs[0].shape[:-1] + (n_pp * L,)) for i in range(len(xs)))
 
 
-# resample_poly_f32's shapes: name: (L, M, C, T, planes)
+# resample_poly_f32's shapes: name: (L, M, C, T, planes); "rat_": the
+# shapes of resample_rat_f32 (its chains' taps) at the rows and blocks the
+# paths run them: MMDVM's TX at 256 rows and one (a headless block),
+# DSSS's TX at 256 rows, MMDVMmulti's TX and RX at 7 rows (one site, a
+# headless block)
 POLY_CASES = {
     "nbfm_audio": (2, 5, 32, 2000, 1),
     "nbfm_audio_pair": (2, 5, 32, 2000, 2),
@@ -692,6 +696,15 @@ POLY_CASES = {
     "tx_20_1": (20, 1, 2, 70, 2),
     "tx_125_1": (125, 1, 2, 40, 2),  # SsbMod's and AmMod's interpolator
     "short_block": (2, 5, 3, 50, 1),  # T < K-1: the new tail takes part
+    "rat_125_12": (125, 12, 256, 24_000, 2),
+    "rat_125_12_block": (125, 12, 1, 2880, 2),
+    "rat_50_13": (50, 13, 256, 5200, 2),
+    "rat_50_13_real": (50, 13, 3, 13 * 41, 1),
+    "rat_25_24": (25, 24, 7, 24_000, 2),
+    "rat_25_24_block": (25, 24, 7, 2880, 2),
+    "rat_24_25": (24, 25, 7, 25_000, 2),
+    "rat_24_25_block": (24, 25, 7, 3000, 2),
+    "rat_24_25_short": (24, 25, 3, 25, 1),  # T < K-1 (25 < 52)
 }
 
 
@@ -699,12 +712,18 @@ POLY_CASES = {
 def test_resample_poly_matches_plain(cuda, gen, name):
     """The rational resampler with the default taps over two chained
     blocks: one launch a block of the kernel cuda_resample.route picks
-    (resample_up_f32 at the TX shapes, resample_poly_f32 at the others),
-    outputs within 1e-5 of the plain version and equal bit for bit to the
-    two-launch route, the new state (zeros in the im plane of real input)
-    equal to the plain version's."""
+    (resample_up_f32 at the TX shapes, resample_rat_f32 at the "rat_"
+    shapes, resample_poly_f32 at the others), outputs within 1e-5 of the
+    plain version and equal bit for bit to the two-launch route (and, at
+    the "rat_" shapes, to resample_poly_f32's), the new state (zeros in the
+    im plane of real input) equal to the plain version's."""
     L, M, C, T, planes = POLY_CASES[name]
-    rs = RationalResampler(L, M, lead_shape=(C,), device=cuda)
+    rat = name.startswith("rat_")
+    if rat:
+        from scripts.resample_rat_variants import rat_resampler
+        rs = rat_resampler(L, M, cuda)
+    else:
+        rs = RationalResampler(L, M, lead_shape=(C,), device=cuda)
     state = torch.randn((C, 2, rs.kp - 1), generator=gen, device=cuda)
     for _ in range(2):
         xs = [torch.randn((C, T), generator=gen, device=cuda)
@@ -714,6 +733,7 @@ def test_resample_poly_matches_plain(cuda, gen, name):
         new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
         op = cuda_resample.route(L, M, rs.kp)
         assert op == (cuda_resample.UP_OP if name.startswith("tx_")
+                      else cuda_resample.RAT_OP if rat
                       else cuda_resample.OP)
         assert kernel_paths.report() == {op: {
             "cuda": 1, "plain": 0,
@@ -723,7 +743,48 @@ def test_resample_poly_matches_plain(cuda, gen, name):
         assert torch.equal(new_state, want_state)
         for g, o in zip(got, _resample_old(xs, rs.poly_taps, L, M, tails)):
             assert torch.equal(g, o)
+        if rat:
+            old_state, old = cuda_resample.launch(cuda_resample.OP, xs,
+                                                  rs.poly_taps, L, M, tails)
+            assert torch.equal(new_state, old_state)
+            for g, o in zip(got, old):
+                assert torch.equal(g, o)
         state = new_state
+
+
+@pytest.mark.parametrize("rows", [1, 3, 29, 64])
+@pytest.mark.parametrize("L,M", [(125, 12), (50, 13), (25, 24), (24, 25)])
+def test_resample_rat_tile_widths_bit_equal(cuda, gen, L, M, rows):
+    """resample_rat_f32 at the output times a group that its tile rule
+    gives 1, 3, 29 and 64 rows of 1,237 output times and 2 planes (on 132
+    SMs from 1 to 248: one chunk, several and a ragged last one, groups
+    past the row's end): outputs and state bit-equal to
+    resample_poly_f32's."""
+    from scripts.resample_rat_variants import rat_resampler
+
+    rs = rat_resampler(L, M, cuda)
+    n_pp = 1237
+    state = torch.randn((rows, 2, rs.kp - 1), generator=gen, device=cuda)
+    xs = [torch.randn((rows, n_pp * M), generator=gen, device=cuda)
+          for _ in range(2)]
+    tails = (state[:, 0], state[:, 1])
+    got = cuda_resample.launch(cuda_resample.RAT_OP, xs, rs.poly_taps, L,
+                               M, tails)
+    old = cuda_resample.launch(cuda_resample.OP, xs, rs.poly_taps, L, M,
+                               tails)
+    for a, b in zip((got[0], *got[1]), (old[0], *old[1])):
+        assert torch.equal(a, b)
+
+
+def test_resample_rat_raises_without_an_instance(cuda):
+    """No fallback: a launch of resample_rat_f32 at an (M, K) it has no
+    instance for raises; the route never sends one there."""
+    x = torch.zeros((2, 120), device=cuda)
+    taps = torch.zeros((125, 45), device=cuda)
+    t = torch.zeros((2, 44), device=cuda)
+    assert cuda_resample.route(125, 12, 45) == cuda_resample.OP
+    with pytest.raises(ValueError):
+        cuda_resample.launch(cuda_resample.RAT_OP, (x,), taps, 125, 12, (t,))
 
 
 # resample_up_f32 at the TX interpolators, 2048 rows (name: (L, M, T,

@@ -1,5 +1,6 @@
-"""The rational resampler at L > 1 on `resample_poly_f32`'s route: a numpy
-model of the kernel's blocks held against the plain version, the port's
+"""The rational resampler at L > 1: numpy models of the kernels' blocks
+(`resample_poly_f32`, `resample_up_f32`, `resample_x2_f32`,
+`resample_rat_f32`) held against the plain version, the port's
 RationalResampler against the JAX package's on real, complex and IqPair
 input, and the route each call records on the CPU. Tolerance: 1e-5, the
 bound the JAX package holds its FIR kernels to; the carried state is
@@ -17,8 +18,9 @@ from qradiolink_tpu.ops.resample import (  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
-    OP, UP_OP, X2_OP, phase_offsets, resample_poly, resample_poly_plain,
-    route)
+    OP, RAT_OP, UP_OP, X2_OP, phase_offsets, resample_poly,
+    resample_poly_plain, route)
+from qradiolink_tpu_torch.models import registry  # noqa: E402
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
@@ -29,6 +31,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "qradiolink_tpu_torch" \
 SRC = CSRC / "resample_poly.cu"
 UP_SRC = CSRC / "resample_up.cu"
 X2_SRC = CSRC / "resample_x2.cu"
+RAT_SRC = CSRC / "resample_rat.cu"
 THREADS, WARP = 128, 32
 # resample_up_f32's block, tile target, span cap and outputs a job
 UP_THREADS, UP_ROUNDS, UP_MAX_SPAN = 256, 24, 8192
@@ -36,9 +39,36 @@ UP_THREADS, UP_ROUNDS, UP_MAX_SPAN = 256, 24, 8192
 # (L, M) of the ported and planned resamplers: the NBFM audio resampler,
 # M17's 3/125 and the TX resamplers 25/4, 20/1 and 125/1 (SsbMod, AmMod);
 # block lengths leave a ragged last tile: n_pp = 150 (64 + 64 + 22), 45
-# (32 + 13), 50 (32 + 18), 70 (32 + 32 + 6), 40 (32 + 8)
+# (32 + 13), 50 (32 + 18), 70 (32 + 32 + 6), 40 (32 + 8); and
+# resample_rat_f32's four shapes with their chains' taps (RAT_CASES)
 CASES = {(2, 5): 750, (3, 125): 125 * 45, (25, 4): 200, (20, 1): 70,
-         (125, 1): 40}
+         (125, 1): 40, (125, 12): 12 * 40, (50, 13): 13 * 70,
+         (25, 24): 24 * 50, (24, 25): 25 * 40}
+# resample_rat_f32's shapes: (L, M): (K a phase, the chain's block, the
+# output times a row of its path's block): 125/12 MmdvmMod's up (the
+# sweep_MMDVM step, 24,000 -> 250,000); 50/13 DsssBpskMod's up_if (the
+# DSSS sweep, 5,200 -> 20,000); 25/24 MmdvmMultiTx's resamp and 24/25
+# MmdvmMultiRx's (one site, 24,000 <-> 25,000)
+RAT_CASES = {(125, 12): (51, "MmdvmMod.up", 2000),
+             (50, 13): (2, "DsssBpskMod.up_if", 400),
+             (25, 24): (51, "MmdvmMultiTx.resamp", 1000),
+             (24, 25): (53, "MmdvmMultiRx.resamp", 1000)}
+
+
+def chain_taps(L, M):
+    """The prototype taps of the chain that runs L/M at a resample_rat_f32
+    shape (qradiolink_tpu_torch/chains/mmdvm.py, dsss.py), None
+    elsewhere (the default design)."""
+    from qradiolink_tpu_torch.chains import dsss, mmdvm
+    from qradiolink_tpu_torch.ops import firdes
+
+    fw = mmdvm.FILTER_WIDTH
+    make = {(125, 12): lambda: mmdvm._lp(125.0, 12 * mmdvm.DEVICE_RATE, fw),
+            (25, 24): lambda: mmdvm._lp(25.0, 600_000, fw),
+            (24, 25): lambda: mmdvm._lp(1.0, 600_000, fw),
+            (50, 13): lambda: firdes.low_pass(50.0, dsss.IF_RATE * 50,
+                                              1700.0, 1700.0 * 5)}
+    return make[(L, M)]() if (L, M) in make else None
 
 
 def block_t(L):
@@ -108,9 +138,11 @@ def _close(got, want):
 @pytest.mark.parametrize("planes", [1, 2])
 @pytest.mark.parametrize("L,M", sorted(CASES))
 def test_poly_model_matches_plain(rng, L, M, planes):
-    """Two chained blocks with the default taps: the model's outputs within
-    1e-5 of resample_poly_plain's, its state equal."""
-    rs = RationalResampler(L, M, lead_shape=(2,), device="cpu")
+    """Two chained blocks with the default taps (resample_rat_f32's shapes:
+    their chains'): the model's outputs within 1e-5 of resample_poly_plain's,
+    its state equal."""
+    rs = RationalResampler(L, M, taps=chain_taps(L, M), lead_shape=(2,),
+                           device="cpu")
     taps = rs.poly_taps.numpy()
     T = CASES[(L, M)]
     st = rng.standard_normal((2, 2, rs.kp - 1)).astype(np.float32)
@@ -627,16 +659,426 @@ def test_x2_model_follows_the_kernel_source():
         assert line in src, line
 
 
+# resample_rat_f32's block, blocks an SM its tile rule aims at, samples a
+# group stages a chunk (about), output times a group at most per ring slot
+RAT_THREADS, RAT_RULE_BLOCKS, RAT_CHUNK_WORDS, RAT_TIMES_A = 128, 4, 768, 64
+H100_SMS = 132
+
+
+def rat_ring(M, K):
+    """The accumulators a thread rings through: the outputs whose windows
+    hold one sample (ring_len in the source)."""
+    return -(-K // M)
+
+
+def rat_unroll(M, K):
+    """Iterations an unrolled step (unroll_len): a multiple of A, at least
+    3."""
+    A = rat_ring(M, K)
+    return A if A >= 3 else 4
+
+
+def rat_chunk(M, K):
+    """Iterations a chunk (chunk_iters)."""
+    ua = rat_unroll(M, K)
+    return ua * max(1, RAT_CHUNK_WORDS // (M * ua))
+
+
+def rat_region(L, M, K):
+    """Words between two groups' regions of a chunk buffer (region_words):
+    the chunk's samples, padded to q_max + 1 (mod 32)."""
+    qm = (L - 1) * M // L
+    cw = rat_chunk(M, K) * M + qm
+    return cw + (qm + 1 - cw) % 32
+
+
+def rat_lane_words(L, M, K):
+    """Each thread's first word in a chunk buffer, (G, L): its group's
+    region, then q_r."""
+    G, sp = RAT_THREADS // L, rat_region(L, M, K)
+    q = np.array(phase_offsets(L, M))
+    return (np.arange(G) * sp)[:, None] + q[None, :]
+
+
+def rat_tile_times(L, M, K, row_planes, n_pp, n_sm=H100_SMS):
+    """resample_rat_f32's output times a group (tile_times): the least that
+    gives RAT_RULE_BLOCKS blocks an SM, at least 1 and at most RAT_TIMES_A
+    per ring slot, evened over the row's tiles."""
+    if n_pp <= 0:
+        return 0
+    G = RAT_THREADS // L
+    per = -(-row_planes * n_pp // (G * n_sm * RAT_RULE_BLOCKS))
+    per = max(1, min(per, RAT_TIMES_A * rat_ring(M, K)))
+    tiles = -(-n_pp // (G * per))
+    return -(-n_pp // (tiles * G))
+
+
+def rat_ring_reads(M, K, times):
+    """Each stored output's FMAs, by running one thread's ring over a
+    group's times + A - 1 iterations in the kernel's order: iteration c
+    starts output c in slot c mod A, each of its min(M, K) samples i (the
+    c M + i-th of the group's stream) serves output c - b at tap i + b M
+    (b < A, i + b M < K) in slot (c - b) mod A, and output c - A + 1 is
+    stored from slot (c + 1) mod A where it is one of the group's times.
+    Returns {output: [(tap, sample)]} in the kernel's order."""
+    A = rat_ring(M, K)
+    slots = [[None, []] for _ in range(A)]  # [output, reads]
+    stored = {}
+    for c in range(times + A - 1):
+        slots[c % A] = [c, []]
+        for i in range(min(M, K)):
+            for b in range(A):
+                if i + b * M < K:
+                    out, reads = slots[(c - b) % A]
+                    assert c - b < 0 or out == c - b
+                    reads.append((i + b * M, c * M + i))
+        o = c - (A - 1)
+        if 0 <= o < times:
+            out, reads = slots[(c + 1) % A]
+            assert out == o
+            stored[o] = reads
+    return stored
+
+
+def rat_jobs(L, n_pp, times):
+    """(output time, phase) of every store, by block (tile), group and
+    thread, as the kernel's grid and threads give them."""
+    G = RAT_THREADS // L
+    n_tiles = -(-n_pp // (G * times)) if n_pp else 1
+    jobs = []
+    for tile in range(n_tiles):
+        t0 = tile * G * times
+        for k in range(RAT_THREADS):
+            r, g = k % L, k // L
+            if g >= G:
+                continue
+            tg = t0 + g * times
+            jobs += [(tg + o, r) for o in range(max(0, min(times,
+                                                           n_pp - tg)))]
+    return jobs
+
+
+def rat_model(xs, taps, L, M, tails, times):
+    """resample_rat_f32's blocks in numpy. Block (tile, row, plane) stages the
+    taps of all phases (rows K|1 floats apart; each thread reads its
+    phase's row into its registers), then, over a group's times + A - 1
+    iterations rounded up to whole unrolled steps, for chunk k of CC
+    iterations stages each group's words from (t0 + g times + k CC) M on
+    into region g (sp words apart; NaN elsewhere, so a wrong index shows;
+    zeros past the stream's end, the seam resolved per word); thread (phase
+    r, group g) runs iteration c: slot c mod A from 0, sample i of the
+    iteration (word c_local M + q_r + i of its region, rat_lane_words) into
+    slot (c - b) mod A at tap i + b M, then stores slot (c + 1) mod A as
+    output o = c - A + 1 of its group at (tg + o) L + r; the row's first
+    tile copies xc[T .. T+K-2] into the new state (zeros in the im plane of
+    one plane). Vectorised over rows, groups and phases. Returns (state (C,
+    2, K-1), outputs (planes, C, n)), asserting that every value is written
+    once."""
+    planes, (C, T), K = len(xs), xs[0].shape, taps.shape[1]
+    k1, n_pp = K - 1, T // M
+    A, CC = rat_ring(M, K), rat_chunk(M, K)
+    G, sp, ks = RAT_THREADS // L, rat_region(L, M, K), K | 1
+    qm = (L - 1) * M // L
+    n_tiles = -(-n_pp // (G * times)) if n_pp else 1
+    ua = rat_unroll(M, K)
+    n_it = -(-(times + A - 1) // ua) * ua  # whole unrolled steps
+    n_ch = -(-n_it // CC)
+    assert CC % ua == 0 and ua % A == 0
+    y = np.full((planes, C, n_pp * L), np.nan, np.float32)
+    state = np.full((C, 2, k1), np.nan, np.float32)
+    s_tap = np.full(L * ks, np.nan, np.float32)
+    for r in range(L):
+        s_tap[r * ks:r * ks + K] = taps[r]
+    h = s_tap[(np.arange(L) * ks)[:, None] + np.arange(K)].astype(np.float64)
+    assert not np.isnan(h).any()
+    regions = rat_lane_words(L, M, K)  # (G, L)
+    for p in range(planes):
+        xc = np.concatenate([tails[p], xs[p]], axis=1)
+        n_in = k1 + T
+
+        def load(v):
+            return np.where(v < n_in, xc[:, np.minimum(v, n_in - 1)],
+                            np.float32(0.0))
+
+        for tile in range(n_tiles):
+            if tile == 0:
+                assert np.isnan(state[:, p]).all()
+                state[:, p] = load(T + np.arange(k1))
+                if planes == 1:
+                    state[:, 1] = 0.0
+            t0 = tile * G * times
+            if n_pp - t0 <= 0:
+                continue
+            tg = t0 + np.arange(G) * times
+            n_g = np.clip(n_pp - tg, 0, times)
+            acc = np.zeros((C, G, L, A))
+            for k in range(n_ch):
+                n_itk = min(CC, n_it - k * CC)
+                n_w = n_itk * M + qm
+                assert n_w <= sp
+                buf = np.full((C, G * sp), np.nan)
+                for g in range(G):
+                    buf[:, g * sp:g * sp + n_w] = load(
+                        (tg[g] + k * CC) * M + np.arange(n_w))
+                for cl in range(n_itk):
+                    c = k * CC + cl
+                    assert (cl % ua) % A == c % A
+                    acc[..., c % A] = 0.0
+                    for i in range(min(M, K)):
+                        v = buf[:, regions + cl * M + i]
+                        assert not np.isnan(v).any()
+                        for b in range(A):
+                            if i + b * M < K:
+                                s = (c - b) % A
+                                acc[..., s] += h[:, i + b * M] * v
+                    o = c - (A - 1)
+                    keep = (o >= 0) & (o < n_g)
+                    if keep.any():
+                        pos = ((tg + o)[:, None] * L
+                               + np.arange(L)[None, :])[keep]
+                        assert np.isnan(y[p][:, pos]).all()
+                        y[p][:, pos] = acc[..., (c + 1) % A][:, keep]
+    assert not np.isnan(y).any() and not np.isnan(state).any()
+    return state, y
+
+
+def _rat_case(rng, L, M, planes, T, times, C=2, blocks=2):
+    """Blocks chained through rat_model with the chain's taps, each held
+    against resample_poly_plain: outputs within 1e-5, state equal."""
+    rs = RationalResampler(L, M, taps=chain_taps(L, M), lead_shape=(C,),
+                           device="cpu")
+    assert rs.kp == RAT_CASES[(L, M)][0]
+    taps = rs.poly_taps.numpy()
+    st = rng.standard_normal((C, 2, rs.kp - 1)).astype(np.float32)
+    for _ in range(blocks):
+        xs = [rng.standard_normal((C, T)).astype(np.float32)
+              for _ in range(planes)]
+        tails = [st[:, p] for p in range(planes)]
+        got_state, got = rat_model(xs, taps, L, M, tails, times)
+        want_state, want = resample_poly_plain(
+            [torch.from_numpy(x) for x in xs], rs.poly_taps, L, M,
+            [torch.from_numpy(t.copy()) for t in tails])
+        for g, w in zip(got, want):
+            _close(g, w.numpy())
+        assert np.array_equal(got_state, want_state.numpy())
+        st = got_state
+    return st
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("rows", [1, 7, 256])
+@pytest.mark.parametrize("L,M", sorted(RAT_CASES))
+def test_rat_model_matches_plain(rng, L, M, rows, planes):
+    """resample_rat_f32's four shapes over two chained blocks of 2 rows at
+    the tile width the rule gives the path's block at `rows` rows (2
+    planes, 132 SMs), with a ragged last tile (one group of times // 2 + 1
+    times, the others empty) and, from 30 times a group, several chunks
+    and a ragged last one: the model's outputs within 1e-5 of
+    resample_poly_plain's, its state equal."""
+    G = RAT_THREADS // L
+    times = rat_tile_times(L, M, RAT_CASES[(L, M)][0], 2 * rows,
+                           RAT_CASES[(L, M)][2])
+    n_pp = G * times + times // 2 + 1
+    _rat_case(rng, L, M, planes, n_pp * M, times)
+
+
+@pytest.mark.parametrize("L,M,n_pp,times", [
+    (24, 25, 1, 3),      # T < K-1 (25 < 52): the new state part old tail
+    (125, 12, 7, 143),   # one group of 7 of 143 times, one chunk
+    (50, 13, 300, 29),   # A 1: no ring; 2 taps a phase, chunks of 28
+    (25, 24, 37, 2),     # two times a group, 2 tiles
+])
+def test_rat_model_edges(rng, L, M, n_pp, times):
+    _rat_case(rng, L, M, 2, n_pp * M, times)
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_rat_model_state_only(rng, planes):
+    """T = 0: the launch only copies the tail into the new state, which
+    equals the old one."""
+    st = _rat_case(rng, 125, 12, planes, 0, 1, blocks=1)
+    assert st.shape == (2, 2, 50)
+
+
+@pytest.mark.parametrize("M,K", [(12, 51), (13, 2), (24, 51), (25, 53),
+                                 (12, 12), (12, 13), (5, 51)])
+@pytest.mark.parametrize("times", [1, 2, 7, 143])
+def test_rat_ring_reads_every_tap_in_order(M, K, times):
+    """Each stored output adds taps j = 0 .. K-1 in order (resample_poly_f32's
+    order), tap j times sample o M + j of the group's stream, and every
+    output time of the group is stored once."""
+    stored = rat_ring_reads(M, K, times)
+    assert sorted(stored) == list(range(times))
+    for o, reads in stored.items():
+        assert reads == [(j, o * M + j) for j in range(K)]
+
+
+@pytest.mark.parametrize("L,n_pp,times", [
+    (125, 2000, 286), (125, 240, 1), (50, 400, 50), (25, 1000, 6),
+    (25, 120, 1), (24, 1000, 100), (24, 1001, 100), (25, 3, 7),
+    (125, 5, 2)])
+def test_rat_jobs_cover_each_output_once(L, n_pp, times):
+    """The grid's tiles, groups and phases store every (output time,
+    phase) of a row-plane exactly once."""
+    jobs = rat_jobs(L, n_pp, times)
+    assert len(jobs) == n_pp * L
+    assert sorted(jobs) == [(t, r) for t in range(n_pp) for r in range(L)]
+
+
+@pytest.mark.parametrize("L,M", sorted(RAT_CASES))
+def test_rat_sample_loads_are_conflict_free(L, M):
+    """Every warp's sample load (thread k: phase k mod L, group k // L,
+    from its first word, rat_lane_words) reads distinct words from distinct
+    banks: the regions' pad to q_max + 1 (mod 32) puts consecutive groups
+    on one run of banks."""
+    K = RAT_CASES[(L, M)][0]
+    G, sp = RAT_THREADS // L, rat_region(L, M, K)
+    assert sp % 32 == ((L - 1) * M // L + 1) % 32
+    base = rat_lane_words(L, M, K)
+    for w in range(RAT_THREADS // 32):
+        ks = [k for k in range(32 * w, 32 * w + 32) if k // L < G]
+        for c in (0, 1, 7):
+            for i in range(min(M, K)):
+                words = {base[k // L, k % L] + c * M + i for k in ks}
+                assert len({a % 32 for a in words}) == len(words)
+
+
+def test_rat_tile_widths():
+    """The tile rule at the paths' blocks (the kernel's header quotes
+    them): (output times a group, tiles a row-plane) on 132 SMs."""
+    def grid(L, M, K, rows, n_pp):
+        t = rat_tile_times(L, M, K, 2 * rows, n_pp)
+        return t, -(-n_pp // (RAT_THREADS // L * t))
+
+    assert grid(125, 12, 51, 256, 2000) == (286, 7)
+    assert grid(125, 12, 51, 1, 240) == (1, 240)
+    assert grid(50, 13, 2, 256, 400) == (50, 4)
+    for L, M, K in ((25, 24, 51), (24, 25, 53)):
+        assert grid(L, M, K, 7, 1000) == (6, 34)
+        assert grid(L, M, K, 7, 120) == (1, 24)
+        assert grid(L, M, K, 448, 1000) == (100, 2)
+
+
+def test_rat_model_follows_the_kernel_source():
+    """The model's constants, tile rule, chunks, regions, ring, seam and
+    stores are the kernel's, and its instances are the route's."""
+    src = RAT_SRC.read_text()
+    for line in [
+            f"constexpr int kThreads = {RAT_THREADS};",
+            f"constexpr int kRuleBlocks = {RAT_RULE_BLOCKS};",
+            f"constexpr int kChunkWords = {RAT_CHUNK_WORDS};",
+            f"constexpr int kTimesA = {RAT_TIMES_A};",
+            "return (K + M - 1) / M;",
+            "return ring_len(M, K) >= 3 ? ring_len(M, K) : 4;",
+            "return unroll_len(M, K) * (kChunkWords / (M * unroll_len(M, K))",
+            "constexpr int kTapStride(int K) { return K | 1; }",
+            "return n + ((t - n) % 32 + 32) % 32;",
+            "return pad_to(chunk_iters(M, K) * M + q_max(L, M), "
+            "q_max(L, M) + 1);",
+            # tile_times
+            "const long long want = G * n_sm * kRuleBlocks;",
+            "long long per = (row_planes * n_pp + want - 1) / want;",
+            "const long long most = (long long)kTimesA * ring_len(M, K);",
+            "const long long tiles = (n_pp + G * per - 1) / (G * per);",
+            "return (int)((n_pp + tiles * G - 1) / (tiles * G));",
+            # the state, the chunks, the seam
+            "st[j] = v < k1 ? tail[v] : x[v - k1];",
+            "const int n_it = (times + A - 1 + UA - 1) / UA * UA;",
+            "const int n_w = min(CC, n_it - k * CC) * M + qm;",
+            "const long long v = v0 + w;",
+            "const bool ok = v < n_in;",
+            "cp_async(dst + g * sp + w,",
+            "v < k1 ? tail + v : x + (ok ? v - k1 : 0), ok);",
+            # threads and the ring
+            "const int r = threadIdx.x % L;",
+            "const int g = threadIdx.x / L;",
+            "h[j] = active ? s_tap[r * ks + j] : 0.0f;",
+            "const float* p = s_buf + (k & 1) * G * sp + g * sp + q_r;",
+            "for (int c0 = 0; c0 < n_itk; c0 += UA, p += UA * M) {",
+            "acc[a % A] = 0.0f;",
+            "const float v = p[a * M + i];",
+            "const int s = (a - b + UA * A) % A;",
+            "acc[s] = fmaf(h[i + b * M], v, acc[s]);",
+            "const int o0 = k * CC + c0 - (A - 1);",
+            "float* ys = yo + (long long)o0 * L;",
+            "if ((unsigned)(o0 + a) < (unsigned)n_g)",
+            "ys[a * L] = acc[(a + 1) % A];"]:
+        assert line in src, line
+    for M, K in cuda_resample.RAT_SHAPES:
+        assert f"(M == {M} && K == {K})" in src
+        assert f"launch<{M}, {K}>(" in src
+    assert cuda_resample.RAT_MIN_L == 24
+    assert cuda_resample.RAT_MAX_L == RAT_THREADS
+
+
+@pytest.mark.parametrize("L,M,K,want", [
+    (125, 12, 51, RAT_OP), (25, 24, 51, RAT_OP), (24, 25, 53, RAT_OP),
+    (50, 13, 2, RAT_OP), (128, 13, 2, RAT_OP),
+    (129, 13, 2, OP),     # more phases than the block's threads
+    (125, 12, 45, OP),    # no instance at K 45
+    (23, 25, 53, OP),     # below 24 phases
+    (125, 7, 51, OP),     # no instance at M 7
+    (12, 125, 523, OP),   # MMDVM's RX, decimating: resample_poly_f32 wins
+    (13, 50, 3, OP), (2, 25, 105, OP), (2, 25, 561, OP), (3, 125, 349, OP),
+    (125, 4, 51, UP_OP)])
+def test_resample_route_rat_shapes(L, M, K, want):
+    """resample_rat_f32 at 24 to 128 phases and an (M, K) it has an
+    instance for, resample_poly_f32 at the other M > 5 shapes the paths
+    run."""
+    assert route(L, M, K) == want
+
+
+@pytest.mark.parametrize("mode,rx,rows", [("MMDVM", False, (2,)),
+                                          ("MMDVMmulti", False, ()),
+                                          ("MMDVMmulti", True, ()),
+                                          ("BPSKDSSS8", False, (2,))])
+def test_chains_record_resample_rat(rng, mode, rx, rows):
+    """MMDVM's and DSSS's TX and MMDVMmulti's TX and RX, built through the
+    registry on the CPU, record resample_rat_f32 once a block at their
+    resampler's shape, and resample_poly_f32 never there."""
+    lead = {} if mode == "MMDVMmulti" else {"lead_shape": rows}
+    chain = (registry.rx_chain if rx else registry.tx_chain)(
+        mode, device="cpu", **lead)
+    if rx:
+        x = (rng.standard_normal(rows + (2500,))
+             + 1j * rng.standard_normal(rows + (2500,))) * 0.1
+        x, rs, n = torch.from_numpy(x.astype(np.complex64)), chain.resamp, 7
+    elif mode == "MMDVMmulti":
+        x = torch.from_numpy(
+            (rng.standard_normal((7, 2400)) * 0.3).astype(np.float32))
+        rs, n = chain.resamp, 7
+    elif mode == "MMDVM":
+        x = torch.from_numpy(
+            (rng.standard_normal(rows + (2400,)) * 0.3).astype(np.float32))
+        rs, n = chain.up, 2
+    else:
+        x = torch.from_numpy(rng.integers(0, 256, rows + (2,)).astype(
+            np.uint8))
+        rs, n = chain.up_if, 2
+    kernel_paths.reset()
+    chain(chain.init_state(), x)
+    rep = kernel_paths.report()
+    key = f"plain L{rs.L} K{rs.kp} D{rs.M} tail 2x{n}"
+    assert (rs.L, rs.M, rs.kp) in {(L, M, v[0])
+                                   for (L, M), v in RAT_CASES.items()}
+    assert rep[RAT_OP] == {"cuda": 0, "plain": 1, "shapes": {key: 1}}
+    assert key not in rep.get(OP, {}).get("shapes", {})
+
+
 @pytest.mark.parametrize("L,M,want", [
     (2, 5, OP), (2, 1, X2_OP), (3, 125, OP), (3, 1, UP_OP), (3, 5, UP_OP),
     (4, 1, UP_OP), (4, 5, UP_OP), (5, 4, UP_OP), (20, 1, UP_OP),
     (25, 4, UP_OP), (125, 1, UP_OP), (125, 4, UP_OP), (3, 7, OP),
-    (4, 6, OP), (125, 7, OP)])
+    (4, 6, OP), (125, 7, OP),
+    # resample_rat_f32's (L, M) at a K it has no instance for
+    (125, 12, OP), (50, 13, OP), (25, 24, OP), (24, 25, OP)])
 def test_resample_route_at_the_sweep_edges(L, M, want):
     """resample_x2_f32 at L 2 M 1 (QpskMod's x2), resample_up_f32 from L 3
     (the sweep's lowest L) at M <= 5 (the decimations with a ring
-    instance), resample_poly_f32 elsewhere (L 2 M 5, M17's 3/125),
-    whatever K."""
+    instance), resample_poly_f32 elsewhere (L 2 M 5, M17's 3/125), at K 45
+    and 113: no resample_rat_f32 instance has those K, so its (L, M) stay
+    on resample_poly_f32 there (test_resample_route_rat_shapes has its
+    K)."""
     for K in (45, 113):
         assert route(L, M, K) == want
     assert cuda_resample.UP_MIN_L == 3 and cuda_resample.UP_MAX_M == 5
@@ -656,10 +1098,12 @@ def test_phase_offsets(L, M):
 @pytest.mark.parametrize("kind", ["real", "pair", "complex"])
 @pytest.mark.parametrize("L,M", sorted(CASES))
 def test_rational_resampler_matches_jax(rng, L, M, kind):
-    """RationalResampler with the default taps, lead shape (2,), two
-    blocks, against the JAX package's: every output and every state leaf
-    (on real input the im plane of the state stays zero)."""
+    """RationalResampler with the default taps (resample_rat_f32's shapes:
+    their chains'), lead shape (2,), two blocks, against the JAX package's:
+    every output and every state leaf (on real input the im plane of the
+    state stays zero)."""
     T = CASES[(L, M)]
+    taps = chain_taps(L, M)
     blocks = []
     for _ in range(2):
         re_ = rng.standard_normal((2, T)).astype(np.float32)
@@ -667,11 +1111,14 @@ def test_rational_resampler_matches_jax(rng, L, M, kind):
         blocks.append({"real": re_, "pair": (re_, im),
                        "complex": (re_ + 1j * im).astype(np.complex64)}[kind])
     kernel_paths.reset()
-    stream_both(JaxResampler(L, M, lead_shape=(2,)),
-                RationalResampler(L, M, lead_shape=(2,), device="cpu"),
+    stream_both(JaxResampler(L, M, taps=taps, lead_shape=(2,)),
+                RationalResampler(L, M, taps=taps, lead_shape=(2,),
+                                  device="cpu"),
                 blocks)
     planes = 1 if kind == "real" else 2
-    rs_kp = RationalResampler(L, M, device="cpu").kp
+    rs_kp = RationalResampler(L, M, taps=taps, device="cpu").kp
+    if (L, M) in RAT_CASES:
+        assert (rs_kp, route(L, M, rs_kp)) == (RAT_CASES[(L, M)][0], RAT_OP)
     assert kernel_paths.report() == {route(L, M, rs_kp): {
         "cuda": 0, "plain": 2,
         "shapes": {f"plain L{L} K{rs_kp} D{M} tail {planes}x2": 2}}}
