@@ -16,7 +16,7 @@ when the package cannot be imported, and when any phase fails:
     csrc/agc2.cu, csrc/costas.cu, csrc/symbol_sync.cu,
     csrc/viterbi_stream.cu, csrc/viterbi_stream_warp.cu,
     csrc/viterbi_stream_redux.cu, csrc/fll_band_edge.cu,
-    csrc/resample_x2.cu and csrc/resample_rat.cu);
+    csrc/resample_x2.cu, csrc/resample_rat.cu and csrc/resample_dec.cu);
  3. each kernel against its plain PyTorch version on the card, at the shapes
     the main paths give it, with each one's time, its plain version's, the
     library yardstick's where one PyTorch call computes the same function,
@@ -202,13 +202,14 @@ when the package cannot be imported, and when any phase fails:
     200,000) that is resample_x2_f32, F.conv1d with 2 output channels
     beside them;
 18. the M17 and DMR kernels at 2048 rows against their plain versions:
-    the 3/125 heads (M17's K349 a phase, DMR's K2091) on
+    the 3/125 heads (M17's K349 a phase, DMR's K2091) on resample_dec_f32
+    (cuda_resample.route's kernel for both; over two chained blocks), on
     resample_poly_f32 and on the per-phase route the JAX package takes
     (one launch of the strided FIR's routed kernel a phase, fir_stream_f32
     at M17's K349 D125 and fir_long_f32 at DMR's K2091, then the
-    interleave; cuda_resample.route gives DMR's head this route and M17's
-    resample_poly_f32), timed in turns, both within the FIR's bound of the
-    plain version, F.conv1d with L output channels beside them; fir_s1_f32 at
+    interleave), the three timed in turns, each within the FIR's bound of
+    the plain version with its state equal, F.conv1d with L output
+    channels beside them; fir_s1_f32 at
     M17's channel LP (K11, 2 planes) and RRC (K251) and DMR's RRC (K125),
     2048 x 4,800, in turns with fir_stream_f32 and bit-equal to it;
     symbol_sync_mm_f32 in levels mode with M17's and DMR's loop
@@ -224,10 +225,10 @@ when the package cannot be imported, and when any phase fails:
     the terminator) through the port's M17Mod / DmrMod on the card and
     ChannelModel at 10 dB with a 100 Hz offset, at 2048 channels x
     200,000 samples for 3 steps through M17Demod / DmrDemod (counters
-    zeroed before, read after: the head on resample_poly_f32 (M17) or
-    fir_long_f32 once a phase (DMR), fir_s1_f32 for the RRC and M17's
-    channel LP, symbol_sync_mm_f32 in levels mode, once a step;
-    fir_stream_f32 never), step ms and vs_baseline
+    zeroed before, read after: the head on resample_dec_f32, fir_s1_f32
+    for the RRC and M17's channel LP, symbol_sync_mm_f32 in levels mode,
+    once a step; fir_stream_f32, resample_poly_f32 and fir_long_f32
+    never), step ms and vs_baseline
     (printed, not gated), one step stage by stage, one traced; the frame
     layer on the host for 8 rows (M17: Deframer and FrameDecoder, the LSF
     and at least 10 of the 11 payloads; DMR: find_bursts and decode_burst,
@@ -273,7 +274,10 @@ when the package cannot be imported, and when any phase fails:
     the route replaced in turns; at fir_stream_f32's shapes
     fir_stream_v0_f32, bit-equal), each loop (the conj-mode and
     levels-mode sync, the Viterbi) on the path's own inputs bit-equal to
-    one timed call of its plain loop;
+    one timed call of its plain loop; at GMSK2K, resample_dec_f32 at its
+    K2239 D50 head (L 1: no route gives it the shape), within the FIR's
+    bound and timed in turns with fir_long_f32, beside F.conv1d (a row
+    with no path);
 23. MMDVMmulti at its real size: one site, 7 carriers, 250,000 samples a
     step at 250 ksps, 3 steps, the TX (MmdvmMultiTx, IqPair out) into the
     RX on IqPair planes, every launch as chain_launches gives it:
@@ -383,8 +387,8 @@ when the package cannot be imported, and when any phase fails:
     freedv_rx within one LSB (the flips printed), with the API
     tests/test_freedv.py's gates; one RadioController in FreeDV1600USB RX
     through rx_block, its events the CPU's; (b) UdpAudioClient's
-    resamplers (fir_cols_f32 K269 D6 and resample_up_f32 L6 K45 at one
-    row) within 1e-5 of the CPU's peak over three reads and three writes,
+    resamplers (fir_cols_f32 K269 D6 and resample_poly_f32 L6 K45 at one
+    row, the route's few-row rule) within 1e-5 of the CPU's peak over three reads and three writes,
     none a multiple of 6, then a 400 Hz UDP round trip within 20 Hz;
     (c) the TX audio processor through tx_audio_block (FM with the
     compressor, USB with the compressor and the denoiser, 4FSK2K's Codec2
@@ -1891,22 +1895,33 @@ RESAMPLE_SOURCE = {
     "resample_poly_f32": "qradiolink_tpu_torch/csrc/resample_poly.cu",
     "resample_up_f32": "qradiolink_tpu_torch/csrc/resample_up.cu",
     "resample_x2_f32": "qradiolink_tpu_torch/csrc/resample_x2.cu",
-    "resample_rat_f32": "qradiolink_tpu_torch/csrc/resample_rat.cu"}
+    "resample_rat_f32": "qradiolink_tpu_torch/csrc/resample_rat.cu",
+    "resample_dec_f32": "qradiolink_tpu_torch/csrc/resample_dec.cu"}
+# what each resampler kernel replaces: the per-phase strided FIR
+# (banded_fir_stream, which the JAX package runs once a phase at the
+# decimating shapes) for resample_dec_f32, banded_fir for the others
+RESAMPLE_REPLACES = {"resample_dec_f32":
+                     "qradiolink_tpu/ops/pallas_fir.py:218"}
 
 
 def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
     """A resampler's shape (C rows x T input samples, `planes` planes, the
-    tails read in place): the kernel that the route gives it against the
-    plain version (outputs within 1e-5, the new state equal). Where the
-    route gives it resample_up_f32, resample_x2_f32 or resample_rat_f32,
-    resample_poly_f32, which served it before, is held against the plain
-    version too, the two outputs and states must be equal bit for bit over
-    two chained blocks (the second from the routed kernel's new state), and
-    they are timed in turns (old, new, new, old); the row of the kernel the
-    route does not pick has no path. One F.conv1d with L output channels is
-    the library call, beside each; at resample_rat_f32's shapes an empty
-    kernel's launch floor too. on_path false: a shape no chain runs on
-    `run` (every row with no path)."""
+    tails read in place): the kernel that the route gives it at C rows
+    against the plain version (outputs within 1e-5, the new state equal).
+    Where the route gives it resample_up_f32, resample_x2_f32,
+    resample_rat_f32 or resample_dec_f32, resample_poly_f32, which served
+    it before, is held against the plain version too; where the route
+    gives a call of few rows resample_poly_f32, the kernel it gives many
+    rows takes that place. The two are run over two chained blocks (the
+    second from the routed kernel's new state) and timed in turns (old,
+    new, new, old); their outputs and states must be equal bit for bit,
+    except resample_dec_f32's outputs, which sum in another order and are
+    held within the FIR's bound of the plain version on both blocks. The
+    row of the kernel the route does not pick has no path. One F.conv1d
+    with L output channels is the library call, beside each; an empty
+    kernel's launch floor too at resample_rat_f32's and resample_dec_f32's
+    shapes and at the few-row calls. on_path false: a shape no chain runs
+    on `run` (every row with no path)."""
     from qradiolink_tpu_torch.ops import cuda_resample
     import torch.nn.functional as F
 
@@ -1915,8 +1930,10 @@ def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
                for _ in range(planes))
     st = torch.randn((C, 2, K - 1), generator=gen, device=dev)
     tails = (st[:, 0, :], st[:, 1, :])[:planes]
-    op = cuda_resample.route(L, M, K)
-    kinds = (op,) if op == cuda_resample.OP else (op, cuda_resample.OP)
+    op = cuda_resample.route(L, M, K, C)
+    many = cuda_resample.route(L, M, K)
+    old = cuda_resample.OP if op != cuda_resample.OP else many
+    kinds = (op,) if old == op else (op, old)
     fns = {k: (lambda k=k: cuda_resample.launch(k, xs, taps, L, M, tails))
            for k in kinds[::-1]}
     p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M, tails)
@@ -1934,14 +1951,27 @@ def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
         tails2 = (st2[:, 0, :], st2[:, 1, :])[:planes]
         chained = {k: cuda_resample.launch(k, xs2, taps, L, M, tails2)
                    for k in kinds}
+        exact = cuda_resample.DEC_OP not in kinds
+        if not exact:
+            w2, p2 = cuda_resample.resample_poly_plain(xs2, taps, L, M,
+                                                       tails2)
+            for k, (s2, y2) in chained.items():
+                errs[k] = max(errs[k], check_fir(f"{k}/{name} block 1", y2,
+                                                 p2))
+                if not torch.equal(s2, w2):
+                    raise RuntimeError(f"{k}/{name} block 1: state differs")
+            del w2, p2
         for blk, o in enumerate((outs, chained)):
-            (s0, y0), (s1, y1) = o[cuda_resample.OP], o[op]
-            if not (torch.equal(s0, s1) and all(torch.equal(a, b)
-                                                for a, b in zip(y0, y1))):
-                raise RuntimeError(f"{op}/{name} block {blk}: not bit-equal "
-                                   f"to {cuda_resample.OP}")
-        print(f"  {op}/{name}: outputs and state bit-equal to "
-              f"{cuda_resample.OP} over two chained blocks", flush=True)
+            (s0, y0), (s1, y1) = o[old], o[op]
+            if not (torch.equal(s0, s1) and (not exact or all(
+                    torch.equal(a, b) for a, b in zip(y0, y1)))):
+                raise RuntimeError(f"{op}/{name} block {blk}: not "
+                                   f"{'bit-' if exact else 'state-'}equal "
+                                   f"to {old}")
+        print(f"  {op}/{name}: " + (
+            f"outputs and state bit-equal to {old}" if exact else
+            f"within the FIR's bound, state equal to {old}'s")
+            + " over two chained blocks", flush=True)
         del chained, xs2, tails2, st2
     del outs
     offs = cuda_resample.phase_offsets(L, M)
@@ -1966,17 +1996,18 @@ def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
     n_out = T // M * L
     b = bound(4 * (planes * C * (K - 1 + T) + L * K + planes * C * n_out
                    + 2 * C * (K - 1)), 2 * K * planes * C * n_out)
-    old = "".join(f"{ms[k] / ms[op]:.2f}x {k} in turns, "
-                  for k in kinds[1:])
+    versus = "".join(f"{ms[k] / ms[op]:.2f}x {k} in turns, "
+                     for k in kinds[1:])
     floor = ""
-    if op == cuda_resample.RAT_OP:
+    if op in (cuda_resample.RAT_OP, cuda_resample.DEC_OP) or (
+            op == cuda_resample.OP and old != op):
         floor_ms = launch_floor(dev)
         floor = f", launch floor {floor_ms:.4f} ms"
-    print(f"  {op}/{name}: {old}{lib_ms / ms[op]:.2f}x F.conv1d, "
+    print(f"  {op}/{name}: {versus}{lib_ms / ms[op]:.2f}x F.conv1d, "
           f"{b[0] / ms[op]:.1%} of its bound{floor} ({CARD})", flush=True)
     shape = cuda_resample.shape_key(xs, L, K, M)
-    rows = [row(f"{k}/{name}", RESAMPLE_SOURCE[k],
-                "qradiolink_tpu/ops/pallas_fir.py:111", errs[k], ms[k],
+    rows = [row(f"{k}/{name}", RESAMPLE_SOURCE[k], RESAMPLE_REPLACES.get(
+                k, "qradiolink_tpu/ops/pallas_fir.py:111"), errs[k], ms[k],
                 plain_ms, b, lib_ms, run, shape, routed=on_path and k == op)
             for k in kinds]
     if floor:
@@ -3232,9 +3263,10 @@ def fsk4_path(kind, dev):
     """The M17 or DMR RX path (BASELINE configs[2]): each row's own
     transmission (fsk4_rx_input) at 2048 channels x 200,000 samples a
     step through M17Demod / DmrDemod for N_STEPS steps with state carried,
-    the counters zeroed just before: the 3/125 head on resample_poly_f32,
+    the counters zeroed just before: the 3/125 head on resample_dec_f32,
     the RRC (and M17's channel LP) on fir_s1_f32, symbol_sync_mm_f32 on its
-    4 levels, each once a step; fir_stream_f32 never. Step ms and
+    4 levels, each once a step; fir_stream_f32, resample_poly_f32 and
+    fir_long_f32 never. Step ms and
     vs_baseline (printed, not gated), one step stage by stage, one traced;
     the frame layer on FRAME_ROWS rows (frame_phase); the card against
     the CPU (fsk4_card_vs_cpu); then the feedforward chain on the same
@@ -3248,7 +3280,8 @@ def fsk4_path(kind, dev):
     iqs, sent = fsk4_rx_input(kind, dev)
     chain = Demod(lead_shape=(N_CH,), device=dev)
     head, per_step = head_launches(chain.resamp)
-    heads = {"resample_poly_f32", "fir_long_f32"} - {head[0]}
+    heads = {"resample_poly_f32", "fir_long_f32",
+             "resample_dec_f32"} - {head[0]}
     state, outs, step_s, report = drive(chain, chain.init_state(), iqs,
                                         (head[0],) + FSK4_EVERY_STEP)
     for out in outs:
@@ -3329,35 +3362,69 @@ def fsk4_path(kind, dev):
 
 def head_row(name, rs, run, dev, gen):
     """A 3/125 head at its path's shape (2048 rows x 200,000, 2 planes, the
-    tails read in place): resample_poly_f32 and the per-phase route
+    tails read in place): resample_dec_f32 (the route's kernel),
+    resample_poly_f32 and the per-phase route
     (cuda_resample.resample_phases: one launch a phase of the strided
     FIR's routed kernel, fir_stream_f32 at M17's K349, fir_long_f32 at
     DMR's K2091, and the interleave), each against the plain version
-    (outputs within the FIR's bound, state equal), timed in turns, and one
-    F.conv1d with L output channels (TF32 off). The row of the one that
-    cuda_resample.route does not pick has no path."""
+    (outputs within the FIR's bound, state equal), resample_dec_f32 over
+    a second block chained from its new state and, at DMR's head, bit for
+    bit equal to the per-phase route (it takes fir_long_f32's layout and
+    sum order there), the three timed in turns, and one F.conv1d with L
+    output channels (TF32 off). The rows of the ones that
+    cuda_resample.route does not pick have no path."""
     from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
     import torch.nn.functional as F
 
     L, M, K, taps = rs.L, rs.M, rs.kp, rs.poly_taps
-    xs = tuple(torch.randn((N_CH, T_STEP), generator=gen, device=dev) * 0.1
-               for _ in range(2))
+    op = cuda_resample.route(L, M, K, N_CH)
+
+    def planes():
+        return tuple(torch.randn((N_CH, T_STEP), generator=gen,
+                                 device=dev) * 0.1 for _ in range(2))
+
+    xs = planes()
     st = torch.randn((N_CH, 2, K - 1), generator=gen, device=dev) * 0.1
     tails = (st[:, 0, :], st[:, 1, :])
-    op = cuda_resample.route(L, M, K)
     ph_op = cuda_fir.route(K, M)
     fns = {cuda_resample.OP: lambda: cuda_resample.launch(
                cuda_resample.OP, xs, taps, L, M, tails),
            ph_op: lambda: cuda_resample.resample_phases(xs, taps, L, M,
-                                                        tails)}
+                                                        tails),
+           cuda_resample.DEC_OP: lambda: cuda_resample.launch(
+               cuda_resample.DEC_OP, xs, taps, L, M, tails)}
     p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, L, M, tails)
-    errs = {}
+    errs, outs = {}, {}
     for k, fn in fns.items():
         state, ys = fn()
         errs[k] = check_fir(f"{k}/{name}", ys, p_ys)
         if not torch.equal(state, p_state):
             raise RuntimeError(f"{k}/{name}: state differs")
+        outs[k] = ys
+        if k == cuda_resample.DEC_OP:
+            # a second block from the kernel's new state, fresh input
+            xs2 = planes()
+            tails2 = (state[:, 0, :], state[:, 1, :])
+            s2, y2 = cuda_resample.launch(k, xs2, taps, L, M, tails2)
+            w2, p2 = cuda_resample.resample_poly_plain(xs2, taps, L, M,
+                                                       tails2)
+            errs[k] = max(errs[k], check_fir(f"{k}/{name} block 1", y2, p2))
+            if not torch.equal(s2, w2):
+                raise RuntimeError(f"{k}/{name} block 1: state differs")
+            print(f"  {k}/{name}: within the FIR's bound, state equal, over "
+                  f"two chained blocks", flush=True)
+            del xs2, tails2, s2, y2, w2, p2
         del state, ys
+    if ph_op == cuda_fir.LONG_OP:
+        # DMR's head: resample_dec_f32 takes fir_long_f32's segments,
+        # column groups and sum order, so the two routes' bits are equal
+        if not all(torch.equal(a, b) for a, b in zip(
+                outs[cuda_resample.DEC_OP], outs[ph_op])):
+            raise RuntimeError(f"{cuda_resample.DEC_OP}/{name}: not "
+                               f"bit-equal to {ph_op} once a phase")
+        print(f"  {cuda_resample.DEC_OP}/{name}: outputs bit-equal to the "
+              f"per-phase route on {ph_op}", flush=True)
+    del outs
     offs = cuda_resample.phase_offsets(L, M)
     w = torch.zeros((L, 1, K + offs[-1]), device=dev)
     for r, q in enumerate(offs):
@@ -3378,20 +3445,20 @@ def head_row(name, rs, run, dev, gen):
     n_out = T_STEP // M * L
     b = bound(4 * (2 * N_CH * (K - 1 + T_STEP) + L * K + 2 * N_CH * n_out
                    + 2 * N_CH * (K - 1)), 2 * K * 2 * N_CH * n_out)
-    other = ph_op if op == cuda_resample.OP else cuda_resample.OP
-    print(f"  {name}: the route's {op} {ms[other] / ms[op]:.2f}x {other} "
-          f"in turns, {lib_ms / ms[op]:.2f}x F.conv1d, {b[0] / ms[op]:.1%} "
-          f"of its bound", flush=True)
+    print(f"  {name}: the route's {op} " + ", ".join(
+        f"{ms[k] / ms[op]:.2f}x {k}" for k in fns if k != op)
+        + f" in turns, {lib_ms / ms[op]:.2f}x F.conv1d, "
+        f"{b[0] / ms[op]:.1%} of its bound ({CARD})", flush=True)
     del lib_in
-    rows = [row(f"{cuda_resample.OP}/{name}", RESAMPLE_SOURCE[
-                cuda_resample.OP], "qradiolink_tpu/ops/pallas_fir.py:111",
-                errs[cuda_resample.OP], ms[cuda_resample.OP], plain_ms, b,
-                lib_ms, run, cuda_resample.shape_key(xs, L, K, M),
-                routed=op == cuda_resample.OP),
-            row(f"{ph_op}/{name}", FIR_SOURCE[ph_op],
-                "qradiolink_tpu/ops/pallas_fir.py:218", errs[ph_op],
-                ms[ph_op], plain_ms, b, lib_ms, run,
-                cuda_fir.shape_key(xs, K, M, tails), routed=op == ph_op)]
+    rows = [row(f"{k}/{name}", RESAMPLE_SOURCE[k], RESAMPLE_REPLACES.get(
+                k, "qradiolink_tpu/ops/pallas_fir.py:111"), errs[k], ms[k],
+                plain_ms, b, lib_ms, run,
+                cuda_resample.shape_key(xs, L, K, M), routed=op == k)
+            for k in (cuda_resample.DEC_OP, cuda_resample.OP)]
+    rows.append(row(f"{ph_op}/{name}", FIR_SOURCE[ph_op],
+                    "qradiolink_tpu/ops/pallas_fir.py:218", errs[ph_op],
+                    ms[ph_op], plain_ms, b, lib_ms, run,
+                    cuda_fir.shape_key(xs, K, M, tails), routed=op == ph_op))
     rows[-1]["per_step"] = L
     del xs, st, tails
     torch.cuda.empty_cache()
@@ -3400,14 +3467,71 @@ def head_row(name, rs, run, dev, gen):
 
 def head_launches(rs):
     """((kernel, shape key) of a 3/125 head on the route, launches a step)
-    at N_CH rows, 2 planes: resample_poly_f32 once, or fir_long_f32 once a
-    phase."""
+    at N_CH rows, 2 planes: resample_dec_f32 (or another resampler
+    kernel) once."""
     from qradiolink_tpu_torch.ops import cuda_resample
 
-    op = cuda_resample.route(rs.L, rs.M, rs.kp)
-    if op == cuda_resample.OP:
-        return (op, f"L{rs.L} K{rs.kp} D{rs.M} tail 2x{N_CH}"), 1
-    return (op, f"K{rs.kp} D{rs.M} tail 2x{N_CH}"), rs.L
+    op = cuda_resample.route(rs.L, rs.M, rs.kp, N_CH)
+    return (op, f"L{rs.L} K{rs.kp} D{rs.M} tail 2x{N_CH}"), 1
+
+
+def dec_l1_row(name, rs, run, dev, gen):
+    """resample_dec_f32 at an L 1 head (GMSK2K's K2239 D50, 2048 x 200,000,
+    2 planes, the tails read in place), which no route gives it: against
+    the plain version (the FIR's bound, state equal), bit-equal to the
+    strided FIR's routed kernel (fir_long_f32, whose layout and sum order
+    it takes there), timed in turns with it and beside F.conv1d, for the
+    next redesign of that head. Its row has no path."""
+    from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
+    import torch.nn.functional as F
+
+    M, K, taps = rs.M, rs.kp, rs.poly_taps
+    xs = tuple(torch.randn((N_CH, T_STEP), generator=gen, device=dev)
+               for _ in range(2))
+    st = torch.randn((N_CH, 2, K - 1), generator=gen, device=dev)
+    tails = (st[:, 0, :], st[:, 1, :])
+    n_out = T_STEP // M
+    shape = cuda_resample.shape_key(xs, 1, K, M)
+    fir_op = cuda_fir.route(K, M)
+    fns = {fir_op: lambda: cuda_fir.fir_stream(xs, taps[0], M, n_out,
+                                               tails=tails),
+           cuda_resample.DEC_OP: lambda: cuda_resample.launch(
+               cuda_resample.DEC_OP, xs, taps, 1, M, tails)}
+    p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, 1, M, tails)
+    f_ys = fns[fir_op]()
+    check_fir(f"{fir_op}/{name}", f_ys, p_ys)
+    state, ys = fns[cuda_resample.DEC_OP]()
+    err = check_fir(f"{cuda_resample.DEC_OP}/{name}", ys, p_ys)
+    if not torch.equal(state, p_state):
+        raise RuntimeError(f"{cuda_resample.DEC_OP}/{name}: state differs")
+    # resample_dec_f32 takes fir_long_f32's layout and sum order here
+    if not all(torch.equal(a, b) for a, b in zip(ys, f_ys)):
+        raise RuntimeError(f"{cuda_resample.DEC_OP}/{name}: not bit-equal "
+                           f"to {fir_op}")
+    print(f"  {cuda_resample.DEC_OP}/{name}: outputs bit-equal to {fir_op}",
+          flush=True)
+    del state, ys, f_ys, p_state, p_ys
+    torch.cuda.synchronize()
+    ms, turns = turns_ms(fns)
+    print(f"  {name} in turns: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+    lib_in = torch.stack([torch.cat([t, x], -1) for t, x in zip(tails, xs)]
+                         ).reshape(2 * N_CH, 1, -1)
+    w = taps[0].reshape(1, 1, K)
+    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
+    plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
+        xs, taps, 1, M, tails), iters=3, warmup=1)
+    b = bound(4 * (2 * N_CH * (K - 1 + T_STEP) + K + 2 * N_CH * n_out
+                   + 2 * N_CH * (K - 1)), 2 * K * 2 * N_CH * n_out)
+    op = cuda_resample.DEC_OP
+    print(f"  {op}/{name}: {ms[fir_op] / ms[op]:.2f}x {fir_op} in turns, "
+          f"{lib_ms / ms[op]:.2f}x F.conv1d, {b[0] / ms[op]:.1%} of its "
+          f"bound; on no route ({CARD})", flush=True)
+    del xs, st, tails, lib_in
+    torch.cuda.empty_cache()
+    return [row(f"{op}/{name}", RESAMPLE_SOURCE[op],
+                RESAMPLE_REPLACES[op], err, ms[op], plain_ms, b, lib_ms,
+                run, shape, routed=False)]
 
 
 def fsk4_signal(dev, gen, C, T):
@@ -3684,7 +3808,7 @@ def call_capture():
 
     def rp(xs, phase_taps, L, M, tails):
         K = phase_taps.shape[1]
-        note((cuda_resample.route(L, M, K),
+        note((cuda_resample.route(L, M, K, math.prod(xs[0].shape[:-1])),
               cuda_resample.shape_key(xs, L, K, M)),
              dict(kind="poly", taps=phase_taps, L=L, M=M,
                   planes=len(xs), lead=tuple(xs[0].shape[:-1]),
@@ -3745,16 +3869,14 @@ def fir_launches(f, planes, rows, complex_in=False):
 
 def rs_launches(rs, planes, rows):
     """{(kernel, shape key): launches} of one call of RationalResampler rs:
-    at L 1 the routed strided FIR once; else the routed resampler once, or
-    fir_long_f32 once a phase."""
+    at L 1 the routed strided FIR once; else the resampler kernel the
+    route gives `rows` rows, once."""
     from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
 
     if rs.L == 1:
         return {(cuda_fir.route(rs.kp, rs.M),
                  f"K{rs.kp} D{rs.M} tail {planes}x{rows}"): 1}
-    op = cuda_resample.route(rs.L, rs.M, rs.kp)
-    if op == cuda_fir.LONG_OP:
-        return {(op, f"K{rs.kp} D{rs.M} tail {planes}x{rows}"): rs.L}
+    op = cuda_resample.route(rs.L, rs.M, rs.kp, rows)
     return {(op, f"L{rs.L} K{rs.kp} D{rs.M} tail {planes}x{rows}"): 1}
 
 
@@ -4688,7 +4810,10 @@ def full_path(mode, dev, gen, done):
     fsk_card_vs_cpu(mode, iqs, dev)
     del iqs, iq
     torch.cuda.empty_cache()
-    return report, captured_rows(seen, want, run, done, dev, gen)
+    rows = captured_rows(seen, want, run, done, dev, gen)
+    if mode == "GMSK2K":
+        rows += dec_l1_row(f"{run}_head", chain.resamp, run, dev, gen)
+    return report, rows
 
 
 def mmdvm_multi_path(dev, gen, done):
@@ -7972,8 +8097,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     # fir_decim_f32, fir_long_f32, fir_cols_f32, fir_s1_f32 and
-    # resample_up_f32 keep their rings in registers, resample_rat_f32 its
-    # taps and accumulators, viterbi_bfly_k7 its
+    # resample_up_f32 keep their rings in registers, resample_rat_f32 and
+    # resample_dec_f32 their taps and accumulators, viterbi_bfly_k7 its
     # path metrics, pfb_fft_f32 and depthwise_run_f32 their taps,
     # resample_poly_f32 and agc2_gain_f32 their loads in flight, agc2_f32
     # its rows' loads, the PSK loops (costas_loop_f32, symbol_sync_mm_f32,
@@ -7984,7 +8109,7 @@ def main() -> int:
                  "resample_up", "agc2", "costas", "symbol_sync",
                  "viterbi_stream", "viterbi_stream_warp",
                  "viterbi_stream_redux", "fll_band_edge", "resample_x2",
-                 "resample_rat"):
+                 "resample_rat", "resample_dec"):
         if re.search(r"[1-9]\d* bytes spill", logs.get(name, "")):
             raise RuntimeError(f"ptxas spilled registers in csrc/{name}.cu")
 
@@ -8050,6 +8175,16 @@ def main() -> int:
             raise RuntimeError(f"{r['name']} launched {r['launches']} "
                                f"times at {shape} on the {run} path, not "
                                f"{want}")
+    # the kernels on a path against their library call: none slower by
+    # more than an empty launch (printed, not gated)
+    floor_ms = launch_floor(dev)
+    slow = [f"{r['name']} {r['ms']:.4f} ms against {r['library_ms']:.4f}"
+            for r in rows if r["path"] is not None
+            and r["library_ms"] is not None
+            and r["ms"] - r["library_ms"] > floor_ms]
+    print(f"library: {len(slow)} path kernels slower than their library "
+          f"call by more than an empty launch ({floor_ms:.4f} ms)"
+          + "".join(f"; {x}" for x in slow) + f" ({CARD})", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

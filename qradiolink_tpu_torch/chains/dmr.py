@@ -18,7 +18,7 @@ host computes (burst scheduling on the host, the gate a product).
 Burst framing and decoding (sync hunt, slot type, FEC) live in
 protocols/dmr.py (host side); these chains carry raw 9600 bit/s dibits.
 
-On CUDA the 3/125 head is one launch of `resample_poly_f32`, the RRC
+On CUDA the 3/125 head is one launch of `resample_dec_f32`, the RRC
 `fir_s1_f32`, the M&M loop `symbol_sync_mm_f32` on its 4 levels, and the
 TX interpolators (5/1, 125/3) `resample_up_f32`; the rest is plain
 PyTorch.

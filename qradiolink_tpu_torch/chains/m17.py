@@ -14,7 +14,7 @@ frequency mod (pi/sps) -> 24k LP -> x0.9 -> resampler 125/3 -> 1 Msps.
 Frame-level FEC lives in protocols/m17.py (host side); these chains
 carry raw 9600 bit/s hard bits, as the reference does.
 
-On CUDA the 3/125 head is one launch of `resample_poly_f32`, the channel
+On CUDA the 3/125 head is one launch of `resample_dec_f32`, the channel
 LP and the RRC `fir_s1_f32` (`ops/cuda_fir.route`), the M&M loop
 `symbol_sync_mm_f32` on its 4 levels, and the TX interpolators (5/1,
 125/3) `resample_up_f32`; the rest is plain PyTorch.

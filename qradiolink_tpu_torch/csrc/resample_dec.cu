@@ -1,0 +1,506 @@
+// resample_dec_f32: the streaming polyphase rational resampler at its
+// decimating shapes (ops/cuda_resample.route: DMR's 3/125 head at 2,091
+// taps a phase, M17's 3/125 at 349, MMDVM's RX 12/125 at 523, the 2/25
+// heads at 105 and 561; and a timed instance at L 1, GMSK2K's K2239 D50
+// head, on no route), every phase of one or two f32 planes in one launch,
+// the outputs interleaved and the new tail state written by the same
+// launch.
+//
+// Replaces, at those shapes, the Pallas TPU kernel of
+// qradiolink_tpu/ops/pallas_fir.py `banded_fir_stream` -> `_stream_call`
+// (pallas_fir.py:218), which the JAX package's RationalResampler
+// (qradiolink_tpu/ops/resample.py `_phases`) runs once a phase with its
+// `extra_shift`. Before this kernel DMR's head ran fir_long_f32 once a
+// phase, each launch over the whole input, then an interleave (four device
+// operations), and the others resample_poly_f32 (csrc/resample_poly.cu),
+// one output a lane with two shared loads for each FMA.
+//
+// Function, over the virtual stream xc = [tail (K-1) | x (T)] of each row,
+// T = n_pp * M, with tf_r the flipped taps of phase r (row r of `taps`) and
+// q_r = floor(r*M/L):
+//     y[t*L + r] = sum_{j<K} tf_r[j] * xc[t*M + q_r + j],
+//         t in [0, n_pp), r in [0, L)
+//     state[plane][j] = xc[T + j], j in [0, K-1)
+// With one plane (real input) the state's second plane is zeros.
+//
+// Polyphase-column form. Cut phase r's stream into rows of M samples from
+// its offset, X_r[m][c] = xc[m*M + q_r + c], and its taps into A =
+// ceil(K/M) rows, tap j at row j / M, column j % M. Then
+//     y[t*L + r] = sum_{a<A} sum_{c<M} tf_r[a*M + c] * X_r[t + a][c]:
+// each sample of a row meets tap row a of its column for output t = m - a.
+// The phases' rows are one stream of rows of M read q_r samples on (their
+// column rotation), so one staged copy of the row serves every phase.
+
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores), 2 planes: DMR's head, 2048 x 200,000 -> 4,800, 82.2 GFLOP,
+// 1.227 ms (operations); M17's, the same rows, 3.37 GB, 1.005 ms (bytes);
+// 12/125 K523 at 256 x 250,000 -> 24,000, 0.192 ms (operations).
+//
+// Design: block (piece, row, plane) owns `piece` consecutive output times
+// [t_lo, t_hi) of one row-plane, every phase of them; its warps split the
+// tap rows and columns: warp (r, g, s) = r*G*S + g*S + s holds rows
+// [s*AS, s*AS + AS) of phase r (S = ceil(A/AS) segments) in column group
+// g, lane l the columns c = 32*CW*g + l + 32k, k < CW (G = ceil(M/(32 CW))
+// groups), its taps tf_r[(s*AS + a)*M + c] in registers (AS and CW
+// template parameters, zero past K or M). No tap is loaded in the loop.
+// At DMR's head (A 17: 2 segments of 9 rows, 2 groups of 64 columns) and
+// GMSK2K's (A 45: 3 of 15, one group) these are fir_long_f32's segments,
+// groups and columns for the same FIR, and with its sum order the outputs
+// equal that kernel's bit for bit: DMR's chain gives the bits it gave on
+// the per-phase route, which its card-against-CPU gate holds. (The first
+// design here, rows of the sample grid with each phase's taps shifted by
+// q_r and 4 columns a lane, summed in another order: DMR's chain on 4
+// rows then decided 27 bits of a block apart from its CPU path, on one
+// symbol-timing slip; scripts/fsk4_head_bits.py.)
+//   * The block streams its rows through a ring of R chunk buffers in
+//     shared memory (R an instance parameter), kTile rows (kTile*M
+//     samples, and the q_max + lane columns past M that the phases read of
+//     the next row) a chunk, loaded with cp.async 16 bytes a copy where x
+//     is 16-byte aligned (4 bytes at the tail/x seam and the stream's end,
+//     zeros past it), a chunk staged R - 2 chunks ahead of the one
+//     computed. Each sample of the block's span is read from device
+//     memory once for all phases and rows (a chunk's last q_max +
+//     over_cols words twice).
+//   * Chunk j (rows R0 .. R0 + kTile - 1, R0 = t_lo + j*kTile): warp
+//     (r, g, s) computes the kTile outputs t = R0 + o - s*AS, o < kTile,
+//     of its segment, from rows R0 .. R0 + kTile + AS - 2 (the last AS - 1
+//     from chunk j + 1's buffer), each read from q_r on: the row loop is
+//     unrolled, so every output's accumulator (acc[o], kTile of them) and
+//     tap index is a compile-time constant. A row's CW samples (one
+//     shared load each, consecutive lanes on consecutive words; lanes past
+//     M read the next row's samples against zero taps, no select) feed
+//     AS*CW FMAs, the columns outer so that consecutive FMAs go to
+//     distinct outputs. Where the last segment's last row holds no tap
+//     (DMR's row 17, 2FSK10K's row 23) and the last segments are at least
+//     half the warps, they run a body one row shorter.
+//   * The lanes' partials leave through a transpose tile a warp (kTile rows
+//     of kTileStride floats): lane l stores acc[o] at [o][l], then sums row
+//     l, lanes 0 .. 31 in order, and writes the warp's partial of output
+//     R0 + l - s*AS into its row of a ring of kOutRing outputs.
+//   * One barrier a chunk. After it the block adds, for the window of
+//     outputs every segment has finished (R0 - (S-1)*AS .. + kTile - 1 of
+//     the chunk before), the G*S warps' partials of each (output, phase)
+//     in order w = g*S + s and stores y with coalesced stores, t*L + r.
+//   * Loads an FMA at DMR's head: 40 rows of 2 loads for 576 FMAs a warp's
+//     chunk, 0.14 (resample_poly_f32: 2; fir_long_f32 loads its X rows
+//     from L1/L2 a segment at a time, and each phase's launch reads all of
+//     x).
+// Sum order, per output: in each lane rows a ascending, a row's columns k
+// ascending (fmaf from 0.0f), then lanes 0 .. 31 from 0.0f, then warps g*S
+// + s ascending: fir_long_f32's. No atomics: every run gives the same
+// bits. It is not resample_poly_f32's order (j = 0 .. K-1), so the outputs
+// are held to the FIR's bound of the plain version (and at DMR's and
+// GMSK2K's heads to fir_long_f32's bits); the state is copied and equal.
+// Non-finite input reaches the outputs that a zero tap touches (0 * Inf),
+// beyond the plain version's.
+//
+// What binds (NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py and
+// scripts/resample_dec_variants.py, ms in turns): instruction issue, not
+// occupancy. DMR's head takes 3.01 ms, 40.7% of its bound: a warp's chunk
+// is about 750 instructions for its 576 FMAs (80 loads, ~75 for the lane
+// sums, the staging and the window's adds), and 1 of the 18 tap rows and
+// 3 of the 128 lane columns are zero taps. Measured with earlier states of
+// this source: the first layout, 6 warps of 4 columns a lane, 2.62 ms
+// (it changed DMR's bits, above); there 18 warps an SM (96 registers)
+// against 12 ran 2.67 against 2.62 ms, segments of 6 rows 3.09 and of 18
+// 3.23, two passes of 16 outputs 2.80 against 2.61, a select for the
+// lanes past M 4% slower. In this layout one block an SM (no register
+// cap) 3.31 against 2.99, the full body on every warp 3.08; M17 with 3
+// chunk buffers (3 blocks an SM) 1.30 against 1.40 with 4.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 32;        // output times a warp's tile; rows a chunk
+constexpr int kMaxWarps = 16;    // warps a block, at most
+constexpr int kTileStride = 36;  // floats a transpose-tile row: 16-byte rows
+constexpr int kOutRing = 128;    // outputs a warp's partials ring holds
+constexpr int kRuleBlocks = 4;   // blocks an SM the piece rule aims at
+constexpr int kMaxDev = 64;      // devices whose SM count is kept
+
+// largest phase offset q_r = floor(r*M/L), r < L
+__host__ __device__ constexpr int q_max(int L, int M) {
+    return (L - 1) * M / L;
+}
+
+// rows of M samples a phase's taps span: A = ceil(K/M)
+__host__ __device__ constexpr int tap_rows(int M, int K) {
+    return (K + M - 1) / M;
+}
+
+// column groups of 32 CW columns (CW a lane) that cover a row of M
+__host__ __device__ constexpr int col_groups(int M, int CW) {
+    return (M + 32 * CW - 1) / (32 * CW);
+}
+
+// lane columns past a row's M: their taps are zero, their loads read the
+// next row's first samples
+__host__ __device__ constexpr int over_cols(int M, int CW) {
+    return 32 * CW * col_groups(M, CW) - M;
+}
+
+// words a chunk stages past its lead: kTile rows, then what the phases'
+// offsets and the lanes past M read of the next row
+__host__ __device__ constexpr int stage_words(int L, int M, int CW) {
+    return kTile * M + q_max(L, M) + over_cols(M, CW);
+}
+
+// floats a chunk buffer: a lead of up to 3 words (16-byte copies) and the
+// staged words, in whole 16-byte groups
+__host__ __device__ constexpr int buf_words(int L, int M, int CW) {
+    return (stage_words(L, M, CW) + 6) / 4 * 4;
+}
+
+// warps a phase: column groups x segments of AS tap rows, w = g*S + s
+__host__ __device__ constexpr int phase_warps(int M, int K, int AS,
+                                              int CW) {
+    return col_groups(M, CW) * ((tap_rows(M, K) + AS - 1) / AS);
+}
+
+// R chunk buffers, then each warp's transpose tile and partials ring
+__host__ __device__ constexpr long long smem_words(int L, int M, int CW,
+                                                  int W, int R) {
+    return (long long)R * buf_words(L, M, CW) +
+           (long long)W * (kTile * kTileStride + kOutRing);
+}
+
+// The instances: X(L, M, K, AS tap rows a segment, CW columns a lane, R
+// chunk buffers, blocks an SM the registers must allow). DMR's and
+// GMSK2K's take fir_long_f32's segments, column groups of 64 and sum
+// order, so their outputs equal that kernel's bit for bit. R 3 stages a
+// chunk one ahead of the one computed, R 4 two.
+#define QRL_DEC_INSTANCES(X)                                                \
+    X(3, 125, 2091, 9, 2, 3, 2)   /* DMR's head: 2 x 2 warps a phase */     \
+    X(3, 125, 349, 3, 4, 3, 2)    /* M17's head: a warp a phase */          \
+    X(12, 125, 523, 5, 4, 3, 2)   /* MMDVM's RX: a warp a phase */          \
+    X(2, 25, 105, 5, 1, 4, 8)     /* 4FSK10KFM's head: a warp a phase */    \
+    X(2, 25, 561, 12, 1, 4, 4)    /* 2FSK10K's head: 2 segments */          \
+    X(1, 50, 2239, 15, 2, 4, 4)   /* GMSK2K's head (L 1): 3 segments */
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest R - 3 has landed
+template <int R>
+__device__ __forceinline__ void cp_async_wait_chunks() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(R - 3) : "memory");
+}
+
+// One warp's sums of a chunk: kTile outputs o from 0.0f, row i (rows of pa,
+// then pb's first) feeding output o = i - a at tap row a < NR; each output
+// adds its rows in order and a row's columns in order. Lanes past a row's
+// M load the next row's samples and multiply them by zero taps.
+template <int CW, int AS, int NR, int M>
+__device__ __forceinline__ void row_sums(const float* pa, const float* pb,
+                                         const float (&h)[AS][CW],
+                                         float (&acc)[kTile]) {
+#pragma unroll
+    for (int o = 0; o < kTile; ++o) acc[o] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kTile + NR - 1; ++i) {
+        const float* p = i < kTile ? pa + i * M : pb + (i - kTile) * M;
+        float xv[CW];
+#pragma unroll
+        for (int k = 0; k < CW; ++k) xv[k] = p[32 * k];
+        // columns outer: consecutive FMAs go to distinct outputs
+#pragma unroll
+        for (int k = 0; k < CW; ++k) {
+#pragma unroll
+            for (int a = 0; a < NR; ++a) {
+                const int o = i - a;
+                if (o >= 0 && o < kTile)
+                    acc[o] = fmaf(h[a][k], xv[k], acc[o]);
+            }
+        }
+    }
+}
+
+// NT = 32 W threads a block (W = L phase_warps of the instance); MINB
+// blocks an SM
+template <int M, int AS, int CW, int R, int NT, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+resample_dec_kernel(const float* __restrict__ tail0,
+                    const float* __restrict__ tail1, int tail_ld,
+                    const float* __restrict__ x0,
+                    const float* __restrict__ x1,
+                    const float* __restrict__ taps, float* __restrict__ y0,
+                    float* __restrict__ y1, float* __restrict__ state, int C,
+                    int T, int K, int L, int S, int n_pp, int piece,
+                    int n_pieces, int planes, int aligned, int shorten) {
+    constexpr int G = col_groups(M, CW);
+    constexpr int W = NT / 32;
+    extern __shared__ __align__(16) float smem[];
+    const int WP = G * S;  // warps a phase
+    const int BW = buf_words(L, M, CW);
+    float* s_buf = smem;                                  // R x BW
+    float* s_tile = smem + R * BW;                        // W x kTile rows
+    float* s_out = s_tile + W * kTile * kTileStride;      // W x kOutRing
+
+    const int pc = (int)(blockIdx.x % (unsigned)n_pieces);
+    const int rp = (int)(blockIdx.x / (unsigned)n_pieces);
+    const int plane = rp / C;
+    const int row = rp - plane * C;
+    const float* tail = (plane ? tail1 : tail0) + (size_t)row * tail_ld;
+    const float* x = (plane ? x1 : x0) + (size_t)row * T;
+    float* y = (plane ? y1 : y0) + (size_t)row * n_pp * L;
+    const int k1 = K - 1;
+    const long long n_in = (long long)k1 + T;
+
+    // the row's first piece copies xc[T .. T+K-2] into the new state
+    if (pc == 0) {
+        float* st = state + ((size_t)row * 2 + plane) * k1;
+        for (int j = threadIdx.x; j < k1; j += NT) {
+            const long long v = (long long)T + j;
+            st[j] = v < k1 ? tail[v] : x[v - k1];
+            if (planes == 1) st[k1 + j] = 0.0f;
+        }
+    }
+    const int t_lo = pc * piece;
+    if (t_lo >= n_pp) return;  // n_pp == 0: only the state
+    const int t_hi = min(n_pp, t_lo + piece);
+    const int a_last = (S - 1) * AS;  // the last segment's first row
+    // chunks computed; chunk n_c is staged for its first AS - 1 rows
+    const int n_c = (t_hi - t_lo + a_last + kTile - 1) / kTile;
+
+    // chunk j: xc[vb + j kTile M - lead ..) into buffer j mod R, where the
+    // lead puts x's words on 16-byte boundaries (the same for every chunk:
+    // kTile M is a multiple of 4); a chunk inside x, 16 bytes a copy
+    const long long vb = (long long)t_lo * M;
+    const int lead = (int)(((vb - k1) % 4 + 4) % 4);
+    const int n_g = (lead + stage_words(L, M, CW) + 3) / 4;
+    const auto stage = [&](int j) {
+        float* dst = s_buf + (j % R) * BW;
+        const long long v0 = vb + (long long)j * kTile * M - lead;
+        if (aligned && v0 >= k1 && v0 + 4LL * n_g <= n_in) {
+            const float* src = x + (v0 - k1);
+            for (int g = threadIdx.x; g < n_g; g += NT)
+                cp_async16(dst + 4 * g, src + 4 * g);
+            return;
+        }
+        for (int g = threadIdx.x; g < n_g; g += NT) {
+            const long long v = v0 + 4LL * g;
+            if (aligned && v >= k1 && v + 4 <= n_in) {
+                cp_async16(dst + 4 * g, x + (v - k1));
+            } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const long long vi = v + i;
+                    const bool ok = vi >= 0 && vi < n_in;
+                    cp_async4(dst + 4 * g + i,
+                              !ok ? x : vi < k1 ? tail + vi : x + (vi - k1),
+                              ok);
+                }
+            }
+        }
+    };
+    for (int j = 0; j < R - 1; ++j) {
+        if (j <= n_c) stage(j);
+        cp_async_commit();
+    }
+
+    // warp (r, g, s) = r WP + g S + s: rows [s AS, s AS + AS) of phase r,
+    // which start q_r samples into each row of M, lane l the columns
+    // 32 CW g + l + 32k, k < CW
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int r = warp / WP;
+    const int g = (warp - r * WP) / S;
+    const int a0 = (warp - r * WP - g * S) * AS;
+    const int c0 = 32 * CW * g + lane;
+    const int q_r = r * M / L;
+    // the short body where the segment's last row holds no tap
+    const bool short_rows = shorten && tap_rows(M, K) - a0 < AS;
+    float h[AS][CW];
+#pragma unroll
+    for (int a = 0; a < AS; ++a) {
+#pragma unroll
+        for (int k = 0; k < CW; ++k) {
+            const int c = c0 + 32 * k;
+            const int u = (a0 + a) * M + c;
+            h[a][k] = c < M && u < K ? taps[(size_t)r * K + u] : 0.0f;
+        }
+    }
+    float* tile = s_tile + warp * kTile * kTileStride;
+    float* part = s_out + warp * kOutRing;
+
+    // the WP warps' partials of each (output, phase) of chunk j's window,
+    // in order w = g S + s
+    const auto finish = [&](int j) {
+        const int w0 = t_lo + j * kTile - a_last;
+        for (int i = threadIdx.x; i < kTile * L; i += NT) {
+            const int t = w0 + i / L;
+            const int ph = i - (i / L) * L;
+            if (t < t_lo || t >= t_hi) continue;
+            const float* p =
+                s_out + ph * WP * kOutRing + (t & (kOutRing - 1));
+            float v = p[0];
+            for (int w = 1; w < WP; ++w) v += p[w * kOutRing];
+            y[(size_t)t * L + ph] = v;
+        }
+    };
+
+    for (int j = 0; j < n_c; ++j) {
+        cp_async_wait_chunks<R>();  // chunks j and j + 1 landed
+        __syncthreads();            // for every thread; chunk j - 1 done
+        if (j + R - 1 <= n_c) stage(j + R - 1);
+        cp_async_commit();
+        if (j > 0) finish(j - 1);
+
+        const float* pa = s_buf + (j % R) * BW + lead + q_r + c0;
+        const float* pb = s_buf + ((j + 1) % R) * BW + lead + q_r + c0;
+        float acc[kTile];
+        if (short_rows)
+            row_sums<CW, AS, AS - 1, M>(pa, pb, h, acc);
+        else
+            row_sums<CW, AS, AS, M>(pa, pb, h, acc);
+#pragma unroll
+        for (int o = 0; o < kTile; ++o) tile[o * kTileStride + lane] = acc[o];
+        // lane sums through the transpose tile: lane l sums output l, lanes
+        // 0 .. 31 in order from 0.0f
+        __syncwarp();
+        const float4* tr =
+            reinterpret_cast<const float4*>(tile + lane * kTileStride);
+        float v = 0.0f;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+            const float4 q = tr[b];
+            v += q.x;
+            v += q.y;
+            v += q.z;
+            v += q.w;
+        }
+        part[(t_lo + j * kTile + lane - a0) & (kOutRing - 1)] = v;
+        __syncwarp();
+    }
+    __syncthreads();
+    finish(n_c - 1);
+}
+
+// the current device's SM count, read on its first launch
+cudaError_t sm_count(int* n_sm) {
+    static int sms[kMaxDev];  // 0 until read
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= kMaxDev) return cudaErrorInvalidDevice;
+    if (sms[dev] == 0 &&
+        (e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+        return e;
+    *n_sm = sms[dev];
+    return cudaSuccess;
+}
+
+// output times a block: a whole row-plane, or pieces of whole chunks when
+// the row-planes alone give fewer than kRuleBlocks blocks an SM
+int piece_len(long long row_planes, int n_pp, int n_sm) {
+    if (n_pp <= 0) return 1;
+    const long long want = (long long)n_sm * kRuleBlocks;
+    long long per = (row_planes * n_pp + want - 1) / want;
+    per = (per + kTile - 1) / kTile * kTile;
+    if (per >= n_pp) return n_pp;
+    const long long pieces = (n_pp + per - 1) / per;
+    const long long even = (n_pp + pieces - 1) / pieces;
+    return (int)((even + kTile - 1) / kTile * kTile);
+}
+
+template <int L, int M, int K, int AS, int CW, int R, int MINB>
+int launch(const void* tail0, const void* tail1, int tail_ld, const void* x0,
+           const void* x1, const void* taps, void* y0, void* y1, void* state,
+           int C, int T, int planes, cudaStream_t stream) {
+    constexpr int S = (tap_rows(M, K) + AS - 1) / AS;
+    constexpr int W = L * phase_warps(M, K, AS, CW);
+    static_assert(W <= kMaxWarps && (S - 1) * AS + 2 * kTile <= kOutRing &&
+                  R >= 3 && AS <= kTile, "instance");
+    // the short body for the last segments where their last row is empty
+    // and they are at least half the warps, S <= 2 (two bodies on a
+    // block's warps ran DMR's head 28% slower than one in a build of 6
+    // warps, 1 of them short)
+    constexpr bool shorten = tap_rows(M, K) - (S - 1) * AS < AS && S <= 2;
+    const int n_pp = T / M;
+    int n_sm = 0;
+    cudaError_t e = sm_count(&n_sm);
+    if (e != cudaSuccess) return (int)e;
+    const int piece = piece_len((long long)C * planes, n_pp, n_sm);
+    const long long n_pieces = n_pp > 0 ? (n_pp + piece - 1) / piece : 1;
+    const long long smem =
+        smem_words(L, M, CW, W, R) * (long long)sizeof(float);
+    auto* kernel = resample_dec_kernel<M, AS, CW, R, W * 32, MINB>;
+    if (smem > 48 * 1024 &&
+        (e = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+        return (int)e;
+    const long long blocks = n_pieces * C * planes;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const bool aligned =
+        T % 4 == 0 && (size_t)x0 % 16 == 0 &&
+        (planes == 1 || (size_t)x1 % 16 == 0);
+    kernel<<<(unsigned)blocks, W * 32, (size_t)smem, stream>>>(
+        (const float*)tail0, (const float*)tail1, tail_ld, (const float*)x0,
+        (const float*)x1, (const float*)taps, (float*)y0, (float*)y1,
+        (float*)state, C, T, K, L, S, n_pp, piece, (int)n_pieces, planes,
+        aligned ? 1 : 0, shorten ? 1 : 0);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one launch needs, in bytes; -1 where no instance takes
+// (L, M, K).
+long long resample_dec_smem_bytes(int L, int M, int K) {
+#define QRL_DEC_SMEM(LL, MM, KK, AA, CC, RR, BB)                           \
+    if (L == LL && M == MM && K == KK)                                      \
+        return smem_words(LL, MM, CC, LL * phase_warps(MM, KK, AA, CC),     \
+                          RR) *                                             \
+               (long long)sizeof(float);
+    QRL_DEC_INSTANCES(QRL_DEC_SMEM)
+#undef QRL_DEC_SMEM
+    return -1;
+}
+
+// Same arguments as resample_poly_f32 (csrc/resample_poly.cu). tail0/tail1:
+// (C, tail_ld)-strided rows of K-1 floats; x0/x1: contiguous (C, T) with
+// T % M == 0; taps: contiguous (L, K), phase r's flipped taps in row r;
+// y0/y1: contiguous (C, T/M*L); state: contiguous (C, 2, K-1), written
+// whole. planes 1 or 2 (the *1 pointers are read only for 2); (L, M, K) an
+// instance. Returns a CUDA error code, 0 after a clean launch.
+int resample_dec_f32(const void* tail0, const void* tail1, int tail_ld,
+                     const void* x0, const void* x1, const void* taps,
+                     void* y0, void* y1, void* state, int C, int T, int K,
+                     int L, int M, int planes, void* stream) {
+    if (C < 1 || T < 0 || M < 1 || T % M || planes < 1 || planes > 2)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+#define QRL_DEC_LAUNCH(LL, MM, KK, AA, CC, RR, BB)                         \
+    if (L == LL && M == MM && K == KK)                                      \
+        return launch<LL, MM, KK, AA, CC, RR, BB>(                          \
+            tail0, tail1, tail_ld, x0, x1, taps, y0, y1, state, C, T,       \
+            planes, s);
+    QRL_DEC_INSTANCES(QRL_DEC_LAUNCH)
+#undef QRL_DEC_LAUNCH
+    return (int)cudaErrorInvalidValue;
+}
+
+const char* resample_dec_error_string(int err) {
+    return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,8 +1,8 @@
 """Polyphase rational resampler at L > 1: wrapper, plain version and the
-four CUDA kernels that compute it, `resample_poly_f32`
+five CUDA kernels that compute it, `resample_poly_f32`
 (csrc/resample_poly.cu), `resample_up_f32` (csrc/resample_up.cu),
-`resample_x2_f32` (csrc/resample_x2.cu) and `resample_rat_f32`
-(csrc/resample_rat.cu).
+`resample_x2_f32` (csrc/resample_x2.cu), `resample_rat_f32`
+(csrc/resample_rat.cu) and `resample_dec_f32` (csrc/resample_dec.cu).
 
 Port of the Pallas TPU kernel qradiolink_tpu/ops/pallas_fir.py
 `banded_fir` (K2), which the JAX package's RationalResampler runs once per
@@ -14,28 +14,34 @@ xc = [tail (K-1) | x (T)], T % M == 0:
     new state  = the last K-1 samples of xc, (..., 2, K-1)
 
 Each kernel computes every phase, already interleaved, and the new state
-in one launch, reading the tail in place from the state; all sum each
-output's taps in order from 0.0f, so their outputs are equal bit for bit.
-One plane is real input (the new state's second plane is zeros); two are
-the re and im planes of an IqPair. `route(L, M, K)` picks the kernel:
-`resample_x2_f32`, both phases of 16 output times a thread, at L 2 M 1
-(QpskMod's x2); `resample_up_f32`, register-blocked over output times of
-one phase, at L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1
-and 125/3); `resample_rat_f32`, a thread a phase with its taps in
+in one launch, reading the tail in place from the state. All but
+`resample_dec_f32` sum each output's taps in order from 0.0f, so their
+outputs are equal bit for bit; `resample_dec_f32` sums by polyphase
+columns and is held to the FIR's bound. One plane is real input (the new
+state's second plane is zeros); two are the re and im planes of an
+IqPair. `route(L, M, K, rows)` picks the kernel: `resample_x2_f32`, both
+phases of 16 output times a thread, at L 2 M 1 (QpskMod's x2);
+`resample_up_f32`, register-blocked over output times of one phase, at
+L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1 and 125/3);
+`resample_poly_f32` at the interpolators' calls of few rows
+(FEW_ROWS_MAX rows, L at most FEW_ROWS_MAX_L, M 1: the net path's L4 and
+L2, the mixer's L6); `resample_rat_f32`, a thread a phase with its taps in
 registers streaming its samples, at L >= 24 and the (M, K) it has an
 instance for (MMDVM's TX 125/12 and MMDVMmulti's 25/24 at K 51,
-MMDVMmulti's RX 24/25 at K 53, DSSS's TX 50/13 at K 2); `fir_long_f32`
-once a phase where a phase's strided FIR is that kernel's shape (M >= 32,
-17 to 64 taps a row of M: DMR's 3/125 head, K2091, `resample_phases`), the
-phases then interleaved; `resample_poly_f32`, one output a lane, elsewhere
-(the NBFM audio resampler 2/5, M17's 3/125, MMDVM's RX 12/125, DSSS's RX
-13/50, the 2/25 heads).
+MMDVMmulti's RX 24/25 at K 53, DSSS's TX 50/13 at K 2);
+`resample_dec_f32`, the polyphase-column form with every phase's tap rows
+on a block's warps, at L >= 2, M >= 25 and the (L, M, K) it has an
+instance for (DMR's and M17's 3/125 heads, MMDVM's RX 12/125, the 2/25
+heads); `resample_poly_f32`, one output a lane, elsewhere (the NBFM audio
+resampler 2/5, DSSS's RX 13/50). `resample_phases`, the per-phase route
+(one strided FIR a phase, then the interleave: DMR's head before
+`resample_dec_f32`), is on no route and stays as the alternative timed in
+turns.
 
 On a CPU tensor the wrapper takes the plain version (a strided F.conv1d
 per phase over the concatenation, then the interleave) and records it
-under the routed kernel's name (the per-phase route: its strided FIRs'
-plain version, once a phase); on a CUDA tensor it launches that kernel or
-raises.
+under the routed kernel's name; on a CUDA tensor it launches that kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ OP = "resample_poly_f32"
 UP_OP = "resample_up_f32"
 X2_OP = "resample_x2_f32"
 RAT_OP = "resample_rat_f32"
+DEC_OP = "resample_dec_f32"
 # resample_up_f32's shapes: from 3 phases (the lowest L of
 # scripts/resample_route_sweep.py, where it was 2.6-5.3x faster), and the
 # decimations with a ring instance in csrc/resample_up.cu
@@ -65,6 +72,25 @@ UP_MAX_M = 5
 # csrc/resample_rat.cu (has_instance)
 RAT_MIN_L, RAT_MAX_L = 24, 128
 RAT_SHAPES = ((12, 51), (13, 2), (24, 51), (25, 53))
+# resample_dec_f32's shapes: from 2 phases and a decimation of 25, the
+# (L, M, K) with an instance in csrc/resample_dec.cu (seg_rows): DMR's and
+# M17's 3/125 heads, MMDVM's RX 12/125, the 2/25 heads of 4FSK10KFM and
+# 2FSK10K; and GMSK2K's head at L 1, which chip_smoke.py times and no
+# route gives it (L 1 is a strided FIR, ops/cuda_fir.py)
+DEC_MIN_L, DEC_MIN_M = 2, 25
+DEC_SHAPES = ((3, 125, 2091), (3, 125, 349), (12, 125, 523), (2, 25, 105),
+              (2, 25, 561), (1, 50, 2239))
+# calls of at most FEW_ROWS_MAX rows at M 1 and L up to FEW_ROWS_MAX_L go
+# to resample_poly_f32, whose one output a lane spreads a row over more
+# SMs. The turns that set them (scripts/resample_dec_shapes.py rows, ms on
+# an H100 80GB HBM3 at 700 W; resample_poly_f32 against the kernel of many
+# rows): at 1 row the net path's L4 K12 0.0070 / 0.0208, L2 K46 0.0110 /
+# 0.0270, the mixer's L6 K45 0.0072 / 0.0098, the 5/1 shapers 0.0067 /
+# 0.0089 and 0.0072 / 0.0101, FreeDvMod's L125 K17 0.1155 / 0.0320; at 7
+# rows L2 K46 0.0423 / 0.0271 (L4-L6 still 0.0067-0.0188 / 0.0090-0.0209);
+# at 256 rows every one slower, 0.0299-2.5775 / 0.0122-0.4478.
+FEW_ROWS_MAX = 1
+FEW_ROWS_MAX_L = 6
 _GRID_Y_MAX = 65_535
 
 
@@ -134,31 +160,38 @@ def shape_key(xs, L, K, M):
     return f"L{L} K{K} D{M} tail {len(xs)}x{rows}"
 
 
-def route(L: int, M: int, K: int) -> str:
-    """The kernel that serves an L/M resampler of K taps a phase (L > 1):
-    resample_x2_f32 at L 2 M 1 (QpskMod's x2, measured faster in turns than
-    resample_poly_f32 in chip_smoke.py, and than resample_up_f32 at that
-    shape as PERF.md records), resample_up_f32 at L >= 3 and M <= 5;
-    resample_rat_f32 at 24 <= L <= 128 and an (M, K) of RAT_SHAPES (the
-    wide rational shapes, where resample_poly_f32 lost 1.1-4.5x to one
-    F.conv1d: MMDVM's TX 125/12, MMDVMmulti's 25/24 and 24/25, DSSS's TX
-    50/13); fir_long_f32, L launches of it (resample_phases), where
-    cuda_fir.route gives a phase's FIR (K taps, stride M) to it: at DMR's
-    3/125 head (K2091, 17 rows of 125 taps) chip_smoke.py measured it 2.2x
-    faster in turns than resample_poly_f32, whose lanes each run a chain of
-    K FMAs with two shared-memory loads apiece; resample_poly_f32 otherwise
-    (the NBFM audio resampler 2/5, M17's 3/125 at K349, where the per-phase
-    route on fir_stream_f32 lost 6.3x). resample_x2_f32, resample_up_f32
-    and resample_poly_f32 stage all L*K taps in one block, and the wrapper
-    raises where they do not fit."""
+def route(L: int, M: int, K: int, rows: int | None = None) -> str:
+    """The kernel that serves an L/M resampler of K taps a phase (L > 1)
+    on `rows` rows (None: many). resample_x2_f32 at L 2 M 1 (QpskMod's x2,
+    measured faster in turns than resample_poly_f32 in chip_smoke.py, and
+    than resample_up_f32 at that shape as PERF.md records), resample_up_f32
+    at L >= 3 and M <= 5, except at calls of few rows: at M 1, L <=
+    FEW_ROWS_MAX_L and rows <= FEW_ROWS_MAX, resample_poly_f32, faster
+    there in turns and bit-equal (the net path's L4 K12 and L2 K46, the
+    mixer's L6 K45, the 5/1 shapers at one row; FreeDvMod's L125 K17
+    stays on resample_up_f32; the turns at 1, 7 and 256 rows beside
+    FEW_ROWS_MAX); resample_rat_f32 at 24 <= L <= 128 and an (M, K) of
+    RAT_SHAPES (the wide rational shapes, where resample_poly_f32 lost
+    1.1-4.5x to one F.conv1d: MMDVM's TX 125/12, MMDVMmulti's 25/24 and
+    24/25, DSSS's TX 50/13); resample_dec_f32 at L >= 2, M >= 25 and an
+    (L, M, K) of DEC_SHAPES (DMR's 3/125 head, K2091, which ran
+    fir_long_f32 once a phase, and M17's at K349, MMDVM's RX 12/125 and
+    the 2/25 heads, which ran resample_poly_f32, whose lanes each run a
+    chain of K FMAs with two shared-memory loads apiece); resample_poly_f32
+    otherwise (the NBFM audio resampler 2/5, DSSS's RX 13/50).
+    resample_x2_f32, resample_up_f32 and resample_poly_f32 stage all L*K
+    taps in one block, and the wrapper raises where they do not fit."""
+    if (M == 1 and L <= FEW_ROWS_MAX_L and rows is not None
+            and rows <= FEW_ROWS_MAX):
+        return OP
     if L == 2 and M == 1:
         return X2_OP
     if L >= UP_MIN_L and M <= UP_MAX_M:
         return UP_OP
     if RAT_MIN_L <= L <= RAT_MAX_L and (M, K) in RAT_SHAPES:
         return RAT_OP
-    if cuda_fir.route(K, M) == cuda_fir.LONG_OP:
-        return cuda_fir.LONG_OP
+    if L >= DEC_MIN_L and M >= DEC_MIN_M and (L, M, K) in DEC_SHAPES:
+        return DEC_OP
     return OP
 
 
@@ -207,7 +240,7 @@ def resample_phases(xs, phase_taps, L: int, M: int, tails):
 
 def resample_poly(xs, phase_taps, L: int, M: int, tails):
     """Polyphase L/M resampling of each plane in `xs`, all phases at once,
-    on the kernel route(L, M, K) names (fir_long_f32: resample_phases).
+    on the kernel route(L, M, K, rows) names.
 
     xs: tuple of 1 or 2 f32 planes (..., T) of one shape, T % M == 0;
     phase_taps: (L, K) f32, row r phase r's taps reversed; tails: one
@@ -217,9 +250,7 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
     at t*L + r)."""
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
-    op = route(L, M, K)
-    if op == cuda_fir.LONG_OP:
-        return resample_phases(xs, phase_taps, L, M, tails)
+    op = route(L, M, K, math.prod(xs[0].shape[:-1]))
     dev = xs[0].device
     if dev.type == "cpu":
         kernel_paths.record(op, False, shape_key(xs, L, K, M))
@@ -230,8 +261,9 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
 
 
 def launch(op, xs, phase_taps, L: int, M: int, tails):
-    """One launch of kernel `op` (OP, UP_OP, X2_OP or RAT_OP) on CUDA
-    planes, whatever the route: resample_poly's arguments and result."""
+    """One launch of kernel `op` (OP, UP_OP, X2_OP, RAT_OP or DEC_OP) on
+    CUDA planes, whatever the route: resample_poly's arguments and
+    result."""
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
     dev = xs[0].device
@@ -243,6 +275,8 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
         raise ValueError(f"{op} takes L 2 M 1 only, not L {L} M {M}")
     if op == RAT_OP and (M, K) not in RAT_SHAPES:
         raise ValueError(f"{op} has no instance for M {M}, K {K}")
+    if op == DEC_OP and (L, M, K) not in DEC_SHAPES:
+        raise ValueError(f"{op} has no instance for L {L}, M {M}, K {K}")
     for x in xs:
         if not x.is_contiguous():
             raise ValueError("planes must be contiguous")

@@ -14,10 +14,10 @@ state, reading the tail in place from the state: `resample_up_f32` at
 L >= 3 and M <= 5 (the TX side's 125/1, 20/1, 25/4, 5/1 and 125/3),
 `resample_rat_f32` at L >= 24 and the (M, K) it has an instance for
 (MMDVM's TX 125/12, MMDVMmulti's 25/24 and 24/25, DSSS's TX 50/13),
-`resample_poly_f32` elsewhere (the NBFM audio resampler, 2/5; M17's 3/125
-head) except where a phase's strided FIR is `fir_long_f32`'s shape (DMR's
-3/125 head, K2091 a phase): there L launches of it, one a phase, then the
-interleave. At L = 1 the decimator is one launch a tap plane of the
+`resample_dec_f32` at the decimating L >= 2, M >= 25 shapes it has an
+instance for (DMR's and M17's 3/125 heads, MMDVM's RX 12/125, the 2/25
+heads), `resample_poly_f32` elsewhere (the NBFM audio resampler, 2/5, and
+the interpolators' calls of one row at L <= 6). At L = 1 the decimator is one launch a tap plane of the
 strided FIR kernel that `ops/cuda_fir.route()` picks, over the planes of
 an IqPair, a complex tensor or a real one (the WBFM audio resampler,
 1/25), with the tails read in place from the state: the
@@ -153,7 +153,7 @@ class RationalResampler(Block):
             tails = tails[:1]
         if self.L > 1:
             # every phase and the new state in one launch of the routed
-            # kernel a tap plane (fir_long_f32: one launch a phase)
+            # kernel a tap plane
             runs = [resample_poly(planes, taps, self.L, self.M, tails)
                     for taps in self.poly_tap_planes]
             new_state = runs[0][0]

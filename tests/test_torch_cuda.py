@@ -1671,16 +1671,16 @@ def test_cuda_mean_is_the_sum_times_the_f32_reciprocal(cuda, gen):
 @pytest.mark.parametrize("kind", ["m17", "dmr"])
 def test_fsk4_head_matches_plain(cuda, gen, kind):
     """The 3/125 head with the chain's taps (M17 K349 a phase, DMR K2091),
-    64 rows, two chained blocks of 25,000, on its route: M17's one
-    resample_poly_f32 launch a block, DMR's three fir_long_f32 launches
-    (one a phase, cuda_resample.resample_phases); outputs within 1e-5 of
-    the plain version, the state equal; the other route too."""
+    64 rows, two chained blocks of 25,000, on its route: one
+    resample_dec_f32 launch a block (DMR's ran fir_long_f32 once a phase,
+    M17's resample_poly_f32, before it); outputs within 1e-5 of the plain
+    version, the state equal; resample_poly_f32 and the per-phase route
+    too."""
     rs = (M17Demod if kind == "m17" else DmrDemod)(
         lead_shape=(64,), device=cuda).resamp
-    op = cuda_resample.route(3, 125, rs.kp)
-    assert op == (cuda_resample.OP if kind == "m17" else cuda_fir.LONG_OP)
-    key, n = ((f"cuda L3 K{rs.kp} D125 tail 2x64", 1) if kind == "m17"
-              else (f"cuda K{rs.kp} D125 tail 2x64", 3))
+    op = cuda_resample.route(3, 125, rs.kp, 64)
+    assert op == cuda_resample.DEC_OP
+    key = f"cuda L3 K{rs.kp} D125 tail 2x64"
     state = torch.randn((64, 2, rs.kp - 1), generator=gen, device=cuda)
     for _ in range(2):
         xs = [torch.randn((64, 25_000), generator=gen, device=cuda)
@@ -1689,18 +1689,132 @@ def test_fsk4_head_matches_plain(cuda, gen, kind):
         kernel_paths.reset()
         new_state, got = resample_poly(xs, rs.poly_taps, 3, 125, tails)
         assert kernel_paths.report() == {op: {
-            "cuda": n, "plain": 0, "shapes": {key: n}}}
+            "cuda": 1, "plain": 0, "shapes": {key: 1}}}
         want_state, want = resample_poly_plain(xs, rs.poly_taps, 3, 125,
                                                tails)
         _assert_fir_close(got, want)
         assert torch.equal(new_state, want_state)
-        other = cuda_resample.resample_phases(
-            xs, rs.poly_taps, 3, 125, tails) if op == cuda_resample.OP \
-            else cuda_resample.launch(cuda_resample.OP, xs, rs.poly_taps, 3,
-                                      125, tails)
-        _assert_fir_close(other[1], want)
-        assert torch.equal(other[0], want_state)
+        for other in (cuda_resample.resample_phases(
+                xs, rs.poly_taps, 3, 125, tails), cuda_resample.launch(
+                cuda_resample.OP, xs, rs.poly_taps, 3, 125, tails)):
+            _assert_fir_close(other[1], want)
+            assert torch.equal(other[0], want_state)
         state = new_state
+
+
+# resample_dec_f32's instances: (L, M, K) -> the registry mode whose RX
+# head it is (GMSK2K's L 1 is launched directly: no route gives it)
+DEC_HEADS = {(3, 125, 2091): "DMR", (3, 125, 349): "M17",
+             (12, 125, 523): "MMDVM", (2, 25, 105): "4FSK10KFM",
+             (2, 25, 561): "2FSK10K", (1, 50, 2239): "GMSK2K"}
+
+
+def _dec_head(shape, cuda):
+    from qradiolink_tpu_torch.models import registry
+
+    rs = registry.rx_chain(DEC_HEADS[shape], device=cuda).resamp
+    assert (rs.L, rs.M, rs.kp) == shape
+    return rs
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("rows,n_pp", [(3, 101), (1, 7)])
+@pytest.mark.parametrize("shape", sorted(DEC_HEADS))
+def test_resample_dec_matches_plain(cuda, gen, shape, rows, n_pp, planes):
+    """resample_dec_f32 with the chain's taps over two chained blocks of
+    n_pp output times (7: a block shorter than the state at K2091 and
+    K2239): outputs within 1e-5 of the plain version, the new state (zeros
+    in the im plane of one plane) equal to it; through resample_poly one
+    resample_dec_f32 launch a block at the L > 1 shapes."""
+    L, M, K = shape
+    rs = _dec_head(shape, cuda)
+    state = torch.randn((rows, 2, K - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = [torch.randn((rows, n_pp * M), generator=gen, device=cuda)
+              for _ in range(planes)]
+        tails = (state[:, 0], state[:, 1])[:planes]
+        kernel_paths.reset()
+        if L > 1:
+            assert cuda_resample.route(L, M, K, rows) == \
+                cuda_resample.DEC_OP
+            new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
+            assert kernel_paths.report() == {cuda_resample.DEC_OP: {
+                "cuda": 1, "plain": 0, "shapes": {
+                    f"cuda L{L} K{K} D{M} tail {planes}x{rows}": 1}}}
+        else:
+            new_state, got = cuda_resample.launch(
+                cuda_resample.DEC_OP, xs, rs.poly_taps, L, M, tails)
+        want_state, want = resample_poly_plain(xs, rs.poly_taps, L, M, tails)
+        _assert_fir_close(got, want)
+        assert torch.equal(new_state, want_state)
+        state = new_state
+
+
+@pytest.mark.parametrize("shape", [(3, 125, 2091), (2, 25, 105)])
+def test_resample_dec_reads_tails_in_place(cuda, gen, shape):
+    """The tails read in place from the (C, 2, K-1) state's strided views
+    and from contiguous copies, and x at a 16-byte boundary and one word
+    off it (the 4-byte copies), give the same bits; the state is copied
+    bit for bit, and a block of no samples leaves the state as it was."""
+    L, M, K = shape
+    rs = _dec_head(shape, cuda)
+    C, T = 5, 67 * M
+    state = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
+    xs = [torch.randn((C, T), generator=gen, device=cuda) for _ in range(2)]
+    views = (state[:, 0], state[:, 1])
+    got = cuda_resample.launch(cuda_resample.DEC_OP, xs, rs.poly_taps, L, M,
+                               views)
+    copies = tuple(t.contiguous() for t in views)
+    off = []
+    for x in xs:
+        buf = torch.empty((C * T + 1,), device=cuda)
+        off.append(buf[1:].view(C, T))
+        off[-1].copy_(x)
+    for args in ((xs, copies), (off, views)):
+        other = cuda_resample.launch(cuda_resample.DEC_OP, args[0],
+                                     rs.poly_taps, L, M, args[1])
+        assert torch.equal(other[0], got[0])
+        for a, b in zip(other[1], got[1]):
+            assert torch.equal(a, b)
+    want_state, _ = resample_poly_plain(xs, rs.poly_taps, L, M, views)
+    assert torch.equal(got[0], want_state)
+    empty = [torch.zeros((C, 0), device=cuda) for _ in range(2)]
+    st0, ys0 = cuda_resample.launch(cuda_resample.DEC_OP, empty,
+                                    rs.poly_taps, L, M, views)
+    assert torch.equal(st0, state) and ys0[0].shape == (C, 0)
+
+
+def test_resample_dec_raises_without_an_instance(cuda):
+    """No fallback: a launch of resample_dec_f32 at an (L, M, K) it has no
+    instance for raises; the route never sends one there."""
+    x = torch.zeros((2, 250), device=cuda)
+    taps = torch.zeros((3, 113), device=cuda)
+    t = torch.zeros((2, 112), device=cuda)
+    assert cuda_resample.route(3, 125, 113) == cuda_resample.OP
+    with pytest.raises(ValueError):
+        cuda_resample.launch(cuda_resample.DEC_OP, (x,), taps, 3, 125, (t,))
+
+
+@pytest.mark.parametrize("L,K,T", [(4, 12, 12_500), (2, 46, 50_000),
+                                   (6, 45, 800)])
+def test_resample_few_rows_on_resample_poly(cuda, gen, L, K, T):
+    """At one row the interpolators L <= 6, M 1 launch resample_poly_f32
+    (the route's few-row rule), bit-equal to the kernel many rows take."""
+    rs = RationalResampler(L, 1, taps=torch.randn((L * K,), generator=gen,
+                                                  device=cuda).cpu().numpy(),
+                           lead_shape=(1,), device=cuda)
+    assert rs.kp == K
+    many = cuda_resample.route(L, 1, K)
+    assert many in (cuda_resample.UP_OP, cuda_resample.X2_OP)
+    xs = [torch.randn((1, T), generator=gen, device=cuda) for _ in range(2)]
+    st = torch.randn((1, 2, K - 1), generator=gen, device=cuda)
+    tails = (st[:, 0], st[:, 1])
+    kernel_paths.reset()
+    got = resample_poly(xs, rs.poly_taps, L, 1, tails)
+    assert kernel_paths.launches(cuda_resample.OP) == 1
+    other = cuda_resample.launch(many, xs, rs.poly_taps, L, 1, tails)
+    for a, b in zip((got[0], *got[1]), (other[0], *other[1])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kind", ["m17", "dmr"])

@@ -18,7 +18,7 @@ from qradiolink_tpu.ops.resample import (  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_fir  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_resample import (  # noqa: E402
-    OP, RAT_OP, UP_OP, X2_OP, phase_offsets, resample_poly,
+    DEC_OP, OP, RAT_OP, UP_OP, X2_OP, phase_offsets, resample_poly,
     resample_poly_plain, route)
 from qradiolink_tpu_torch.models import registry  # noqa: E402
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
@@ -1011,6 +1011,449 @@ def test_rat_model_follows_the_kernel_source():
     assert cuda_resample.RAT_MAX_L == RAT_THREADS
 
 
+# -- resample_dec_f32 ------------------------------------------------------
+
+DEC_SRC = CSRC / "resample_dec.cu"
+# resample_dec_f32's tile (output times a warp's tile, rows a chunk), warps
+# a block at most, transpose-tile row, partials ring and the piece rule's
+# blocks an SM
+DEC_TILE, DEC_MAX_WARPS = 32, 16
+DEC_TILE_STRIDE, DEC_OUT_RING, DEC_RULE_BLOCKS = 36, 128, 4
+# the instances, (L, M, K): (tap rows a segment, columns a lane, chunk
+# buffers, blocks an SM the registers must allow, the chain whose RX head
+# it is, its block's output times a row at the path's shape); GMSK2K's L 1
+# is timed by chip_smoke.py and routed nowhere
+DEC_CASES = {(3, 125, 2091): (9, 2, 3, 2, "DMR", 1600),
+             (3, 125, 349): (3, 4, 3, 2, "M17", 1600),
+             (12, 125, 523): (5, 4, 3, 2, "MMDVM", 2000),
+             (2, 25, 105): (5, 1, 4, 8, "4FSK10KFM", 8000),
+             (2, 25, 561): (12, 1, 4, 4, "2FSK10K", 8000),
+             (1, 50, 2239): (15, 2, 4, 4, "GMSK2K", 4000)}
+
+
+def dec_layout(L, M, K):
+    """(tap rows a segment AS, columns a lane CW, segments S a phase,
+    column groups G of 32 CW columns, warps a phase G S, warps L G S) of
+    an instance: A = ceil(K/M) tap rows a phase, each row starting q_r
+    samples into a row of M."""
+    AS, CW = DEC_CASES[(L, M, K)][:2]
+    S = -(-(-(-K // M)) // AS)
+    G = -(-M // (32 * CW))
+    return AS, CW, S, G, G * S, L * G * S
+
+
+def dec_piece_len(row_planes, n_pp, n_sm=H100_SMS):
+    """resample_dec_f32's output times a block (piece_len): a whole
+    row-plane, or whole chunks evened over the row where the row-planes
+    alone give fewer than DEC_RULE_BLOCKS blocks an SM."""
+    if n_pp <= 0:
+        return 1
+    per = -(-row_planes * n_pp // (n_sm * DEC_RULE_BLOCKS))
+    per = -(-per // DEC_TILE) * DEC_TILE
+    if per >= n_pp:
+        return n_pp
+    pieces = -(-n_pp // per)
+    return -(-(-(-n_pp // pieces)) // DEC_TILE) * DEC_TILE
+
+
+def dec_taps(taps, M, r, g, a0, AS, CW):
+    """Warp (phase r, column group g, segment from row a0)'s registers:
+    h[a, lane, k] = tf_r[(a0 + a) M + c], c = 32 CW g + lane + 32 k, zero
+    past K or M."""
+    K = taps.shape[1]
+    c = 32 * CW * g + np.arange(32)[:, None] + 32 * np.arange(CW)[None, :]
+    u = (a0 + np.arange(AS))[:, None, None] * M + c[None]
+    ok = (c[None] < M) & (u < K)
+    return np.where(ok, taps[r][np.clip(u, 0, K - 1)], np.float32(0.0))
+
+
+def dec_lane_sum(v):
+    """Lane sums in the kernel's order, lanes 0 .. 31 from 0.0f; v (...,
+    32) float32."""
+    out = np.zeros(v.shape[:-1], np.float32)
+    for lane in range(32):
+        out = out + v[..., lane]
+    return out
+
+
+def dec_model(xs, taps, L, M, tails, piece=None):
+    """resample_dec_f32's blocks in numpy, float32 in the kernel's order
+    (each product rounded before its add: the card fuses them). Block
+    (piece, row, plane) stages chunk j (DEC_TILE rows of M samples from
+    row t_lo + j DEC_TILE, a lead of 0-3 words putting x's words on 16-byte
+    boundaries, then the q_max + lane columns past M of the next row that
+    the phases read; zeros outside [0, K-1+T), NaN in the rest of the
+    buffer) into buffer j mod R (the instance's chunk buffers): chunks
+    0 .. R - 2 first, chunk j + R - 1 after the barrier of chunk j; warp
+    (r, g, s) computes its segment's outputs R0 + o - s AS from rows R0 ..
+    R0 + DEC_TILE + AS - 2 of buffers j and j + 1, each row read from q_r
+    on (one row fewer where the last segments' last row is empty and S <=
+    2; lanes past M read the next row's samples against zero taps), and
+    sums its lanes (dec_lane_sum) into its ring of DEC_OUT_RING partials;
+    after the next barrier the block adds each finished (output, phase)'s
+    G S partials in order w = g S + s. Vectorised over rows and lanes.
+    Returns (state (C, 2, K-1), outputs (planes, C, n)), asserting that
+    every output is written once and no NaN word is read."""
+    planes, (C, T), K = len(xs), xs[0].shape, taps.shape[1]
+    k1, n_pp = K - 1, T // M
+    AS, CW, S, G, WP, W = dec_layout(L, M, K)
+    ring = DEC_CASES[(L, M, K)][2]
+    A = -(-K // M)
+    assert W <= DEC_MAX_WARPS and W * 32 >= DEC_TILE * L
+    a_last = (S - 1) * AS
+    assert a_last + 2 * DEC_TILE <= DEC_OUT_RING
+    shorten = A - a_last < AS and S <= 2
+    piece = piece or dec_piece_len(C * planes, n_pp)
+    n_pieces = -(-n_pp // piece) if n_pp else 1
+    staged = DEC_TILE * M + (L - 1) * M // L + 32 * CW * G - M
+    bw = (staged + 6) // 4 * 4
+    y = np.full((planes, C, n_pp * L), np.nan, np.float32)
+    state = np.full((C, 2, k1), np.nan, np.float32)
+    col = np.arange(32)[:, None] + 32 * np.arange(CW)[None, :]
+    for p in range(planes):
+        xc = np.concatenate([tails[p], xs[p]], axis=1)
+        n_in = k1 + T
+        state[:, p] = xc[:, T:]
+        if planes == 1:
+            state[:, 1] = 0.0
+        for pc in range(n_pieces):
+            t_lo = pc * piece
+            if t_lo >= n_pp:
+                continue
+            t_hi = min(n_pp, t_lo + piece)
+            n_c = -(-(t_hi - t_lo + a_last) // DEC_TILE)
+            vb = t_lo * M
+            lead = (vb - k1) % 4
+            assert (DEC_TILE * M) % 4 == 0
+            bufs = [np.full((C, bw), np.nan, np.float32)
+                    for _ in range(ring)]
+
+            def stage(j):
+                v = vb + j * DEC_TILE * M - lead + np.arange(
+                    -(-(lead + staged) // 4) * 4)
+                assert (v[0] - k1) % 4 == 0 and len(v) <= bw
+                ok = (v >= 0) & (v < n_in)
+                bufs[j % ring][:, :len(v)] = np.where(
+                    ok, xc[:, np.clip(v, 0, n_in - 1)], np.float32(0.0))
+
+            for j in range(ring - 1):
+                if j <= n_c:
+                    stage(j)
+            part = np.full((L, WP, C, DEC_OUT_RING), np.nan, np.float32)
+
+            def finish(j):
+                t = t_lo + j * DEC_TILE - a_last + np.arange(DEC_TILE)
+                t = t[(t >= t_lo) & (t < t_hi)]
+                for r in range(L):
+                    v = part[r, 0][:, t % DEC_OUT_RING]
+                    for w in range(1, WP):
+                        v = v + part[r, w][:, t % DEC_OUT_RING]
+                    assert not np.isnan(v).any()
+                    assert np.isnan(y[p][:, t * L + r]).all()
+                    y[p][:, t * L + r] = v
+
+            for j in range(n_c):
+                if j + ring - 1 <= n_c:
+                    stage(j + ring - 1)
+                if j > 0:
+                    finish(j - 1)
+                pa, pb = bufs[j % ring], bufs[(j + 1) % ring]
+                for r in range(L):
+                    q = r * M // L
+                    for g in range(G):
+                        for s in range(S):
+                            hw = dec_taps(taps, M, r, g, s * AS, AS, CW)
+                            nr = AS - 1 if shorten and s == S - 1 else AS
+                            acc = np.zeros((C, DEC_TILE, 32), np.float32)
+                            for i in range(DEC_TILE + nr - 1):
+                                buf, base = (pa, i * M) if i < DEC_TILE \
+                                    else (pb, (i - DEC_TILE) * M)
+                                xv = buf[:, lead + q + 32 * CW * g + base
+                                         + col]
+                                assert not np.isnan(xv).any()
+                                a = np.arange(nr)
+                                a = a[(i - a >= 0) & (i - a < DEC_TILE)]
+                                for k in range(CW):
+                                    acc[:, i - a] += hw[a, :, k] * \
+                                        xv[:, None, :, k]
+                            t = t_lo + j * DEC_TILE + np.arange(DEC_TILE) \
+                                - s * AS
+                            part[r, g * S + s][:, t % DEC_OUT_RING] = \
+                                dec_lane_sum(acc)
+            finish(n_c - 1)
+    assert not np.isnan(y).any() and not np.isnan(state).any()
+    return state, y
+
+
+def dec_chain_taps(L, M, K):
+    """The chain's phase taps at a resample_dec_f32 instance (its RX head
+    through the registry)."""
+    rs = registry.rx_chain(DEC_CASES[(L, M, K)][4], device="cpu").resamp
+    assert (rs.L, rs.M, rs.kp) == (L, M, K)
+    return rs.poly_taps
+
+
+def _dec_case(rng, L, M, K, planes, T, piece=None, C=2, blocks=2,
+              tail_len=None):
+    """Blocks chained through dec_model with the chain's taps, each held
+    against resample_poly_plain: outputs within 1e-5, state equal."""
+    taps = dec_chain_taps(L, M, K)
+    st = rng.standard_normal((C, 2, K - 1)).astype(np.float32)
+    for _ in range(blocks):
+        xs = [rng.standard_normal((C, T)).astype(np.float32)
+              for _ in range(planes)]
+        tails = [st[:, p] for p in range(planes)]
+        got_state, got = dec_model(xs, taps.numpy(), L, M, tails, piece)
+        want_state, want = resample_poly_plain(
+            [torch.from_numpy(x) for x in xs], taps, L, M,
+            [torch.from_numpy(t.copy()) for t in tails])
+        for g, w in zip(got, want):
+            _close(g, w.numpy())
+        assert np.array_equal(got_state, want_state.numpy())
+        st = got_state
+    return st
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("L,M,K", sorted(DEC_CASES))
+def test_dec_model_matches_plain(rng, L, M, K, planes):
+    """resample_dec_f32's instances with their chains' taps over two
+    chained blocks of 2 rows, in pieces of two chunks and an odd tail
+    (the last piece 2 chunks + 5 output times; every chunk's lead): the
+    model's outputs within 1e-5 of resample_poly_plain's, its state
+    equal."""
+    n_pp = 2 * DEC_TILE + 5 + 2 * DEC_TILE
+    _dec_case(rng, L, M, K, planes, n_pp * M, piece=2 * DEC_TILE)
+
+
+@pytest.mark.parametrize("L,M,K,n_pp,piece", [
+    (3, 125, 2091, 7, None),     # T < K-1: the new state part old tail
+    (12, 125, 523, 240, None),   # MMDVM's headless block, pieces of 32
+    (2, 25, 561, 33, 32),        # a piece of one output time
+    (1, 50, 2239, 101, None),    # one piece: the row, 101 output times
+    (2, 25, 105, 64, 64),        # whole chunks, no ragged piece
+])
+def test_dec_model_edges(rng, L, M, K, n_pp, piece):
+    _dec_case(rng, L, M, K, 2, n_pp * M, piece=piece)
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_dec_model_state_only(rng, planes):
+    """T = 0: the launch only copies the tail into the new state, which
+    equals the old one."""
+    st = _dec_case(rng, 3, 125, 349, planes, 0, blocks=1)
+    assert st.shape == (2, 2, 348)
+
+
+@pytest.mark.parametrize("L,M,K", sorted(DEC_CASES))
+def test_dec_segments_read_every_tap_once(L, M, K):
+    """The warps' registers hold every tap of every phase once, tap j at
+    row j // M and column j % M of the phase's rows, and zeros elsewhere;
+    rows of the last segment past a phase's taps are zero."""
+    taps = np.arange(1, L * K + 1, dtype=np.float32).reshape(L, K)
+    AS, CW, S, G, WP, W = dec_layout(L, M, K)
+    for r in range(L):
+        h = np.stack([np.concatenate([dec_taps(taps, M, r, g, s * AS, AS,
+                                               CW) for s in range(S)])
+                      for g in range(G)])   # (G, S AS, 32, CW)
+        vals = h[h != 0]
+        assert sorted(vals) == list(taps[r])
+        for j in (0, K // 2, K - 1):
+            c = j % M
+            assert h[c // (32 * CW), j // M, c % 32,
+                     (c % (32 * CW)) // 32] == taps[r, j]
+
+
+@pytest.mark.parametrize("L,M,K", sorted(DEC_CASES))
+def test_dec_model_sums_integers_exactly(rng, L, M, K):
+    """Integer taps and samples, whose sums are exact in f32: the model's
+    outputs equal resample_poly_plain's bit for bit over two chained
+    blocks, at the path's pieces and at pieces of one chunk (no tap is
+    lost or counted twice at a seam, a row's end or a piece's edge)."""
+    for piece in (None, DEC_TILE):
+        taps = rng.integers(-3, 4, (L, K)).astype(np.float32)
+        st = rng.integers(-3, 4, (3, 2, K - 1)).astype(np.float32)
+        for _ in range(2):
+            xs = [rng.integers(-3, 4, (3, 75 * M)).astype(np.float32)
+                  for _ in range(2)]
+            tails = [st[:, p] for p in range(2)]
+            got_state, got = dec_model(xs, taps, L, M, tails, piece)
+            want_state, want = resample_poly_plain(
+                [torch.from_numpy(x) for x in xs], torch.from_numpy(taps),
+                L, M, [torch.from_numpy(t.copy()) for t in tails])
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w.numpy())
+            assert np.array_equal(got_state, want_state.numpy())
+            st = got_state
+
+
+@pytest.mark.parametrize("L,n_pp,rows,piece,pieces", [
+    (3, 1600, 2048, 1600, 1),    # DMR / M17 at the path: a row a block
+    (12, 2000, 256, 1024, 2),    # MMDVM RX at 256 rows
+    (12, 240, 1, 32, 8),         # MMDVM's headless block
+    (2, 8000, 256, 4000, 2),     # 4FSK10KFM at 256 rows
+    (2, 4000, 256, 2016, 2),     # 2FSK10K
+    (1, 4000, 2048, 4000, 1)])   # GMSK2K's head
+def test_dec_piece_widths(L, n_pp, rows, piece, pieces):
+    """The piece rule at the paths' blocks (2 planes, 132 SMs)."""
+    got = dec_piece_len(2 * rows, n_pp)
+    assert (got, -(-n_pp // got)) == (piece, pieces)
+
+
+def test_dec_model_follows_the_kernel_source():
+    """The model's constants, instances, staging, ring, schedule and sum
+    order are the kernel's, and its instances are the route's."""
+    src = DEC_SRC.read_text()
+    for line in [
+            f"constexpr int kTile = {DEC_TILE};",
+            f"constexpr int kMaxWarps = {DEC_MAX_WARPS};",
+            f"constexpr int kTileStride = {DEC_TILE_STRIDE};",
+            f"constexpr int kOutRing = {DEC_OUT_RING};",
+            f"constexpr int kRuleBlocks = {DEC_RULE_BLOCKS};",
+            "return (K + M - 1) / M;",
+            "return (M + 32 * CW - 1) / (32 * CW);",
+            "return 32 * CW * col_groups(M, CW) - M;",
+            "return kTile * M + q_max(L, M) + over_cols(M, CW);",
+            "return (stage_words(L, M, CW) + 6) / 4 * 4;",
+            "return col_groups(M, CW) * ((tap_rows(M, K) + AS - 1) / AS);",
+            "return (long long)R * buf_words(L, M, CW) +",
+            "(long long)W * (kTile * kTileStride + kOutRing);",
+            # piece_len
+            "const long long want = (long long)n_sm * kRuleBlocks;",
+            "long long per = (row_planes * n_pp + want - 1) / want;",
+            "per = (per + kTile - 1) / kTile * kTile;",
+            "if (per >= n_pp) return n_pp;",
+            "const long long even = (n_pp + pieces - 1) / pieces;",
+            "return (int)((even + kTile - 1) / kTile * kTile);",
+            # the state, chunks and the staging
+            "st[j] = v < k1 ? tail[v] : x[v - k1];",
+            "const int a_last = (S - 1) * AS;",
+            "const int n_c = (t_hi - t_lo + a_last + kTile - 1) / kTile;",
+            "const int lead = (int)(((vb - k1) % 4 + 4) % 4);",
+            "const int n_g = (lead + stage_words(L, M, CW) + 3) / 4;",
+            "const long long v0 = vb + (long long)j * kTile * M - lead;",
+            "if (aligned && v >= k1 && v + 4 <= n_in) {",
+            "const bool ok = vi >= 0 && vi < n_in;",
+            "for (int j = 0; j < R - 1; ++j) {",
+            "if (j <= n_c) stage(j);",
+            "asm volatile(\"cp.async.wait_group %0;\\n\" ::\"n\"(R - 3) : \"memory\");",
+            "if (j + R - 1 <= n_c) stage(j + R - 1);",
+            "if (j > 0) finish(j - 1);",
+            # the warps' taps and rows
+            "const int r = warp / WP;",
+            "const int g = (warp - r * WP) / S;",
+            "const int a0 = (warp - r * WP - g * S) * AS;",
+            "const int c0 = 32 * CW * g + lane;",
+            "const int u = (a0 + a) * M + c;",
+            "h[a][k] = c < M && u < K ? taps[(size_t)r * K + u] : 0.0f;",
+            "constexpr bool shorten = tap_rows(M, K) - (S - 1) * AS < AS && S <= 2;",
+            "const bool short_rows = shorten && tap_rows(M, K) - a0 < AS;",
+            "const float* pa = s_buf + (j % R) * BW + lead + q_r + c0;",
+            "const float* pb = s_buf + ((j + 1) % R) * BW + lead + q_r + c0;",
+            "row_sums<CW, AS, AS - 1, M>(pa, pb, h, acc);",
+            "for (int i = 0; i < kTile + NR - 1; ++i) {",
+            "const float* p = i < kTile ? pa + i * M : pb + (i - kTile) * M;",
+            "for (int k = 0; k < CW; ++k) xv[k] = p[32 * k];",
+            "for (int a = 0; a < NR; ++a) {",
+            "const int o = i - a;",
+            "acc[o] = fmaf(h[a][k], xv[k], acc[o]);",
+            "for (int o = 0; o < kTile; ++o) tile[o * kTileStride + lane] = acc[o];",
+            # the lane sum, the partials ring and the window
+            "float v = 0.0f;",
+            "v += q.x;",
+            "v += q.w;",
+            "part[(t_lo + j * kTile + lane - a0) & (kOutRing - 1)] = v;",
+            "const int w0 = t_lo + j * kTile - a_last;",
+            "for (int w = 1; w < WP; ++w) v += p[w * kOutRing];",
+            "y[(size_t)t * L + ph] = v;"]:
+        assert line in src, line
+    for (L, M, K), (AS, CW, R, B, _, _) in DEC_CASES.items():
+        assert f"X({L}, {M}, {K}, {AS}, {CW}, {R}, {B})" in src
+        _, _, S, G, WP, W = dec_layout(L, M, K)
+        assert W <= DEC_MAX_WARPS and (S - 1) * AS + 2 * DEC_TILE \
+            <= DEC_OUT_RING and R >= 3 and AS <= DEC_TILE
+    assert set(DEC_CASES) == set(cuda_resample.DEC_SHAPES)
+    assert (cuda_resample.DEC_MIN_L, cuda_resample.DEC_MIN_M) == (2, 25)
+
+
+def test_dec_takes_fir_long_layout_at_dmr_and_gmsk():
+    """DMR's and GMSK2K's instances take fir_long_f32's shape of the same
+    FIR (ops/cuda_fir.py, csrc/fir_long.cu): segments of
+    ceil(A / ceil(A/16)) rows, column groups of 64, two columns a lane;
+    with its sum order (a lane's rows in order, both columns of a row,
+    lanes 0 .. 31, warps g S + s) their outputs equal the per-phase
+    route's bit for bit."""
+    for L, M, K in ((3, 125, 2091), (1, 50, 2239)):
+        A = -(-K // M)
+        S_long = -(-A // 16)
+        AS, CW, S, G, _, _ = dec_layout(L, M, K)
+        assert cuda_fir.route(K, M) == cuda_fir.LONG_OP
+        assert (AS, S, CW, G) == (-(-A // S_long), S_long, 2,
+                                  -(-M // cuda_fir.LONG_GROUP_COLS))
+
+
+@pytest.mark.parametrize("L,M,K,want", [
+    (3, 125, 2091, DEC_OP), (3, 125, 349, DEC_OP), (12, 125, 523, DEC_OP),
+    (2, 25, 105, DEC_OP), (2, 25, 561, DEC_OP),
+    (3, 125, 113, OP),    # no instance at K 113
+    (2, 5, 113, OP),      # the NBFM audio resampler: M below 25
+    (13, 50, 3, OP),      # DSSS's RX: no instance
+    (1, 50, 2239, OP)])   # GMSK2K's head: an instance, but L 1
+def test_resample_route_dec_shapes(L, M, K, want):
+    """resample_dec_f32 at L >= 2, M >= 25 and an (L, M, K) it has an
+    instance for, at any row count."""
+    for rows in (None, 1, 7, 256):
+        assert route(L, M, K, rows) == want
+
+
+@pytest.mark.parametrize("L,M,K,rows,want", [
+    (4, 1, 12, 1, OP), (2, 1, 46, 1, OP), (6, 1, 45, 1, OP),
+    (5, 1, 51, 1, OP),
+    (4, 1, 12, 7, UP_OP), (2, 1, 46, 7, X2_OP), (6, 1, 45, 7, UP_OP),
+    (4, 1, 12, 256, UP_OP), (2, 1, 46, 256, X2_OP),
+    (4, 1, 12, None, UP_OP), (2, 1, 46, None, X2_OP),
+    (125, 1, 17, 1, UP_OP),   # FreeDvMod's x125: resample_up_f32 wins
+    (7, 1, 45, 1, UP_OP),     # above FEW_ROWS_MAX_L
+    (5, 2, 45, 1, UP_OP),     # M 2
+    (125, 12, 51, 1, RAT_OP)])
+def test_resample_route_few_rows(L, M, K, rows, want):
+    """At M 1 and L up to FEW_ROWS_MAX_L, calls of FEW_ROWS_MAX rows or
+    fewer go to resample_poly_f32 (the net path's L4 K12 and L2 K46, the
+    mixer's L6 K45 at one row), more rows to resample_up_f32 or
+    resample_x2_f32."""
+    assert route(L, M, K, rows) == want
+    assert (cuda_resample.FEW_ROWS_MAX,
+            cuda_resample.FEW_ROWS_MAX_L) == (1, 6)
+
+
+@pytest.mark.parametrize("mode", ["M17", "DMR", "MMDVM", "4FSK10KFM",
+                                  "2FSK10K"])
+def test_chains_record_resample_dec(rng, mode):
+    """The five RX chains built through both registries on the CPU, 2 rows,
+    two blocks of IqPair input: every output and state leaf matches the JAX
+    chain's (the bounds of their own parity tests), and the head records
+    resample_dec_f32 once a block at its shape, resample_poly_f32 and
+    fir_long_f32 never there."""
+    from qradiolink_tpu.models import registry as jregistry
+
+    rx = registry.rx_chain(mode, lead_shape=(2,), device="cpu")
+    rs = rx.resamp
+    T = {"M17": 125 * 48, "DMR": 125 * 48, "MMDVM": 125 * 40,
+         "4FSK10KFM": 25 * 400, "2FSK10K": 25 * 400}[mode]
+    blocks = [tuple((rng.standard_normal((2, T)) * 0.3).astype(np.float32)
+                    for _ in range(2)) for _ in range(2)]
+    kernel_paths.reset()
+    stream_both(jregistry.rx_chain(mode, lead_shape=(2,)), rx, blocks,
+                1e-3, 1e-3, peak=True)
+    rep = kernel_paths.report()
+    key = f"plain L{rs.L} K{rs.kp} D{rs.M} tail 2x2"
+    assert (rs.L, rs.M, rs.kp) in DEC_CASES
+    assert rep[DEC_OP]["shapes"] == {key: 2}, rep
+    assert key not in rep.get(OP, {}).get("shapes", {})
+    assert cuda_fir.LONG_OP not in rep or all(
+        f"K{rs.kp} D{rs.M}" not in k for k in rep[cuda_fir.LONG_OP]["shapes"])
+
+
 @pytest.mark.parametrize("L,M,K,want", [
     (125, 12, 51, RAT_OP), (25, 24, 51, RAT_OP), (24, 25, 53, RAT_OP),
     (50, 13, 2, RAT_OP), (128, 13, 2, RAT_OP),
@@ -1018,13 +1461,14 @@ def test_rat_model_follows_the_kernel_source():
     (125, 12, 45, OP),    # no instance at K 45
     (23, 25, 53, OP),     # below 24 phases
     (125, 7, 51, OP),     # no instance at M 7
-    (12, 125, 523, OP),   # MMDVM's RX, decimating: resample_poly_f32 wins
-    (13, 50, 3, OP), (2, 25, 105, OP), (2, 25, 561, OP), (3, 125, 349, OP),
-    (125, 4, 51, UP_OP)])
+    (12, 125, 523, DEC_OP),   # MMDVM's RX, decimating: resample_dec_f32
+    (13, 50, 3, OP), (2, 25, 105, DEC_OP), (2, 25, 561, DEC_OP),
+    (3, 125, 349, DEC_OP), (125, 4, 51, UP_OP)])
 def test_resample_route_rat_shapes(L, M, K, want):
     """resample_rat_f32 at 24 to 128 phases and an (M, K) it has an
-    instance for, resample_poly_f32 at the other M > 5 shapes the paths
-    run."""
+    instance for; the decimating M > 5 shapes the paths run on
+    resample_dec_f32 where it has an instance, resample_poly_f32
+    elsewhere."""
     assert route(L, M, K) == want
 
 
@@ -1170,15 +1614,19 @@ def test_resample_poly_rejects_bad_input():
 
 
 def test_resample_route_per_phase_where_fir_long_takes_a_phase(rng):
-    """route() gives fir_long_f32, one launch a phase, where a phase's
-    strided FIR is its shape (DMR's 3/125 head, K2091 a phase: 17 rows of
-    125 taps), resample_poly_f32 at M17's (K349) and the NBFM audio
-    resampler's; the DMR head on the CPU records the FIR's plain version
-    once a phase and matches the JAX resampler over two blocks (IqPair)."""
+    """DMR's 3/125 head (K2091 a phase: 17 rows of 125 taps), which took
+    the per-phase route (cuda_resample.resample_phases: fir_long_f32 once a
+    phase) until resample_dec_f32, now routes to resample_dec_f32, as M17's
+    (K349) does; the NBFM audio resampler stays on resample_poly_f32. On
+    the CPU the head records resample_dec_f32's plain version once a block
+    and matches the JAX resampler over two blocks (IqPair); the per-phase
+    route, timed in turns on the card, still equals the plain version and
+    records the FIR once a phase."""
     from qradiolink_tpu_torch.ops import firdes
 
-    assert route(3, 125, 2091) == cuda_fir.LONG_OP
-    assert route(3, 125, 349) == OP and route(2, 5, 113) == OP
+    assert route(3, 125, 2091) == DEC_OP
+    assert route(3, 125, 349) == DEC_OP and route(2, 5, 113) == OP
+    assert cuda_fir.route(2091, 125) == cuda_fir.LONG_OP
     # DmrDemod's head (qradiolink_tpu/chains/dmr.py:58)
     taps = firdes.low_pass(3.0, 3_000_000, 5000.0, 2000.0,
                            firdes.WIN_BLACKMAN_HARRIS)
@@ -1188,6 +1636,19 @@ def test_resample_route_per_phase_where_fir_long_takes_a_phase(rng):
                     for _ in range(2)) for _ in range(2)]
     kernel_paths.reset()
     stream_both(JaxResampler(3, 125, taps=taps, lead_shape=(2,)), rs, blocks)
+    assert kernel_paths.report() == {DEC_OP: {
+        "cuda": 0, "plain": 2,
+        "shapes": {"plain L3 K2091 D125 tail 2x2": 2}}}
+    xs = [torch.from_numpy(b) for b in blocks[0]]
+    st = torch.from_numpy(rng.standard_normal((2, 2, 2090)).astype(
+        np.float32))
+    kernel_paths.reset()
+    got_state, got = cuda_resample.resample_phases(
+        xs, rs.poly_taps, 3, 125, (st[:, 0], st[:, 1]))
     assert kernel_paths.report() == {cuda_fir.LONG_OP: {
-        "cuda": 0, "plain": 6,
-        "shapes": {"plain K2091 D125 tail 2x2": 6}}}
+        "cuda": 0, "plain": 3, "shapes": {"plain K2091 D125 tail 2x2": 3}}}
+    want_state, want = resample_poly_plain(xs, rs.poly_taps, 3, 125,
+                                           (st[:, 0], st[:, 1]))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy())
+    assert torch.equal(got_state, want_state)
