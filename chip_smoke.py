@@ -29,7 +29,9 @@ when the package cannot be imported, and when any phase fails:
       1e-5 (relative to the output's peak, and elementwise |k - p| <=
       1e-5 + 1e-5 |p|); F.conv1d is the yardstick. The head (419 taps,
       D 50) routes to fir_decim_f32, the stride-1 filters to fir_s1_f32,
-      the NBFM head to fir_long_f32. Where the route picks a new kernel,
+      the NBFM head to resample_dec_f32 at L 1 (fir_long_f32, which took
+      it before, in turns and bit-equal). Where the route picks a new
+      kernel,
       fir_stream_f32, which served the shape before, is held against the
       plain version too and timed in turns with it (old, new, new, old),
       its row kept with "path": null; fir_s1_f32 must equal
@@ -82,7 +84,7 @@ when the package cannot be imported, and when any phase fails:
     6.4 M samples a step (64 x 100,000), channels 0-31 through
     Fsk4DemodFF and 32-63 through NbfmDemod, 3 steps with state carried,
     counters zeroed before and read after (K5 on pfb_fft_f32, fir_decim_f32,
-    fir_long_f32, fir_s1_f32, resample_poly_f32 and viterbi_bfly_k7 on every
+    resample_dec_f32, fir_s1_f32, resample_poly_f32 and viterbi_bfly_k7 on every
     step, pfb_channelize_f32 and fir_stream_f32 never, nothing on a plain
     path); one more step
     stage by stage, and one (and its NBFM group) under torch.profiler;
@@ -214,7 +216,9 @@ when the package cannot be imported, and when any phase fails:
     2048 x 4,800, in turns with fir_stream_f32 and bit-equal to it;
     symbol_sync_mm_f32 in levels mode with M17's and DMR's loop
     parameters, bit-equal to its plain loop over two chained blocks of
-    2048 x 4,800 -> 960 and once more beside one timed call of it;
+    2048 x 4,800 -> 960 and once more beside one timed call of it, and in
+    turns with the hypotf levels code (symbol_sync_levels_v0), bit-equal,
+    cycles a symbol beside the conj mode's;
     resample_up_f32 at the TX interpolators (the 5/1 shapers, one plane,
     960 -> 4,800, K51 and K25; the 125/3 interpolators, two planes, 4,800
     -> 200,000, K9 and K51), bit-equal to resample_poly_f32 and timed in
@@ -272,12 +276,14 @@ when the package cannot be imported, and when any phase fails:
     (call_capture, captured_rows): each FIR and resampler shape against
     its plain version on seeded inputs (fir_row, poly_row, with the kernel
     the route replaced in turns; at fir_stream_f32's shapes
-    fir_stream_v0_f32, bit-equal), each loop (the conj-mode and
-    levels-mode sync, the Viterbi) on the path's own inputs bit-equal to
-    one timed call of its plain loop; at GMSK2K, resample_dec_f32 at its
-    K2239 D50 head (L 1: no route gives it the shape), within the FIR's
-    bound and timed in turns with fir_long_f32, beside F.conv1d (a row
-    with no path);
+    fir_stream_v0_f32, bit-equal; at the K2239 D50 head, routed to
+    resample_dec_f32 at L 1, fir_long_f32 in turns, bit-equal, its row
+    with no path), each loop (the conj-mode
+    and levels-mode sync, the Viterbi) on the path's own inputs bit-equal
+    to one timed call of its plain loop, the levels mode on real input
+    also in turns with the hypotf levels code (symbol_sync_levels_v0,
+    bit-equal, a row with no path), cycles a symbol beside the conj
+    mode's;
 23. MMDVMmulti at its real size: one site, 7 carriers, 250,000 samples a
     step at 250 ksps, 3 steps, the TX (MmdvmMultiTx, IqPair out) into the
     RX on IqPair planes, every launch as chain_launches gives it:
@@ -583,7 +589,8 @@ FIR_SOURCE = {"fir_stream_f32": "qradiolink_tpu_torch/csrc/fir.cu",
               "fir_decim_f32": "qradiolink_tpu_torch/csrc/fir_decim.cu",
               "fir_long_f32": "qradiolink_tpu_torch/csrc/fir_long.cu",
               "fir_cols_f32": "qradiolink_tpu_torch/csrc/fir_cols.cu",
-              "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu"}
+              "fir_s1_f32": "qradiolink_tpu_torch/csrc/fir_s1.cu",
+              "resample_dec_f32": "qradiolink_tpu_torch/csrc/resample_dec.cu"}
 
 
 def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
@@ -597,14 +604,17 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
     its row has no path. Where the route gives the shape to
     fir_stream_f32, its first design fir_stream_v0_f32 takes that place.
     fir_s1_f32 and fir_stream_v0_f32 keep fir_stream_f32's sum order, so
-    their outputs must be equal to its bit for bit."""
+    their outputs must be equal to its bit for bit. At the K2239 D50 head
+    (cuda_fir.DEC_SHAPES), routed to resample_dec_f32 at L 1, fir_long_f32
+    is timed in turns too, its row with no path, and the two must be equal
+    bit for bit (the first takes the second's sum order)."""
     from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
     K = tf.shape[0]
     n_rows = xs[0].numel() // xs[0].shape[-1]
     shape = cuda_fir.shape_key(xs, K, D, tails)
-    op = cuda_fir.route(K, D)
+    op = cuda_fir.stream_route(K, D, xs[0].shape[-1], n_out, tails)
     fns = {op: lambda: cuda_fir.fir_stream(xs, tf, D, n_out, tails=tails)}
     if op != cuda_fir.OP:
         fns = {cuda_fir.OP: lambda: cuda_fir._launch_stream(
@@ -612,6 +622,9 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
     else:
         fns = {cuda_fir.V0_OP: lambda: cuda_fir.fir_stream_v0(
             xs, tf, D, n_out, tails), **fns}
+    if op == cuda_fir.DEC_OP:
+        fns[cuda_fir.LONG_OP] = lambda: cuda_fir.fir_long(
+            xs, tf, D, n_out, tails)
     plain = cuda_fir.fir_stream_plain(xs, tf, D, n_out, tails=tails)
     outs = {k: fn() for k, fn in fns.items()}
     errs = {k: check_fir(f"{k}/{name}", y, plain) for k, y in outs.items()}
@@ -623,6 +636,13 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
             raise RuntimeError(f"{same}/{name}: not bit-equal to "
                                f"{cuda_fir.OP}")
         print(f"  {same}/{name}: bit-equal to {cuda_fir.OP}", flush=True)
+    if cuda_fir.DEC_OP in outs:
+        if not all(torch.equal(a, b) for a, b in
+                   zip(outs[cuda_fir.DEC_OP], outs[cuda_fir.LONG_OP])):
+            raise RuntimeError(f"{cuda_fir.DEC_OP}/{name}: not bit-equal to "
+                               f"{cuda_fir.LONG_OP}")
+        print(f"  {cuda_fir.DEC_OP}/{name}: bit-equal to {cuda_fir.LONG_OP}",
+              flush=True)
     del outs
     torch.cuda.synchronize()
     if not timing:
@@ -1239,7 +1259,7 @@ def drive(fn, state, xs, every_step):
 
 # ops each main path must launch on every step
 FSK_EVERY_STEP = ("fir_decim_f32", "fir_s1_f32", "viterbi_bfly_k7")
-MIXED_EVERY_STEP = ("pfb_fft_f32", "fir_long_f32",
+MIXED_EVERY_STEP = ("pfb_fft_f32", "resample_dec_f32",
                     "resample_poly_f32") + FSK_EVERY_STEP
 
 
@@ -1352,7 +1372,7 @@ def mixed_path(dev, gen):
     timed(stages, "FSK group (32 ch)", lambda: fchain(g_states[0], xf))
     timed(stages, "NBFM group (32 ch)", lambda: nchain(g_states[1], xn))
     seq = Sequencer(g_states[1])
-    x = timed(stages, "nbfm resampler (fir_long_f32 head K2239 D50)",
+    x = timed(stages, "nbfm resampler (resample_dec_f32 head K2239 D50)",
               lambda: seq(nchain.resamp, xn))
     x = timed(stages, "nbfm channel LP (fir_s1_f32 K133)",
               lambda: seq(nchain.chan_filter, x))
@@ -2338,6 +2358,44 @@ def loop_row(name, source, replaces, fn, plain_fn, n_bytes, n_ops, run,
                bound(n_bytes, n_ops), None, run, shape)
 
 
+# symbol_sync_mm_f32's cycles a symbol are taken at the SM clock that
+# scripts/loop_chain_floor.py samples under it on the H100 (1,980 MHz); the
+# conj mode's (its QPSK250K row) is printed beside the levels rows
+SYNC_MHZ = 1980.0
+SYNC_CYCLES = {}
+
+
+def sync_cycles(ms, symbols):
+    return ms * 1e-3 * SYNC_MHZ * 1e6 / symbols
+
+
+def levels_v0_row(name, fn, v0, kernel_row, run, shape, symbols):
+    """The levels mode on real input as the hypotf levels code runs it
+    (symbol_sync_levels_v0: the imaginary plane copied and interpolated, a
+    hypotf a level) on the kernel row's inputs: every output and state leaf
+    equal bit for bit to the real-levels path's, the two timed in turns;
+    prints both in cycles a symbol beside the conj mode's. Its row has no
+    path."""
+    from qradiolink_tpu_torch.sync import cuda_symbol_sync as css
+
+    equal_leaves(f"{css.V0_OP}/{run} at {shape}", v0(), fn())
+    ms, turns = turns_ms({css.V0_OP: v0, css.OP: fn})
+    print(f"  {name} in turns: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
+    conj = SYNC_CYCLES.get("conj")
+    print(f"  {name}: {sync_cycles(ms[css.OP], symbols):.0f} cycles a symbol "
+          f"(the hypotf levels code {sync_cycles(ms[css.V0_OP], symbols):.0f}, "
+          f"{ms[css.V0_OP] / ms[css.OP]:.2f}x; conj mode "
+          f"{'not timed' if conj is None else f'{conj:.0f}'}) at "
+          f"{SYNC_MHZ:.0f} MHz, {symbols} symbols a row ({CARD})",
+          flush=True)
+    return row(f"{css.V0_OP}/{run}", kernel_row["source"],
+               kernel_row["replaces"], 0.0, ms[css.V0_OP],
+               kernel_row["plain_ms"], (kernel_row["bound_ms"],
+                                        kernel_row["bound_by"]),
+               None, run, shape, routed=False)
+
+
 # FllBandEdge's bound against its plain loop, elementwise |k - p| <= atol +
 # rtol |p| (tests/test_torch_sync_loops.py): the kernel sums each
 # sub-block's band-edge energy in its own order
@@ -2606,6 +2664,9 @@ def psk_rows(dev, gen):
         lambda: sync_plain(x, s0, QPSK_SYMS),
         8 * N_CH * (T_in + QPSK_SYMS), 60 * N_CH * QPSK_SYMS, "qpsk",
         css.shape_key(N_CH, T_in, QPSK_SYMS, mode)))
+    SYNC_CYCLES["conj"] = sync_cycles(rows[-1]["ms"], QPSK_SYMS)
+    print(f"  {css.OP}/qpsk: {SYNC_CYCLES['conj']:.0f} cycles a symbol at "
+          f"{SYNC_MHZ:.0f} MHz", flush=True)
     del x, xs
     soft = torch.clamp(128.0 + 48.0 * torch.randn(
         (N_CH, QPSK_SYMS, 2), generator=gen, device=dev) * 2.0, 0.0, 255.0)
@@ -3475,65 +3536,6 @@ def head_launches(rs):
     return (op, f"L{rs.L} K{rs.kp} D{rs.M} tail 2x{N_CH}"), 1
 
 
-def dec_l1_row(name, rs, run, dev, gen):
-    """resample_dec_f32 at an L 1 head (GMSK2K's K2239 D50, 2048 x 200,000,
-    2 planes, the tails read in place), which no route gives it: against
-    the plain version (the FIR's bound, state equal), bit-equal to the
-    strided FIR's routed kernel (fir_long_f32, whose layout and sum order
-    it takes there), timed in turns with it and beside F.conv1d, for the
-    next redesign of that head. Its row has no path."""
-    from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample
-    import torch.nn.functional as F
-
-    M, K, taps = rs.M, rs.kp, rs.poly_taps
-    xs = tuple(torch.randn((N_CH, T_STEP), generator=gen, device=dev)
-               for _ in range(2))
-    st = torch.randn((N_CH, 2, K - 1), generator=gen, device=dev)
-    tails = (st[:, 0, :], st[:, 1, :])
-    n_out = T_STEP // M
-    shape = cuda_resample.shape_key(xs, 1, K, M)
-    fir_op = cuda_fir.route(K, M)
-    fns = {fir_op: lambda: cuda_fir.fir_stream(xs, taps[0], M, n_out,
-                                               tails=tails),
-           cuda_resample.DEC_OP: lambda: cuda_resample.launch(
-               cuda_resample.DEC_OP, xs, taps, 1, M, tails)}
-    p_state, p_ys = cuda_resample.resample_poly_plain(xs, taps, 1, M, tails)
-    f_ys = fns[fir_op]()
-    check_fir(f"{fir_op}/{name}", f_ys, p_ys)
-    state, ys = fns[cuda_resample.DEC_OP]()
-    err = check_fir(f"{cuda_resample.DEC_OP}/{name}", ys, p_ys)
-    if not torch.equal(state, p_state):
-        raise RuntimeError(f"{cuda_resample.DEC_OP}/{name}: state differs")
-    # resample_dec_f32 takes fir_long_f32's layout and sum order here
-    if not all(torch.equal(a, b) for a, b in zip(ys, f_ys)):
-        raise RuntimeError(f"{cuda_resample.DEC_OP}/{name}: not bit-equal "
-                           f"to {fir_op}")
-    print(f"  {cuda_resample.DEC_OP}/{name}: outputs bit-equal to {fir_op}",
-          flush=True)
-    del state, ys, f_ys, p_state, p_ys
-    torch.cuda.synchronize()
-    ms, turns = turns_ms(fns)
-    print(f"  {name} in turns: " + ", ".join(
-        f"{k} {t:.4f} ms" for k, t in turns), flush=True)
-    lib_in = torch.stack([torch.cat([t, x], -1) for t, x in zip(tails, xs)]
-                         ).reshape(2 * N_CH, 1, -1)
-    w = taps[0].reshape(1, 1, K)
-    lib_ms = cuda_ms(lambda: F.conv1d(lib_in, w, stride=M))
-    plain_ms = cuda_ms(lambda: cuda_resample.resample_poly_plain(
-        xs, taps, 1, M, tails), iters=3, warmup=1)
-    b = bound(4 * (2 * N_CH * (K - 1 + T_STEP) + K + 2 * N_CH * n_out
-                   + 2 * N_CH * (K - 1)), 2 * K * 2 * N_CH * n_out)
-    op = cuda_resample.DEC_OP
-    print(f"  {op}/{name}: {ms[fir_op] / ms[op]:.2f}x {fir_op} in turns, "
-          f"{lib_ms / ms[op]:.2f}x F.conv1d, {b[0] / ms[op]:.1%} of its "
-          f"bound; on no route ({CARD})", flush=True)
-    del xs, st, tails, lib_in
-    torch.cuda.empty_cache()
-    return [row(f"{op}/{name}", RESAMPLE_SOURCE[op],
-                RESAMPLE_REPLACES[op], err, ms[op], plain_ms, b, lib_ms,
-                run, shape, routed=False)]
-
-
 def fsk4_signal(dev, gen, C, T):
     """A 4-level signal at 5 samples a symbol: levels {-1.5, -0.5, 0.5,
     1.5} held 5 samples, smoothed by a 5-tap moving average, noise at
@@ -3605,14 +3607,19 @@ def fsk4_rows(dev, gen):
                        *g[2:], blocks[0][:, -ss.tail_len:].to(
                            torch.complex64)))
         xb = blocks[1]
+        shape = css.shape_key(N_CH, FSK4_T24, FSK4_SYMS, mode)
         rows.append(loop_row(
             f"{css.OP}/{kind}", "qradiolink_tpu_torch/csrc/symbol_sync.cu",
             "qradiolink_tpu/sync/symbol_sync.py:152",
             lambda: css.symbol_sync(s1[4], xb, *sync_args(s1)),
             lambda: sync_plain(xb, s1),
             4 * N_CH * (FSK4_T24 + ss.tail_len) + 8 * N_CH * FSK4_SYMS,
-            60 * N_CH * FSK4_SYMS, kind,
-            css.shape_key(N_CH, FSK4_T24, FSK4_SYMS, mode)))
+            60 * N_CH * FSK4_SYMS, kind, shape))
+        a1 = sync_args(s1)
+        rows.append(levels_v0_row(
+            f"{css.OP}/{kind}", lambda: css.symbol_sync(s1[4], xb, *a1),
+            lambda: css.symbol_sync_levels_v0(s1[4], xb, *a1[:5], *a1[6:]),
+            rows[-1], kind, shape, FSK4_SYMS))
         del x, blocks, xb, s1
         tx = Mod(lead_shape=(N_CH,), device=dev)
         rows += poly_row(f"{kind}_tx_shaper", tx.shaper, 1, N_CH, FSK4_SYMS,
@@ -3797,7 +3804,8 @@ def call_capture():
     def fs(xs, taps_flipped, stride, n_out, tails=None, shift=0):
         K = taps_flipped.shape[0]
         if shift == 0:
-            note((cuda_fir.route(K, stride),
+            note((cuda_fir.stream_route(K, stride, xs[0].shape[-1], n_out,
+                                        tails),
                   cuda_fir.shape_key(xs, K, stride, tails)),
                  dict(kind="fir", taps=taps_flipped, stride=stride,
                       n_out=n_out, planes=len(xs),
@@ -4046,7 +4054,7 @@ def loop_capture_row(op, key, meta, run):
 
     fn, a = meta["fn"], meta["args"]
     if op == cf.OP:
-        return fll_capture_row(fn, a, run, key)
+        return [fll_capture_row(fn, a, run, key)]
     if op == cc.OP:
         x = a[0]
         C, T = math.prod(x.shape[:-1]), x.shape[-1]
@@ -4067,6 +4075,14 @@ def loop_capture_row(op, key, meta, run):
         planes = 2 if x.is_complex() else 1
         b = (4 * C * (planes * T + 2 * tail.shape[-1]) + 8 * C * n,
              60 * C * n)
+        if planes == 1 and a[7] == css.MODE_LEVELS:
+            src, where = LOOP_SOURCE[op]
+            r = loop_row(f"{op}/{run}", src, where, lambda: fn(*a), plain,
+                         *b, run, key)
+            return [r, levels_v0_row(
+                f"{op}/{run}", lambda: fn(*a),
+                lambda: css.symbol_sync_levels_v0(*a[:7], *a[8:]), r, run,
+                key, n)]
     elif op == vsc.OP:
         soft, lag = a[3], a[2].shape[1]
         C, pairs = soft.shape[0], soft.shape[1]
@@ -4085,8 +4101,8 @@ def loop_capture_row(op, key, meta, run):
         b = ((16 if cplx else 8) * n + 8 * C,
              ((12 + 2) if cplx else 2) * n + 7 * n)
     src, where = LOOP_SOURCE[op]
-    return loop_row(f"{op}/{run}", src, where, lambda: fn(*a), plain, *b,
-                    run, key)
+    return [loop_row(f"{op}/{run}", src, where, lambda: fn(*a), plain, *b,
+                     run, key)]
 
 
 def fll_capture_row(fn, a, run, key):
@@ -4139,7 +4155,7 @@ def captured_rows(seen, want, run, done, dev, gen):
         done.add((op, key))
         name = f"{run} {key}"
         if meta["kind"] == "loop":
-            new = [loop_capture_row(op, key, meta, run)]
+            new = loop_capture_row(op, key, meta, run)
         elif meta["kind"] == "poly":
             new = poly_row(name, types.SimpleNamespace(
                 L=meta["L"], M=meta["M"], kp=meta["taps"].shape[1],
@@ -4811,8 +4827,6 @@ def full_path(mode, dev, gen, done):
     del iqs, iq
     torch.cuda.empty_cache()
     rows = captured_rows(seen, want, run, done, dev, gen)
-    if mode == "GMSK2K":
-        rows += dec_l1_row(f"{run}_head", chain.resamp, run, dev, gen)
     return report, rows
 
 

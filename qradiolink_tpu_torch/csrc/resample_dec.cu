@@ -1,10 +1,11 @@
 // resample_dec_f32: the streaming polyphase rational resampler at its
 // decimating shapes (ops/cuda_resample.route: DMR's 3/125 head at 2,091
 // taps a phase, M17's 3/125 at 349, MMDVM's RX 12/125 at 523, the 2/25
-// heads at 105 and 561; and a timed instance at L 1, GMSK2K's K2239 D50
-// head, on no route), every phase of one or two f32 planes in one launch,
-// the outputs interleaved and the new tail state written by the same
-// launch.
+// heads at 105 and 561; and at L 1, through ops/cuda_fir.route, the
+// K2239 D50 head of GMSK2K, 2FSK2K, AM and NBFM), every phase of one or two
+// f32 planes in one launch, the outputs interleaved and the new tail state
+// written by the same launch (or none: the strided FIR's call keeps its
+// own).
 //
 // Replaces, at those shapes, the Pallas TPU kernel of
 // qradiolink_tpu/ops/pallas_fir.py `banded_fir_stream` -> `_stream_call`
@@ -107,16 +108,36 @@
 // lanes past M 4% slower. In this layout one block an SM (no register
 // cap) 3.31 against 2.99, the full body on every warp 3.08; M17 with 3
 // chunk buffers (3 blocks an SM) 1.30 against 1.40 with 4.
+//
+// The K2239 D50 head at L 1 (2048 x 200,000 and 256 x 1,000,000; 3 warps
+// a block, segments of 15 rows, one group of 64 columns, as fir_long_f32,
+// whose bits it keeps): 14 of the 64 lane columns hold zero taps (D 50),
+// so 22% of its FMAs add nothing, and the layout that keeps the bits
+// cannot drop them; from its first FFMA to its last the kernel is 1.09
+// instructions an FFMA (scripts/resample_dec_variants.py --sass). In turns
+// (that script, an H100 80GB HBM3 at 700 W, the SM at 1,980 MHz): the
+// source before this route 2.62 / 1.83 ms; a row a block left 2FSK2K's 512 row-planes 1.55
+// waves of 5 resident blocks an SM, so this instance's pieces come from
+// piece_waves (waves x chunks a block, RULE 1); with L and S fixed at
+// compile time (LC, SC: the window's divisions and loops fold away; the
+// window's adds and the staging took 7.2% and 9.0% of GMSK2K's time,
+// ablated, at run-time L and S) 2.48 / 1.54, at run-time L and S 2.60 /
+// 1.62. Fixed for every instance they spilled DMR's and MMDVM's (12 warps,
+// a cap of 80 registers). 5 blocks an SM, 3 or 6 chunk buffers and tiles
+// of 64 outputs did not help (64: 3.79, the registers and tiles cut the
+// blocks an SM to 2-3).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;        // output times a warp's tile; rows a chunk
+constexpr int kTile = 32;        // output times a warp's tile (a multiple
+                                 // of 32); rows a chunk
 constexpr int kMaxWarps = 16;    // warps a block, at most
 constexpr int kTileStride = 36;  // floats a transpose-tile row: 16-byte rows
 constexpr int kOutRing = 128;    // outputs a warp's partials ring holds
 constexpr int kRuleBlocks = 4;   // blocks an SM the piece rule aims at
+constexpr int kMaxPieces = 64;   // pieces a row-plane the waves rule tries
 constexpr int kMaxDev = 64;      // devices whose SM count is kept
 
 // largest phase offset q_r = floor(r*M/L), r < L
@@ -166,17 +187,18 @@ __host__ __device__ constexpr long long smem_words(int L, int M, int CW,
 }
 
 // The instances: X(L, M, K, AS tap rows a segment, CW columns a lane, R
-// chunk buffers, blocks an SM the registers must allow). DMR's and
+// chunk buffers, blocks an SM the registers must allow, piece rule: 0
+// blocks an SM (piece_len), 1 whole waves (piece_waves)). DMR's and
 // GMSK2K's take fir_long_f32's segments, column groups of 64 and sum
 // order, so their outputs equal that kernel's bit for bit. R 3 stages a
 // chunk one ahead of the one computed, R 4 two.
 #define QRL_DEC_INSTANCES(X)                                                \
-    X(3, 125, 2091, 9, 2, 3, 2)   /* DMR's head: 2 x 2 warps a phase */     \
-    X(3, 125, 349, 3, 4, 3, 2)    /* M17's head: a warp a phase */          \
-    X(12, 125, 523, 5, 4, 3, 2)   /* MMDVM's RX: a warp a phase */          \
-    X(2, 25, 105, 5, 1, 4, 8)     /* 4FSK10KFM's head: a warp a phase */    \
-    X(2, 25, 561, 12, 1, 4, 4)    /* 2FSK10K's head: 2 segments */          \
-    X(1, 50, 2239, 15, 2, 4, 4)   /* GMSK2K's head (L 1): 3 segments */
+    X(3, 125, 2091, 9, 2, 3, 2, 0)   /* DMR's head: 2 x 2 warps a phase */  \
+    X(3, 125, 349, 3, 4, 3, 2, 0)    /* M17's head: a warp a phase */       \
+    X(12, 125, 523, 5, 4, 3, 2, 0)   /* MMDVM's RX: a warp a phase */       \
+    X(2, 25, 105, 5, 1, 4, 8, 0)     /* 4FSK10KFM's head: a warp a phase */ \
+    X(2, 25, 561, 12, 1, 4, 4, 0)    /* 2FSK10K's head: 2 segments */       \
+    X(1, 50, 2239, 15, 2, 4, 4, 1)   /* the K2239 D50 head (L 1) */
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -231,8 +253,10 @@ __device__ __forceinline__ void row_sums(const float* pa, const float* pb,
 }
 
 // NT = 32 W threads a block (W = L phase_warps of the instance); MINB
-// blocks an SM
-template <int M, int AS, int CW, int R, int NT, int MINB>
+// blocks an SM; LC, SC: L and S fixed at compile time where nonzero (the
+// K2239 D50 head; the other instances take them at run time: DMR's
+// spilled at its cap of 80 registers with them fixed)
+template <int M, int AS, int CW, int R, int NT, int MINB, int LC, int SC>
 __global__ void __launch_bounds__(NT, MINB)
 resample_dec_kernel(const float* __restrict__ tail0,
                     const float* __restrict__ tail1, int tail_ld,
@@ -240,11 +264,13 @@ resample_dec_kernel(const float* __restrict__ tail0,
                     const float* __restrict__ x1,
                     const float* __restrict__ taps, float* __restrict__ y0,
                     float* __restrict__ y1, float* __restrict__ state, int C,
-                    int T, int K, int L, int S, int n_pp, int piece,
+                    int T, int K, int L_rt, int S_rt, int n_pp, int piece,
                     int n_pieces, int planes, int aligned, int shorten) {
     constexpr int G = col_groups(M, CW);
     constexpr int W = NT / 32;
     extern __shared__ __align__(16) float smem[];
+    const int L = LC ? LC : L_rt;
+    const int S = SC ? SC : S_rt;
     const int WP = G * S;  // warps a phase
     const int BW = buf_words(L, M, CW);
     float* s_buf = smem;                                  // R x BW
@@ -261,8 +287,9 @@ resample_dec_kernel(const float* __restrict__ tail0,
     const int k1 = K - 1;
     const long long n_in = (long long)k1 + T;
 
-    // the row's first piece copies xc[T .. T+K-2] into the new state
-    if (pc == 0) {
+    // the row's first piece copies xc[T .. T+K-2] into the new state (none
+    // where the caller keeps its own: state null)
+    if (pc == 0 && state) {
         float* st = state + ((size_t)row * 2 + plane) * k1;
         for (int j = threadIdx.x; j < k1; j += NT) {
             const long long v = (long long)T + j;
@@ -370,21 +397,24 @@ resample_dec_kernel(const float* __restrict__ tail0,
             row_sums<CW, AS, AS, M>(pa, pb, h, acc);
 #pragma unroll
         for (int o = 0; o < kTile; ++o) tile[o * kTileStride + lane] = acc[o];
-        // lane sums through the transpose tile: lane l sums output l, lanes
-        // 0 .. 31 in order from 0.0f
+        // lane sums through the transpose tile: lane l sums output o0 + l
+        // of each 32, lanes 0 .. 31 in order from 0.0f
         __syncwarp();
-        const float4* tr =
-            reinterpret_cast<const float4*>(tile + lane * kTileStride);
-        float v = 0.0f;
 #pragma unroll
-        for (int b = 0; b < 8; ++b) {
-            const float4 q = tr[b];
-            v += q.x;
-            v += q.y;
-            v += q.z;
-            v += q.w;
+        for (int o0 = 0; o0 < kTile; o0 += 32) {
+            const float4* tr = reinterpret_cast<const float4*>(
+                tile + (o0 + lane) * kTileStride);
+            float v = 0.0f;
+#pragma unroll
+            for (int b = 0; b < 8; ++b) {
+                const float4 q = tr[b];
+                v += q.x;
+                v += q.y;
+                v += q.z;
+                v += q.w;
+            }
+            part[(t_lo + j * kTile + o0 + lane - a0) & (kOutRing - 1)] = v;
         }
-        part[(t_lo + j * kTile + lane - a0) & (kOutRing - 1)] = v;
         __syncwarp();
     }
     __syncthreads();
@@ -419,7 +449,32 @@ int piece_len(long long row_planes, int n_pp, int n_sm) {
     return (int)((even + kTile - 1) / kTile * kTile);
 }
 
-template <int L, int M, int K, int AS, int CW, int R, int MINB>
+// output times a block by whole waves: of the pieces of whole chunks a
+// row-plane, the count that least costs (waves of `slots` blocks, the
+// blocks the card holds at once) x (chunks a block: its piece and the
+// a_last rows before it); the fewest pieces on a tie
+int piece_waves(long long row_planes, int n_pp, int a_last, long long slots) {
+    if (n_pp <= 0) return 1;
+    long long best = -1;
+    int best_piece = n_pp;
+    const int chunks = (n_pp + kTile - 1) / kTile;
+    const int max_p = chunks < kMaxPieces ? chunks : kMaxPieces;
+    for (int p = 1; p <= max_p; ++p) {
+        int piece = (n_pp + p - 1) / p;
+        piece = (piece + kTile - 1) / kTile * kTile;
+        if (piece > n_pp) piece = n_pp;
+        const long long pieces = (n_pp + piece - 1) / piece;
+        const long long waves = (row_planes * pieces + slots - 1) / slots;
+        const long long cost = waves * ((piece + a_last + kTile - 1) / kTile);
+        if (best < 0 || cost < best) {
+            best = cost;
+            best_piece = piece;
+        }
+    }
+    return best_piece;
+}
+
+template <int L, int M, int K, int AS, int CW, int R, int MINB, int RULE>
 int launch(const void* tail0, const void* tail1, int tail_ld, const void* x0,
            const void* x1, const void* taps, void* y0, void* y1, void* state,
            int C, int T, int planes, cudaStream_t stream) {
@@ -436,16 +491,32 @@ int launch(const void* tail0, const void* tail1, int tail_ld, const void* x0,
     int n_sm = 0;
     cudaError_t e = sm_count(&n_sm);
     if (e != cudaSuccess) return (int)e;
-    const int piece = piece_len((long long)C * planes, n_pp, n_sm);
-    const long long n_pieces = n_pp > 0 ? (n_pp + piece - 1) / piece : 1;
     const long long smem =
         smem_words(L, M, CW, W, R) * (long long)sizeof(float);
-    auto* kernel = resample_dec_kernel<M, AS, CW, R, W * 32, MINB>;
+    auto* kernel = resample_dec_kernel<M, AS, CW, R, W * 32, MINB,
+                                       L == 1 ? L : 0, L == 1 ? S : 0>;
     if (smem > 48 * 1024 &&
         (e = cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
         return (int)e;
+    int piece;
+    if (RULE == 1) {
+        // the blocks an SM holds of this instance, read on its first launch
+        static int per_sm[kMaxDev];
+        int dev = 0;
+        if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+        if (per_sm[dev] == 0 &&
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm[dev], kernel, W * 32, (size_t)smem)) != cudaSuccess)
+            return (int)e;
+        const int held = per_sm[dev] > 0 ? per_sm[dev] : 1;
+        piece = piece_waves((long long)C * planes, n_pp, (S - 1) * AS,
+                            (long long)n_sm * held);
+    } else {
+        piece = piece_len((long long)C * planes, n_pp, n_sm);
+    }
+    const long long n_pieces = n_pp > 0 ? (n_pp + piece - 1) / piece : 1;
     const long long blocks = n_pieces * C * planes;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     const bool aligned =
@@ -466,7 +537,7 @@ extern "C" {
 // Shared memory one launch needs, in bytes; -1 where no instance takes
 // (L, M, K).
 long long resample_dec_smem_bytes(int L, int M, int K) {
-#define QRL_DEC_SMEM(LL, MM, KK, AA, CC, RR, BB)                           \
+#define QRL_DEC_SMEM(LL, MM, KK, AA, CC, RR, BB, PP)                       \
     if (L == LL && M == MM && K == KK)                                      \
         return smem_words(LL, MM, CC, LL * phase_warps(MM, KK, AA, CC),     \
                           RR) *                                             \
@@ -480,7 +551,7 @@ long long resample_dec_smem_bytes(int L, int M, int K) {
 // (C, tail_ld)-strided rows of K-1 floats; x0/x1: contiguous (C, T) with
 // T % M == 0; taps: contiguous (L, K), phase r's flipped taps in row r;
 // y0/y1: contiguous (C, T/M*L); state: contiguous (C, 2, K-1), written
-// whole. planes 1 or 2 (the *1 pointers are read only for 2); (L, M, K) an
+// whole, or null (no state written: the strided FIR's call at L 1). planes 1 or 2 (the *1 pointers are read only for 2); (L, M, K) an
 // instance. Returns a CUDA error code, 0 after a clean launch.
 int resample_dec_f32(const void* tail0, const void* tail1, int tail_ld,
                      const void* x0, const void* x1, const void* taps,
@@ -489,9 +560,9 @@ int resample_dec_f32(const void* tail0, const void* tail1, int tail_ld,
     if (C < 1 || T < 0 || M < 1 || T % M || planes < 1 || planes > 2)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-#define QRL_DEC_LAUNCH(LL, MM, KK, AA, CC, RR, BB)                         \
+#define QRL_DEC_LAUNCH(LL, MM, KK, AA, CC, RR, BB, PP)                     \
     if (L == LL && M == MM && K == KK)                                      \
-        return launch<LL, MM, KK, AA, CC, RR, BB>(                          \
+        return launch<LL, MM, KK, AA, CC, RR, BB, PP>(                      \
             tail0, tail1, tail_ld, x0, x1, taps, y0, y1, state, C, T,       \
             planes, s);
     QRL_DEC_INSTANCES(QRL_DEC_LAUNCH)

@@ -82,6 +82,21 @@
 // symbols go through a shared tile of 32 a row, stored coalesced, a row at
 // a time (one bulk copy a row, cp.async.bulk, measured slower on an H100).
 // The levels (at most 8) sit in registers.
+//
+// Real input with levels (M17, DMR, the 2FSK/4FSK/GMSK chains; MODE 3):
+// the decision was the symbol's cost. With a hypotf a level over a
+// runtime count of levels, chained by selects, a symbol took 949 cycles at
+// 4 levels and 681 at 2 (2048 x 100,000, M17's and GMSK2K's loops); the
+// chain alone 996 / 788, 192 / 196 without its decision, 372 / 334 with
+// fabsf in place of hypotf (scripts/loop_chain_floor.py, an H100 80GB
+// HBM3 at 700 W, 1,980 MHz). So a block whose rows' tails hold +0 in
+// every imaginary word (SymbolSync's state always does: zeros, then real
+// samples) takes yi = +0 (update's proof), copies and reads no imaginary
+// plane, and takes |yr - l| (hypot(d, +-0) = |d| for every f32, the card
+// test) of NL = 2, 4 or 8 levels fixed at compile time (padded with NaN),
+// reduced by a tree to the first minimum; 267 cycles a symbol at 4 levels
+// and 248 at 2, 3.5x / 2.7x the MODE 1 code in turns, bit-equal (its chain
+// alone 207 / 187). A block with any other tail word runs MODE 1.
 
 #include <cuda_runtime.h>
 
@@ -129,9 +144,39 @@ __device__ __forceinline__ int coeffs(float pos, float max_pos,
     return __float2int_rd(p) - 1;  // floor(p) - 1, beside b, not after it
 }
 
+// The first of the NL levels nearest to yr: the distances |yr - l| apart,
+// reduced by a (distance, level) tree that keeps the left one unless the
+// right one is smaller, which is the first minimum in any grouping. Levels
+// past n_lv are NaN: their distances are never smaller, and a pair's left
+// one is a pad only where its right one is too.
+template <int NL>
+__device__ __forceinline__ float nearest(float yr,
+                                         const float (&lv)[kMaxLevels]) {
+    float d[NL], l[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) {
+        d[k] = fabsf(__fsub_rn(yr, lv[k]));
+        l[k] = lv[k];
+    }
+#pragma unroll
+    for (int w = 1; w < NL; w *= 2) {
+#pragma unroll
+        for (int k = 0; k + w < NL; k += 2 * w) {
+            const bool right = d[k + w] < d[k];
+            d[k] = right ? d[k + w] : d[k];
+            l[k] = right ? l[k + w] : l[k];
+        }
+    }
+    return l[0];
+}
+
 // The step after the samples w: y, the decision d, the TED's e and the loop
-// update of omega and pos; y_prev and d_prev become y and d.
-template <int MODE>
+// update of omega and pos; y_prev and d_prev become y and d. MODE 3 (real
+// input, its tail's imaginary plane +0) takes yi = +0 without reading it:
+// every w_k.y is +0 and c1 > 0 (mu in [0, 1), so (mu + 1)(mu - 1)(mu - 2)
+// is above 0 and above 2^-23 in f32), so w1.y c1 is +0, and +0 plus a
+// zero of either sign is +0, whatever the signs of the other products.
+template <int MODE, int NL>
 __device__ __forceinline__ void update(const float2 (&w)[4],
                                        const float (&c)[4],
                                        const float (&lv)[kMaxLevels],
@@ -141,13 +186,18 @@ __device__ __forceinline__ void update(const float2 (&w)[4],
                                        float& dr, float& di, float& pos,
                                        float& om, float2& yp, float2& dp) {
     yr = __fmul_rn(w[0].x, c[0]);
-    yi = __fmul_rn(w[0].y, c[0]);
+    yi = MODE == 3 ? 0.0f : __fmul_rn(w[0].y, c[0]);
 #pragma unroll
     for (int k = 1; k < 4; ++k) {
         yr = __fadd_rn(yr, __fmul_rn(w[k].x, c[k]));
-        yi = __fadd_rn(yi, __fmul_rn(w[k].y, c[k]));
+        if (MODE != 3) yi = __fadd_rn(yi, __fmul_rn(w[k].y, c[k]));
     }
-    if (MODE == 1) {
+    if (MODE == 3) {
+        // hypot(yr - l, +0) = |yr - l| bit for bit (the card test
+        // test_sync_levels_fabs_equals_torch_abs, every f32)
+        dr = nearest<NL>(yr, lv);
+        di = 0.0f;
+    } else if (MODE == 1) {
         dr = lv[0];
         float best = hypotf(__fsub_rn(yr, lv[0]), yi);
 #pragma unroll
@@ -166,8 +216,9 @@ __device__ __forceinline__ void update(const float2 (&w)[4],
         di = sgn(yi);
     }
     // d y_prev's products: sign(yr) ypr as a select (sgn_mul)
-    const float dyr = MODE == 1 ? __fmul_rn(dr, yp.x) : sgn_mul(yr, yp.x);
-    const float dyi = MODE == 1 ? __fmul_rn(di, yp.y) : sgn_mul(yi, yp.y);
+    constexpr bool LV = MODE == 1 || MODE == 3;
+    const float dyr = LV ? __fmul_rn(dr, yp.x) : sgn_mul(yr, yp.x);
+    const float dyi = LV ? __fmul_rn(di, yp.y) : sgn_mul(yi, yp.y);
     float e;
     if (MODE == 0)
         e = __fsub_rn(__fadd_rn(__fmul_rn(dp.x, yr), __fmul_rn(dp.y, yi)),
@@ -219,8 +270,9 @@ struct Ring {
 };
 
 // Copy granules [g_lo, g_hi) of this lane's row of xc = [tail | x] into
-// its ring (granule g to slot g mod (R / G)).
-template <bool XC>
+// its ring (granule g to slot g mod (R / G)); real input's imaginary plane
+// only where IM (MODE 3 reads none).
+template <bool XC, bool IM>
 __device__ __forceinline__ void fill(float* re, float* im, int g_lo,
                                      int g_hi, int R,
                                      const float2* __restrict__ trow,
@@ -240,43 +292,48 @@ __device__ __forceinline__ void fill(float* re, float* im, int g_lo,
             const float4 b = *reinterpret_cast<const float4*>(trow + j + 2);
             *reinterpret_cast<float4*>(re + slot) =
                 make_float4(a.x, a.z, b.x, b.z);
-            *reinterpret_cast<float4*>(im + slot) =
-                make_float4(a.y, a.w, b.y, b.w);
+            if (IM)
+                *reinterpret_cast<float4*>(im + slot) =
+                    make_float4(a.y, a.w, b.y, b.w);
         } else {
             cp_async16(re + slot, (const float*)xrow + (j - L));
-            *reinterpret_cast<float4*>(im + slot) =
-                make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (IM)
+                *reinterpret_cast<float4*>(im + slot) =
+                    make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
     }
 }
 
-template <bool XC, int MODE>
-__global__ void __launch_bounds__(2 * kRows)
-sync_kernel(const float2* __restrict__ tail, const void* __restrict__ x,
-            const float* __restrict__ pos0, const float* __restrict__ om0,
-            const float2* __restrict__ yp0, const float2* __restrict__ dp0,
-            float2* __restrict__ y, float* __restrict__ pos_out,
-            float* __restrict__ om_out, float2* __restrict__ yp_out,
-            float2* __restrict__ dp_out, int rows, int L, int T, int ld,
-            int n_out, const float* __restrict__ levels, int n_lv,
-            float omin, float omax, float alpha, float beta, float inv_norm,
-            float max_pos, int S, int R, float reach) {
-    extern __shared__ __align__(16) float ring[];
-    __shared__ float2 s_y[kRows][kOutTile + 1];
+// A block's 32 rows of the loop (the kernel's body below); s_y and s_pos
+// are the block's shared output tile and posted positions.
+template <bool XC, int MODE, int NL>
+__device__ __forceinline__ void run(
+    const float2* __restrict__ tail, const void* __restrict__ x,
+    const float* __restrict__ pos0, const float* __restrict__ om0,
+    const float2* __restrict__ yp0, const float2* __restrict__ dp0,
+    float2* __restrict__ y, float* __restrict__ pos_out,
+    float* __restrict__ om_out, float2* __restrict__ yp_out,
+    float2* __restrict__ dp_out, int rows, int L, int n_out, int ld,
+    const float* __restrict__ levels, int n_lv, float omin, float omax,
+    float alpha, float beta, float inv_norm, float max_pos, int S, int R,
+    float reach, float* ring, float2 (*s_y)[kOutTile + 1],
+    float (*s_pos)[kRows]) {
     constexpr int G = Ring<XC>::G;
     const int Rg = R / G;
     const int st = Ring<XC>::stride(R);
-    __shared__ float s_pos[2][kRows];  // each chunk's starting positions
     const int lane = threadIdx.x & (kRows - 1);
     const bool producer = threadIdx.x >= kRows;
     const int row0 = blockIdx.x * kRows;
     const int n_rows = min(kRows, rows - row0);
     const bool mine = lane < n_rows;
     const int row = row0 + (mine ? lane : 0);
+    // MODE 3 pads the levels past n_lv with NaN (nearest's tree)
     float lv[kMaxLevels];
 #pragma unroll
     for (int k = 0; k < kMaxLevels; ++k)
-        lv[k] = (MODE == 1 && k < n_lv) ? levels[k] : 0.0f;
+        lv[k] = (MODE == 1 || MODE == 3) && k < n_lv
+                    ? levels[k]
+                    : (MODE == 3 ? __int_as_float(0x7fc00000) : 0.0f);
     float pos = mine ? pos0[row] : 0.0f, om = mine ? om0[row] : 0.0f;
     float2 yp = mine ? yp0[row] : make_float2(0.0f, 0.0f);
     float2 dp = mine ? dp0[row] : make_float2(0.0f, 0.0f);
@@ -302,7 +359,7 @@ sync_kernel(const float2* __restrict__ tail, const void* __restrict__ x,
             const int g_hi = mine ? max(filled, ((int)t + 3 + G - 1) / G) : 0;
             const int g_lo = max(filled, g_hi - Rg);
             filled = g_hi;
-            fill<XC>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);
+            fill<XC, MODE != 3>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);
             cp_async_commit();
             cp_async_wait_all();
             bar_arrive(3 + (j & 1));
@@ -326,11 +383,13 @@ sync_kernel(const float2* __restrict__ tail, const void* __restrict__ x,
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
                 const int s = (j0 + k) & (R - 1);
-                w[k] = XC ? my_c[s] : make_float2(my_re[s], my_im[s]);
+                w[k] = XC ? my_c[s]
+                          : make_float2(my_re[s],
+                                        MODE == 3 ? 0.0f : my_im[s]);
             }
             float yr, yi, dr, di;
-            update<MODE>(w, c, lv, n_lv, omin, omax, alpha, beta, inv_norm,
-                         yr, yi, dr, di, pos, om, yp, dp);
+            update<MODE, NL>(w, c, lv, n_lv, omin, omax, alpha, beta,
+                             inv_norm, yr, yi, dr, di, pos, om, yp, dp);
             s_y[lane][(m0 + i) & (kOutTile - 1)] = make_float2(yr, yi);
         }
         __syncwarp();
@@ -353,25 +412,72 @@ sync_kernel(const float2* __restrict__ tail, const void* __restrict__ x,
     }
 }
 
-template <bool XC, int MODE>
+// MODE 3 (real input with levels) first reads the imaginary plane of its
+// rows' tails: where every word is +0 (as SymbolSync's state leaves it:
+// zeros, then real samples), yi is +0 throughout and the rows run MODE 3;
+// otherwise they run MODE 1, which interpolates the plane.
+template <bool XC, int MODE, int NL>
+__global__ void __launch_bounds__(2 * kRows)
+sync_kernel(const float2* __restrict__ tail, const void* __restrict__ x,
+            const float* __restrict__ pos0, const float* __restrict__ om0,
+            const float2* __restrict__ yp0, const float2* __restrict__ dp0,
+            float2* __restrict__ y, float* __restrict__ pos_out,
+            float* __restrict__ om_out, float2* __restrict__ yp_out,
+            float2* __restrict__ dp_out, int rows, int L, int n_out, int ld,
+            const float* __restrict__ levels, int n_lv, float omin,
+            float omax, float alpha, float beta, float inv_norm,
+            float max_pos, int S, int R, float reach) {
+    extern __shared__ __align__(16) float ring[];
+    __shared__ float2 s_y[kRows][kOutTile + 1];
+    __shared__ float s_pos[2][kRows];  // each chunk's starting positions
+#define QRL_RUN_ARGS                                                         \
+    tail, x, pos0, om0, yp0, dp0, y, pos_out, om_out, yp_out, dp_out, rows,  \
+        L, n_out, ld, levels, n_lv, omin, omax, alpha, beta, inv_norm,       \
+        max_pos, S, R, reach, ring, s_y, s_pos
+    if constexpr (MODE == 3) {
+        const int row0 = blockIdx.x * kRows;
+        const int n = min(kRows, rows - row0) * L;
+        const unsigned* im =
+            reinterpret_cast<const unsigned*>(tail + (size_t)row0 * L) + 1;
+        unsigned bits = 0u;
+        for (int i = threadIdx.x; i < n; i += 2 * kRows) bits |= im[2 * i];
+        if (__syncthreads_or(bits != 0u)) {
+            run<false, 1, NL>(QRL_RUN_ARGS);
+            return;
+        }
+    }
+    run<XC, MODE, NL>(QRL_RUN_ARGS);
+#undef QRL_RUN_ARGS
+}
+
+template <bool XC, int MODE, int NL>
 int launch(const void* tail, const void* x, const void* pos0,
            const void* om0, const void* yp0, const void* dp0, void* y,
            void* pos_out, void* om_out, void* yp_out, void* dp_out, int rows,
-           int L, int T, int ld, int n_out, const void* levels, int n_lv,
+           int L, int ld, int n_out, const void* levels, int n_lv,
            float omin, float omax, float alpha, float beta, float inv_norm,
            float max_pos, int S, int R, float reach, cudaStream_t st) {
     const size_t smem = Ring<XC>::bytes(R);
     cudaError_t e = cudaFuncSetAttribute(
-        sync_kernel<XC, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sync_kernel<XC, MODE, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    sync_kernel<XC, MODE><<<(rows + kRows - 1) / kRows, 2 * kRows, smem, st>>>(
-        (const float2*)tail, x, (const float*)pos0, (const float*)om0,
-        (const float2*)yp0, (const float2*)dp0, (float2*)y, (float*)pos_out,
-        (float*)om_out, (float2*)yp_out, (float2*)dp_out, rows, L, T, ld,
-        n_out, (const float*)levels, n_lv, omin, omax, alpha, beta, inv_norm,
-        max_pos, S, R, reach);
+    sync_kernel<XC, MODE, NL>
+        <<<(rows + kRows - 1) / kRows, 2 * kRows, smem, st>>>(
+            (const float2*)tail, x, (const float*)pos0, (const float*)om0,
+            (const float2*)yp0, (const float2*)dp0, (float2*)y,
+            (float*)pos_out, (float*)om_out, (float2*)yp_out,
+            (float2*)dp_out, rows, L, n_out, ld, (const float*)levels, n_lv,
+            omin, omax, alpha, beta, inv_norm, max_pos, S, R, reach);
     return (int)cudaGetLastError();
+}
+
+// out = fabsf(d), elementwise: the real-levels decision's distance, which
+// the card test holds to torch.abs(torch.complex(d, +-0)) for every f32
+__global__ void fabs_f32(const float* __restrict__ d, float* __restrict__ out,
+                         long long n) {
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = fabsf(d[i]);
 }
 
 }  // namespace
@@ -382,12 +488,15 @@ extern "C" {
 // 1) or f32 (0), rows ld elements apart; tail and x 16-byte aligned, L and
 // ld multiples of the granule (2 complex, 4 real samples); pos0, om0,
 // pos_out, om_out: (rows,) f32; yp0, dp0, yp_out, dp_out: (rows,)
-// complex64; y: contiguous (rows, n_out) complex64; levels: n_lv f32 (mode
-// 1). mode: 0 complex input with sign decisions, 1 levels, 2 real input
-// with sign decisions. S (chunk, a power of 2 up to 16), R (ring samples a
-// lane, a power of 2 from 16 to 512) and reach come from the wrapper's plan
-// (cuda_symbol_sync.ring_plan). Returns a CUDA error code, 0 after a clean
-// launch.
+// complex64; y: contiguous (rows, n_out) complex64; levels: n_lv f32
+// (modes 1 and 3). mode: 0 complex input with sign decisions, 1 levels
+// (real input: the nearest level by |yr - l| where the tails' imaginary
+// planes are +0), 2 real input with sign decisions, 3 real input with
+// levels as every row ran them before: the imaginary plane interpolated
+// and a hypotf a level (on no route; timed in turns). S (chunk, a power of
+// 2 up to 16), R (ring samples a lane, a power of 2 from 16 to 512) and
+// reach come from the wrapper's plan (cuda_symbol_sync.ring_plan). Returns
+// a CUDA error code, 0 after a clean launch.
 int symbol_sync_mm_f32(const void* tail, const void* x, const void* pos0,
                        const void* om0, const void* yp0, const void* dp0,
                        void* y, void* pos_out, void* om_out, void* yp_out,
@@ -397,9 +506,10 @@ int symbol_sync_mm_f32(const void* tail, const void* x, const void* pos0,
                        float beta, float inv_norm, float max_pos, int S,
                        int R, float reach, void* stream) {
     const int G = x_complex ? Ring<true>::G : Ring<false>::G;
+    const bool lv = mode == 1 || mode == 3;
     if (rows < 1 || L < 4 || T < 0 || ld < T || n_out < 0 || mode < 0 ||
-        mode > 2 || (mode == 1 && (n_lv < 1 || n_lv > kMaxLevels)) ||
-        (mode == 0 && !x_complex) || (mode == 2 && x_complex) ||
+        mode > 3 || (lv && (n_lv < 1 || n_lv > kMaxLevels)) ||
+        (mode == 0 && !x_complex) || (mode >= 2 && x_complex) ||
         L % G || ld % G || S < 1 || S > kMaxChunk || (S & (S - 1)) ||
         R < 16 || R > kMaxRing || (R & (R - 1)) ||
         ((size_t)tail | (size_t)x) % 16)
@@ -407,19 +517,36 @@ int symbol_sync_mm_f32(const void* tail, const void* x, const void* pos0,
     cudaStream_t st = (cudaStream_t)stream;
 #define QRL_SYNC_ARGS                                                      \
     tail, x, pos0, om0, yp0, dp0, y, pos_out, om_out, yp_out, dp_out, rows, \
-        L, T, ld, n_out, levels, n_lv, omin, omax, alpha, beta, inv_norm,   \
+        L, ld, n_out, levels, n_lv, omin, omax, alpha, beta, inv_norm,      \
         max_pos, S, R, reach, st
     int err;
     if (mode == 0)
-        err = launch<true, 0>(QRL_SYNC_ARGS);
+        err = launch<true, 0, kMaxLevels>(QRL_SYNC_ARGS);
     else if (mode == 2)
-        err = launch<false, 2>(QRL_SYNC_ARGS);
+        err = launch<false, 2, kMaxLevels>(QRL_SYNC_ARGS);
     else if (x_complex)
-        err = launch<true, 1>(QRL_SYNC_ARGS);
+        err = launch<true, 1, kMaxLevels>(QRL_SYNC_ARGS);
+    else if (mode == 3)
+        err = launch<false, 1, kMaxLevels>(QRL_SYNC_ARGS);
+    else if (n_lv <= 2)
+        err = launch<false, 3, 2>(QRL_SYNC_ARGS);
+    else if (n_lv <= 4)
+        err = launch<false, 3, 4>(QRL_SYNC_ARGS);
     else
-        err = launch<false, 1>(QRL_SYNC_ARGS);
+        err = launch<false, 3, kMaxLevels>(QRL_SYNC_ARGS);
 #undef QRL_SYNC_ARGS
     return err;
+}
+
+// d, out: n f32 on the card; out = fabsf(d) as the real-levels path
+// computes a level's distance
+int symbol_sync_fabs_f32(const void* d, void* out, long long n,
+                         void* stream) {
+    if (n < 0 || n > (1LL << 32)) return (int)cudaErrorInvalidValue;
+    if (n == 0) return 0;
+    fabs_f32<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+        (const float*)d, (float*)out, n);
+    return (int)cudaGetLastError();
 }
 
 const char* symbol_sync_error_string(int err) {

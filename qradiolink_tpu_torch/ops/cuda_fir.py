@@ -35,6 +35,16 @@ phase:
   lane, a systolic ring of accumulators) takes any shape whose taps and
   rings fit a block's shared memory (`fir_stream_smem_bytes`), and rows
   past the grid's 65,535.
+At the K2239 D50 head (NBFM's and AM's, the 2FSK/GMSK chains'),
+`route(K, D)` names `resample_dec_f32` (csrc/resample_dec.cu,
+ops/cuda_resample.py) at L 1: `fir_long_f32`'s segments, column groups
+and sum order, so the same bits, with each sample staged once for all
+segments; in turns it ran 2.03x `fir_long_f32` at 2048 rows and 1.37-2.75x
+at 1 to 64 rows (PERF.md), so no row count keeps `fir_long_f32`. It
+computes the resampler's form (a tail, shift 0, every output of a block
+of whole strides); other calls at that shape take the FIR kernels' route
+(`fir_route`, `stream_route`), and `RationalResampler._decimate` keeps
+its `next_tail` state: the launch writes none.
 `fir_s1_f32` and `fir_stream_v0_f32` sum in the order of `fir_stream_f32`,
 so the three give equal bits; the polyphase kernels sum in other orders
 and are held to the FIR's bound. Every default `RationalResampler(1, M)`
@@ -61,6 +71,7 @@ from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "fir_stream_f32"
 V0_OP = "fir_stream_v0_f32"
+DEC_OP = "resample_dec_f32"
 DECIM_OP = "fir_decim_f32"
 LONG_OP = "fir_long_f32"
 COLS_OP = "fir_cols_f32"
@@ -85,6 +96,9 @@ COLS_D = (2, 31)
 # then take 22 KB of shared memory a block, which leaves room for several
 # blocks an SM (csrc/fir_s1.cu)
 S1_MAX_K = 2048
+# resample_dec_f32's strided-FIR shapes, (K, D): its L 1 instance in
+# csrc/resample_dec.cu (ops/cuda_resample.DEC_SHAPES)
+DEC_SHAPES = ((2239, 50),)
 _GRID_Y_MAX = 65_535
 
 
@@ -146,7 +160,28 @@ def s1_takes(K: int, stride: int) -> bool:
 
 
 def route(K: int, stride: int) -> str:
-    """The kernel that serves a FIR of K taps and stride D, A = ceil(K/D):
+    """The kernel that serves a FIR of K taps and stride D in the
+    resampler's form: resample_dec_f32 at a (K, D) of DEC_SHAPES, else
+    fir_route(K, D)."""
+    if (K, stride) in DEC_SHAPES:
+        return DEC_OP
+    return fir_route(K, stride)
+
+
+def stream_route(K: int, stride: int, T: int, n_out: int, tails=None,
+                 shift: int = 0) -> str:
+    """The kernel fir_stream launches for a call: route(K, D), except that
+    resample_dec_f32 computes only the resampler's form (a tail, shift 0,
+    n_out * D == T); other calls take fir_route(K, D)."""
+    op = route(K, stride)
+    if op == DEC_OP and not (tails is not None and shift == 0
+                             and n_out * stride == T):
+        return fir_route(K, stride)
+    return op
+
+
+def fir_route(K: int, stride: int) -> str:
+    """The FIR kernel that serves K taps and stride D, A = ceil(K/D):
     fir_decim_f32 at 32 <= D <= 64 and A <= 16; at 17 <= A <= 64,
     fir_long_f32 from D = 32 (at most 8 warps: ceil(D/64) * ceil(A/16) <=
     8) and fir_cols_f32 at 2 <= D <= 31; fir_s1_f32 for D = 1 and K <=
@@ -227,8 +262,8 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
     """
     xs = tuple(xs)
     tails = None if tails is None else tuple(tails)
-    K, _ = _check(xs, taps_flipped, stride, n_out, tails, shift)
-    op = route(K, stride)
+    K, T = _check(xs, taps_flipped, stride, n_out, tails, shift)
+    op = stream_route(K, stride, T, n_out, tails, shift)
     dev = xs[0].device
     if dev.type == "cpu":
         kernel_paths.record(op, False, shape_key(xs, K, stride, tails))
@@ -238,6 +273,8 @@ def fir_stream(xs, taps_flipped, stride: int, n_out: int, tails=None,
         raise ValueError(f"no {op} kernel for device {dev}")
     if op == OP:
         return _launch_stream(xs, taps_flipped, stride, n_out, tails, shift)
+    if op == DEC_OP:
+        return _launch_dec(xs, taps_flipped, stride, tails)
     # fir_decim_f32, fir_long_f32, fir_cols_f32 or fir_s1_f32, at a shape
     # it takes
     C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
@@ -325,6 +362,35 @@ def _launch_stream(xs, taps_flipped, stride, n_out, tails=None, shift=0):
         raise ValueError(f"K={taps_flipped.shape[0]}, D={stride} needs more "
                          f"shared memory than a block has")
     return _launch(OP, lib.fir_stream_f32, lib.fir_error_string, xs,
+                   taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
+                   tail_ld)
+
+
+def _launch_dec(xs, taps_flipped, stride, tails):
+    """resample_dec_f32 at L 1 on CUDA planes, the tails read in place, no
+    state written; recorded under this wrapper's key."""
+    from qradiolink_tpu_torch.ops import cuda_resample
+
+    _, ys = cuda_resample.launch(
+        DEC_OP, xs, taps_flipped[None], 1, stride, tails, state=False,
+        key=shape_key(xs, taps_flipped.shape[0], stride, tails))
+    return ys
+
+
+def fir_long(xs, taps_flipped, stride: int, n_out: int, tails=None,
+             shift: int = 0):
+    """fir_long_f32 on CUDA planes at a shape it takes, whatever the route
+    (the kernel the K2239 D50 head ran before resample_dec_f32; timed in
+    turns with it)."""
+    xs = tuple(xs)
+    tails = None if tails is None else tuple(tails)
+    K, _ = _check(xs, taps_flipped, stride, n_out, tails, shift)
+    if xs[0].device.type != "cuda" or not _long_takes(K, stride):
+        raise ValueError(f"no {LONG_OP} launch for K {K}, D {stride} on "
+                         f"{xs[0].device}")
+    C, tail_ptrs, tail_ld = _cuda_args(xs, taps_flipped, tails)
+    lib = _lib("fir_long", LONG_OP, "fir_long_error_string")
+    return _launch(LONG_OP, lib.fir_long_f32, lib.fir_long_error_string, xs,
                    taps_flipped, stride, n_out, tails, shift, C, tail_ptrs,
                    tail_ld)
 

@@ -75,8 +75,9 @@ RAT_SHAPES = ((12, 51), (13, 2), (24, 51), (25, 53))
 # resample_dec_f32's shapes: from 2 phases and a decimation of 25, the
 # (L, M, K) with an instance in csrc/resample_dec.cu (seg_rows): DMR's and
 # M17's 3/125 heads, MMDVM's RX 12/125, the 2/25 heads of 4FSK10KFM and
-# 2FSK10K; and GMSK2K's head at L 1, which chip_smoke.py times and no
-# route gives it (L 1 is a strided FIR, ops/cuda_fir.py)
+# 2FSK10K; and the K2239 D50 head at L 1 (GMSK2K's, 2FSK2K's, NBFM's,
+# AM's), which ops/cuda_fir.route gives it (L 1 is a strided FIR: that
+# module's DEC_SHAPES)
 DEC_MIN_L, DEC_MIN_M = 2, 25
 DEC_SHAPES = ((3, 125, 2091), (3, 125, 349), (12, 125, 523), (2, 25, 105),
               (2, 25, 561), (1, 50, 2239))
@@ -260,10 +261,13 @@ def resample_poly(xs, phase_taps, L: int, M: int, tails):
     return launch(op, xs, phase_taps, L, M, tails)
 
 
-def launch(op, xs, phase_taps, L: int, M: int, tails):
+def launch(op, xs, phase_taps, L: int, M: int, tails, state: bool = True,
+           key: str | None = None):
     """One launch of kernel `op` (OP, UP_OP, X2_OP, RAT_OP or DEC_OP) on
     CUDA planes, whatever the route: resample_poly's arguments and
-    result."""
+    result. state False (DEC_OP only): the kernel writes no new state and
+    the first item is None; key: the launch report's key (shape_key's by
+    default)."""
     xs, tails = tuple(xs), tuple(tails)
     K = _check(xs, phase_taps, L, M, tails)
     dev = xs[0].device
@@ -277,6 +281,8 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
         raise ValueError(f"{op} has no instance for M {M}, K {K}")
     if op == DEC_OP and (L, M, K) not in DEC_SHAPES:
         raise ValueError(f"{op} has no instance for L {L}, M {M}, K {K}")
+    if not state and op != DEC_OP:
+        raise ValueError(f"{op} always writes the new state")
     for x in xs:
         if not x.is_contiguous():
             raise ValueError("planes must be contiguous")
@@ -309,7 +315,7 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
     ys = tuple(torch.empty(lead + (n_out,), dtype=torch.float32, device=dev)
                for _ in xs)
     new_state = torch.empty(lead + (2, K - 1), dtype=torch.float32,
-                            device=dev)
+                            device=dev) if state else None
     if C == 0:
         return new_state, ys
     two = len(xs) == 2
@@ -319,12 +325,13 @@ def launch(op, xs, phase_taps, L: int, M: int, tails):
             tail_ptrs[0], tail_ptrs[1] if two else None, tail_ld,
             xs[0].data_ptr(), xs[1].data_ptr() if two else None,
             phase_taps.data_ptr(), ys[0].data_ptr(),
-            ys[1].data_ptr() if two else None, new_state.data_ptr(),
-            C, T, K, L, M, len(xs), stream)
+            ys[1].data_ptr() if two else None,
+            new_state.data_ptr() if state else None, C, T, K, L, M, len(xs),
+            stream)
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{op} launch failed: {msg}")
-    kernel_paths.record(op, True, shape_key(xs, L, K, M))
+    kernel_paths.record(op, True, key or shape_key(xs, L, K, M))
     return new_state, ys
 
 

@@ -35,6 +35,17 @@ kernel reads each row's samples from a ring in shared memory that a second
 warp fills a chunk of symbols ahead of the position; `ring_plan` sizes the ring and
 the chunk from the loop's parameters, and the wrapper raises, on either
 device, where the largest ring cannot serve them.
+
+Real input with levels (M17, DMR, the 2FSK/4FSK/GMSK chains) runs the
+kernel's real-levels path where a block's tails have an imaginary plane of
++0 words, as SymbolSync's state always has: yi is then +0 for every
+symbol (csrc/symbol_sync.cu, `update`), so the kernel neither copies nor
+interpolates that plane, and each level's distance is |yr - l|, which
+equals hypot(yr - l, +0) bit for bit (a card test checks every f32); the
+levels are reduced by a (distance, level) tree to the first minimum.
+Other tails run the interpolated plane and a hypotf a level, the code
+every row ran before, which `symbol_sync_levels_v0` launches on
+any real input for timing.
 """
 
 from __future__ import annotations
@@ -48,7 +59,11 @@ from qradiolink_tpu_torch.utils import kernels
 from qradiolink_tpu_torch.utils.profiling import kernel_paths
 
 OP = "symbol_sync_mm_f32"
+# the levels mode on real input as every row ran it before the real-levels
+# path (the kernel's mode 3): on no route, launched for timing in turns
+V0_OP = "symbol_sync_levels_v0"
 MODE_CONJ, MODE_LEVELS, MODE_SIGN = 0, 1, 2
+_MODE_LEVELS_V0 = 3
 MAX_LEVELS = 8
 # the kernel's ring: at most RING_MAX samples a lane (32 lanes x (512 + 2)
 # x 8 bytes of shared memory), chunks of CHUNKS symbols, the largest that
@@ -196,18 +211,13 @@ def _lib():
         lib.symbol_sync_mm_f32.restype = ctypes.c_int
         lib.symbol_sync_error_string.argtypes = [i]
         lib.symbol_sync_error_string.restype = ctypes.c_char_p
+        lib.symbol_sync_fabs_f32.argtypes = [p, p, ctypes.c_longlong, p]
+        lib.symbol_sync_fabs_f32.restype = ctypes.c_int
         lib._qrl_bound = True
     return lib
 
 
-def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
-                levels, sps: float, alpha: float, beta: float,
-                omega_lim: float, ted_norm: float):
-    """The loop over tail (rows, L) complex64 and x (rows, T) complex64 or
-    f32, from pos, omega (rows,) f32 and y_prev, d_prev (rows,) complex64:
-    (y (rows, n_out) complex64, pos (not shifted), omega, y_prev, d_prev).
-    levels: f32 tensor of the decision levels (MODE_LEVELS) or None."""
-    complex_in = torch.is_complex(x)
+def _check(tail, x, pos, omega, y_prev, d_prev):
     rows = tail.shape[0]
     if tail.dtype != torch.complex64 or tail.ndim != 2 or x.ndim != 2 \
             or x.shape[0] != rows \
@@ -223,12 +233,24 @@ def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
         raise ValueError("symbol_sync: tail (rows, L) complex64, x (rows, T) "
                          "complex64 or f32, pos/omega (rows,) f32, y_prev/"
                          "d_prev (rows,) complex64, all on one device")
+
+
+def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
+                levels, sps: float, alpha: float, beta: float,
+                omega_lim: float, ted_norm: float):
+    """The loop over tail (rows, L) complex64 and x (rows, T) complex64 or
+    f32, from pos, omega (rows,) f32 and y_prev, d_prev (rows,) complex64:
+    (y (rows, n_out) complex64, pos (not shifted), omega, y_prev, d_prev).
+    levels: f32 tensor of the decision levels (MODE_LEVELS) or None."""
+    _check(tail, x, pos, omega, y_prev, d_prev)
+    complex_in = torch.is_complex(x)
     if mode != mode_of(complex_in, levels):
         raise ValueError(f"mode {mode} does not fit this input")
     dev = x.device
     L, T = tail.shape[-1], x.shape[-1]
-    S, R, reach = ring_plan(sps, alpha, omega_lim, L + T, complex_in)
-    key = shape_key(rows, T, n_out, mode)
+    # raises, on either device, where no ring can serve the loop
+    ring_plan(sps, alpha, omega_lim, L + T, complex_in)
+    key = shape_key(tail.shape[0], T, n_out, mode)
     if dev.type == "cpu":
         kernel_paths.record(OP, False, key)
         xc = torch.cat([tail, x.to(torch.complex64)], dim=-1)
@@ -239,6 +261,35 @@ def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
         return torch.complex(yr, yi), pos, omega, y_prev, d_prev
     if dev.type != "cuda":
         raise ValueError(f"no {OP} kernel for device {dev}")
+    return _launch(OP, mode, tail, x, pos, omega, y_prev, d_prev, n_out,
+                   levels, sps, alpha, beta, omega_lim, ted_norm)
+
+
+def symbol_sync_levels_v0(tail, x, pos, omega, y_prev, d_prev, n_out: int,
+                          levels, sps: float, alpha: float, beta: float,
+                          omega_lim: float, ted_norm: float):
+    """symbol_sync's levels mode on real CUDA input as every row ran it
+    before the real-levels path (the imaginary plane copied and
+    interpolated, a hypotf a level), on no route: symbol_sync's result, for
+    timing in turns. Raises on other input."""
+    _check(tail, x, pos, omega, y_prev, d_prev)
+    if torch.is_complex(x) or levels is None or x.device.type != "cuda":
+        raise ValueError(f"{V0_OP} takes real CUDA input with levels")
+    ring_plan(sps, alpha, omega_lim, tail.shape[-1] + x.shape[-1], False)
+    return _launch(V0_OP, _MODE_LEVELS_V0, tail, x, pos, omega, y_prev,
+                   d_prev, n_out, levels, sps, alpha, beta, omega_lim,
+                   ted_norm)
+
+
+def _launch(op, mode, tail, x, pos, omega, y_prev, d_prev, n_out, levels,
+            sps, alpha, beta, omega_lim, ted_norm):
+    """One launch of the kernel in C mode `mode` on CUDA tensors; records
+    it under `op`."""
+    complex_in = torch.is_complex(x)
+    dev = x.device
+    rows = tail.shape[0]
+    L, T = tail.shape[-1], x.shape[-1]
+    S, R, reach = ring_plan(sps, alpha, omega_lim, L + T, complex_in)
     n_lv = 0 if levels is None else levels.numel()
     if n_lv > MAX_LEVELS:
         raise ValueError(f"{OP} takes at most {MAX_LEVELS} levels")
@@ -274,7 +325,27 @@ def symbol_sync(tail, x, pos, omega, y_prev, d_prev, n_out: int, mode: int,
             sps + omega_lim, alpha, beta, recip(ted_norm), float(L + T - 3),
             S, R, reach, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"{OP} launch failed: "
+        raise RuntimeError(f"{op} launch failed: "
                            f"{lib.symbol_sync_error_string(err).decode()}")
-    kernel_paths.record(OP, True, key)
+    kernel_paths.record(op, True, shape_key(rows, T, n_out, MODE_LEVELS
+                                            if mode == _MODE_LEVELS_V0
+                                            else mode))
     return (y, *outs)
+
+
+def level_distance(d: torch.Tensor) -> torch.Tensor:
+    """fabsf(d) on the card, as the kernel's real-levels path computes a
+    level's distance |yr - l|: d contiguous f32 on a CUDA device."""
+    if d.dtype != torch.float32 or d.device.type != "cuda" \
+            or not d.is_contiguous():
+        raise ValueError("level_distance takes contiguous CUDA f32")
+    out = torch.empty_like(d)
+    lib = _lib()
+    with torch.cuda.device(d.device):
+        err = lib.symbol_sync_fabs_f32(
+            d.data_ptr(), out.data_ptr(), d.numel(),
+            torch.cuda.current_stream(d.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"symbol_sync_fabs_f32 launch failed: "
+                           f"{lib.symbol_sync_error_string(err).decode()}")
+    return out

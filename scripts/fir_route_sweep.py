@@ -1,5 +1,5 @@
 """The strided FIR's polyphase kernels against fir_stream_f32, in turns,
-at the shapes ops/cuda_fir.route() gives them. One card.
+at the shapes ops/cuda_fir.fir_route() gives them. One card.
 
     python scripts/fir_route_sweep.py
 
@@ -84,7 +84,7 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     for name, (K, D, planes, C, n_out) in SHAPES.items():
-        op = cuda_fir.route(K, D)
+        op = cuda_fir.fir_route(K, D)
         assert op in (cuda_fir.LONG_OP, cuda_fir.COLS_OP), (name, op)
         T = n_out * D
         xs = [torch.randn((C, T), generator=gen, device=dev)
@@ -94,8 +94,9 @@ def main():
         tf = taps(name, K, dev, gen)
         fns = {cuda_fir.OP: lambda: cuda_fir._launch_stream(
                    xs, tf, D, n_out, tails),
-               op: lambda: cuda_fir.fir_stream(xs, tf, D, n_out,
-                                               tails=tails)}
+               op: (lambda: cuda_fir.fir_long(xs, tf, D, n_out, tails))
+               if op == cuda_fir.LONG_OP else
+               (lambda: cuda_fir.fir_stream(xs, tf, D, n_out, tails=tails))}
         plain = cuda_fir.fir_stream_plain(xs, tf, D, n_out, tails=tails)
         errs = {k: check_fir(f"{k}/{name}", fn(), plain)
                 for k, fn in fns.items()}

@@ -21,7 +21,14 @@ in the loop, the outputs folded into a checksum so that nothing is dead:
           the register ring ("regs": the arithmetic alone) or from a ring
           of 64 samples a lane in shared memory at the position reached, by
           4 8-byte loads as the kernel reads its ring ("ring": the kernel's
-          chain without its fills and stores)
+          chain without its fills and stores); and the levels mode on real
+          input at 4 levels (M17's loop) and 2 (GMSK2K's), 2048 x 100,000,
+          its chain from a real ring in two planes read as the kernel reads
+          it: "hypotf", the kernel's update<1> (its hypotf levels code);
+          "no_decision", the decision taken away; "fabsf", fabsf in place
+          of hypotf; "tree", the kernel's real-levels update<3, NL>, which
+          reads the real plane alone; and the kernel in turns with its
+          hypotf levels code (symbol_sync_levels_v0), bit-equal
 
   agc     csrc/agc2.cu's step(), the gain recurrence, on a register ring
           of magnitudes ("chain")
@@ -281,8 +288,116 @@ sync_chain(const float2* __restrict__ seed, float* __restrict__ pos_out,
                 w[k] = SRC == 0 ? ring[(q + k) % kRing]
                                 : mine[(j0 + k) & (kLen - 1)];
             float yr, yi, dr, di;
-            update<0>(w, c, lv, 0, omin, omax, alpha, beta, inv_norm, yr, yi,
-                      dr, di, pos, om, yp, dp);
+            update<0, kMaxLevels>(w, c, lv, 0, omin, omax, alpha, beta,
+                                  inv_norm, yr, yi, dr, di, pos, om, yp, dp);
+            acc ^= __float_as_uint(yr) ^ (__float_as_uint(yi) << 1);
+        }
+    }
+    if (row < rows) {
+        pos_out[row] = pos;
+        om_out[row] = om;
+        sink[row] = acc;
+    }
+}
+
+// The levels mode's step on real input with its decision DEC: 0 the
+// kernel's MODE 1 decision (a hypotf a level, a chain of selects), 1 none
+// (d = the first level), 2 fabsf in place of hypotf (the same chain of
+// selects); the rest is update<1>'s; 3 the kernel's real-levels step,
+// update<3, NL> (|yr - l| of NL levels reduced by a tree, yi +0)
+template <int DEC, int NL>
+__device__ __forceinline__ void levels_step(const float2 (&w)[4],
+                                            const float (&c)[4],
+                                            const float (&lv)[kMaxLevels],
+                                            int n_lv, float omin, float omax,
+                                            float alpha, float beta,
+                                            float inv_norm, float& yr,
+                                            float& yi, float& pos, float& om,
+                                            float2& yp, float2& dp) {
+    if (DEC == 0 || DEC == 3) {
+        float dr, di;
+        update<DEC == 0 ? 1 : 3, NL>(w, c, lv, n_lv, omin, omax, alpha, beta,
+                                     inv_norm, yr, yi, dr, di, pos, om, yp,
+                                     dp);
+        return;
+    }
+    yr = __fmul_rn(w[0].x, c[0]);
+    yi = __fmul_rn(w[0].y, c[0]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+        yr = __fadd_rn(yr, __fmul_rn(w[k].x, c[k]));
+        yi = __fadd_rn(yi, __fmul_rn(w[k].y, c[k]));
+    }
+    float dr = lv[0];
+    if (DEC == 2) {
+        float best = fabsf(__fsub_rn(yr, lv[0]));
+#pragma unroll
+        for (int k = 1; k < kMaxLevels; ++k) {
+            if (k < n_lv) {
+                const float dist = fabsf(__fsub_rn(yr, lv[k]));
+                if (dist < best) {
+                    best = dist;
+                    dr = lv[k];
+                }
+            }
+        }
+    }
+    const float di = 0.0f;
+    const float dyr = __fmul_rn(dr, yp.x), dyi = __fmul_rn(di, yp.y);
+    float e = __fsub_rn(__fsub_rn(__fmul_rn(dp.x, yr), __fmul_rn(dp.y, yi)),
+                        __fsub_rn(dyr, dyi));
+    e = fminf(fmaxf(__fmul_rn(e, inv_norm), -1.0f), 1.0f);
+    om = fminf(fmaxf(__fadd_rn(om, __fmul_rn(beta, e)), omin), omax);
+    pos = __fadd_rn(__fadd_rn(pos, om), __fmul_rn(alpha, e));
+    yp = make_float2(yr, yi);
+    dp = make_float2(dr, di);
+}
+
+// The levels mode's chain on real samples: a shared ring of 64 samples a
+// lane in two planes (the imaginary one zeros), read as the kernel reads
+// its real ring (4 samples, two 4-byte loads each; DEC 3 one, the real
+// plane's), the step DEC
+template <int DEC, int NL>
+__global__ void __launch_bounds__(32)
+sync_levels_chain(const float* __restrict__ seed, const float* __restrict__ levels,
+                  int n_lv, float* __restrict__ pos_out,
+                  float* __restrict__ om_out, unsigned* __restrict__ sink,
+                  int rows, int n_out, float omin, float omax, float alpha,
+                  float beta, float inv_norm, float max_pos, float sps) {
+    constexpr int kLen = 64, kStride = kLen + 4;  // symbol_sync.cu's stride
+    __shared__ __align__(16) float s_re[32 * kStride];
+    __shared__ __align__(16) float s_im[32 * kStride];
+    const int lane = threadIdx.x;
+    const int row = blockIdx.x * 32 + lane;
+    for (int k = 0; k < kLen; ++k) {
+        s_re[lane * kStride + k] = row < rows ? seed[row * kLen + k] : 0.0f;
+        s_im[lane * kStride + k] = 0.0f;
+    }
+    __syncwarp();
+    const float* re = s_re + lane * kStride;
+    const float* im = s_im + lane * kStride;
+    float lv[kMaxLevels];
+#pragma unroll
+    for (int k = 0; k < kMaxLevels; ++k)
+        lv[k] = k < n_lv ? levels[k]
+                         : (DEC == 3 ? __int_as_float(0x7fc00000) : 0.0f);
+    float pos = 16.0f, om = sps;
+    float2 yp = make_float2(0.f, 0.f), dp = make_float2(0.f, 0.f);
+    unsigned acc = 0u;
+    for (int m0 = 0; m0 < n_out; m0 += kRing) {
+#pragma unroll
+        for (int q = 0; q < kRing; ++q) {
+            float c[4];
+            const int j0 = coeffs(pos, max_pos, c);
+            float2 w[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int s = (j0 + k) & (kLen - 1);
+                w[k] = make_float2(re[s], DEC == 3 ? 0.0f : im[s]);
+            }
+            float yr, yi;
+            levels_step<DEC, NL>(w, c, lv, n_lv, omin, omax, alpha, beta,
+                                 inv_norm, yr, yi, pos, om, yp, dp);
             acc ^= __float_as_uint(yr) ^ (__float_as_uint(yi) << 1);
         }
     }
@@ -296,6 +411,30 @@ sync_chain(const float2* __restrict__ seed, float* __restrict__ pos_out,
 }  // namespace
 
 extern "C" {
+
+int sync_levels_chain_f32(const void* seed, const void* levels, int n_lv,
+                          void* pos_out, void* om_out, void* sink, int rows,
+                          int n_out, int dec, float omin, float omax,
+                          float alpha, float beta, float inv_norm,
+                          float max_pos, float sps, void* stream) {
+    if (rows < 1 || n_out % kRing || dec < 0 || dec > 3 || n_lv < 1 ||
+        n_lv > 4)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((rows + 31) / 32);
+    cudaStream_t st = (cudaStream_t)stream;
+#define QRL_LEVELS(D, N)                                                     \
+    sync_levels_chain<D, N><<<grid, 32, 0, st>>>(                            \
+        (const float*)seed, (const float*)levels, n_lv, (float*)pos_out,     \
+        (float*)om_out, (unsigned*)sink, rows, n_out, omin, omax, alpha,     \
+        beta, inv_norm, max_pos, sps)
+    if (dec == 0) QRL_LEVELS(0, 4);
+    else if (dec == 1) QRL_LEVELS(1, 4);
+    else if (dec == 2) QRL_LEVELS(2, 4);
+    else if (n_lv <= 2) QRL_LEVELS(3, 2);
+    else QRL_LEVELS(3, 4);
+#undef QRL_LEVELS
+    return (int)cudaGetLastError();
+}
 
 int sync_chain_f32(const void* seed, void* pos_out, void* om_out, void* sink,
                    int rows, int n_out, int src, float omin, float omax,
@@ -467,7 +606,9 @@ def bind_chain(name, lib):
                                               f, f, p],
                          "trig_bits_f32": [p, p, p, p, u, ll, i, p]},
         "chain_sync": {"sync_chain_f32": [p, p, p, p, i, i, i, f, f, f, f, f,
-                                          f, f, p]},
+                                          f, f, p],
+                       "sync_levels_chain_f32": [p, p, i, p, p, p, i, i, i, f,
+                                                 f, f, f, f, f, f, p]},
         "chain_agc": {"agc_chain_f32": [p, p, p, i, i, f, f, f, f, f, p]},
         "chain_viterbi": {"viterbi_chain_f32": [p, p, p, i, i, i, i, p]}}
     for entry, types in entries[name].items():
@@ -575,8 +716,9 @@ ABLATIONS = (
     ("costas", "no_stores",
      "y[(size_t)(row0 + r) * T + t0 + lane] = s_y[b][r][lane];", ";"),
     ("symbol_sync", "fills_once",
-     "fill<XC>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);",
-     "if (m0 == 0) fill<XC>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);"),
+     "fill<XC, MODE != 3>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);",
+     "if (m0 == 0) fill<XC, MODE != 3>(my_re, my_im, g_lo, g_hi, R, trow, "
+     "xrow, L);"),
     ("symbol_sync", "no_stores",
      "y[(size_t)(row0 + r) * n_out + t0 + lane] = s_y[r][lane];", ";"),
     ("symbol_sync", "fills_ca",
@@ -630,6 +772,14 @@ ABLATION_LOOP = {"costas": "costas", "symbol_sync": "sync", "agc2": "agc",
                  "viterbi_stream": "viterbi"}
 COSTAS_VARIANTS = ("cosf_sinf", "sincosf", "kernel")
 SYNC_VARIANTS = ("regs", "ring")
+# the levels mode's chain variants (sync_levels_chain's DEC): the kernel's
+# hypotf decision (MODE 1), none, fabsf in place of hypotf, the
+# kernel's real-levels step (MODE 3)
+LEVELS_VARIANTS = ("hypotf", "no_decision", "fabsf", "tree")
+# the levels-mode loops timed: name: (registry mode, samples a row); 2048
+# rows of real input, its levels held sps samples (levels_signal)
+LEVELS_LOOPS = {"m17_4lv": ("M17", 100_000), "gmsk2k_2lv": ("GMSK2K",
+                                                           100_000)}
 
 
 def with_lib(name, lib, fn):
@@ -766,6 +916,56 @@ def build_agc_chain():
     return lib
 
 
+def levels_signal(dev, gen, C, T, levels, sps):
+    """(C, T) f32: random levels held sps samples, smoothed by an sps-tap
+    moving average, noise at 0.05."""
+    idx = torch.randint(0, levels.numel(), (C, -(-T // sps) + 1),
+                        generator=gen, device=dev)
+    x = torch.repeat_interleave(levels[idx], sps, dim=-1)
+    x = torch.nn.functional.avg_pool1d(x[:, None], sps, 1)[:, 0, :T]
+    return (x + 0.05 * torch.randn(x.shape, generator=gen, device=dev)
+            ).contiguous()
+
+
+def levels_floors(floors, name, mode, T, schain, dev, gen, pos_o, om_o,
+                  sink):
+    """The levels mode of registry mode `mode`'s SymbolSync on N_CH rows of
+    T real samples: each LEVELS_VARIANTS chain and the kernel through its
+    wrapper, timed into floors; returns the kernel's call."""
+    from qradiolink_tpu_torch.models import registry
+
+    ss = registry.rx_chain(mode, lead_shape=(N_CH,), device=dev).symbol_sync
+    n_sym = int(round(T / ss.sps))
+    x = levels_signal(dev, gen, N_CH, T, ss.levels, int(ss.sps))
+    seed = x[:, 1000:1064].contiguous()
+    args = (ss.sps - ss.omega_limit, ss.sps + ss.omega_limit, ss.alpha,
+            ss.beta, css.recip(ss.ted_norm), float(ss.tail_len + T - 3),
+            ss.sps)
+    n_chain = n_sym - n_sym % RING
+    for dec, tag in enumerate(LEVELS_VARIANTS):
+        timed_floor(floors, f"sync/{name}/{tag}", (
+            lambda dec=dec: check(schain.sync_levels_chain_f32(
+                seed.data_ptr(), ss.levels.data_ptr(), ss.levels.numel(),
+                pos_o.data_ptr(), om_o.data_ptr(), sink.data_ptr(), N_CH,
+                n_chain, dec, *args, stream()), "sync_levels_chain")),
+            n_chain)
+    pos, om, yp, dp, tail = ss.init_state()
+    args = (tail, x, pos, om, yp, dp, n_sym)
+    kw = (ss.levels, ss.sps, ss.alpha, ss.beta, ss.omega_limit, ss.ted_norm)
+    fn = (lambda: css.symbol_sync(*args, css.MODE_LEVELS, *kw))
+    v0 = (lambda: css.symbol_sync_levels_v0(*args, *kw))
+    timed_floor(floors, f"sync/{name}/symbol_sync_mm_f32", fn, n_sym)
+    timed_floor(floors, f"sync/{name}/{css.V0_OP}", v0, n_sym)
+    if not all(torch.equal(a, b) for a, b in zip(fn(), v0())):
+        raise RuntimeError(f"sync {name}: the real-levels path and the hypotf "
+                           f"levels code differ")
+    (ms, seq), mhz = sampled(lambda: turns_ms({css.V0_OP: v0, "kernel": fn}))
+    floors[f"sync/{name}/turns"] = {"ms": ms, "turns": seq, "mhz": mhz}
+    print(f"sync/{name} in turns (bit-equal): "
+          f"{json.dumps(floors[f'sync/{name}/turns'])}", flush=True)
+    return fn
+
+
 def vit_soft(dev, gen, C, T):
     """Noisy soft pairs (C, T, 2) in [0, 255], as chip_smoke.py's Viterbi
     row makes them."""
@@ -860,6 +1060,10 @@ def main(argv) -> int:
         fn = (lambda: css.symbol_sync(s0[4], x, *sync_args(s0)))
         timed_floor(floors, "sync/qpsk/symbol_sync_mm_f32", fn, QPSK_SYMS)
         calls["symbol_sync"] = [("qpsk", fn)]
+        for name, (mode, T_lv) in LEVELS_LOOPS.items():
+            calls["symbol_sync"].append(
+                (name, levels_floors(floors, name, mode, T_lv, schain, dev,
+                                     gen, pos_o, om_o, sink)))
     if "agc" in loops:
         m = torch.abs(x)
         g0 = torch.ones(N_CH, device=dev)

@@ -2,8 +2,9 @@
 one card: each kernel against the plain version, the rows in turns.
 chip_smoke.py times resample_dec_f32 at the paths' shapes.
 
-    python scripts/resample_dec_shapes.py            # check, rows
+    python scripts/resample_dec_shapes.py            # check, rows, head
     python scripts/resample_dec_shapes.py check      # the checks alone
+    python scripts/resample_dec_shapes.py head       # the head's rows alone
 
 `check`: ptxas's registers and spills for csrc/resample_dec.cu's
 instances, then each instance with its chain's taps (the RX heads of
@@ -19,6 +20,11 @@ QpskMod L4 K12 and L2 K46, the mixer's L6 K45, FreeDvMod's L125 K17, the
 and 256 rows, in turns on resample_poly_f32 and the kernel the route gives
 many rows, with F.conv1d and an empty launch beside: the turns that set
 cuda_resample.FEW_ROWS_MAX and FEW_ROWS_MAX_L.
+
+`head`: the K2239 D50 head at L 1 (GMSK2K's taps, 2 planes, 100,000
+samples a row) at 1, 2, 4, 8, 16, 32 and 64 rows on fir_long_f32 and
+resample_dec_f32, bit-equal, in turns: the turns behind cuda_fir.route
+giving that head resample_dec_f32 at every row count.
 
 The card's name and power limit come first.
 """
@@ -157,6 +163,32 @@ def rows_sweep(dev, gen):
             torch.cuda.empty_cache()
 
 
+def head_rows(dev, gen):
+    from qradiolink_tpu_torch.ops import cuda_fir
+
+    K, M, T = 2239, 50, 100_000
+    tf = head_taps((1, M, K), dev)[0]
+    for rows in (1, 2, 4, 8, 16, 32, 64):
+        xs = planes_of(rows, T, 2, gen, dev)
+        st = torch.randn((rows, 2, K - 1), generator=gen, device=dev)
+        tails = (st[:, 0], st[:, 1])
+        fns = {cuda_fir.LONG_OP: lambda: cuda_fir.fir_long(
+                   xs, tf, M, T // M, tails),
+               DEC: lambda: cuda_fir._launch_dec(xs, tf, M, tails)}
+        outs = {op: fn() for op, fn in fns.items()}
+        if not all(torch.equal(a, b) for a, b in
+                   zip(outs[DEC], outs[cuda_fir.LONG_OP])):
+            raise RuntimeError(f"head at {rows} rows: {DEC} is not "
+                               f"bit-equal to {cuda_fir.LONG_OP}")
+        ms, _ = turns_ms(fns)
+        win = min(ms, key=ms.get)
+        print(f"head K{K} D{M} 2x{rows}x{T}: " + ", ".join(
+            f"{op} {t:.4f}" for op, t in ms.items()) + f"; faster: {win}; "
+            f"route(rows={rows}) {cuda_fir.route(K, M, rows)}", flush=True)
+        del xs, st, tails, outs
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -172,9 +204,12 @@ def main(argv):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    check(dev, gen)
-    if argv[1:] != ["check"]:
+    if argv[1:] != ["head"]:
+        check(dev, gen)
+    if argv[1:] in ([], ["rows"]):
         rows_sweep(dev, gen)
+    if argv[1:] in ([], ["head"]):
+        head_rows(dev, gen)
     return 0
 
 

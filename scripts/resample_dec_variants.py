@@ -1,21 +1,31 @@
 """resample_dec_f32 built with other constants, instance parameters or a
 part of its design undone, timed in turns on one card.
 
-    python scripts/resample_dec_variants.py SPEC [SPEC ...]
+    python scripts/resample_dec_variants.py [--shapes=A,B] [--sass] SPEC
+        [SPEC ...]
 
 Each SPEC is a comma-separated list of items:
 
     NAME=VALUE          a `constexpr int NAME = ...;` line of
                         qradiolink_tpu_torch/csrc/resample_dec.cu
-    L/M/K:AS/CW/R/B     the instance X(L, M, K, ...) of QRL_DEC_INSTANCES
+    L/M/K:AS/CW/R/B/P   the instance X(L, M, K, ...) of QRL_DEC_INSTANCES
                         with AS tap rows a segment, CW columns a lane, R
-                        chunk buffers and B blocks an SM for its launch
-                        bounds
+                        chunk buffers, B blocks an SM for its launch
+                        bounds and piece rule P (0 blocks an SM, 1 whole
+                        waves)
     full-rows           every warp runs AS rows, none the short body
+    src=PATH            another source (a path in the repo, for example an
+                        earlier design unpacked under build/) in place of
+                        csrc/resample_dec.cu, for the items after it
+    ablate-PART         PART of the design taken away (PATCHES: lanesum,
+                        barrier, stage, finish): timed, not checked
 
-The empty SPEC "-" is the source as it stands, for example
+The empty SPEC "-" is the source as it stands. --shapes=A,B times only
+the SHAPES whose names contain A or B. --sass prints, for each variant's
+kernels, the count of SASS instructions by opcode (cuobjdump -sass): all,
+FFMA, LDS, STS, BAR and the rest. For example
 
-    python scripts/resample_dec_variants.py - 3/125/2091:9/2/3/1 full-rows
+    python scripts/resample_dec_variants.py - 3/125/2091:9/2/3/1/0 full-rows
 
 Every variant is built with nvcc for sm_90a (all at once) into
 build/resample_dec_variants/. At the kernel's path shapes (SHAPES, 2
@@ -23,8 +33,9 @@ planes, the chains' taps) each variant's outputs must lie within the FIR's
 bound of resample_poly_plain (chip_smoke.check_fir) and its state equal
 it; the variants are then timed in turns (a, b, ..., b, a; device times by
 CUDA events, chip_smoke.py's timer). Prints the card's name and power
-limit first, each variant's ptxas lines and each median. Needs one CUDA
-card and nvcc.
+limit first, each variant's ptxas lines and each median with the SM
+clock nvidia-smi sampled over the shape's turns. Needs one CUDA card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch  # noqa: E402
 from chip_smoke import check_fir, turns_ms  # noqa: E402
 from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.utils import kernels  # noqa: E402
+from scripts.loop_chain_floor import sampled  # noqa: E402
 from scripts.resample_dec_shapes import head_taps  # noqa: E402
 from scripts.resample_up_variants import bind, call  # noqa: E402
 
@@ -54,22 +66,36 @@ SHAPES = {
     "4FSK10KFM head (256 rows)": ((2, 25, 105), 256, 200_000),
     "2FSK10K head (256 rows)": ((2, 25, 561), 256, 200_000),
     "GMSK2K head (L 1)": ((1, 50, 2239), 2048, 200_000),
+    "2FSK2K head (L 1, 256 rows)": ((1, 50, 2239), 256, 1_000_000),
 }
 
 _SHORTEN = ("constexpr bool shorten = tap_rows(M, K) - (S - 1) * AS < AS "
             "&& S <= 2;")
 PATCHES = {
     "full-rows": [(_SHORTEN, "constexpr bool shorten = false;")],
+    # ablations, timed only (their outputs are wrong or racy): the lane
+    # sum of one float4 in place of eight; no barrier a chunk; no staging
+    # after the first chunks; no window of partials added and stored
+    "ablate-lanesum": [("for (int b = 0; b < 8; ++b) {",
+                        "for (int b = 0; b < 1; ++b) {")],
+    "ablate-barrier": [("__syncthreads();            // for every thread; "
+                        "chunk j - 1 done", "__syncwarp();")],
+    "ablate-stage": [("if (j + R - 1 <= n_c) stage(j + R - 1);", ";")],
+    "ablate-finish": [("if (j > 0) finish(j - 1);", ";")],
+    # L and S at run time at L 1 too
+    "runtime-ls": [("L == 1 ? L : 0, L == 1 ? S : 0>;", "0, 0>;")],
 }
 
 
 def variant_source(spec: str) -> str:
     src = (kernels.CSRC / "resample_dec.cu").read_text()
     for item in filter(None, spec.strip("-").split(",")):
-        if ":" in item:
+        if item.startswith("src="):
+            src = (ROOT / item[4:]).read_text()
+        elif ":" in item:
             lmk, params = item.split(":")
             L, M, K = lmk.split("/")
-            pat = re.compile(rf"X\({L}, {M}, {K}(, \d+){{4}}\)")
+            pat = re.compile(rf"X\({L}, {M}, {K}(, \d+){{5}}\)")
             if len(pat.findall(src)) != 1:
                 raise RuntimeError(f"no single instance {lmk}")
             src = pat.sub(f"X({L}, {M}, {K}, " + ", ".join(
@@ -103,12 +129,48 @@ def start_build(spec: str):
     return spec, so, proc
 
 
+def sass_counts(so):
+    """{kernel: {opcode class: count}} of a built library's SASS, with
+    "body": the instructions from its first FFMA to its last (the
+    unrolled row sums)."""
+    cuobjdump = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if fn and m:
+            op = m.group(1)
+            key = op if op in ("FFMA", "LDS", "STS", "BAR", "LDGSTS") else \
+                "other"
+            c = out[fn]
+            c[key] = c.get(key, 0) + 1
+            c["all"] = c.get("all", 0) + 1
+            if op == "FFMA":
+                c.setdefault("_first", c["all"])
+                c["body"] = c["all"] - c["_first"] + 1
+    for c in out.values():
+        c.pop("_first", None)
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("resample_dec_variants: CUDA is not available",
               file=sys.stderr)
         return 1
-    specs = argv[1:] or ["-"]
+    picks = [a.split("=", 1)[1].split(",") for a in argv[1:]
+             if a.startswith("--shapes=")]
+    sass = "--sass" in argv[1:]
+    specs = [a for a in argv[1:] if not a.startswith("--")] or ["-"]
+    shapes = {k: v for k, v in SHAPES.items()
+              if not picks or any(p in k for p in picks[0])}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -119,13 +181,17 @@ def main(argv) -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "entry function" in line:
                 print(f"  {spec}: {line.strip()}", flush=True)
         libs[spec] = bind(so, cuda_resample.DEC_OP)
+        if sass:
+            for fn, counts in sass_counts(so).items():
+                print(f"  {spec}: SASS {fn}: {counts}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    for name, ((L, M, K), C, T) in SHAPES.items():
+    for name, ((L, M, K), C, T) in shapes.items():
         taps = head_taps((L, M, K), dev)
         xs = tuple(torch.randn((C, T), generator=gen, device=dev)
                    for _ in range(2))
@@ -136,14 +202,16 @@ def main(argv) -> int:
         fns = {}
         for spec, lib in libs.items():
             state, ys = call(lib, xs, taps, L, M, tails)
-            check_fir(f"{spec} at {name}", ys, p_ys)
-            if not torch.equal(state, p_state):
-                raise RuntimeError(f"{spec} at {name}: state differs")
+            if "ablate-" not in spec:
+                check_fir(f"{spec} at {name}", ys, p_ys)
+                if not torch.equal(state, p_state):
+                    raise RuntimeError(f"{spec} at {name}: state differs")
             fns[spec] = (lambda lib=lib: call(lib, xs, taps, L, M, tails))
         del p_ys, p_state, ys, state
-        ms, _ = turns_ms(fns)
+        (ms, _), mhz = sampled(lambda: turns_ms(fns))
         print(f"{name} L{L} M{M} K{K} 2x{C}x{T}: " + ", ".join(
-            f"[{spec}] {t:.4f} ms" for spec, t in ms.items()), flush=True)
+            f"[{spec}] {t:.4f} ms" for spec, t in ms.items())
+            + f" (SM clock {mhz} MHz)", flush=True)
         del xs, st, tails, fns
         torch.cuda.empty_cache()
     return 0

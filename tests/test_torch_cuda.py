@@ -225,9 +225,10 @@ def long_taps(name, K, rng):
 
 @pytest.mark.parametrize("name", sorted(LONG_CASES))
 def test_fir_long_kernel_matches_plain(cuda, gen, name):
-    """fir_long_f32, which route() picks at every case, within 1e-5 of the
-    plain version; fir_stream_f32 does not launch. The tails are strided
-    views of a (C, 2, K-1) state."""
+    """fir_long_f32 (cuda_fir.fir_long: the FIR kernels' route at every
+    case, though route() gives the K2239 D50 head's streaming calls to
+    resample_dec_f32) within 1e-5 of the plain version; fir_stream_f32 does
+    not launch. The tails are strided views of a (C, 2, K-1) state."""
     C, T, K, D, shift, planes, tail = LONG_CASES[name]
     tf = torch.from_numpy(long_taps(name, K, np.random.default_rng(0))).to(
         cuda)
@@ -236,8 +237,9 @@ def test_fir_long_kernel_matches_plain(cuda, gen, name):
     st = torch.randn((C, 2, K - 1), generator=gen, device=cuda)
     tails = (st[:, 0, :], st[:, 1, :])[:planes] if tail else None
     n_out = (T // D) if tail else (T - shift - K) // D + 1
+    assert cuda_fir.fir_route(K, D) == "fir_long_f32"
     kernel_paths.reset()
-    got = fir_stream(xs, tf, D, n_out, tails=tails, shift=shift)
+    got = cuda_fir.fir_long(xs, tf, D, n_out, tails=tails, shift=shift)
     assert kernel_paths.launches("fir_long_f32") == 1
     assert kernel_paths.launches("fir_stream_f32") == 0
     _assert_fir_close(got, fir_stream_plain(xs, tf, D, n_out, tails=tails,
@@ -247,7 +249,8 @@ def test_fir_long_kernel_matches_plain(cuda, gen, name):
 def test_fir_long_nbfm_head_two_chained_blocks(cuda, gen):
     """The NBFM resampler head as the chain runs it: two blocks, the tails
     strided views of the (C, 2, 2238) state, the second block reading the
-    tail the first one left."""
+    tail the first one left; one launch of the routed kernel a block
+    (resample_dec_f32 at L 1, which took the shape from fir_long_f32)."""
     rs = NbfmDemod(lead_shape=(32,), device=cuda).resamp
     C, T, k1 = 32, 100_000, rs.kp - 1
     assert k1 == 2238
@@ -257,7 +260,7 @@ def test_fir_long_nbfm_head_two_chained_blocks(cuda, gen):
                    torch.randn((C, T), generator=gen, device=cuda))
         kernel_paths.reset()
         new_state, y = rs(state, x)
-        assert kernel_paths.report()["fir_long_f32"]["shapes"] == {
+        assert kernel_paths.report()[route(rs.kp, rs.M)]["shapes"] == {
             f"cuda K{rs.kp} D{rs.M} tail 2x{C}": 1}
         assert kernel_paths.launches("fir_stream_f32") == 0
         ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
@@ -1419,6 +1422,118 @@ def test_symbol_sync_raises_where_the_ring_cannot_serve(cuda):
     assert kernel_paths.launches(cuda_symbol_sync.OP) == 0
 
 
+def test_sync_levels_fabs_equals_torch_abs(cuda):
+    """The real-levels path's distance, fabsf(d) on the card (through
+    cuda_symbol_sync.level_distance), gives the bits of
+    torch.abs(torch.complex(d, +0)) and of torch.abs(torch.complex(d, -0))
+    for all 2^32 f32 patterns (NaN against NaN counts as equal), in chunks
+    of 2^28: hypot(d, +-0) = |d|, so the kernel's |yr - l| is the plain
+    loop's distance where yi is +0."""
+    n = 1 << 28
+    bad = 0
+    for k in range(16):
+        bits = torch.arange(-(1 << 31) + k * n, -(1 << 31) + (k + 1) * n,
+                            dtype=torch.int32, device=cuda)
+        d = bits.view(torch.float32)
+        got = cuda_symbol_sync.level_distance(d)
+        for z in (0.0, -0.0):
+            want = torch.abs(torch.complex(d, torch.full_like(d, z)))
+            same = (got.view(torch.int32) == want.view(torch.int32)) | (
+                torch.isnan(got) & torch.isnan(want))
+            bad += int((~same).sum())
+            del want
+        del bits, d, got
+    assert bad == 0
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, the signs of zeros too (torch.equal takes -0 for
+    +0)."""
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+# the levels-mode loops of the paths, real input: name: (registry mode, rows,
+# samples a block); M17, DMR and GMSK2K at their steps, the sweep's modes at
+# 256 rows; "dmr_tail_imag" starts from a tail whose imaginary plane is
+# not +0, where the kernel interpolates it and takes a hypotf a level
+SYNC_LEVELS_CASES = {"m17": ("M17", 2048, 4_800), "dmr": ("DMR", 2048, 4_800),
+                     "gmsk2k": ("GMSK2K", 2048, 4_000),
+                     "4fsk2k": ("4FSK2K", 256, 10_000),
+                     "4fsk10kfm": ("4FSK10KFM", 256, 16_000),
+                     "4fsk100k": ("4FSK100K", 256, 100_000),
+                     "2fsk2k": ("2FSK2K", 256, 20_000),
+                     "2fsk1k": ("2FSK1K", 256, 40_000),
+                     "gmsk10k": ("GMSK10K", 256, 16_000),
+                     "dmr_tail_imag": ("DMR", 45, 4_800)}
+
+
+@pytest.mark.parametrize("name", sorted(SYNC_LEVELS_CASES))
+def test_sync_levels_kernel_equals_plain(cuda, gen, name):
+    """The chain's M&M loop in levels mode on real input (the kernel's
+    real-levels path) over two chained blocks: random levels held a symbol,
+    smoothed and noisy, the first 50 samples ~1e-20, and the first symbol
+    (an integral position: yr is the tail's sample there) exactly midway
+    between the first two levels, where the first one wins; symbols and
+    every state leaf equal to one call of the plain loop bit for bit (the
+    signs of zeros too), one launch a block; and equal to the hypotf levels
+    code (symbol_sync_levels_v0)."""
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.sync.symbol_sync import SymbolSync
+
+    mode, C, T = SYNC_LEVELS_CASES[name]
+    ss = registry.rx_chain(mode, lead_shape=(C,), device=cuda).symbol_sync
+    assert isinstance(ss, SymbolSync) and ss.levels is not None
+    sps, lv = int(ss.sps), ss.levels
+    idx = torch.randint(0, lv.numel(), (C, -(-2 * T // sps) + 1),
+                        generator=gen, device=cuda)
+    x = torch.nn.functional.avg_pool1d(
+        torch.repeat_interleave(lv[idx], sps, dim=-1)[:, None], sps,
+        1)[:, 0, :2 * T]
+    x = x + 0.05 * torch.randn(x.shape, generator=gen, device=cuda)
+    x[:, :50] *= 1e-20
+    st = list(ss.init_state())
+    b = int(st[0][0])
+    assert float(st[0][0]) == b
+    tail = st[4].clone()
+    if name == "dmr_tail_imag":
+        tail = torch.complex(torch.randn(tail.shape, generator=gen,
+                                         device=cuda),
+                             torch.randn(tail.shape, generator=gen,
+                                         device=cuda))
+    else:
+        tail[:, b] = (lv[0] + lv[1]) / 2
+    st[4] = tail
+    n_out = int(round(T / ss.sps))
+    for blk in range(2):
+        xb = x[:, blk * T:(blk + 1) * T].contiguous()
+        pos, omega, yp, dp, tail = st
+        kw = (lv, ss.sps, ss.alpha, ss.beta, ss.omega_limit, ss.ted_norm)
+        kernel_paths.reset()
+        got = cuda_symbol_sync.symbol_sync(tail, xb, pos, omega, yp, dp,
+                                           n_out, cuda_symbol_sync.MODE_LEVELS,
+                                           *kw)
+        assert kernel_paths.launches(cuda_symbol_sync.OP) == 1
+        xc = torch.cat([tail, xb.to(torch.complex64)], dim=-1)
+        want = cuda_symbol_sync.symbol_sync_plain(
+            xc.real.contiguous(), xc.imag.contiguous(), pos, omega, yp, dp,
+            n_out, cuda_symbol_sync.MODE_LEVELS, *kw)
+        assert _same_bits(got[0].real.contiguous(), want[0])
+        assert _same_bits(got[0].imag.contiguous(), want[1])
+        for a, w in zip(got[1:], want[2:]):
+            assert _same_bits(a, w)
+        v0 = cuda_symbol_sync.symbol_sync_levels_v0(tail, xb, pos, omega,
+                                                    yp, dp, n_out, *kw)
+        for a, w in zip(got, v0):
+            assert _same_bits(a, w)
+        if blk == 0 and name != "dmr_tail_imag":
+            # the tie happened: the first symbol is the midpoint
+            assert float(got[0][0, 0].real) == float((lv[0] + lv[1]) / 2)
+        st = list(ss(st, xb)[0])
+
+
 def test_costas_nco_equals_torch_for_every_f32(cuda):
     """The Costas kernel's NCO (its sincosf, through costas_nco_f32) gives
     torch.cos's and -torch.sin's bits for all 2^32 f32 patterns (NaN
@@ -1793,6 +1908,58 @@ def test_resample_dec_raises_without_an_instance(cuda):
     assert cuda_resample.route(3, 125, 113) == cuda_resample.OP
     with pytest.raises(ValueError):
         cuda_resample.launch(cuda_resample.DEC_OP, (x,), taps, 3, 125, (t,))
+
+
+def test_resample_dec_l1_raises_at_other_shapes(cuda):
+    """No fallback at L 1 either: resample_dec_f32 at a K or D it has no
+    instance for raises, through cuda_resample.launch and through the
+    strided FIR's launcher; a launch without the new state is
+    resample_dec_f32's alone."""
+    x = torch.zeros((2, 1000), device=cuda)
+    t = torch.zeros((2, 1999), device=cuda)
+    with pytest.raises(ValueError):
+        cuda_resample.launch(cuda_resample.DEC_OP, (x,),
+                             torch.zeros((1, 2000), device=cuda), 1, 50,
+                             (t,))
+    with pytest.raises(ValueError):
+        cuda_fir._launch_dec((x,), torch.zeros(2000, device=cuda), 50, (t,))
+    with pytest.raises(ValueError):
+        cuda_resample.launch(cuda_resample.OP, (x,),
+                             torch.zeros((2, 113), device=cuda), 2, 5,
+                             (torch.zeros((2, 112), device=cuda),),
+                             state=False)
+
+
+@pytest.mark.parametrize("rows,T", [(2048, 20_000), (256, 100_000),
+                                    (37, 100_050)])
+def test_k2239_head_routed_equals_fir_long(cuda, gen, rows, T):
+    """The K2239 D50 head as GMSK2K's chain runs it (its RationalResampler
+    (1, 50) from the registry, IqPair blocks, the tails strided views of
+    its state) over two chained blocks, at the path's rows, the sweep's
+    and a ragged count: one launch of the routed resample_dec_f32 a block,
+    its outputs bit-equal to fir_long_f32's on the same inputs and tails,
+    the new state [tail | x]'s last K-1 samples."""
+    from qradiolink_tpu_torch.models import registry
+
+    rs = registry.rx_chain("GMSK2K", lead_shape=(rows,), device=cuda).resamp
+    K, D = rs.kp, rs.M
+    assert (rs.L, K, D) == (1, 2239, 50)
+    assert cuda_fir.route(K, D) == cuda_fir.DEC_OP
+    state = torch.randn((rows, 2, K - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = IqPair(torch.randn((rows, T), generator=gen, device=cuda),
+                   torch.randn((rows, T), generator=gen, device=cuda))
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report() == {cuda_fir.DEC_OP: {
+            "cuda": 1, "plain": 0,
+            "shapes": {f"cuda K{K} D{D} tail 2x{rows}": 1}}}
+        want = cuda_fir.fir_long((x.re, x.im), rs.phase_taps[0], D, T // D,
+                                 tails=(state[:, 0], state[:, 1]))
+        assert torch.equal(y.re, want[0]) and torch.equal(y.im, want[1])
+        assert torch.equal(new_state, torch.stack(
+            [x.re[:, -(K - 1):], x.im[:, -(K - 1):]], dim=-2))
+        state = new_state
 
 
 @pytest.mark.parametrize("L,K,T", [(4, 12, 12_500), (2, 46, 50_000),

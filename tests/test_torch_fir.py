@@ -29,7 +29,7 @@ from qradiolink_tpu_torch.chains.wbfm import WbfmDemod  # noqa: E402
 from qradiolink_tpu_torch.core import IqPair  # noqa: E402
 from qradiolink_tpu_torch.ops import firdes, fir  # noqa: E402
 from qradiolink_tpu_torch.ops.cuda_fir import (  # noqa: E402
-    fir_stream, fir_stream_plain, route, s1_takes)
+    fir_route, fir_stream, fir_stream_plain, route, s1_takes)
 from qradiolink_tpu_torch.ops.resample import RationalResampler  # noqa: E402
 from qradiolink_tpu_torch.utils import sass  # noqa: E402
 from qradiolink_tpu_torch.utils.profiling import kernel_paths  # noqa: E402
@@ -322,7 +322,7 @@ def test_decim_model_matches_plain(rng, name):
     ("fsk head K419 D50", "fir_decim_f32"),
     ("fsk channel LP K55 D1", "fir_s1_f32"),
     ("fsk RRC K251 D1", "fir_s1_f32"),
-    ("nbfm head K2239 D50", "fir_long_f32"),
+    ("nbfm head K2239 D50", "resample_dec_f32"),
     ("nbfm channel LP K133 D1", "fir_s1_f32"),
     ("nbfm audio LP K55 D1", "fir_s1_f32"),
     ("nbfm audio resampler D5", "resample_poly_f32"),
@@ -336,7 +336,7 @@ def test_decim_model_matches_plain(rng, name):
     ("K800 D65", "fir_stream_f32"),
     ("K800 D50", "fir_decim_f32"),
     ("K801 D50", "fir_long_f32"),
-    ("K2239 D50", "fir_long_f32"),
+    ("K2239 D50", "resample_dec_f32"),
     ("K3200 D50", "fir_long_f32"),
     ("K3201 D50", "fir_stream_f32"),
     ("K113 D5", "fir_cols_f32"),
@@ -357,7 +357,8 @@ def test_decim_model_matches_plain(rng, name):
 def test_fir_route_recorded_on_cpu(stage, want):
     """On CPU tensors each stage records `plain` under the kernel its shape
     routes to: the 4FSK head (16 taps a phase at most) under fir_decim_f32;
-    at 17 to 64 taps a phase the NBFM and SSB heads (D 50, 125) under
+    the NBFM head (K2239 D50) under resample_dec_f32 at L 1; at 17 to 64
+    taps a phase the SSB head (D 125) and the other D 32-64 shapes under
     fir_long_f32 (up to 8 warps of column groups x segments) and the WBFM
     head and audio resampler (D 5, 25; the resampler on real input) under
     fir_cols_f32 (D 2-31); the stride-1 filters of up to 2,048 taps under
@@ -407,6 +408,42 @@ def test_fir_route_recorded_on_cpu(stage, want):
     shape = re.search(r"(K\d+ )?D\d+$", stage).group(0)
     assert all(re.search(rf"\b{shape}\b", k) for k in rep[want]["shapes"]), \
         rep
+
+
+@pytest.mark.parametrize("rows,form,want", [
+    (2048, "stream", "resample_dec_f32"),   # GMSK2K's head
+    (256, "stream", "resample_dec_f32"),    # 2FSK2K's head in the sweep
+    (32, "stream", "resample_dec_f32"),     # the mixed path's NBFM head
+    (1, "stream", "resample_dec_f32"),      # one radio's
+    (2048, "shift", "fir_long_f32"),        # not the resampler's form
+    (2048, "no_tail", "fir_long_f32"),
+    (2048, "short", "fir_long_f32")])
+def test_fir_route_k2239_d50_by_rows(rows, form, want):
+    """The K2239 D50 head: resample_dec_f32 at L 1 at every row count in
+    the resampler's form (a tail, shift 0, every output of the block; it
+    ran 1.37-2.75x fir_long_f32 in turns at 1 to 2048 rows), the FIR
+    kernels' route (fir_long_f32) for other calls at that shape; a
+    RationalResampler(1, 50) on the CPU records the routed kernel's plain
+    version once a block at its key."""
+    from qradiolink_tpu_torch.ops import cuda_fir
+
+    K, D, T = 2239, 50, 4 * 50
+    n_out = {"shift": 3, "short": 3}.get(form, 4)
+    tails = None if form == "no_tail" else (torch.zeros(rows, K - 1),)
+    assert cuda_fir.stream_route(K, D, T, n_out, tails,
+                                 3 if form == "shift" else 0) == want
+    assert cuda_fir.route(K, D) == "resample_dec_f32"
+    assert cuda_fir.fir_route(K, D) == "fir_long_f32"
+    if form != "stream":
+        return
+    rs = RationalResampler(1, 50, lead_shape=(rows,), device="cpu")
+    assert (rs.kp, rs.M) == (K, D)
+    x = torch.zeros(rows, T)
+    kernel_paths.reset()
+    rs(rs.init_state(), IqPair(x, x))
+    assert kernel_paths.report() == {want: {
+        "cuda": 0, "plain": 1, "shapes": {f"plain K{K} D{D} tail 2x{rows}":
+                                          1}}}
 
 
 @pytest.mark.parametrize("K,D,want", [
@@ -656,7 +693,7 @@ def test_long_model_matches_plain(rng, name):
     """fir_long_f32's index math (the numpy model) against fir_stream_plain,
     within the FIR's 1e-5, at every shape the card test runs."""
     C, T, K, D, shift, planes, tail = LONG_CASES[name]
-    assert route(K, D) == "fir_long_f32"
+    assert fir_route(K, D) == "fir_long_f32"
     tf = np.ascontiguousarray(long_taps(name, K, rng))
     xs = [rng.standard_normal((C, T)).astype(np.float32)
           for _ in range(planes)]

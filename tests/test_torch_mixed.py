@@ -116,6 +116,6 @@ def test_mixed_rx_streamed():
     assert np.asarray(jouts[1]["audio"]).shape == (4, 32)
     report = kernel_paths.report()
     # the channelizer's kernel is the one cuda_pfb.route(M, kp) picks
-    for op in (cuda_pfb.route(M, trx.channelizer.kp), "fir_long_f32",
+    for op in (cuda_pfb.route(M, trx.channelizer.kp), "resample_dec_f32",
                "resample_poly_f32", "viterbi_bfly_k7"):
         assert report[op]["plain"] >= 2, op

@@ -1029,6 +1029,10 @@ DEC_CASES = {(3, 125, 2091): (9, 2, 3, 2, "DMR", 1600),
              (2, 25, 105): (5, 1, 4, 8, "4FSK10KFM", 8000),
              (2, 25, 561): (12, 1, 4, 4, "2FSK10K", 8000),
              (1, 50, 2239): (15, 2, 4, 4, "GMSK2K", 4000)}
+# the instances whose pieces the waves rule picks (piece_waves), the
+# others' piece_len; and the most pieces a row-plane it tries
+DEC_WAVES = {(1, 50, 2239)}
+DEC_MAX_PIECES = 64
 
 
 def dec_layout(L, M, K):
@@ -1054,6 +1058,24 @@ def dec_piece_len(row_planes, n_pp, n_sm=H100_SMS):
         return n_pp
     pieces = -(-n_pp // per)
     return -(-(-(-n_pp // pieces)) // DEC_TILE) * DEC_TILE
+
+
+def dec_piece_waves(row_planes, n_pp, a_last, slots):
+    """resample_dec_f32's waves rule (piece_waves): of the pieces of whole
+    chunks, the count that least costs waves of `slots` resident blocks
+    times chunks a block (its piece and the a_last rows before it); the
+    fewest pieces on a tie."""
+    if n_pp <= 0:
+        return 1
+    best, best_piece = None, n_pp
+    for p in range(1, min(DEC_MAX_PIECES, -(-n_pp // DEC_TILE)) + 1):
+        piece = min(n_pp, -(-(-(-n_pp // p)) // DEC_TILE) * DEC_TILE)
+        pieces = -(-n_pp // piece)
+        cost = -(-row_planes * pieces // slots) * \
+            -(-(piece + a_last) // DEC_TILE)
+        if best is None or cost < best:
+            best, best_piece = cost, piece
+    return best_piece
 
 
 def dec_taps(taps, M, r, g, a0, AS, CW):
@@ -1293,11 +1315,37 @@ def test_dec_model_sums_integers_exactly(rng, L, M, K):
     (12, 240, 1, 32, 8),         # MMDVM's headless block
     (2, 8000, 256, 4000, 2),     # 4FSK10KFM at 256 rows
     (2, 4000, 256, 2016, 2),     # 2FSK10K
-    (1, 4000, 2048, 4000, 1)])   # GMSK2K's head
+    (1, 4000, 2048, 1344, 3)])   # GMSK2K's head: the waves rule
 def test_dec_piece_widths(L, n_pp, rows, piece, pieces):
-    """The piece rule at the paths' blocks (2 planes, 132 SMs)."""
-    got = dec_piece_len(2 * rows, n_pp)
+    """The piece rule at the paths' blocks (2 planes, 132 SMs); the K2239
+    D50 head's waves rule at 5 resident blocks an SM."""
+    if L == 1:
+        got = dec_piece_waves(2 * rows, n_pp, 30, H100_SMS * 5)
+    else:
+        got = dec_piece_len(2 * rows, n_pp)
     assert (got, -(-n_pp // got)) == (piece, pieces)
+
+
+@pytest.mark.parametrize("rows,n_pp,slots,piece,pieces", [
+    (2048, 4000, 660, 1344, 3),   # GMSK2K: 18.6 waves of 43 chunks
+    (2048, 4000, 528, 4000, 1),   # 4 blocks an SM: 7.8 waves of rows
+    (256, 20000, 660, 2240, 9),   # 2FSK2K: 6.98 waves of 71 chunks
+    (256, 20000, 528, 20000, 1),  # 512 rows on 528 slots: one wave
+    (32, 2000, 660, 224, 9),      # the mixed NBFM head: one wave
+    (1, 101, 660, 32, 4),         # a row: pieces of one chunk
+    (4096, 0, 660, 1, 1)])        # no output
+def test_dec_piece_waves(rows, n_pp, slots, piece, pieces):
+    """The waves rule at the K2239 D50 head's shapes (2 planes, segments
+    3 x 15 rows: a_last 30), against a brute count of waves x chunks."""
+    got = dec_piece_waves(2 * rows, n_pp, 30, slots)
+    assert (got, -(-n_pp // got) if n_pp else 1) == (piece, pieces)
+    if n_pp:
+        def cost(pc):
+            return -(-2 * rows * -(-n_pp // pc) // slots) * \
+                -(-(pc + 30) // DEC_TILE)
+        assert all(cost(got) <= cost(pc) for pc in
+                   range(DEC_TILE, n_pp + DEC_TILE, DEC_TILE)
+                   if -(-n_pp // pc) <= DEC_MAX_PIECES)
 
 
 def test_dec_model_follows_the_kernel_source():
@@ -1325,6 +1373,15 @@ def test_dec_model_follows_the_kernel_source():
             "if (per >= n_pp) return n_pp;",
             "const long long even = (n_pp + pieces - 1) / pieces;",
             "return (int)((even + kTile - 1) / kTile * kTile);",
+            # piece_waves
+            f"constexpr int kMaxPieces = {DEC_MAX_PIECES};",
+            "const int max_p = chunks < kMaxPieces ? chunks : kMaxPieces;",
+            "piece = (piece + kTile - 1) / kTile * kTile;",
+            "const long long waves = (row_planes * pieces + slots - 1) / slots;",
+            "const long long cost = waves * ((piece + a_last + kTile - 1) / kTile);",
+            "if (best < 0 || cost < best) {",
+            "piece = piece_waves((long long)C * planes, n_pp, (S - 1) * AS,",
+            "(long long)n_sm * held);",
             # the state, chunks and the staging
             "st[j] = v < k1 ? tail[v] : x[v - k1];",
             "const int a_last = (S - 1) * AS;",
@@ -1348,6 +1405,11 @@ def test_dec_model_follows_the_kernel_source():
             "h[a][k] = c < M && u < K ? taps[(size_t)r * K + u] : 0.0f;",
             "constexpr bool shorten = tap_rows(M, K) - (S - 1) * AS < AS && S <= 2;",
             "const bool short_rows = shorten && tap_rows(M, K) - a0 < AS;",
+            "const int t = w0 + i / L;",
+            "const int ph = i - (i / L) * L;",
+            "const int L = LC ? LC : L_rt;",
+            "const int S = SC ? SC : S_rt;",
+            "L == 1 ? L : 0, L == 1 ? S : 0>;",
             "const float* pa = s_buf + (j % R) * BW + lead + q_r + c0;",
             "const float* pb = s_buf + ((j + 1) % R) * BW + lead + q_r + c0;",
             "row_sums<CW, AS, AS - 1, M>(pa, pb, h, acc);",
@@ -1362,13 +1424,16 @@ def test_dec_model_follows_the_kernel_source():
             "float v = 0.0f;",
             "v += q.x;",
             "v += q.w;",
-            "part[(t_lo + j * kTile + lane - a0) & (kOutRing - 1)] = v;",
+            "for (int o0 = 0; o0 < kTile; o0 += 32) {",
+            "tile + (o0 + lane) * kTileStride);",
+            "part[(t_lo + j * kTile + o0 + lane - a0) & (kOutRing - 1)] = v;",
             "const int w0 = t_lo + j * kTile - a_last;",
             "for (int w = 1; w < WP; ++w) v += p[w * kOutRing];",
             "y[(size_t)t * L + ph] = v;"]:
         assert line in src, line
     for (L, M, K), (AS, CW, R, B, _, _) in DEC_CASES.items():
-        assert f"X({L}, {M}, {K}, {AS}, {CW}, {R}, {B})" in src
+        rule = int((L, M, K) in DEC_WAVES)
+        assert f"X({L}, {M}, {K}, {AS}, {CW}, {R}, {B}, {rule})" in src
         _, _, S, G, WP, W = dec_layout(L, M, K)
         assert W <= DEC_MAX_WARPS and (S - 1) * AS + 2 * DEC_TILE \
             <= DEC_OUT_RING and R >= 3 and AS <= DEC_TILE
@@ -1387,7 +1452,7 @@ def test_dec_takes_fir_long_layout_at_dmr_and_gmsk():
         A = -(-K // M)
         S_long = -(-A // 16)
         AS, CW, S, G, _, _ = dec_layout(L, M, K)
-        assert cuda_fir.route(K, M) == cuda_fir.LONG_OP
+        assert cuda_fir.fir_route(K, M) == cuda_fir.LONG_OP
         assert (AS, S, CW, G) == (-(-A // S_long), S_long, 2,
                                   -(-M // cuda_fir.LONG_GROUP_COLS))
 

@@ -353,9 +353,14 @@ def sync_model(tail, x, pos, om, yp, dp, n_out, mode, levels, sps, alpha,
     chunk waits for its own); then the coefficients with the f32
     reciprocal of 6, the four products summed in order, the decision, the
     TED, the clip and the loop update, each f32 operation rounded on its
-    own. Returns the kernel's outputs and, as a last item, the plan with
-    how far past a chunk's starting position the floor of a position in
-    that chunk or the next came (at most reach): (S, R, reach, used)."""
+    own. Real input with levels takes the kernel's real-levels path (MODE
+    3) where the tails' imaginary words of the row's block of 32 are all
+    +0: yi is +0 without reading that plane, and the first nearest level
+    by |yr - l| from a (distance, level) tree over 2, 4 or 8 levels padded
+    with NaN; otherwise MODE 1's hypot over every level. Returns the
+    kernel's outputs and, as a last item, the plan with how far past a
+    chunk's starting position the floor of a position in that chunk or the
+    next came (at most reach): (S, R, reach, used)."""
     xc = np.iscomplexobj(x)
     inv6 = F(cuda_symbol_sync.INV6)
     inv_norm = F(cuda_symbol_sync.recip(ted_norm))
@@ -372,6 +377,14 @@ def sync_model(tail, x, pos, om, yp, dp, n_out, mode, levels, sps, alpha,
     out = [np.zeros(rows, F), np.zeros(rows, F),
            np.zeros(rows, np.complex64), np.zeros(rows, np.complex64)]
     used = 0.0
+    real_lv = np.zeros(rows, bool)
+    if mode == cuda_symbol_sync.MODE_LEVELS and not xc:
+        im = np.ascontiguousarray(np.asarray(tail).imag, F).view(np.uint32)
+        for r0 in range(0, rows, ROWS):
+            real_lv[r0:r0 + ROWS] = not im[r0:r0 + ROWS].any()
+        n_lv = len(levels)
+        NL = 2 if n_lv <= 2 else (4 if n_lv <= 4 else 8)
+        padded = [F(v) for v in levels] + [F(np.nan)] * (NL - n_lv)
     for r in range(rows):
         p_, o_ = F(pos[r]), F(om[r])
         ypr, ypi = F(yp[r].real), F(yp[r].imag)
@@ -417,7 +430,19 @@ def sync_model(tail, x, pos, om, yp, dp, n_out, mode, levels, sps, alpha,
                 for k in range(1, 4):
                     yr = F(yr + F(w[k][0] * c[k]))
                     yi = F(yi + F(w[k][1] * c[k]))
-                if mode == cuda_symbol_sync.MODE_LEVELS:
+                if real_lv[r]:
+                    # MODE 3: yi +0 unread; the tree of |yr - l|
+                    yi = F(0)
+                    d = [F(abs(F(yr - lv))) for lv in padded]
+                    lvs = list(padded)
+                    wd = 1
+                    while wd < NL:
+                        for k in range(0, NL - wd, 2 * wd):
+                            if d[k + wd] < d[k]:
+                                d[k], lvs[k] = d[k + wd], lvs[k + wd]
+                        wd *= 2
+                    dr, di = lvs[0], F(0)
+                elif mode == cuda_symbol_sync.MODE_LEVELS:
                     d = [F(np.hypot(F(yr - F(lv)), yi)) for lv in levels]
                     dr, di = F(levels[int(np.argmin(d))]), F(0)
                 else:
@@ -443,13 +468,20 @@ def sync_model(tail, x, pos, om, yp, dp, n_out, mode, levels, sps, alpha,
     return y, *out, (S, R, reach, used)
 
 
-def _sync_blocks(ss, x, T, n_blocks=2):
+def _bits(a):
+    """f32 and complex64 as their words: -0 and +0 apart."""
+    a = np.ascontiguousarray(a)
+    return a.view(np.uint32) if a.dtype in (np.float32, np.complex64) else a
+
+
+def _sync_blocks(ss, x, T, n_blocks=2, st=None, bits=False):
     """Chain SymbolSync ss over n_blocks blocks of T of x through the
-    wrapper (the plain loop on the CPU) and through sync_model; assert
-    every output and state leaf equal. Returns the omegas after each
-    block and the plan."""
+    wrapper (the plain loop on the CPU) and through sync_model, from state
+    st (init_state's by default); assert every output and state leaf
+    equal (bits: word for word, the signs of zeros too). Returns the
+    omegas after each block and the plan."""
     mode = cuda_symbol_sync.mode_of(np.iscomplexobj(x), ss.levels)
-    st = ss.init_state()
+    st = ss.init_state() if st is None else st
     omegas = []
     for blk in range(n_blocks):
         xb = np.ascontiguousarray(x[:, blk * T:(blk + 1) * T])
@@ -464,6 +496,8 @@ def _sync_blocks(ss, x, T, n_blocks=2):
             None if ss.levels is None else ss.levels.numpy(), *args[3:])
         for a, b in zip(got, want, strict=True):
             np.testing.assert_array_equal(a.numpy(), b)
+            if bits:
+                np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
         st, _ = ss(st, torch.from_numpy(xb))
         omegas.append(st[1].numpy().copy())
     return omegas, plan
@@ -485,6 +519,54 @@ def test_sync_model_matches_plain(rng, variant):
         x = np.ascontiguousarray(x.real)
     _sync_blocks(SymbolSync(sps, decisions=lv, lead_shape=(C,),
                             device="cpu"), x, T)
+
+
+# the real-levels path's loops: (sps, gain_mu, gain_omega, omega_limit as a
+# fraction of sps, levels) of M17's (chains/m17.py), DMR's (chains/dmr.py)
+# and GMSK2K's (chains/fsk.py _binary_sync) SymbolSync
+REAL_LEVELS_LOOPS = {"M17": (5, 0.085, 0.0038, 0.05, LEVELS4),
+                     "DMR": (5, 0.2869, 0.005, 0.06, LEVELS4),
+                     "GMSK2K": (10, 0.085, 0.0038, 0.05, (-1.0, 1.0))}
+
+
+@pytest.mark.parametrize("name", sorted(REAL_LEVELS_LOOPS))
+@pytest.mark.parametrize("tail_imag", [False, True])
+def test_sync_model_real_levels(rng, name, tail_imag):
+    """The kernel's real-levels path (sync_model's MODE 3) on 33 rows of
+    real input (a block of 32 rows and one of 1): random levels held sps
+    samples, smoothed, noisy, the first samples
+    ~1e-20; the first symbol, at an integral position whose interpolation
+    is the tail's sample there, exactly midway between the first two
+    levels (the first wins). Bit for bit the plain loop's symbols and
+    state, the signs of zeros compared as words, over two chained blocks;
+    tail_imag: the second block of rows starts from a tail with imaginary
+    words, which takes MODE 1 there and MODE 3 in the first."""
+    sps, mu, g_om, lim, lv = REAL_LEVELS_LOOPS[name]
+    C, T = 33, 24 * sps
+    ss = SymbolSync(sps, gain_mu=mu, gain_omega=g_om, omega_limit=lim,
+                    decisions=lv, lead_shape=(C,), device="cpu")
+    n_sym = 2 * T // sps + 1
+    x = np.repeat(rng.choice(np.asarray(lv, np.float32), (C, n_sym)), sps,
+                  axis=1)[:, :2 * T]
+    x = np.stack([np.convolve(r, np.ones(sps) / sps)[:2 * T] for r in x])
+    x = (x + 0.05 * rng.standard_normal(x.shape)).astype(np.float32)
+    x[:, :3 * sps] *= np.float32(1e-20)
+    pos, om, yp, dp, tail = ss.init_state()
+    b = int(pos[0])
+    assert float(pos[0]) == b
+    tail = tail.clone()
+    tail[:, b] = (lv[0] + lv[1]) / 2
+    if tail_imag:
+        tail[32:] = torch.complex(tail[32:].real,
+                                  torch.full_like(tail[32:].real, -0.0))
+    _sync_blocks(ss, x, T, st=(pos, om, yp, dp, tail), bits=True)
+    pos2, om2, yp2, dp2, tail2 = ss.init_state()
+    xb = np.ascontiguousarray(x[:, :T])
+    y = cuda_symbol_sync.symbol_sync(
+        tail, torch.from_numpy(xb), pos2, om2, yp2, dp2, T // sps,
+        cuda_symbol_sync.MODE_LEVELS, ss.levels, ss.sps, ss.alpha, ss.beta,
+        ss.omega_limit, ss.ted_norm)[0]
+    assert float(y[0, 0].real) == float(np.float32((lv[0] + lv[1]) / 2))
 
 
 @pytest.mark.parametrize("name", sorted(SYNC_STRESS))
@@ -789,6 +871,27 @@ def test_models_follow_the_sources():
             assert line in text, line
     assert "kInv6 = 1.0f / 6.0f" in sync and "__fdiv_rn" not in sync
     assert "hypotf" in sync
+    # the real-levels path (MODE 3): the tails' imaginary words checked,
+    # yi +0 unread, the tree of |yr - l| over NaN-padded levels
+    for line in [
+            "for (int i = threadIdx.x; i < n; i += 2 * kRows) bits |= im[2 * i];",
+            "if (__syncthreads_or(bits != 0u)) {",
+            "run<false, 1, NL>(QRL_RUN_ARGS);",
+            "yi = MODE == 3 ? 0.0f : __fmul_rn(w[0].y, c[0]);",
+            "if (MODE != 3) yi = __fadd_rn(yi, __fmul_rn(w[k].y, c[k]));",
+            "dr = nearest<NL>(yr, lv);",
+            "d[k] = fabsf(__fsub_rn(yr, lv[k]));",
+            "for (int w = 1; w < NL; w *= 2) {",
+            "for (int k = 0; k + w < NL; k += 2 * w) {",
+            "const bool right = d[k + w] < d[k];",
+            ": (MODE == 3 ? __int_as_float(0x7fc00000) : 0.0f);",
+            "fill<XC, MODE != 3>(my_re, my_im, g_lo, g_hi, R, trow, xrow, L);",
+            "MODE == 3 ? 0.0f : my_im[s]);",
+            "else if (n_lv <= 2)",
+            "err = launch<false, 3, 2>(QRL_SYNC_ARGS);",
+            "err = launch<false, 3, 4>(QRL_SYNC_ARGS);",
+            "err = launch<false, 1, kMaxLevels>(QRL_SYNC_ARGS);"]:
+        assert line in sync, line
     assert f"constexpr int kMaxRing = {cuda_symbol_sync.RING_MAX};" in sync
     assert f"constexpr int kMaxChunk = {cuda_symbol_sync.CHUNKS[0]};" in sync
     assert (f"R < {cuda_symbol_sync.RING_MIN} || R > kMaxRing"
