@@ -30,7 +30,8 @@ when the package cannot be imported, and when any phase fails:
       1e-5 + 1e-5 |p|); F.conv1d is the yardstick. The head (419 taps,
       D 50) routes to fir_decim_f32, the stride-1 filters to fir_s1_f32,
       the NBFM head to resample_dec_f32 at L 1 (fir_long_f32, which took
-      it before, in turns and bit-equal). Where the route picks a new
+      it before, in turns and bit-equal; so the SSB head K5597 D125 in 8
+      below). Where the route picks a new
       kernel,
       fir_stream_f32, which served the shape before, is held against the
       plain version too and timed in turns with it (old, new, new, old),
@@ -100,11 +101,14 @@ when the package cannot be imported, and when any phase fails:
     equal and BER below 0.01, NBFM audio within 1e-5 (the CPU tests'
     bound);
  8. the analog kernels at their shapes, 2048 rows, against their plain
-    versions (45 taps a phase at the three resampler shapes): fir_long_f32
-    at the SSB head (K5597 D125, two column groups), fir_cols_f32 at the
+    versions (45 taps a phase at the three resampler shapes):
+    resample_dec_f32 at L 1 at the SSB head (K5597 D125, fir_long_f32's
+    two column groups x three segments and sum order), timed in turns with
+    fir_long_f32, which took it before, and fir_stream_f32 (both rows with
+    "path": null) and bit-equal to fir_long_f32; fir_cols_f32 at the
     WBFM head (K225 D5) and audio resampler (K1121 D25, real, the tail read
     in place), each timed in turns with fir_stream_f32, which served the
-    three shapes before (its rows with "path": null); fir_s1_f32 with the
+    shapes before (its rows with "path": null); fir_s1_f32 with the
     SSB channel filter's 167 complex taps (two launches, one a tap plane,
     then the combine; one complex F.conv1d as the library call) and its
     audio band-pass (K97, real); AmMod's post filter, 963 complex taps
@@ -125,9 +129,9 @@ when the package cannot be imported, and when any phase fails:
     with "path": null), one F.conv1d with L output channels beside each;
  9. the slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples for 3 steps (counters zeroed before, read after: the head on
-    fir_long_f32, the channel band-pass 2 launches of fir_s1_f32, the
-    audio band-pass 1, agc2_f32 1, a step; fir_stream_f32 and
-    agc2_gain_f32 never),
+    resample_dec_f32, the channel band-pass 2 launches of fir_s1_f32, the
+    audio band-pass 1, agc2_f32 1, a step; fir_stream_f32, fir_long_f32
+    and agc2_gain_f32 never),
     Msamples/s and vs_baseline (above 10) beside the host's pace (the
     host-clock time of a tiny op, before and after), one step stage by
     stage and one under torch.profiler; then WbfmDemod at the same width
@@ -145,7 +149,8 @@ when the package cannot be imported, and when any phase fails:
     rssi within 1e-4 dB;
 11. the frozen SSB capture tests/fixtures/iq_ssb_usb_-10db.npz streamed in
     two blocks through SsbDemod(usb=True) on the card (the head on
-    fir_long_f32, once a block) and on the CPU: audio and state within
+    resample_dec_f32, once a block; fir_long_f32 never) and on the CPU:
+    audio and state within
     1e-5 of the peak, rssi within 1e-4 dB;
 12. loopbacks on the card, torch only, 8 channels: TX -> ChannelModel at
     30 dB -> RX; the JAX tests' tone-SNR thresholds (NBFM > 15 dB, AM >
@@ -276,9 +281,11 @@ when the package cannot be imported, and when any phase fails:
     (call_capture, captured_rows): each FIR and resampler shape against
     its plain version on seeded inputs (fir_row, poly_row, with the kernel
     the route replaced in turns; at fir_stream_f32's shapes
-    fir_stream_v0_f32, bit-equal; at the K2239 D50 head, routed to
-    resample_dec_f32 at L 1, fir_long_f32 in turns, bit-equal, its row
-    with no path), each loop (the conj-mode
+    fir_stream_v0_f32, bit-equal; at the K2239 D50 and K5597 D125 heads,
+    routed to resample_dec_f32 at L 1, fir_long_f32 in turns, bit-equal,
+    its row with no path; at the 2/25 K561 head resample_dec_f32's
+    taps-in-order form, bit-equal to resample_poly_f32), each loop (the
+    conj-mode
     and levels-mode sync, the Viterbi) on the path's own inputs bit-equal
     to one timed call of its plain loop, the levels mode on real input
     also in turns with the hypotf levels code (symbol_sync_levels_v0,
@@ -604,10 +611,11 @@ def fir_row(name, replaces, xs, tf, D, n_out, tails, run, timing=True,
     its row has no path. Where the route gives the shape to
     fir_stream_f32, its first design fir_stream_v0_f32 takes that place.
     fir_s1_f32 and fir_stream_v0_f32 keep fir_stream_f32's sum order, so
-    their outputs must be equal to its bit for bit. At the K2239 D50 head
-    (cuda_fir.DEC_SHAPES), routed to resample_dec_f32 at L 1, fir_long_f32
-    is timed in turns too, its row with no path, and the two must be equal
-    bit for bit (the first takes the second's sum order)."""
+    their outputs must be equal to its bit for bit. At the L 1 heads
+    (cuda_fir.DEC_SHAPES: K2239 D50, SSB's K5597 D125), routed to
+    resample_dec_f32 at L 1, fir_long_f32 is timed in turns too, its row
+    with no path, and the two must be equal bit for bit (the first takes
+    the second's segments, column groups and sum order)."""
     from qradiolink_tpu_torch.ops import cuda_fir
     import torch.nn.functional as F
 
@@ -1501,7 +1509,7 @@ def round_trip_phase(dev, M=MIX_M, fsk_ch=3, nbfm_ch=40, steps=RT_STEPS,
 
 # -- the analog voice chains (SSB, AM, WBFM, the TX side) --------------------
 
-SSB_EVERY_STEP = ("fir_long_f32", "fir_s1_f32", "agc2_f32")
+SSB_EVERY_STEP = ("resample_dec_f32", "fir_s1_f32", "agc2_f32")
 WBFM_EVERY_STEP = ("fir_cols_f32", "fir_s1_f32")
 TX_EVERY_STEP = ("fir_s1_f32", "resample_up_f32")
 AUDIO_PER_STEP = T_STEP // 125   # 8 ksps audio samples a step (1,600)
@@ -1538,11 +1546,11 @@ def ssb_path(dev, gen):
     """The slice's main path: SsbDemod(usb=True) at 2048 channels x 200,000
     samples a step (the 4FSK path's shape), seeded IQ at 0.1 RMS a plane,
     3 steps with state carried and the counters zeroed just before; the
-    head on fir_long_f32, the channel band-pass two fir_s1_f32 launches,
-    the audio band-pass one, agc2_f32 one, a step, fir_stream_f32 and
-    agc2_gain_f32 none. The step must beat vs_baseline 10; it is printed
-    beside the host's pace just before and just after (host_pace_us), since
-    the step is partly host-bound. Then one more step stage by stage, and
+    head on resample_dec_f32 at L 1, the channel band-pass two fir_s1_f32
+    launches, the audio band-pass one, agc2_f32 one, a step,
+    fir_stream_f32, fir_long_f32 and agc2_gain_f32 none. The step must
+    beat vs_baseline 10; it is printed beside the host's pace just before
+    and just after (host_pace_us), since the step is partly host-bound. Then one more step stage by stage, and
     one under torch.profiler. Returns the report."""
     from qradiolink_tpu_torch.chains.ssb import SsbDemod
     from qradiolink_tpu_torch.core import IqPair, Sequencer
@@ -1570,13 +1578,13 @@ def ssb_path(dev, gen):
 
     cf = chain.chan_filter
     require_shapes(report, {
-        ("fir_long_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
+        ("resample_dec_f32", f"K{chain.resamp.kp} D125 tail 2x{N_CH}"): 1,
         (FFT_OP, f"K{cf.ntaps} D1 2x{N_CH}") if cf.form(False) == "fft"
         else ("fir_s1_f32", f"K{cf.ntaps} D1 tail 2x{N_CH}"): (
             1 if cf.form(False) == "fft" else 2),
         ("fir_s1_f32", f"K{chain.audio_filter.ntaps} D1 tail 1x{N_CH}"): 1,
         ("agc2_f32", f"complex {N_CH}x{AUDIO_PER_STEP}"): 1}, N_STEPS, "ssb",
-        never=("fir_stream_f32", "agc2_gain_f32"))
+        never=("fir_stream_f32", "agc2_gain_f32", "fir_long_f32"))
     med = statistics.median([s * 1e3 for s in step_s[1:]])
     vs = N_CH * T_STEP / med / 1e3 / N_CH
     print(f"  {step_times(step_s, N_CH * T_STEP)}, vs_baseline {vs:.2f} "
@@ -1589,7 +1597,7 @@ def ssb_path(dev, gen):
 
     seq = Sequencer(state)
     stages = {}
-    x = timed(stages, "resampler 1/125 (fir_long_f32 K5597 D125)",
+    x = timed(stages, "resampler 1/125 (resample_dec_f32 K5597 D125)",
               lambda: seq(chain.resamp, iq))
     x = timed(stages, "x0.9", lambda: 0.9 * x)
     x = timed(stages, f"channel band-pass (K{cf.ntaps} complex, "
@@ -1936,7 +1944,9 @@ def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
     second from the routed kernel's new state) and timed in turns (old,
     new, new, old); their outputs and states must be equal bit for bit,
     except resample_dec_f32's outputs, which sum in another order and are
-    held within the FIR's bound of the plain version on both blocks. The
+    held within the FIR's bound of the plain version on both blocks
+    (outside its taps-in-order instances, cuda_resample.DEC_IN_ORDER,
+    whose bits are resample_poly_f32's). The
     row of the kernel the route does not pick has no path. One F.conv1d
     with L output channels is the library call, beside each; an empty
     kernel's launch floor too at resample_rat_f32's and resample_dec_f32's
@@ -1971,7 +1981,8 @@ def poly_row(name, rs, planes, C, T, run, dev, gen, on_path=True):
         tails2 = (st2[:, 0, :], st2[:, 1, :])[:planes]
         chained = {k: cuda_resample.launch(k, xs2, taps, L, M, tails2)
                    for k in kinds}
-        exact = cuda_resample.DEC_OP not in kinds
+        exact = cuda_resample.DEC_OP not in kinds or (
+            (L, M, K) in cuda_resample.DEC_IN_ORDER)
         if not exact:
             w2, p2 = cuda_resample.resample_poly_plain(xs2, taps, L, M,
                                                        tails2)
@@ -2140,9 +2151,10 @@ def card_vs_cpu_phase(dev, gen, n_ch=4, T=25_000):
 def ssb_capture_phase(dev):
     """The frozen SSB capture (scripts/make_ssb_capture.py) in two blocks of
     100,000 samples through SsbDemod(usb=True) on the card and on the
-    port's CPU path: the head on fir_long_f32 once a block (counters zeroed
-    before, read after; fir_stream_f32 never), audio and every state leaf
-    within 1e-5 of the CPU's peak, rssi within 1e-4 dB."""
+    port's CPU path: the head on resample_dec_f32 at L 1 once a block
+    (counters zeroed before, read after; fir_long_f32 and fir_stream_f32
+    never), audio and every state leaf within 1e-5 of the CPU's peak, rssi
+    within 1e-4 dB."""
     from qradiolink_tpu_torch.chains.ssb import SsbDemod
     from qradiolink_tpu_torch.core import IqPair, _flatten
     from qradiolink_tpu_torch.utils.profiling import kernel_paths
@@ -2177,11 +2189,13 @@ def ssb_capture_phase(dev):
                 f"{what} state leaf {i}", (a.cpu(),), (b,), 1e-5))
     rep = kernel_paths.report()
     key = f"cuda K{chains['cpu'].resamp.kp} D125 tail 2x1"
-    n = rep.get("fir_long_f32", {}).get("shapes", {}).get(key, 0)
-    if n != 2 or rep.get("fir_stream_f32", {}).get("cuda", 0):
+    head = "resample_dec_f32"
+    n = rep.get(head, {}).get("shapes", {}).get(key, 0)
+    if n != 2 or any(rep.get(k, {}).get("cuda", 0)
+                     for k in ("fir_stream_f32", "fir_long_f32")):
         raise RuntimeError(f"ssb capture: the head did not run on "
-                           f"fir_long_f32 once a block: {json.dumps(rep)}")
-    print(f"  {SSB_FIXTURE.name}: 2 blocks of {half}, head on fir_long_f32 "
+                           f"{head} once a block: {json.dumps(rep)}")
+    print(f"  {SSB_FIXTURE.name}: 2 blocks of {half}, head on {head} "
           f"({n} launches); card vs CPU audio max |diff| "
           f"{errs['audio']:.3e}, rssi {errs['rssi']:.3e} dB, state "
           f"{errs['state']:.3e}", flush=True)
@@ -3724,7 +3738,9 @@ FULL_PATHS = {"4FSK2KFB": (50, FB_SNR_DB), "GMSK2K": (25, GMSK_SNR_DB)}
 # Costas loop, AGC and fold carry that; its bounds are FSK4_SYM_TOL and
 # FSK4_TOL
 CVC_TOLS = {"4FSK2KFB": (0.1, 3e-3), "GMSK2K": (FSK4_SYM_TOL, 1e-4),
-            "BPSKDSSS8": (FSK4_SYM_TOL, FSK4_TOL)}
+            "BPSKDSSS8": (FSK4_SYM_TOL, FSK4_TOL),
+            "GMSK10K": (FSK4_SYM_TOL, FSK4_TOL),
+            "2FSK10K": (FSK4_SYM_TOL, FSK4_TOL)}
 # the sweep's data modes: mode -> (samples a step, bytes a row a step,
 # channel SNR dB or None, BER limit), the JAX tests' loopback gates
 # (tests/test_chains_digital.py, tests/test_fsk4_variants.py); each step
@@ -4734,6 +4750,90 @@ def fsk_card_vs_cpu(mode, iqs, dev):
             zip(_flatten(states[dev.type], []), _flatten(states["cpu"], [])))]
         rel_diffs(pairs, diffs)
     check_diffs(mode, diffs, f"{CVC_ROWS} rows x 2 blocks of {T_STEP}")
+
+
+def fsk10k_head_phase(dev):
+    """GMSK10K's and 2FSK10K's RX chains card against CPU as
+    tests/test_torch_cuda.py test_new_mode_on_card_matches_cpu runs them
+    (a generator on the card seeded 0, 2 rows of 30 random bytes through
+    the TX chain on the card, noise at 0.05 a plane, two blocks of 10,000):
+    bits equal, symbols and every state leaf within CVC_TOLS (the
+    Viterbi's path metrics 2e-5 of their peak); the 2/25 K561 head on its
+    route once a block (counters zeroed before, read after). On each
+    chain's own head input of the first block, resample_dec_f32's
+    taps-in-order form bit-equal to resample_poly_f32, whose order the
+    CPU path's F.conv1d gives."""
+    from qradiolink_tpu_torch.core import IqPair, _flatten
+    from qradiolink_tpu_torch.models import registry
+    from qradiolink_tpu_torch.ops import cuda_resample
+    from qradiolink_tpu_torch.utils.profiling import kernel_paths
+
+    cpu, T, rows = torch.device("cpu"), 10_000, 2
+    for mode in ("GMSK10K", "2FSK10K"):
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        data = torch.randint(0, 256, (rows, 30), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.uint8)
+        tx = registry.tx_chain(mode, lead_shape=(rows,), device=dev)
+        iq = tx(tx.init_state(), data)[1]["iq"]
+        iq = (iq.to_complex() if isinstance(iq, IqPair) else iq)[..., :2 * T]
+        iq = iq + 0.05 * torch.randn(iq.shape, generator=g, device=dev,
+                                     dtype=torch.complex64)
+        chains = {d.type: registry.rx_chain(mode, lead_shape=(rows,),
+                                            device=d) for d in (dev, cpu)}
+        rs = chains[dev.type].resamp
+        L, M, K = rs.L, rs.M, rs.kp
+        if (L, M, K) not in cuda_resample.DEC_IN_ORDER:
+            raise RuntimeError(f"{mode}: head L{L} M{M} K{K} is not a "
+                               f"taps-in-order instance")
+        op = cuda_resample.route(L, M, K, rows)
+        states = {k: c.init_state() for k, c in chains.items()}
+        diffs = {}
+        kernel_paths.reset()
+        for blk in range(2):
+            xb = iq[..., blk * T:(blk + 1) * T]
+            outs = {}
+            for d in (dev, cpu):
+                xp = IqPair(xb.real.to(d).contiguous(),
+                            xb.imag.to(d).contiguous())
+                states[d.type], outs[d.type] = chains[d.type](states[d.type],
+                                                              xp)
+            card, host = outs[dev.type], outs["cpu"]
+            for k in ("bits", "bits_alt"):
+                if not torch.equal(card[k].cpu(), host[k]):
+                    raise RuntimeError(f"{mode} block {blk}: {k} differ")
+            pairs = [("symbols", card["symbols"], host["symbols"])]
+            for i, (a, b) in enumerate(zip(_flatten(states[dev.type], []),
+                                           _flatten(states["cpu"], []))):
+                if a.is_floating_point() or a.is_complex():
+                    pairs.append((f"state leaf {i}", a, b))
+                elif not torch.equal(a.cpu(), b):
+                    raise RuntimeError(f"{mode} block {blk}: state leaf "
+                                       f"{i} differs")
+            rel_diffs(pairs, diffs)
+        rep = kernel_paths.report()
+        key = f"cuda L{L} K{K} D{M} tail 2x{rows}"
+        if rep.get(op, {}).get("shapes", {}).get(key, 0) != 2:
+            raise RuntimeError(f"{mode}: the head did not run {op} once a "
+                               f"block: {json.dumps(rep)}")
+        check_diffs(mode, diffs, f"{rows} rows x 2 blocks of {T}, the head "
+                    f"on {op}")
+        x0 = iq[..., :T]
+        xs = (x0.real.contiguous(), x0.imag.contiguous())
+        st = rs.init_state()
+        tails = (st[:, 0], st[:, 1])
+        got = cuda_resample.launch(cuda_resample.DEC_OP, xs, rs.poly_taps,
+                                   L, M, tails)
+        want = cuda_resample.launch(cuda_resample.OP, xs, rs.poly_taps, L,
+                                    M, tails)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((got[0], *got[1]), (want[0], *want[1]))):
+            raise RuntimeError(f"{mode}: {cuda_resample.DEC_OP} is not "
+                               f"bit-equal to {cuda_resample.OP} at the "
+                               f"head")
+        print(f"  {mode}: {cuda_resample.DEC_OP}'s taps-in-order form "
+              f"bit-equal to {cuda_resample.OP} on the chain's head input",
+              flush=True)
 
 
 def full_path(mode, dev, gen, done):
@@ -8138,6 +8238,9 @@ def main() -> int:
     reports.update(rep6)
     rows += rows6
     torch.cuda.empty_cache()
+    print("fsk10k: the 2/25 K561 head's taps-in-order form, GMSK10K and "
+          "2FSK10K card against CPU:", flush=True)
+    fsk10k_head_phase(dev)
     print("app: the application on the card (CLI, RadioController):",
           flush=True)
     app_phase(dev)

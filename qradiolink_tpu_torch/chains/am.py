@@ -6,10 +6,10 @@ RX mirrors reference src/gr/gr_demod_am.cpp:30-83:
 TX mirrors src/gr/gr_mod_am.cpp: audio LP -> carrier add (1 + m*x) ->
   interpolate to 1 Msps -> band-pass.
 
-On CUDA the RX head (2,239 default taps, stride 50) runs `fir_long_f32`,
-the 49-tap complex band-pass two launches of `fir_s1_f32`, the AGC
-`agc2_gain_f32`, the 2/5 audio resampler `resample_poly_f32` and the audio
-low-pass `fir_s1_f32`. The TX interpolator is `resample_up_f32`; the
+On CUDA the RX head (2,239 default taps, stride 50) runs `resample_dec_f32`
+at L 1, the 49-tap complex band-pass two launches of `fir_s1_f32`, the AGC
+stage one launch of `agc2_f32`, the 2/5 audio resampler
+`resample_poly_f32` and the audio low-pass `fir_s1_f32`. The TX interpolator is `resample_up_f32`; the
 963-tap complex post-filter is the FFT form, `torch.fft` (`ops/fir.auto_impl`:
 2.77x faster than its two `fir_s1_f32` launches at 2048 x 200,000 on an
 H100, PERF.md).

@@ -11,11 +11,11 @@ TX mirrors src/gr/gr_mod_nbfm.cpp:30-135:
   50 ksps -> frequency modulator (sensitivity 4*pi*fw/50k) -> LP ->
   interpolate 20x -> 1 Msps; optional CTCSS adds a 0.15-amplitude tone.
 
-On CUDA the resampler head runs the `fir_long_f32` kernel, the channel and
+On CUDA the resampler head runs `resample_dec_f32` at L 1, the channel and
 audio low-passes `fir_s1_f32` (`ops/cuda_fir.route`), the audio resampler
 `resample_poly_f32`, both phases and the new state in one launch
 (`ops/cuda_resample.py`); the squelch, demod and de-emphasis are plain
-PyTorch. NbfmMod's two interpolators (25/4, 20/1) are `resample_poly_f32`,
+PyTorch. NbfmMod's two interpolators (25/4, 20/1) are `resample_up_f32`,
 its low-passes `fir_s1_f32`.
 """
 

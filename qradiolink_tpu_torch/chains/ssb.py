@@ -10,11 +10,13 @@ TX mirrors src/gr/gr_mod_ssb.cpp:30-106:
   audio band filter -> analytic SSB via complex band-pass -> CESSB
   clipper/stretcher -> interpolate 125x -> 1 Msps.
 
-On CUDA the RX head (5,597 default taps, stride 125) runs `fir_stream_f32`,
-the 167-tap complex band-pass two launches of `fir_s1_f32` (one a tap
-plane, over both IQ planes), the AGC's recurrence `agc2_gain_f32`, and the
-97-tap audio band-pass `fir_s1_f32`; the squelch, the CESSB blocks and the
-scalings are plain PyTorch. The TX's analytic band-pass (167 complex taps
+On CUDA the RX head (5,597 default taps, stride 125) runs
+`resample_dec_f32` at L 1 (`ops/cuda_fir.route`: `fir_long_f32`'s column
+groups, segments and sum order, each sample staged once for every
+segment), the 167-tap complex band-pass two launches of `fir_s1_f32` (one
+a tap plane, over both IQ planes), the AGC stage one launch of `agc2_f32`,
+and the 97-tap audio band-pass `fir_s1_f32`; the squelch, the CESSB
+blocks and the scalings are plain PyTorch. The TX's analytic band-pass (167 complex taps
 on a complex tensor) is the FFT form, `torch.fft` (`ops/fir.auto_impl`);
 the TX interpolator is `resample_up_f32` (L 125, 45 taps a phase).
 """

@@ -2,10 +2,13 @@
 // decimating shapes (ops/cuda_resample.route: DMR's 3/125 head at 2,091
 // taps a phase, M17's 3/125 at 349, MMDVM's RX 12/125 at 523, the 2/25
 // heads at 105 and 561; and at L 1, through ops/cuda_fir.route, the
-// K2239 D50 head of GMSK2K, 2FSK2K, AM and NBFM), every phase of one or two
-// f32 planes in one launch, the outputs interleaved and the new tail state
-// written by the same launch (or none: the strided FIR's call keeps its
-// own).
+// K2239 D50 head of GMSK2K, 2FSK2K, AM and NBFM and SSB's K5597 D125
+// head), every phase of one or two f32 planes in one launch, the outputs
+// interleaved and the new tail state written by the same launch (or none:
+// the strided FIR's call keeps its own). Two forms: the polyphase columns
+// below (QRL_DEC_INSTANCES), and at the 2/25 K561 head the taps-in-order
+// form further down (QRL_DEC_SEQ_INSTANCES), which keeps
+// resample_poly_f32's bits.
 //
 // Replaces, at those shapes, the Pallas TPU kernel of
 // qradiolink_tpu/ops/pallas_fir.py `banded_fir_stream` -> `_stream_call`
@@ -44,10 +47,11 @@
 // g, lane l the columns c = 32*CW*g + l + 32k, k < CW (G = ceil(M/(32 CW))
 // groups), its taps tf_r[(s*AS + a)*M + c] in registers (AS and CW
 // template parameters, zero past K or M). No tap is loaded in the loop.
-// At DMR's head (A 17: 2 segments of 9 rows, 2 groups of 64 columns) and
-// GMSK2K's (A 45: 3 of 15, one group) these are fir_long_f32's segments,
-// groups and columns for the same FIR, and with its sum order the outputs
-// equal that kernel's bit for bit: DMR's chain gives the bits it gave on
+// At DMR's head (A 17: 2 segments of 9 rows, 2 groups of 64 columns),
+// GMSK2K's (A 45: 3 of 15, one group) and SSB's (A 45: 3 of 15, 2 groups
+// of 64) these are fir_long_f32's segments, groups and columns for the
+// same FIR, and with its sum order the outputs equal that kernel's bit for
+// bit: DMR's chain gives the bits it gave on
 // the per-phase route, which its card-against-CPU gate holds. (The first
 // design here, rows of the sample grid with each phase's taps shifted by
 // q_r and 4 columns a lane, summed in another order: DMR's chain on 4
@@ -188,17 +192,23 @@ __host__ __device__ constexpr long long smem_words(int L, int M, int CW,
 
 // The instances: X(L, M, K, AS tap rows a segment, CW columns a lane, R
 // chunk buffers, blocks an SM the registers must allow, piece rule: 0
-// blocks an SM (piece_len), 1 whole waves (piece_waves)). DMR's and
-// GMSK2K's take fir_long_f32's segments, column groups of 64 and sum
+// blocks an SM (piece_len), 1 whole waves (piece_waves)). DMR's, GMSK2K's
+// and SSB's take fir_long_f32's segments, column groups of 64 and sum
 // order, so their outputs equal that kernel's bit for bit. R 3 stages a
-// chunk one ahead of the one computed, R 4 two.
+// chunk one ahead of the one computed, R 4 two. SSB's 6 warps stage 4,003
+// words a chunk: 78,816 bytes a block at R 3, 2 blocks an SM.
 #define QRL_DEC_INSTANCES(X)                                                \
     X(3, 125, 2091, 9, 2, 3, 2, 0)   /* DMR's head: 2 x 2 warps a phase */  \
     X(3, 125, 349, 3, 4, 3, 2, 0)    /* M17's head: a warp a phase */       \
     X(12, 125, 523, 5, 4, 3, 2, 0)   /* MMDVM's RX: a warp a phase */       \
     X(2, 25, 105, 5, 1, 4, 8, 0)     /* 4FSK10KFM's head: a warp a phase */ \
-    X(2, 25, 561, 12, 1, 4, 4, 0)    /* 2FSK10K's head: 2 segments */       \
-    X(1, 50, 2239, 15, 2, 4, 4, 1)   /* the K2239 D50 head (L 1) */
+    X(1, 50, 2239, 15, 2, 4, 4, 1)   /* the K2239 D50 head (L 1) */    \
+    X(1, 125, 5597, 15, 2, 3, 2, 1)  /* SSB's K5597 D125 head (L 1) */
+
+// The taps-in-order instances: X(L, M, K, RPL rows a lane, CR rows of M a
+// chunk, R chunk buffers, blocks an SM the registers must allow).
+#define QRL_DEC_SEQ_INSTANCES(X)                                            \
+    X(2, 25, 561, 1, 4, 2, 8)  /* the 2/25 heads of 2FSK10K, GMSK10K */
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -421,6 +431,280 @@ resample_dec_kernel(const float* __restrict__ tail0,
     finish(n_c - 1);
 }
 
+// ---- the taps-in-order form ------------------------------------------
+//
+// Each output's K products summed from 0.0f in tap order, j = 0 .. K-1,
+// one fmaf each: resample_poly_f32's order, so its bits (and, at the 2/25
+// heads of 2FSK10K and GMSK10K, the CPU path's: there the column form's
+// few-ulp differences reached the quadrature demod's near-zero first
+// samples and the Viterbi's path metrics; scripts/gmsk10k_card_cpu.py).
+//
+// Design: lane = row. Block (piece, group of 32 RPL rows, plane) owns the
+// output times [t_lo, t_hi) of its rows, warp r phase r, lane l the rows
+// g 32 RPL + l + 32 q, q < RPL. Each lane walks its rows' input in rows
+// of M samples, m = t_lo, t_lo + 1, ..., keeping the A = ceil(K/M) outputs
+// the row meets in registers, slot a holding output t = m - a at its tap
+// row a: sample c of row m (xc[m M + q_r + c]) meets tap tf_r[a M + c]
+// of every slot (slot A - 1 only for c < K - (A - 1) M), so each output
+// adds its taps in order; after the row slot A - 1 is output m - (A - 1),
+// stored, and the slots move up one (slot 0 from 0.0f). The first A - 1
+// rows of a piece fill the slots (their outputs, before t_lo, are not
+// stored). The taps of a column sit in shared memory, transposed
+// (s_taps[r][c][a]), read by all lanes at once (broadcast float4s): per
+// column RPL sample loads and ceil(A/4) tap loads feed A RPL FMAs. The
+// rows' samples are staged CR rows of M a chunk (and the q_max samples
+// phase L-1 reads past them) into a ring of R buffers, row stride RS words
+// (2 x odd: the lanes' loads of one column fall in 16 banks pairwise), 8
+// bytes a cp.async where x allows (4 at the tail/x seam and the stream's
+// end, zeros past it and past the last row).
+//
+// What binds (2FSK10K's sweep shape, 2 planes, 256 x 200,000 -> 16,000;
+// scripts/resample_dec_variants.py, ms in turns on an H100 80GB HBM3 at
+// 700 W): 0.589, 23% of its 0.137-ms bound; the column form 0.444 (its
+// outputs off the CPU path's by a few ulp), resample_poly_f32 1.178.
+// Taken away one at a time (timed, wrong outputs): the tap loads 0.462,
+// the staging after the first chunks 0.467, the stores 0.554. A column's
+// 23 taps reach every lane through shared memory, 23 words a lane for 23
+// FMAs; two rows a lane (RPL 2, 132 registers) ran 0.662-0.82, the taps
+// as constant operands (constant memory copied on the launch's stream,
+// each FFMA's tap a compile-time offset) 2.70, the column loops unrolled
+// whole spilled (8.19). At few rows the lanes' serial walk loses:
+// cuda_resample.route gives calls of up to 64 rows resample_poly_f32 (the
+// same bits; 1 to 64 rows x 125,000: 0.0147-0.1985 against 0.1208-0.2071;
+// scripts/resample_dec_shapes.py order).
+constexpr int kSeqMaxPieces = 256;  // pieces a row group the rule tries
+
+// words a row of a chunk: CR rows of M and what phase L-1 reads past them
+__host__ __device__ constexpr int seq_words(int L, int M, int CR) {
+    return CR * M + q_max(L, M);
+}
+
+// row stride of a chunk buffer: the least 2 x odd >= seq_words
+__host__ __device__ constexpr int seq_stride(int L, int M, int CR) {
+    return ((seq_words(L, M, CR) + 1) / 2 | 1) * 2;
+}
+
+// tap rows padded to whole float4s
+__host__ __device__ constexpr int seq_tap_pad(int M, int K) {
+    return (tap_rows(M, K) + 3) / 4 * 4;
+}
+
+// the transposed taps, then R chunk buffers of 32 RPL rows
+__host__ __device__ constexpr long long seq_smem_words(int L, int M, int K,
+                                                      int RPL, int CR,
+                                                      int R) {
+    return (long long)L * M * seq_tap_pad(M, K) +
+           (long long)R * 32 * RPL * seq_stride(L, M, CR);
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
+}
+
+// every group but the newest R - 2 has landed
+template <int R>
+__device__ __forceinline__ void cp_async_wait_seq() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(R - 2) : "memory");
+}
+
+// One column of a row: its samples x[q] (RPL rows) into the slots a < NA
+// with taps tc[a] (the column's transposed taps).
+template <int NA, int RPL, int AP>
+__device__ __forceinline__ void seq_column(const float* tc,
+                                           const float (&x)[RPL],
+                                           float (&acc)[RPL][AP]) {
+#pragma unroll
+    for (int a4 = 0; a4 < (NA + 3) / 4; ++a4) {
+        const float4 h = reinterpret_cast<const float4*>(tc)[a4];
+        const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (4 * a4 + i < NA) {
+#pragma unroll
+                for (int q = 0; q < RPL; ++q)
+                    acc[q][4 * a4 + i] = fmaf(hv[i], x[q], acc[q][4 * a4 + i]);
+            }
+        }
+    }
+}
+
+template <int L, int M, int K, int RPL, int CR, int R, int MINB>
+__global__ void __launch_bounds__(32 * L, MINB)
+resample_seq_kernel(const float* __restrict__ tail0,
+                    const float* __restrict__ tail1, int tail_ld,
+                    const float* __restrict__ x0,
+                    const float* __restrict__ x1,
+                    const float* __restrict__ taps, float* __restrict__ y0,
+                    float* __restrict__ y1, float* __restrict__ state, int C,
+                    int T, int n_pp, int piece, int n_pieces, int n_groups,
+                    int planes, int pairs) {
+    constexpr int A = tap_rows(M, K);
+    constexpr int KL = K - (A - 1) * M;  // columns of the last tap row
+    constexpr int AP = seq_tap_pad(M, K);
+    constexpr int W = seq_words(L, M, CR);
+    constexpr int W2 = (W + 1) / 2;
+    constexpr int RS = seq_stride(L, M, CR);
+    constexpr int GR = 32 * RPL;
+    constexpr int NT = 32 * L;
+    extern __shared__ __align__(16) float smem[];
+    float* s_taps = smem;              // L x M x AP
+    float* s_buf = smem + L * M * AP;  // R x GR x RS
+
+    const int pc = (int)(blockIdx.x % (unsigned)n_pieces);
+    const int rest = (int)(blockIdx.x / (unsigned)n_pieces);
+    const int grp = rest % n_groups;
+    const int plane = rest / n_groups;
+    const int row0 = grp * GR;
+    const float* tail = plane ? tail1 : tail0;
+    const float* x = plane ? x1 : x0;
+    float* y = plane ? y1 : y0;
+    const int k1 = K - 1;
+    const long long n_in = (long long)k1 + T;
+
+    // the group's first piece copies xc[T .. T+K-2] of its rows into the
+    // new state
+    if (pc == 0 && state) {
+        for (int i = threadIdx.x; i < GR * k1; i += NT) {
+            const int lr = i / k1;
+            const int j = i - lr * k1;
+            const int row = row0 + lr;
+            if (row >= C) continue;
+            float* st = state + ((size_t)row * 2 + plane) * k1;
+            const long long v = (long long)T + j;
+            st[j] = v < k1 ? tail[(size_t)row * tail_ld + v]
+                           : x[(size_t)row * T + (v - k1)];
+            if (planes == 1) st[k1 + j] = 0.0f;
+        }
+    }
+    const int t_lo = pc * piece;
+    if (t_lo >= n_pp) return;  // n_pp == 0: only the state
+    const int t_hi = min(n_pp, t_lo + piece);
+    const int n_c = (t_hi - t_lo + A - 1 + CR - 1) / CR;
+
+    for (int i = threadIdx.x; i < L * M * AP; i += NT) {
+        const int r = i / (M * AP);
+        const int c = i / AP - r * M;
+        const int a = i - (i / AP) * AP;
+        const int u = a * M + c;
+        s_taps[i] = a < A && u < K ? taps[(size_t)r * K + u] : 0.0f;
+    }
+
+    // chunk j: each row's stream words [vb + j CR M, + W) into buffer j
+    // mod R, in pairs (8 bytes where the pair lies in x and x allows)
+    const long long vb = (long long)t_lo * M;
+    const auto stage = [&](int j) {
+        float* dst = s_buf + (j % R) * (GR * RS);
+        const long long v0 = vb + (long long)j * CR * M;
+        for (int i = threadIdx.x; i < GR * W2; i += NT) {
+            const int lr = i / W2;
+            const int col = 2 * (i - lr * W2);
+            const int row = row0 + lr;
+            const long long v = v0 + col;
+            float* d = dst + lr * RS + col;
+            if (pairs && row < C && v >= k1 && v + 2 <= n_in &&
+                col + 2 <= W) {
+                cp_async8(d, x + (size_t)row * T + (v - k1));
+            } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    if (col + e >= W) break;
+                    const long long ve = v + e;
+                    const bool ok = row < C && ve < n_in;
+                    cp_async4(d + e,
+                              !ok ? x
+                              : ve < k1 ? tail + (size_t)row * tail_ld + ve
+                                        : x + (size_t)row * T + (ve - k1),
+                              ok);
+                }
+            }
+        }
+    };
+    for (int j = 0; j < R - 1; ++j) {
+        if (j < n_c) stage(j);
+        cp_async_commit();
+    }
+
+    const int r = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int q_r = r * M / L;
+    const float* tp = s_taps + r * M * AP;
+    float acc[RPL][AP];
+#pragma unroll
+    for (int q = 0; q < RPL; ++q) {
+#pragma unroll
+        for (int a = 0; a < AP; ++a) acc[q][a] = 0.0f;
+    }
+    const size_t y_ld = (size_t)n_pp * L;
+
+    for (int j = 0; j < n_c; ++j) {
+        cp_async_wait_seq<R>();  // chunk j landed
+        __syncthreads();         // for every thread; chunk j - 1 done
+        if (j + R - 1 < n_c) stage(j + R - 1);
+        cp_async_commit();
+        const float* b = s_buf + (j % R) * (GR * RS) + lane * RS + q_r;
+        for (int k = 0; k < CR; ++k) {
+            const float* p = b + k * M;
+            float xv[RPL];
+#pragma unroll 5
+            for (int c = 0; c < KL; ++c) {
+#pragma unroll
+                for (int q = 0; q < RPL; ++q) xv[q] = p[q * 32 * RS + c];
+                seq_column<A, RPL, AP>(tp + c * AP, xv, acc);
+            }
+#pragma unroll 5
+            for (int c = KL; c < M; ++c) {
+#pragma unroll
+                for (int q = 0; q < RPL; ++q) xv[q] = p[q * 32 * RS + c];
+                seq_column<A - 1, RPL, AP>(tp + c * AP, xv, acc);
+            }
+            // slot A - 1 is output m - (A - 1), m = t_lo + j CR + k
+            const int t = t_lo + j * CR + k - (A - 1);
+            if (t >= t_lo && t < t_hi) {
+#pragma unroll
+                for (int q = 0; q < RPL; ++q) {
+                    const int row = row0 + q * 32 + lane;
+                    if (row < C)
+                        y[(size_t)row * y_ld + (size_t)t * L + r] =
+                            acc[q][A - 1];
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < RPL; ++q) {
+#pragma unroll
+                for (int a = A - 1; a > 0; --a) acc[q][a] = acc[q][a - 1];
+                acc[q][0] = 0.0f;
+            }
+        }
+    }
+}
+
+// output times a block of the taps-in-order form: of the piece counts a
+// row group, the one that least costs (waves of `slots` blocks) x (the
+// rows a block walks: its piece and the a_last rows before it, in chunks
+// of CR); pieces whole multiples of 2 (the pairs' parity); the fewest
+// pieces on a tie
+int seq_piece(long long units, int n_pp, int a_last, int CR, long long slots) {
+    if (n_pp <= 0) return 1;
+    long long best = -1;
+    int best_piece = n_pp;
+    const int max_p = n_pp < kSeqMaxPieces ? n_pp : kSeqMaxPieces;
+    for (int p = 1; p <= max_p; ++p) {
+        int piece = (n_pp + p - 1) / p;
+        piece = (piece + 1) / 2 * 2;
+        if (piece > n_pp) piece = n_pp;
+        const long long pieces = (n_pp + piece - 1) / piece;
+        const long long waves = (units * pieces + slots - 1) / slots;
+        const long long cost = waves * ((piece + a_last + CR - 1) / CR);
+        if (best < 0 || cost < best) {
+            best = cost;
+            best_piece = piece;
+        }
+    }
+    return best_piece;
+}
+
 // the current device's SM count, read on its first launch
 cudaError_t sm_count(int* n_sm) {
     static int sms[kMaxDev];  // 0 until read
@@ -530,6 +814,53 @@ int launch(const void* tail0, const void* tail1, int tail_ld, const void* x0,
     return (int)cudaGetLastError();
 }
 
+template <int L, int M, int K, int RPL, int CR, int R, int MINB>
+int launch_seq(const void* tail0, const void* tail1, int tail_ld,
+               const void* x0, const void* x1, const void* taps, void* y0,
+               void* y1, void* state, int C, int T, int planes,
+               cudaStream_t stream) {
+    constexpr int A = tap_rows(M, K);
+    static_assert(R >= 2 && CR >= 1 && RPL >= 1 && A >= 2, "instance");
+    const int n_pp = T / M;
+    int n_sm = 0;
+    cudaError_t e = sm_count(&n_sm);
+    if (e != cudaSuccess) return (int)e;
+    const long long smem =
+        seq_smem_words(L, M, K, RPL, CR, R) * (long long)sizeof(float);
+    auto* kernel = resample_seq_kernel<L, M, K, RPL, CR, R, MINB>;
+    if (smem > 48 * 1024 &&
+        (e = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+        return (int)e;
+    // the blocks an SM holds of this instance, read on its first launch
+    static int per_sm[kMaxDev];
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if (per_sm[dev] == 0 &&
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm[dev], kernel, 32 * L, (size_t)smem)) != cudaSuccess)
+        return (int)e;
+    const int held = per_sm[dev] > 0 ? per_sm[dev] : 1;
+    const long long n_groups = (C + 32 * RPL - 1) / (32 * RPL);
+    const int piece = seq_piece(n_groups * planes, n_pp, A - 1, CR,
+                                (long long)n_sm * held);
+    const long long n_pieces = n_pp > 0 ? (n_pp + piece - 1) / piece : 1;
+    const long long blocks = n_pieces * n_groups * planes;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    // 8-byte copies: x's rows and every chunk's start on even words
+    const bool pairs = T % 2 == 0 && (CR * M) % 2 == 0 &&
+                       ((long long)piece * M) % 2 == 0 && (K - 1) % 2 == 0 &&
+                       (size_t)x0 % 8 == 0 &&
+                       (planes == 1 || (size_t)x1 % 8 == 0);
+    kernel<<<(unsigned)blocks, 32 * L, (size_t)smem, stream>>>(
+        (const float*)tail0, (const float*)tail1, tail_ld, (const float*)x0,
+        (const float*)x1, (const float*)taps, (float*)y0, (float*)y1,
+        (float*)state, C, T, n_pp, piece, (int)n_pieces, (int)n_groups,
+        planes, pairs ? 1 : 0);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -544,6 +875,12 @@ long long resample_dec_smem_bytes(int L, int M, int K) {
                (long long)sizeof(float);
     QRL_DEC_INSTANCES(QRL_DEC_SMEM)
 #undef QRL_DEC_SMEM
+#define QRL_DEC_SEQ_SMEM(LL, MM, KK, QQ, CC, RR, BB)                       \
+    if (L == LL && M == MM && K == KK)                                      \
+        return seq_smem_words(LL, MM, KK, QQ, CC, RR) *                     \
+               (long long)sizeof(float);
+    QRL_DEC_SEQ_INSTANCES(QRL_DEC_SEQ_SMEM)
+#undef QRL_DEC_SEQ_SMEM
     return -1;
 }
 
@@ -567,6 +904,13 @@ int resample_dec_f32(const void* tail0, const void* tail1, int tail_ld,
             planes, s);
     QRL_DEC_INSTANCES(QRL_DEC_LAUNCH)
 #undef QRL_DEC_LAUNCH
+#define QRL_DEC_SEQ_LAUNCH(LL, MM, KK, QQ, CC, RR, BB)                     \
+    if (L == LL && M == MM && K == KK)                                      \
+        return launch_seq<LL, MM, KK, QQ, CC, RR, BB>(                      \
+            tail0, tail1, tail_ld, x0, x1, taps, y0, y1, state, C, T,       \
+            planes, s);
+    QRL_DEC_SEQ_INSTANCES(QRL_DEC_SEQ_LAUNCH)
+#undef QRL_DEC_SEQ_LAUNCH
     return (int)cudaErrorInvalidValue;
 }
 

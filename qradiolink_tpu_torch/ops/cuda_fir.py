@@ -23,7 +23,7 @@ phase:
 - `fir_long_f32`, the same loop over up to 4 segments of phase rows and
   column groups of 64, at D >= 32 and A 17-64, with at most 8 warps
   (groups x segments) a block: the NBFM/AM head (K 2239 D 50) and the SSB
-  head (K 5597 D 125);
+  head (K 5597 D 125) in every form but the resampler's (below);
 - `fir_cols_f32`, a stride-1 FIR over each phase column, register-blocked
   over outputs, at D 2-31 and A 17-64: the WBFM head (K 225 D 5) and the
   WBFM audio resampler (K 1121 D 25);
@@ -35,16 +35,17 @@ phase:
   lane, a systolic ring of accumulators) takes any shape whose taps and
   rings fit a block's shared memory (`fir_stream_smem_bytes`), and rows
   past the grid's 65,535.
-At the K2239 D50 head (NBFM's and AM's, the 2FSK/GMSK chains'),
-`route(K, D)` names `resample_dec_f32` (csrc/resample_dec.cu,
-ops/cuda_resample.py) at L 1: `fir_long_f32`'s segments, column groups
-and sum order, so the same bits, with each sample staged once for all
-segments; in turns it ran 2.03x `fir_long_f32` at 2048 rows and 1.37-2.75x
-at 1 to 64 rows (PERF.md), so no row count keeps `fir_long_f32`. It
+At the K2239 D50 head (NBFM's and AM's, the 2FSK/GMSK chains') and the
+SSB head K5597 D125 (`DEC_SHAPES`), `route(K, D)` names `resample_dec_f32`
+(csrc/resample_dec.cu, ops/cuda_resample.py) at L 1: `fir_long_f32`'s
+segments, column groups and sum order, so the same bits, with each sample
+staged once for all segments; in turns it ran 2.03x `fir_long_f32` at the
+K2239 head's 2048 rows and 1.37-2.75x at 1 to 64 rows, and 1.59-2.81x at
+SSB's 1 to 2048 rows (PERF.md), so no row count keeps `fir_long_f32`. It
 computes the resampler's form (a tail, shift 0, every output of a block
-of whole strides); other calls at that shape take the FIR kernels' route
-(`fir_route`, `stream_route`), and `RationalResampler._decimate` keeps
-its `next_tail` state: the launch writes none.
+of whole strides); other calls at those shapes take the FIR kernels'
+route (`fir_route`, `stream_route`), and `RationalResampler._decimate`
+keeps its `next_tail` state: the launch writes none.
 `fir_s1_f32` and `fir_stream_v0_f32` sum in the order of `fir_stream_f32`,
 so the three give equal bits; the polyphase kernels sum in other orders
 and are held to the FIR's bound. Every default `RationalResampler(1, M)`
@@ -96,9 +97,10 @@ COLS_D = (2, 31)
 # then take 22 KB of shared memory a block, which leaves room for several
 # blocks an SM (csrc/fir_s1.cu)
 S1_MAX_K = 2048
-# resample_dec_f32's strided-FIR shapes, (K, D): its L 1 instance in
-# csrc/resample_dec.cu (ops/cuda_resample.DEC_SHAPES)
-DEC_SHAPES = ((2239, 50),)
+# resample_dec_f32's strided-FIR shapes, (K, D): its L 1 instances in
+# csrc/resample_dec.cu (ops/cuda_resample.DEC_SHAPES), the K2239 D50 head
+# and SSB's K5597 D125 head
+DEC_SHAPES = ((2239, 50), (5597, 125))
 _GRID_Y_MAX = 65_535
 
 

@@ -17,7 +17,9 @@ Each kernel computes every phase, already interleaved, and the new state
 in one launch, reading the tail in place from the state. All but
 `resample_dec_f32` sum each output's taps in order from 0.0f, so their
 outputs are equal bit for bit; `resample_dec_f32` sums by polyphase
-columns and is held to the FIR's bound. One plane is real input (the new
+columns and is held to the FIR's bound, except at the instances of its
+taps-in-order form (`DEC_IN_ORDER`: the 2/25 K561 head), which keep
+`resample_poly_f32`'s bits. One plane is real input (the new
 state's second plane is zeros); two are the re and im planes of an
 IqPair. `route(L, M, K, rows)` picks the kernel: `resample_x2_f32`, both
 phases of 16 output times a thread, at L 2 M 1 (QpskMod's x2);
@@ -32,7 +34,9 @@ MMDVMmulti's RX 24/25 at K 53, DSSS's TX 50/13 at K 2);
 `resample_dec_f32`, the polyphase-column form with every phase's tap rows
 on a block's warps, at L >= 2, M >= 25 and the (L, M, K) it has an
 instance for (DMR's and M17's 3/125 heads, MMDVM's RX 12/125, the 2/25
-heads); `resample_poly_f32`, one output a lane, elsewhere (the NBFM audio
+heads; the 2/25 K561 head in its taps-in-order form, lanes walking rows,
+and at up to IN_ORDER_FEW_ROWS rows on `resample_poly_f32`);
+`resample_poly_f32`, one output a lane, elsewhere (the NBFM audio
 resampler 2/5, DSSS's RX 13/50). `resample_phases`, the per-phase route
 (one strided FIR a phase, then the interleave: DMR's head before
 `resample_dec_f32`), is on no route and stays as the alternative timed in
@@ -75,12 +79,26 @@ RAT_SHAPES = ((12, 51), (13, 2), (24, 51), (25, 53))
 # resample_dec_f32's shapes: from 2 phases and a decimation of 25, the
 # (L, M, K) with an instance in csrc/resample_dec.cu (seg_rows): DMR's and
 # M17's 3/125 heads, MMDVM's RX 12/125, the 2/25 heads of 4FSK10KFM and
-# 2FSK10K; and the K2239 D50 head at L 1 (GMSK2K's, 2FSK2K's, NBFM's,
-# AM's), which ops/cuda_fir.route gives it (L 1 is a strided FIR: that
-# module's DEC_SHAPES)
+# 2FSK10K (and GMSK10K); and at L 1 the K2239 D50 head (GMSK2K's, 2FSK2K's,
+# NBFM's, AM's) and SSB's K5597 D125 head, which ops/cuda_fir.route gives
+# it (L 1 is a strided FIR: that module's DEC_SHAPES)
 DEC_MIN_L, DEC_MIN_M = 2, 25
 DEC_SHAPES = ((3, 125, 2091), (3, 125, 349), (12, 125, 523), (2, 25, 105),
-              (2, 25, 561), (1, 50, 2239))
+              (2, 25, 561), (1, 50, 2239), (1, 125, 5597))
+# the instances of resample_dec_f32's taps-in-order form
+# (QRL_DEC_SEQ_INSTANCES): each output's taps added in order from 0.0f,
+# resample_poly_f32's bits. The 2/25 head of 2FSK10K and GMSK10K: the
+# column form's few-ulp differences from the CPU path there reached the
+# Viterbi's path metrics past their bound (scripts/gmsk10k_card_cpu.py)
+DEC_IN_ORDER = ((2, 25, 561),)
+# calls of at most IN_ORDER_FEW_ROWS rows at a taps-in-order instance go to
+# resample_poly_f32, the same bits and faster there: its lanes run one
+# output each, the form's walk their rows serially. The turns that set it
+# (scripts/resample_dec_shapes.py order; ms on an H100 80GB HBM3 at 700 W,
+# resample_poly_f32 against the form, 2 planes): 1 to 64 rows x 125,000
+# 0.0147-0.1985 against 0.1208-0.2071; 128 and 256 rows x 200,000 0.5968 /
+# 0.3580 and 1.1783 / 0.5865.
+IN_ORDER_FEW_ROWS = 64
 # calls of at most FEW_ROWS_MAX rows at M 1 and L up to FEW_ROWS_MAX_L go
 # to resample_poly_f32, whose one output a lane spreads a row over more
 # SMs. The turns that set them (scripts/resample_dec_shapes.py rows, ms on
@@ -178,8 +196,11 @@ def route(L: int, M: int, K: int, rows: int | None = None) -> str:
     (L, M, K) of DEC_SHAPES (DMR's 3/125 head, K2091, which ran
     fir_long_f32 once a phase, and M17's at K349, MMDVM's RX 12/125 and
     the 2/25 heads, which ran resample_poly_f32, whose lanes each run a
-    chain of K FMAs with two shared-memory loads apiece); resample_poly_f32
-    otherwise (the NBFM audio resampler 2/5, DSSS's RX 13/50).
+    chain of K FMAs with two shared-memory loads apiece), except at its
+    taps-in-order instances (DEC_IN_ORDER, the 2/25 K561 head) on calls of
+    at most IN_ORDER_FEW_ROWS rows, which take resample_poly_f32 (the same
+    bits, faster there in turns); resample_poly_f32 otherwise (the NBFM
+    audio resampler 2/5, DSSS's RX 13/50).
     resample_x2_f32, resample_up_f32 and resample_poly_f32 stage all L*K
     taps in one block, and the wrapper raises where they do not fit."""
     if (M == 1 and L <= FEW_ROWS_MAX_L and rows is not None
@@ -191,6 +212,9 @@ def route(L: int, M: int, K: int, rows: int | None = None) -> str:
         return UP_OP
     if RAT_MIN_L <= L <= RAT_MAX_L and (M, K) in RAT_SHAPES:
         return RAT_OP
+    if ((L, M, K) in DEC_IN_ORDER and rows is not None
+            and rows <= IN_ORDER_FEW_ROWS):
+        return OP
     if L >= DEC_MIN_L and M >= DEC_MIN_M and (L, M, K) in DEC_SHAPES:
         return DEC_OP
     return OP

@@ -5,6 +5,7 @@ chip_smoke.py times resample_dec_f32 at the paths' shapes.
     python scripts/resample_dec_shapes.py            # check, rows, head
     python scripts/resample_dec_shapes.py check      # the checks alone
     python scripts/resample_dec_shapes.py head       # the head's rows alone
+    python scripts/resample_dec_shapes.py order      # the in-order rows
 
 `check`: ptxas's registers and spills for csrc/resample_dec.cu's
 instances, then each instance with its chain's taps (the RX heads of
@@ -21,10 +22,17 @@ and 256 rows, in turns on resample_poly_f32 and the kernel the route gives
 many rows, with F.conv1d and an empty launch beside: the turns that set
 cuda_resample.FEW_ROWS_MAX and FEW_ROWS_MAX_L.
 
-`head`: the K2239 D50 head at L 1 (GMSK2K's taps, 2 planes, 100,000
-samples a row) at 1, 2, 4, 8, 16, 32 and 64 rows on fir_long_f32 and
-resample_dec_f32, bit-equal, in turns: the turns behind cuda_fir.route
-giving that head resample_dec_f32 at every row count.
+`head`: the L 1 heads on fir_long_f32 and resample_dec_f32, bit-equal,
+in turns, 2 planes: K2239 D50 (GMSK2K's taps, 100,000 samples a row) at
+1, 2, 4, 8, 16, 32 and 64 rows; K5597 D125 (SSB's, 200,000 samples a
+row) at 2048 rows (the SSB path), 256 (the sweep's USB and LSB), 16 and
+1 (one radio's block): the turns behind cuda_fir.route giving those
+heads resample_dec_f32 at every row count.
+
+`order`: the taps-in-order instances (cuda_resample.DEC_IN_ORDER, the
+2/25 K561 head of 2FSK10K and GMSK10K) at 1 to 256 rows on
+resample_dec_f32 and resample_poly_f32, bit-equal, in turns: the turns
+behind cuda_resample.route's row rule there.
 
 The card's name and power limit come first.
 """
@@ -49,7 +57,8 @@ from qradiolink_tpu_torch.utils import kernels  # noqa: E402
 DEC = cuda_resample.DEC_OP
 HEADS = {(3, 125, 2091): "DMR", (3, 125, 349): "M17",
          (12, 125, 523): "MMDVM", (2, 25, 105): "4FSK10KFM",
-         (2, 25, 561): "2FSK10K", (1, 50, 2239): "GMSK2K"}
+         (2, 25, 561): "2FSK10K", (1, 50, 2239): "GMSK2K",
+         (1, 125, 5597): "USB"}
 
 
 def head_taps(shape, dev):
@@ -163,12 +172,21 @@ def rows_sweep(dev, gen):
             torch.cuda.empty_cache()
 
 
+# the L 1 heads' row counts: (K, M): (input samples a row, rows)
+HEAD_ROWS = {(2239, 50): (100_000, (1, 2, 4, 8, 16, 32, 64)),
+             (5597, 125): (200_000, (2048, 256, 16, 1))}
+
+
 def head_rows(dev, gen):
+    for (K, M), (T, counts) in HEAD_ROWS.items():
+        head_rows_of(K, M, T, counts, dev, gen)
+
+
+def head_rows_of(K, M, T, counts, dev, gen):
     from qradiolink_tpu_torch.ops import cuda_fir
 
-    K, M, T = 2239, 50, 100_000
     tf = head_taps((1, M, K), dev)[0]
-    for rows in (1, 2, 4, 8, 16, 32, 64):
+    for rows in counts:
         xs = planes_of(rows, T, 2, gen, dev)
         st = torch.randn((rows, 2, K - 1), generator=gen, device=dev)
         tails = (st[:, 0], st[:, 1])
@@ -184,9 +202,40 @@ def head_rows(dev, gen):
         win = min(ms, key=ms.get)
         print(f"head K{K} D{M} 2x{rows}x{T}: " + ", ".join(
             f"{op} {t:.4f}" for op, t in ms.items()) + f"; faster: {win}; "
-            f"route(rows={rows}) {cuda_fir.route(K, M, rows)}", flush=True)
+            f"route {cuda_fir.route(K, M)}", flush=True)
         del xs, st, tails, outs
         torch.cuda.empty_cache()
+
+
+def in_order_rows(dev, gen):
+    """The taps-in-order instances (cuda_resample.DEC_IN_ORDER: the 2/25
+    K561 head) at 1 to 256 rows, 2 planes, on resample_dec_f32 and
+    resample_poly_f32, bit-equal, in turns: the turns behind
+    cuda_resample.route's row rule there."""
+    for L, M, K in cuda_resample.DEC_IN_ORDER:
+        taps = head_taps((L, M, K), dev)
+        for rows in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            T = 125_000 if rows <= 64 else 200_000
+            xs = planes_of(rows, T, 2, gen, dev)
+            st = torch.randn((rows, 2, K - 1), generator=gen, device=dev)
+            tails = (st[:, 0], st[:, 1])
+            fns = {op: (lambda op=op: cuda_resample.launch(op, xs, taps, L,
+                                                           M, tails))
+                   for op in (cuda_resample.OP, DEC)}
+            outs = {op: fn() for op, fn in fns.items()}
+            a, b = outs[DEC], outs[cuda_resample.OP]
+            if not (torch.equal(a[0], b[0]) and all(
+                    torch.equal(u, v) for u, v in zip(a[1], b[1]))):
+                raise RuntimeError(f"L{L} M{M} K{K} at {rows} rows: {DEC} "
+                                   f"is not bit-equal to {cuda_resample.OP}")
+            ms, _ = turns_ms(fns)
+            win = min(ms, key=ms.get)
+            print(f"in order L{L} M{M} K{K} 2x{rows}x{T}: " + ", ".join(
+                f"{op} {t:.4f}" for op, t in ms.items()) + f"; faster: "
+                f"{win}; route {cuda_resample.route(L, M, K, rows)}",
+                flush=True)
+            del xs, st, tails, outs, a, b
+            torch.cuda.empty_cache()
 
 
 def main(argv):
@@ -204,12 +253,14 @@ def main(argv):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    if argv[1:] != ["head"]:
+    if argv[1:] not in (["head"], ["order"]):
         check(dev, gen)
     if argv[1:] in ([], ["rows"]):
         rows_sweep(dev, gen)
     if argv[1:] in ([], ["head"]):
         head_rows(dev, gen)
+    if argv[1:] in ([], ["order"]):
+        in_order_rows(dev, gen)
     return 0
 
 

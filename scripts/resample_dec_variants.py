@@ -13,12 +13,19 @@ Each SPEC is a comma-separated list of items:
                         chunk buffers, B blocks an SM for its launch
                         bounds and piece rule P (0 blocks an SM, 1 whole
                         waves)
+    L/M/K:RPL/CR/R/B    the instance of QRL_DEC_SEQ_INSTANCES (the
+                        taps-in-order form) with RPL rows a lane, CR rows
+                        of M a chunk, R chunk buffers, B blocks an SM
     full-rows           every warp runs AS rows, none the short body
     src=PATH            another source (a path in the repo, for example an
                         earlier design unpacked under build/) in place of
                         csrc/resample_dec.cu, for the items after it
     ablate-PART         PART of the design taken away (PATCHES: lanesum,
-                        barrier, stage, finish): timed, not checked
+                        barrier, stage, finish; the taps-in-order form's
+                        seq-taps, seq-stage, seq-store, seq-shift): timed,
+                        not checked
+    seq-unroll          the taps-in-order form's column loops unrolled
+                        whole
 
 The empty SPEC "-" is the source as it stands. --shapes=A,B times only
 the SHAPES whose names contain A or B. --sass prints, for each variant's
@@ -32,7 +39,9 @@ build/resample_dec_variants/. At the kernel's path shapes (SHAPES, 2
 planes, the chains' taps) each variant's outputs must lie within the FIR's
 bound of resample_poly_plain (chip_smoke.check_fir) and its state equal
 it; the variants are then timed in turns (a, b, ..., b, a; device times by
-CUDA events, chip_smoke.py's timer). Prints the card's name and power
+CUDA events, chip_smoke.py's timer), at the L 1 heads with fir_long_f32,
+which they ran on before, among them, and at the taps-in-order instances
+resample_poly_f32, whose bits they keep (each variant's equality printed). Prints the card's name and power
 limit first, each variant's ptxas lines and each median with the SM
 clock nvidia-smi sampled over the shape's turns. Needs one CUDA card and
 nvcc.
@@ -51,7 +60,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from chip_smoke import check_fir, turns_ms  # noqa: E402
-from qradiolink_tpu_torch.ops import cuda_resample  # noqa: E402
+from qradiolink_tpu_torch.ops import cuda_fir, cuda_resample  # noqa: E402
 from qradiolink_tpu_torch.utils import kernels  # noqa: E402
 from scripts.loop_chain_floor import sampled  # noqa: E402
 from scripts.resample_dec_shapes import head_taps  # noqa: E402
@@ -65,8 +74,11 @@ SHAPES = {
     "MMDVM RX, headless block": ((12, 125, 523), 1, 30_000),
     "4FSK10KFM head (256 rows)": ((2, 25, 105), 256, 200_000),
     "2FSK10K head (256 rows)": ((2, 25, 561), 256, 200_000),
+    "2FSK10K head (2 rows)": ((2, 25, 561), 2, 10_000),
+    "2FSK10K head (1 row)": ((2, 25, 561), 1, 125_000),
     "GMSK2K head (L 1)": ((1, 50, 2239), 2048, 200_000),
     "2FSK2K head (L 1, 256 rows)": ((1, 50, 2239), 256, 1_000_000),
+    "SSB head (L 1)": ((1, 125, 5597), 2048, 200_000),
 }
 
 _SHORTEN = ("constexpr bool shorten = tap_rows(M, K) - (S - 1) * AS < AS "
@@ -84,6 +96,27 @@ PATCHES = {
     "ablate-finish": [("if (j > 0) finish(j - 1);", ";")],
     # L and S at run time at L 1 too
     "runtime-ls": [("L == 1 ? L : 0, L == 1 ? S : 0>;", "0, 0>;")],
+    # the taps-in-order form: its columns' loops unrolled whole
+    "seq-unroll": [("#pragma unroll 5\n            for (int c = 0; c < KL",
+                    "#pragma unroll\n            for (int c = 0; c < KL"),
+                   ("#pragma unroll 5\n            for (int c = KL; c < M",
+                    "#pragma unroll\n            for (int c = KL; c < M")],
+    # its ablations, timed only: no tap loads (taps of 1); no staging after
+    # the first chunks; no stores (kept live by a test that never holds);
+    # the slots not moved up
+    "ablate-seq-taps": [
+        ("const float4 h = reinterpret_cast<const float4*>(tc)[a4];",
+         "const float4 h = make_float4(1.0f, 1.0f, 1.0f, 1.0f);")],
+    "ablate-seq-stage": [("if (j + R - 1 < n_c) stage(j + R - 1);\n"
+                          "        cp_async_commit();\n        const float* b",
+                          "cp_async_commit();\n        const float* b")],
+    "ablate-seq-store": [("            if (t >= t_lo && t < t_hi) {\n"
+                          "#pragma unroll\n                for (int q = 0; q < RPL",
+                          "            if (t >= t_lo && t < t_hi && "
+                          "acc[0][A - 1] == 12345.5f) {\n#pragma unroll\n"
+                          "                for (int q = 0; q < RPL")],
+    "ablate-seq-shift": [("for (int a = A - 1; a > 0; --a) acc[q][a] = "
+                          "acc[q][a - 1];", ";")],
 }
 
 
@@ -95,7 +128,7 @@ def variant_source(spec: str) -> str:
         elif ":" in item:
             lmk, params = item.split(":")
             L, M, K = lmk.split("/")
-            pat = re.compile(rf"X\({L}, {M}, {K}(, \d+){{5}}\)")
+            pat = re.compile(rf"X\({L}, {M}, {K}(, \d+)+\)")
             if len(pat.findall(src)) != 1:
                 raise RuntimeError(f"no single instance {lmk}")
             src = pat.sub(f"X({L}, {M}, {K}, " + ", ".join(
@@ -207,6 +240,27 @@ def main(argv) -> int:
                 if not torch.equal(state, p_state):
                     raise RuntimeError(f"{spec} at {name}: state differs")
             fns[spec] = (lambda lib=lib: call(lib, xs, taps, L, M, tails))
+        if (L, M, K) in cuda_resample.DEC_IN_ORDER:
+            # the kernel whose sum order the taps-in-order form keeps:
+            # each variant's bits compared, and it joins the turns
+            want = cuda_resample.launch(cuda_resample.OP, xs, taps, L, M,
+                                        tails)
+            for spec, lib in libs.items():
+                got = call(lib, xs, taps, L, M, tails)
+                same = all(torch.equal(a, b) for a, b in
+                           zip((got[0], *got[1]), (want[0], *want[1])))
+                print(f"  {spec} at {name}: bit-equal to "
+                      f"{cuda_resample.OP}: {same}", flush=True)
+            fns[cuda_resample.OP] = (lambda: cuda_resample.launch(
+                cuda_resample.OP, xs, taps, L, M, tails))
+            del want, got
+        if L == 1:
+            # the strided FIR kernel the L 1 heads ran before
+            tf, n_out = taps[0], T // M
+            ys = cuda_fir.fir_long(xs, tf, M, n_out, tails)
+            check_fir(f"{cuda_fir.LONG_OP} at {name}", ys, p_ys)
+            fns[cuda_fir.LONG_OP] = (lambda: cuda_fir.fir_long(
+                xs, tf, M, n_out, tails))
         del p_ys, p_state, ys, state
         (ms, _), mhz = sampled(lambda: turns_ms(fns))
         print(f"{name} L{L} M{M} K{K} 2x{C}x{T}: " + ", ".join(

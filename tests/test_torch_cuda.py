@@ -272,7 +272,8 @@ def test_fir_long_nbfm_head_two_chained_blocks(cuda, gen):
 def test_fir_long_ssb_head_two_chained_blocks(cuda, gen):
     """The SSB resampler head (K 5597, D 125: two column groups) as the
     chain runs it: two blocks of IqPair input, the tails strided views of
-    the (C, 2, 5596) state."""
+    the (C, 2, 5596) state; one launch of the routed kernel a block
+    (resample_dec_f32 at L 1, which took the shape from fir_long_f32)."""
     rs = SsbDemod(lead_shape=(16,), device=cuda).resamp
     C, T, k1 = 16, 200_000, rs.kp - 1
     assert (k1, rs.M) == (5596, 125)
@@ -282,9 +283,10 @@ def test_fir_long_ssb_head_two_chained_blocks(cuda, gen):
                    torch.randn((C, T), generator=gen, device=cuda))
         kernel_paths.reset()
         new_state, y = rs(state, x)
-        assert kernel_paths.report()["fir_long_f32"]["shapes"] == {
+        assert kernel_paths.report()[route(rs.kp, rs.M)]["shapes"] == {
             f"cuda K{rs.kp} D{rs.M} tail 2x{C}": 1}
         assert kernel_paths.launches("fir_stream_f32") == 0
+        assert kernel_paths.launches("fir_long_f32") == 0
         ref = fir_stream_plain((x.re, x.im), rs.phase_taps[0], rs.M,
                                T // rs.M, tails=(state[:, 0], state[:, 1]))
         _assert_fir_close((y.re, y.im), ref)
@@ -1818,10 +1820,12 @@ def test_fsk4_head_matches_plain(cuda, gen, kind):
 
 
 # resample_dec_f32's instances: (L, M, K) -> the registry mode whose RX
-# head it is (GMSK2K's L 1 is launched directly: no route gives it)
+# head it is (the L 1 heads, GMSK2K's and USB's, are launched directly: no
+# resampler route gives them)
 DEC_HEADS = {(3, 125, 2091): "DMR", (3, 125, 349): "M17",
              (12, 125, 523): "MMDVM", (2, 25, 105): "4FSK10KFM",
-             (2, 25, 561): "2FSK10K", (1, 50, 2239): "GMSK2K"}
+             (2, 25, 561): "2FSK10K", (1, 50, 2239): "GMSK2K",
+             (1, 125, 5597): "USB"}
 
 
 def _dec_head(shape, cuda):
@@ -1840,7 +1844,9 @@ def test_resample_dec_matches_plain(cuda, gen, shape, rows, n_pp, planes):
     n_pp output times (7: a block shorter than the state at K2091 and
     K2239): outputs within 1e-5 of the plain version, the new state (zeros
     in the im plane of one plane) equal to it; through resample_poly one
-    resample_dec_f32 launch a block at the L > 1 shapes."""
+    resample_dec_f32 launch a block at the L > 1 shapes (the taps-in-order
+    instance launched directly: at these rows the route gives
+    resample_poly_f32)."""
     L, M, K = shape
     rs = _dec_head(shape, cuda)
     state = torch.randn((rows, 2, K - 1), generator=gen, device=cuda)
@@ -1849,7 +1855,7 @@ def test_resample_dec_matches_plain(cuda, gen, shape, rows, n_pp, planes):
               for _ in range(planes)]
         tails = (state[:, 0], state[:, 1])[:planes]
         kernel_paths.reset()
-        if L > 1:
+        if L > 1 and shape not in cuda_resample.DEC_IN_ORDER:
             assert cuda_resample.route(L, M, K, rows) == \
                 cuda_resample.DEC_OP
             new_state, got = resample_poly(xs, rs.poly_taps, L, M, tails)
@@ -1899,6 +1905,40 @@ def test_resample_dec_reads_tails_in_place(cuda, gen, shape):
     assert torch.equal(st0, state) and ys0[0].shape == (C, 0)
 
 
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("rows,n_pp,offset", [
+    (2, 400, 0),      # the GMSK10K card test's blocks
+    (37, 333, 1),     # ragged rows, x one word off: the 4-byte copies
+    (256, 2000, 0),   # the sweep's rows
+    (1, 5000, 0),     # one radio's block
+    (3, 2, 0)])       # a block shorter than the state
+def test_resample_dec_in_tap_order_equals_resample_poly(cuda, gen, rows,
+                                                         n_pp, offset,
+                                                         planes):
+    """The taps-in-order instance (the 2/25 K561 head of 2FSK10K and
+    GMSK10K) over two chained blocks: its outputs and new state equal
+    resample_poly_f32's bit for bit (both add each output's taps in order
+    from 0.0f, as the CPU path's F.conv1d gives them there)."""
+    L, M, K = 2, 25, 561
+    rs = _dec_head((L, M, K), cuda)
+    state = torch.randn((rows, 2, K - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        xs = []
+        for _ in range(planes):
+            buf = torch.randn((rows * n_pp * M + offset,), generator=gen,
+                              device=cuda)
+            xs.append(buf[offset:].view(rows, n_pp * M))
+        tails = (state[:, 0], state[:, 1])[:planes]
+        got = cuda_resample.launch(cuda_resample.DEC_OP, xs, rs.poly_taps,
+                                   L, M, tails)
+        want = cuda_resample.launch(cuda_resample.OP, xs, rs.poly_taps, L,
+                                    M, tails)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        state = got[0]
+
+
 def test_resample_dec_raises_without_an_instance(cuda):
     """No fallback: a launch of resample_dec_f32 at an (L, M, K) it has no
     instance for raises; the route never sends one there."""
@@ -1944,6 +1984,39 @@ def test_k2239_head_routed_equals_fir_long(cuda, gen, rows, T):
     rs = registry.rx_chain("GMSK2K", lead_shape=(rows,), device=cuda).resamp
     K, D = rs.kp, rs.M
     assert (rs.L, K, D) == (1, 2239, 50)
+    assert cuda_fir.route(K, D) == cuda_fir.DEC_OP
+    state = torch.randn((rows, 2, K - 1), generator=gen, device=cuda)
+    for _ in range(2):
+        x = IqPair(torch.randn((rows, T), generator=gen, device=cuda),
+                   torch.randn((rows, T), generator=gen, device=cuda))
+        kernel_paths.reset()
+        new_state, y = rs(state, x)
+        assert kernel_paths.report() == {cuda_fir.DEC_OP: {
+            "cuda": 1, "plain": 0,
+            "shapes": {f"cuda K{K} D{D} tail 2x{rows}": 1}}}
+        want = cuda_fir.fir_long((x.re, x.im), rs.phase_taps[0], D, T // D,
+                                 tails=(state[:, 0], state[:, 1]))
+        assert torch.equal(y.re, want[0]) and torch.equal(y.im, want[1])
+        assert torch.equal(new_state, torch.stack(
+            [x.re[:, -(K - 1):], x.im[:, -(K - 1):]], dim=-2))
+        state = new_state
+
+
+@pytest.mark.parametrize("rows,T", [(2048, 20_000), (256, 200_000),
+                                    (16, 200_000), (1, 200_125)])
+def test_k5597_head_routed_equals_fir_long(cuda, gen, rows, T):
+    """SSB's K5597 D125 head as USB's chain runs it (its RationalResampler
+    (1, 125) from the registry, IqPair blocks, the tails strided views of
+    its state) over two chained blocks, at the SSB path's rows, the
+    sweep's, 16 and one radio's (a ragged last chunk): one launch of the
+    routed resample_dec_f32 a block, its outputs bit-equal to
+    fir_long_f32's on the same inputs and tails, the new state [tail |
+    x]'s last K-1 samples."""
+    from qradiolink_tpu_torch.models import registry
+
+    rs = registry.rx_chain("USB", lead_shape=(rows,), device=cuda).resamp
+    K, D = rs.kp, rs.M
+    assert (rs.L, K, D) == (1, 5597, 125)
     assert cuda_fir.route(K, D) == cuda_fir.DEC_OP
     state = torch.randn((rows, 2, K - 1), generator=gen, device=cuda)
     for _ in range(2):

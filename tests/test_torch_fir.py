@@ -340,10 +340,10 @@ def test_decim_model_matches_plain(rng, name):
     ("K3200 D50", "fir_long_f32"),
     ("K3201 D50", "fir_stream_f32"),
     ("K113 D5", "fir_cols_f32"),
-    ("ssb head K5597 D125", "fir_long_f32"),
+    ("ssb head K5597 D125", "resample_dec_f32"),
     ("wbfm head K225 D5", "fir_cols_f32"),
     ("wbfm audio resampler K1121 D25", "fir_cols_f32"),
-    ("K5597 D125", "fir_long_f32"),
+    ("K5597 D125", "resample_dec_f32"),
     ("K225 D5", "fir_cols_f32"),
     ("K1121 D25", "fir_cols_f32"),
     ("K1984 D31", "fir_cols_f32"),
@@ -357,9 +357,10 @@ def test_decim_model_matches_plain(rng, name):
 def test_fir_route_recorded_on_cpu(stage, want):
     """On CPU tensors each stage records `plain` under the kernel its shape
     routes to: the 4FSK head (16 taps a phase at most) under fir_decim_f32;
-    the NBFM head (K2239 D50) under resample_dec_f32 at L 1; at 17 to 64
-    taps a phase the SSB head (D 125) and the other D 32-64 shapes under
-    fir_long_f32 (up to 8 warps of column groups x segments) and the WBFM
+    the NBFM head (K2239 D50) and the SSB head (K5597 D125) under
+    resample_dec_f32 at L 1; at 17 to 64 taps a phase the other D 32-64
+    shapes under fir_long_f32 (up to 8 warps of column groups x segments)
+    and the WBFM
     head and audio resampler (D 5, 25; the resampler on real input) under
     fir_cols_f32 (D 2-31); the stride-1 filters of up to 2,048 taps under
     fir_s1_f32, the NBFM audio resampler (L 2, every phase in one call)
@@ -444,6 +445,43 @@ def test_fir_route_k2239_d50_by_rows(rows, form, want):
     assert kernel_paths.report() == {want: {
         "cuda": 0, "plain": 1, "shapes": {f"plain K{K} D{D} tail 2x{rows}":
                                           1}}}
+
+
+@pytest.mark.parametrize("rows,form,want", [
+    (2048, "stream", "resample_dec_f32"),   # the SSB path's head
+    (256, "stream", "resample_dec_f32"),    # the sweep's USB and LSB
+    (16, "stream", "resample_dec_f32"),
+    (1, "stream", "resample_dec_f32"),      # one radio's
+    (2048, "shift", "fir_long_f32"),        # not the resampler's form
+    (2048, "no_tail", "fir_long_f32"),
+    (2048, "short", "fir_long_f32")])
+def test_fir_route_k5597_d125_by_rows(rows, form, want):
+    """SSB's K5597 D125 head: resample_dec_f32 at L 1 at every row count in
+    the resampler's form (a tail, shift 0, every output of the block), the
+    FIR kernels' route (fir_long_f32) for other calls at that shape; a
+    RationalResampler(1, 125) on the CPU records the routed kernel's plain
+    version once a block at its key."""
+    from qradiolink_tpu_torch.ops import cuda_fir
+
+    K, D, T = 5597, 125, 4 * 125
+    n_out = {"shift": 3, "short": 3}.get(form, 4)
+    tails = None if form == "no_tail" else (torch.zeros(rows, K - 1),)
+    assert cuda_fir.stream_route(K, D, T, n_out, tails,
+                                 3 if form == "shift" else 0) == want
+    assert cuda_fir.route(K, D) == "resample_dec_f32"
+    assert cuda_fir.fir_route(K, D) == "fir_long_f32"
+    if form != "stream":
+        return
+    rs = RationalResampler(1, 125, lead_shape=(rows,), device="cpu")
+    assert (rs.kp, rs.M) == (K, D)
+    state = rs.init_state()
+    for _ in range(2):
+        x = torch.zeros(rows, T)
+        kernel_paths.reset()
+        state, _ = rs(state, IqPair(x, x))
+        assert kernel_paths.report() == {want: {
+            "cuda": 0, "plain": 1,
+            "shapes": {f"plain K{K} D{D} tail 2x{rows}": 1}}}
 
 
 @pytest.mark.parametrize("K,D,want", [

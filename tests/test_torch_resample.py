@@ -1021,18 +1021,37 @@ DEC_TILE, DEC_MAX_WARPS = 32, 16
 DEC_TILE_STRIDE, DEC_OUT_RING, DEC_RULE_BLOCKS = 36, 128, 4
 # the instances, (L, M, K): (tap rows a segment, columns a lane, chunk
 # buffers, blocks an SM the registers must allow, the chain whose RX head
-# it is, its block's output times a row at the path's shape); GMSK2K's L 1
-# is timed by chip_smoke.py and routed nowhere
+# it is, its block's output times a row at the path's shape); the L 1
+# instances, the K2239 D50 head (GMSK2K's) and SSB's K5597 D125 head (USB's),
+# are the strided FIR's (ops/cuda_fir.route), which no resampler route names
 DEC_CASES = {(3, 125, 2091): (9, 2, 3, 2, "DMR", 1600),
              (3, 125, 349): (3, 4, 3, 2, "M17", 1600),
              (12, 125, 523): (5, 4, 3, 2, "MMDVM", 2000),
              (2, 25, 105): (5, 1, 4, 8, "4FSK10KFM", 8000),
-             (2, 25, 561): (12, 1, 4, 4, "2FSK10K", 8000),
-             (1, 50, 2239): (15, 2, 4, 4, "GMSK2K", 4000)}
+             (1, 50, 2239): (15, 2, 4, 4, "GMSK2K", 4000),
+             (1, 125, 5597): (15, 2, 3, 2, "USB", 1600)}
 # the instances whose pieces the waves rule picks (piece_waves), the
 # others' piece_len; and the most pieces a row-plane it tries
-DEC_WAVES = {(1, 50, 2239)}
+DEC_WAVES = {(1, 50, 2239), (1, 125, 5597)}
 DEC_MAX_PIECES = 64
+# the taps-in-order instances (QRL_DEC_SEQ_INSTANCES), (L, M, K): (rows a
+# lane, rows of M a chunk, chunk buffers, blocks an SM the registers must
+# allow, the chain whose RX head it is, its block's output times a row at
+# the path's shape): the 2/25 head of 2FSK10K and GMSK10K, whose card run
+# must keep the CPU path's bits (tests/test_torch_cuda.py
+# test_new_mode_on_card_matches_cpu[GMSK10K])
+SEQ_CASES = {(2, 25, 561): (1, 4, 2, 8, "2FSK10K", 8000)}
+SEQ_MAX_PIECES = 256
+# seq_piece at the 2/25 head's shapes: (rows, n_pp, slots, piece, pieces)
+# at 6 blocks an SM (the form's 33,984 bytes of shared memory a block)
+SEQ_PIECE_CASES = [
+    (256, 8000, 792, 164, 49),    # the sweep's 2FSK10K / GMSK10K
+    (2048, 8000, 792, 1334, 6),   # 2048 rows: 64 groups x 2 planes
+    (2, 400, 792, 2, 200),        # the card test's 2 rows: one wave
+    (1, 5000, 792, 22, 228),      # one radio's 125,000-sample block
+    (4, 0, 792, 1, 1)]            # no output
+# every instance of resample_dec_f32, either form
+DEC_ALL = {**DEC_CASES, **SEQ_CASES}
 
 
 def dec_layout(L, M, K):
@@ -1115,7 +1134,10 @@ def dec_model(xs, taps, L, M, tails, piece=None):
     after the next barrier the block adds each finished (output, phase)'s
     G S partials in order w = g S + s. Vectorised over rows and lanes.
     Returns (state (C, 2, K-1), outputs (planes, C, n)), asserting that
-    every output is written once and no NaN word is read."""
+    every output is written once and no NaN word is read. The
+    taps-in-order instances (SEQ_CASES) are seq_model's."""
+    if (L, M, taps.shape[1]) in SEQ_CASES:
+        return seq_model(xs, taps, L, M, tails, piece)
     planes, (C, T), K = len(xs), xs[0].shape, taps.shape[1]
     k1, n_pp = K - 1, T // M
     AS, CW, S, G, WP, W = dec_layout(L, M, K)
@@ -1207,10 +1229,152 @@ def dec_model(xs, taps, L, M, tails, piece=None):
     return state, y
 
 
+def seq_words(L, M, CR):
+    """Words a row of a chunk of the taps-in-order form: CR rows of M and
+    the q_max samples phase L-1 reads past them."""
+    return CR * M + (L - 1) * M // L
+
+
+def seq_stride(L, M, CR):
+    """A chunk buffer's row stride: the least 2 x odd >= seq_words."""
+    return ((seq_words(L, M, CR) + 1) // 2 | 1) * 2
+
+
+def seq_taps(taps, M):
+    """The taps-in-order form's transposed taps in shared memory, (L, M,
+    AP): [r, c, a] = tf_r[a M + c], zero past K, AP = A padded to whole
+    float4s."""
+    L, K = taps.shape
+    A = -(-K // M)
+    AP = -(-A // 4) * 4
+    a = np.arange(AP)[None, :]
+    c = np.arange(M)[:, None]
+    u = a * M + c
+    ok = (a < A) & (u < K)
+    return np.where(ok[None], taps[:, np.clip(u, 0, K - 1)], np.float32(0))
+
+
+def seq_slot_taps(M, K):
+    """The taps-in-order form's (slot, column) -> tap index table, (A, M):
+    [a, c] = a M + c, -1 where no tap meets (slot A - 1 past K)."""
+    A = -(-K // M)
+    u = np.arange(A)[:, None] * M + np.arange(M)[None, :]
+    return np.where(u < K, u, -1)
+
+
+def seq_piece(units, n_pp, a_last, CR, slots):
+    """The taps-in-order form's output times a block (seq_piece): of the
+    piece counts, the one that least costs waves of `slots` blocks times
+    the rows a block walks (its piece and a_last rows, in chunks of CR);
+    pieces whole multiples of 2; the fewest pieces on a tie."""
+    if n_pp <= 0:
+        return 1
+    best, best_piece = None, n_pp
+    for p in range(1, min(n_pp, SEQ_MAX_PIECES) + 1):
+        piece = min(n_pp, -(-(-(-n_pp // p)) // 2) * 2)
+        pieces = -(-n_pp // piece)
+        cost = -(-units * pieces // slots) * -(-(piece + a_last) // CR)
+        if best is None or cost < best:
+            best, best_piece = cost, piece
+    return best_piece
+
+
+def seq_model(xs, taps, L, M, tails, piece=None):
+    """resample_dec_f32's taps-in-order form in numpy, float32 (each
+    product rounded before its add: the card fuses them). Block (piece,
+    group of 32 RPL rows, plane) stages chunk j (CR rows of M from row
+    t_lo + j CR, seq_words per row; zeros past K-1+T, NaN in the rest of
+    the buffer) into buffer j mod R: chunks 0 .. R - 2 first, chunk j + R
+    - 1 after the barrier of chunk j. Warp r walks the rows m of its piece
+    and the A - 1 after it, keeping A slots (slot a: output m - a, at tap
+    row a): column c of row m, the sample xc[m M + q_r + c], meets tap
+    tf_r[a M + c] of each slot a (seq_slot_taps; the last only for c < K -
+    (A-1) M); after the
+    row slot A - 1 is output m - (A - 1), stored if it is in the piece,
+    and the slots move up, slot 0 from 0. Asserts that every stored output
+    added taps 0 .. K-1 once each, in order, that each output is written
+    once and that no NaN word is read. Vectorised over rows. Returns
+    (state (C, 2, K-1), outputs (planes, C, n))."""
+    planes, (C, T), K = len(xs), xs[0].shape, taps.shape[1]
+    RPL, CR, R, B, _, _ = SEQ_CASES[(L, M, K)]
+    k1, n_pp = K - 1, T // M
+    A = -(-K // M)
+    KL = K - (A - 1) * M
+    W, RS = seq_words(L, M, CR), seq_stride(L, M, CR)
+    assert RS >= W and RS % 2 == 0 and (RS // 2) % 2 == 1
+    st_tab = seq_slot_taps(M, K)
+    tt = seq_taps(taps, M)
+    n_groups = -(-C // (32 * RPL))
+    if piece is None:
+        piece = seq_piece(n_groups * planes, n_pp, A - 1, CR, H100_SMS * B)
+    n_pieces = -(-n_pp // piece) if n_pp else 1
+    y = np.full((planes, C, n_pp * L), np.nan, np.float32)
+    state = np.full((C, 2, k1), np.nan, np.float32)
+    for p in range(planes):
+        xc = np.concatenate([tails[p], xs[p]], axis=1)
+        n_in = k1 + T
+        state[:, p] = xc[:, T:]
+        if planes == 1:
+            state[:, 1] = 0.0
+        for pc in range(n_pieces):
+            t_lo = pc * piece
+            if t_lo >= n_pp:
+                continue
+            t_hi = min(n_pp, t_lo + piece)
+            n_c = -(-(t_hi - t_lo + A - 1) // CR)
+            bufs = [np.full((C, RS), np.nan, np.float32) for _ in range(R)]
+
+            def stage(j):
+                v = t_lo * M + j * CR * M + np.arange(W)
+                bufs[j % R][:, :W] = np.where(
+                    v < n_in, xc[:, np.clip(v, 0, n_in - 1)],
+                    np.float32(0.0))
+
+            for j in range(R - 1):
+                if j < n_c:
+                    stage(j)
+            acc = np.zeros((L, C, A), np.float32)
+            # each slot's next tap, -1 for the slots of outputs before t_lo
+            nxt = np.full((L, A), -1, np.int64)
+            nxt[:, 0] = 0
+            for j in range(n_c):
+                if j + R - 1 < n_c:
+                    stage(j + R - 1)
+                buf = bufs[j % R]
+                for r in range(L):
+                    q = r * M // L
+                    for k in range(CR):
+                        m = t_lo + j * CR + k
+                        for c in range(M):
+                            xv = buf[:, k * M + q + c]
+                            assert not np.isnan(xv).any()
+                            na = A if c < KL else A - 1
+                            u = st_tab[:na, c]
+                            assert (u >= 0).all()
+                            h = tt[r, c, :na]
+                            assert np.array_equal(h, taps[r, u])
+                            acc[r, :, :na] += h[None, :] * xv[:, None]
+                            live = nxt[r, :na] >= 0
+                            assert (nxt[r, :na][live] ==
+                                    (np.arange(na) * M + c)[live]).all()
+                            nxt[r, :na][live] += 1
+                        t = m - (A - 1)
+                        if t_lo <= t < t_hi:
+                            assert nxt[r, A - 1] == K
+                            assert np.isnan(y[p][:, t * L + r]).all()
+                            y[p][:, t * L + r] = acc[r, :, A - 1]
+                        acc[r, :, 1:] = acc[r, :, :-1].copy()
+                        acc[r, :, 0] = 0.0
+                        nxt[r, 1:] = nxt[r, :-1].copy()
+                        nxt[r, 0] = 0
+    assert not np.isnan(y).any() and not np.isnan(state).any()
+    return state, y
+
+
 def dec_chain_taps(L, M, K):
     """The chain's phase taps at a resample_dec_f32 instance (its RX head
     through the registry)."""
-    rs = registry.rx_chain(DEC_CASES[(L, M, K)][4], device="cpu").resamp
+    rs = registry.rx_chain(DEC_ALL[(L, M, K)][4], device="cpu").resamp
     assert (rs.L, rs.M, rs.kp) == (L, M, K)
     return rs.poly_taps
 
@@ -1237,7 +1401,7 @@ def _dec_case(rng, L, M, K, planes, T, piece=None, C=2, blocks=2,
 
 
 @pytest.mark.parametrize("planes", [1, 2])
-@pytest.mark.parametrize("L,M,K", sorted(DEC_CASES))
+@pytest.mark.parametrize("L,M,K", sorted(DEC_ALL))
 def test_dec_model_matches_plain(rng, L, M, K, planes):
     """resample_dec_f32's instances with their chains' taps over two
     chained blocks of 2 rows, in pieces of two chunks and an odd tail
@@ -1253,6 +1417,7 @@ def test_dec_model_matches_plain(rng, L, M, K, planes):
     (12, 125, 523, 240, None),   # MMDVM's headless block, pieces of 32
     (2, 25, 561, 33, 32),        # a piece of one output time
     (1, 50, 2239, 101, None),    # one piece: the row, 101 output times
+    (1, 125, 5597, 40, None),    # SSB's head, T < K-1: one chunk and a bit
     (2, 25, 105, 64, 64),        # whole chunks, no ragged piece
 ])
 def test_dec_model_edges(rng, L, M, K, n_pp, piece):
@@ -1267,12 +1432,26 @@ def test_dec_model_state_only(rng, planes):
     assert st.shape == (2, 2, 348)
 
 
-@pytest.mark.parametrize("L,M,K", sorted(DEC_CASES))
+@pytest.mark.parametrize("L,M,K", sorted(DEC_ALL))
 def test_dec_segments_read_every_tap_once(L, M, K):
     """The warps' registers hold every tap of every phase once, tap j at
     row j // M and column j % M of the phase's rows, and zeros elsewhere;
-    rows of the last segment past a phase's taps are zero."""
+    rows of the last segment past a phase's taps are zero. In the
+    taps-in-order form a row's (slot, column) pairs (seq_slot_taps) meet
+    each tap once, tap j at slot j // M, column j % M, and the transposed
+    taps in shared memory (seq_taps) hold each tap once, at [r, j % M,
+    j // M]."""
     taps = np.arange(1, L * K + 1, dtype=np.float32).reshape(L, K)
+    if (L, M, K) in SEQ_CASES:
+        tab = seq_slot_taps(M, K)
+        assert sorted(tab[tab >= 0]) == list(range(K))
+        tt = seq_taps(taps, M)
+        for r in range(L):
+            assert sorted(tt[r][tt[r] != 0]) == list(taps[r])
+        for j in (0, K // 2, K - 1):
+            assert tab[j // M, j % M] == j
+            assert all(tt[r, j % M, j // M] == taps[r, j] for r in range(L))
+        return
     AS, CW, S, G, WP, W = dec_layout(L, M, K)
     for r in range(L):
         h = np.stack([np.concatenate([dec_taps(taps, M, r, g, s * AS, AS,
@@ -1286,7 +1465,7 @@ def test_dec_segments_read_every_tap_once(L, M, K):
                      (c % (32 * CW)) // 32] == taps[r, j]
 
 
-@pytest.mark.parametrize("L,M,K", sorted(DEC_CASES))
+@pytest.mark.parametrize("L,M,K", sorted(DEC_ALL))
 def test_dec_model_sums_integers_exactly(rng, L, M, K):
     """Integer taps and samples, whose sums are exact in f32: the model's
     outputs equal resample_poly_plain's bit for bit over two chained
@@ -1314,7 +1493,6 @@ def test_dec_model_sums_integers_exactly(rng, L, M, K):
     (12, 2000, 256, 1024, 2),    # MMDVM RX at 256 rows
     (12, 240, 1, 32, 8),         # MMDVM's headless block
     (2, 8000, 256, 4000, 2),     # 4FSK10KFM at 256 rows
-    (2, 4000, 256, 2016, 2),     # 2FSK10K
     (1, 4000, 2048, 1344, 3)])   # GMSK2K's head: the waves rule
 def test_dec_piece_widths(L, n_pp, rows, piece, pieces):
     """The piece rule at the paths' blocks (2 planes, 132 SMs); the K2239
@@ -1332,11 +1510,15 @@ def test_dec_piece_widths(L, n_pp, rows, piece, pieces):
     (256, 20000, 660, 2240, 9),   # 2FSK2K: 6.98 waves of 71 chunks
     (256, 20000, 528, 20000, 1),  # 512 rows on 528 slots: one wave
     (32, 2000, 660, 224, 9),      # the mixed NBFM head: one wave
+    (2048, 1600, 264, 1600, 1),   # SSB's head, 2 blocks an SM: 15.5 waves
+    (256, 1600, 264, 1600, 1),    # the sweep's USB / LSB: 1.9 waves
+    (1, 1600, 264, 32, 50),       # one radio's block: pieces of a chunk
     (1, 101, 660, 32, 4),         # a row: pieces of one chunk
     (4096, 0, 660, 1, 1)])        # no output
 def test_dec_piece_waves(rows, n_pp, slots, piece, pieces):
-    """The waves rule at the K2239 D50 head's shapes (2 planes, segments
-    3 x 15 rows: a_last 30), against a brute count of waves x chunks."""
+    """The waves rule at the L 1 heads' shapes (2 planes, segments 3 x 15
+    rows: a_last 30; K2239 D50 at 5 resident blocks an SM, SSB's K5597
+    D125 at 2), against a brute count of waves x chunks."""
     got = dec_piece_waves(2 * rows, n_pp, 30, slots)
     assert (got, -(-n_pp // got) if n_pp else 1) == (piece, pieces)
     if n_pp:
@@ -1346,6 +1528,65 @@ def test_dec_piece_waves(rows, n_pp, slots, piece, pieces):
         assert all(cost(got) <= cost(pc) for pc in
                    range(DEC_TILE, n_pp + DEC_TILE, DEC_TILE)
                    if -(-n_pp // pc) <= DEC_MAX_PIECES)
+
+
+@pytest.mark.parametrize("rows,n_pp,slots,piece,pieces", SEQ_PIECE_CASES)
+def test_seq_piece_widths(rows, n_pp, slots, piece, pieces):
+    """The taps-in-order form's rule (seq_piece) at the 2/25 head's shapes
+    (2 planes, groups of 32 rows, 22 rows of slots to fill, chunks of 4
+    rows), against a brute count of waves x rows a block."""
+    L, M, K = 2, 25, 561
+    RPL, CR = SEQ_CASES[(L, M, K)][:2]
+    units = -(-rows // (32 * RPL)) * 2
+    got = seq_piece(units, n_pp, 22, CR, slots)
+    assert (got, -(-n_pp // got) if n_pp else 1) == (piece, pieces)
+    if n_pp:
+        def cost(pc):
+            return -(-units * -(-n_pp // pc) // slots) * -(-(pc + 22) // CR)
+        assert all(cost(got) <= cost(pc) for pc in range(2, n_pp + 2, 2)
+                   if -(-n_pp // pc) <= SEQ_MAX_PIECES)
+
+
+def test_seq_model_follows_the_kernel_source():
+    """The taps-in-order model's constants, instances, staging, slots and
+    sum order are the kernel's."""
+    src = DEC_SRC.read_text()
+    for line in [
+            f"constexpr int kSeqMaxPieces = {SEQ_MAX_PIECES};",
+            "return CR * M + q_max(L, M);",
+            "return ((seq_words(L, M, CR) + 1) / 2 | 1) * 2;",
+            "return (tap_rows(M, K) + 3) / 4 * 4;",
+            "return (long long)L * M * seq_tap_pad(M, K) +",
+            "(long long)R * 32 * RPL * seq_stride(L, M, CR);",
+            # seq_piece
+            "piece = (piece + 1) / 2 * 2;",
+            "const long long cost = waves * ((piece + a_last + CR - 1) / CR);",
+            "const int piece = seq_piece(n_groups * planes, n_pp, A - 1, CR,",
+            # the taps, the chunks and the staging
+            "s_taps[i] = a < A && u < K ? taps[(size_t)r * K + u] : 0.0f;",
+            "const int n_c = (t_hi - t_lo + A - 1 + CR - 1) / CR;",
+            "const long long v0 = vb + (long long)j * CR * M;",
+            "const bool ok = row < C && ve < n_in;",
+            "if (j < n_c) stage(j);",
+            "if (j + R - 1 < n_c) stage(j + R - 1);",
+            "asm volatile(\"cp.async.wait_group %0;\\n\" ::\"n\"(R - 2) : \"memory\");",
+            # the slots
+            "constexpr int KL = K - (A - 1) * M;  // columns of the last tap row",
+            "const float* b = s_buf + (j % R) * (GR * RS) + lane * RS + q_r;",
+            "for (int c = 0; c < KL; ++c) {",
+            "seq_column<A, RPL, AP>(tp + c * AP, xv, acc);",
+            "for (int c = KL; c < M; ++c) {",
+            "seq_column<A - 1, RPL, AP>(tp + c * AP, xv, acc);",
+            "for (int q = 0; q < RPL; ++q) xv[q] = p[q * 32 * RS + c];",
+            "acc[q][4 * a4 + i] = fmaf(hv[i], x[q], acc[q][4 * a4 + i]);",
+            "const int t = t_lo + j * CR + k - (A - 1);",
+            "if (t >= t_lo && t < t_hi) {",
+            "for (int a = A - 1; a > 0; --a) acc[q][a] = acc[q][a - 1];",
+            "acc[q][0] = 0.0f;"]:
+        assert line in src, line
+    for (L, M, K), (RPL, CR, R, B, _, _) in SEQ_CASES.items():
+        assert f"X({L}, {M}, {K}, {RPL}, {CR}, {R}, {B})" in src
+        assert seq_stride(L, M, CR) >= seq_words(L, M, CR)
 
 
 def test_dec_model_follows_the_kernel_source():
@@ -1437,18 +1678,19 @@ def test_dec_model_follows_the_kernel_source():
         _, _, S, G, WP, W = dec_layout(L, M, K)
         assert W <= DEC_MAX_WARPS and (S - 1) * AS + 2 * DEC_TILE \
             <= DEC_OUT_RING and R >= 3 and AS <= DEC_TILE
-    assert set(DEC_CASES) == set(cuda_resample.DEC_SHAPES)
+    assert set(DEC_ALL) == set(cuda_resample.DEC_SHAPES)
+    assert not set(DEC_CASES) & set(SEQ_CASES)
     assert (cuda_resample.DEC_MIN_L, cuda_resample.DEC_MIN_M) == (2, 25)
 
 
 def test_dec_takes_fir_long_layout_at_dmr_and_gmsk():
-    """DMR's and GMSK2K's instances take fir_long_f32's shape of the same
-    FIR (ops/cuda_fir.py, csrc/fir_long.cu): segments of
+    """DMR's, GMSK2K's and SSB's instances take fir_long_f32's shape of
+    the same FIR (ops/cuda_fir.py, csrc/fir_long.cu): segments of
     ceil(A / ceil(A/16)) rows, column groups of 64, two columns a lane;
     with its sum order (a lane's rows in order, both columns of a row,
     lanes 0 .. 31, warps g S + s) their outputs equal the per-phase
-    route's bit for bit."""
-    for L, M, K in ((3, 125, 2091), (1, 50, 2239)):
+    route's (at L 1, fir_long_f32's) bit for bit."""
+    for L, M, K in ((3, 125, 2091), (1, 50, 2239), (1, 125, 5597)):
         A = -(-K // M)
         S_long = -(-A // 16)
         AS, CW, S, G, _, _ = dec_layout(L, M, K)
@@ -1463,12 +1705,30 @@ def test_dec_takes_fir_long_layout_at_dmr_and_gmsk():
     (3, 125, 113, OP),    # no instance at K 113
     (2, 5, 113, OP),      # the NBFM audio resampler: M below 25
     (13, 50, 3, OP),      # DSSS's RX: no instance
-    (1, 50, 2239, OP)])   # GMSK2K's head: an instance, but L 1
+    (1, 50, 2239, OP),    # GMSK2K's head: an instance, but L 1
+    (1, 125, 5597, OP)])  # SSB's head: the same
 def test_resample_route_dec_shapes(L, M, K, want):
     """resample_dec_f32 at L >= 2, M >= 25 and an (L, M, K) it has an
-    instance for, at any row count."""
+    instance for, at any row count but the taps-in-order instances' few
+    (test_resample_route_in_order_few_rows)."""
     for rows in (None, 1, 7, 256):
-        assert route(L, M, K, rows) == want
+        few = (L, M, K) in cuda_resample.DEC_IN_ORDER and rows is not None \
+            and rows <= cuda_resample.IN_ORDER_FEW_ROWS
+        assert route(L, M, K, rows) == (OP if few else want)
+
+
+@pytest.mark.parametrize("rows,want", [
+    (1, OP), (2, OP), (64, OP),          # one radio, the card test, 64
+    (65, DEC_OP), (256, DEC_OP),         # the sweep's 256 rows
+    (None, DEC_OP)])
+def test_resample_route_in_order_few_rows(rows, want):
+    """The 2/25 K561 head (the taps-in-order instance of resample_dec_f32)
+    takes resample_poly_f32, whose bits it keeps, on calls of at most
+    IN_ORDER_FEW_ROWS rows (faster there in turns), resample_dec_f32 on
+    more."""
+    assert (2, 25, 561) in cuda_resample.DEC_IN_ORDER
+    assert cuda_resample.IN_ORDER_FEW_ROWS == 64
+    assert route(2, 25, 561, rows) == want
 
 
 @pytest.mark.parametrize("L,M,K,rows,want", [
@@ -1497,8 +1757,9 @@ def test_chains_record_resample_dec(rng, mode):
     """The five RX chains built through both registries on the CPU, 2 rows,
     two blocks of IqPair input: every output and state leaf matches the JAX
     chain's (the bounds of their own parity tests), and the head records
-    resample_dec_f32 once a block at its shape, resample_poly_f32 and
-    fir_long_f32 never there."""
+    its routed kernel once a block at its shape, fir_long_f32 never there:
+    resample_dec_f32, resample_poly_f32 never; at 2FSK10K's taps-in-order
+    instance, on 2 rows, resample_poly_f32 (IN_ORDER_FEW_ROWS)."""
     from qradiolink_tpu.models import registry as jregistry
 
     rx = registry.rx_chain(mode, lead_shape=(2,), device="cpu")
@@ -1512,9 +1773,12 @@ def test_chains_record_resample_dec(rng, mode):
                 1e-3, 1e-3, peak=True)
     rep = kernel_paths.report()
     key = f"plain L{rs.L} K{rs.kp} D{rs.M} tail 2x2"
-    assert (rs.L, rs.M, rs.kp) in DEC_CASES
-    assert rep[DEC_OP]["shapes"] == {key: 2}, rep
-    assert key not in rep.get(OP, {}).get("shapes", {})
+    assert (rs.L, rs.M, rs.kp) in DEC_ALL
+    want = route(rs.L, rs.M, rs.kp, 2)
+    assert want == (OP if mode == "2FSK10K" else DEC_OP)
+    assert rep[want]["shapes"] == {key: 2}, rep
+    other = DEC_OP if want == OP else OP
+    assert key not in rep.get(other, {}).get("shapes", {})
     assert cuda_fir.LONG_OP not in rep or all(
         f"K{rs.kp} D{rs.M}" not in k for k in rep[cuda_fir.LONG_OP]["shapes"])
 
